@@ -1,0 +1,216 @@
+"""Batched device DSP in torch (counterpart of heart_murmur_detection_tpu/audio/dsp.py).
+
+    wav (B, Nmax) zero-padded + lengths (B,)  ->  mel (B, Tmax, n_mels) + frames (B,)
+
+The same math as the JAX frontend: the windowed DFT is two real matrix
+products against precomputed cos/sin bases in the split-DFT form (no
+`torch.stft`), the bicubic time resize is a banded weight matrix contracted
+against x. These are plain products outside any kernel; on a CUDA card they
+run as float32 matmuls (PyTorch's default keeps TF32 off for them).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import reference_np as ref
+
+
+# ---------------------------------------------------------------------------
+# precomputed constant bases (host numpy, cached)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_bases(n_fft: int, window: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Windowed real-DFT bases: frames @ cos -> Re, frames @ (-sin) -> Im."""
+    k = np.arange(1 + n_fft // 2)
+    n = np.arange(n_fft)
+    ang = 2.0 * np.pi * np.outer(n, k) / n_fft
+    if window == "hann_periodic":
+        w = ref.hann_periodic(n_fft)
+    elif window == "none":
+        w = np.ones(n_fft)
+    else:
+        raise ValueError(window)
+    cos = (np.cos(ang) * w[:, None]).astype(np.float32)
+    sin = (-np.sin(ang) * w[:, None]).astype(np.float32)
+    return cos, sin
+
+
+@functools.lru_cache(maxsize=None)
+def _mel_fb(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -> np.ndarray:
+    return ref.mel_filterbank_slaney(sr, n_fft, n_mels, fmin, fmax).T.copy()  # (bins, mels)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_constants(
+    device: torch.device, sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(cos, sin, mel filterbank) on `device`, copied there once: a pageable
+    host-to-device copy on every call would stall the host each batch."""
+    cos, sin = _dft_bases(n_fft, "hann_periodic")
+    fb = _mel_fb(sr, n_fft, n_mels, fmin, fmax)
+    with torch.inference_mode(False):  # plain tensors, usable in and out of inference mode
+        return tuple(torch.from_numpy(a).to(device) for a in (cos, sin, fb))
+
+
+# ---------------------------------------------------------------------------
+# mel frontend (librosa parity)
+# ---------------------------------------------------------------------------
+
+
+def mel_frontend(
+    wav: torch.Tensor,
+    lengths: torch.Tensor,
+    sr: int = 16000,
+    n_mels: int = 64,
+    fmin: float = 50.0,
+    fmax: float = 8000.0,
+    n_fft: int = 1024,
+    hop: int = 512,
+    top_db: float = 80.0,
+    normalize: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched pre_process_audio_mel_t (src/util.py:481-501).
+
+    Args:
+      wav: (B, Nmax) float32 (or int16 PCM), each row zero-padded beyond its
+        length; Nmax a multiple of hop.
+      lengths: (B,) int32 valid sample counts.
+    Returns:
+      mel: (B, Tmax, n_mels) min-max normalised (invalid frames zeroed),
+      n_frames: (B,) int32 valid frame counts (= lengths//hop + 1).
+    """
+    if hop * 2 != n_fft:
+        raise ValueError("mel_frontend assumes 50% hop (reference uses 1024/512)")
+    dev = wav.device
+    if not torch.is_floating_point(wav):
+        wav = wav.to(torch.float32) / 32768.0
+    B, Nmax = wav.shape
+    pad = n_fft // 2
+    x = torch.nn.functional.pad(wav, (pad, pad))
+    Tmax = Nmax // hop + 1
+
+    # split-DFT framing: frame t = [seg_t, seg_{t+1}] with hop-sized segments,
+    # so frames @ cos = segs @ cos_top (shifted-add) segs @ cos_bot; the
+    # (B, T, n_fft) double-width frame tensor is never materialised
+    cos, sin, fb = _device_constants(dev, sr, n_fft, n_mels, fmin, fmax)
+    segs = x.reshape(B, -1, hop)  # (B, S, hop)
+    top = torch.matmul(segs, cos[:hop])  # (B, S, bins)
+    bot = torch.matmul(segs, cos[hop:])
+    re = top[:, :Tmax] + bot[:, 1 : Tmax + 1]
+    top = torch.matmul(segs, sin[:hop])
+    bot = torch.matmul(segs, sin[hop:])
+    im = top[:, :Tmax] + bot[:, 1 : Tmax + 1]
+    power = re * re + im * im
+
+    mel = torch.matmul(power, fb)  # (B, Tmax, n_mels)
+
+    n_frames = (lengths.to(torch.int64) // hop + 1).to(torch.int32)
+    valid = torch.arange(Tmax, device=dev)[None, :] < n_frames[:, None]  # (B, Tmax)
+    vmask = valid[:, :, None]
+
+    logm = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
+    ref_db = torch.where(vmask, logm, -float("inf")).amax(dim=(1, 2), keepdim=True)
+    db = logm - ref_db
+    db = torch.clamp(db, min=-top_db)  # max over valid is 0, so the top_db floor is -top_db
+
+    if normalize:
+        lo = torch.where(vmask, db, float("inf")).amin(dim=(1, 2), keepdim=True)
+        hi = torch.where(vmask, db, -float("inf")).amax(dim=(1, 2), keepdim=True)
+        scale = torch.where(hi > lo, 1.0 / torch.clamp(hi - lo, min=1e-12), 1.0)
+        db = (db - lo) * scale
+    out = torch.where(vmask, db, 0.0)
+    return out.to(torch.float32), n_frames
+
+
+# ---------------------------------------------------------------------------
+# bicubic time-resize with dynamic source length (HTS-AT reshape_wav2img)
+# ---------------------------------------------------------------------------
+
+
+def _cubic_weight(d: torch.Tensor, a: float = -0.75) -> torch.Tensor:
+    """Cubic convolution kernel (torch bicubic uses A=-0.75)."""
+    d = d.abs()
+    w1 = (a + 2.0) * d**3 - (a + 3.0) * d**2 + 1.0
+    w2 = a * d**3 - 5.0 * a * d**2 + 8.0 * a * d - 4.0 * a
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    return torch.where(d <= 1.0, w1, torch.where(d < 2.0, w2, zero))
+
+
+def resize_bicubic_time(
+    x: torch.Tensor,
+    src_len: torch.Tensor,
+    out_len: int,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Bicubic align_corners=True resize along axis 1, per-example source length.
+
+    x: (B, Tmax, F) with rows >= src_len zero. src_len: (B,) int32. Equals
+    F.interpolate(mode='bicubic', align_corners=True) on the first src_len
+    rows (htsat.py:838-839), batched with dynamic lengths. The banded cubic
+    weight matrix W (B, out, Tmax) is built elementwise and contracted
+    against x; border replication of the clipped taps is two analytic edge
+    corrections (the k=-1 tap folds into s=0 when floor(pos)==0, the k=+2
+    tap into s=src-1 when floor(pos)==src-2).
+
+    compute_dtype=torch.bfloat16: bf16 weights and x, float32 accumulation,
+    bf16 result (the bf16 extraction flow).
+    """
+    B, Tmax, F = x.shape
+    dev = x.device
+    srcf = src_len.to(torch.float32)  # (B,)
+    j = torch.arange(out_len, dtype=torch.float32, device=dev)[None, :]  # (1, out)
+    scale = (srcf - 1.0) / (out_len - 1.0)  # (B,)
+    pos = j * scale[:, None]  # (B, out)
+    s = torch.arange(Tmax, dtype=torch.float32, device=dev)[None, None, :]  # (1, 1, S)
+    w = _cubic_weight(pos[:, :, None] - s)  # (B, out, S), zero for |d|>=2
+    w = torch.where(s < srcf[:, None, None], w, 0.0)
+    i0 = torch.floor(pos)  # (B, out)
+    corr_low = torch.where(i0 == 0.0, _cubic_weight(pos + 1.0), 0.0)
+    w = w + (s == 0.0) * corr_low[:, :, None]
+    corr_high = torch.where(
+        i0 == srcf[:, None] - 2.0, _cubic_weight(pos - srcf[:, None]), 0.0
+    )
+    w = w + (s == srcf[:, None, None] - 1.0) * corr_high[:, :, None]
+    if compute_dtype is not None and compute_dtype != torch.float32:
+        # bf16-valued operands in a float32 product == bf16 MMA with f32
+        # accumulation, then one rounding of the result
+        wq = w.to(compute_dtype).to(torch.float32)
+        xq = x.to(compute_dtype).to(torch.float32)
+        return torch.bmm(wq, xq).to(compute_dtype)
+    return torch.bmm(w, x.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# host-side batch packing
+# ---------------------------------------------------------------------------
+
+
+def pad_batch(
+    clips,
+    pad_to_multiple: int = 512,
+    max_len: Optional[int] = None,
+    dtype=np.float32,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Zero-pad a list of 1-D clips to a common length (multiple of hop).
+
+    dtype=np.int16 packs float clips as PCM16 (mel_frontend converts on
+    device). A numpy copy of the JAX package's pad_batch."""
+    lengths = np.array([len(c) for c in clips], dtype=np.int32)
+    n = int(lengths.max()) if max_len is None else max_len
+    n = ((n + pad_to_multiple - 1) // pad_to_multiple) * pad_to_multiple
+    out = np.zeros((len(clips), n), dtype=dtype)
+    for i, c in enumerate(clips):
+        m = min(len(c), n)
+        if dtype == np.int16 and c.dtype != np.int16:
+            out[i, :m] = np.clip(np.round(c[:m] * 32768.0), -32768, 32767)
+        else:
+            out[i, :m] = c[:m]
+        lengths[i] = m
+    return out, lengths

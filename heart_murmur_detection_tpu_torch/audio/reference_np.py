@@ -1,0 +1,104 @@
+"""Pure-numpy DSP pieces the operaCT slice needs: the periodic Hann window and
+the slaney mel filterbank (constants of the device mel frontend) and the
+librosa-semantics silence trim (host pipeline).
+
+A copy of the matching functions of heart_murmur_detection_tpu/audio/
+reference_np.py, which cannot be imported without jax;
+tests/test_torch_dsp.py pins each copy to its original.
+
+Reference semantics:
+- ``librosa.filters.mel(htk=False, norm='slaney')``
+- ``librosa.effects.trim(frame_length=sr/10, hop=frame/2)`` (src/util.py:237-243)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def hann_periodic(n: int) -> np.ndarray:
+    """Periodic ("DFT-even") Hann window, as scipy get_window('hann', n, fftbins=True)."""
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float64)
+
+
+def _hz_to_mel_slaney(f):
+    f = np.asarray(f, dtype=np.float64)
+    f_sp = 200.0 / 3
+    mels = f / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_t = f >= min_log_hz
+    mels = np.where(log_t, min_log_mel + np.log(np.maximum(f, 1e-12) / min_log_hz) / logstep, mels)
+    return mels
+
+
+def _mel_to_hz_slaney(m):
+    m = np.asarray(m, dtype=np.float64)
+    f_sp = 200.0 / 3
+    freqs = f_sp * m
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_t = m >= min_log_mel
+    freqs = np.where(log_t, min_log_hz * np.exp(logstep * (m - min_log_mel)), freqs)
+    return freqs
+
+
+def mel_filterbank_slaney(
+    sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float
+) -> np.ndarray:
+    """Slaney-style mel filterbank with slaney area-normalisation.
+
+    Matches librosa.filters.mel(htk=False, norm='slaney').
+    Returns (n_mels, 1 + n_fft//2) float32.
+    """
+    fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
+    mel_min, mel_max = _hz_to_mel_slaney(fmin), _hz_to_mel_slaney(fmax)
+    mels = np.linspace(mel_min, mel_max, n_mels + 2)
+    mel_f = _mel_to_hz_slaney(mels)
+
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+
+    enorm = 2.0 / (mel_f[2 : n_mels + 2] - mel_f[:n_mels])
+    weights *= enorm[:, None]
+    return weights.astype(np.float32)
+
+
+def _rms(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
+    pad = frame_length // 2
+    yp = np.pad(np.asarray(y, dtype=np.float32), (pad, pad), mode="constant")
+    n_frames = 1 + (len(yp) - frame_length) // hop_length
+    idx = np.arange(frame_length)[None, :] + hop_length * np.arange(n_frames)[:, None]
+    return np.sqrt(np.mean(yp[idx] ** 2, axis=1))
+
+
+def trim_silence(
+    y: np.ndarray,
+    frame_length: int,
+    hop_length: int,
+    top_db: float = 60.0,
+):
+    """librosa.effects.trim: drop leading/trailing frames quieter than
+    (max frame power) - top_db. Returns (trimmed, (start, end))."""
+    mse = _rms(y, frame_length, hop_length) ** 2
+    db = 10.0 * np.log10(np.maximum(1e-10, mse))
+    db -= 10.0 * np.log10(np.maximum(1e-10, mse.max()))
+    nonsilent = np.flatnonzero(db > -top_db)
+    if nonsilent.size > 0:
+        start = int(nonsilent[0] * hop_length)
+        end = min(len(y), int((nonsilent[-1] + 1) * hop_length))
+    else:
+        start, end = 0, 0
+    return y[start:end], (start, end)
+
+
+def trim_heart(y: np.ndarray, sr: int = 16000):
+    """Trim with the reference's frame/hop choice: frame=sr/10, hop=frame/2
+    (src/util.py:237-243)."""
+    frame = int(sr / 10)
+    return trim_silence(y, frame, frame // 2)

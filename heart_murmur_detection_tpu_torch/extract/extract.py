@@ -1,0 +1,266 @@
+"""Batched operaCT feature extraction — counterpart of
+heart_murmur_detection_tpu/extract/extract.py for the operaCT branch.
+
+  whole clip (<= 32 s) -> wire decode -> device mel -> HTS-AT latent (768)
+                                                       [-> g (512)]
+
+The host decodes, trims and pads; the device runs the wire decode, the mel
+frontend and the encoder, whose swin blocks are the CUDA kernels of
+ops/swin.py under the bf16 flow on a card.
+
+Host pipeline (the JAX two-stage pack || put, extract.py:505-511): one
+worker thread packs batches (pad_batch + wire encode) into numpy, a second
+pins them and copies them to the card with non_blocking=True on a side
+stream, recording an event the compute stream waits on; each batch's result
+is copied back asynchronously into pinned memory, and the host syncs one
+batch behind, so packing, transfers and compute overlap.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..audio import dsp, pipelines, wire
+from . import registry
+
+SR = 16000
+
+
+def _batched(n: int, bs: int):
+    for i in range(0, n, bs):
+        yield i, min(i + bs, n)
+
+
+class FeatureExtractor:
+    """Batched extraction for the operaCT encoder on one device.
+
+    device: "cuda" (the default) or "cpu"; a CUDA device without a card
+    raises. compute_dtype: torch.bfloat16 (the default) is the bf16 flow
+    that runs the CUDA kernels on a card; torch.float32 is the strict path
+    and runs only on the CPU here (the float32 kernels are not ported).
+    fast_softmax: normalise after the P v product (None = on for bf16 on a
+    card, the JAX auto choice for a bf16 accelerator); a batch whose
+    features come out non-finite is re-run with the stable softmax.
+    """
+
+    def __init__(
+        self,
+        pretrain: str,
+        dim: int = 768,
+        input_sec: float = 8,
+        ckpt_path: Optional[str] = None,
+        batch_size: int = 16,
+        pad0: bool = False,
+        random_init: bool = False,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        use_pallas_mel: bool = False,
+        wire_format: str = "int16",
+        source_sr: Optional[int] = None,
+        mesh=None,
+        fast_softmax: Optional[bool] = None,
+        device="cuda",
+        seed: int = 0,
+    ):
+        if not registry.is_operact(pretrain):
+            raise NotImplementedError(f"pretrain {pretrain!r}: only operaCT is ported")
+        if dim not in (768, 512):
+            raise NotImplementedError(f"operaCT dim {dim}: 768 or 512")
+        if source_sr is not None:
+            raise NotImplementedError("source_sr (on-device resampling) is not ported")
+        if use_pallas_mel:
+            raise NotImplementedError("use_pallas_mel (the fused mel kernel) is not ported")
+        if mesh is not None:
+            raise NotImplementedError("mesh (multi-device extraction) is not ported")
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("FeatureExtractor(device='cuda'): no CUDA card available")
+            if compute_dtype != torch.bfloat16:
+                raise NotImplementedError(
+                    "on a card the swin kernels take bfloat16; the float32 kernels are not ported"
+                )
+        elif self.device.type != "cpu":
+            raise ValueError(f"device {device!r}: 'cuda' or 'cpu'")
+        self.wire = wire_format
+        wire.wire_dtype(wire_format)  # validate early
+        self.dim = dim
+        self.input_sec = input_sec
+        self.batch_size = batch_size
+        self.pad0 = pad0
+        self.compute_dtype = compute_dtype
+        if fast_softmax is None:
+            fast_softmax = self.device.type == "cuda" and compute_dtype == torch.bfloat16
+        self.fast_softmax = fast_softmax
+        self.model = registry.initialize_pretrained_model(
+            pretrain, ckpt_path=ckpt_path, random_init=random_init, seed=seed
+        ).to(self.device)
+        self.max_sec = 32
+        self.n_dispatched = 0  # batches sent through the encoder
+        self._on_card = self.device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(self.device) if self._on_card else None
+        self._fn_stable = None  # lazy stable-softmax re-run (_harvest)
+        self._fn = self._build()
+
+    # -- device graphs -------------------------------------------------------
+    def _prologue(self, wav: torch.Tensor) -> torch.Tensor:
+        """Wire decode on the device."""
+        return wire.decode_device(wav, self.wire)
+
+    def _mel(self, wav: torch.Tensor, lengths: torch.Tensor):
+        return dsp.mel_frontend(wav, lengths)
+
+    def _build(self, fast_softmax: Optional[bool] = None):
+        """The batch forward (wav, lengths) -> features (B, dim) on the device."""
+        fast = self.fast_softmax if fast_softmax is None else fast_softmax
+        model, dim, mm = self.model, self.dim, self.compute_dtype
+
+        def fn(wav, lengths):
+            with torch.inference_mode():
+                mel, nf = self._mel(self._prologue(wav), lengths)
+                return model.extract_feature(mel, dim, nf, mm_dtype=mm, fast_softmax=fast)
+
+        return fn
+
+    def _dispatch(self, wav: torch.Tensor, lengths: torch.Tensor, fn=None):
+        """Enqueue one batch; returns a handle _harvest turns into numpy."""
+        out = (fn or self._fn)(wav, lengths).to(torch.float32)
+        self.n_dispatched += 1
+        if not self._on_card:
+            return out.numpy(), None
+        host = torch.empty(out.shape, dtype=torch.float32, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
+    def _harvest(self, fut, wav=None, lengths=None) -> np.ndarray:
+        """Wait for a dispatched batch, guarding the fast_softmax path: the
+        unnormalised softmax overflows float32 exp for attention logits above
+        ~88 and every later op keeps the NaN, so a pathological clip shows
+        up here as non-finite features, and the batch is re-run once with
+        the stable softmax through the same kernels (the JAX package's
+        extract.py:188-209)."""
+        host, done = fut
+        if done is not None:
+            done.synchronize()
+        out = np.array(host.numpy() if isinstance(host, torch.Tensor) else host)
+        if self.fast_softmax and wav is not None and not np.isfinite(out).all():
+            if self._fn_stable is None:
+                self._fn_stable = self._build(fast_softmax=False)
+            out = self._harvest(self._dispatch(wav, lengths, fn=self._fn_stable))
+        return out
+
+    @staticmethod
+    def _prefetch_iter(gen, depth: int = 3):
+        """Run a host batch generator in a worker thread, holding up to
+        `depth` results ahead of the consumer."""
+        q = queue.Queue(maxsize=depth)
+        stop = object()
+        err = []
+
+        def run():
+            try:
+                for v in gen:
+                    q.put(v)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                err.append(e)
+            finally:
+                q.put(stop)
+
+        threading.Thread(target=run, daemon=True).start()
+        while True:
+            v = q.get()
+            if v is stop:
+                break
+            yield v
+        if err:
+            raise err[0]
+
+    def _put(self, w: np.ndarray, lengths: np.ndarray):
+        """Host batch -> device tensors. On a card: pinned host copy, then a
+        non_blocking copy on the side stream with an event the compute
+        stream waits on (the wait happens in _consume)."""
+        w = torch.from_numpy(w)
+        lengths = torch.from_numpy(lengths)
+        if not self._on_card:
+            return w, lengths, None
+        w, lengths = w.pin_memory(), lengths.pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            wd = w.to(self.device, non_blocking=True)
+            ld = lengths.to(self.device, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._copy_stream)
+        return wd, ld, ev
+
+    def _consume(self, batches):
+        """Dispatch each (n, wav, lengths, event) batch and harvest the one
+        before it (the sync stays one batch behind)."""
+        out = []
+        pending = None
+        for n, wav, lengths, ev in batches:
+            if ev is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(ev)
+                # the copies were allocated on the side stream; keep the
+                # allocator from reusing them before the compute stream is done
+                wav.record_stream(compute)
+                lengths.record_stream(compute)
+            fut = self._dispatch(wav, lengths)
+            if pending is not None:
+                pf, pn, pw, pl = pending
+                out.append(self._harvest(pf, pw, pl)[:pn])
+            pending = (fut, n, wav, lengths)
+        if pending is not None:
+            pf, pn, pw, pl = pending
+            out.append(self._harvest(pf, pw, pl)[:pn])
+        return np.concatenate(out, axis=0)
+
+    # -- host orchestration ----------------------------------------------------
+    def _clip_waveform(self, path: str) -> Optional[np.ndarray]:
+        types = "zero" if self.pad0 else "repeat"
+        return pipelines.get_entire_signal(
+            path,
+            input_sec=self.input_sec,
+            sample_rate=SR,
+            pad=True,
+            types=types,
+            max_sec=self.max_sec,
+        )
+
+    def extract_files(self, sound_dir_loc: Sequence[str]) -> np.ndarray:
+        return self._extract_whole(sound_dir_loc)
+
+    def _extract_whole(self, paths) -> np.ndarray:
+        """Python decode path (the native C++ loader is not ported)."""
+        clips = [self._clip_waveform(p) for p in paths]
+        max_len = int(self.max_sec * SR) if clips else 0
+        return self.extract_waveforms(clips, max_len=max_len)
+
+    def extract_waveforms(
+        self, clips: List[np.ndarray], max_len: Optional[int] = None
+    ) -> np.ndarray:
+        bs = self.batch_size
+        if max_len is None:
+            max_len = max(len(c) for c in clips)
+
+        def packed():
+            for lo, hi in _batched(len(clips), bs):
+                chunk = clips[lo:hi]
+                if len(chunk) < bs:  # pad batch to fixed size, drop extras
+                    chunk = chunk + [chunk[0]] * (bs - len(chunk))
+                wav, lengths = dsp.pad_batch(chunk, pad_to_multiple=512, max_len=max_len)
+                yield hi - lo, wire.encode_np(wav, self.wire), lengths
+
+        def put(gen):
+            for n, w, lengths in gen:
+                yield (n, *self._put(w, lengths))
+
+        # two pipeline threads: stage 1 packs (CPU-bound wire encode), stage
+        # 2 pins and starts the copy to the card; pack(i+2) overlaps
+        # copy(i+1) overlaps compute(i)
+        return self._consume(self._prefetch_iter(put(self._prefetch_iter(packed()))))

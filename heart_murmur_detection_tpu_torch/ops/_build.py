@@ -1,0 +1,110 @@
+"""Build the hand-written CUDA kernels with nvcc and bind them with ctypes.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/<hash>/libhmdt_swin.so csrc/*.cu
+
+The sources have a plain C interface (no PyTorch headers), so a build takes
+seconds. It happens at first use, into heart_murmur_detection_tpu_torch/build/
+(listed in .gitignore), keyed by a hash of the sources; nothing is fetched
+or prebuilt. A failed build raises with nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+LIB_NAME = "libhmdt_swin.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b, bias, mask,
+    # B, H, W, C, heads, shift, fast_softmax, stream
+    "swin_attn_launch": [_vp] * 10 + [_i] * 7 + [_vp],
+    # x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, n_tokens, C, hidden, stream
+    "swin_mlp_launch": [_vp] * 8 + [_i] * 3 + [_vp],
+}
+
+
+def _sources():
+    return sorted(
+        os.path.join(CSRC_DIR, f)
+        for f in os.listdir(CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    cands = [os.path.join(os.environ[k], "bin", "nvcc")
+             for k in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(k)]
+    cands += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+class BuildResult:
+    def __init__(self, path: str, seconds: float, log: str):
+        self.path, self.seconds, self.log = path, seconds, log
+
+
+def build() -> BuildResult:
+    """Compile csrc/*.cu into BUILD_DIR/<hash>/ unless already built."""
+    out_dir = os.path.join(BUILD_DIR, source_hash())
+    lib = os.path.join(out_dir, LIB_NAME)
+    log_path = lib + ".log"
+    if os.path.exists(lib):
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        return BuildResult(lib, 0.0, log)
+    os.makedirs(out_dir, exist_ok=True)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.time() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    with open(log_path, "w") as f:
+        f.write(proc.stderr)
+    os.replace(tmp, lib)
+    return BuildResult(lib, seconds, proc.stderr)
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build if needed and load the kernels, with every signature declared."""
+    lib = ctypes.CDLL(build().path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
