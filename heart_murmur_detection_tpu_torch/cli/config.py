@@ -1,8 +1,8 @@
 """Minimal hydra-compatible config system.
 
-A copy of heart_murmur_detection_tpu/cli/config.py without its jax-only
-helper; it reads the same configs/<name>.yaml. tests/test_torch_extract.py
-pins it to the original.
+A copy of heart_murmur_detection_tpu/cli/config.py whose compute-dtype knob
+returns torch dtypes; it reads the same configs/<name>.yaml.
+tests/test_torch_extract.py pins it to the original.
 
 The reference uses hydra YAML configs with `key=value` CLI overrides and `-m`
 multirun sweeps over comma-separated values (scripts/lp_eval.sh:36-40). This
@@ -89,3 +89,14 @@ def resolve(name: str, argv: List[str]) -> Iterator[Dict]:
         # yaml parses a bare `None` as the string "None"; normalize (the
         # reference also string-compares 'None', circor_processing.py:303-308)
         yield {k: (None if v == "None" else v) for k, v in cfg.items()}
+
+
+def parse_compute_dtype(cfg: Dict[str, Any]):
+    """cfg["compute_dtype"] -> torch.bfloat16 for "bfloat16"/"bf16", else None
+    (strict float32): heart_murmur_detection_tpu/cli/config.py's knob with
+    torch dtypes."""
+    if str(cfg.get("compute_dtype", "float32")) in ("bfloat16", "bf16"):
+        import torch
+
+        return torch.bfloat16
+    return None

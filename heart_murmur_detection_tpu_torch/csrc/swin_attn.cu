@@ -1,11 +1,14 @@
-// swin_attn: the attention half of an eval HTS-AT swin block,
-//   h1 = x + proj(concat_h softmax(q_h k_h^T / sqrt(hd) + bias_h (+ mask)) v_h),
-//   q, k, v = LN1(x) W_qkv + b_qkv, over 8x8 windows of x (B, H, W, C) bf16.
+// swin_attn: the attention half of an HTS-AT swin block,
+//   h1 = x + k[b] * proj(concat_h softmax(q_h k_h^T / sqrt(hd) + bias_h (+ mask)) v_h),
+//   q, k, v = LN1(x) W_qkv + b_qkv, over 8x8 windows of x (B, H, W, C) bf16;
+//   k is an optional per-sample multiplier (DropPath keep multipliers of the
+//   training forward); without it (null) the eval block, k = 1.
 //
 // Replaces the attention body `_strip_attn` (heart_murmur_detection_tpu/ops/
 // pallas_swin.py:97) that the TPU kernels fused_swin_block (:480),
 // fused_swin_pair (:847) and fused_swin_block_split (:618, attention half)
-// run.
+// run, and the attention half of the training forward `_train_fwd_kernel`
+// (ops/pallas_swin_train.py:233, K8).
 //
 // Design. A cluster of CS blocks of 8 warps handles one window of one clip:
 // CS is 2 at C = 384 and 4 at C = 768 (8 heads a block) while the windows
@@ -79,6 +82,7 @@ swin_attn_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
                  const bf16* __restrict__ w_proj, const float* __restrict__ b_proj,
                  const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                  const float* __restrict__ bias, const float* __restrict__ mask,
+                 const float* __restrict__ kmul,
                  int H, int W, int heads, int shift, int fast_softmax) {
   using L = AttnSmem<C>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -289,7 +293,8 @@ swin_attn_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
         const int row = (rt0 + r) * 16 + e / 16;
         const int c = n0 + e % 16;
         const size_t off = tok_off(row) + c;
-        out[off] = __float2bfloat16(__bfloat162float(x[off]) + (stage[e] + b_proj[c]));
+        const float br = stage[e] + b_proj[c];
+        out[off] = __float2bfloat16(__bfloat162float(x[off]) + (kmul ? kmul[b] * br : br));
       }
       __syncwarp();
     }
@@ -301,8 +306,9 @@ static cudaError_t launch_attn_cs(const void* x, void* out, const void* w_qkv,
                                   const void* b_qkv, const void* w_proj,
                                   const void* b_proj, const void* ln_w,
                                   const void* ln_b, const void* bias,
-                                  const void* mask, int B, int H, int W, int heads,
-                                  int shift, int fast_softmax, cudaStream_t stream) {
+                                  const void* mask, const void* kmul, int B, int H,
+                                  int W, int heads, int shift, int fast_softmax,
+                                  cudaStream_t stream) {
   const size_t smem = AttnSmem<C>::bytes;
   auto kernel = swin_attn_kernel<C, CS>;
   cudaError_t err =
@@ -325,8 +331,8 @@ static cudaError_t launch_attn_cs(const void* x, void* out, const void* w_qkv,
       static_cast<const bf16*>(w_qkv), static_cast<const float*>(b_qkv),
       static_cast<const bf16*>(w_proj), static_cast<const float*>(b_proj),
       static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
-      static_cast<const float*>(bias), static_cast<const float*>(mask), H, W,
-      heads, shift, fast_softmax);
+      static_cast<const float*>(bias), static_cast<const float*>(mask),
+      static_cast<const float*>(kmul), H, W, heads, shift, fast_softmax);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -336,29 +342,32 @@ static cudaError_t launch_attn(const void* x, void* out, const void* w_qkv,
                                const void* b_qkv, const void* w_proj,
                                const void* b_proj, const void* ln_w,
                                const void* ln_b, const void* bias,
-                               const void* mask, int B, int H, int W, int heads,
-                               int shift, int fast_softmax, cudaStream_t stream) {
+                               const void* mask, const void* kmul, int B, int H,
+                               int W, int heads, int shift, int fast_softmax,
+                               cudaStream_t stream) {
   constexpr int CS = attn_cluster<C>();
   // a cluster needs whole heads a block and 16-byte pieces of gathered columns
   if (CS > 1 && heads % CS == 0 && ((heads / CS) * (C / heads)) % 8 == 0 &&
       use_cluster((long)(H / WIN) * (W / WIN) * B, CS))
     return launch_attn_cs<C, CS>(x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b,
-                                 bias, mask, B, H, W, heads, shift, fast_softmax,
-                                 stream);
+                                 bias, mask, kmul, B, H, W, heads, shift,
+                                 fast_softmax, stream);
   return launch_attn_cs<C, 1>(x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b,
-                              bias, mask, B, H, W, heads, shift, fast_softmax,
+                              bias, mask, kmul, B, H, W, heads, shift, fast_softmax,
                               stream);
 }
 
 }  // namespace hmdt
 
 // C interface for ctypes. Returns cudaGetLastError() after the launch (0 on
-// success); x and out are distinct (B, H, W, C) bf16 buffers, mask may be null.
+// success); x and out are distinct (B, H, W, C) bf16 buffers; mask and kmul
+// (B floats) may be null.
 extern "C" int swin_attn_launch(const void* x, void* out, const void* w_qkv,
                                 const void* b_qkv, const void* w_proj,
                                 const void* b_proj, const void* ln_w,
                                 const void* ln_b, const void* bias,
-                                const void* mask, int B, int H, int W, int C,
+                                const void* mask, const void* kmul, int B, int H,
+                                int W, int C,
                                 int heads, int shift, int fast_softmax,
                                 void* stream) {
   using namespace hmdt;
@@ -369,7 +378,7 @@ extern "C" int swin_attn_launch(const void* x, void* out, const void* w_qkv,
 #define HMDT_ATTN_CASE(CC)                                                     \
   case CC:                                                                     \
     return (int)launch_attn<CC>(x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w,    \
-                                ln_b, bias, mask, B, H, W, heads, shift,       \
+                                ln_b, bias, mask, kmul, B, H, W, heads, shift, \
                                 fast_softmax, s);
   switch (C) {
     HMDT_ATTN_CASE(96)

@@ -1,4 +1,5 @@
-// Shared pieces of the HTS-AT swin kernels (swin_attn.cu, swin_mlp.cu).
+// Shared pieces of the HTS-AT swin kernels (swin_attn.cu, swin_mlp.cu and
+// the training backward: swin_attn_bwd.cu, swin_mlp_bwd.cu, swin_wgrad.cu).
 //
 // Both kernels take bfloat16 activations and weights and keep LayerNorm,
 // softmax, GELU and every accumulator in float32. In-kernel products are
@@ -26,6 +27,7 @@ constexpr int PAD = 8;                  // bf16 row padding (16 bytes) against b
 constexpr size_t SMEM_LIMIT = 232448;   // 227 KB of dynamic shared memory per block on sm_90
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -66,13 +68,16 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // LayerNorm (eps 1e-5) of one token's C channels by one warp: float32 mean,
-// then the mean of squared deviations, (x - mu) * rsqrt(var + eps) * w + b,
-// rounded to bf16 into dst (a shared-memory row).
+// then the mean of squared deviations, (x - mu) * rstd * w + b with
+// rstd = rsqrt(var + eps), rounded to bf16 into dst (a shared-memory row).
+// mu_out / rstd_out (may be null) receive the statistics from lane 0.
 template <int C>
 __device__ __forceinline__ void ln_token(const bf16* __restrict__ src,
                                          const float* __restrict__ w,
                                          const float* __restrict__ b,
-                                         bf16* dst, int lane) {
+                                         bf16* dst, int lane,
+                                         float* mu_out = nullptr,
+                                         float* rstd_out = nullptr) {
   static_assert(C % 32 == 0, "C must be a multiple of 32");
   constexpr int PER = C / 32;
   float v[PER];
@@ -95,6 +100,32 @@ __device__ __forceinline__ void ln_token(const bf16* __restrict__ src,
     const int c = lane + 32 * i;
     dst[c] = __float2bfloat16((v[i] - mu) * rstd * w[c] + b[c]);
   }
+  if (mu_out && lane == 0) {
+    *mu_out = mu;
+    *rstd_out = rstd;
+  }
+}
+
+// Copy rows of a shared-memory bf16 tile (row stride lds) to consecutive
+// global rows of `cols` elements, in 16-byte pieces.
+__device__ __forceinline__ void copy_rows_out(const bf16* src, int lds, bf16* dst,
+                                              int rows, int cols) {
+  const int vec = cols / 8;
+  for (int i = threadIdx.x; i < rows * vec; i += blockDim.x) {
+    const int r = i / vec;
+    reinterpret_cast<int4*>(dst + (size_t)r * cols)[i % vec] =
+        reinterpret_cast<const int4*>(src + (size_t)r * lds)[i % vec];
+  }
+}
+
+// The exact GELU and its derivative, float32 (erff).
+__device__ __forceinline__ float gelu_exact(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_exact_grad(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * expf(-0.5f * v * v) * 0.3989422804014327f;
 }
 
 }  // namespace hmdt

@@ -1,9 +1,11 @@
-// swin_mlp: the MLP half of an eval HTS-AT swin block, per token,
-//   y = x + fc2(GELU(fc1(LN2(x)))),  x (n_tokens, C) bf16.
+// swin_mlp: the MLP half of an HTS-AT swin block, per token,
+//   y = x + k[tok / hw] * fc2(GELU(fc1(LN2(x)))),  x (n_tokens, C) bf16;
+//   k is an optional per-sample multiplier of the training forward (null: 1).
 //
 // Replaces the MLP body `_strip_mlp` (heart_murmur_detection_tpu/ops/
 // pallas_swin.py:388) that the TPU kernels fused_swin_block (:480),
-// fused_swin_pair (:847) and fused_swin_block_split (:618, MLP half) run.
+// fused_swin_pair (:847) and fused_swin_block_split (:618, MLP half) run,
+// and the MLP half of `_train_fwd_kernel` (ops/pallas_swin_train.py:233, K8).
 //
 // Design. A cluster of CS blocks of 8 warps handles a tile of T tokens (64
 // at C <= 384, 32 at C = 768, where a 64-token f32 accumulator would not
@@ -70,7 +72,7 @@ swin_mlp_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
                 const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                 const bf16* __restrict__ w1, const float* __restrict__ b1,
                 const bf16* __restrict__ w2, const float* __restrict__ b2,
-                int n_tokens, int hidden) {
+                const float* __restrict__ kmul, int n_tokens, int hidden, int hw) {
   using L = MlpSmem<C, T, CS>;
   constexpr int RT = T / 16;
   constexpr int CT = C / 16;
@@ -180,7 +182,9 @@ swin_mlp_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
           const int c = ct * 16 + e % 16;
           if (tok < n_tokens) {
             const size_t off = (size_t)tok * C + c;
-            out[off] = __float2bfloat16(__bfloat162float(x[off]) + (stage[e] + b2[c]));
+            const float br = stage[e] + b2[c];
+            out[off] = __float2bfloat16(__bfloat162float(x[off]) +
+                                        (kmul ? kmul[tok / hw] * br : br));
           }
         }
         __syncwarp();
@@ -215,7 +219,9 @@ swin_mlp_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
       for (int r = 0; r < CS; ++r) s += parts[r][t * L::LDP + c];
       if (tok < n_tokens) {
         const size_t off = (size_t)tok * C + c;
-        out[off] = __float2bfloat16(__bfloat162float(x[off]) + (s + b2[c]));
+        const float br = s + b2[c];
+        out[off] = __float2bfloat16(__bfloat162float(x[off]) +
+                                    (kmul ? kmul[tok / hw] * br : br));
       }
     }
     cluster.sync();  // no block leaves while another still reads its partials
@@ -225,8 +231,8 @@ swin_mlp_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
 template <int C, int T, int CS>
 static cudaError_t launch_mlp_cs(const void* x, void* out, const void* ln_w,
                                  const void* ln_b, const void* w1, const void* b1,
-                                 const void* w2, const void* b2, int n_tokens,
-                                 int hidden, cudaStream_t stream) {
+                                 const void* w2, const void* b2, const void* kmul,
+                                 int n_tokens, int hidden, int hw, cudaStream_t stream) {
   const size_t smem = MlpSmem<C, T, CS>::bytes;
   auto kernel = swin_mlp_kernel<C, T, CS>;
   cudaError_t err =
@@ -248,8 +254,8 @@ static cudaError_t launch_mlp_cs(const void* x, void* out, const void* ln_w,
       &cfg, kernel, static_cast<const bf16*>(x), static_cast<bf16*>(out),
       static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2), n_tokens,
-      hidden);
+      static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(kmul), n_tokens, hidden, hw);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -257,38 +263,40 @@ static cudaError_t launch_mlp_cs(const void* x, void* out, const void* ln_w,
 template <int C, int T>
 static cudaError_t launch_mlp(const void* x, void* out, const void* ln_w,
                               const void* ln_b, const void* w1, const void* b1,
-                              const void* w2, const void* b2, int n_tokens,
-                              int hidden, cudaStream_t stream) {
+                              const void* w2, const void* b2, const void* kmul,
+                              int n_tokens, int hidden, int hw, cudaStream_t stream) {
   constexpr int CS = mlp_cluster<C>();
   // a cluster needs whole hidden chunks a block
   if (CS > 1 && hidden % (HC * CS) == 0 && use_cluster((n_tokens + T - 1) / T, CS))
-    return launch_mlp_cs<C, T, CS>(x, out, ln_w, ln_b, w1, b1, w2, b2, n_tokens,
-                                   hidden, stream);
-  return launch_mlp_cs<C, T, 1>(x, out, ln_w, ln_b, w1, b1, w2, b2, n_tokens, hidden,
-                                stream);
+    return launch_mlp_cs<C, T, CS>(x, out, ln_w, ln_b, w1, b1, w2, b2, kmul,
+                                   n_tokens, hidden, hw, stream);
+  return launch_mlp_cs<C, T, 1>(x, out, ln_w, ln_b, w1, b1, w2, b2, kmul, n_tokens,
+                                hidden, hw, stream);
 }
 
 }  // namespace hmdt
 
 // C interface for ctypes. Returns cudaGetLastError() after the launch (0 on
-// success); x and out are distinct (n_tokens, C) bf16 buffers.
+// success); x and out are distinct (n_tokens, C) bf16 buffers; kmul (one
+// float per sample of hw tokens) may be null.
 extern "C" int swin_mlp_launch(const void* x, void* out, const void* ln_w,
                                const void* ln_b, const void* w_fc1,
                                const void* b_fc1, const void* w_fc2,
-                               const void* b_fc2, int n_tokens, int C,
-                               int hidden, void* stream) {
+                               const void* b_fc2, const void* kmul, int n_tokens,
+                               int C, int hidden, int hw, void* stream) {
   using namespace hmdt;
-  if (n_tokens <= 0 || hidden <= 0 || hidden % HC) return (int)cudaErrorInvalidValue;
+  if (n_tokens <= 0 || hidden <= 0 || hidden % HC || hw <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 96:
-      return (int)launch_mlp<96, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, n_tokens, hidden, s);
+      return (int)launch_mlp<96, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, s);
     case 192:
-      return (int)launch_mlp<192, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, n_tokens, hidden, s);
+      return (int)launch_mlp<192, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, s);
     case 384:
-      return (int)launch_mlp<384, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, n_tokens, hidden, s);
+      return (int)launch_mlp<384, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, s);
     case 768:
-      return (int)launch_mlp<768, 32>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, n_tokens, hidden, s);
+      return (int)launch_mlp<768, 32>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,7 +3,9 @@ heart_murmur_detection_tpu/extract/convert.py.
 
 - `from_jax(variables)`: the JAX package's flax `Cola` variables
   ({"params", "batch_stats"}, numpy arrays) -> the port's state_dict; the
-  inverse of the JAX `convert_cola_htsat`. flax Dense kernel (in, out) ->
+  inverse of the JAX `convert_cola_htsat`. A gradient tree ({"params"} only,
+  no batch_stats) maps the same way, without the running statistics, so
+  gradients compare leaf by leaf. flax Dense kernel (in, out) ->
   Linear weight (out, in); Conv kernel (kh, kw, in, out) -> (out, in, kh, kw);
   LayerNorm/BatchNorm scale -> weight; BatchNorm mean/var -> running_mean/var.
   The tscam head is not carried.
@@ -41,13 +43,14 @@ def from_jax(variables: dict) -> Dict[str, torch.Tensor]:
     """flax Cola(htsat) variables -> state_dict of models.cola.Cola."""
     params = variables["params"]
     enc = params["encoder"]
-    stats = variables["batch_stats"]["encoder"]
     sd: Dict[str, torch.Tensor] = {}
     p = HTSAT_PREFIX
     _norm(sd, p + "bn0", enc["bn0"])
-    sd[p + "bn0.running_mean"] = _t(stats["bn0"]["mean"])
-    sd[p + "bn0.running_var"] = _t(stats["bn0"]["var"])
-    sd[p + "bn0.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    if "batch_stats" in variables:
+        stats = variables["batch_stats"]["encoder"]
+        sd[p + "bn0.running_mean"] = _t(stats["bn0"]["mean"])
+        sd[p + "bn0.running_var"] = _t(stats["bn0"]["var"])
+        sd[p + "bn0.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     k = np.asarray(enc["patch_embed"]["proj"]["kernel"])
     sd[p + "patch_embed.proj.weight"] = _t(k.transpose(3, 2, 0, 1))
     sd[p + "patch_embed.proj.bias"] = _t(enc["patch_embed"]["proj"]["bias"])

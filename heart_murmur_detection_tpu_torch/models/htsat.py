@@ -1,13 +1,15 @@
-"""HTS-AT (the OPERA-CT encoder) as a torch module, eval only — counterpart
-of heart_murmur_detection_tpu/models/htsat.py.
+"""HTS-AT (the OPERA-CT encoder) as a torch module — counterpart of
+heart_murmur_detection_tpu/models/htsat.py.
 
 Parameters live under the reference's state_dict key names (bn0,
 patch_embed.proj, patch_embed.norm, layers.{i}.blocks.{b}.{norm1, attn.qkv,
 attn.proj, attn.relative_position_bias_table, norm2, mlp.fc1, mlp.fc2},
 layers.{i}.downsample.{norm, reduction}, norm), so a reference checkpoint
-loads without renaming. The forward is models.htsat_fused.htsat_apply_fused:
-there is one forward, routed through the swin kernels of ops/swin.py.
-The tscam head (clipwise/framewise outputs) is not carried.
+loads without renaming. The eval forward is
+models.htsat_fused.htsat_apply_fused, routed through the swin kernels of
+ops/swin.py; the training forward is models.htsat_train_fused
+.htsat_encode_train, routed through ops/swin_train.py. The tscam head
+(clipwise/framewise outputs) is not carried.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ class HTSATConfig:
     window_size: int = 8
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
+    drop_path_rate: float = 0.1  # DropPath rates linspace(0, rate, sum(depths)) over the blocks
     mel_bins: int = 64
 
     @property
@@ -161,8 +164,21 @@ class PreparedStage:
     mask: Optional[torch.Tensor]  # (nW, N, N) f32 for the shifted blocks
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainStage:
+    """One stage's constants for the training forward on one device: the
+    relative-position index and its segments (ops.swin_train.rel_pos_bias)
+    and the shift mask."""
+
+    window: int
+    shift: int
+    idx: torch.Tensor  # (N*N,) long
+    seg: torch.Tensor  # (T, K) long
+    mask: Optional[torch.Tensor]  # (nW, N, N) f32 for the shifted blocks
+
+
 class HTSAT(nn.Module):
-    """Eval HTS-AT encoder: mel (B, T, F) [+ frame counts] -> latent (B, 768)."""
+    """HTS-AT encoder: mel (B, T, F) [+ frame counts] -> latent (B, 768)."""
 
     def __init__(self, config: HTSATConfig = HTSATConfig()):
         super().__init__()
@@ -174,6 +190,28 @@ class HTSAT(nn.Module):
         self.layers = nn.ModuleList(BasicLayer(cfg, i) for i in range(len(cfg.depths)))
         self.norm = nn.LayerNorm(cfg.num_features, eps=1e-5)
         self._prepared = {}
+        self._train_stages = {}
+
+    def train_stages(self, device) -> Tuple[TrainStage, ...]:
+        """Per-stage TrainStage on `device`, built at first use and cached
+        (they depend on the config only)."""
+        from ..ops.swin_train import bias_segments
+
+        key = torch.device(device)
+        if key not in self._train_stages:
+            stages = []
+            for i in range(len(self.config.depths)):
+                H, W, window, shift = stage_geometry(self.config, i)
+                idx = _relative_position_index(window, window).reshape(-1)
+                mask = None
+                if shift:
+                    mask = torch.as_tensor(_shift_attn_mask(H, W, window, shift), device=key)
+                stages.append(TrainStage(
+                    window, shift, torch.as_tensor(idx, device=key),
+                    bias_segments(idx).to(key), mask,
+                ))
+            self._train_stages[key] = tuple(stages)
+        return self._train_stages[key]
 
     # -- weights laid out for the kernels, once per (dtype, device) ------------
     def prepared(self, mm_dtype: torch.dtype) -> Tuple[PreparedStage, ...]:

@@ -1,12 +1,14 @@
 """Build the hand-written CUDA kernels with nvcc and bind them with ctypes.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/<hash>/libhmdt_swin.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c csrc/<name>.cu -o build/<hash>/<name>.o   (each, in parallel)
+    nvcc -shared -o build/<hash>/libhmdt_swin.so build/<hash>/*.o
 
 The sources have a plain C interface (no PyTorch headers), so a build takes
-seconds. It happens at first use, into heart_murmur_detection_tpu_torch/build/
-(listed in .gitignore), keyed by a hash of the sources; nothing is fetched
-or prebuilt. A failed build raises with nvcc's stderr.
+seconds; the sources compile in parallel, one nvcc each, then link. It
+happens at first use, into heart_murmur_detection_tpu_torch/build/ (listed in
+.gitignore), keyed by a hash of the sources; nothing is fetched or prebuilt.
+A failed build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -32,11 +34,22 @@ NVCC_FLAGS = [
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b, bias, mask,
+    # x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b, bias, mask, kmul,
     # B, H, W, C, heads, shift, fast_softmax, stream
-    "swin_attn_launch": [_vp] * 10 + [_i] * 7 + [_vp],
-    # x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, n_tokens, C, hidden, stream
-    "swin_mlp_launch": [_vp] * 8 + [_i] * 3 + [_vp],
+    "swin_attn_launch": [_vp] * 11 + [_i] * 7 + [_vp],
+    # x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul,
+    # n_tokens, C, hidden, hw, stream
+    "swin_mlp_launch": [_vp] * 9 + [_i] * 4 + [_vp],
+    # x, dh1, kmul, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, bias, mask,
+    # h_g, dw_g, opre_g, dqkv_g, part, B, H, W, C, heads, shift, wpb, stream
+    "swin_attn_bwd_launch": [_vp] * 16 + [_i] * 7 + [_vp],
+    # h1, dy, kmul, dh1, ln_w, ln_b, w_fc1, b_fc1, w_fc2, m_g, g_g, dyk_g,
+    # da1_g, part, n_tokens, C, hidden, hw, tpb, stream
+    "swin_mlp_bwd_launch": [_vp] * 14 + [_i] * 5 + [_vp],
+    # a, b, ws, n, M, N, chunk, stream
+    "swin_wgrad_launch": [_vp] * 3 + [_i] * 4 + [_vp],
+    # ws, out, S, L, stream
+    "swin_reduce_launch": [_vp] * 2 + [_i] * 2 + [_vp],
 }
 
 
@@ -73,7 +86,8 @@ class BuildResult:
 
 
 def build() -> BuildResult:
-    """Compile csrc/*.cu into BUILD_DIR/<hash>/ unless already built."""
+    """Compile csrc/*.cu into BUILD_DIR/<hash>/ unless already built: one
+    nvcc per source, all started together, then one link."""
     out_dir = os.path.join(BUILD_DIR, source_hash())
     lib = os.path.join(out_dir, LIB_NAME)
     log_path = lib + ".log"
@@ -81,22 +95,37 @@ def build() -> BuildResult:
         log = open(log_path).read() if os.path.exists(log_path) else ""
         return BuildResult(lib, 0.0, log)
     os.makedirs(out_dir, exist_ok=True)
+    nvcc = find_nvcc()
     cu = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(out_dir, os.path.basename(s)[:-3] + ".o") for s in cu]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    t0 = time.time()
+    procs = [
+        (subprocess.Popen([nvcc, *compile_flags, "-c", src, "-o", obj],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), src)
+        for src, obj in zip(cu, objs)
+    ]
+    logs, failed = [], []
+    for proc, src in procs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    t0 = time.time()
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.time() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    log = "".join(logs) + proc.stderr
     with open(log_path, "w") as f:
-        f.write(proc.stderr)
+        f.write(log)
     os.replace(tmp, lib)
-    return BuildResult(lib, seconds, proc.stderr)
+    return BuildResult(lib, seconds, log)
 
 
 @functools.lru_cache(maxsize=1)

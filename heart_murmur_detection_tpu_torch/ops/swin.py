@@ -1,5 +1,5 @@
-"""Eval swin blocks for HTS-AT: two hand-written CUDA kernels, their plain
-torch versions, and the three entry points of
+"""Swin blocks for HTS-AT: two hand-written CUDA kernels, their plain torch
+versions, and the three eval entry points of
 heart_murmur_detection_tpu/ops/pallas_swin.py built from them.
 
   swin_attn  LN1 -> 8x8 windows -> qkv -> per-head softmax(q k^T/sqrt(hd)
@@ -7,6 +7,12 @@ heart_murmur_detection_tpu/ops/pallas_swin.py built from them.
              (csrc/swin_attn.cu; the TPU body is `_strip_attn`)
   swin_mlp   LN2 -> fc1 -> exact GELU -> fc2 -> +x
              (csrc/swin_mlp.cu; the TPU body is `_strip_mlp`)
+
+Both take an optional per-sample multiplier kmul (B,) of the branch, the
+DropPath keep multipliers of the training forward (ops/swin_train.py);
+without it they are the eval halves, bit for bit. block_layout builds the
+kernel weight layout with differentiable ops (the training path, inside
+autograd every step); prep_block builds it once, detached, for inference.
 
   fused_swin_block        swin_attn then swin_mlp          (TPU K1, :480)
   fused_swin_pair         block(s=0), then block(s, mask)  (TPU K2, :847)
@@ -44,7 +50,8 @@ class SwinBlockParams:
     """One eval swin block, laid out for the kernels once at weight load
     (the counterpart of pallas_swin._prep_weights). Matmul weights keep the
     torch (out, in) layout in the matmul dtype; the qkv rows are padded per
-    head from hd to HDP with zeros (exact: padded q/k columns add 0 to the
+    head from hd to hdp, the next multiple of HDP, with zeros (the kernels
+    take hdp = HDP; exact: padded q/k columns add 0 to the
     logits, padded v columns are dropped before proj). LayerNorm parameters,
     biases and the gathered relative-position bias (heads, N, N) are float32.
     """
@@ -53,8 +60,8 @@ class SwinBlockParams:
     hd: int
     ln1_w: torch.Tensor
     ln1_b: torch.Tensor
-    w_qkv: torch.Tensor  # (3 * heads * HDP, C)
-    b_qkv: torch.Tensor  # (3 * heads * HDP,)
+    w_qkv: torch.Tensor  # (3 * heads * hdp, C)
+    b_qkv: torch.Tensor  # (3 * heads * hdp,)
     w_proj: torch.Tensor  # (C, C)
     b_proj: torch.Tensor
     bias: torch.Tensor  # (heads, N, N)
@@ -73,6 +80,51 @@ class SwinBlockParams:
     def mm_dtype(self) -> torch.dtype:
         return self.w_qkv.dtype
 
+    @property
+    def hdp(self) -> int:
+        return self.w_qkv.shape[0] // (3 * self.heads)
+
+
+def block_layout(
+    get,
+    heads: int,
+    bias: torch.Tensor,
+    mm_dtype: torch.dtype,
+) -> SwinBlockParams:
+    """Lay out one block's weights for the kernels (pallas_swin._prep_weights)
+    with differentiable torch ops: `get(name)` returns the float32 tensor of a
+    reference key (norm1.weight, attn.qkv.weight, ...). The training path
+    builds this inside autograd every step, so the gradients of the padded
+    bf16 layout flow back to the float32 parameters; prep_block builds it
+    once, detached, for inference."""
+    C = get("attn.proj.weight").shape[0]
+    hd = C // heads
+    if heads * hd != C:
+        raise ValueError(f"{heads} heads must divide C = {C}")
+    hdp = -(-hd // HDP) * HDP
+    w_qkv = get("attn.qkv.weight").reshape(3, heads, hd, C)
+    w_qkv = F.pad(w_qkv, (0, 0, 0, hdp - hd)).reshape(3 * heads * hdp, C)
+    b_qkv = F.pad(get("attn.qkv.bias").reshape(3, heads, hd), (0, hdp - hd)).reshape(-1)
+    mm = lambda t: t.to(mm_dtype).contiguous()
+    f32 = lambda t: t.contiguous()
+    return SwinBlockParams(
+        heads=heads,
+        hd=hd,
+        ln1_w=f32(get("norm1.weight")),
+        ln1_b=f32(get("norm1.bias")),
+        w_qkv=mm(w_qkv),
+        b_qkv=f32(b_qkv),
+        w_proj=mm(get("attn.proj.weight")),
+        b_proj=f32(get("attn.proj.bias")),
+        bias=bias.to(torch.float32).contiguous(),
+        ln2_w=f32(get("norm2.weight")),
+        ln2_b=f32(get("norm2.bias")),
+        w_fc1=mm(get("mlp.fc1.weight")),
+        b_fc1=f32(get("mlp.fc1.bias")),
+        w_fc2=mm(get("mlp.fc2.weight")),
+        b_fc2=f32(get("mlp.fc2.bias")),
+    )
+
 
 def prep_block(
     sd: Mapping[str, torch.Tensor],
@@ -81,38 +133,14 @@ def prep_block(
     mm_dtype: torch.dtype,
     device=None,
 ) -> SwinBlockParams:
-    """Lay out one block's weights for the kernels (pallas_swin._prep_weights).
+    """Lay out one block's weights for the kernels, detached, once at weight
+    load (pallas_swin._prep_weights).
 
     sd: the block's state_dict under the reference key names (norm1.*,
     attn.qkv.*, attn.proj.*, norm2.*, mlp.fc1.*, mlp.fc2.*); bias: its
     gathered relative-position bias (heads, N, N)."""
     g = lambda k: sd[k].detach().to(device=device, dtype=torch.float32)
-    C = sd["attn.proj.weight"].shape[0]
-    hd = C // heads
-    if hd > HDP or heads * hd != C:
-        raise ValueError(f"head dim {C}/{heads} must divide C and be <= {HDP}")
-    w_qkv = g("attn.qkv.weight").reshape(3, heads, hd, C)
-    w_qkv = F.pad(w_qkv, (0, 0, 0, HDP - hd)).reshape(3 * heads * HDP, C)
-    b_qkv = F.pad(g("attn.qkv.bias").reshape(3, heads, hd), (0, HDP - hd)).reshape(-1)
-    mm = lambda t: t.to(mm_dtype).contiguous()
-    f32 = lambda t: t.contiguous()
-    return SwinBlockParams(
-        heads=heads,
-        hd=hd,
-        ln1_w=f32(g("norm1.weight")),
-        ln1_b=f32(g("norm1.bias")),
-        w_qkv=mm(w_qkv),
-        b_qkv=f32(b_qkv),
-        w_proj=mm(g("attn.proj.weight")),
-        b_proj=f32(g("attn.proj.bias")),
-        bias=bias.detach().to(device=device, dtype=torch.float32).contiguous(),
-        ln2_w=f32(g("norm2.weight")),
-        ln2_b=f32(g("norm2.bias")),
-        w_fc1=mm(g("mlp.fc1.weight")),
-        b_fc1=f32(g("mlp.fc1.bias")),
-        w_fc2=mm(g("mlp.fc2.weight")),
-        b_fc2=f32(g("mlp.fc2.bias")),
-    )
+    return block_layout(g, heads, bias.detach().to(device=device), mm_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +169,12 @@ def swin_attn_ref(
     shift: int = 0,
     fast_softmax: bool = False,
     window: int = WINDOW,
+    kmul: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the swin_attn kernel: x (B, H, W, C) -> h1, same
-    dtype. mask (nW, N, N) is indexed in the rolled frame."""
+    dtype. mask (nW, N, N) is indexed in the rolled frame. kmul (B,) float32
+    scales the branch per sample (DropPath keep multipliers of the training
+    forward): h1 = x + kmul * attn(x)."""
     B, H, W, C = x.shape
     act, mm = x.dtype, p.mm_dtype
     heads, hd = p.heads, p.hd
@@ -158,8 +189,8 @@ def swin_attn_ref(
     )
     h = _ln(xw, p.ln1_w, p.ln1_b)
     qkv = (_mmf(h, mm) @ _mmf(p.w_qkv, mm).T + p.b_qkv).to(act)
-    qkv = qkv.reshape(Bn, N, 3, heads, HDP).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]  # (Bn, heads, N, HDP)
+    qkv = qkv.reshape(Bn, N, 3, heads, p.hdp).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]  # (Bn, heads, N, hdp)
     # hd^-0.5 as a constant of the activation dtype, as the JAX body applies it
     qs = q * torch.tensor(hd**-0.5, dtype=act, device=q.device)
     a = _mmf(qs, mm) @ _mmf(k, mm).transpose(-1, -2) + p.bias
@@ -175,6 +206,8 @@ def swin_attn_ref(
         ost = (_mmf(torch.softmax(a, -1), mm) @ _mmf(v, mm)).to(act)
     o = ost[..., :hd].permute(0, 2, 1, 3).reshape(Bn, N, C)
     o = _mmf(o, mm) @ _mmf(p.w_proj, mm).T + p.b_proj
+    if kmul is not None:
+        o = kmul.reshape(B, 1, 1).repeat_interleave(nwh * nww, 0) * o
     h1 = (xw.to(torch.float32) + o).to(act)
     h1 = (
         h1.reshape(B, nwh, nww, window, window, C)
@@ -184,13 +217,18 @@ def swin_attn_ref(
     return torch.roll(h1, (shift, shift), (1, 2)) if shift else h1
 
 
-def swin_mlp_ref(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
-    """Plain version of the swin_mlp kernel: per token, same dtype as x."""
+def swin_mlp_ref(
+    x: torch.Tensor, p: SwinBlockParams, kmul: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Plain version of the swin_mlp kernel: per token of x (B, H, W, C),
+    same dtype as x; kmul (B,) float32 scales the branch per sample."""
     act, mm = x.dtype, p.mm_dtype
     m = _ln(x, p.ln2_w, p.ln2_b)
     m = _mmf(m, mm) @ _mmf(p.w_fc1, mm).T + p.b_fc1
     m = F.gelu(m, approximate="none").to(act)
     m = _mmf(m, mm) @ _mmf(p.w_fc2, mm).T + p.b_fc2
+    if kmul is not None:
+        m = kmul.reshape(-1, *([1] * (x.dim() - 1))) * m
     return (x.to(torch.float32) + m).to(act)
 
 
@@ -219,14 +257,23 @@ def _check_cuda_args(x: torch.Tensor, p: SwinBlockParams, window: int):
     if window != WINDOW:
         raise ValueError(f"the kernels take window {WINDOW}, got {window}")
     B, H, W, C = x.shape
-    if C not in (96, 192, 384, 768) or H % WINDOW or W % WINDOW:
-        raise ValueError(f"unsupported swin geometry {tuple(x.shape)}")
+    if C not in (96, 192, 384, 768) or H % WINDOW or W % WINDOW or p.hdp != HDP:
+        raise ValueError(f"unsupported swin geometry {tuple(x.shape)}, head dim {p.hd}")
     if p.w_qkv.device != x.device:
         raise ValueError("weights and x are on different devices")
 
 
 def _cuda_stream(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _check_kmul(kmul: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """A per-sample branch multiplier for a kernel: float32 (B,) on x's card."""
+    if kmul is None:
+        return None
+    if kmul.dtype != torch.float32 or kmul.numel() != x.shape[0] or kmul.device != x.device:
+        raise ValueError(f"kmul must be float32 with one value per sample on {x.device}")
+    return kmul.reshape(-1).contiguous()
 
 
 def swin_attn(
@@ -236,11 +283,13 @@ def swin_attn(
     shift: int = 0,
     fast_softmax: bool = False,
     window: int = WINDOW,
+    kmul: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention half of a swin block (see swin_attn_ref for the math)."""
     if x.device.type == "cpu":
-        return swin_attn_ref(x, p, mask, shift, fast_softmax, window)
+        return swin_attn_ref(x, p, mask, shift, fast_softmax, window, kmul)
     _check_cuda_args(x, p, window)
+    kmul = _check_kmul(kmul, x)
     B, H, W, C = x.shape
     if mask is not None:
         nw = (H // WINDOW) * (W // WINDOW)
@@ -256,18 +305,21 @@ def swin_attn(
     rc = lib.swin_attn_launch(
         _ptr(x), _ptr(out), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.w_proj),
         _ptr(p.b_proj), _ptr(p.ln1_w), _ptr(p.ln1_b), _ptr(p.bias), _ptr(mask),
-        B, H, W, C, p.heads, shift, int(fast_softmax), _cuda_stream(x),
+        _ptr(kmul), B, H, W, C, p.heads, shift, int(fast_softmax), _cuda_stream(x),
     )
     _check_launch("swin_attn", rc)
     swin_attn.launches += 1
     return out
 
 
-def swin_mlp(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
+def swin_mlp(
+    x: torch.Tensor, p: SwinBlockParams, kmul: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """MLP half of a swin block (see swin_mlp_ref for the math)."""
     if x.device.type == "cpu":
-        return swin_mlp_ref(x, p)
+        return swin_mlp_ref(x, p, kmul)
     _check_cuda_args(x, p, WINDOW)
+    kmul = _check_kmul(kmul, x)
     B, H, W, C = x.shape
     hidden = p.w_fc1.shape[0]
     from . import _build
@@ -276,8 +328,8 @@ def swin_mlp(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
     out = torch.empty_like(x)
     rc = lib.swin_mlp_launch(
         _ptr(x), _ptr(out), _ptr(p.ln2_w), _ptr(p.ln2_b), _ptr(p.w_fc1),
-        _ptr(p.b_fc1), _ptr(p.w_fc2), _ptr(p.b_fc2),
-        B * H * W, C, hidden, _cuda_stream(x),
+        _ptr(p.b_fc1), _ptr(p.w_fc2), _ptr(p.b_fc2), _ptr(kmul),
+        B * H * W, C, hidden, H * W, _cuda_stream(x),
     )
     _check_launch("swin_mlp", rc)
     swin_mlp.launches += 1
@@ -286,15 +338,18 @@ def swin_mlp(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
 
 swin_attn.launches = 0
 swin_mlp.launches = 0
+# every counted kernel wrapper; ops/swin_train.py adds its own on import
+COUNTED = [swin_attn, swin_mlp]
 
 
 def launch_counts() -> dict:
-    return {"swin_attn": swin_attn.launches, "swin_mlp": swin_mlp.launches}
+    """Launches of every counted swin kernel since the last reset."""
+    return {f.__name__: f.launches for f in COUNTED}
 
 
 def reset_launch_counts() -> None:
-    swin_attn.launches = 0
-    swin_mlp.launches = 0
+    for f in COUNTED:
+        f.launches = 0
 
 
 # ---------------------------------------------------------------------------
