@@ -27,8 +27,26 @@ Phases (each prints one line; any failure exits non-zero):
      the same through the plain bf16 path; then 3 steps of each path from
      the same weights, batches and dropout / DropPath generator: losses
      within 1e-3 relative, step-0 gradient leaves against each other and
-     strict f32 (GRAD_BAR below); steady-state step times and a profile of
-     one step
+     strict f32 (the gradient rule below); steady-state step times and a
+     profile of one step
+  9. ViT kernels vs plain: vit_qkv, vit_attn and vit_mlp against their plain
+     versions at the operaGT (B=16, 1040 tokens, C 384, 6 heads) and
+     Audio-MAE (B=16, 528 tokens, C 768, 12 heads) shapes, padded keys
+     masked (n_real < Np), both softmax modes: cosine of each output (qkv) or
+     branch (out - x) >= 0.99999, two launches bitwise equal, with times, the
+     bound and the library call's time
+ 10. operaGT served: a random-init full-width operaGT server answers
+     /healthz and /extract on the same 20 WAVs (clips over 8.18 s split into
+     several chunks); served == offline; 12 vit_qkv + 12 vit_attn + 12
+     vit_mlp launches per batch
+ 11. audiomae: offline extraction of the same WAVs (10 s chunks), 12
+     launches of each ViT kernel per batch
+ 12. numerics, both towers: features against the plain bf16 flow (>=
+     0.99999) and the strict f32 path, TF32 off (>= 0.99995)
+ 13. throughput, both towers: device-resident chunks/s, kernel path (both
+     softmax modes) and plain bf16 path (operaGT B=64 of 8.18-s chunks,
+     audiomae B=32 of 10-s chunks), and a profile of one batch: each kernel,
+     the glue and the idle share
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -52,15 +70,19 @@ B_TRAIN = 64  # the CP batch (pairs a step)
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 LOSS_RTOL = 1e-3  # 3 CP steps, kernel path vs plain bf16 path
-# Step-0 gradient leaves, kernel path vs plain bf16 path. The bar asked for
-# is GRAD_BAR; the deep rel-pos tables miss it (PERF.md, and
-# heart_murmur_detection_tpu_torch/bench/grad_drift.py for the readings), and
-# which bar holds is an open question in ROADMAP.md. Until it is decided the
-# smoke prints the count under GRAD_BAR and fails on a leaf under GRAD_FLOOR
-# or one farther from strict f32 than F32_RATIO times the plain bf16 path.
+# Step-0 gradient leaves of a CP step (the rule of ROADMAP.md's precision
+# classes). Per kernel, fidelity is gated on shared inputs (phase 7: every
+# leaf >= KERNEL_BAR). End to end, two bf16 forwards drift apart through 20
+# blocks as far as the plain bf16 path drifts from strict f32 (PERF.md;
+# heart_murmur_detection_tpu_torch/bench/grad_drift.py for the readings), so
+# the step fails on a leaf under GRAD_FLOOR against the plain path, on a
+# median over leaves of (1 - cos kernel-f32) / (1 - cos plain-f32) above
+# F32_RATIO_MEDIAN, or on one leaf's ratio above F32_RATIO_LEAF; it prints
+# the count of leaves under GRAD_BAR.
 GRAD_BAR = 0.9999
 GRAD_FLOOR = 0.9995
-F32_RATIO = 1.5
+F32_RATIO_MEDIAN = 1.25
+F32_RATIO_LEAF = 2.0
 TPU_COSINE_R05 = 0.9999968  # BENCH_r05.json, TPU v5e, fused bf16 vs its default-precision graph
 SAME_ROUNDING_BAR = 0.99999  # kernels vs the plain bf16 flow (bench/numerics_pin.py's operaCT bar)
 F32_BAR = 0.99995  # the bf16 flow vs the strict float32 path, just under its readings (PERF.md)
@@ -632,7 +654,7 @@ def phase_cp(smi: str, dev):
     cos, cos_kf, cos_pf = leaf_cos(gk, gp), leaf_cos(gk, gf), leaf_cos(gp, gf)
     lo = min(cos, key=cos.get)
     ratio = {q: (1 - cos_kf[q]) / max(1 - cos_pf[q], 1e-7) for q in cos}
-    far = [q for q in cos if 1 - cos_kf[q] > F32_RATIO * (1 - cos_pf[q]) + 1e-5]
+    far = [q for q in cos if 1 - cos_kf[q] > F32_RATIO_LEAF * (1 - cos_pf[q]) + 1e-5]
     med = lambda d: sorted(d.values())[len(d) // 2]
     print(f"[cp] 3 steps from the same weights, batches and generator: losses kernel "
           f"{[round(v, 6) for v in lk]} plain {[round(v, 6) for v in lp]}, max rel diff "
@@ -642,10 +664,14 @@ def phase_cp(smi: str, dev):
           f"against strict f32 (step-0 loss {lf[0]:.6f}): kernel path min {min(cos_kf.values()):.7f} "
           f"median {med(cos_kf):.7f}, plain bf16 path min {min(cos_pf.values()):.7f} median "
           f"{med(cos_pf):.7f}; (1 - cos) kernel/plain vs f32 median {med(ratio):.3f} max "
-          f"{max(ratio.values()):.3f} (bar {F32_RATIO})", flush=True)
+          f"{max(ratio.values()):.3f} (bars: median {F32_RATIO_MEDIAN}, each leaf "
+          f"{F32_RATIO_LEAF})", flush=True)
     _require(max(rel) <= LOSS_RTOL, f"3-step losses differ: {lk} vs {lp}")
     _require(cos[lo] >= GRAD_FLOOR, f"step-0 gradient {lo} cosine {cos[lo]} < {GRAD_FLOOR}")
-    _require(not far, f"step-0 gradients farther from strict f32 than the plain path: {far[:3]}")
+    _require(med(ratio) <= F32_RATIO_MEDIAN,
+             f"step-0 gradients: median distance ratio to strict f32 {med(ratio)} > {F32_RATIO_MEDIAN}")
+    _require(not far, f"step-0 gradient leaves over {F32_RATIO_LEAF}x the plain path's "
+                      f"distance to strict f32: {far[:3]}")
 
     # steady-state step times at the full crop (circor, 251 frames)
     circor = MultiCorpusSampler(corpora[:1], B_TRAIN, seed=SEED + 7).next_batch()[1]
@@ -663,27 +689,33 @@ def phase_cp(smi: str, dev):
     return counts
 
 
-def _device_ms(fn, n: int = 2) -> dict:
+SWIN_GROUPS = {k: k + "_kernel" for k in ("swin_attn_bwd", "swin_mlp_bwd", "swin_wgrad",
+                                           "swin_reduce", "swin_attn", "swin_mlp")}
+VIT_GROUPS = {"vit_qkv": "vit_qkv_kernel", "vit_attn": "vit_attn_kernel",
+              "vit_mlp": "swin_mlp_kernel"}
+
+
+def _device_ms(fn, n: int = 2, groups_by=None) -> dict:
     """Device time of fn by kernel group, from torch.profiler over n calls
-    (ms a call): the swin kernels by name, everything else as "other"."""
+    (ms a call): the kernels by name (groups_by: group -> kernel symbol, the
+    swin kernels by default), everything else as "other"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    groups_by = groups_by or SWIN_GROUPS
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    groups = {k: 0.0 for k in ("swin_attn", "swin_mlp", "swin_attn_bwd", "swin_mlp_bwd",
-                               "swin_wgrad", "swin_reduce", "other")}
+    groups = {k: 0.0 for k in (*groups_by, "other")}
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
             continue
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
-        key = next((k for k in ("swin_attn_bwd", "swin_mlp_bwd", "swin_wgrad", "swin_reduce",
-                                "swin_attn", "swin_mlp") if k + "_kernel" in e.key), "other")
+        key = next((k for k, sym in groups_by.items() if sym in e.key), "other")
         groups[key] += us / 1e3 / n
     return groups
 
@@ -729,6 +761,306 @@ def _cp_profile(base, x1, x2, dev, _block_params, fused_swin_block_train, ct, st
           f"embed, merges, projector, loss, layouts) {groups['other'] - s3 - op:.2f} ms", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the MAE towers (operaGT ViT-S, Audio-MAE ViT-B)
+# ---------------------------------------------------------------------------
+
+# (tower, C, heads, Np, n_real): the token counts of a clip, cls included,
+# padded to a multiple of 16
+VIT_TOWERS = (("operaGT", 384, 6, 1040, 1025), ("audiomae", 768, 12, 528, 513))
+
+
+def _vit_work(B, Np, n_real, C, heads):
+    """(bytes, operations) of one launch of vit_qkv, vit_attn and vit_mlp on
+    B clips of Np tokens: each input read once, each output written once.
+    The products count every token row the launch writes; attention counts
+    the n_real real keys of each query (the padded keys are exact zeros)."""
+    n = B * Np
+    qkv = 2 * n * C + 2 * 3 * C * C + 4 * 5 * C + 2 * 3 * n * C, 6 * n * C * C
+    attn = (2 * n * C + 2 * 3 * n * C + 2 * C * C + 4 * C + 2 * n * C,
+            4 * B * heads * Np * n_real * (C // heads) + 2 * n * C * C)
+    mlp = 4 * n * C + 16 * C * C + 4 * 7 * C, 16 * n * C * C
+    return {"vit_qkv": qkv, "vit_attn": attn, "vit_mlp": mlp}
+
+
+def _vit_params(C, heads, dev, seed):
+    """One random ViT block at a tower's width, laid out for the kernels."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.ops import vit
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    f = lambda *sh: torch.randn(*sh, generator=g) * 0.05
+    sd = {"norm1.weight": 1 + f(C), "norm1.bias": f(C), "attn.qkv.weight": f(3 * C, C) * 2,
+          "attn.qkv.bias": f(3 * C), "attn.proj.weight": f(C, C), "attn.proj.bias": f(C),
+          "norm2.weight": 1 + f(C), "norm2.bias": f(C), "mlp.fc1.weight": f(4 * C, C),
+          "mlp.fc1.bias": f(4 * C), "mlp.fc2.weight": f(C, 4 * C), "mlp.fc2.bias": f(C)}
+    return vit.prep_vit_block(sd, heads, torch.bfloat16, dev)
+
+
+def phase_vit_kernels(dev):
+    """Each ViT kernel vs its plain version at both towers' shapes (B=16),
+    both softmax modes. Returns {name: measurement} summed over one operaGT
+    forward's 12 launches of each kernel at B=16 in the served (stable)
+    softmax mode, which the kernels JSON reports."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.ops import vit
+
+    B = B_KERNEL
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "work": Work(), "library_ms": None}
+           for k in ("vit_qkv", "vit_attn", "vit_mlp")}
+    for tower, C, heads, Np, n_real in VIT_TOWERS:
+        p = _vit_params(C, heads, dev, SEED + C)
+        g = torch.Generator(device="cpu").manual_seed(SEED + 10)
+        x = (torch.randn(B, Np, C, generator=g) * 0.5).to(dev, torch.bfloat16)
+        x[:, n_real:] = 0.0  # the padded rows of a first block
+        work = _vit_work(B, Np, n_real, C, heads)
+        bounds = {}
+        for k, w in work.items():
+            bounds[k] = Work()
+            bounds[k].add(*w)
+        qkv = vit.vit_qkv(x, p)
+        qkv_ref = vit.vit_qkv_ref(x, p)
+        torch.cuda.synchronize()
+        c = _cos(qkv.float().cpu(), qkv_ref.float().cpu())
+        same = torch.equal(qkv, vit.vit_qkv(x, p))
+        err = float((qkv.float() - qkv_ref.float()).abs().max())
+        k_ms = _time_ms(lambda: vit.vit_qkv(x, p))
+        p_ms = _time_ms(lambda: vit.vit_qkv_ref(x, p), iters=5, warm=1)
+        h = vit._ln(x, p.ln1_w, p.ln1_b, vit.LN_EPS).to(torch.bfloat16).reshape(-1, C)
+        bq = p.b_qkv.to(torch.bfloat16)
+        l_ms = _time_ms(lambda: torch.addmm(bq, h, p.w_qkv.t()))
+        print(f"[vit kernel] vit_qkv {tower} C={C} Np={Np} B={B}: cos {c:.7f} max|d| {err:.4g}; "
+              f"bitwise repeatable {same}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
+              f"{bounds['vit_qkv'].bound_ms:.4f} ms ({bounds['vit_qkv'].bound_by}); addmm on "
+              f"the LN output {l_ms:.4f} ms", flush=True)
+        _require(c >= KERNEL_BAR and same, f"vit_qkv {tower}: cosine {c}, repeatable {same}")
+        meas = {"vit_qkv": (k_ms, p_ms, err, l_ms)}
+        q, kk, vv = qkv_ref[0], qkv_ref[1][:, :, :n_real], qkv_ref[2][:, :, :n_real]
+        sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kk, vv, scale=1.0))
+        for fast in (False, True):
+            got = vit.vit_attn(x, qkv_ref, p, n_real, fast)
+            want = vit.vit_attn_out_ref(x, qkv_ref, p, n_real, fast)
+            torch.cuda.synchronize()
+            c = _branch(got, want, x)
+            same = torch.equal(got, vit.vit_attn(x, qkv_ref, p, n_real, fast))
+            err = float((got.float() - want.float()).abs().max())
+            k_ms = _time_ms(lambda: vit.vit_attn(x, qkv_ref, p, n_real, fast))
+            p_ms = _time_ms(lambda: vit.vit_attn_out_ref(x, qkv_ref, p, n_real, fast), iters=5,
+                            warm=1)
+            mode = "fast" if fast else "stable"
+            print(f"[vit kernel] vit_attn {tower} C={C} Np={Np} n_real={n_real} B={B} {mode} "
+                  f"softmax: branch cos {c:.7f} max|d| {err:.4g}; bitwise repeatable {same}; "
+                  f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
+                  f"{bounds['vit_attn'].bound_ms:.4f} ms ({bounds['vit_attn'].bound_by}); "
+                  f"scaled_dot_product_attention (attention core only, keys sliced to "
+                  f"n_real) {sdpa_ms:.4f} ms", flush=True)
+            _require(c >= KERNEL_BAR and same,
+                     f"vit_attn {tower} {mode}: branch cosine {c}, repeatable {same}")
+            if not fast:
+                meas["vit_attn"] = (k_ms, p_ms, err, sdpa_ms)
+        h1 = vit.vit_attn_out_ref(x, qkv_ref, p, n_real)
+        got, want = vit.vit_mlp(h1, p), vit.vit_mlp_ref(h1, p)
+        torch.cuda.synchronize()
+        c = _branch(got, want, h1)
+        same = torch.equal(got, vit.vit_mlp(h1, p))
+        err = float((got.float() - want.float()).abs().max())
+        k_ms = _time_ms(lambda: vit.vit_mlp(h1, p))
+        p_ms = _time_ms(lambda: vit.vit_mlp_ref(h1, p), iters=5, warm=1)
+        print(f"[vit kernel] vit_mlp {tower} C={C} Np={Np} B={B}: branch cos {c:.7f} max|d| "
+              f"{err:.4g}; bitwise repeatable {same}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+              f"bound {bounds['vit_mlp'].bound_ms:.4f} ms ({bounds['vit_mlp'].bound_by}); no "
+              f"library call", flush=True)
+        _require(c >= KERNEL_BAR and same, f"vit_mlp {tower}: branch cosine {c}, repeatable {same}")
+        meas["vit_mlp"] = (k_ms, p_ms, err, None)
+        if tower == "operaGT":  # the served path's shape: 12 launches a forward
+            for k, (k_ms, p_ms, err, l_ms) in meas.items():
+                tot[k]["ms"] = 12 * k_ms
+                tot[k]["plain_ms"] = 12 * p_ms
+                tot[k]["err"] = err
+                tot[k]["library_ms"] = None if l_ms is None else 12 * l_ms
+                tot[k]["work"].add(*work[k], n=12)
+    return tot
+
+
+def _vit_counts_ok(counts: dict, batches: int, depth: int) -> bool:
+    return counts["vit_qkv"] == counts["vit_attn"] == counts["vit_mlp"] == depth * batches
+
+
+def phase_gt_serving(paths, device="cuda"):
+    """A full-width random-init operaGT server on the 20 WAVs."""
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.cli.serve import make_server
+    from heart_murmur_detection_tpu_torch.ops import vit
+
+    vit.reset_launch_counts()  # just before the main path
+    t0 = time.time()
+    srv = make_server({"pretrain": "operaGT", "batch_size": B_KERNEL, "random_init": True,
+                       "device": device}, port=0)
+    warm_s = time.time() - t0
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        code, body = _http(url + "/healthz")
+        _require(code == 200 and body["status"] == "ok" and body["pretrain"] == "operaGT",
+                 f"operaGT /healthz {code} {body}")
+        t1 = time.time()
+        code, body = _http(url + "/extract", json.dumps({"paths": paths}).encode(),
+                           "application/json")
+        served_s = time.time() - t1
+        _require(code == 200, f"operaGT /extract paths -> {code}")
+        feats = np.asarray(body["features"], np.float32)
+        _require(feats.shape == (len(paths), 384) and bool(np.isfinite(feats).all()),
+                 f"operaGT served shape {feats.shape} or non-finite")
+        ex = srv.extractor
+        offline = ex.extract_files(paths)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    counts = vit.launch_counts()
+    batches = ex.n_dispatched
+    chunks = [len(ex._chunks(p)) for p in paths]
+    _require(np.allclose(feats, offline, atol=1e-5), "operaGT served != offline extract_files")
+    depth = len(ex.model.blocks)
+    _require(_vit_counts_ok(counts, batches, depth),
+             f"operaGT launch counts {counts} for {batches} batches (want {depth} of each a batch)")
+    _require(max(chunks) > 1, f"no clip split into several chunks: {chunks}")
+    print(f"[gt serve] input_sec {ex.input_sec} s; 200s; features {feats.shape} finite; served "
+          f"== offline; {sum(chunks)} chunks ({min(chunks)}-{max(chunks)} a clip); launches "
+          f"{counts} over {batches} batches ({depth} of each); warm {warm_s:.1f} s; "
+          f"{len(paths)}-clip request {served_s:.2f} s", flush=True)
+    return ex, offline, counts
+
+
+def phase_audiomae(paths, device="cuda"):
+    """Offline audiomae extraction of the 20 WAVs on the kernels."""
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.extract.extract import FeatureExtractor
+    from heart_murmur_detection_tpu_torch.ops import vit
+
+    ex = FeatureExtractor("audiomae", input_sec=10, batch_size=B_KERNEL, random_init=True,
+                          seed=SEED, device=device)
+    vit.reset_launch_counts()  # just before the main path
+    t0 = time.time()
+    feats = ex.extract_files(paths)
+    dt = time.time() - t0
+    counts = vit.launch_counts()
+    batches = ex.n_dispatched
+    chunks = [len(ex._chunks(p)) for p in paths]
+    _require(feats.shape == (len(paths), 768) and bool(np.isfinite(feats).all()),
+             f"audiomae features {feats.shape} or non-finite")
+    depth = len(ex.model.blocks)
+    _require(_vit_counts_ok(counts, batches, depth),
+             f"audiomae launch counts {counts} for {batches} batches (want {depth} of each a batch)")
+    print(f"[audiomae] offline extract_files (fast_softmax {ex.fast_softmax}): features "
+          f"{feats.shape} finite; {sum(chunks)} chunks ({min(chunks)}-{max(chunks)} a clip); "
+          f"launches {counts} over {batches} batches ({depth} of each); {dt:.2f} s (first "
+          f"batch included)", flush=True)
+    return ex, feats
+
+
+def _mae_reference_fn(ex, mm_dtype):
+    """The extractor's batch forward with the ViT blocks on their plain
+    versions."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.audio import dsp
+    from heart_murmur_detection_tpu_torch.models.vit_fused import (
+        audiomae_backbone_fused, mae_forward_feature_fused)
+
+    def fn(wav, lengths):
+        with torch.inference_mode():
+            w = ex._prologue(wav)
+            if ex.is_audiomae:
+                fb, _ = dsp.kaldi_fbank_frontend(w, lengths)
+                return audiomae_backbone_fused(ex.model, fb, mm_dtype, ex.fast_softmax, "plain")
+            mel, _ = ex._mel(w, lengths)
+            return mae_forward_feature_fused(ex.model, mel[:, :256], mm_dtype, ex.fast_softmax,
+                                             "plain")
+
+    return fn
+
+
+def phase_mae_numerics(tower, ex, paths, feats):
+    import torch
+
+    def run(mm_dtype):
+        old = ex._fn
+        ex._fn = _mae_reference_fn(ex, mm_dtype)
+        try:
+            return ex.extract_files(paths)
+        finally:
+            ex._fn = old
+
+    c_same = _cos(feats, run(torch.bfloat16))
+    c_f32 = _cos(feats, run(torch.float32))
+    print(f"[numerics] {tower} (fast_softmax {ex.fast_softmax}): cosine vs plain bf16 flow "
+          f"{c_same:.7f} (bar {SAME_ROUNDING_BAR}); vs strict f32 plain, TF32 off {c_f32:.7f} "
+          f"(bar {F32_BAR})", flush=True)
+    _require(c_same >= SAME_ROUNDING_BAR, f"{tower} vs plain bf16 flow cosine {c_same}")
+    _require(c_f32 >= F32_BAR, f"{tower} vs strict float32 path cosine {c_f32}")
+
+
+def phase_mae_throughput(tower, ex, B, sec, smi):
+    """Device-resident chunks/s of one tower, kernel path in both softmax
+    modes and plain bf16 path; a profile of one kernel-path batch."""
+    import torch
+
+    dev = ex.device
+    n = int(sec * 16000)
+    npad = (n + 511) // 512 * 512
+    g = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    wav = torch.zeros(B, npad, dtype=torch.int16)
+    wav[:, :n] = (torch.randn(B, n, generator=g) * 3000).to(torch.int16)
+    wav, lengths = wav.to(dev), torch.full((B,), n, dtype=torch.int32, device=dev)
+    kern = {fast: ex._build(fast_softmax=fast) for fast in (False, True)}
+    plain = _mae_reference_fn(ex, torch.bfloat16)
+    k_ms = {fast: _time_ms(lambda: fn(wav, lengths), iters=10, warm=2) for fast, fn in kern.items()}
+    p_ms = _time_ms(lambda: plain(wav, lengths), iters=3, warm=1)
+    C, heads, Np, n_real = next(t[1:] for t in VIT_TOWERS if t[0] == tower)
+    bound = Work()
+    for w in _vit_work(B, Np, n_real, C, heads).values():
+        bound.add(*w, n=12)
+    groups = _device_ms(lambda: kern[False](wav, lengths), groups_by=VIT_GROUPS)
+    busy = sum(groups.values())
+    wall = k_ms[False]
+    print(f"[throughput] {tower} {smi}: device-resident {sec}-s chunks B={B}: kernel path stable "
+          f"{k_ms[False]:.2f} ms/batch = {B * 1000 / k_ms[False]:.1f} chunks/s, fast softmax "
+          f"{k_ms[True]:.2f} ms = {B * 1000 / k_ms[True]:.1f} chunks/s; plain bf16 path "
+          f"{p_ms:.2f} ms/batch = {B * 1000 / p_ms:.1f} chunks/s; the 36 block launches' bound "
+          f"{bound.bound_ms:.3f} ms ({bound.bound_by})", flush=True)
+    print(f"[profile] {tower} one stable batch B={B}: {wall:.2f} ms unprofiled, device busy "
+          f"{busy:.2f} ms ({100 * (1 - busy / wall):.1f}% idle): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items() if k != "other")
+          + f", glue (wire decode, {'fbank' if ex.is_audiomae else 'mel'}, patch embed, pads, "
+          f"pooling, LN) {groups['other']:.2f} ms", flush=True)
+
+
+def phase_mae(paths, smi, dev):
+    """Phases 9-13: the ViT kernels, the served operaGT tower, the audiomae
+    tower, their numerics and throughput."""
+    import torch
+
+    vit_meas = phase_vit_kernels(dev)
+    gt, gt_feats, gt_counts = phase_gt_serving(paths, str(dev))
+    phase_mae_numerics("operaGT", gt, paths, gt_feats)
+    am, am_feats = phase_audiomae(paths, str(dev))
+    phase_mae_numerics("audiomae", am, paths, am_feats)
+    phase_mae_throughput("operaGT", gt, 64, 8.18, smi)
+    del gt
+    torch.cuda.empty_cache()
+    phase_mae_throughput("audiomae", am, 32, 10, smi)
+    del am
+    torch.cuda.empty_cache()
+    return vit_meas, gt_counts
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -753,6 +1085,12 @@ KERNEL_SOURCES = {
                    "heart_murmur_detection_tpu/ops/pallas_swin_train.py:606"),
     "swin_reduce": ("heart_murmur_detection_tpu_torch/csrc/swin_wgrad.cu",
                     "heart_murmur_detection_tpu/ops/pallas_swin_train.py:606"),
+    "vit_qkv": ("heart_murmur_detection_tpu_torch/csrc/vit_qkv.cu",
+                "heart_murmur_detection_tpu/ops/pallas_vit.py:66"),
+    "vit_attn": ("heart_murmur_detection_tpu_torch/csrc/vit_attn.cu",
+                 "heart_murmur_detection_tpu/ops/pallas_vit.py:66"),
+    "vit_mlp": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp.cu",
+                "heart_murmur_detection_tpu/ops/pallas_vit.py:149"),
 }
 
 
@@ -785,13 +1123,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         ex, paths, served, serve_counts = phase_serving(d)
         phase_numerics(ex, paths, served)
-    phase_throughput(ex, smi)
-    del ex
-    torch.cuda.empty_cache()
-    cp_counts = phase_cp(smi, dev)
+        phase_throughput(ex, smi)
+        del ex
+        torch.cuda.empty_cache()
+        cp_counts = phase_cp(smi, dev)
+        torch.cuda.empty_cache()
+        vit_meas, gt_counts = phase_mae(paths, smi, dev)
     _require("jax" not in sys.modules, "jax was imported")
     kernels = _entries(eval_meas, serve_counts, KERNEL_SOURCES)
     kernels += _entries(train_meas, cp_counts, KERNEL_SOURCES)
+    kernels += _entries(vit_meas, gt_counts, KERNEL_SOURCES)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,15 +6,18 @@ names here mirror it so each counterpart is easy to find. This package
 imports torch and never jax or flax, so host helpers the port needs are
 copied (and pinned to their originals by tests), not imported.
 
-Layer map (the operaCT serving slice):
+Layer map (operaCT serving and COLA pretraining, operaGT / audiomae
+extraction):
   utils/    numpy WAV IO
-  audio/    host pad/trim pipelines, wire formats, device DSP (torch)
-  ops/      hand-written CUDA swin kernels (csrc/), their plain torch
-            versions, the nvcc build and ctypes binding
-  models/   HTS-AT (operaCT) with reference state_dict keys, the fused
-            forward routed through ops/, the COLA wrapper
+  audio/    host pad/trim/split pipelines, wire formats, device DSP (torch:
+            mel, kaldi fbank, resize)
+  ops/      hand-written CUDA swin and ViT kernels (csrc/), their plain
+            torch versions, the nvcc build and ctypes binding
+  models/   HTS-AT (operaCT) and the MAE ViT encoders with reference
+            state_dict keys, the fused forwards routed through ops/, COLA
   extract/  weight conversion, model registry, batched FeatureExtractor
-  cli/      key=value config loader and the serving daemon
+  pretrain/ COLA continued pretraining
+  cli/      key=value config loader, the serving daemon, pretraining
 """
 
 __version__ = "0.1.0"

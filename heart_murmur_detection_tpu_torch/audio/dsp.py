@@ -1,17 +1,20 @@
 """Batched device DSP in torch (counterpart of heart_murmur_detection_tpu/audio/dsp.py).
 
     wav (B, Nmax) zero-padded + lengths (B,)  ->  mel (B, Tmax, n_mels) + frames (B,)
+                                              ->  kaldi fbank (B, Tmax, 128) + frames (B,)
 
-The same math as the JAX frontend: the windowed DFT is two real matrix
-products against precomputed cos/sin bases in the split-DFT form (no
-`torch.stft`), the bicubic time resize is a banded weight matrix contracted
-against x. These are plain products outside any kernel; on a CUDA card they
-run as float32 matmuls (PyTorch's default keeps TF32 off for them).
+The same math as the JAX frontends: the windowed DFT is two real matrix
+products against precomputed cos/sin bases (the split-DFT form for the mel,
+block framing for the fbank; no `torch.stft`), the bicubic time resize is a
+banded weight matrix contracted against x. These are plain products outside
+any kernel; on a CUDA card they run as float32 matmuls (PyTorch's default
+keeps TF32 off for them).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -57,6 +60,42 @@ def _device_constants(
     fb = _mel_fb(sr, n_fft, n_mels, fmin, fmax)
     with torch.inference_mode(False):  # plain tensors, usable in and out of inference mode
         return tuple(torch.from_numpy(a).to(device) for a in (cos, sin, fb))
+
+
+@functools.lru_cache(maxsize=None)
+def _kaldi_constants(
+    device: torch.device, sr: int, win: int, padded: int, num_mel_bins: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(symmetric Hanning window, cos, sin, kaldi banks (padded//2, mels))
+    on `device`, copied there once."""
+    cos, sin = _dft_bases(padded, "none")
+    w = ref.hanning_symmetric(win).astype(np.float32)
+    banks = np.ascontiguousarray(ref.kaldi_mel_banks(num_mel_bins, padded, sr).T)
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in (w, cos, sin, banks))
+
+
+# ---------------------------------------------------------------------------
+# framing
+# ---------------------------------------------------------------------------
+
+
+def frame_signal(x: torch.Tensor, win: int, hop: int, Tmax: int) -> torch.Tensor:
+    """(B, P) -> (B, Tmax, win) overlapping frames, frame t = x[t*hop : t*hop+win].
+
+    Conv-free block framing, as the JAX frame_signal: the signal is reshaped
+    into gcd(win, hop)-sample blocks and each frame is win//g consecutive
+    blocks starting at a fixed stride (win//g strided slices and one concat).
+    Zero-pads x when hop*(Tmax-1)+win exceeds its length; samples past frame
+    Tmax-1 are dropped."""
+    B, P = x.shape
+    g = math.gcd(win, hop)
+    step, width = hop // g, win // g
+    need = hop * (Tmax - 1) + win
+    x = torch.nn.functional.pad(x, (0, need - P)) if P < need else x[:, :need]
+    blocks = x.reshape(B, need // g, g)
+    parts = [blocks[:, k : k + step * (Tmax - 1) + 1 : step] for k in range(width)]
+    return torch.cat(parts, dim=2) if width > 1 else parts[0]
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +166,64 @@ def mel_frontend(
         db = (db - lo) * scale
     out = torch.where(vmask, db, 0.0)
     return out.to(torch.float32), n_frames
+
+
+# ---------------------------------------------------------------------------
+# kaldi fbank frontend (Audio-MAE)
+# ---------------------------------------------------------------------------
+
+
+def kaldi_fbank_frontend(
+    wav: torch.Tensor,
+    lengths: torch.Tensor,
+    sr: int = 16000,
+    num_mel_bins: int = 128,
+    frame_length_ms: float = 25.0,
+    frame_shift_ms: float = 10.0,
+    preemphasis: float = 0.97,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched kaldi fbank (src/util.py:841-856 semantics, dither 0), as the
+    JAX kaldi_fbank_frontend with its defaults: int16 PCM is scaled by
+    1/32768, the valid-region mean is subtracted, then per frame DC removal,
+    pre-emphasis, the symmetric Hanning window, zero-padding to a power of
+    two, power spectrum, kaldi mel banks and log(max(., float32 eps)).
+
+    Returns (B, Tmax, num_mel_bins) with invalid frames zeroed, and (B,)
+    int32 valid frame counts (1 + (len - win) // shift, 0 if len < win).
+    """
+    dev = wav.device
+    if not torch.is_floating_point(wav):
+        wav = wav.to(torch.float32) / 32768.0
+    B, Nmax = wav.shape
+    win = int(sr * frame_length_ms / 1000)
+    shift = int(sr * frame_shift_ms / 1000)
+    padded = 1 << (win - 1).bit_length()
+    w, cos, sin, banks = _kaldi_constants(dev, sr, win, padded, num_mel_bins)
+    lengths = lengths.to(torch.int64)
+
+    # the reference subtracts the valid-region mean before the fbank
+    mean = wav.sum(1, keepdim=True) / torch.clamp(lengths[:, None], min=1)
+    valid_n = torch.arange(Nmax, device=dev)[None, :] < lengths[:, None]
+    wav = torch.where(valid_n, wav - mean, 0.0)
+
+    Tmax = max(1 + (Nmax - win) // shift, 1)
+    frames = frame_signal(wav, win, shift, Tmax).to(torch.float32)
+    frames = frames - frames.mean(-1, keepdim=True)
+    prev = torch.cat([frames[:, :, :1], frames[:, :, :-1]], dim=-1)
+    frames = (frames - preemphasis * prev) * w
+
+    fr = torch.nn.functional.pad(frames, (0, padded - win))
+    re = torch.matmul(fr, cos)
+    im = torch.matmul(fr, sin)
+    power = re * re + im * im  # (B, T, padded//2 + 1)
+    mel_e = torch.matmul(power[:, :, : padded // 2], banks)
+    mel_e = torch.log(torch.clamp(mel_e, min=float(np.finfo(np.float32).eps)))
+
+    n_frames = torch.where(
+        lengths >= win, 1 + (lengths - win) // shift, torch.zeros_like(lengths)
+    ).to(torch.int32)
+    valid = torch.arange(Tmax, device=dev)[None, :] < n_frames[:, None]
+    return torch.where(valid[:, :, None], mel_e, 0.0), n_frames
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Pad / split policies for raw waveforms (host-side, numpy).
 
-A copy of heart_murmur_detection_tpu/audio/pad.py trimmed to what the
-operaCT slice runs (split_pad_sample and its helpers); the original cannot
-be imported without jax. tests/test_torch_dsp.py pins it to the original.
+A copy of heart_murmur_detection_tpu/audio/pad.py trimmed to what the port
+runs (split_pad_sample and its helpers for operaCT and operaGT,
+split_sample_simple for audiomae); the original cannot be imported without
+jax. tests/test_torch_dsp.py and tests/test_torch_mae.py pin it to the
+original.
 
 Replicates src/util.py:504-620 exactly:
 - 'zero' : equal slices, each zero-padded (or tiled forward when frac < 0.5)
@@ -87,3 +89,10 @@ def split_pad_sample(
     else:
         out.append(_duplicate_padding(x, x, output_length))
     return out
+
+
+def split_sample_simple(x: np.ndarray, desired_sec: float, sr: int) -> List[np.ndarray]:
+    """Non-overlapping fixed windows incl. short tail (extract_feature.py:250-259)."""
+    output_length = int(desired_sec * sr)
+    n_frames = int(np.ceil(len(x) / output_length))
+    return [x[output_length * i : output_length * (i + 1)] for i in range(n_frames)]

@@ -2,8 +2,10 @@
 
 A copy of `_load_trim` and `get_entire_signal` from
 heart_murmur_detection_tpu/audio/pipelines.py (src/util.py:205-267), trimmed to
-the options the operaCT extraction path uses; the original cannot be imported
-without jax. tests/test_torch_dsp.py pins the copy to the original.
+the options the extraction paths use (no bandpass filter: the chunked MAE
+path calls `_load_trim` as the JAX `_chunks` does, with none); the original
+cannot be imported without jax. tests/test_torch_dsp.py pins the copy to the
+original.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Pure-numpy DSP pieces the operaCT slice needs: the periodic Hann window and
-the slaney mel filterbank (constants of the device mel frontend) and the
-librosa-semantics silence trim (host pipeline).
+"""Pure-numpy DSP pieces the port needs: the periodic Hann window and the
+slaney mel filterbank (constants of the device mel frontend), the symmetric
+Hanning window and the kaldi mel banks (constants of the kaldi fbank
+frontend), and the librosa-semantics silence trim (host pipeline).
 
 A copy of the matching functions of heart_murmur_detection_tpu/audio/
 reference_np.py, which cannot be imported without jax;
@@ -8,6 +9,7 @@ tests/test_torch_dsp.py pins each copy to its original.
 
 Reference semantics:
 - ``librosa.filters.mel(htk=False, norm='slaney')``
+- ``torchaudio.compliance.kaldi.get_mel_banks`` defaults
 - ``librosa.effects.trim(frame_length=sr/10, hop=frame/2)`` (src/util.py:237-243)
 """
 
@@ -19,6 +21,11 @@ import numpy as np
 def hann_periodic(n: int) -> np.ndarray:
     """Periodic ("DFT-even") Hann window, as scipy get_window('hann', n, fftbins=True)."""
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float64)
+
+
+def hanning_symmetric(n: int) -> np.ndarray:
+    """Kaldi 'hanning' window: 0.5 - 0.5 cos(2 pi k /(n-1))."""
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / (n - 1))).astype(np.float64)
 
 
 def _hz_to_mel_slaney(f):
@@ -67,6 +74,44 @@ def mel_filterbank_slaney(
     enorm = 2.0 / (mel_f[2 : n_mels + 2] - mel_f[:n_mels])
     weights *= enorm[:, None]
     return weights.astype(np.float32)
+
+
+def _mel_htk(f):
+    return 1127.0 * np.log(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def kaldi_mel_banks(
+    num_bins: int,
+    padded_window_size: int,
+    sr: float,
+    low_freq: float = 20.0,
+    high_freq: float = 0.0,
+) -> np.ndarray:
+    """Kaldi mel banks (triangles in HTK-mel space over FFT bin centres).
+
+    Matches torchaudio.compliance.kaldi.get_mel_banks defaults.
+    Returns (num_bins, padded_window_size // 2): the nyquist bin is excluded.
+    """
+    num_fft_bins = padded_window_size // 2
+    nyquist = 0.5 * sr
+    if high_freq <= 0.0:
+        high_freq = nyquist + high_freq
+    fft_bin_width = sr / padded_window_size
+    mel_low = _mel_htk(low_freq)
+    mel_high = _mel_htk(high_freq)
+    mel_delta = (mel_high - mel_low) / (num_bins + 1)
+
+    bins = np.arange(num_bins)[:, None]
+    left_mel = mel_low + bins * mel_delta
+    center_mel = mel_low + (bins + 1) * mel_delta
+    right_mel = mel_low + (bins + 2) * mel_delta
+
+    freqs = fft_bin_width * np.arange(num_fft_bins)[None, :]
+    mel = _mel_htk(freqs)
+    up_slope = (mel - left_mel) / (center_mel - left_mel)
+    down_slope = (right_mel - mel) / (right_mel - center_mel)
+    banks = np.maximum(0.0, np.minimum(up_slope, down_slope))
+    return banks.astype(np.float32)
 
 
 def _rms(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:

@@ -3,8 +3,11 @@ heart_murmur_detection_tpu/cli/serve.py, on the port's FeatureExtractor.
 
 Usage:
   python -m heart_murmur_detection_tpu_torch.cli.serve pretrain=operaCT dim=768 random_init=True
+  python -m heart_murmur_detection_tpu_torch.cli.serve pretrain=operaGT random_init=True
+  python -m heart_murmur_detection_tpu_torch.cli.serve pretrain=audiomae random_init=True
   (reads configs/serve_config.yaml; key=value overrides; device=cpu runs the
-  plain torch path without a card)
+  plain torch path without a card; input_sec defaults by tower: 8 s operaCT,
+  8.18 s operaGT, 10 s audiomae)
 
 Endpoints:
   GET  /healthz            -> {"status": "ok", "pretrain": ..., "dim": ...}
@@ -40,6 +43,7 @@ def _opt(cfg, key):
 
 def _build_extractor(cfg):
     from ..extract.extract import FeatureExtractor
+    from ..extract.registry import default_input_sec
 
     pretrain = cfg.get("pretrain", "operaCT")
     input_sec = _opt(cfg, "input_sec")
@@ -47,7 +51,7 @@ def _build_extractor(cfg):
     return FeatureExtractor(
         pretrain,
         dim=int(cfg.get("dim", 768)),
-        input_sec=float(input_sec) if input_sec is not None else 8.0,
+        input_sec=float(input_sec) if input_sec is not None else default_input_sec(pretrain),
         ckpt_path=_opt(cfg, "ckpt_path"),
         batch_size=int(cfg.get("batch_size", 16)),
         random_init=bool(cfg.get("random_init", False)),

@@ -1,5 +1,7 @@
 // Shared pieces of the HTS-AT swin kernels (swin_attn.cu, swin_mlp.cu and
-// the training backward: swin_attn_bwd.cu, swin_mlp_bwd.cu, swin_wgrad.cu).
+// the training backward: swin_attn_bwd.cu, swin_mlp_bwd.cu, swin_wgrad.cu)
+// and of the MAE ViT kernels (vit_qkv.cu, vit_attn.cu; swin_mlp.cu serves
+// as the ViT MLP half with LayerNorm eps 1e-6).
 //
 // Both kernels take bfloat16 activations and weights and keep LayerNorm,
 // softmax, GELU and every accumulator in float32. In-kernel products are
@@ -67,17 +69,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// LayerNorm (eps 1e-5) of one token's C channels by one warp: float32 mean,
-// then the mean of squared deviations, (x - mu) * rstd * w + b with
+// LayerNorm of one token's C channels by one warp: float32 mean, then the
+// mean of squared deviations, (x - mu) * rstd * w + b with
 // rstd = rsqrt(var + eps), rounded to bf16 into dst (a shared-memory row).
-// mu_out / rstd_out (may be null) receive the statistics from lane 0.
+// mu_out / rstd_out (may be null) receive the statistics from lane 0. eps is
+// 1e-5 for the swin blocks (the default) and 1e-6 for the ViT blocks.
 template <int C>
 __device__ __forceinline__ void ln_token(const bf16* __restrict__ src,
                                          const float* __restrict__ w,
                                          const float* __restrict__ b,
                                          bf16* dst, int lane,
                                          float* mu_out = nullptr,
-                                         float* rstd_out = nullptr) {
+                                         float* rstd_out = nullptr,
+                                         float eps = 1e-5f) {
   static_assert(C % 32 == 0, "C must be a multiple of 32");
   constexpr int PER = C / 32;
   float v[PER];
@@ -94,7 +98,7 @@ __device__ __forceinline__ void ln_token(const bf16* __restrict__ src,
     const float d = v[i] - mu;
     q += d * d;
   }
-  const float rstd = rsqrtf(warp_sum(q) / (float)C + 1e-5f);
+  const float rstd = rsqrtf(warp_sum(q) / (float)C + eps);
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int c = lane + 32 * i;

@@ -1,11 +1,15 @@
 // swin_mlp: the MLP half of an HTS-AT swin block, per token,
 //   y = x + k[tok / hw] * fc2(GELU(fc1(LN2(x)))),  x (n_tokens, C) bf16;
 //   k is an optional per-sample multiplier of the training forward (null: 1).
+//   LN2's eps is an argument: 1e-5 for the swin blocks, 1e-6 for ViT.
 //
 // Replaces the MLP body `_strip_mlp` (heart_murmur_detection_tpu/ops/
 // pallas_swin.py:388) that the TPU kernels fused_swin_block (:480),
 // fused_swin_pair (:847) and fused_swin_block_split (:618, MLP half) run,
-// and the MLP half of `_train_fwd_kernel` (ops/pallas_swin_train.py:233, K8).
+// the MLP half of `_train_fwd_kernel` (ops/pallas_swin_train.py:233, K8),
+// and, as `vit_mlp`, the ViT MLP body `_mlp_half` (ops/pallas_vit.py:149)
+// of fused_vit_block (:296, K5) and fused_vit_mlp (:373, K7): the same
+// token-wise LN, fc1, exact GELU, fc2 and residual.
 //
 // Design. A cluster of CS blocks of 8 warps handles a tile of T tokens (64
 // at C <= 384, 32 at C = 768, where a 64-token f32 accumulator would not
@@ -72,7 +76,8 @@ swin_mlp_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
                 const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                 const bf16* __restrict__ w1, const float* __restrict__ b1,
                 const bf16* __restrict__ w2, const float* __restrict__ b2,
-                const float* __restrict__ kmul, int n_tokens, int hidden, int hw) {
+                const float* __restrict__ kmul, int n_tokens, int hidden, int hw,
+                float eps) {
   using L = MlpSmem<C, T, CS>;
   constexpr int RT = T / 16;
   constexpr int CT = C / 16;
@@ -96,7 +101,8 @@ swin_mlp_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   for (int t = warp; t < T; t += NWARPS) {
     const int tok = tok0 + t;
     if (tok < n_tokens) {
-      ln_token<C>(x + (size_t)tok * C, ln_w, ln_b, xn + t * L::LDX, lane);
+      ln_token<C>(x + (size_t)tok * C, ln_w, ln_b, xn + t * L::LDX, lane, nullptr, nullptr,
+                  eps);
     } else {
       for (int c = lane; c < C; c += 32) xn[t * L::LDX + c] = __float2bfloat16(0.f);
     }
@@ -232,7 +238,8 @@ template <int C, int T, int CS>
 static cudaError_t launch_mlp_cs(const void* x, void* out, const void* ln_w,
                                  const void* ln_b, const void* w1, const void* b1,
                                  const void* w2, const void* b2, const void* kmul,
-                                 int n_tokens, int hidden, int hw, cudaStream_t stream) {
+                                 int n_tokens, int hidden, int hw, float eps,
+                                 cudaStream_t stream) {
   const size_t smem = MlpSmem<C, T, CS>::bytes;
   auto kernel = swin_mlp_kernel<C, T, CS>;
   cudaError_t err =
@@ -255,7 +262,7 @@ static cudaError_t launch_mlp_cs(const void* x, void* out, const void* ln_w,
       static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      static_cast<const float*>(kmul), n_tokens, hidden, hw);
+      static_cast<const float*>(kmul), n_tokens, hidden, hw, eps);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -264,39 +271,40 @@ template <int C, int T>
 static cudaError_t launch_mlp(const void* x, void* out, const void* ln_w,
                               const void* ln_b, const void* w1, const void* b1,
                               const void* w2, const void* b2, const void* kmul,
-                              int n_tokens, int hidden, int hw, cudaStream_t stream) {
+                              int n_tokens, int hidden, int hw, float eps,
+                              cudaStream_t stream) {
   constexpr int CS = mlp_cluster<C>();
   // a cluster needs whole hidden chunks a block
   if (CS > 1 && hidden % (HC * CS) == 0 && use_cluster((n_tokens + T - 1) / T, CS))
     return launch_mlp_cs<C, T, CS>(x, out, ln_w, ln_b, w1, b1, w2, b2, kmul,
-                                   n_tokens, hidden, hw, stream);
+                                   n_tokens, hidden, hw, eps, stream);
   return launch_mlp_cs<C, T, 1>(x, out, ln_w, ln_b, w1, b1, w2, b2, kmul, n_tokens,
-                                hidden, hw, stream);
+                                hidden, hw, eps, stream);
 }
 
 }  // namespace hmdt
 
 // C interface for ctypes. Returns cudaGetLastError() after the launch (0 on
 // success); x and out are distinct (n_tokens, C) bf16 buffers; kmul (one
-// float per sample of hw tokens) may be null.
+// float per sample of hw tokens) may be null; eps is LN2's epsilon.
 extern "C" int swin_mlp_launch(const void* x, void* out, const void* ln_w,
                                const void* ln_b, const void* w_fc1,
                                const void* b_fc1, const void* w_fc2,
                                const void* b_fc2, const void* kmul, int n_tokens,
-                               int C, int hidden, int hw, void* stream) {
+                               int C, int hidden, int hw, float eps, void* stream) {
   using namespace hmdt;
   if (n_tokens <= 0 || hidden <= 0 || hidden % HC || hw <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 96:
-      return (int)launch_mlp<96, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, s);
+      return (int)launch_mlp<96, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, eps, s);
     case 192:
-      return (int)launch_mlp<192, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, s);
+      return (int)launch_mlp<192, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, eps, s);
     case 384:
-      return (int)launch_mlp<384, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, s);
+      return (int)launch_mlp<384, 64>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, eps, s);
     case 768:
-      return (int)launch_mlp<768, 32>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, s);
+      return (int)launch_mlp<768, 32>(x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, hidden, hw, eps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

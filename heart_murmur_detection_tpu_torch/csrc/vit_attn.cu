@@ -1,0 +1,417 @@
+// vit_attn: the attention, proj and residual of a ViT block's attention half,
+//   out = x + proj(concat_h softmax(q_h k_h^T, keys >= n_real masked) v_h),
+//   q, k, v head-major (3, B, heads, Np, 64) bf16 from vit_qkv.cu (q carries
+//   1/sqrt(hd)); x and out (B, Np, C) bf16.
+//
+// Replaces the attention part of the ViT attention body `_attn_half`
+// (heart_murmur_detection_tpu/ops/pallas_vit.py:66) that the TPU kernels
+// fused_vit_block (:296, K5) and fused_vit_attn (:341, K6) run.
+//
+// Design. A block of 4 warps takes one clip's 64-row query tile and walks
+// the heads in sequence; warp w owns query rows 16w..16w+15. K and V of one
+// head (1040 x 64 x 2 x 2 B at operaGT) do not fit in shared memory beside
+// the output tile, so the block streams them in key tiles (64 keys at
+// C = 384, 32 at C = 768), and only over the keys < n_real: the TPU kernel
+// set the padded key columns to -1e9, whose probabilities are exact zeros,
+// so skipping them is exact (the last tile masks its columns past n_real
+// the same way). The next tile is loaded into registers while the current
+// one is used; a tile costs two block barriers (the K/V hand-off) and
+// nothing else, because the scores never leave registers: each warp runs
+// mma.sync m16n8k16 (bf16, float32 accumulation) with its Q fragments held
+// for the whole head, keeps S = Q K^T in the accumulator layout (a thread
+// holds two columns of rows g and g + 8), reduces rows over the 4 threads
+// of a quad, and feeds P, rounded to bf16, back as the A operand of P V.
+//  - fast_softmax: one pass. e = exp(s) in float32 is added to the row sum
+//    and rounded to bf16 for P V, whose float32 accumulators stay in
+//    registers across the tiles; after the last tile the output is scaled by
+//    1/sum. That is the TPU kernel's own order.
+//  - stable: two passes. The first finds each row's max and sum (online,
+//    rescaling the sum when the max moves); the second forms the normalised
+//    P = exp(s - max) / sum, rounds it to bf16 and runs P V. That puts the
+//    rounding where jax.nn.softmax then the bf16 product put it; an
+//    online-rescaled single pass would round P before its final scale. The
+//    price is a second Q K^T per tile.
+// Each head's output is rounded to bf16 into a 64 x C shared tile (48 KB at
+// C = 384, 97 KB at C = 768); the epilogue runs proj against it with WMMA (a
+// warp takes a 16-wide weight column tile against all 4 row tiles), adds the
+// float32 bias and the residual x and rounds once. Query rows past Np read
+// zeros and are not written; padded query rows < Np produce garbage that
+// stays in padded rows, as on the TPU. Shared memory: 67 KB at C = 384
+// (three blocks an SM), 106 KB at C = 768 (two).
+//
+// Bound on this card: 4 Np^2 hd FLOPs a head and clip for attention (one
+// pass) plus 2 Np C^2 for proj, against 4 Np C + 6 Np C bytes, so the
+// operations bound it. Later work: wgmma with TMA-fed K/V tiles, two heads
+// a block at the narrow batch.
+#include <math.h>
+#include <stdint.h>
+
+#include "swin_common.cuh"
+
+namespace hmdt {
+
+constexpr int AQ = 64;               // query rows a block
+constexpr int AHD = 64;              // head dim
+constexpr int AWARPS = 4;            // warps a block, 16 query rows each
+constexpr int ATHREADS = AWARPS * 32;
+constexpr int LDT = AHD + PAD;       // k / v tile rows (bf16)
+constexpr float MASK_LOGIT = -1e9f;  // the TPU kernel's padded-key logit
+
+// keys a tile: 64 at C = 384; 32 at C = 768, where two blocks an SM then
+// still fit beside the 97 KB output tile
+template <int C>
+constexpr int attn_key_tile() {
+  return C >= 768 ? 32 : 64;
+}
+
+template <int C>
+struct VitAttnSmem {
+  static constexpr int KT = attn_key_tile<C>();
+  static constexpr int LDO = C + PAD;  // head outputs (bf16)
+  static constexpr size_t O = (size_t)AQ * LDO * 2;
+  static constexpr size_t T = (size_t)KT * LDT * 2;
+  static constexpr size_t off_o = 0;
+  static constexpr size_t off_k = O;
+  static constexpr size_t off_v = off_k + T;
+  static constexpr size_t bytes = off_v + T;
+  static_assert(O % 128 == 0 && T % 128 == 0,
+                "shared-memory regions must stay 128-byte aligned");
+  static_assert((size_t)AWARPS * 256 * 4 <= 2 * T, "staging must fit in the k / v tiles");
+  static_assert(bytes <= SMEM_LIMIT, "shared memory over the sm_90 limit");
+};
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four transposed 8 x 8 bf16 matrices from shared memory; lane l gives the
+// address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// KT rows of a head's (Np, 64) bf16 matrix in registers: thread i holds
+// 16-byte pieces i, i + 128, ... (rows at or past Np read as zeros), so the
+// next key tile's loads are in flight while the current one is used.
+template <int KT>
+struct TileRegs {
+  static constexpr int N = KT * (AHD / 8) / ATHREADS;
+  int4 v[N];
+};
+
+template <int KT>
+__device__ __forceinline__ void fetch_tile(const bf16* __restrict__ src, int r0, int Np,
+                                           TileRegs<KT>& t) {
+#pragma unroll
+  for (int u = 0; u < TileRegs<KT>::N; ++u) {
+    const int i = threadIdx.x + u * ATHREADS;
+    const int r = i / (AHD / 8);
+    t.v[u] = r0 + r < Np
+                 ? reinterpret_cast<const int4*>(src + (size_t)(r0 + r) * AHD)[i % (AHD / 8)]
+                 : make_int4(0, 0, 0, 0);
+  }
+}
+
+template <int KT>
+__device__ __forceinline__ void store_tile(const TileRegs<KT>& t, bf16* dst) {
+#pragma unroll
+  for (int u = 0; u < TileRegs<KT>::N; ++u) {
+    const int i = threadIdx.x + u * ATHREADS;
+    reinterpret_cast<int4*>(dst + (i / (AHD / 8)) * LDT)[i % (AHD / 8)] = t.v[u];
+  }
+}
+
+// S (16 x KT, float32) = Q K^T for this warp's rows: s[nb] holds keys
+// nb * 8 + 2 t, + 1 of rows g (s[nb][0..1]) and g + 8 (s[nb][2..3]); keys at
+// or past n_real (col0 is the tile's first key) read as the masked logit.
+template <int KT>
+__device__ __forceinline__ void score_tile(const uint32_t (&qa)[AHD / 16][4], const bf16* ks,
+                                           int col0, int n_real, int g, int t,
+                                           float (&s)[KT / 8][4]) {
+#pragma unroll
+  for (int nb = 0; nb < KT / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < AHD / 16; ++kc) {
+#pragma unroll
+    for (int nb = 0; nb < KT / 8; ++nb) {
+      const bf16* kr = ks + (nb * 8 + g) * LDT + kc * 16 + 2 * t;
+      mma_bf16(s[nb], qa[kc], *reinterpret_cast<const uint32_t*>(kr),
+               *reinterpret_cast<const uint32_t*>(kr + 8));
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < KT / 8; ++nb) {
+    const int c = col0 + nb * 8 + 2 * t;
+    if (c >= n_real) s[nb][0] = s[nb][2] = MASK_LOGIT;
+    if (c + 1 >= n_real) s[nb][1] = s[nb][3] = MASK_LOGIT;
+  }
+}
+
+// Merge (max, sum of exp(s - max)) over the 4 threads of a quad (one row).
+__device__ __forceinline__ void merge_row_stats(float& m, float& l) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, o);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, o);
+    const float mn = fmaxf(m, mo);
+    l = l * expf(m - mn) + lo * expf(mo - mn);
+    m = mn;
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(ATHREADS, (C >= 768 ? 2 : 3))
+vit_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ qkv,
+                bf16* __restrict__ out, const bf16* __restrict__ w_proj,
+                const float* __restrict__ b_proj, int Np, int heads, int n_real,
+                int fast_softmax) {
+  using L = VitAttnSmem<C>;
+  constexpr int KT = L::KT;
+  constexpr int NB = KT / 8;  // 8-key column blocks of a tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ob = reinterpret_cast<bf16*>(smem + L::off_o);
+  bf16* ks = reinterpret_cast<bf16*>(smem + L::off_k);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L::off_v);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // accumulator row (and row + 8) of this thread
+  const int t = lane & 3;   // its column pair
+  const int q0 = blockIdx.x * AQ;
+  const int b = blockIdx.y;
+  const int B = gridDim.y;
+  const int n_kt = (n_real + KT - 1) / KT;  // key tiles holding real keys
+  const int row0 = warp * 16 + g;            // this thread's rows in the tile
+  const size_t hstride = (size_t)Np * AHD;
+
+  for (int h = 0; h < heads; ++h) {
+    const bf16* qh = qkv + ((size_t)b * heads + h) * hstride;
+    const bf16* kh = qkv + ((size_t)(B + b) * heads + h) * hstride;
+    const bf16* vh = qkv + ((size_t)(2 * B + b) * heads + h) * hstride;
+    // this warp's Q as m16n8k16 A fragments, straight from device memory
+    uint32_t qa[AHD / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < AHD / 16; ++kc) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + row0 + (e & 1) * 8;
+        const int c = kc * 16 + (e >> 1) * 8 + 2 * t;
+        qa[kc][e] = r < Np ? *reinterpret_cast<const uint32_t*>(qh + (size_t)r * AHD + c) : 0u;
+      }
+    }
+    TileRegs<KT> kr, vr;
+    fetch_tile<KT>(kh, 0, Np, kr);
+    store_tile<KT>(kr, ks);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
+    if (!fast_softmax) {
+      // pass 1: each row's max and sum of exp(s - max), kept per thread over
+      // its columns (rescaled when the max moves), merged over the quad
+      __syncthreads();
+      for (int kt = 0; kt < n_kt; ++kt) {
+        if (kt + 1 < n_kt) fetch_tile<KT>(kh, (kt + 1) * KT, Np, kr);
+        float s[NB][4];
+        score_tile<KT>(qa, ks, kt * KT, n_real, g, t, s);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float tmax = s[0][2 * hr];
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+            tmax = fmaxf(tmax, fmaxf(s[nb][2 * hr], s[nb][2 * hr + 1]));
+          const float mn = fmaxf(m[hr], tmax);
+          float e = 0.f;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+            e += expf(s[nb][2 * hr] - mn) + expf(s[nb][2 * hr + 1] - mn);
+          l[hr] = l[hr] * expf(m[hr] - mn) + e;
+          m[hr] = mn;
+        }
+        __syncthreads();  // every warp is done with this K tile
+        if (kt + 1 < n_kt) {
+          store_tile<KT>(kr, ks);
+          __syncthreads();
+        }
+      }
+      merge_row_stats(m[0], l[0]);
+      merge_row_stats(m[1], l[1]);
+      fetch_tile<KT>(kh, 0, Np, kr);
+      store_tile<KT>(kr, ks);
+    }
+    fetch_tile<KT>(vh, 0, Np, vr);
+    store_tile<KT>(vr, vs);
+    __syncthreads();
+    // pass 2 (the only pass with fast_softmax): P, rounded to bf16, times V
+    float o[AHD / 8][4];
+#pragma unroll
+    for (int db = 0; db < AHD / 8; ++db)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
+    float sum[2] = {0.f, 0.f};  // fast_softmax: this thread's share of the row sums
+    for (int kt = 0; kt < n_kt; ++kt) {
+      if (kt + 1 < n_kt) {
+        fetch_tile<KT>(kh, (kt + 1) * KT, Np, kr);
+        fetch_tile<KT>(vh, (kt + 1) * KT, Np, vr);
+      }
+      float s[NB][4];
+      score_tile<KT>(qa, ks, kt * KT, n_real, g, t, s);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          float p;
+          if (fast_softmax) {
+            p = expf(s[nb][e]);
+            sum[hr] += p;
+          } else {
+            p = expf(s[nb][e] - m[hr]) / l[hr];
+          }
+          s[nb][e] = p;
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < KT / 16; ++kc) {
+        // P of keys 16 kc .. 16 kc + 15 as an A fragment (the accumulator
+        // layout of two column blocks is the A layout)
+        const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                                pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                                pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                                pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+        for (int db = 0; db < AHD / 8; db += 2) {
+          // V rows 16 kc .. +15, dims db * 8 .. +15, transposed into the
+          // B fragments of dim blocks db and db + 1
+          const int j = lane >> 3;
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, vs + (kc * 16 + (j & 1) * 8 + (lane & 7)) * LDT + (db + (j >> 1)) * 8);
+          mma_bf16(o[db], pa, bv[0], bv[1]);
+          mma_bf16(o[db + 1], pa, bv[2], bv[3]);
+        }
+      }
+      __syncthreads();  // every warp is done with this K and V tile
+      if (kt + 1 < n_kt) {
+        store_tile<KT>(kr, ks);
+        store_tile<KT>(vr, vs);
+        __syncthreads();
+      }
+    }
+    float scale[2] = {1.f, 1.f};
+    if (fast_softmax) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
+        sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
+        scale[hr] = 1.f / sum[hr];
+      }
+    }
+    // this head's 16 x 64 output of the warp, rounded to bf16, into ob
+#pragma unroll
+    for (int db = 0; db < AHD / 8; ++db) {
+      const int c = h * AHD + db * 8 + 2 * t;
+      float v0 = o[db][0], v1 = o[db][1], v2 = o[db][2], v3 = o[db][3];
+      if (fast_softmax) {
+        v0 *= scale[0];
+        v1 *= scale[0];
+        v2 *= scale[1];
+        v3 *= scale[1];
+      }
+      *reinterpret_cast<uint32_t*>(ob + row0 * L::LDO + c) = pack_bf16(v0, v1);
+      *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * L::LDO + c) = pack_bf16(v2, v3);
+    }
+  }
+  __syncthreads();  // every head's output is in ob; k / v become staging
+
+  // proj (K = C) + b_proj + x -> out; a unit is one 16-wide weight column
+  // tile against the 4 row tiles
+  float* stage = reinterpret_cast<float*>(smem + L::off_k) + warp * 256;
+  constexpr int NCT = C / 16;
+  for (int ct = warp; ct < NCT; ct += AWARPS) {
+    const int n0 = ct * 16;
+    FragC acc[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) wmma::fill_fragment(acc[r], 0.f);
+#pragma unroll 2
+    for (int k0 = 0; k0 < C; k0 += 16) {
+      FragBc bw;
+      wmma::load_matrix_sync(bw, w_proj + (size_t)n0 * C + k0, C);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        FragA a;
+        wmma::load_matrix_sync(a, ob + r * 16 * L::LDO + k0, L::LDO);
+        wmma::mma_sync(acc[r], a, bw, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      wmma::store_matrix_sync(stage, acc[r], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int tq = q0 + r * 16 + e / 16;
+        const int c = n0 + e % 16;
+        if (tq < Np) {
+          const size_t off = ((size_t)b * Np + tq) * C + c;
+          out[off] = __float2bfloat16(__bfloat162float(x[off]) + (stage[e] + b_proj[c]));
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int C>
+static cudaError_t launch_vit_attn(const void* x, const void* qkv, void* out,
+                                   const void* w_proj, const void* b_proj, int B, int Np,
+                                   int heads, int n_real, int fast_softmax,
+                                   cudaStream_t stream) {
+  const size_t smem = VitAttnSmem<C>::bytes;
+  auto kernel = vit_attn_kernel<C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Np + AQ - 1) / AQ, B);
+  kernel<<<grid, ATHREADS, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
+      static_cast<const bf16*>(w_proj), static_cast<const float*>(b_proj), Np, heads, n_real,
+      fast_softmax);
+  return cudaGetLastError();
+}
+
+}  // namespace hmdt
+
+// C interface for ctypes. Returns cudaGetLastError() after the launch (0 on
+// success). x and out distinct (B, Np, C) bf16; qkv (3, B, heads, Np, 64)
+// bf16; w_proj (C, C) bf16; b_proj float32; keys >= n_real are masked.
+extern "C" int vit_attn_launch(const void* x, const void* qkv, void* out,
+                               const void* w_proj, const void* b_proj, int B, int Np,
+                               int C, int heads, int n_real, int fast_softmax,
+                               void* stream) {
+  using namespace hmdt;
+  if (B <= 0 || Np <= 0 || n_real <= 0 || n_real > Np || heads * AHD != C ||
+      B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 384:
+      return (int)launch_vit_attn<384>(x, qkv, out, w_proj, b_proj, B, Np, heads, n_real,
+                                       fast_softmax, s);
+    case 768:
+      return (int)launch_vit_attn<768>(x, qkv, out, w_proj, b_proj, B, Np, heads, n_real,
+                                       fast_softmax, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,4 +1,4 @@
-"""Weights into the port's Cola (operaCT) — counterpart of
+"""Weights into the port's models — counterpart of
 heart_murmur_detection_tpu/extract/convert.py.
 
 - `from_jax(variables)`: the JAX package's flax `Cola` variables
@@ -11,6 +11,14 @@ heart_murmur_detection_tpu/extract/convert.py.
   The tscam head is not carried.
 - `load_torch_ckpt(path, model)`: a reference OPERA-CT `.ckpt` into the
   port's Cola, keys matched by name (the port keeps the reference names).
+- `from_jax_mae(variables)`: the JAX package's flax MaskedAutoencoderViT or
+  AudioMAEClassifierBackbone variables -> the port's state_dict of the
+  encoder (models/vit_mae.py); the inverse of the encoder part of the JAX
+  `convert_mae` and `convert_audiomae_backbone`.
+- `load_mae_ckpt(path, model)`: a reference OPERA-GT or Audio-MAE
+  checkpoint into the port's encoder by key name; decoder, mask-token and
+  pos_embed keys are ignored; a missing Audio-MAE fc_norm falls back to the
+  encoder's norm, else to ones and zeros (as the JAX converter does).
 """
 
 from __future__ import annotations
@@ -79,6 +87,58 @@ def from_jax(variables: dict) -> Dict[str, torch.Tensor]:
         _norm(sd, "layer_norm", params["layer_norm"])
         _linear(sd, "linear", params["linear"], bias=False)
     return sd
+
+
+def from_jax_mae(variables: dict) -> Dict[str, torch.Tensor]:
+    """flax MAE / Audio-MAE encoder variables -> state_dict of
+    models.vit_mae.MaskedAutoencoderViT / AudioMAEClassifierBackbone.
+    Decoder leaves, if present, are not carried."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    k = np.asarray(params["patch_embed_proj"]["kernel"])  # (kh, kw, 1, D)
+    sd["patch_embed.proj.weight"] = _t(k.transpose(3, 2, 0, 1))
+    sd["patch_embed.proj.bias"] = _t(params["patch_embed_proj"]["bias"])
+    sd["cls_token"] = _t(params["cls_token"])
+    blocks = sorted(
+        (int(m[1]), name) for name in params if (m := re.fullmatch(r"blocks_(\d+)", name))
+    )
+    for i, name in blocks:
+        blk, tp = params[name], f"blocks.{i}."
+        _norm(sd, tp + "norm1", blk["norm1"])
+        _linear(sd, tp + "attn.qkv", blk["attn_qkv"])
+        _linear(sd, tp + "attn.proj", blk["attn_proj"])
+        _norm(sd, tp + "norm2", blk["norm2"])
+        _linear(sd, tp + "mlp.fc1", blk["mlp_fc1"])
+        _linear(sd, tp + "mlp.fc2", blk["mlp_fc2"])
+    for norm in ("norm", "fc_norm"):
+        if norm in params:
+            _norm(sd, norm, params[norm])
+    return sd
+
+
+def load_mae_ckpt(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a reference MAE-family checkpoint (Lightning `.ckpt`, a `.pth`
+    holding {"model": ...}, or a bare state_dict) into the port's encoder by
+    key name. The encoder may sit under any prefix (found from its patch
+    embed); keys the encoder does not hold are ignored; a missing key
+    raises."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt.get("model", ckpt))
+    anchor = "patch_embed.proj.weight"
+    prefix = next((k[: -len(anchor)] for k in sd if k.endswith(anchor)), None)
+    if prefix is None:
+        raise KeyError(f"no MAE encoder (patch_embed.proj.weight) in checkpoint {path}")
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    own = model.state_dict()
+    for leaf, fill in (("weight", torch.ones), ("bias", torch.zeros)):
+        key = f"fc_norm.{leaf}"
+        if key in own and key not in sd:
+            sd[key] = sd.get(f"norm.{leaf}", fill(own[key].shape))
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise KeyError(f"checkpoint {path} lacks {len(missing)} keys, e.g. {missing[:3]}")
+    model.load_state_dict({k: sd[k] for k in own})
+    return model
 
 
 def load_torch_ckpt(path: str, model: torch.nn.Module) -> torch.nn.Module:

@@ -1,12 +1,17 @@
-"""Batched operaCT feature extraction — counterpart of
-heart_murmur_detection_tpu/extract/extract.py for the operaCT branch.
+"""Batched feature extraction — counterpart of
+heart_murmur_detection_tpu/extract/extract.py for the ported towers.
 
-  whole clip (<= 32 s) -> wire decode -> device mel -> HTS-AT latent (768)
-                                                       [-> g (512)]
+  operaCT : whole clip (<= 32 s) -> wire decode -> device mel -> HTS-AT
+            latent (768) [-> g (512)]
+  operaGT : 8.18 s 50%-hop chunks -> device mel -> ViT-S forward_feature ->
+            mean over a file's chunks (384)
+  audiomae: 10 s non-overlapping chunks (+ tail) -> device kaldi fbank ->
+            ViT-B global-pool backbone -> mean over a file's chunks (768)
 
-The host decodes, trims and pads; the device runs the wire decode, the mel
-frontend and the encoder, whose swin blocks are the CUDA kernels of
-ops/swin.py under the bf16 flow on a card.
+The host decodes, trims, splits and pads; the device runs the wire decode,
+the spectrogram frontend and the encoder, whose blocks are the CUDA kernels
+of ops/swin.py (HTS-AT) or ops/vit.py (the MAE ViTs) under the bf16 flow on
+a card.
 
 Host pipeline (the JAX two-stage pack || put, extract.py:505-511): one
 worker thread packs batches (pad_batch + wire encode) into numpy, a second
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from ..audio import dsp, pipelines, wire
+from ..audio.pad import split_pad_sample, split_sample_simple
 from . import registry
 
 SR = 16000
@@ -37,12 +43,15 @@ def _batched(n: int, bs: int):
 
 
 class FeatureExtractor:
-    """Batched extraction for the operaCT encoder on one device.
+    """Batched extraction for one ported encoder (operaCT, operaGT or an
+    audiomae kind) on one device.
 
     device: "cuda" (the default) or "cpu"; a CUDA device without a card
     raises. compute_dtype: torch.bfloat16 (the default) is the bf16 flow
     that runs the CUDA kernels on a card; torch.float32 is the strict path
     and runs only on the CPU here (the float32 kernels are not ported).
+    dim selects the operaCT output (768 latent or 512 projection); the MAE
+    towers give their embedding width (384 operaGT, 768 audiomae).
     fast_softmax: normalise after the P v product (None = on for bf16 on a
     card, the JAX auto choice for a bf16 accelerator); a batch whose
     features come out non-finite is re-run with the stable softmax.
@@ -66,9 +75,14 @@ class FeatureExtractor:
         device="cuda",
         seed: int = 0,
     ):
-        if not registry.is_operact(pretrain):
-            raise NotImplementedError(f"pretrain {pretrain!r}: only operaCT is ported")
-        if dim not in (768, 512):
+        self.pretrain = pretrain
+        self.is_audiomae = registry.is_audiomae(pretrain)
+        self.is_mae = self.is_audiomae or registry.is_operagt(pretrain)
+        if not (self.is_mae or registry.is_operact(pretrain)):
+            raise NotImplementedError(
+                f"pretrain {pretrain!r}: only operaCT, operaGT and audiomae are ported"
+            )
+        if not self.is_mae and dim not in (768, 512):
             raise NotImplementedError(f"operaCT dim {dim}: 768 or 512")
         if source_sr is not None:
             raise NotImplementedError("source_sr (on-device resampling) is not ported")
@@ -82,7 +96,7 @@ class FeatureExtractor:
                 raise RuntimeError("FeatureExtractor(device='cuda'): no CUDA card available")
             if compute_dtype != torch.bfloat16:
                 raise NotImplementedError(
-                    "on a card the swin kernels take bfloat16; the float32 kernels are not ported"
+                    "on a card the kernels take bfloat16; the float32 kernels are not ported"
                 )
         elif self.device.type != "cpu":
             raise ValueError(f"device {device!r}: 'cuda' or 'cpu'")
@@ -99,7 +113,9 @@ class FeatureExtractor:
         self.model = registry.initialize_pretrained_model(
             pretrain, ckpt_path=ckpt_path, random_init=random_init, seed=seed
         ).to(self.device)
-        self.max_sec = 32
+        if self.is_mae:
+            self.dim = self.model.config.embed_dim
+        self.max_sec = None if self.is_mae else 32
         self.n_dispatched = 0  # batches sent through the encoder
         self._on_card = self.device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(self.device) if self._on_card else None
@@ -118,6 +134,26 @@ class FeatureExtractor:
         """The batch forward (wav, lengths) -> features (B, dim) on the device."""
         fast = self.fast_softmax if fast_softmax is None else fast_softmax
         model, dim, mm = self.model, self.dim, self.compute_dtype
+
+        if self.is_audiomae:
+            from ..models.vit_fused import audiomae_backbone_fused
+
+            def fn(wav, lengths):
+                with torch.inference_mode():
+                    fb, _ = dsp.kaldi_fbank_frontend(self._prologue(wav), lengths)
+                    return audiomae_backbone_fused(model, fb, mm, fast)
+
+            return fn
+
+        if self.is_mae:  # operaGT
+            from ..models.vit_fused import mae_forward_feature_fused
+
+            def fn(wav, lengths):
+                with torch.inference_mode():
+                    mel, _ = self._mel(self._prologue(wav), lengths)
+                    return mae_forward_feature_fused(model, mel[:, :256], mm, fast)
+
+            return fn
 
         def fn(wav, lengths):
             with torch.inference_mode():
@@ -232,7 +268,20 @@ class FeatureExtractor:
             max_sec=self.max_sec,
         )
 
+    def _chunks(self, path: str) -> List[np.ndarray]:
+        """A file's chunks: 10 s non-overlapping windows with the tail, each
+        made zero-mean, for audiomae (the keep gate >400 samples, i.e. >25
+        ms); input_sec windows at 50% hop, the remainder padded, for
+        operaGT. No bandpass filter runs (the JAX _chunks passes None)."""
+        yt = pipelines._load_trim(path, SR)
+        if self.is_audiomae:
+            chunks = split_sample_simple(yt, 10, SR)
+            return [c - c.mean() for c in chunks if len(c) > 400]
+        return split_pad_sample(yt, self.input_sec, SR)
+
     def extract_files(self, sound_dir_loc: Sequence[str]) -> np.ndarray:
+        if self.is_mae:
+            return self._extract_chunked(sound_dir_loc)
         return self._extract_whole(sound_dir_loc)
 
     def _extract_whole(self, paths) -> np.ndarray:
@@ -244,9 +293,46 @@ class FeatureExtractor:
     def extract_waveforms(
         self, clips: List[np.ndarray], max_len: Optional[int] = None
     ) -> np.ndarray:
-        bs = self.batch_size
         if max_len is None:
             max_len = max(len(c) for c in clips)
+        return self._run(clips, max_len)
+
+    # chunked models (operaGT / audiomae)
+    def _extract_chunked(self, paths) -> np.ndarray:
+        """Every file's kept chunks through the encoder in batches, then the
+        mean feature of each file's chunks (zeros for a file with none)."""
+        all_chunks: List[np.ndarray] = []
+        owners: List[int] = []
+        for i, p in enumerate(paths):
+            for c in self._chunks(p):
+                # operaGT keeps chunks with >= 16 mel frames (model_util.py:148,
+                # hop 512); audiomae keeps every chunk _chunks returns: the
+                # reference's fbank gate tests the 128-bin axis and is vacuous
+                if self.is_audiomae or len(c) // 512 + 1 >= 16:
+                    all_chunks.append(c)
+                    owners.append(i)
+        feats = self.extract_chunk_waveforms(all_chunks)
+        out = np.zeros((len(paths), feats.shape[1]), np.float32)
+        cnt = np.zeros(len(paths), np.int64)
+        for f, o in zip(feats, owners):
+            out[o] += f
+            cnt[o] += 1
+        return out / np.maximum(cnt, 1)[:, None]
+
+    def extract_chunk_waveforms(self, chunks: List[np.ndarray]) -> np.ndarray:
+        """Features of chunks padded to the tower's window: 10 s for
+        audiomae, input_sec rounded up to 512 samples for operaGT."""
+        if self.is_audiomae:
+            max_len = 10 * SR
+        else:
+            max_len = (int(self.input_sec * SR) + 511) // 512 * 512
+        return self._run(chunks, max_len)
+
+    def _run(self, clips: List[np.ndarray], max_len: int) -> np.ndarray:
+        """Pack, copy and run fixed-size batches of clips; (len(clips), dim)."""
+        bs = self.batch_size
+        if not clips:
+            return np.zeros((0, self.dim), np.float32)
 
         def packed():
             for lo, hi in _batched(len(clips), bs):

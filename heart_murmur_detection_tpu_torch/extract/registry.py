@@ -1,5 +1,7 @@
-"""Model factory for the operaCT kinds — counterpart of
-heart_murmur_detection_tpu/extract/registry.py.
+"""Model factory for the ported kinds — counterpart of
+heart_murmur_detection_tpu/extract/registry.py: operaCT (Cola(htsat)),
+operaGT (the MAE ViT-S encoder) and the audiomae kinds (the Audio-MAE ViT-B
+backbone).
 
 Checkpoint paths mirror the reference's `cks/` layout. Nothing is
 downloaded: a missing checkpoint raises with the expected path. Random init
@@ -13,15 +15,59 @@ from typing import Optional
 
 import torch
 
+from ..models import vit_mae
 from ..models.cola import Cola
 from ..models.htsat import init_weights
 from . import convert
 
 ENCODER_PATH_OPERA_CT_HT_SAT = "cks/model/encoder-operaCT.ckpt"
+ENCODER_PATH_OPERA_GT_VIT = "cks/model/encoder-operaGT.ckpt"
+
+_CP_DIR = "cks/model/combined"
+
+_AUDIOMAE_PATHS = {
+    "audiomae": "src/benchmark/baseline/audioMAE/pretrained.pth",
+    "audiomae-heart-all": f"{_CP_DIR}/circor_pascal_A_pascal_B_physionet16_zchsound_clean_zchsound_noisy/encoder-audiomae-heart-all-epoch=269--valid_acc=0.00-valid_loss=0.8422.ckpt",
+    "audiomae-heart-circor-indomain": f"{_CP_DIR}/circor/encoder-audiomae-heart-circor-indomain-epoch=389--valid_acc=0.00-valid_loss=1.0124.ckpt",
+    "audiomae-heart-nozchsound": f"{_CP_DIR}/circor_pascal_A_pascal_B_physionet16/encoder-audiomae-heart-nozchsound-epoch=289--valid_acc=0.00-valid_loss=0.8262.ckpt",
+    "audiomae-heart-nophysionet16": f"{_CP_DIR}/circor_pascal_A_pascal_B_zchsound_clean_zchsound_noisy/encoder-audiomae-heart-nophysionet16-epoch=329--valid_acc=0.00-valid_loss=0.9945.ckpt",
+    "audiomae-heart-nopascal": f"{_CP_DIR}/circor_physionet16_zchsound_clean_zchsound_noisy/encoder-audiomae-heart-nopascal-epoch=329--valid_acc=0.00-valid_loss=0.8338.ckpt",
+    "audiomae-heart-nocircor": f"{_CP_DIR}/pascal_A_pascal_B_physionet16_zchsound_clean_zchsound_noisy/encoder-audiomae-heart-nocircor-epoch=429--valid_acc=0.00-valid_loss=0.6585.ckpt",
+    "audiomae-heart-physionet16-indomain": f"{_CP_DIR}/physionet16/encoder-audiomae-heart-physionet16-indomain-epoch=459--valid_acc=0.00-valid_loss=0.5994.ckpt",
+    "audiomae-heart-all-scratch": f"{_CP_DIR}/circor_pascal_A_pascal_B_physionet16_zchsound_clean_zchsound_noisy/encoder-audiomae-heart-all-scratch-epoch=389--valid_acc=0.00-valid_loss=1.1551.ckpt",
+}
 
 
 def is_operact(pretrain: str) -> bool:
     return "operaCT" in pretrain or pretrain == "null-htsat"
+
+
+def is_operagt(pretrain: str) -> bool:
+    return pretrain == "operaGT"
+
+
+def is_audiomae(pretrain: str) -> bool:
+    return "audiomae" in pretrain
+
+
+def default_input_sec(pretrain: str, min_len_htsat: float = 8, min_len_cnn: float = 8):
+    """Per-model window policy (circor_processing.py:325-343); a copy of
+    heart_murmur_detection_tpu/data/processors/common.py::default_input_sec."""
+    if "operaCT" in pretrain:
+        return min_len_htsat
+    if pretrain == "operaCE":
+        return min_len_cnn
+    if pretrain == "operaGT":
+        return 8.18
+    if "audiomae" in pretrain:
+        return 10
+    return 8
+
+
+def _missing(pretrain: str, path: str):
+    return FileNotFoundError(
+        f"checkpoint for '{pretrain}' not found at {path}; place the checkpoint there"
+    )
 
 
 def initialize_pretrained_model(
@@ -29,16 +75,37 @@ def initialize_pretrained_model(
     ckpt_path: Optional[str] = None,
     random_init: bool = False,
     seed: int = 0,
-) -> Cola:
-    """Build the Cola(htsat) model for an operaCT `pretrain` on the CPU and
-    load its weights: random (seeded) for random_init or a null-* pretrain,
-    else from ckpt_path (default: the reference's base checkpoint path).
+) -> torch.nn.Module:
+    """Build the model for `pretrain` on the CPU and load its weights:
+    random (seeded) for random_init or a null-* pretrain, else from
+    ckpt_path (default: the reference's checkpoint path for the kind).
+    operaCT kinds give a Cola(htsat), operaGT a MaskedAutoencoderViT
+    (ViT-S), the audiomae kinds an AudioMAEClassifierBackbone (ViT-B/16).
     Other encoder families are not ported yet and raise."""
+    gen = torch.Generator().manual_seed(seed)
+    if is_operagt(pretrain) or is_audiomae(pretrain):
+        if is_operagt(pretrain):
+            model = vit_mae.MaskedAutoencoderViT(vit_mae.mae_vit_small_config())
+            default = ENCODER_PATH_OPERA_GT_VIT
+        else:
+            model = vit_mae.AudioMAEClassifierBackbone(vit_mae.audiomae_base_config())
+            default = _AUDIOMAE_PATHS.get(pretrain)
+        if random_init:
+            vit_mae.init_weights(model, gen)
+            return model.eval()
+        ckpt_path = ckpt_path or default
+        if ckpt_path is None:
+            raise KeyError(f"unknown audiomae pretrain: {pretrain}")
+        if not os.path.exists(ckpt_path):
+            raise _missing(pretrain, ckpt_path)
+        return convert.load_mae_ckpt(ckpt_path, model).eval()
     if not is_operact(pretrain):
-        raise NotImplementedError(f"pretrain {pretrain!r}: only the operaCT kinds are ported")
+        raise NotImplementedError(
+            f"pretrain {pretrain!r}: only the operaCT, operaGT and audiomae kinds are ported"
+        )
     model = Cola()
     if random_init or pretrain.startswith("null"):
-        init_weights(model, torch.Generator().manual_seed(seed))
+        init_weights(model, gen)
         return model.eval()
     if ckpt_path is None:
         if pretrain != "operaCT":
@@ -48,7 +115,5 @@ def initialize_pretrained_model(
             )
         ckpt_path = ENCODER_PATH_OPERA_CT_HT_SAT
     if not os.path.exists(ckpt_path):
-        raise FileNotFoundError(
-            f"checkpoint for '{pretrain}' not found at {ckpt_path}; place the checkpoint there"
-        )
+        raise _missing(pretrain, ckpt_path)
     return convert.load_torch_ckpt(ckpt_path, model).eval()

@@ -2,7 +2,7 @@
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -c csrc/<name>.cu -o build/<hash>/<name>.o   (each, in parallel)
-    nvcc -shared -o build/<hash>/libhmdt_swin.so build/<hash>/*.o
+    nvcc -shared -o build/<hash>/libhmdt.so build/<hash>/*.o
 
 The sources have a plain C interface (no PyTorch headers), so a build takes
 seconds; the sources compile in parallel, one nvcc each, then link. It
@@ -25,21 +25,21 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-LIB_NAME = "libhmdt_swin.so"
+LIB_NAME = "libhmdt.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
-_vp, _i = ctypes.c_void_p, ctypes.c_int
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b, bias, mask, kmul,
     # B, H, W, C, heads, shift, fast_softmax, stream
     "swin_attn_launch": [_vp] * 11 + [_i] * 7 + [_vp],
     # x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul,
-    # n_tokens, C, hidden, hw, stream
-    "swin_mlp_launch": [_vp] * 9 + [_i] * 4 + [_vp],
+    # n_tokens, C, hidden, hw, eps, stream
+    "swin_mlp_launch": [_vp] * 9 + [_i] * 4 + [_f, _vp],
     # x, dh1, kmul, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, bias, mask,
     # h_g, dw_g, opre_g, dqkv_g, part, B, H, W, C, heads, shift, wpb, stream
     "swin_attn_bwd_launch": [_vp] * 16 + [_i] * 7 + [_vp],
@@ -50,6 +50,10 @@ _SIGNATURES = {
     "swin_wgrad_launch": [_vp] * 3 + [_i] * 4 + [_vp],
     # ws, out, S, L, stream
     "swin_reduce_launch": [_vp] * 2 + [_i] * 2 + [_vp],
+    # x, qkv, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, C, heads, eps, stream
+    "vit_qkv_launch": [_vp] * 6 + [_i] * 4 + [_f, _vp],
+    # x, qkv, out, w_proj, b_proj, B, Np, C, heads, n_real, fast_softmax, stream
+    "vit_attn_launch": [_vp] * 5 + [_i] * 6 + [_vp],
 }
 
 

@@ -149,6 +149,7 @@ def prep_block(
 
 
 def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
+    """LayerNorm with float32 statistics (the TPU bodies' `_ln`)."""
     x = x.to(torch.float32)
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)
@@ -329,7 +330,7 @@ def swin_mlp(
     rc = lib.swin_mlp_launch(
         _ptr(x), _ptr(out), _ptr(p.ln2_w), _ptr(p.ln2_b), _ptr(p.w_fc1),
         _ptr(p.b_fc1), _ptr(p.w_fc2), _ptr(p.b_fc2), _ptr(kmul),
-        B * H * W, C, hidden, H * W, _cuda_stream(x),
+        B * H * W, C, hidden, H * W, 1e-5, _cuda_stream(x),
     )
     _check_launch("swin_mlp", rc)
     swin_mlp.launches += 1

@@ -1,0 +1,357 @@
+"""ViT blocks for the MAE encoders (operaGT ViT-S, Audio-MAE ViT-B): three
+hand-written CUDA kernels, their plain torch versions, and the three eval
+entry points of heart_murmur_detection_tpu/ops/pallas_vit.py built from them.
+
+  vit_qkv   LN1 -> qkv (q pre-scaled by 1/sqrt(hd)), written head-major
+            (csrc/vit_qkv.cu; the first part of the TPU body `_attn_half`)
+  vit_attn  per head softmax(q k^T, padded keys masked) v -> proj -> +x
+            (csrc/vit_attn.cu; the rest of `_attn_half`)
+  vit_mlp   LN2 -> fc1 -> exact GELU -> fc2 -> +x, token-wise
+            (csrc/swin_mlp.cu with LN eps 1e-6; the TPU body `_mlp_half`)
+
+  fused_vit_block  vit_qkv, vit_attn, vit_mlp    (TPU K5, :296)
+  fused_vit_attn   vit_qkv, vit_attn             (TPU K6, :341)
+  fused_vit_mlp    vit_mlp                       (TPU K7, :373)
+
+The TPU kernels kept the whole sequence in VMEM; on Hopper K and V of one
+head (1040 x 64 x 2 x 2 B) do not fit an SM's shared memory beside the
+output tile, so vit_attn streams them in key tiles (64 keys at C=384, 32 at
+C=768) with the scores kept in registers, and the qkv product is its own
+launch that writes q, k and v once to device memory.
+
+Sequence padding as the JAX package: callers pad tokens to a multiple of 16
+(pad_tokens) and pass the real count n_real; key columns >= n_real get
+-1e9 (exp underflows to an exact zero), padded query rows produce garbage
+that stays in padded rows and is sliced off after the stack.
+
+Dispatch: a CPU tensor runs the plain version; a CUDA bfloat16 tensor
+launches the kernel; any other CUDA dtype raises. `impl="plain"` asks for
+the plain version on any device (the tests and the on-card reference). The
+plain versions round where the TPU body rounds: LN1 / LN2 (eps 1e-6, f32
+statistics) to the activation dtype, qkv after its bias, P to the matmul
+dtype for the P v product (normalised first, or, with fast_softmax,
+unnormalised with P v scaled by 1/sum after), the attention output, the
+GELU output, and the residual sums once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .swin import _check_launch, _cuda_stream, _ln, _mmf, _ptr
+
+LN_EPS = 1e-6
+HD = 64  # the kernels' head dim (ViT-S/16 and ViT-B/16 both use 64)
+MASK = -1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class VitBlockParams:
+    """One eval ViT block laid out for the kernels once at weight load (the
+    counterpart of pallas_vit._attn_weights / _mlp_weights). Matmul weights
+    keep the torch (out, in) layout in the matmul dtype, with 1/sqrt(hd)
+    folded into the q rows and the q bias before the cast. LayerNorm
+    parameters and biases are float32."""
+
+    heads: int
+    ln1_w: torch.Tensor
+    ln1_b: torch.Tensor
+    w_qkv: torch.Tensor  # (3C, C), q rows scaled
+    b_qkv: torch.Tensor  # (3C,), q part scaled
+    w_proj: torch.Tensor  # (C, C)
+    b_proj: torch.Tensor
+    ln2_w: torch.Tensor
+    ln2_b: torch.Tensor
+    w_fc1: torch.Tensor  # (hidden, C)
+    b_fc1: torch.Tensor
+    w_fc2: torch.Tensor  # (C, hidden)
+    b_fc2: torch.Tensor
+
+    @property
+    def dim(self) -> int:
+        return self.w_proj.shape[0]
+
+    @property
+    def hd(self) -> int:
+        return self.dim // self.heads
+
+    @property
+    def hidden(self) -> int:
+        return self.w_fc1.shape[0]
+
+    @property
+    def mm_dtype(self) -> torch.dtype:
+        return self.w_qkv.dtype
+
+
+def prep_vit_block(
+    sd: Mapping[str, torch.Tensor],
+    heads: int,
+    mm_dtype: torch.dtype,
+    device=None,
+) -> VitBlockParams:
+    """Lay out one block's weights for the kernels, detached, once at weight
+    load. sd: the block's state_dict under the reference key names (norm1.*,
+    attn.qkv.*, attn.proj.*, norm2.*, mlp.fc1.*, mlp.fc2.*).
+
+    As pallas_vit._attn_weights :222-238: the q rows of w_qkv and the q part
+    of b_qkv are multiplied by hd^-0.5 in float32 before the matmul-dtype
+    cast, so the kernels never scale q."""
+    g = lambda k: sd[k].detach().to(device=device, dtype=torch.float32)
+    w_qkv, b_qkv = g("attn.qkv.weight"), g("attn.qkv.bias")
+    C = w_qkv.shape[1]
+    if C % heads:
+        raise ValueError(f"{heads} heads must divide C = {C}")
+    scale = (C // heads) ** -0.5
+    w_qkv = torch.cat([w_qkv[:C] * scale, w_qkv[C:]])
+    b_qkv = torch.cat([b_qkv[:C] * scale, b_qkv[C:]])
+    mm = lambda t: t.to(mm_dtype).contiguous()
+    return VitBlockParams(
+        heads=heads,
+        ln1_w=g("norm1.weight").contiguous(),
+        ln1_b=g("norm1.bias").contiguous(),
+        w_qkv=mm(w_qkv),
+        b_qkv=b_qkv.contiguous(),
+        w_proj=mm(g("attn.proj.weight")),
+        b_proj=g("attn.proj.bias").contiguous(),
+        ln2_w=g("norm2.weight").contiguous(),
+        ln2_b=g("norm2.bias").contiguous(),
+        w_fc1=mm(g("mlp.fc1.weight")),
+        b_fc1=g("mlp.fc1.bias").contiguous(),
+        w_fc2=mm(g("mlp.fc2.weight")),
+        b_fc2=g("mlp.fc2.bias").contiguous(),
+    )
+
+
+def pad_tokens(x: torch.Tensor, multiple: int = 16) -> Tuple[torch.Tensor, int]:
+    """Pad (B, N, C) tokens with zeros to a multiple of `multiple`; returns
+    (padded, N)."""
+    B, N, C = x.shape
+    Np = -(-N // multiple) * multiple
+    if Np != N:
+        x = F.pad(x, (0, 0, 0, Np - N))
+    return x, N
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def vit_qkv_ref(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """Plain version of the vit_qkv kernel: x (B, Np, C) -> q, k, v stacked
+    head-major as (3, B, heads, Np, hd) in x's dtype; q carries 1/sqrt(hd)."""
+    B, Np, C = x.shape
+    act, mm = x.dtype, p.mm_dtype
+    h = _ln(x, p.ln1_w, p.ln1_b, LN_EPS).to(act)
+    qkv = (_mmf(h, mm) @ _mmf(p.w_qkv, mm).T + p.b_qkv).to(act)
+    return qkv.reshape(B, Np, 3, p.heads, p.hd).permute(2, 0, 3, 1, 4).contiguous()
+
+
+def vit_attn_out_ref(
+    x: torch.Tensor,
+    qkv: torch.Tensor,
+    p: VitBlockParams,
+    n_real: Optional[int] = None,
+    fast_softmax: bool = False,
+) -> torch.Tensor:
+    """Plain version of the vit_attn kernel: attention of the head-major
+    qkv (3, B, heads, Np, hd) over the keys < n_real, proj, + x -> (B, Np, C)
+    in x's dtype."""
+    B, Np, C = x.shape
+    act, mm = x.dtype, p.mm_dtype
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    s = _mmf(q, mm) @ _mmf(k, mm).transpose(-1, -2)  # (B, heads, Np, Np) f32
+    if n_real is not None and n_real < Np:
+        col = torch.arange(Np, device=x.device)
+        s = torch.where(col < n_real, s, MASK)
+    if fast_softmax:
+        e = torch.exp(s)
+        recip = 1.0 / e.sum(-1, keepdim=True)
+        o = ((_mmf(e, mm) @ _mmf(v, mm)) * recip).to(act)
+    else:
+        o = (_mmf(torch.softmax(s, -1), mm) @ _mmf(v, mm)).to(act)
+    o = o.permute(0, 2, 1, 3).reshape(B, Np, C)
+    o = _mmf(o, mm) @ _mmf(p.w_proj, mm).T + p.b_proj
+    return (x.to(torch.float32) + o).to(act)
+
+
+def vit_attn_ref(
+    x: torch.Tensor,
+    p: VitBlockParams,
+    n_real: Optional[int] = None,
+    fast_softmax: bool = False,
+) -> torch.Tensor:
+    """Plain version of the attention half (`_attn_half`): x (B, Np, C) ->
+    x + proj(attention(LN1(x))), x's dtype."""
+    return vit_attn_out_ref(x, vit_qkv_ref(x, p), p, n_real, fast_softmax)
+
+
+def vit_mlp_ref(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """Plain version of the MLP half (`_mlp_half`), per token of x."""
+    act, mm = x.dtype, p.mm_dtype
+    m = _ln(x, p.ln2_w, p.ln2_b, LN_EPS).to(act)
+    m = _mmf(m, mm) @ _mmf(p.w_fc1, mm).T + p.b_fc1
+    m = F.gelu(m, approximate="none").to(act)
+    m = _mmf(m, mm) @ _mmf(p.w_fc2, mm).T + p.b_fc2
+    return (x.to(torch.float32) + m).to(act)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda_args(x: torch.Tensor, p: VitBlockParams, attn: bool):
+    if x.dtype != torch.bfloat16 or p.mm_dtype != torch.bfloat16:
+        raise TypeError(
+            f"CUDA ViT kernels take bfloat16 activations and weights, got "
+            f"{x.dtype} / {p.mm_dtype}"
+        )
+    if not x.is_contiguous() or x.dim() != 3:
+        raise ValueError("x must be a contiguous (B, Np, C) tensor")
+    C = x.shape[2]
+    if C != p.dim or p.w_qkv.device != x.device:
+        raise ValueError("weights and x differ in width or device")
+    if attn and (C not in (384, 768) or p.hd != HD):
+        raise ValueError(f"the attention kernels take C 384 or 768 with head dim {HD}, "
+                         f"got C {C}, head dim {p.hd}")
+    if not attn and (C not in (96, 192, 384, 768) or p.hidden % 128):
+        raise ValueError(f"the MLP kernel takes C 96-768 and hidden a multiple of 128, "
+                         f"got C {C}, hidden {p.hidden}")
+
+
+def vit_qkv(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """LN1 and the qkv product, head-major (see vit_qkv_ref)."""
+    if x.device.type == "cpu":
+        return vit_qkv_ref(x, p)
+    _check_cuda_args(x, p, attn=True)
+    B, Np, C = x.shape
+    from . import _build
+
+    lib = _build.load_library()
+    qkv = torch.empty((3, B, p.heads, Np, HD), dtype=x.dtype, device=x.device)
+    rc = lib.vit_qkv_launch(
+        _ptr(x), _ptr(qkv), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.ln1_w), _ptr(p.ln1_b),
+        B * Np, Np, C, p.heads, LN_EPS, _cuda_stream(x),
+    )
+    _check_launch("vit_qkv", rc)
+    vit_qkv.launches += 1
+    return qkv
+
+
+def vit_attn(
+    x: torch.Tensor,
+    qkv: torch.Tensor,
+    p: VitBlockParams,
+    n_real: Optional[int] = None,
+    fast_softmax: bool = False,
+) -> torch.Tensor:
+    """Attention over the head-major qkv, proj and the residual of x (see
+    vit_attn_out_ref)."""
+    if x.device.type == "cpu":
+        return vit_attn_out_ref(x, qkv, p, n_real, fast_softmax)
+    _check_cuda_args(x, p, attn=True)
+    B, Np, C = x.shape
+    if (qkv.dtype != x.dtype or not qkv.is_contiguous() or qkv.device != x.device
+            or tuple(qkv.shape) != (3, B, p.heads, Np, HD)):
+        raise ValueError(f"qkv must be a contiguous bf16 (3, {B}, {p.heads}, {Np}, {HD}) tensor")
+    n_real = Np if n_real is None else n_real
+    if not 0 < n_real <= Np:
+        raise ValueError(f"n_real {n_real} outside (0, {Np}]")
+    from . import _build
+
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    rc = lib.vit_attn_launch(
+        _ptr(x), _ptr(qkv), _ptr(out), _ptr(p.w_proj), _ptr(p.b_proj),
+        B, Np, C, p.heads, n_real, int(fast_softmax), _cuda_stream(x),
+    )
+    _check_launch("vit_attn", rc)
+    vit_attn.launches += 1
+    return out
+
+
+def vit_mlp(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """MLP half of a ViT block on the swin_mlp kernel with LN eps 1e-6 (see
+    vit_mlp_ref)."""
+    if x.device.type == "cpu":
+        return vit_mlp_ref(x, p)
+    _check_cuda_args(x, p, attn=False)
+    B, Np, C = x.shape
+    from . import _build
+
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    rc = lib.swin_mlp_launch(
+        _ptr(x), _ptr(out), _ptr(p.ln2_w), _ptr(p.ln2_b), _ptr(p.w_fc1),
+        _ptr(p.b_fc1), _ptr(p.w_fc2), _ptr(p.b_fc2), _ptr(None),
+        B * Np, C, p.hidden, Np, LN_EPS, _cuda_stream(x),
+    )
+    _check_launch("vit_mlp", rc)
+    vit_mlp.launches += 1
+    return out
+
+
+vit_qkv.launches = 0
+vit_attn.launches = 0
+vit_mlp.launches = 0
+COUNTED = [vit_qkv, vit_attn, vit_mlp]
+
+
+def launch_counts() -> dict:
+    """Launches of every counted ViT kernel since the last reset."""
+    return {f.__name__: f.launches for f in COUNTED}
+
+
+def reset_launch_counts() -> None:
+    for f in COUNTED:
+        f.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the three TPU entry points
+# ---------------------------------------------------------------------------
+
+
+def _impl(impl: str):
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    return impl == "plain"
+
+
+def fused_vit_attn(
+    x: torch.Tensor,
+    p: VitBlockParams,
+    n_real: Optional[int] = None,
+    fast_softmax: bool = False,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """Attention half (LN1, qkv, attention, proj, residual) of one ViT block
+    on x (B, Np, C); n_real < Np masks the padded key columns."""
+    if _impl(impl):
+        return vit_attn_ref(x, p, n_real, fast_softmax)
+    return vit_attn(x, vit_qkv(x, p), p, n_real, fast_softmax)
+
+
+def fused_vit_mlp(x: torch.Tensor, p: VitBlockParams, impl: str = "kernel") -> torch.Tensor:
+    """MLP half (LN2, fc1, GELU, fc2, residual) of one ViT block."""
+    return vit_mlp_ref(x, p) if _impl(impl) else vit_mlp(x, p)
+
+
+def fused_vit_block(
+    x: torch.Tensor,
+    p: VitBlockParams,
+    n_real: Optional[int] = None,
+    fast_softmax: bool = False,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """One eval ViT block on x (B, Np, C), Np a multiple of 16 (pad_tokens):
+    the attention half, then the MLP half. On a card every block is these
+    three launches; the TPU's whole-block / split-pair plan (block_plan) is
+    a VMEM budget that has no counterpart here."""
+    return fused_vit_mlp(fused_vit_attn(x, p, n_real, fast_softmax, impl), p, impl)

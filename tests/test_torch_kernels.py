@@ -1,9 +1,10 @@
-"""The CUDA swin kernels of heart_murmur_detection_tpu_torch: the build and
-its ctypes binding (CPU), and, on a card only, each kernel against its
-plain torch version at the HTS-AT stage geometries: the eval kernels at the
-four stages, the training kernels (forward with DropPath multipliers, both
-backward halves, the weight-gradient products and the ordered reduction)
-at stages 0-2.
+"""The CUDA kernels of heart_murmur_detection_tpu_torch: the build and its
+ctypes binding (CPU), and, on a card only, each kernel against its plain
+torch version: the swin eval kernels at the four HTS-AT stage geometries,
+the swin training kernels (forward with DropPath multipliers, both backward
+halves, the weight-gradient products and the ordered reduction) at stages
+0-2, and the ViT kernels (vit_qkv, vit_attn, vit_mlp) at the operaGT and
+Audio-MAE shapes.
 
 Imports no JAX, so it also runs where JAX is absent; on a card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m gpu
@@ -19,7 +20,7 @@ from heart_murmur_detection_tpu_torch.models.htsat import (
     _relative_position_index,
     _shift_attn_mask,
 )
-from heart_murmur_detection_tpu_torch.ops import _build, swin, swin_train
+from heart_murmur_detection_tpu_torch.ops import _build, swin, swin_train, vit
 
 COS_BAR = 0.99999  # one kernel vs its plain version, on the branch out - x
 
@@ -51,15 +52,20 @@ def _branch_cos(got, want, x):
 
 def test_signatures_pass_pointers_as_void_p():
     """Every pointer and the stream go through ctypes as c_void_p (a c_int
-    would cut a 64-bit pointer)."""
+    would cut a 64-bit pointer); the ints follow, then a LayerNorm eps as a
+    c_float where the kernel takes one."""
     n_ptrs = {"swin_attn_launch": 11, "swin_mlp_launch": 9, "swin_attn_bwd_launch": 16,
-              "swin_mlp_bwd_launch": 14, "swin_wgrad_launch": 3, "swin_reduce_launch": 2}
+              "swin_mlp_bwd_launch": 14, "swin_wgrad_launch": 3, "swin_reduce_launch": 2,
+              "vit_qkv_launch": 6, "vit_attn_launch": 5}
+    with_eps = {"swin_mlp_launch", "vit_qkv_launch"}
     assert set(_build._SIGNATURES) == set(n_ptrs)
     for name, argtypes in _build._SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p, name  # the stream
         n_ptr = n_ptrs[name]
+        n_int = len(argtypes) - n_ptr - 1 - (name in with_eps)
         assert all(a is ctypes.c_void_p for a in argtypes[:n_ptr]), name
-        assert all(a is ctypes.c_int for a in argtypes[n_ptr:-1]), name
+        assert all(a is ctypes.c_int for a in argtypes[n_ptr:n_ptr + n_int]), name
+        assert (argtypes[-2] is ctypes.c_float) == (name in with_eps), name
 
 
 def test_build_targets_sm90a_and_hashes_sources():
@@ -67,7 +73,7 @@ def test_build_targets_sm90a_and_hashes_sources():
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     srcs = {p.rsplit("/", 1)[-1] for p in _build._sources()}
     assert {"swin_attn.cu", "swin_mlp.cu", "swin_common.cuh", "swin_attn_bwd.cu",
-            "swin_mlp_bwd.cu", "swin_wgrad.cu"} <= srcs
+            "swin_mlp_bwd.cu", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu"} <= srcs
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 16
 
@@ -231,3 +237,86 @@ def test_train_block_function_on_card(cuda, C, heads, H, shift):
         got = grads["kernel"][n]
         assert got.dtype == want.dtype and got.shape == want.shape, n
         assert _cos(got, want) >= COS_BAR, n
+
+
+# ---------------------------------------------------------------------------
+# the ViT kernels (MAE encoders)
+# ---------------------------------------------------------------------------
+
+
+def _vit_params(C, heads, seed, device, dtype=torch.bfloat16):
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy((r.standard_normal(s) * 0.05).astype(np.float32))
+    sd = {
+        "norm1.weight": 1 + f(C), "norm1.bias": f(C),
+        "attn.qkv.weight": f(3 * C, C) * 2, "attn.qkv.bias": f(3 * C),
+        "attn.proj.weight": f(C, C), "attn.proj.bias": f(C),
+        "norm2.weight": 1 + f(C), "norm2.bias": f(C),
+        "mlp.fc1.weight": f(4 * C, C), "mlp.fc1.bias": f(4 * C),
+        "mlp.fc2.weight": f(C, 4 * C), "mlp.fc2.bias": f(C),
+    }
+    return vit.prep_vit_block(sd, heads, dtype, device)
+
+
+# (C, heads, Np, n_real): operaGT ViT-S and Audio-MAE ViT-B
+VIT_SHAPES = [(384, 6, 1040, 1025), (768, 12, 528, 513)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,n_real", VIT_SHAPES)
+@pytest.mark.parametrize("fast_softmax", [False, True])
+def test_vit_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, fast_softmax):
+    p = _vit_params(C, heads, C, cuda)
+    g = torch.Generator().manual_seed(C + 1)
+    x = (torch.randn(3, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    n0 = vit.launch_counts()
+    qkv = vit.vit_qkv(x, p)
+    qkv_ref = vit.vit_qkv_ref(x, p)
+    h1 = vit.vit_attn(x, qkv_ref, p, n_real, fast_softmax)
+    h1_ref = vit.vit_attn_out_ref(x, qkv_ref, p, n_real, fast_softmax)
+    y, y_ref = vit.vit_mlp(h1_ref, p), vit.vit_mlp_ref(h1_ref, p)
+    torch.cuda.synchronize()
+    assert qkv.shape == qkv_ref.shape == (3, 3, heads, Np, 64)
+    assert _cos(qkv, qkv_ref) >= COS_BAR
+    assert _branch_cos(h1, h1_ref, x) >= COS_BAR
+    assert _branch_cos(y, y_ref, h1_ref) >= COS_BAR
+    # bitwise repeatable
+    assert torch.equal(vit.vit_attn(x, qkv_ref, p, n_real, fast_softmax), h1)
+    n1 = vit.launch_counts()
+    assert {k: n1[k] - n0[k] for k in n1} == {"vit_qkv": 1, "vit_attn": 2, "vit_mlp": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,n_real", VIT_SHAPES)
+def test_vit_padded_keys_do_not_leak_on_card(cuda, C, heads, Np, n_real):
+    """The real rows of a block do not depend on what the padded rows hold."""
+    p = _vit_params(C, heads, 3, cuda)
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(2, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    x2 = x.clone()
+    x2[:, n_real:] = 7.0
+    a = vit.fused_vit_block(x, p, n_real)
+    b = vit.fused_vit_block(x2, p, n_real)
+    torch.cuda.synchronize()
+    assert torch.equal(a[:, :n_real], b[:, :n_real])
+
+
+@pytest.mark.gpu
+def test_swin_mlp_eps_unchanged_on_card(cuda):
+    """swin_mlp with the swin LN eps (1e-5) still reads as its plain version."""
+    p = _params(384, 16, 9, cuda)
+    g = torch.Generator().manual_seed(9)
+    x = (torch.randn(8, 16, 16, 384, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    got, want = swin.swin_mlp(x, p), swin.swin_mlp_ref(x, p)
+    torch.cuda.synchronize()
+    assert _branch_cos(got, want, x) >= COS_BAR
+
+
+@pytest.mark.gpu
+def test_vit_float32_on_card_raises(cuda):
+    p = _vit_params(384, 6, 1, cuda, torch.float32)
+    x = torch.zeros(1, 1040, 384, device=cuda)
+    for fn in (lambda: vit.vit_qkv(x, p), lambda: vit.fused_vit_block(x, p, 1025),
+               lambda: vit.vit_mlp(x, p)):
+        with pytest.raises(TypeError):
+            fn()
