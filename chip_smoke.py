@@ -47,6 +47,26 @@ Phases (each prints one line; any failure exits non-zero):
      softmax modes) and plain bf16 path (operaGT B=64 of 8.18-s chunks,
      audiomae B=32 of 10-s chunks), and a profile of one batch: each kernel,
      the glue and the idle share
+ 14. ViT train kernels vs plain: vit_mlp_bwd (csrc/swin_mlp_bwd.cu, LN eps
+     1e-6) and vit_attn_bwd (csrc/vit_attn_bwd.cu) against their plain
+     versions at the CP shapes (Audio-MAE B=64, 160 tokens / 154 real, C 768;
+     OPERA-GT B=64, 320 / 308 and 80 / 77, C 384) and once at the operaGT
+     fine-tuning shape (B=4, 1040 / 1025): the dx / dh1 branch, every operand
+     row and every gradient leaf >= 0.99999, two launches bitwise equal,
+     padded rows of the input gradient exactly 0; fused_vit_block_train
+     against impl="plain" (output branch and every leaf); times a launch, the
+     plain halves, the bound of K9's backward function and SDPA's backward
+     on the same q, k, v, dO
+ 15. Audio-MAE CP: three synthetic heart corpora (fbank clips of 600-1400
+     frames x 128) on disk, one epoch of method=audiomae at B=64 through
+     cli.pretrain on the kernels (12 launches of each backward kernel a
+     step) and on the plain bf16 path; steady-state step times
+ 16. MAE (OPERA-GT) CP: two synthetic respiratory corpora at max_len 256 and
+     64, one epoch of method=mae on the kernels, both lengths drawn
+ 17. Audio-MAE agreement: 3 steps of the kernel path and of the plain bf16
+     path from the same weights, batches and masking noise (losses within
+     1e-3, the step-0 gradient rule); a profile of one step: each kernel,
+     the plain-torch decoder, the glue, the optimizer and the idle share
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -648,30 +668,8 @@ def phase_cp(smi: str, dev):
     lk, gk = run("kernel")
     lp, gp = run("plain")
     lf, gf = run("autograd", torch.float32, 1)  # strict f32, step 0
-    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
-    leaf_cos = lambda a, b: {q: _cos(a[q].cpu(), b[q].cpu()) if float(b[q].norm()) > 0 else 1.0
-                             for q in b}
-    cos, cos_kf, cos_pf = leaf_cos(gk, gp), leaf_cos(gk, gf), leaf_cos(gp, gf)
-    lo = min(cos, key=cos.get)
-    ratio = {q: (1 - cos_kf[q]) / max(1 - cos_pf[q], 1e-7) for q in cos}
-    far = [q for q in cos if 1 - cos_kf[q] > F32_RATIO_LEAF * (1 - cos_pf[q]) + 1e-5]
-    med = lambda d: sorted(d.values())[len(d) // 2]
-    print(f"[cp] 3 steps from the same weights, batches and generator: losses kernel "
-          f"{[round(v, 6) for v in lk]} plain {[round(v, 6) for v in lp]}, max rel diff "
-          f"{max(rel):.3g} (bar {LOSS_RTOL}); step-0 gradient cosines, kernel vs plain bf16 "
-          f"path over {len(cos)} leaves: min {cos[lo]:.7f} ({lo}), median {med(cos):.7f}, "
-          f"{sum(v < GRAD_BAR for v in cos.values())} leaves under {GRAD_BAR} (bar {GRAD_FLOOR}); "
-          f"against strict f32 (step-0 loss {lf[0]:.6f}): kernel path min {min(cos_kf.values()):.7f} "
-          f"median {med(cos_kf):.7f}, plain bf16 path min {min(cos_pf.values()):.7f} median "
-          f"{med(cos_pf):.7f}; (1 - cos) kernel/plain vs f32 median {med(ratio):.3f} max "
-          f"{max(ratio.values()):.3f} (bars: median {F32_RATIO_MEDIAN}, each leaf "
-          f"{F32_RATIO_LEAF})", flush=True)
-    _require(max(rel) <= LOSS_RTOL, f"3-step losses differ: {lk} vs {lp}")
-    _require(cos[lo] >= GRAD_FLOOR, f"step-0 gradient {lo} cosine {cos[lo]} < {GRAD_FLOOR}")
-    _require(med(ratio) <= F32_RATIO_MEDIAN,
-             f"step-0 gradients: median distance ratio to strict f32 {med(ratio)} > {F32_RATIO_MEDIAN}")
-    _require(not far, f"step-0 gradient leaves over {F32_RATIO_LEAF}x the plain path's "
-                      f"distance to strict f32: {far[:3]}")
+    _step0_rule("[cp] 3 steps from the same weights, batches and generator", lk, lp, lf,
+                gk, gp, gf)
 
     # steady-state step times at the full crop (circor, 251 frames)
     circor = MultiCorpusSampler(corpora[:1], B_TRAIN, seed=SEED + 7).next_batch()[1]
@@ -687,6 +685,38 @@ def phase_cp(smi: str, dev):
         del model, opt
     _cp_profile(base, x1, x2, dev, _block_params, fused_swin_block_train, ct, steps)
     return counts
+
+
+def _step0_rule(tag, lk, lp, lf, gk, gp, gf, skip=()):
+    """The 3-step loss agreement and the step-0 gradient rule of ROADMAP's
+    precision classes: losses of the kernel path (lk) and the plain bf16
+    path (lp) within LOSS_RTOL; each leaf kernel vs plain >= GRAD_FLOOR; the
+    median over leaves of (1 - cos kernel-f32) / (1 - cos plain-f32) <=
+    F32_RATIO_MEDIAN and each leaf's <= F32_RATIO_LEAF. Leaves named in
+    `skip` (exact gradient 0, float noise in every path) are left out."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    leaf_cos = lambda a, b: {q: _cos(a[q].cpu(), b[q].cpu()) if float(b[q].norm()) > 0 else 1.0
+                             for q in b if not q.endswith(skip)}
+    cos, cos_kf, cos_pf = leaf_cos(gk, gp), leaf_cos(gk, gf), leaf_cos(gp, gf)
+    lo = min(cos, key=cos.get)
+    ratio = {q: (1 - cos_kf[q]) / max(1 - cos_pf[q], 1e-7) for q in cos}
+    far = [q for q in cos if 1 - cos_kf[q] > F32_RATIO_LEAF * (1 - cos_pf[q]) + 1e-5]
+    med = lambda d: sorted(d.values())[len(d) // 2]
+    print(f"{tag}: losses kernel {[round(v, 6) for v in lk]} plain {[round(v, 6) for v in lp]}, "
+          f"max rel diff {max(rel):.3g} (bar {LOSS_RTOL}); step-0 gradient cosines, kernel vs "
+          f"plain bf16 path over {len(cos)} leaves: min {cos[lo]:.7f} ({lo}), median "
+          f"{med(cos):.7f}, {sum(v < GRAD_BAR for v in cos.values())} leaves under {GRAD_BAR} "
+          f"(bar {GRAD_FLOOR}); against strict f32 (step-0 loss {lf[0]:.6f}): kernel path min "
+          f"{min(cos_kf.values()):.7f} median {med(cos_kf):.7f}, plain bf16 path min "
+          f"{min(cos_pf.values()):.7f} median {med(cos_pf):.7f}; (1 - cos) kernel/plain vs f32 "
+          f"median {med(ratio):.3f} max {max(ratio.values()):.3f} (bars: median "
+          f"{F32_RATIO_MEDIAN}, each leaf {F32_RATIO_LEAF})", flush=True)
+    _require(max(rel) <= LOSS_RTOL, f"3-step losses differ: {lk} vs {lp}")
+    _require(cos[lo] >= GRAD_FLOOR, f"step-0 gradient {lo} cosine {cos[lo]} < {GRAD_FLOOR}")
+    _require(med(ratio) <= F32_RATIO_MEDIAN,
+             f"step-0 gradients: median distance ratio to strict f32 {med(ratio)} > {F32_RATIO_MEDIAN}")
+    _require(not far, f"step-0 gradient leaves over {F32_RATIO_LEAF}x the plain path's "
+                      f"distance to strict f32: {far[:3]}")
 
 
 SWIN_GROUPS = {k: k + "_kernel" for k in ("swin_attn_bwd", "swin_mlp_bwd", "swin_wgrad",
@@ -1061,6 +1091,447 @@ def phase_mae(paths, smi, dev):
     return vit_meas, gt_counts
 
 
+# ---------------------------------------------------------------------------
+# MAE continued pretraining (the ViT train kernels, K9)
+# ---------------------------------------------------------------------------
+
+# (tag, C, heads, Np, n_real, B): the CP shapes of Audio-MAE (1024 frames)
+# and of OPERA-GT at max_len 256 and 64, the cls token included, padded to
+# a multiple of 16; and once the operaGT fine-tuning shape
+VIT_TRAIN_SHAPES = (("audiomae", 768, 12, 160, 154, B_TRAIN), ("mae", 384, 6, 320, 308, B_TRAIN),
+                    ("mae short", 384, 6, 80, 77, B_TRAIN),
+                    ("operaGT fine-tune", 384, 6, 1040, 1025, 4))
+# a per-head constant added to every logit of a softmax row: its exact
+# gradient is 0, so every path gives float noise there
+ZERO_GRAD = ("attn.meta_mlp.fc2.bias",)
+
+
+def _vit_bwd_work(B, Np, n_real, C, heads):
+    """The shares of K9's backward function, one block of B clips of Np
+    tokens: (bytes, operations) of vit_mlp_bwd, of vit_attn_bwd and of the
+    weight products. MLP half: h1, dy and its weights in, dh1 out; the fc1
+    recompute and two data products (24 n C^2). Attention half: x, dh1 and
+    its weights in, dx out; the qkv recompute and the do and dh products
+    (14 n C^2), and six attention products over the n_real real keys of
+    each query (S, P V, dP, dq, dk, dv). Weight products: 24 n C^2 and the
+    float32 gradients written once. The operand rows and partials that the
+    design moves between the kernels are in no bound."""
+    n, hid, hd = B * Np, 4 * C, C // heads
+    mlp = 6 * n * C + 4 * hid * C + 4 * (3 * C + hid), 6 * n * C * hid
+    attn = (6 * n * C + 8 * C * C + 4 * 6 * C,
+            14 * n * C * C + 12 * B * heads * Np * n_real * hd)
+    wgrad = 4 * 12 * C * C, 24 * n * C * C
+    return mlp, attn, wgrad
+
+
+def _leaf_grads(impl, x, sd, heads, n_real, w_out):
+    """fused_vit_block_train on x with float32 leaves sd: (y, {leaf: grad})."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.ops import vit
+    from heart_murmur_detection_tpu_torch.ops.vit_train import fused_vit_block_train
+
+    leaves = {q: v.clone().requires_grad_() for q, v in sd.items()}
+    xi = x.clone().requires_grad_()
+    p = vit.vit_block_layout(lambda q: leaves[q], heads, torch.bfloat16)
+    y = fused_vit_block_train(xi, p, n_real, impl)
+    g = torch.autograd.grad((y[:, :n_real].float() * w_out).sum(), [xi, *leaves.values()])
+    return y.detach(), dict(zip(["x", *leaves], g))
+
+
+def phase_vit_train_kernels(dev):
+    """Phase 14: the ViT backward kernels vs their plain versions at the CP
+    shapes, and fused_vit_block_train against impl="plain". Returns
+    {name: measurement} over one Audio-MAE CP step (12 blocks at B=64) for
+    vit_attn_bwd, vit_mlp_bwd and that step's swin_wgrad / swin_reduce."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.ops import swin_train as st
+    from heart_murmur_detection_tpu_torch.ops import vit
+    from heart_murmur_detection_tpu_torch.ops import vit_train as vt
+
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "work": Work(),
+               "library_ms": None if k == "vit_mlp_bwd" else 0.0}
+           for k in ("vit_attn_bwd", "vit_mlp_bwd", "swin_wgrad", "swin_reduce")}
+    for tag, C, heads, Np, n_real, B in VIT_TRAIN_SHAPES:
+        p = _vit_params(C, heads, dev, SEED + 20 + Np)
+        g = torch.Generator(device="cpu").manual_seed(SEED + 21 + Np)
+        x = (torch.randn(B, Np, C, generator=g) * 0.5).to(dev, torch.bfloat16)
+        dy = (torch.randn(B, Np, C, generator=g) * 0.1).to(dev, torch.bfloat16)
+        dy[:, n_real:] = 0  # the caller's y[:, :n_real] slice
+        h1 = vit.vit_attn_ref(x, p, n_real)
+        shape = f"{tag} B={B} Np={Np} n_real={n_real} C={C}"
+        # the two halves: the wrappers twice (bitwise), the launch for the rows
+        (d1, g1), (d2, g2) = vt.vit_mlp_bwd(h1, dy, p), vt.vit_mlp_bwd(h1, dy, p)
+        _, mrow, part_m = vt.vit_mlp_bwd_launch(h1, dy, p)
+        dh1, gm, mref = vt.vit_mlp_bwd_ref(h1, dy, p, rows=True)
+        (a1, ga1), (a2, ga2) = vt.vit_attn_bwd(x, dh1, p, n_real), vt.vit_attn_bwd(x, dh1, p, n_real)
+        _, arow, part_a = vt.vit_attn_bwd_launch(x, dh1, p, n_real)
+        dx, ga, aref = vt.vit_attn_bwd_ref(x, dh1, p, n_real, rows=True)
+        torch.cuda.synchronize()
+        for what, d_1, d_2, gg1, gg2, want_d, base, want_g, rows, ref_rows, names in (
+            ("vit_mlp_bwd", d1, d2, g1, g2, dh1, dy, gm, mrow, mref, ("LN2(h1)", "GELU(a1)", "da1")),
+            ("vit_attn_bwd", a1, a2, ga1, ga2, dx, dh1, ga, arow, aref, ("LN1(x)", "o_pre", "dqkv")),
+        ):
+            same = torch.equal(d_1, d_2) and all(torch.equal(gg1[q], gg2[q]) for q in gg1)
+            _require(same, f"{what} {shape}: two launches differ")
+            cos = {"d_in branch": _branch(d_1, want_d, base)}
+            cos.update({f"row {n}": _cos(a.float().cpu(), b.float().cpu())
+                        for n, a, b in zip(names, rows, ref_rows)})
+            cos.update({q: _cos(gg1[q].cpu(), want_g[q].cpu()) for q in want_g})
+            err = float((d_1.float() - want_d.float()).abs().max())
+            pad0 = not bool(d_1[:, n_real:].any())
+            lo = min(cos, key=cos.get)
+            print(f"[vit train bwd] {what} {shape}: bitwise repeatable; padded rows of the input "
+                  f"gradient exactly 0: {pad0}; max|d| {err:.4g}; cosines "
+                  + " ".join(f"{q} {v:.7f}" for q, v in cos.items()), flush=True)
+            _require(cos[lo] >= KERNEL_BAR, f"{what} {shape}: {lo} cosine {cos[lo]} < {KERNEL_BAR}")
+            _require(pad0, f"{what} {shape}: padded rows of the input gradient are not 0")
+            if tag == "audiomae":
+                tot[what]["err"] = err
+        # the whole Function, forward and backward, against impl="plain"
+        r = torch.Generator(device="cpu").manual_seed(SEED + 22 + Np)
+        f = lambda *sh: (torch.randn(*sh, generator=r) * 0.05).to(dev)
+        sd = {"norm1.weight": 1 + f(C), "norm1.bias": f(C), "attn.qkv.weight": f(3 * C, C) * 2,
+              "attn.qkv.bias": f(3 * C), "attn.proj.weight": f(C, C), "attn.proj.bias": f(C),
+              "norm2.weight": 1 + f(C), "norm2.bias": f(C), "mlp.fc1.weight": f(4 * C, C),
+              "mlp.fc1.bias": f(4 * C), "mlp.fc2.weight": f(C, 4 * C), "mlp.fc2.bias": f(C)}
+        w_out = f(B, n_real, C) * 20
+        yk, gk = _leaf_grads("kernel", x, sd, heads, n_real, w_out)
+        yp, gp = _leaf_grads("plain", x, sd, heads, n_real, w_out)
+        torch.cuda.synchronize()
+        cos = {"y branch": _branch(yk[:, :n_real], yp[:, :n_real], x[:, :n_real])}
+        cos.update({q: _cos(gk[q].float().cpu(), gp[q].float().cpu()) for q in gp})
+        lo = min(cos, key=cos.get)
+        print(f"[vit train block] fused_vit_block_train {shape}, kernel vs plain: min cosine "
+              f"{cos[lo]:.7f} ({lo}) over the output branch and {len(gp)} gradients", flush=True)
+        _require(cos[lo] >= KERNEL_BAR, f"fused_vit_block_train {shape}: {lo} cosine {cos[lo]}")
+        # a launch of each half, the plain halves, and SDPA's backward on the
+        # same q, k, v and dO (the attention core alone, a yardstick)
+        mb_ms = _time_ms(lambda: vt.vit_mlp_bwd_launch(h1, dy, p), iters=10, warm=2)
+        ab_ms = _time_ms(lambda: vt.vit_attn_bwd_launch(x, dh1, p, n_real), iters=10, warm=2)
+        mp_ms = _time_ms(lambda: vt.vit_mlp_bwd_ref(h1, dy, p), iters=3, warm=1)
+        ap_ms = _time_ms(lambda: vt.vit_attn_bwd_ref(x, dh1, p, n_real), iters=3, warm=1)
+        qkv = vit.vit_qkv_ref(x, p)
+        q = qkv[0].detach().requires_grad_()
+        k = qkv[1][:, :, :n_real].detach().requires_grad_()
+        v = qkv[2][:, :, :n_real].detach().requires_grad_()
+        o = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
+        do = torch.randn(o.shape, generator=r).to(dev, o.dtype)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
+                          iters=10, warm=2)
+        (wm, om), (wa, oa), (ww, ow) = _vit_bwd_work(B, Np, n_real, C, heads)
+        bm, ba, bw = Work(), Work(), Work()
+        bm.add(wm, om)
+        ba.add(wa, oa)
+        bw.add(ww, ow)
+        print(f"[vit train kernels] {shape}: a launch: vit_mlp_bwd {mb_ms:.4f} ms (bound "
+              f"{bm.bound_ms:.4f}, {bm.bound_by}; plain half {mp_ms:.4f}), vit_attn_bwd "
+              f"{ab_ms:.4f} ms (bound {ba.bound_ms:.4f}, {ba.bound_by}; plain half {ap_ms:.4f}; "
+              f"scaled_dot_product_attention backward on the same q, k, v, dO {lib_ms:.4f}); "
+              f"the block's weight products bound {bw.bound_ms:.4f} ms ({bw.bound_by})", flush=True)
+        if tag != "audiomae":
+            continue
+        # one Audio-MAE CP step: 12 blocks
+        for what, ms, pms, wk in (("vit_mlp_bwd", mb_ms, mp_ms, (wm, om)),
+                                  ("vit_attn_bwd", ab_ms, ap_ms, (wa, oa))):
+            tot[what]["ms"] = 12 * ms
+            tot[what]["plain_ms"] = 12 * pms
+            tot[what]["work"].add(*wk, n=12)
+        tot["vit_attn_bwd"]["library_ms"] = 12 * lib_ms
+        n = B * Np
+        m_g, g_g, da1_g = mrow
+        h_g, opre_g, dqkv_g = arow
+        parts = [part_m, part_a]
+        for a_, b_ in ((da1_g, m_g), (dy.reshape(n, C), g_g), (dqkv_g, h_g),
+                       (dh1.reshape(n, C), opre_g)):
+            got, want = st.swin_wgrad(a_, b_), st.wgrad_ref(a_, b_)
+            torch.cuda.synchronize()
+            c = _cos(got.cpu(), want.cpu())
+            _require(c >= KERNEL_BAR and torch.equal(got, st.swin_wgrad(a_, b_)),
+                     f"swin_wgrad {shape} {tuple(a_.shape)} x {tuple(b_.shape)}: cosine {c}")
+            ws = st.swin_wgrad_partials(a_, b_)
+            S, M, N = ws.shape
+            if S > 1:
+                parts.append(ws.reshape(S, -1))
+            w_ms = _time_ms(lambda: st.swin_wgrad_partials(a_, b_), iters=10, warm=2)
+            tot["swin_wgrad"]["ms"] += 12 * w_ms
+            tot["swin_wgrad"]["plain_ms"] += 12 * _time_ms(lambda: st.wgrad_ref(a_, b_), iters=3, warm=1)
+            tot["swin_wgrad"]["library_ms"] += 12 * _time_ms(lambda: torch.mm(a_.t(), b_), iters=10, warm=2)
+            tot["swin_wgrad"]["work"].add(4 * M * N, 2 * n * M * N, n=12)
+            tot["swin_wgrad"]["err"] = max(tot["swin_wgrad"]["err"], float((got - want).abs().max()))
+            print(f"[vit train wgrad] {shape}: ({n}, {M}) x ({n}, {N}) in {S} chunks: cos {c:.7f}, "
+                  f"bitwise repeatable; {w_ms:.4f} ms", flush=True)
+        for j, part in enumerate(parts):
+            S, L = part.shape
+            _require(torch.equal(st.swin_reduce(part), st.reduce_ref(part)),
+                     f"swin_reduce {shape} ({S}, {L}) differs from the in-order sum")
+            tot["swin_reduce"]["ms"] += 12 * _time_ms(lambda: st.swin_reduce(part), iters=10, warm=2)
+            tot["swin_reduce"]["plain_ms"] += 12 * _time_ms(lambda: st.reduce_ref(part), iters=3, warm=1)
+            tot["swin_reduce"]["library_ms"] += 12 * _time_ms(lambda: part.sum(0), iters=10, warm=2)
+            tot["swin_reduce"]["work"].add(4 * L if j < 2 else 0, 0, n=12)
+        fn = Work()
+        fn.add(wm + wa + ww, om + oa + ow)
+        print(f"[vit train kernels] an Audio-MAE CP step (12 blocks at B={B}): K9's backward "
+              f"function bound {12 * fn.bound_ms:.4f} ms ({fn.bound_by}); {len(parts)} reductions "
+              f"a block equal to the in-order sum", flush=True)
+    return tot
+
+
+def _write_specs(root: str, corpora, seed: int):
+    """Synthetic spectrogram corpora on disk: (manifest, clips, lo, hi,
+    bins) each; clips of lo-hi frames x bins float32, the manifest listing
+    them without .npy (the layouts pretrain/data.py's manifests name)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    for manifest, n, lo, hi, bins in corpora:
+        d = os.path.join(os.path.dirname(manifest), "spec_" + os.path.basename(manifest)[:-4])
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+        names = []
+        for i, t in enumerate(r.integers(lo, hi + 1, n)):
+            f = os.path.join(d, f"{i:04d}")
+            np.save(os.path.join(root, f + ".npy"),
+                    (r.standard_normal((int(t), bins)) * 10 - 40).astype(np.float32))
+            names.append(f)
+        np.save(os.path.join(root, manifest), np.asarray(names))
+
+
+# Audio-MAE CP: three heart corpora (fbank clips of 600-1400 frames x 128);
+# circor holds enough clips for one validation batch of 64 (drop_last)
+AM_CORPORA = (("feature/circor_eval/audiomae_entire_spec_filenames.npy", 720, 600, 1400, 128),
+              ("feature/physionet16_eval/audiomae_entire_spec_filenames.npy", 300, 600, 1400, 128),
+              ("feature/pascal_A_eval/audiomae_entire_spec_filenames.npy", 300, 600, 1400, 128))
+# MAE CP (OPERA-GT): two respiratory corpora at max_len 256 and 64 (mel clips
+# x 64), each with one validation batch
+GT_CORPORA = (("datasets/covid19-sounds/SSL_entireaudio_filenames_breath.npy", 720, 100, 400, 64),
+              ("datasets/covid19-sounds/SSL_entireaudio_filenames_cough.npy", 720, 30, 120, 64))
+
+
+def _all_counts():
+    from heart_murmur_detection_tpu_torch.ops import swin, vit
+    from heart_murmur_detection_tpu_torch.ops import vit_train as vt
+
+    return {**swin.launch_counts(), **vit.launch_counts(), **vt.launch_counts()}
+
+
+def _reset_counts():
+    from heart_murmur_detection_tpu_torch.ops import swin, vit
+    from heart_murmur_detection_tpu_torch.ops import vit_train as vt
+
+    for m in (swin, vit, vt):
+        m.reset_launch_counts()
+
+
+def _mae_cli(root: str, method: str, corpora: tuple, fused_train: bool):
+    """One epoch of MAE CP at B=64 through cli.pretrain in `root`; returns
+    (history entry, launch counts of the run)."""
+    from heart_murmur_detection_tpu_torch.cli import pretrain
+
+    argv = [f"method={method}", "compute_dtype=bfloat16", "batch_size=64", "epoches=1",
+            "seed=0", "title=smoke", "device=cuda", f"fused_train={fused_train}", *corpora]
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _reset_counts()  # just before the main path
+        ((_, history, _),) = pretrain.main(argv)
+        counts = _all_counts()
+    finally:
+        os.chdir(cwd)
+    return history[0], counts
+
+
+def _mae_per_step(cfg, B: int, T: int, F: int) -> dict:
+    """Backward launches of one MAE CP step: one of each backward kernel a
+    block, four weight products a block, and in each block one swin_reduce
+    for each backward kernel's partials and one for each weight product
+    that swin_wgrad splits into more than one token chunk."""
+    from heart_murmur_detection_tpu_torch.ops import swin_train as st
+
+    C, hid, p = cfg.embed_dim, int(cfg.mlp_ratio * cfg.embed_dim), cfg.patch_size
+    L = (T // p) * (F // p)
+    n = B * (-(-(1 + int(L * (1 - cfg.mask_ratio))) // 16) * 16)
+    split = sum(st.wgrad_split(n, M, N)[0] > 1 for M, N in ((hid, C), (C, hid), (3 * C, C), (C, C)))
+    d = cfg.depth
+    return {"vit_attn_bwd": d, "vit_mlp_bwd": d, "swin_wgrad": 4 * d, "swin_reduce": d * (2 + split)}
+
+
+def _mae_cp_report(tag, h, counts, cfg, per_step, n_val):
+    import math
+
+    ok = all(counts[q] == v * h["steps"] for q, v in per_step.items())
+    fwd = cfg.depth * (h["steps"] + n_val)
+    ok &= counts["vit_qkv"] == counts["vit_attn"] == counts["vit_mlp"] == fwd
+    _require(ok, f"{tag} launch counts {counts} for {h['steps']} steps and {n_val} eval batches "
+                 f"(want {per_step} a step and {cfg.depth} of each forward kernel a batch)")
+    _require(all(math.isfinite(h[q]) for q in ("train_loss", "valid_loss")), f"{tag} losses {h}")
+    print(f"{tag}: {h['steps']} steps, {h['samples']} samples in {h['train_seconds']:.2f} s "
+          f"(first step included) = {h['steps'] / h['train_seconds']:.3f} steps/s, "
+          f"{h['samples'] / h['train_seconds']:.1f} samples/s; train loss {h['train_loss']:.4f} "
+          f"valid {h['valid_loss']:.4f}; launches {counts} ({per_step} a step)", flush=True)
+
+
+def phase_mae_cp(smi: str, dev):
+    """Phases 15-17: Audio-MAE CP through the CLI on the kernels and on the
+    plain bf16 path with steady-state step times; MAE (OPERA-GT) CP on
+    variable-length corpora; the Audio-MAE 3-step agreement and a profile of
+    one step. Returns the launch counts of the Audio-MAE kernel-path epoch."""
+    import copy
+
+    import torch
+
+    from heart_murmur_detection_tpu_torch.cli.pretrain import HEART_CORPORA
+    from heart_murmur_detection_tpu_torch.models import vit_mae
+    from heart_murmur_detection_tpu_torch.models.mae_train_fused import mae_train_loss_fused
+    from heart_murmur_detection_tpu_torch.pretrain import steps
+    from heart_murmur_detection_tpu_torch.pretrain.data import (
+        OPTIMAL_MAX_LEN_MAE, MultiCorpusSampler, load_corpus)
+
+    am_cfg = vit_mae.audiomae_base_config(mask_ratio=0.7)
+    am_args = [f"{m.split('/')[1][:-5]}=True" for m, *_ in AM_CORPORA]
+    assert all(a.split("=")[0] in HEART_CORPORA for a in am_args)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        _write_specs(root, AM_CORPORA, SEED + 30)
+        print(f"[mae cp] Audio-MAE: 3 heart corpora ({sum(c[1] for c in AM_CORPORA)} fbank clips "
+              f"of 600-1400 frames x 128) written in {time.time() - t0:.1f} s", flush=True)
+        per_step = _mae_per_step(am_cfg, B_TRAIN, 1024, 128)
+        h, counts = _mae_cli(root, "audiomae", am_args, True)
+        _mae_cp_report(f"[mae cp] cli.pretrain method=audiomae, train kernels, {smi}", h, counts,
+                       am_cfg, per_step, 1)
+        hp, cp = _mae_cli(root, "audiomae", am_args, False)
+        _require(all(cp[q] == 0 for q in per_step), f"plain path launched kernels: {cp}")
+        print(f"[mae cp] cli.pretrain method=audiomae, plain bf16 path: {hp['steps']} steps in "
+              f"{hp['train_seconds']:.2f} s = {hp['samples'] / hp['train_seconds']:.1f} samples/s; "
+              f"train loss {hp['train_loss']:.4f} valid {hp['valid_loss']:.4f}", flush=True)
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            corpora = [load_corpus(m.split("/")[1][:-5], 1024, "audiomae") for m, *_ in AM_CORPORA]
+        finally:
+            os.chdir(cwd)
+    sampler = MultiCorpusSampler(corpora, B_TRAIN, "audiomae", seed=SEED + 31)
+    batches = [torch.from_numpy(sampler.next_batch()[1]).to(dev) for _ in range(3)]
+    del corpora, sampler
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    noises = [torch.rand(B_TRAIN, 512, generator=gen, device=dev) for _ in range(3)]
+    base = vit_mae.MaskedAutoencoderViT(am_cfg, decoder=True)
+    vit_mae.init_weights(base, torch.Generator().manual_seed(SEED))
+    base.to(dev).train()
+
+    # phase 15's steady state: a step on one batch, each path
+    for impl in ("kernel", "plain"):
+        model = copy.deepcopy(base)
+        opt = steps.adam_with_epoch_decay(list(model.parameters()), 5)
+        step = lambda: steps.mae_train_step(model, opt, batches[0], torch.bfloat16, impl, noises[0])
+        ms = _time_ms(step, iters=3, warm=1)
+        print(f"[mae cp] Audio-MAE steady state, {impl} path, B={B_TRAIN} x 1024 x 128: {ms:.2f} "
+              f"ms/step = {1000 / ms:.3f} steps/s, {B_TRAIN * 1000 / ms:.1f} samples/s", flush=True)
+        del model, opt
+
+    # phase 16: OPERA-GT MAE CP on corpora of max_len 256 and 64
+    gt_cfg = vit_mae.mae_vit_small_config(mask_ratio=0.7)
+    with tempfile.TemporaryDirectory() as root:
+        _write_specs(root, GT_CORPORA, SEED + 33)
+        gt_args = ["covidbreath=True", "covidcough=True"]
+        h16, c16 = _mae_cli(root, "mae", gt_args, True)
+        lens = {n: OPTIMAL_MAX_LEN_MAE[n] for n in ("covidbreath", "covidcough")}
+        with open(os.path.join(root, "cks", "logs", "combined", "smoke", "metrics.csv")) as f:
+            row = f.read().splitlines()
+        per = [_mae_per_step(gt_cfg, B_TRAIN, t, 64) for t in lens.values()]
+        _require(per[0] == per[1], f"per-step launches differ by length: {per}")
+        _mae_cp_report(f"[mae cp] cli.pretrain method=mae (max_len {lens}), train kernels", h16,
+                       c16, gt_cfg, per[0], 2)
+        print(f"[mae cp] mae CSV: {row[0]} | {row[1]}", flush=True)
+        cols = dict(zip(row[0].split(","), row[1].split(",")))
+        _require(all(cols[f"train{s}_loss"] != "nan" for s in (0, 1)),
+                 f"an epoch that did not draw both lengths: {cols}")
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            gt_corpora = [load_corpus(n, ml, "mae") for n, ml in lens.items()]
+        finally:
+            os.chdir(cwd)
+    gt_base = vit_mae.MaskedAutoencoderViT(gt_cfg, decoder=True)
+    vit_mae.init_weights(gt_base, torch.Generator().manual_seed(SEED))
+    gt_base.to(dev).train()
+    for c in gt_corpora:  # one step's profile at each length
+        x = torch.from_numpy(MultiCorpusSampler([c], B_TRAIN, "mae", seed=SEED).next_batch()[1])
+        L = (x.shape[1] // gt_cfg.patch_size) * (x.shape[2] // gt_cfg.patch_size)
+        _mae_profile(f"OPERA-GT MAE ({c.name}, {x.shape[1]} x {x.shape[2]})", gt_base,
+                     x.to(dev), torch.rand(B_TRAIN, L, generator=gen, device=dev), steps)
+    del gt_base, gt_corpora
+
+    # phase 17: 3 steps of each path from the same weights, batches and noise
+    def run(impl, mm_dtype=torch.bfloat16, n_steps=3):
+        model = copy.deepcopy(base)
+        opt = steps.adam_with_epoch_decay(list(model.parameters()), 5)
+        losses, grads = [], None
+        for i, x in enumerate(batches[:n_steps]):
+            opt.zero_grad()
+            loss = mae_train_loss_fused(model, x, noises[i], None, mm_dtype, impl)
+            loss.backward()
+            if i == 0:
+                grads = {q: w.grad.detach().clone() for q, w in model.named_parameters()}
+            opt.step()
+            losses.append(float(loss.detach()))
+        return losses, grads
+
+    lk, gk = run("kernel")
+    lp, gp = run("plain")
+    lf, gf = run("autograd", torch.float32, 1)
+    zero = max(float(g[q].abs().max()) for g in (gk, gp, gf) for q in g if q.endswith(ZERO_GRAD))
+    print(f"[mae cp] the meta-MLP output biases' gradients (exact value 0) read at most "
+          f"{zero:.3g} in every path", flush=True)
+    _step0_rule("[mae cp] Audio-MAE, 3 steps from the same weights, batches and masking noise",
+                lk, lp, lf, gk, gp, gf, skip=ZERO_GRAD)
+    del gk, gp, gf
+    _mae_profile("Audio-MAE (1024 x 128)", base, batches[0], noises[0], steps)
+    return counts
+
+
+MAE_GROUPS = {**VIT_GROUPS, "vit_attn_bwd": "vit_attn_bwd", "vit_mlp_bwd": "swin_mlp_bwd_kernel",
+              "swin_wgrad": "swin_wgrad_kernel", "swin_reduce": "swin_reduce_kernel"}
+
+
+def _mae_profile(tag, base, x, noise, steps):
+    """Where one MAE CP step's device time goes (torch.profiler): the
+    kernels by group; within everything else, the decoder (forward and
+    backward from the encoder tokens) and the optimizer, each profiled
+    alone; the glue (patch embed, masking, pads, LN, loss) is the rest; the
+    idle share against the unprofiled step time."""
+    import copy
+
+    import torch
+
+    from heart_murmur_detection_tpu_torch.models.mae_train_fused import mae_encode_train_fused
+
+    model = copy.deepcopy(base)
+    opt = steps.adam_with_epoch_decay(list(model.parameters()), 5)
+    step = lambda: steps.mae_train_step(model, opt, x, torch.bfloat16, "kernel", noise)
+    wall = _time_ms(step, iters=3, warm=1)
+    groups = _device_ms(step, groups_by=MAE_GROUPS)
+    busy = sum(groups.values())
+    with torch.no_grad():
+        h, mask, ids = mae_encode_train_fused(model, x, noise, None, torch.bfloat16, "kernel",
+                                              train=False)
+
+    def decoder():
+        hi = h.clone().requires_grad_()
+        model.masked_loss(x, model.forward_decoder(hi, ids, torch.bfloat16), mask).backward()
+
+    dec = sum(_device_ms(decoder).values())
+    op = sum(_device_ms(opt.step).values())
+    kern = busy - groups["other"]
+    print(f"[mae cp profile] one {tag} step at B={B_TRAIN} on the kernels: {wall:.2f} ms a step "
+          f"unprofiled, device busy {busy:.2f} ms ({100 * (1 - busy / wall):.1f}% idle); encoder "
+          f"kernels {kern:.2f} ms: " + ", ".join(f"{k} {v:.2f}" for k, v in groups.items()
+                                                  if k != "other")
+          + f"; everything else {groups['other']:.2f} ms: the plain-torch decoder (fwd+bwd) "
+          f"{dec:.2f} ms, the optimizer {op:.2f} ms, the rest (glue: patch embed, masking, pads, "
+          f"LN, loss) {groups['other'] - dec - op:.2f} ms", flush=True)
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -1091,7 +1562,24 @@ KERNEL_SOURCES = {
                  "heart_murmur_detection_tpu/ops/pallas_vit.py:66"),
     "vit_mlp": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp.cu",
                 "heart_murmur_detection_tpu/ops/pallas_vit.py:149"),
+    "vit_attn_bwd": ("heart_murmur_detection_tpu_torch/csrc/vit_attn_bwd.cu",
+                     "heart_murmur_detection_tpu/ops/pallas_vit_train.py:246"),
+    "vit_mlp_bwd": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp_bwd.cu",
+                    "heart_murmur_detection_tpu/ops/pallas_vit_train.py:163"),
 }
+
+
+def _merge(a: dict, b: dict) -> dict:
+    """One kernel's measurements on two main paths, summed (the weight
+    products and reductions of a COLA step and of an Audio-MAE step)."""
+    lib = None if a["library_ms"] is None else a["library_ms"] + b["library_ms"]
+    work = Work()
+    for w in (a["work"], b["work"]):
+        work.t_bytes += w.t_bytes
+        work.t_ops += w.t_ops
+        work.bound_s += w.bound_s
+    return {"ms": a["ms"] + b["ms"], "plain_ms": a["plain_ms"] + b["plain_ms"],
+            "err": max(a["err"], b["err"]), "work": work, "library_ms": lib}
 
 
 def main() -> int:
@@ -1129,10 +1617,20 @@ def main() -> int:
         cp_counts = phase_cp(smi, dev)
         torch.cuda.empty_cache()
         vit_meas, gt_counts = phase_mae(paths, smi, dev)
+    torch.cuda.empty_cache()
+    vit_train_meas = phase_vit_train_kernels(dev)
+    torch.cuda.empty_cache()
+    mae_counts = phase_mae_cp(smi, dev)
     _require("jax" not in sys.modules, "jax was imported")
+    # the weight products and reductions: a COLA step and an Audio-MAE step,
+    # launched on both CP paths
+    for k in ("swin_wgrad", "swin_reduce"):
+        train_meas[k] = _merge(train_meas[k], vit_train_meas.pop(k))
+        cp_counts[k] += mae_counts[k]
     kernels = _entries(eval_meas, serve_counts, KERNEL_SOURCES)
     kernels += _entries(train_meas, cp_counts, KERNEL_SOURCES)
     kernels += _entries(vit_meas, gt_counts, KERNEL_SOURCES)
+    kernels += _entries(vit_train_meas, mae_counts, KERNEL_SOURCES)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,16 +1,22 @@
-"""Continued-pretraining CLI (COLA) — counterpart of
+"""Continued-pretraining CLI (COLA, MAE, Audio-MAE) — counterpart of
 heart_murmur_detection_tpu/cli/pretrain.py, reading the same
 configs/pretrain_config.yaml.
 
 Usage:
   python -m heart_murmur_detection_tpu_torch.cli.pretrain encoder=htsat method=cola \\
       compute_dtype=bfloat16 circor=True physionet16=True title=operaCT-heart-all epoches=250
+  python -m heart_murmur_detection_tpu_torch.cli.pretrain method=audiomae \\
+      compute_dtype=bfloat16 circor=True pascal_A=True title=audiomae-heart-all
+  python -m heart_murmur_detection_tpu_torch.cli.pretrain method=mae \\
+      compute_dtype=bfloat16 covidbreath=True covidcough=True title=gt-resp
   ... device=cpu              # on the CPU (plain versions of the kernels)
   ... pretrain=operaCT ckpt_path=cks/model/encoder-operaCT.ckpt   # warm start
+  ... pretrain=audiomae ckpt_path=src/benchmark/baseline/audioMAE/pretrained.pth
 
-Runs on one device (device=cuda by default). method=mae|audiomae (MAE
-pretraining) and the multi-device keys dp / tp / param_sharding are not
-ported and raise NotImplementedError.
+Runs on one device (device=cuda by default). The corpora and their max_len
+follow the method: the COLA table, the MAE table (respiratory corpora), or
+1024 frames for every heart corpus with audiomae. The multi-device keys
+dp / tp / param_sharding are not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,8 +24,12 @@ from __future__ import annotations
 import sys
 
 from ..pretrain.cola_training import train_multiple_data
-from ..pretrain.data import OPTIMAL_MAX_LEN_COLA
+from ..pretrain.data import OPTIMAL_MAX_LEN_COLA, OPTIMAL_MAX_LEN_MAE
+from ..pretrain.mae_training import mae_train_multiple_data
 from .config import parse_compute_dtype, resolve
+
+HEART_CORPORA = ("circor", "pascal_A", "pascal_B", "physionet16", "zchsound_clean",
+                 "zchsound_noisy")
 
 
 def main(argv=None):
@@ -29,22 +39,20 @@ def main(argv=None):
     results = []
     for cfg in resolve("pretrain_config", argv):
         method = cfg.get("method", "cola")
-        if method != "cola":
-            raise NotImplementedError(f"method={method}: MAE pretraining is not ported")
         if int(cfg.get("dp", 1)) > 1 or int(cfg.get("tp", 1)) > 1 or cfg.get("param_sharding"):
             raise NotImplementedError("multi-device CP (dp, tp, param_sharding) is not ported")
-        data_source = {dt: ml for dt, ml in OPTIMAL_MAX_LEN_COLA.items() if cfg.get(dt) is True}
+        if method == "cola":
+            max_lens = OPTIMAL_MAX_LEN_COLA
+        elif method == "mae":
+            max_lens = OPTIMAL_MAX_LEN_MAE
+        else:  # audiomae
+            max_lens = {k: 1024 for k in HEART_CORPORA}
+        data_source = {dt: ml for dt, ml in max_lens.items() if cfg.get(dt) is True}
         if not data_source:
             raise SystemExit("no corpora enabled (set e.g. circor=True)")
-        results.append(train_multiple_data(
-            cfg["title"],
-            data_source=data_source,
-            dim_hidden=cfg.get("dim_hidden", 1280),
-            dim_out=cfg.get("dim_out", 512),
-            encoder=cfg.get("encoder", "efficientnet"),
+        common = dict(
             n_epoches=cfg.get("epoches", 512),
             pretrain=cfg.get("pretrain"),
-            freeze_encoder=cfg.get("freeze_encoder", "none"),
             batch_size=int(cfg.get("batch_size", 64)),
             lr=float(cfg.get("lr", 1e-4)),
             seed=cfg.get("seed", 42),
@@ -53,6 +61,19 @@ def main(argv=None):
             fused_train=cfg.get("fused_train"),
             device=cfg.get("device", "cuda"),
             ckpt_path=cfg.get("ckpt_path"),
+        )
+        if method != "cola":
+            results.append(mae_train_multiple_data(
+                cfg["title"], data_source=data_source, training_method=method, **common))
+            continue
+        results.append(train_multiple_data(
+            cfg["title"],
+            data_source=data_source,
+            dim_hidden=cfg.get("dim_hidden", 1280),
+            dim_out=cfg.get("dim_out", 512),
+            encoder=cfg.get("encoder", "efficientnet"),
+            freeze_encoder=cfg.get("freeze_encoder", "none"),
+            **common,
         ))
     return results
 

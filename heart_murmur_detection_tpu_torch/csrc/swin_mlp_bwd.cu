@@ -1,22 +1,30 @@
-// swin_mlp_bwd: backward of the MLP half of an HTS-AT training swin block,
+// swin_mlp_bwd: backward of the MLP half of a training block,
 //   y = h1 + k2[b] * fc2(GELU(fc1(LN2(h1)))),  h1, dy (n_tokens, C) bf16,
 // given dy: dh1 = dy + LN2^T(dm), where with a1 = LN2(h1) W1^T + b1,
 //   dyk = k2 dy,  da1 = (dyk W2) * GELU'(a1),  dm = da1 W1.
+// The LN eps is an argument: 1e-5 for the HTS-AT swin blocks, 1e-6 for the
+// MAE ViT blocks, which have no DropPath (a null k2 means k2 = 1).
 //
-// Replaces the MLP half of the TPU backward, `_bwd_mlp_kernel`
+// Replaces the MLP half of the TPU backwards: `_bwd_mlp_kernel`
 // (heart_murmur_detection_tpu/ops/pallas_swin_train.py:271) of
-// fused_swin_block_train (:606, K8).
+// fused_swin_block_train (:606, K8), and `_bwd_mlp_common` as
+// `_bwd_mlp_acc_kernel` / `_bwd_mlp_emit_kernel` run it
+// (heart_murmur_detection_tpu/ops/pallas_vit_train.py:163-238) in
+// fused_vit_block_train (:703, K9).
 //
 // Outputs, besides dh1:
 //   - the per-token operands of the two weight products, bf16 rows:
-//     m_g = LN2(h1), g_g = GELU(a1), dyk_g = k2 dy, da1_g = da1, from which
-//     swin_wgrad.cu forms dW1 = da1^T LN2(h1) and dW2 = dyk^T GELU(a1);
+//     m_g = LN2(h1), g_g = GELU(a1), dyk_g = k2 dy (not written without a
+//     k2: dy itself is the operand), da1_g = da1, from which swin_wgrad.cu
+//     forms dW1 = da1^T LN2(h1) and dW2 = dyk^T GELU(a1);
 //   - one float32 partial row per block, [db1 (4C) | db2 (C) | dLN2 w (C) |
 //     dLN2 b (C)]: the column sums of da1, dyk, dm * xhat and dm over the
 //     block's tiles, summed later in block order by swin_reduce. No atomics:
 //     each column is summed by one thread in token order.
 //
-// Design. A block walks a contiguous run of `tpb` tiles of 64 tokens. Per
+// Design. A block walks a contiguous run of `tpb` tiles of 64 tokens (32 at
+// C = 768, where the LN2(h1) and k2 dy tiles of 64 tokens would fill shared
+// memory alone; the dm accumulators stay at 12 fragments a warp). Per
 // tile it recomputes LN2 (statistics kept), writes k2 dy as bf16, then walks
 // the hidden dimension in chunks of 128: a1 of the chunk (WMMA, K = C) into
 // float32 shared memory with GELU(a1) streamed out; dg = k2 dy W2[:, chunk]
@@ -35,11 +43,17 @@
 
 namespace hmdt {
 
-constexpr int BT = 64;    // tokens a tile
 constexpr int BHC = 128;  // hidden chunk
+
+// tokens a tile: 64, or 32 at C = 768 (shared memory)
+template <int C>
+constexpr int mlp_bwd_tile() {
+  return C >= 768 ? 32 : 64;
+}
 
 template <int C>
 struct MlpBwdSmem {
+  static constexpr int BT = mlp_bwd_tile<C>();
   static constexpr int HID = 4 * C;
   static constexpr int LDX = C + PAD;    // bf16 rows of LN2(h1) and k2 dy
   static constexpr int LDF = C + 4;      // f32 rows of dm (over the two above)
@@ -73,8 +87,9 @@ swin_mlp_bwd_kernel(const bf16* __restrict__ h1, const bf16* __restrict__ dy,
                     const bf16* __restrict__ w2, bf16* __restrict__ m_g,
                     bf16* __restrict__ g_g, bf16* __restrict__ dyk_g,
                     bf16* __restrict__ da1_g, float* __restrict__ part, int n_tiles,
-                    int hw, int tpb) {
+                    int hw, int tpb, float eps) {
   using L = MlpBwdSmem<C>;
+  constexpr int BT = L::BT;
   constexpr int HID = L::HID;
   constexpr int PER = C / 32;
   constexpr int RT = BT / 16;
@@ -106,17 +121,19 @@ swin_mlp_bwd_kernel(const bf16* __restrict__ h1, const bf16* __restrict__ dy,
     const size_t tok0 = (size_t)tile * BT;
     // 1. LN2(h1) of the tile -> xm, with its statistics
     for (int t = warp; t < BT; t += NWARPS)
-      ln_token<C>(h1 + (tok0 + t) * C, ln_w, ln_b, xm + t * L::LDX, lane, mu + t, rstd + t);
+      ln_token<C>(h1 + (tok0 + t) * C, ln_w, ln_b, xm + t * L::LDX, lane, mu + t, rstd + t,
+                  eps);
     // 2. dyk = k2 dy -> bf16 in shared and global memory; db2 sums in f32
     for (int c = threadIdx.x; c < C; c += NTHREADS) {
       float s = 0.f;
       for (int t = 0; t < BT; ++t) {
         const size_t off = (tok0 + t) * C + c;
-        const float v = kmul[(tok0 + t) / hw] * __bfloat162float(dy[off]);
+        const float k = kmul ? kmul[(tok0 + t) / hw] : 1.f;
+        const float v = k * __bfloat162float(dy[off]);
         s += v;
         const bf16 vb = __float2bfloat16(v);
         dyk[t * L::LDX + c] = vb;
-        dyk_g[off] = vb;
+        if (dyk_g) dyk_g[off] = vb;
       }
       cols[HID + c] += s;
     }
@@ -288,14 +305,14 @@ static cudaError_t launch_mlp_bwd(const void* h1, const void* dy, const void* km
                                   void* dh1, const void* ln_w, const void* ln_b,
                                   const void* w1, const void* b1, const void* w2,
                                   void* m_g, void* g_g, void* dyk_g, void* da1_g,
-                                  void* part, int n_tokens, int hw, int tpb,
+                                  void* part, int n_tokens, int hw, int tpb, float eps,
                                   cudaStream_t stream) {
   const size_t smem = MlpBwdSmem<C>::bytes;
   auto kernel = swin_mlp_bwd_kernel<C>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_tiles = n_tokens / BT;
+  const int n_tiles = n_tokens / MlpBwdSmem<C>::BT;
   const int grid = (n_tiles + tpb - 1) / tpb;
   kernel<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(h1), static_cast<const bf16*>(dy),
@@ -304,7 +321,7 @@ static cudaError_t launch_mlp_bwd(const void* h1, const void* dy, const void* km
       static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<bf16*>(m_g), static_cast<bf16*>(g_g),
       static_cast<bf16*>(dyk_g), static_cast<bf16*>(da1_g), static_cast<float*>(part),
-      n_tiles, hw, tpb);
+      n_tiles, hw, tpb, eps);
   return cudaGetLastError();
 }
 
@@ -312,27 +329,32 @@ static cudaError_t launch_mlp_bwd(const void* h1, const void* dy, const void* km
 
 // C interface for ctypes. Returns cudaGetLastError() after the launch (0 on
 // success). h1, dy, dh1 (n_tokens, C) bf16; kmul one float per sample of hw
-// tokens; m_g, dyk_g (n_tokens, C) and g_g, da1_g (n_tokens, hidden) bf16;
-// part (ceil(n_tokens / 64 / tpb), hidden + 3 C) f32.
+// tokens, or null (no multiplier; dyk_g is then null too); m_g, dyk_g
+// (n_tokens, C) and g_g, da1_g (n_tokens, hidden) bf16; part (ceil(n_tokens /
+// T / tpb), hidden + 3 C) f32 with T = 64 tokens a tile (32 at C = 768);
+// eps the LayerNorm epsilon.
 extern "C" int swin_mlp_bwd_launch(const void* h1, const void* dy, const void* kmul,
                                    void* dh1, const void* ln_w, const void* ln_b,
                                    const void* w_fc1, const void* b_fc1,
                                    const void* w_fc2, void* m_g, void* g_g,
                                    void* dyk_g, void* da1_g, void* part, int n_tokens,
-                                   int C, int hidden, int hw, int tpb, void* stream) {
+                                   int C, int hidden, int hw, int tpb, float eps,
+                                   void* stream) {
   using namespace hmdt;
-  if (n_tokens <= 0 || n_tokens % BT || hidden != 4 * C || hw <= 0 || tpb <= 0 || !kmul)
+  if (n_tokens <= 0 || n_tokens % 64 || hidden != 4 * C || hw <= 0 || tpb <= 0 ||
+      (!kmul && dyk_g))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HMDT_MLP_BWD_CASE(CC)                                                   \
   case CC:                                                                      \
     return (int)launch_mlp_bwd<CC>(h1, dy, kmul, dh1, ln_w, ln_b, w_fc1, b_fc1, \
                                    w_fc2, m_g, g_g, dyk_g, da1_g, part,         \
-                                   n_tokens, hw, tpb, s);
+                                   n_tokens, hw, tpb, eps, s);
   switch (C) {
     HMDT_MLP_BWD_CASE(96)
     HMDT_MLP_BWD_CASE(192)
     HMDT_MLP_BWD_CASE(384)
+    HMDT_MLP_BWD_CASE(768)
     default:
       return (int)cudaErrorInvalidValue;
   }

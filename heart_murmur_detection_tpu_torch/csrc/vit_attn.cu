@@ -43,19 +43,9 @@
 // pass) plus 2 Np C^2 for proj, against 4 Np C + 6 Np C bytes, so the
 // operations bound it. Later work: wgmma with TMA-fed K/V tiles, two heads
 // a block at the narrow batch.
-#include <math.h>
-#include <stdint.h>
-
-#include "swin_common.cuh"
+#include "vit_attn_common.cuh"
 
 namespace hmdt {
-
-constexpr int AQ = 64;               // query rows a block
-constexpr int AHD = 64;              // head dim
-constexpr int AWARPS = 4;            // warps a block, 16 query rows each
-constexpr int ATHREADS = AWARPS * 32;
-constexpr int LDT = AHD + PAD;       // k / v tile rows (bf16)
-constexpr float MASK_LOGIT = -1e9f;  // the TPU kernel's padded-key logit
 
 // keys a tile: 64 at C = 384; 32 at C = 768, where two blocks an SM then
 // still fit beside the 97 KB output tile
@@ -79,100 +69,6 @@ struct VitAttnSmem {
   static_assert((size_t)AWARPS * 256 * 4 <= 2 * T, "staging must fit in the k / v tiles");
   static_assert(bytes <= SMEM_LIMIT, "shared memory over the sm_90 limit");
 };
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8 x 8 bf16 matrices from shared memory; lane l gives the
-// address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// KT rows of a head's (Np, 64) bf16 matrix in registers: thread i holds
-// 16-byte pieces i, i + 128, ... (rows at or past Np read as zeros), so the
-// next key tile's loads are in flight while the current one is used.
-template <int KT>
-struct TileRegs {
-  static constexpr int N = KT * (AHD / 8) / ATHREADS;
-  int4 v[N];
-};
-
-template <int KT>
-__device__ __forceinline__ void fetch_tile(const bf16* __restrict__ src, int r0, int Np,
-                                           TileRegs<KT>& t) {
-#pragma unroll
-  for (int u = 0; u < TileRegs<KT>::N; ++u) {
-    const int i = threadIdx.x + u * ATHREADS;
-    const int r = i / (AHD / 8);
-    t.v[u] = r0 + r < Np
-                 ? reinterpret_cast<const int4*>(src + (size_t)(r0 + r) * AHD)[i % (AHD / 8)]
-                 : make_int4(0, 0, 0, 0);
-  }
-}
-
-template <int KT>
-__device__ __forceinline__ void store_tile(const TileRegs<KT>& t, bf16* dst) {
-#pragma unroll
-  for (int u = 0; u < TileRegs<KT>::N; ++u) {
-    const int i = threadIdx.x + u * ATHREADS;
-    reinterpret_cast<int4*>(dst + (i / (AHD / 8)) * LDT)[i % (AHD / 8)] = t.v[u];
-  }
-}
-
-// S (16 x KT, float32) = Q K^T for this warp's rows: s[nb] holds keys
-// nb * 8 + 2 t, + 1 of rows g (s[nb][0..1]) and g + 8 (s[nb][2..3]); keys at
-// or past n_real (col0 is the tile's first key) read as the masked logit.
-template <int KT>
-__device__ __forceinline__ void score_tile(const uint32_t (&qa)[AHD / 16][4], const bf16* ks,
-                                           int col0, int n_real, int g, int t,
-                                           float (&s)[KT / 8][4]) {
-#pragma unroll
-  for (int nb = 0; nb < KT / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < AHD / 16; ++kc) {
-#pragma unroll
-    for (int nb = 0; nb < KT / 8; ++nb) {
-      const bf16* kr = ks + (nb * 8 + g) * LDT + kc * 16 + 2 * t;
-      mma_bf16(s[nb], qa[kc], *reinterpret_cast<const uint32_t*>(kr),
-               *reinterpret_cast<const uint32_t*>(kr + 8));
-    }
-  }
-#pragma unroll
-  for (int nb = 0; nb < KT / 8; ++nb) {
-    const int c = col0 + nb * 8 + 2 * t;
-    if (c >= n_real) s[nb][0] = s[nb][2] = MASK_LOGIT;
-    if (c + 1 >= n_real) s[nb][1] = s[nb][3] = MASK_LOGIT;
-  }
-}
-
-// Merge (max, sum of exp(s - max)) over the 4 threads of a quad (one row).
-__device__ __forceinline__ void merge_row_stats(float& m, float& l) {
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    const float mo = __shfl_xor_sync(0xffffffffu, m, o);
-    const float lo = __shfl_xor_sync(0xffffffffu, l, o);
-    const float mn = fmaxf(m, mo);
-    l = l * expf(m - mn) + lo * expf(mo - mn);
-    m = mn;
-  }
-}
 
 template <int C>
 __global__ void __launch_bounds__(ATHREADS, (C >= 768 ? 2 : 3))
@@ -205,15 +101,7 @@ vit_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ qkv,
     const bf16* vh = qkv + ((size_t)(2 * B + b) * heads + h) * hstride;
     // this warp's Q as m16n8k16 A fragments, straight from device memory
     uint32_t qa[AHD / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < AHD / 16; ++kc) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = q0 + row0 + (e & 1) * 8;
-        const int c = kc * 16 + (e >> 1) * 8 + 2 * t;
-        qa[kc][e] = r < Np ? *reinterpret_cast<const uint32_t*>(qh + (size_t)r * AHD + c) : 0u;
-      }
-    }
+    load_a_rows(qh, q0 + warp * 16, Np, g, t, qa);
     TileRegs<KT> kr, vr;
     fetch_tile<KT>(kh, 0, Np, kr);
     store_tile<KT>(kr, ks);
@@ -283,25 +171,9 @@ vit_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ qkv,
           s[nb][e] = p;
         }
       }
-#pragma unroll
-      for (int kc = 0; kc < KT / 16; ++kc) {
-        // P of keys 16 kc .. 16 kc + 15 as an A fragment (the accumulator
-        // layout of two column blocks is the A layout)
-        const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                                pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                                pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                                pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-        for (int db = 0; db < AHD / 8; db += 2) {
-          // V rows 16 kc .. +15, dims db * 8 .. +15, transposed into the
-          // B fragments of dim blocks db and db + 1
-          const int j = lane >> 3;
-          uint32_t bv[4];
-          ldsm_x4_trans(bv, vs + (kc * 16 + (j & 1) * 8 + (lane & 7)) * LDT + (db + (j >> 1)) * 8);
-          mma_bf16(o[db], pa, bv[0], bv[1]);
-          mma_bf16(o[db + 1], pa, bv[2], bv[3]);
-        }
-      }
+      // P of the tile, rounded to bf16, as the A operand of P V (the
+      // accumulator layout of two column blocks is the A layout)
+      pv_tile<KT>(s, vs, lane, o);
       __syncthreads();  // every warp is done with this K and V tile
       if (kt + 1 < n_kt) {
         store_tile<KT>(kr, ks);
@@ -313,9 +185,7 @@ vit_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ qkv,
     if (fast_softmax) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
-        sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
-        scale[hr] = 1.f / sum[hr];
+        scale[hr] = 1.f / quad_sum(sum[hr]);
       }
     }
     // this head's 16 x 64 output of the warp, rounded to bf16, into ob

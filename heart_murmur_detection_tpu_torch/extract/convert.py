@@ -11,14 +11,19 @@ heart_murmur_detection_tpu/extract/convert.py.
   The tscam head is not carried.
 - `load_torch_ckpt(path, model)`: a reference OPERA-CT `.ckpt` into the
   port's Cola, keys matched by name (the port keeps the reference names).
-- `from_jax_mae(variables)`: the JAX package's flax MaskedAutoencoderViT or
-  AudioMAEClassifierBackbone variables -> the port's state_dict of the
-  encoder (models/vit_mae.py); the inverse of the encoder part of the JAX
-  `convert_mae` and `convert_audiomae_backbone`.
+- `from_jax_mae(variables, decoder=False)`: the JAX package's flax
+  MaskedAutoencoderViT or AudioMAEClassifierBackbone variables -> the port's
+  state_dict (models/vit_mae.py) of the encoder, or with decoder=True of the
+  whole MAE tree (for a model built with its decoder); the inverse of the
+  JAX `convert_mae` and `convert_audiomae_backbone`. A gradient tree maps
+  the same way.
 - `load_mae_ckpt(path, model)`: a reference OPERA-GT or Audio-MAE
-  checkpoint into the port's encoder by key name; decoder, mask-token and
-  pos_embed keys are ignored; a missing Audio-MAE fc_norm falls back to the
-  encoder's norm, else to ones and zeros (as the JAX converter does).
+  checkpoint into the port's model by key name: every key the model holds
+  must be there (the decoder's too, for a model built with its decoder, as a
+  warm start of MAE pretraining loads strictly); keys it does not hold
+  (pos_embed, decoder_pos_embed, a decoder the model lacks) are ignored; a
+  missing Audio-MAE fc_norm falls back to the encoder's norm, else to ones
+  and zeros (as the JAX converter does).
 """
 
 from __future__ import annotations
@@ -89,10 +94,11 @@ def from_jax(variables: dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def from_jax_mae(variables: dict) -> Dict[str, torch.Tensor]:
-    """flax MAE / Audio-MAE encoder variables -> state_dict of
-    models.vit_mae.MaskedAutoencoderViT / AudioMAEClassifierBackbone.
-    Decoder leaves, if present, are not carried."""
+def from_jax_mae(variables: dict, decoder: bool = False) -> Dict[str, torch.Tensor]:
+    """flax MAE / Audio-MAE variables -> state_dict of
+    models.vit_mae.MaskedAutoencoderViT / AudioMAEClassifierBackbone; with
+    decoder=True the decoder leaves too (MaskedAutoencoderViT(cfg,
+    decoder=True))."""
     params = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
     k = np.asarray(params["patch_embed_proj"]["kernel"])  # (kh, kw, 1, D)
@@ -113,15 +119,35 @@ def from_jax_mae(variables: dict) -> Dict[str, torch.Tensor]:
     for norm in ("norm", "fc_norm"):
         if norm in params:
             _norm(sd, norm, params[norm])
+    if decoder:
+        _linear(sd, "decoder_embed", params["decoder_embed"])
+        sd["mask_token"] = _t(params["mask_token"])
+        blocks = sorted(
+            (int(m[1]), name) for name in params
+            if (m := re.fullmatch(r"decoder_blocks_(\d+)", name))
+        )
+        for i, name in blocks:
+            blk, tp = params[name], f"decoder_blocks.{i}."
+            _linear(sd, tp + "attn.qkv", blk["attn"]["qkv"])
+            _linear(sd, tp + "attn.proj", blk["attn"]["proj"])
+            _linear(sd, tp + "attn.meta_mlp.fc1", blk["attn"]["meta_fc1"])
+            _linear(sd, tp + "attn.meta_mlp.fc2", blk["attn"]["meta_fc2"])
+            sd[tp + "attn.tau"] = _t(blk["attn"]["tau"])
+            _norm(sd, tp + "norm1", blk["norm1"])
+            _norm(sd, tp + "norm2", blk["norm2"])
+            _linear(sd, tp + "mlp.fc1", blk["mlp_fc1"])
+            _linear(sd, tp + "mlp.fc2", blk["mlp_fc2"])
+        _norm(sd, "decoder_norm", params["decoder_norm"])
+        _linear(sd, "decoder_pred", params["decoder_pred"])
     return sd
 
 
 def load_mae_ckpt(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load a reference MAE-family checkpoint (Lightning `.ckpt`, a `.pth`
-    holding {"model": ...}, or a bare state_dict) into the port's encoder by
-    key name. The encoder may sit under any prefix (found from its patch
-    embed); keys the encoder does not hold are ignored; a missing key
-    raises."""
+    holding {"model": ...}, or a bare state_dict) into the port's model by
+    key name. The model may sit under any prefix (found from its patch
+    embed); keys the model does not hold are ignored; a missing key raises,
+    so a model built with its decoder loads the decoder strictly."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt.get("model", ckpt))
     anchor = "patch_embed.proj.weight"

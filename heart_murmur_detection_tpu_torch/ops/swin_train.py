@@ -117,25 +117,33 @@ def _unwindows(t: torch.Tensor, B: int, H: int, W: int, window: int) -> torch.Te
 
 
 def swin_mlp_bwd_ref(
-    h1: torch.Tensor, dy: torch.Tensor, k2: torch.Tensor, p: SwinBlockParams
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    h1: torch.Tensor,
+    dy: torch.Tensor,
+    k2: Optional[torch.Tensor],
+    p: SwinBlockParams,
+    eps: float = 1e-5,
+    rows: bool = False,
+):
     """Plain version of swin_mlp_bwd: y = h1 + k2 mlp(LN2(h1)), given dy ->
     (dh1 in h1's dtype, float32 gradients of ln2_w, ln2_b, w_fc1, b_fc1,
-    w_fc2, b_fc2 in the torch (out, in) layout)."""
+    w_fc2, b_fc2 in the torch (out, in) layout). k2=None is no multiplier;
+    p may be any block layout with the MLP fields (ops.vit.VitBlockParams
+    too, with the ViT's LN eps 1e-6). rows=True also returns the operand
+    rows (LN2(h1), GELU(a1), da1) rounded as the kernel emits them."""
     act, mm = h1.dtype, p.mm_dtype
     B, C = h1.shape[0], h1.shape[-1]
-    xhat, rstd = _ln_stats(h1.reshape(-1, C))
+    xhat, rstd = _ln_stats(h1.reshape(-1, C), eps)
     mb = _mmf(xhat * p.ln2_w + p.ln2_b, mm)
     a1 = mb @ _mmf(p.w_fc1, mm).T + p.b_fc1
     dyf = dy.reshape(-1, C).to(torch.float32)
-    dyk = k2.reshape(B, 1).repeat_interleave(dyf.shape[0] // B, 0) * dyf
+    dyk = dyf if k2 is None else k2.reshape(B, 1).repeat_interleave(dyf.shape[0] // B, 0) * dyf
     dykb = _mmf(dyk, mm)
     gb = _mmf(F.gelu(a1, approximate="none"), mm)
     da1 = (dykb @ _mmf(p.w_fc2, mm)) * gelu_grad(a1)
     da1b = _mmf(da1, mm)
     dm = da1b @ _mmf(p.w_fc1, mm)
     dh1 = (dyf + _ln_bwd_input(dm, xhat, rstd, p.ln2_w)).to(act).reshape(h1.shape)
-    return dh1, {
+    grads = {
         "ln2_w": (dm * xhat).sum(0),
         "ln2_b": dm.sum(0),
         "w_fc1": da1b.T @ mb,
@@ -143,6 +151,7 @@ def swin_mlp_bwd_ref(
         "w_fc2": dykb.T @ gb,
         "b_fc2": dyk.sum(0),
     }
+    return (dh1, grads, (mb, gb, da1b)) if rows else (dh1, grads)
 
 
 def swin_attn_bwd_ref(
@@ -327,7 +336,7 @@ def swin_mlp_bwd_launch(h1, dy, k2, p: SwinBlockParams):
         _ptr(h1), _ptr(dy), _ptr(k2), _ptr(dh1), _ptr(p.ln2_w), _ptr(p.ln2_b),
         _ptr(p.w_fc1), _ptr(p.b_fc1), _ptr(p.w_fc2),
         _ptr(m_g), _ptr(g_g), _ptr(dyk_g), _ptr(da1_g), _ptr(part),
-        n, C, hidden, H * W, tpb, _cuda_stream(h1),
+        n, C, hidden, H * W, tpb, 1e-5, _cuda_stream(h1),
     )
     _check_launch("swin_mlp_bwd", rc)
     swin_mlp_bwd.launches += 1

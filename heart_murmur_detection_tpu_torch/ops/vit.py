@@ -88,21 +88,19 @@ class VitBlockParams:
         return self.w_qkv.dtype
 
 
-def prep_vit_block(
-    sd: Mapping[str, torch.Tensor],
-    heads: int,
-    mm_dtype: torch.dtype,
-    device=None,
-) -> VitBlockParams:
-    """Lay out one block's weights for the kernels, detached, once at weight
-    load. sd: the block's state_dict under the reference key names (norm1.*,
-    attn.qkv.*, attn.proj.*, norm2.*, mlp.fc1.*, mlp.fc2.*).
+def vit_block_layout(get, heads: int, mm_dtype: torch.dtype) -> VitBlockParams:
+    """Lay out one block's weights for the kernels with differentiable torch
+    ops: `get(name)` returns the float32 tensor of a reference key (norm1.*,
+    attn.qkv.*, attn.proj.*, norm2.*, mlp.fc1.*, mlp.fc2.*). The training
+    path builds this inside autograd every step, so the gradients of the
+    folded bf16 layout flow back to the float32 parameters through the fold
+    and the cast (pallas_vit_train._prep_vit_train_weights :680);
+    prep_vit_block builds it once, detached, for inference.
 
     As pallas_vit._attn_weights :222-238: the q rows of w_qkv and the q part
     of b_qkv are multiplied by hd^-0.5 in float32 before the matmul-dtype
     cast, so the kernels never scale q."""
-    g = lambda k: sd[k].detach().to(device=device, dtype=torch.float32)
-    w_qkv, b_qkv = g("attn.qkv.weight"), g("attn.qkv.bias")
+    w_qkv, b_qkv = get("attn.qkv.weight"), get("attn.qkv.bias")
     C = w_qkv.shape[1]
     if C % heads:
         raise ValueError(f"{heads} heads must divide C = {C}")
@@ -110,21 +108,35 @@ def prep_vit_block(
     w_qkv = torch.cat([w_qkv[:C] * scale, w_qkv[C:]])
     b_qkv = torch.cat([b_qkv[:C] * scale, b_qkv[C:]])
     mm = lambda t: t.to(mm_dtype).contiguous()
+    f32 = lambda k: get(k).contiguous()
     return VitBlockParams(
         heads=heads,
-        ln1_w=g("norm1.weight").contiguous(),
-        ln1_b=g("norm1.bias").contiguous(),
+        ln1_w=f32("norm1.weight"),
+        ln1_b=f32("norm1.bias"),
         w_qkv=mm(w_qkv),
         b_qkv=b_qkv.contiguous(),
-        w_proj=mm(g("attn.proj.weight")),
-        b_proj=g("attn.proj.bias").contiguous(),
-        ln2_w=g("norm2.weight").contiguous(),
-        ln2_b=g("norm2.bias").contiguous(),
-        w_fc1=mm(g("mlp.fc1.weight")),
-        b_fc1=g("mlp.fc1.bias").contiguous(),
-        w_fc2=mm(g("mlp.fc2.weight")),
-        b_fc2=g("mlp.fc2.bias").contiguous(),
+        w_proj=mm(get("attn.proj.weight")),
+        b_proj=f32("attn.proj.bias"),
+        ln2_w=f32("norm2.weight"),
+        ln2_b=f32("norm2.bias"),
+        w_fc1=mm(get("mlp.fc1.weight")),
+        b_fc1=f32("mlp.fc1.bias"),
+        w_fc2=mm(get("mlp.fc2.weight")),
+        b_fc2=f32("mlp.fc2.bias"),
     )
+
+
+def prep_vit_block(
+    sd: Mapping[str, torch.Tensor],
+    heads: int,
+    mm_dtype: torch.dtype,
+    device=None,
+) -> VitBlockParams:
+    """Lay out one block's weights for the kernels, detached, once at weight
+    load (vit_block_layout). sd: the block's state_dict under the reference
+    key names."""
+    return vit_block_layout(
+        lambda k: sd[k].detach().to(device=device, dtype=torch.float32), heads, mm_dtype)
 
 
 def pad_tokens(x: torch.Tensor, multiple: int = 16) -> Tuple[torch.Tensor, int]:

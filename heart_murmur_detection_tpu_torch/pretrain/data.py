@@ -1,6 +1,6 @@
-"""Host-side SSL corpus handling for continued pretraining — a copy of the
-COLA half of heart_murmur_detection_tpu/pretrain/data.py, pinned to the
-original by tests/test_torch_pretrain.py.
+"""Host-side SSL corpus handling for continued pretraining — a copy of
+heart_murmur_detection_tpu/pretrain/data.py, pinned to the original by
+tests/test_torch_pretrain.py (COLA) and tests/test_torch_mae_train.py (MAE).
 
 Replicates the reference's multi-corpus machinery:
 - per-corpus spectrogram .npy file lists (heart_pressl.py manifests)
@@ -10,11 +10,12 @@ Replicates the reference's multi-corpus machinery:
   each step draws ONE corpus with probability proportional to its batch count.
 - COLA item pipeline (cola AudioDataset :56-80): full-clip markov row-mask ->
   two random crops -> independent gains.
+- MAE item pipeline (mae_training AudioDataset :87-109): crop-or-zero-pad to
+  (max_len, n_mels), full batches only (drop_last).
 
 The 90/10 split is sklearn's train_test_split(random_state=1337) written in
 numpy (the card's machine has no sklearn): RandomState(1337).permutation(n),
 the first ceil(0.1 n) indices are the validation set, the rest train.
-The MAE item pipeline is not carried (MAE pretraining is not ported).
 """
 
 from __future__ import annotations
@@ -42,6 +43,16 @@ OPTIMAL_MAX_LEN_COLA = {
     "physionet16": 251,
     "zchsound_clean": 251,
     "zchsound_noisy": 251,
+}
+
+OPTIMAL_MAX_LEN_MAE = {
+    "covidbreath": 256,
+    "covidcough": 64,
+    "icbhicycle": 64,
+    "coughvid": 64,
+    "hf_lung": 256,
+    "covidUKexhalation": 128,
+    "covidUKcough": 64,
 }
 
 def manifest_path(corpus: str, method: str = "cola", in_domain: bool = False) -> str:
@@ -120,8 +131,17 @@ def cola_views_np(
     return x1.astype(np.float32), x2.astype(np.float32)
 
 
+def mae_item_np(rng: np.random.Generator, x: np.ndarray, max_len: int) -> np.ndarray:
+    p = max_len - x.shape[0]
+    if p < 0:
+        x = np_random_crop(rng, x, max_len)
+    elif p > 0:
+        x = np.pad(x, ((0, p), (0, 0)))
+    return x.astype(np.float32)
+
+
 class MultiCorpusSampler:
-    """max_size_cycle + per-step weighted corpus draw (COLA items)."""
+    """max_size_cycle + per-step weighted corpus draw."""
 
     def __init__(
         self,
@@ -131,14 +151,12 @@ class MultiCorpusSampler:
         seed: int = 42,
         drop_last: Optional[bool] = None,
     ):
-        if method != "cola":
-            raise NotImplementedError(f"method {method!r}: only COLA pretraining is ported")
         self.corpora = list(corpora)
         self.bs = batch_size
         self.method = method
         self.rng = np.random.default_rng(seed)
-        # cola loaders keep their last partial batch (mae ones drop it)
-        self.drop_last = False if drop_last is None else bool(drop_last)
+        # mae loaders use drop_last=True (mae_training.py:219-228), cola don't
+        self.drop_last = (method != "cola") if drop_last is None else bool(drop_last)
         self.n_batches = []
         for c in self.corpora:
             n = len(c.train)
@@ -166,14 +184,20 @@ class MultiCorpusSampler:
                 yield [corpus.train[j] for j in order[i : i + self.bs]]
 
     def next_batch(self):
-        """Returns (corpus_index, (x1, x2)) for one training step."""
+        """Returns (corpus_index, batch arrays) for one training step: (x1,
+        x2) views for COLA, one (B, max_len, n_mels) batch for MAE."""
         s = int(self.rng.choice(len(self.corpora), p=self.weights))
         items = next(self._iters[s])
         c = self.corpora[s]
-        pairs = [cola_views_np(self.rng, x, c.max_len) for x in items]
-        x1 = np.stack([p[0] for p in pairs])
-        x2 = np.stack([p[1] for p in pairs])
-        return s, (x1, x2)
+        if self.method == "cola":
+            pairs = [cola_views_np(self.rng, x, c.max_len) for x in items]
+            x1 = np.stack([p[0] for p in pairs])
+            x2 = np.stack([p[1] for p in pairs])
+            return s, (x1, x2)
+        # mae/audiomae items are crop-or-zero-pad ONLY: the reference's
+        # AudioDataset ignores self.augment for these methods
+        # (mae_training.py:86-107 — no random_mask in the mae/audiomae branch)
+        return s, np.stack([mae_item_np(self.rng, x, c.max_len) for x in items])
 
     def val_batches(self, augment: bool = True):
         """Sequential over all corpora's val sets (CombinedLoader 'sequential').
@@ -187,8 +211,11 @@ class MultiCorpusSampler:
                 items = c.val[i : i + self.bs]
                 if not items:
                     continue
-                pairs = [cola_views_np(self.rng, x, c.max_len, augment) for x in items]
-                yield s, (
-                    np.stack([p[0] for p in pairs]),
-                    np.stack([p[1] for p in pairs]),
-                )
+                if self.method == "cola":
+                    pairs = [cola_views_np(self.rng, x, c.max_len, augment) for x in items]
+                    yield s, (
+                        np.stack([p[0] for p in pairs]),
+                        np.stack([p[1] for p in pairs]),
+                    )
+                else:
+                    yield s, np.stack([mae_item_np(self.rng, x, c.max_len) for x in items])

@@ -1,6 +1,7 @@
-"""The optimizer of continued pretraining — counterpart of
-heart_murmur_detection_tpu/pretrain/steps.py (`adam_with_epoch_decay`,
-`make_frozen`).
+"""The optimizer and the MAE steps of continued pretraining — counterpart
+of heart_murmur_detection_tpu/pretrain/steps.py (`adam_with_epoch_decay`,
+`make_frozen`, `make_mae_train_step` :82, `make_mae_eval_step` :109; the
+COLA step lives in cola_training.py).
 
 Adam (betas 0.9 / 0.999, eps 1e-8, no weight decay) whose learning rate is
 lr * decay ** (step // steps_per_epoch), with step the number of updates
@@ -15,6 +16,8 @@ from __future__ import annotations
 from typing import Callable, Iterable, List, Optional
 
 import torch
+
+from ..models.mae_train_fused import mae_train_loss_fused
 
 
 class EpochDecayAdam:
@@ -61,3 +64,26 @@ def make_frozen(model: torch.nn.Module,
     parameters and go on updating in the train step."""
     return [p for name, p in model.named_parameters()
             if trainable_fn is None or trainable_fn(name)]
+
+
+def mae_train_step(model: torch.nn.Module, opt: EpochDecayAdam, x: torch.Tensor,
+                   mm_dtype: torch.dtype, impl: str,
+                   noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One MAE CP step: the masked-patch loss of batch x (B, T, F) with the
+    encoder on the training blocks (impl as ops.vit_train), backward, Adam.
+    Masking noise (B, L) as given, else drawn from `generator`."""
+    opt.zero_grad()
+    loss = mae_train_loss_fused(model, x, noise, generator, mm_dtype, impl)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+@torch.no_grad()
+def mae_eval_step(model: torch.nn.Module, x: torch.Tensor, mm_dtype: torch.dtype, impl: str,
+                  noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The same loss without gradients; the encoder runs the eval blocks of
+    ops.vit (the kernels on a card, stable softmax)."""
+    return mae_train_loss_fused(model, x, noise, generator, mm_dtype, impl, train=False)

@@ -56,8 +56,9 @@ def test_signatures_pass_pointers_as_void_p():
     c_float where the kernel takes one."""
     n_ptrs = {"swin_attn_launch": 11, "swin_mlp_launch": 9, "swin_attn_bwd_launch": 16,
               "swin_mlp_bwd_launch": 14, "swin_wgrad_launch": 3, "swin_reduce_launch": 2,
-              "vit_qkv_launch": 6, "vit_attn_launch": 5}
-    with_eps = {"swin_mlp_launch", "vit_qkv_launch"}
+              "vit_qkv_launch": 6, "vit_attn_launch": 5, "vit_attn_bwd_launch": 15}
+    with_eps = {"swin_mlp_launch", "vit_qkv_launch", "swin_mlp_bwd_launch",
+                "vit_attn_bwd_launch"}
     assert set(_build._SIGNATURES) == set(n_ptrs)
     for name, argtypes in _build._SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p, name  # the stream
@@ -73,7 +74,8 @@ def test_build_targets_sm90a_and_hashes_sources():
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     srcs = {p.rsplit("/", 1)[-1] for p in _build._sources()}
     assert {"swin_attn.cu", "swin_mlp.cu", "swin_common.cuh", "swin_attn_bwd.cu",
-            "swin_mlp_bwd.cu", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu"} <= srcs
+            "swin_mlp_bwd.cu", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu",
+            "vit_attn_common.cuh", "vit_attn_bwd.cu"} <= srcs
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 16
 
@@ -318,5 +320,102 @@ def test_vit_float32_on_card_raises(cuda):
     x = torch.zeros(1, 1040, 384, device=cuda)
     for fn in (lambda: vit.vit_qkv(x, p), lambda: vit.fused_vit_block(x, p, 1025),
                lambda: vit.vit_mlp(x, p)):
+        with pytest.raises(TypeError):
+            fn()
+
+
+# ---------------------------------------------------------------------------
+# the ViT training backward (MAE continued pretraining)
+# ---------------------------------------------------------------------------
+
+# (C, heads, Np, n_real, B): the CP shapes (Audio-MAE, OPERA-GT at max_len 256
+# and 64) and the operaGT fine-tuning shape
+VIT_TRAIN_SHAPES = [(768, 12, 160, 154, 4), (384, 6, 320, 308, 4), (384, 6, 80, 77, 4),
+                    (384, 6, 1040, 1025, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,n_real,B", VIT_TRAIN_SHAPES)
+def test_vit_train_backward_matches_plain_on_card(cuda, C, heads, Np, n_real, B):
+    """vit_mlp_bwd and vit_attn_bwd against their plain versions on shared
+    inputs: the dh1 / dx branches, every operand row and every gradient leaf
+    at 0.99999, two launches bitwise equal, padded rows of dx exactly 0."""
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    p = _vit_params(C, heads, C + Np, cuda)
+    g = torch.Generator().manual_seed(Np)
+    x = (torch.randn(B, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    h1 = vit.vit_attn_ref(x, p, n_real)
+    dy = (torch.randn(B, Np, C, generator=g) * 0.1).to(cuda, torch.bfloat16)
+    dy[:, n_real:] = 0  # the caller's y[:, :n_real] slice
+    runs = [vit_train.vit_mlp_bwd(h1, dy, p) for _ in range(2)]
+    dh1, gm, mrows = vit_train.vit_mlp_bwd_ref(h1, dy, p, rows=True)
+    _, r1, _ = vit_train.vit_mlp_bwd_launch(h1, dy, p)
+    (d1, g1), (d2, g2) = runs
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d2) and all(torch.equal(g1[q], g2[q]) for q in g1)
+    assert _branch_cos(d1, dh1, dy) >= COS_BAR
+    for q, want in gm.items():
+        assert _cos(g1[q], want) >= COS_BAR, q
+    for name, got, want in zip(("m", "g", "da1"), r1, mrows):
+        assert _cos(got, want) >= COS_BAR, name
+    assert not d1[:, n_real:].any()
+    runs = [vit_train.vit_attn_bwd_launch(x, dh1, p, n_real) for _ in range(2)]
+    dx, ga, rows = vit_train.vit_attn_bwd_ref(x, dh1, p, n_real, rows=True)
+    (a1, r1, p1), (a2, r2, p2) = runs
+    torch.cuda.synchronize()
+    assert torch.equal(a1, a2) and torch.equal(p1, p2)
+    assert all(torch.equal(u, v) for u, v in zip(r1, r2))
+    assert _branch_cos(a1, dx, dh1) >= COS_BAR
+    for name, got, want in zip(("h", "o_pre", "dqkv"), r1, rows):
+        assert _cos(got, want) >= COS_BAR, name
+    assert not a1[:, n_real:].any()
+    _, g1 = vit_train.vit_attn_bwd(x, dh1, p, n_real)
+    for q, want in ga.items():
+        assert _cos(g1[q], want) >= COS_BAR, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,n_real", [(768, 12, 160, 154), (384, 6, 80, 77)])
+def test_vit_train_block_function_on_card(cuda, C, heads, Np, n_real):
+    """fused_vit_block_train on CUDA: the kernel path's gradients reach the
+    float32 parameters through the folded bf16 layout (built inside
+    autograd) as the plain path's do, leaf by leaf at 0.99999; one launch of
+    each backward kernel a block."""
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    r = np.random.default_rng(C)
+    f = lambda *s: torch.tensor((r.standard_normal(s) * 0.05).astype(np.float32), device=cuda)
+    sd = {"norm1.weight": 1 + f(C), "norm1.bias": f(C), "attn.qkv.weight": f(3 * C, C) * 2,
+          "attn.qkv.bias": f(3 * C), "attn.proj.weight": f(C, C), "attn.proj.bias": f(C),
+          "norm2.weight": 1 + f(C), "norm2.bias": f(C), "mlp.fc1.weight": f(4 * C, C),
+          "mlp.fc1.bias": f(4 * C), "mlp.fc2.weight": f(C, 4 * C), "mlp.fc2.bias": f(C)}
+    x = (f(4, Np, C) * 10).to(torch.bfloat16)
+    w_out = f(4, n_real, C)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = {n: v.clone().requires_grad_() for n, v in sd.items()}
+        xi = x.clone().requires_grad_()
+        p = vit.vit_block_layout(lambda n: leaves[n], heads, torch.bfloat16)
+        vit_train.reset_launch_counts()
+        y = vit_train.fused_vit_block_train(xi, p, n_real, impl)
+        g = torch.autograd.grad((y[:, :n_real].float() * w_out).sum(), [xi, *leaves.values()])
+        grads[impl] = dict(zip(["x", *leaves], g))
+        want = 1 if impl == "kernel" else 0
+        assert vit_train.launch_counts() == {"vit_attn_bwd": want, "vit_mlp_bwd": want}
+    torch.cuda.synchronize()
+    for n, want in grads["plain"].items():
+        got = grads["kernel"][n]
+        assert got.dtype == want.dtype and got.shape == want.shape, n
+        assert _cos(got, want) >= COS_BAR, n
+
+
+@pytest.mark.gpu
+def test_vit_train_float32_on_card_raises(cuda):
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    p = _vit_params(384, 6, 1, cuda, torch.float32)
+    x = torch.zeros(1, 320, 384, device=cuda)
+    for fn in (lambda: vit_train.vit_mlp_bwd(x, x, p), lambda: vit_train.vit_attn_bwd(x, x, p)):
         with pytest.raises(TypeError):
             fn()
