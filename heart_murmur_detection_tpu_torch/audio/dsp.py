@@ -103,6 +103,46 @@ def frame_signal(x: torch.Tensor, win: int, hop: int, Tmax: int) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def log10_mel(
+    wav: torch.Tensor,
+    sr: int = 16000,
+    n_mels: int = 64,
+    fmin: float = 50.0,
+    fmax: float = 8000.0,
+    n_fft: int = 1024,
+    hop: int = 512,
+) -> torch.Tensor:
+    """log10(max(mel power, 1e-10)) of (B, N) float waveforms, N a multiple
+    of hop: (B, N//hop + 1, n_mels), in wav's dtype (float32, or float64 for
+    a reference of the float32 bases). The plain version of the fused
+    log-mel kernel (ops/mel.py)."""
+    if hop * 2 != n_fft:
+        raise ValueError("the mel frontend assumes 50% hop (reference uses 1024/512)")
+    B, Nmax = wav.shape
+    if Nmax % hop:
+        raise ValueError(f"waveform length {Nmax} is not a multiple of the hop {hop}")
+    pad = n_fft // 2
+    x = torch.nn.functional.pad(wav, (pad, pad))
+    Tmax = Nmax // hop + 1
+
+    # split-DFT framing: frame t = [seg_t, seg_{t+1}] with hop-sized segments,
+    # so frames @ cos = segs @ cos_top (shifted-add) segs @ cos_bot; the
+    # (B, T, n_fft) double-width frame tensor is never materialised
+    cos, sin, fb = (t.to(wav.dtype)  # a copy only for a float64 reference
+                    for t in _device_constants(wav.device, sr, n_fft, n_mels, fmin, fmax))
+    segs = x.reshape(B, -1, hop)  # (B, S, hop)
+    top = torch.matmul(segs, cos[:hop])  # (B, S, bins)
+    bot = torch.matmul(segs, cos[hop:])
+    re = top[:, :Tmax] + bot[:, 1 : Tmax + 1]
+    top = torch.matmul(segs, sin[:hop])
+    bot = torch.matmul(segs, sin[hop:])
+    im = top[:, :Tmax] + bot[:, 1 : Tmax + 1]
+    power = re * re + im * im
+
+    mel = torch.matmul(power, fb)  # (B, Tmax, n_mels)
+    return torch.log10(torch.clamp(mel, min=1e-10))
+
+
 def mel_frontend(
     wav: torch.Tensor,
     lengths: torch.Tensor,
@@ -125,36 +165,22 @@ def mel_frontend(
       mel: (B, Tmax, n_mels) min-max normalised (invalid frames zeroed),
       n_frames: (B,) int32 valid frame counts (= lengths//hop + 1).
     """
-    if hop * 2 != n_fft:
-        raise ValueError("mel_frontend assumes 50% hop (reference uses 1024/512)")
-    dev = wav.device
     if not torch.is_floating_point(wav):
         wav = wav.to(torch.float32) / 32768.0
-    B, Nmax = wav.shape
-    pad = n_fft // 2
-    x = torch.nn.functional.pad(wav, (pad, pad))
-    Tmax = Nmax // hop + 1
+    logm = 10.0 * log10_mel(wav, sr, n_mels, fmin, fmax, n_fft, hop)
+    return db_normalise(logm, lengths, hop, top_db, normalize)
 
-    # split-DFT framing: frame t = [seg_t, seg_{t+1}] with hop-sized segments,
-    # so frames @ cos = segs @ cos_top (shifted-add) segs @ cos_bot; the
-    # (B, T, n_fft) double-width frame tensor is never materialised
-    cos, sin, fb = _device_constants(dev, sr, n_fft, n_mels, fmin, fmax)
-    segs = x.reshape(B, -1, hop)  # (B, S, hop)
-    top = torch.matmul(segs, cos[:hop])  # (B, S, bins)
-    bot = torch.matmul(segs, cos[hop:])
-    re = top[:, :Tmax] + bot[:, 1 : Tmax + 1]
-    top = torch.matmul(segs, sin[:hop])
-    bot = torch.matmul(segs, sin[hop:])
-    im = top[:, :Tmax] + bot[:, 1 : Tmax + 1]
-    power = re * re + im * im
 
-    mel = torch.matmul(power, fb)  # (B, Tmax, n_mels)
-
+def db_normalise(
+    logm: torch.Tensor, lengths: torch.Tensor, hop: int, top_db: float, normalize: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """10 log10 mel power (B, T, n_mels) -> the frontend's output: dB against
+    each clip's max over its valid frames, floored at -top_db, min-max
+    normalised over the valid frames, invalid frames zeroed; and the valid
+    frame counts lengths // hop + 1 (int32)."""
     n_frames = (lengths.to(torch.int64) // hop + 1).to(torch.int32)
-    valid = torch.arange(Tmax, device=dev)[None, :] < n_frames[:, None]  # (B, Tmax)
+    valid = torch.arange(logm.shape[1], device=logm.device)[None, :] < n_frames[:, None]
     vmask = valid[:, :, None]
-
-    logm = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
     ref_db = torch.where(vmask, logm, -float("inf")).amax(dim=(1, 2), keepdim=True)
     db = logm - ref_db
     db = torch.clamp(db, min=-top_db)  # max over valid is 0, so the top_db floor is -top_db

@@ -64,12 +64,13 @@ def _build_extractor(cfg):
 
 
 def _warm(ex):
-    """Build the kernels and run one batch on a synthetic clip."""
+    """Build the kernels and run one batch on a synthetic clip, written at
+    the extractor's host rate (source_sr when set)."""
     import numpy as np
 
     from ..utils.audio_io import write_wav
 
-    sr = 16000
+    sr = ex._host_sr
     with tempfile.TemporaryDirectory() as d:
         p = os.path.join(d, "warm.wav")
         t = np.arange(int(ex.input_sec * sr), dtype=np.float32) / sr

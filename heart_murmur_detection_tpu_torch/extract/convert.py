@@ -17,6 +17,9 @@ heart_murmur_detection_tpu/extract/convert.py.
   whole MAE tree (for a model built with its decoder); the inverse of the
   JAX `convert_mae` and `convert_audiomae_backbone`. A gradient tree maps
   the same way.
+- `from_jax_head(params)`: a flax probe head's params ({"fc": {"kernel",
+  "bias"}} or {"fc1": ..., "fc2": ...}, numpy) -> the port's Head
+  state_dict, kernels transposed.
 - `load_mae_ckpt(path, model)`: a reference OPERA-GT or Audio-MAE
   checkpoint into the port's model by key name: every key the model holds
   must be there (the decoder's too, for a model built with its decoder, as a
@@ -192,3 +195,14 @@ def load_torch_ckpt(path: str, model: torch.nn.Module) -> torch.nn.Module:
         raise KeyError(f"checkpoint {path} lacks {len(missing)} keys, e.g. {missing[:3]}")
     model.load_state_dict({k: renamed[k] for k in own})
     return model
+
+
+def from_jax_head(params: dict) -> Dict[str, torch.Tensor]:
+    """A flax models/heads.py::Head's params -> models/heads.py::Head's
+    state_dict: each Dense (kernel (in, out), bias) -> Linear (weight (out,
+    in), bias) under the same name (fc, or fc1 and fc2)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+        sd[f"{name}.bias"] = _t(p["bias"])
+    return sd

@@ -1,17 +1,18 @@
 """Batched feature extraction — counterpart of
 heart_murmur_detection_tpu/extract/extract.py for the ported towers.
 
-  operaCT : whole clip (<= 32 s) -> wire decode -> device mel -> HTS-AT
-            latent (768) [-> g (512)]
+  operaCT : whole clip (<= 32 s) -> wire decode [-> upsample] -> device mel
+            -> HTS-AT latent (768) [-> g (512)]
   operaGT : 8.18 s 50%-hop chunks -> device mel -> ViT-S forward_feature ->
             mean over a file's chunks (384)
   audiomae: 10 s non-overlapping chunks (+ tail) -> device kaldi fbank ->
             ViT-B global-pool backbone -> mean over a file's chunks (768)
 
 The host decodes, trims, splits and pads; the device runs the wire decode,
-the spectrogram frontend and the encoder, whose blocks are the CUDA kernels
-of ops/swin.py (HTS-AT) or ops/vit.py (the MAE ViTs) under the bf16 flow on
-a card.
+the upsample from source_sr (ops/resample.py), the spectrogram frontend
+(with use_pallas_mel, the fused log-mel kernel of ops/mel.py) and the
+encoder, whose blocks are the CUDA kernels of ops/swin.py (HTS-AT) or
+ops/vit.py (the MAE ViTs) under the bf16 flow on a card.
 
 Host pipeline (the JAX two-stage pack || put, extract.py:505-511): one
 worker thread packs batches (pad_batch + wire encode) into numpy, a second
@@ -32,6 +33,7 @@ import torch
 
 from ..audio import dsp, pipelines, wire
 from ..audio.pad import split_pad_sample, split_sample_simple
+from ..ops.resample import resample_poly_device
 from . import registry
 
 SR = 16000
@@ -52,6 +54,15 @@ class FeatureExtractor:
     and runs only on the CPU here (the float32 kernels are not ported).
     dim selects the operaCT output (768 latent or 512 projection); the MAE
     towers give their embedding width (384 operaGT, 768 audiomae).
+    use_pallas_mel: the mel of operaCT and operaGT through the fused log-mel
+    kernel (ops/mel.py, TPU K4) instead of audio/dsp.mel_frontend; both are
+    float32 (audiomae keeps its kaldi fbank either way).
+    source_sr: the host decodes, trims and pads at this rate (CirCor 4000)
+    and the device upsamples to 16 kHz after the wire decode (ops/resample.py,
+    scipy's FIR), which cuts the bytes shipped by 16000 / source_sr; it must
+    divide 16000 with a power-of-two ratio of at most 512. As in the JAX
+    prologue, the FIR's ringing past each clip's end stays in the padding
+    (the 16 kHz host path has zeros there, so a clip's last frames differ).
     fast_softmax: normalise after the P v product (None = on for bf16 on a
     card, the JAX auto choice for a bf16 accelerator); a batch whose
     features come out non-finite is re-run with the stable softmax.
@@ -84,10 +95,11 @@ class FeatureExtractor:
             )
         if not self.is_mae and dim not in (768, 512):
             raise NotImplementedError(f"operaCT dim {dim}: 768 or 512")
-        if source_sr is not None:
-            raise NotImplementedError("source_sr (on-device resampling) is not ported")
-        if use_pallas_mel:
-            raise NotImplementedError("use_pallas_mel (the fused mel kernel) is not ported")
+        if source_sr is not None and (SR % source_sr or 512 % (SR // source_sr)):
+            raise ValueError(f"source_sr must divide {SR} with power-of-two ratio <=512")
+        self.source_sr = source_sr
+        self._up = SR // source_sr if source_sr else 1
+        self.use_pallas_mel = use_pallas_mel
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device extraction) is not ported")
         self.device = torch.device(device)
@@ -123,11 +135,19 @@ class FeatureExtractor:
         self._fn = self._build()
 
     # -- device graphs -------------------------------------------------------
-    def _prologue(self, wav: torch.Tensor) -> torch.Tensor:
-        """Wire decode on the device."""
-        return wire.decode_device(wav, self.wire)
+    def _prologue(self, wav: torch.Tensor, lengths: torch.Tensor):
+        """Wire decode and the source_sr -> 16 kHz upsample, on the device."""
+        wav = wire.decode_device(wav, self.wire)
+        if self._up != 1:
+            wav = resample_poly_device(wav, self._up)
+            lengths = lengths * self._up
+        return wav, lengths
 
     def _mel(self, wav: torch.Tensor, lengths: torch.Tensor):
+        if self.use_pallas_mel:
+            from ..ops.mel import mel_frontend_fused
+
+            return mel_frontend_fused(wav, lengths)
         return dsp.mel_frontend(wav, lengths)
 
     def _build(self, fast_softmax: Optional[bool] = None):
@@ -140,7 +160,7 @@ class FeatureExtractor:
 
             def fn(wav, lengths):
                 with torch.inference_mode():
-                    fb, _ = dsp.kaldi_fbank_frontend(self._prologue(wav), lengths)
+                    fb, _ = dsp.kaldi_fbank_frontend(*self._prologue(wav, lengths))
                     return audiomae_backbone_fused(model, fb, mm, fast)
 
             return fn
@@ -150,14 +170,14 @@ class FeatureExtractor:
 
             def fn(wav, lengths):
                 with torch.inference_mode():
-                    mel, _ = self._mel(self._prologue(wav), lengths)
+                    mel, _ = self._mel(*self._prologue(wav, lengths))
                     return mae_forward_feature_fused(model, mel[:, :256], mm, fast)
 
             return fn
 
         def fn(wav, lengths):
             with torch.inference_mode():
-                mel, nf = self._mel(self._prologue(wav), lengths)
+                mel, nf = self._mel(*self._prologue(wav, lengths))
                 return model.extract_feature(mel, dim, nf, mm_dtype=mm, fast_softmax=fast)
 
         return fn
@@ -257,12 +277,16 @@ class FeatureExtractor:
         return np.concatenate(out, axis=0)
 
     # -- host orchestration ----------------------------------------------------
+    @property
+    def _host_sr(self) -> int:
+        return self.source_sr or SR
+
     def _clip_waveform(self, path: str) -> Optional[np.ndarray]:
         types = "zero" if self.pad0 else "repeat"
         return pipelines.get_entire_signal(
             path,
             input_sec=self.input_sec,
-            sample_rate=SR,
+            sample_rate=self._host_sr,
             pad=True,
             types=types,
             max_sec=self.max_sec,
@@ -272,12 +296,14 @@ class FeatureExtractor:
         """A file's chunks: 10 s non-overlapping windows with the tail, each
         made zero-mean, for audiomae (the keep gate >400 samples, i.e. >25
         ms); input_sec windows at 50% hop, the remainder padded, for
-        operaGT. No bandpass filter runs (the JAX _chunks passes None)."""
-        yt = pipelines._load_trim(path, SR)
+        operaGT. No bandpass filter runs (the JAX _chunks passes None). At
+        the host rate; the keep gate counts 16 kHz samples."""
+        sr = self._host_sr
+        yt = pipelines._load_trim(path, sr)
         if self.is_audiomae:
-            chunks = split_sample_simple(yt, 10, SR)
-            return [c - c.mean() for c in chunks if len(c) > 400]
-        return split_pad_sample(yt, self.input_sec, SR)
+            chunks = split_sample_simple(yt, 10, sr)
+            return [c - c.mean() for c in chunks if len(c) * self._up > 400]
+        return split_pad_sample(yt, self.input_sec, sr)
 
     def extract_files(self, sound_dir_loc: Sequence[str]) -> np.ndarray:
         if self.is_mae:
@@ -287,7 +313,7 @@ class FeatureExtractor:
     def _extract_whole(self, paths) -> np.ndarray:
         """Python decode path (the native C++ loader is not ported)."""
         clips = [self._clip_waveform(p) for p in paths]
-        max_len = int(self.max_sec * SR) if clips else 0
+        max_len = int(self.max_sec * self._host_sr) if clips else 0
         return self.extract_waveforms(clips, max_len=max_len)
 
     def extract_waveforms(
@@ -321,11 +347,13 @@ class FeatureExtractor:
 
     def extract_chunk_waveforms(self, chunks: List[np.ndarray]) -> np.ndarray:
         """Features of chunks padded to the tower's window: 10 s for
-        audiomae, input_sec rounded up to 512 samples for operaGT."""
+        audiomae, input_sec rounded up to 512 16-kHz samples for operaGT (at
+        the host rate)."""
+        sr, mult = self._host_sr, 512 // self._up
         if self.is_audiomae:
-            max_len = 10 * SR
+            max_len = 10 * sr
         else:
-            max_len = (int(self.input_sec * SR) + 511) // 512 * 512
+            max_len = (int(self.input_sec * sr) + mult - 1) // mult * mult
         return self._run(chunks, max_len)
 
     def _run(self, clips: List[np.ndarray], max_len: int) -> np.ndarray:
@@ -339,7 +367,8 @@ class FeatureExtractor:
                 chunk = clips[lo:hi]
                 if len(chunk) < bs:  # pad batch to fixed size, drop extras
                     chunk = chunk + [chunk[0]] * (bs - len(chunk))
-                wav, lengths = dsp.pad_batch(chunk, pad_to_multiple=512, max_len=max_len)
+                wav, lengths = dsp.pad_batch(chunk, pad_to_multiple=512 // self._up,
+                                             max_len=max_len)
                 yield hi - lo, wire.encode_np(wav, self.wire), lengths
 
         def put(gen):

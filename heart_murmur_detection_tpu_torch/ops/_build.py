@@ -57,6 +57,8 @@ _SIGNATURES = {
     # x, dh1, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, h_g, opre_g, dqkv_g, part,
     # qkv_ws, do_ws, stats_ws, B, Np, C, heads, n_real, tpb, eps, stream
     "vit_attn_bwd_launch": [_vp] * 15 + [_i] * 6 + [_f, _vp],
+    # wav, out, cos, sin, fb, B, N, stream
+    "logmel_launch": [_vp] * 5 + [_i] * 2 + [_vp],
 }
 
 

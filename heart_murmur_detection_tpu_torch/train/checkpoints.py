@@ -33,6 +33,12 @@ def save_state(path: str, payload: Any) -> str:
     return path
 
 
+def save_params(path: str, state_dict: dict) -> str:
+    """A probe head's state_dict, on the CPU, to `path` (the JAX save_params
+    :21 with torch.save in place of msgpack)."""
+    return save_state(path, _cpu(state_dict))
+
+
 def load_state(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=False)
 

@@ -1,7 +1,10 @@
-"""Run logging: the CSV logger of heart_murmur_detection_tpu/utils/logging.py
-(:16), copied (cks/logs layout, pl.CSVLogger-like: metrics.csv under
+"""Run logging: the CSV logger, the wandb logger and get_run_name of
+heart_murmur_detection_tpu/utils/logging.py, copied. CSVLogger (:16) keeps
+the cks/logs layout (pl.CSVLogger-like: metrics.csv under
 <save_dir>/<name>/<version>, a step_time column, then the metric names in
-sorted order, fixed by the first row). The wandb logger is not carried.
+sorted order, fixed by the first row). WandbLogger (:35) logs to the
+reference's projects only when wandb is importable and WANDB_API_KEY or
+WANDB_MODE=offline is set; otherwise every call does nothing.
 """
 
 from __future__ import annotations
@@ -29,3 +32,28 @@ class CSVLogger:
             if write_header:
                 w.writeheader()
             w.writerow(row)
+
+
+class WandbLogger:
+    def __init__(self, project: str, name: str, config: Optional[dict] = None):
+        self._run = None
+        if os.environ.get("WANDB_API_KEY") or os.environ.get("WANDB_MODE") == "offline":
+            try:
+                import wandb
+
+                self._run = wandb.init(project=project, name=name, config=config or {})
+            except Exception:  # noqa: BLE001 - logging must never stop a run
+                self._run = None
+
+    def log(self, metrics: dict):
+        if self._run is not None:
+            self._run.log(metrics)
+
+    def finish(self):
+        if self._run is not None:
+            self._run.finish()
+
+
+def get_run_name(title: str) -> str:
+    s = time.gmtime(time.time())
+    return f"{time.strftime('%Y-%m-%d %H:%M:%S', s)}-{title}"

@@ -20,7 +20,8 @@ import torch
 from heart_murmur_detection_tpu.cli import config as jconfig
 from heart_murmur_detection_tpu.extract.extract import FeatureExtractor as JFeatureExtractor
 from heart_murmur_detection_tpu_torch.cli import config
-from heart_murmur_detection_tpu_torch.cli.serve import make_server
+from heart_murmur_detection_tpu_torch.cli.serve import _build_extractor, _warm, make_server
+from heart_murmur_detection_tpu_torch.data.processors.common import extract_and_save
 from heart_murmur_detection_tpu_torch.extract import convert
 from heart_murmur_detection_tpu_torch.extract.extract import FeatureExtractor
 from heart_murmur_detection_tpu_torch.utils.audio_io import write_wav
@@ -129,13 +130,30 @@ def test_prefetch_iter_order_and_errors():
 
 
 @pytest.mark.parametrize("kw", [
-    {"source_sr": 4000}, {"use_pallas_mel": True}, {"mesh": object()}, {"dim": 1280},
+    {"baseline": "vggish"}, {"baseline": "opensmile"}, {"mesh": object()}, {"dim": 1280},
 ])
-def test_uncarried_options_raise(kw):
+def test_uncarried_options_raise(kw, tmp_path):
+    """What the port does not carry raises NotImplementedError: a baseline
+    encoder through extract_and_save, a mesh, operaCT at dim 1280."""
+    if "baseline" in kw:
+        np.save(tmp_path / "sound_dir_loc.npy", np.array(["x.wav"]))
+        with pytest.raises(NotImplementedError):
+            extract_and_save(str(tmp_path), kw["baseline"], device="cpu")
+        return
     args = dict(dim=768, random_init=True, device="cpu")
     args.update(kw)
     with pytest.raises(NotImplementedError):
         FeatureExtractor("operaCT", **args)
+
+
+@pytest.mark.parametrize("source_sr", [3000, 3200, 44100])
+def test_source_sr_must_divide_with_a_power_of_two_ratio(source_sr):
+    """The JAX package's rule (extract.py:134-139): 16000 / source_sr an
+    integer power of two of at most 512, else ValueError, in both."""
+    with pytest.raises(ValueError, match="power-of-two"):
+        FeatureExtractor("operaCT", dim=768, random_init=True, device="cpu", source_sr=source_sr)
+    with pytest.raises(ValueError):
+        JFeatureExtractor("operaCT", dim=768, random_init=True, source_sr=source_sr)
 
 
 @pytest.mark.parametrize("pretrain", ["operaCE"])
@@ -149,6 +167,17 @@ def test_cuda_without_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         FeatureExtractor("operaCT", random_init=True)
+
+
+def test_serve_source_sr_key():
+    """The daemon's source_sr key (the JAX cli/serve.py:59-68) reaches the
+    extractor, and the warm-up clip is written at that rate."""
+    ex = _build_extractor({"pretrain": "operaCT", "dim": 768, "batch_size": 1,
+                           "random_init": True, "source_sr": 4000, "device": "cpu"})
+    assert ex.source_sr == 4000 and ex._host_sr == 4000
+    before = ex.n_dispatched
+    _warm(ex)
+    assert ex.n_dispatched == before + 1
 
 
 def test_config_copy_matches_original():

@@ -3,8 +3,9 @@ ctypes binding (CPU), and, on a card only, each kernel against its plain
 torch version: the swin eval kernels at the four HTS-AT stage geometries,
 the swin training kernels (forward with DropPath multipliers, both backward
 halves, the weight-gradient products and the ordered reduction) at stages
-0-2, and the ViT kernels (vit_qkv, vit_attn, vit_mlp) at the operaGT and
-Audio-MAE shapes.
+0-2, the ViT kernels (vit_qkv, vit_attn, vit_mlp) at the operaGT and
+Audio-MAE shapes, and the fused log-mel kernel (with its float64 precision
+check) and the polyphase resampler at the extraction path's shapes.
 
 Imports no JAX, so it also runs where JAX is absent; on a card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m gpu
@@ -56,7 +57,8 @@ def test_signatures_pass_pointers_as_void_p():
     c_float where the kernel takes one."""
     n_ptrs = {"swin_attn_launch": 11, "swin_mlp_launch": 9, "swin_attn_bwd_launch": 16,
               "swin_mlp_bwd_launch": 14, "swin_wgrad_launch": 3, "swin_reduce_launch": 2,
-              "vit_qkv_launch": 6, "vit_attn_launch": 5, "vit_attn_bwd_launch": 15}
+              "vit_qkv_launch": 6, "vit_attn_launch": 5, "vit_attn_bwd_launch": 15,
+              "logmel_launch": 5}
     with_eps = {"swin_mlp_launch", "vit_qkv_launch", "swin_mlp_bwd_launch",
                 "vit_attn_bwd_launch"}
     assert set(_build._SIGNATURES) == set(n_ptrs)
@@ -75,7 +77,9 @@ def test_build_targets_sm90a_and_hashes_sources():
     srcs = {p.rsplit("/", 1)[-1] for p in _build._sources()}
     assert {"swin_attn.cu", "swin_mlp.cu", "swin_common.cuh", "swin_attn_bwd.cu",
             "swin_mlp_bwd.cu", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu",
-            "vit_attn_common.cuh", "vit_attn_bwd.cu"} <= srcs
+            "vit_attn_common.cuh", "vit_attn_bwd.cu", "logmel.cu"} <= srcs
+    # the log-mel kernel is float32-exact: log10f and the FFMAs stay accurate
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 16
 
@@ -419,3 +423,72 @@ def test_vit_train_float32_on_card_raises(cuda):
     for fn in (lambda: vit_train.vit_mlp_bwd(x, x, p), lambda: vit_train.vit_attn_bwd(x, x, p)):
         with pytest.raises(TypeError):
             fn()
+
+
+# ---------------------------------------------------------------------------
+# the fused log-mel kernel and the resampler (the extraction path's frontend)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,sec", [(16, 10.0), (64, 10.0), (16, 32.0), (64, 32.0), (16, None)])
+def test_logmel_matches_plain_on_card(cuda, B, sec):
+    """The normalised mel within 1e-4 of the plain version, frame counts
+    exact, two launches bitwise equal (sec None: a ragged 3-32 s batch)."""
+    from heart_murmur_detection_tpu_torch.bench.logmel_time import clips
+    from heart_murmur_detection_tpu_torch.ops import mel
+
+    w, lens = clips(B, sec, seed=B)
+    wav, lengths = torch.from_numpy(w).to(cuda), torch.from_numpy(lens).to(cuda)
+    before = mel.launch_counts()["logmel"]
+    got, nf = mel.mel_frontend_fused(wav, lengths)
+    again, _ = mel.mel_frontend_fused(wav, lengths)
+    want, nf_p = mel.mel_frontend_fused(wav, lengths, impl="plain")
+    torch.cuda.synchronize()
+    assert mel.launch_counts()["logmel"] == before + 2
+    assert torch.equal(nf, nf_p) and got.shape == want.shape
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_logmel_float32_precision_on_card(cuda):
+    """Against a float64 evaluation of the same function, the kernel's error
+    is at most 4x the plain float32 version's: a single-pass TF32 or bf16
+    product would be orders of magnitude worse on the bins far from a
+    low-level tone."""
+    from heart_murmur_detection_tpu_torch.bench.logmel_time import precision
+
+    p = precision()
+    assert p["kernel_err"] <= 4 * p["plain_err"], p
+
+
+@pytest.mark.gpu
+def test_logmel_rejects_what_it_does_not_take(cuda):
+    from heart_murmur_detection_tpu_torch.ops import mel
+
+    with pytest.raises(TypeError):
+        mel.fused_logmel(torch.zeros(1, 1024, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        mel.fused_logmel(torch.zeros(1, 1000, device=cuda))
+    with pytest.raises(ValueError):
+        mel.fused_logmel(torch.zeros(1, 1024, device=cuda), n_mels=128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("up,down", [(4, 1), (8, 1), (3, 2), (160, 441)])
+def test_resampler_matches_scipy_on_card(cuda, up, down):
+    """The polyphase matrix product stays float32 on the card at PyTorch's
+    default flags (cuDNN's TF32 on, the matmul's off): a TF32 path would
+    miss 3e-5 by orders of magnitude. The fixture restores the flags."""
+    from scipy.signal import resample_poly
+
+    from heart_murmur_detection_tpu_torch.ops.resample import resample_poly_device
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+
+    x = np.random.default_rng(0).standard_normal((16, 32 * 4000)).astype(np.float32)
+    got = resample_poly_device(torch.from_numpy(x).to(cuda), up, down).cpu().numpy()
+    want = np.stack([resample_poly(r, up, down) for r in x]).astype(np.float32)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < 3e-5
