@@ -12,7 +12,9 @@ Phases (each prints one line; any failure exits non-zero):
   4. serving: a random-init full-width operaCT server answers /healthz and
      /extract (JSON paths, raw WAV bytes) on 20 WAVs of 6-32 s; served ==
      offline; launch counters show 12 swin_attn + 12 swin_mlp per batch
-  5. numerics: served features against the port's plain paths on the card
+  5. numerics: served features against the port's plain paths on the card;
+     operaCT dim=512 (the reference's float32 graph: no swin launch)
+     against the same graph on the CPU
   6. throughput: device-resident 10-s clips at B=64, kernel path and plain
   7. train kernels vs plain: at the stage 0-2 geometries and the CP batch
      (B=64), the forward halves with DropPath multipliers (a 0 and a 1/0.9
@@ -84,6 +86,20 @@ Phases (each prints one line; any failure exits non-zero):
      against the 16 kHz host path (f32 wire, >= 0.99995); device-resident
      operaCT clips/s at B=64 with and without use_pallas_mel, in turns, and
      a profile of a use_pallas_mel batch
+ 20. attention modes (TPU K10 bench/gt_attn_opt.py, K11 bench/vit_attn_ablate.py):
+     each of vit_attn's modes norm_before, fast, bf16_exp, no_softmax and
+     q_passthrough at B=64 x 1040 x 384 (6 heads, all keys real, q
+     unscaled) against its plain version (branch cosine >= 0.99999, two
+     launches bitwise equal), aligned_hcat's ValueError; every mode name of
+     both files chained 8 halves deep (bench/attn_ablate.py) with its
+     launches by mode; each name's chain time against the stable vit_attn
+     chain, SDPA (scale 1.0), the plain chain and the bound
+ 21. fine-tuning: a synthetic CirCor corpus through cli.process, then
+     cli.finetune compute_dtype=bfloat16 for operaCT (5 seeds, finite test
+     AUROCs), operaGT and Audio-MAE (one seed each), FT_EPOCHS epochs, with
+     the launches their steps and predict batches imply; per tower at full
+     width: the step time on the kernels against the plain bf16 path, one
+     step's launches, 3 steps of both paths with the step-0 gradient rule
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -542,6 +558,30 @@ def phase_numerics(ex, paths, served):
     _require(c_same >= SAME_ROUNDING_BAR, f"served vs plain bf16 flow cosine {c_same}")
     _require(c_f32 >= F32_BAR, f"served vs strict float32 path cosine {c_f32}")
 
+    # operaCT dim 512 takes the reference's float32 graph (the JAX extractor
+    # fuses only 768): no swin kernel, and the card agrees with the CPU
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.extract.extract import FeatureExtractor
+    from heart_murmur_detection_tpu_torch.ops import swin
+
+    sub = paths[:8]
+    kw = dict(dim=512, batch_size=B_KERNEL, random_init=True, seed=SEED,
+              compute_dtype=torch.bfloat16)
+    card = FeatureExtractor("operaCT", device="cuda", **kw)
+    swin.reset_launch_counts()  # just before the 512-d path
+    f512 = card.extract_files(sub)
+    counts = swin.launch_counts()
+    cpu = FeatureExtractor("operaCT", device="cpu", **kw).extract_files(sub)
+    c512 = float(_per_clip_cos(f512, cpu).min())
+    print(f"[numerics] operaCT dim=512 (compute_dtype bf16 asked): the float32 graph on the card "
+          f"vs the same graph on the CPU, per-clip cosine min {c512:.8f} over {len(sub)} clips "
+          f"(bar {SAME_ROUNDING_BAR}), max|d| {float(np.abs(f512 - cpu).max()):.3g}; swin "
+          f"launches {counts['swin_attn']} + {counts['swin_mlp']} (want 0)", flush=True)
+    _require(counts["swin_attn"] == counts["swin_mlp"] == 0, f"dim 512 launched {counts}")
+    _require(f512.shape == (len(sub), 512) and c512 >= SAME_ROUNDING_BAR,
+             f"dim 512 card vs CPU cosine {c512}")
+
 
 def phase_throughput(ex, smi):
     import torch
@@ -682,7 +722,7 @@ def phase_cp(smi: str, dev):
                 grads = {q: w.grad.detach().clone() for q, w in model.named_parameters()}
             opt.step()
             ct.set_bn0_stats(model, stats)
-            losses.append(float(loss))
+            losses.append(float(loss.detach()))
         return losses, grads
 
     lk, gk = run("kernel")
@@ -1828,6 +1868,277 @@ def phase_logmel_throughput(smi: str):
           f"{groups['other']:.2f} ms", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the attention-half modes of the TPU kernels K10 / K11
+# ---------------------------------------------------------------------------
+
+ABLATE_MODES = ("norm_before", "fast", "bf16_exp", "no_softmax", "q_passthrough")
+
+
+def _ablate_work(B, Np, C, heads, mode):
+    """(bytes, operations) of one vit_attn launch in `mode` with every key
+    real: q passthrough reads only the q third and runs only proj."""
+    if mode == "q_passthrough":
+        n = B * Np
+        return 2 * n * C + 2 * n * C + 2 * C * C + 4 * C + 2 * n * C, 2 * n * C * C
+    return _vit_work(B, Np, Np, C, heads)["vit_attn"]
+
+
+def phase_attn_ablate(smi: str):
+    """Phase 20: vit_attn's attention modes, the port of K10
+    (bench/gt_attn_opt.py) and K11 (bench/vit_attn_ablate.py), at their
+    shape (B=64 x 1040 x 384, 6 heads, all keys real, q unscaled): each mode
+    against its plain version (branch cosine, two launches bitwise equal),
+    aligned_hcat's ValueError; then the main path, every mode name of both
+    files chained 8 halves deep (bench/attn_ablate.py), with its launches
+    by mode; and each name's 8-chain time against the production stable
+    vit_attn chain and SDPA (scale 1.0). Returns (measurements by mode for
+    the kernels JSON, launches by mode)."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench import attn_ablate as ab
+    from heart_murmur_detection_tpu_torch.ops import vit
+
+    B, Np, C, H = ab.B, ab.NP, ab.C, ab.HEADS
+    x, rng = ab.inputs("cuda")
+    p = ab.half_params(ab.draw_weights(rng, C), H, "cuda")
+    qkv = vit.vit_qkv(x, p)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0))
+    meas = {}
+    for mode in ABLATE_MODES:
+        got = vit.vit_attn(x, qkv, p, mode=mode)
+        want = vit.vit_attn_out_ref(x, qkv, p, mode=mode)
+        torch.cuda.synchronize()
+        c = _branch(got, want, x)
+        same = torch.equal(got, vit.vit_attn(x, qkv, p, mode=mode))
+        err = float((got.float() - want.float()).abs().max())
+        k_ms = _time_ms(lambda: vit.vit_attn(x, qkv, p, mode=mode))
+        p_ms = _time_ms(lambda: vit.vit_attn_out_ref(x, qkv, p, mode=mode), iters=3, warm=1)
+        work = Work()
+        work.add(*_ablate_work(B, Np, C, H, mode), n=ab.DEPTH)
+        lib = ab.DEPTH * sdpa_ms if mode in ab.SOFTMAX_MODES else None
+        meas[mode] = {"ms": ab.DEPTH * k_ms, "plain_ms": ab.DEPTH * p_ms, "err": err,
+                      "work": work, "library_ms": lib}
+        print(f"[attn modes] vit_attn {mode} B={B} Np={Np} C={C}: branch cos {c:.7f} max|d| "
+              f"{err:.4g}; bitwise repeatable {same}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms a "
+              f"launch; bound {work.bound_ms / ab.DEPTH:.4f} ms ({work.bound_by}); SDPA "
+              + (f"{sdpa_ms:.4f} ms" if lib is not None else "n/a (no softmax)"), flush=True)
+        _require(c >= KERNEL_BAR and same, f"vit_attn {mode}: branch cosine {c}, repeatable {same}")
+    try:
+        vit.vit_attn(x, qkv, p, mode="aligned_hcat")
+        _require(False, "aligned_hcat launched at C=384, 6 heads")
+    except ValueError as e:
+        print(f"[attn modes] aligned_hcat raises ValueError: {e}", flush=True)
+
+    # the main path: every mode name of both files, 8 halves deep
+    _reset_counts()  # just before the main path
+    names = 0
+    for file, modes in ab.FILES.items():
+        xf, rf = ab.inputs("cuda")
+        for name in modes:
+            pf = ab.half_params(ab.draw_weights(rf, C), H, "cuda")
+            try:
+                out = ab.chain(xf, pf, ab.JAX_MODES[(file, name)])
+            except ValueError:
+                _require(name == "aligned_hcat", f"{file} {name} raised")
+                continue
+            _require(bool(torch.isfinite(out.float()).all()), f"{file} {name} chain not finite")
+            names += 1
+    torch.cuda.synchronize()
+    counts, by_mode = _all_counts(), vit.mode_launch_counts()
+    want = {m: ab.DEPTH * sum(ab.JAX_MODES[(f, n)] == m for f, ns in ab.FILES.items() for n in ns)
+            for m in ABLATE_MODES}
+    print(f"[attn modes] the 8-deep chains of {names} mode names: vit_qkv {counts['vit_qkv']}, "
+          f"vit_attn by mode {by_mode} (want {want})", flush=True)
+    _require(counts["vit_qkv"] == ab.DEPTH * names and all(
+        by_mode[m] == want[m] for m in ABLATE_MODES), f"chain launches {by_mode}")
+    for file, modes in ab.FILES.items():
+        xf, rf = ab.inputs("cuda")
+        for name in modes:
+            row = ab.measure(file, name, xf, ab.draw_weights(rf, C))
+            print(f"[attn modes] {json.dumps(row)} {smi}", flush=True)
+            if "result" not in row:
+                _require(row["branch_cos"] >= KERNEL_BAR and row["bitwise_repeat"],
+                         f"{file} {name}: {row}")
+    return meas, {m: by_mode[m] for m in ABLATE_MODES}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: fine-tuning
+# ---------------------------------------------------------------------------
+
+FT_EPOCHS = 3  # epochs of each cli.finetune seed (the protocol's 64 cut for time)
+# (pretrain, encoder kind, batch, the step-0 rule's batch)
+FT_TOWERS = (("operaCT", "htsat", 64, 64), ("operaGT", "gt", 64, 16),
+             ("audiomae", "audiomae", 32, 32))
+
+
+def _ft_per_step(kind: str, B: int) -> dict:
+    """Kernel launches of one fine-tuning step: the train blocks' forward
+    and backward kernels (htsat: the 10 blocks of stages 0-2, stage 3 plain
+    float32; the ViTs: 12 blocks) and the ordered reductions."""
+    from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+    from heart_murmur_detection_tpu_torch.models.vit_mae import (audiomae_base_config,
+                                                                 mae_vit_small_config)
+    from heart_murmur_detection_tpu_torch.ops import swin_train as st
+
+    if kind == "htsat":
+        cfg = HTSATConfig()
+        d = sum(cfg.depths[:3])
+        return {"swin_attn": d, "swin_mlp": d, "swin_attn_bwd": d, "swin_mlp_bwd": d,
+                "swin_wgrad": 4 * d, "swin_reduce": _reduce_per_step(cfg, B) // 2}
+    cfg = mae_vit_small_config() if kind == "gt" else audiomae_base_config()
+    C, hid = cfg.embed_dim, int(cfg.mlp_ratio * cfg.embed_dim)
+    n = B * (-(-(1 + cfg.num_patches) // 16) * 16)
+    split = sum(st.wgrad_split(n, M, N)[0] > 1 for M, N in ((hid, C), (C, hid), (3 * C, C), (C, C)))
+    d = cfg.depth
+    return {"vit_qkv": d, "vit_attn": d, "vit_mlp": d, "vit_attn_bwd": d, "vit_mlp_bwd": d,
+            "swin_wgrad": 4 * d, "swin_reduce": d * (2 + split)}
+
+
+def _ft_eval_per_batch(kind: str) -> dict:
+    """Kernel launches of one eval (predict) batch."""
+    if kind == "htsat":
+        return {"swin_attn": 12, "swin_mlp": 12}
+    return {"vit_qkv": 12, "vit_attn": 12, "vit_mlp": 12}
+
+
+def _ft_cli(pretrain: str, n_run: int):
+    """cli.finetune on the card in bf16 (the working directory holds the
+    processed task); returns (test AUROCs, launches of the run, seconds)."""
+    from heart_murmur_detection_tpu_torch.cli import finetune as cli_finetune
+
+    _reset_counts()  # just before the main path
+    t0 = time.time()
+    ((*scores,),) = cli_finetune.main([
+        "task=circor_murmurs", f"pretrain={pretrain}", "compute_dtype=bfloat16",
+        "random_init=True", f"n_run={n_run}", f"epochs={FT_EPOCHS}", "device=cuda"])
+    return scores, _all_counts(), time.time() - t0
+
+
+def _ft_steps(model, xb, yb, valid, cw, mm, impl, steps):
+    """`steps` fine-tuning steps of a copy of model on one batch: (losses,
+    the step-0 gradients by name)."""
+    import copy
+
+    import torch
+
+    from heart_murmur_detection_tpu_torch.train import finetune as ft
+    from heart_murmur_detection_tpu_torch.train.linear_eval import ClippedAdam
+
+    m = copy.deepcopy(model)
+    names = [n for n, _ in m.named_parameters()]
+    opt = ClippedAdam(m.parameters(), 3, 1e-4, 0.99, 1.0)
+    gen = torch.Generator(device=xb.device).manual_seed(SEED + 21)
+    losses, g0 = [], None
+    for s in range(steps):
+        loss, grads = ft.train_step(m, opt, xb, yb, valid, cw, gen, mm, impl, 1e-4)
+        if s == 0:
+            g0 = {n: g.float() for n, g in zip(names, grads)}
+        losses.append(float(loss))
+    return losses, g0
+
+
+def phase_finetune(smi: str, dev):
+    """Phase 21: fine-tuning on the card. A synthetic CirCor corpus through
+    cli.process, then cli.finetune pretrain=operaCT compute_dtype=bfloat16
+    (5 seeds, FT_EPOCHS epochs each: five finite test AUROCs) and one seed
+    of operaGT and of Audio-MAE, each with its kernel launches checked
+    against the count its steps and predict batches imply; then, per tower
+    at full width on one cached batch: the step time on the kernels against
+    the plain bf16 path (impl="plain"), the launches of one step, and 3
+    steps of each path from the same weights with the step-0 gradient rule
+    against strict f32 (TF32 off). Returns the operaCT run's launches."""
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench.process_time import write_circor
+    from heart_murmur_detection_tpu_torch.cli import process
+    from heart_murmur_detection_tpu_torch.train import finetune as ft
+    from heart_murmur_detection_tpu_torch.train.linear_eval import ClippedAdam
+    from heart_murmur_detection_tpu_torch.utils.precision import strict_f32
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        n_clips = write_circor(root, CIRCOR_PATIENTS, seed=SEED + 21)
+        os.chdir(root)
+        try:
+            process.main(["dataset=circor", "pretrain=operaCT", "dim=768", "random_init=True",
+                          "source_sr=4000"])
+            split = np.load("feature/circor_eval/train_test_split.npy")
+            n_tr, n_va, n_te = (int((split == s).sum()) for s in ("train", "val", "test"))
+            runs = {}
+            for pretrain, kind, B, _ in FT_TOWERS:
+                n_run = 5 if pretrain == "operaCT" else 1
+                scores, counts, sec = _ft_cli(pretrain, n_run)
+                scores = np.asarray(scores, np.float64)
+                steps = n_run * FT_EPOCHS * (-(-n_tr // B))
+                batches = n_run * (FT_EPOCHS * -(-n_va // 64) + -(-n_te // 64))
+                per, ev = _ft_per_step(kind, B), _ft_eval_per_batch(kind)
+                want = {q: per.get(q, 0) * steps + ev.get(q, 0) * batches for q in {*per, *ev}}
+                print(f"[finetune] cli.finetune pretrain={pretrain} compute_dtype=bfloat16 "
+                      f"n_run={n_run} epochs={FT_EPOCHS} B={B} on {n_clips} clips ({n_tr} train, "
+                      f"{n_va} val, {n_te} test) in {sec:.1f} s: test AUROC "
+                      + " ".join(f"{a:.4f}" for a in scores)
+                      + f", mean {scores.mean():.4f} +- {scores.std():.4f}; launches "
+                      f"{ {q: counts[q] for q in sorted(want)} } ({steps} steps x {per} + "
+                      f"{batches} predict batches x {ev}); {smi}", flush=True)
+                _require(len(scores) == n_run and bool(np.isfinite(scores).all()),
+                         f"{pretrain} test AUROCs {scores}")
+                _require(all(counts[q] == v for q, v in want.items()),
+                         f"{pretrain} launches {counts}, want {want}")
+                runs[pretrain] = counts
+            x_pad8 = np.load("feature/circor_eval/spectrogram_pad8.npy")
+            x_fbank = np.load("feature/circor_eval/fbank_audiomae.npy")
+            y_all = np.load("feature/circor_eval/murmurs.npy").astype(np.int64)
+        finally:
+            os.chdir(cwd)
+
+    for pretrain, kind, B, B0 in FT_TOWERS:
+        xs = x_fbank if kind == "audiomae" else x_pad8
+        model = ft.EncoderClassifier(kind, 3, "linear", 384 if kind == "gt" else 768,
+                                     generator=torch.Generator().manual_seed(SEED)).to(dev)
+        xb = torch.from_numpy(xs[:B].astype(np.float32)).to(dev)
+        yb = torch.from_numpy(y_all[:B]).to(dev)
+        valid = torch.ones(B, device=dev)
+        cw = torch.ones(3, device=dev)
+        opt_of = lambda m: ClippedAdam(m.parameters(), 3, 1e-4, 0.99, 1.0)
+        with strict_f32():
+            times = {}
+            for impl in ("kernel", "plain"):
+                import copy
+
+                m = copy.deepcopy(model)
+                opt = opt_of(m)
+                gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+                step = lambda: ft.train_step(m, opt, xb, yb, valid, cw, gen, torch.bfloat16, impl,
+                                             1e-4)
+                step()
+                torch.cuda.synchronize()
+                if impl == "kernel":
+                    _reset_counts()
+                    step()
+                    torch.cuda.synchronize()
+                    one = _all_counts()
+                times[impl] = _time_ms(step, iters=3, warm=1)
+                del m, opt
+            per = _ft_per_step(kind, B)
+            print(f"[finetune] {pretrain} step B={B} full width, bf16: kernels {times['kernel']:.2f} "
+                  f"ms, plain bf16 path {times['plain']:.2f} ms "
+                  f"({times['plain'] / times['kernel']:.2f}x); one step's launches "
+                  f"{ {q: one[q] for q in per} } (want {per}); {smi}", flush=True)
+            _require(all(one[q] == v for q, v in per.items()), f"{pretrain} step launches {one}")
+            x0, y0, v0 = xb[:B0], yb[:B0], valid[:B0]
+            lk, gk = _ft_steps(model, x0, y0, v0, cw, torch.bfloat16, "kernel", 3)
+            lp, gp = _ft_steps(model, x0, y0, v0, cw, torch.bfloat16, "plain", 3)
+            lf, gf = _ft_steps(model, x0, y0, v0, cw, torch.float32, "autograd", 1)
+        _step0_rule(f"[finetune] {pretrain} 3 steps at B={B0}", lk, lp, lf, gk, gp, gf)
+        del model
+        torch.cuda.empty_cache()
+    return runs["operaCT"]
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -1864,6 +2175,14 @@ KERNEL_SOURCES = {
                     "heart_murmur_detection_tpu/ops/pallas_vit_train.py:163"),
     "logmel": ("heart_murmur_detection_tpu_torch/csrc/logmel.cu",
                "heart_murmur_detection_tpu/ops/pallas_mel.py:54"),
+    # vit_attn's modes of the TPU attention-half kernels K10 (body `kernel`)
+    # and K11 (body `attn_kernel`)
+    **{f"vit_attn:{m}": ("heart_murmur_detection_tpu_torch/csrc/vit_attn.cu", r) for m, r in (
+        ("norm_before", "bench/gt_attn_opt.py:50; bench/vit_attn_ablate.py:43"),
+        ("fast", "bench/gt_attn_opt.py:50"),
+        ("bf16_exp", "bench/gt_attn_opt.py:50"),
+        ("no_softmax", "bench/vit_attn_ablate.py:43"),
+        ("q_passthrough", "bench/gt_attn_opt.py:50; bench/vit_attn_ablate.py:43"))},
 }
 
 
@@ -1923,6 +2242,10 @@ def main() -> int:
     logmel_meas = phase_logmel(smi)
     logmel_counts = phase_main_path(smi)
     phase_logmel_throughput(smi)
+    torch.cuda.empty_cache()
+    ablate_meas, ablate_counts = phase_attn_ablate(smi)
+    torch.cuda.empty_cache()
+    phase_finetune(smi, dev)
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths
@@ -1934,6 +2257,8 @@ def main() -> int:
     kernels += _entries(vit_meas, gt_counts, KERNEL_SOURCES)
     kernels += _entries(vit_train_meas, mae_counts, KERNEL_SOURCES)
     kernels += _entries(logmel_meas, logmel_counts, KERNEL_SOURCES)
+    kernels += _entries({f"vit_attn:{m}": v for m, v in ablate_meas.items()},
+                        {f"vit_attn:{m}": n for m, n in ablate_counts.items()}, KERNEL_SOURCES)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 A copy of heart_murmur_detection_tpu/audio/pad.py trimmed to what the port
 runs (split_pad_sample and its helpers for operaCT and operaGT,
-split_sample_simple for audiomae); the original cannot be imported without
+split_sample_simple for audiomae, decide_droplast for the fine-tuning
+cache); the original cannot be imported without
 jax. tests/test_torch_dsp.py and tests/test_torch_mae.py pin it to the
 original.
 
@@ -89,6 +90,12 @@ def split_pad_sample(
     else:
         out.append(_duplicate_padding(x, x, output_length))
     return out
+
+
+def decide_droplast(n_samples: int, sr: int, input_sec: float) -> bool:
+    """src/util.py:369-371: drop the tail window when the remainder is < half."""
+    duration = n_samples / sr
+    return duration > input_sec and (duration % input_sec) * 2 < input_sec
 
 
 def split_sample_simple(x: np.ndarray, desired_sec: float, sr: int) -> List[np.ndarray]:

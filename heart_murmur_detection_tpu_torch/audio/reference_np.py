@@ -1,7 +1,9 @@
 """Pure-numpy DSP pieces the port needs: the periodic Hann window and the
 slaney mel filterbank (constants of the device mel frontend), the symmetric
 Hanning window and the kaldi mel banks (constants of the kaldi fbank
-frontend), and the librosa-semantics silence trim (host pipeline).
+frontend), the librosa-semantics silence trim (host pipeline), and the host
+mel and kaldi fbank of the fine-tuning spectrogram cache
+(pre_process_audio_mel_t, kaldi_fbank).
 
 A copy of the matching functions of heart_murmur_detection_tpu/audio/
 reference_np.py, which cannot be imported without jax;
@@ -11,6 +13,8 @@ Reference semantics:
 - ``librosa.filters.mel(htk=False, norm='slaney')``
 - ``torchaudio.compliance.kaldi.get_mel_banks`` defaults
 - ``librosa.effects.trim(frame_length=sr/10, hop=frame/2)`` (src/util.py:237-243)
+- ``librosa.feature.melspectrogram`` + ``power_to_db`` + min-max (src/util.py:481-501)
+- ``torchaudio.compliance.kaldi.fbank`` (dither 0)
 """
 
 from __future__ import annotations
@@ -147,3 +151,117 @@ def trim_heart(y: np.ndarray, sr: int = 16000):
     (src/util.py:237-243)."""
     frame = int(sr / 10)
     return trim_silence(y, frame, frame // 2)
+
+
+# ---------------------------------------------------------------------------
+# STFT / mel pipeline (librosa semantics)
+# ---------------------------------------------------------------------------
+
+
+def stft_power(y: np.ndarray, n_fft: int = 1024, hop: int = 512) -> np.ndarray:
+    """|STFT|^2 with center=True, pad_mode='constant' (librosa 0.10 defaults).
+
+    Returns (1 + n_fft//2, n_frames).
+    """
+    y = np.asarray(y, dtype=np.float32)
+    pad = n_fft // 2
+    yp = np.pad(y, (pad, pad), mode="constant")
+    n_frames = 1 + (len(yp) - n_fft) // hop
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(n_frames)[:, None]
+    frames = yp[idx] * hann_periodic(n_fft)[None, :]
+    spec = np.fft.rfft(frames, n=n_fft, axis=1)
+    return (np.abs(spec) ** 2).T.astype(np.float32)
+
+
+def melspectrogram(
+    y: np.ndarray,
+    sr: int = 16000,
+    n_mels: int = 64,
+    fmin: float = 50.0,
+    fmax: float = 8000.0,
+    n_fft: int = 1024,
+    hop: int = 512,
+) -> np.ndarray:
+    """librosa.feature.melspectrogram (power=2). Returns (n_mels, n_frames)."""
+    S = stft_power(y, n_fft, hop)
+    fb = mel_filterbank_slaney(sr, n_fft, n_mels, fmin, fmax)
+    return fb @ S
+
+
+def power_to_db(S: np.ndarray, ref: float, amin: float = 1e-10, top_db: float = 80.0):
+    """librosa.power_to_db semantics."""
+    log_spec = 10.0 * np.log10(np.maximum(amin, S))
+    log_spec -= 10.0 * np.log10(np.maximum(amin, ref))
+    if top_db is not None:
+        log_spec = np.maximum(log_spec, log_spec.max() - top_db)
+    return log_spec
+
+
+def pre_process_audio_mel_t(
+    audio: np.ndarray,
+    sample_rate: int = 16000,
+    n_mels: int = 64,
+    f_min: float = 50.0,
+    f_max: float = 2000.0,
+    nfft: int = 1024,
+    hop: int = 512,
+) -> np.ndarray:
+    """Whole mel frontend == src/util.py:481-501 (note callers pass f_max=8000).
+
+    mel power -> power_to_db(ref=max) -> per-clip min-max -> (T, n_mels).
+    """
+    S = melspectrogram(audio, sample_rate, n_mels, f_min, f_max, nfft, hop)
+    S = power_to_db(S, ref=float(S.max()))
+    lo, hi = float(S.min()), float(S.max())
+    if hi != lo:
+        S = (S - lo) / (hi - lo)
+    return S.T.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Kaldi fbank (torchaudio.compliance.kaldi.fbank semantics, dither=0)
+# ---------------------------------------------------------------------------
+
+
+def kaldi_fbank(
+    waveform: np.ndarray,
+    sample_rate: int = 16000,
+    num_mel_bins: int = 128,
+    frame_length_ms: float = 25.0,
+    frame_shift_ms: float = 10.0,
+    preemphasis: float = 0.97,
+    remove_dc_offset: bool = True,
+) -> np.ndarray:
+    """Log-mel filterbank energies, kaldi style (snip_edges=True, hanning window,
+    use_energy=False, htk_compat=True, dither=0). Returns (n_frames, num_mel_bins).
+
+    Note the reference subtracts the waveform mean *before* calling fbank
+    (src/util.py:841); that is the caller's job, not done here.
+    """
+    y = np.asarray(waveform, dtype=np.float64)
+    win = int(sample_rate * frame_length_ms / 1000)
+    shift = int(sample_rate * frame_shift_ms / 1000)
+    padded = 1 << (win - 1).bit_length()  # next pow2, kaldi round_to_power_of_two
+
+    if len(y) < win:
+        return np.zeros((0, num_mel_bins), dtype=np.float32)
+    n_frames = 1 + (len(y) - win) // shift
+    idx = np.arange(win)[None, :] + shift * np.arange(n_frames)[:, None]
+    frames = y[idx]
+
+    if remove_dc_offset:
+        frames = frames - frames.mean(axis=1, keepdims=True)
+    if preemphasis != 0.0:
+        prev = np.concatenate([frames[:, :1], frames[:, :-1]], axis=1)
+        frames = frames - preemphasis * prev
+    frames = frames * hanning_symmetric(win)[None, :]
+
+    fr = np.zeros((n_frames, padded), dtype=np.float64)
+    fr[:, :win] = frames
+    spec = np.fft.rfft(fr, axis=1)
+    power = np.abs(spec) ** 2  # (n_frames, padded//2 + 1)
+
+    banks = kaldi_mel_banks(num_mel_bins, padded, sample_rate)  # excludes nyquist
+    mel_e = power[:, : padded // 2] @ banks.T.astype(np.float64)
+    mel_e = np.log(np.maximum(mel_e, np.finfo(np.float32).eps))
+    return mel_e.astype(np.float32)

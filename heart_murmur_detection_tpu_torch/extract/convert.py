@@ -20,6 +20,12 @@ heart_murmur_detection_tpu/extract/convert.py.
 - `from_jax_head(params)`: a flax probe head's params ({"fc": {"kernel",
   "bias"}} or {"fc1": ..., "fc2": ...}, numpy) -> the port's Head
   state_dict, kernels transposed.
+- `from_jax_classifier(variables, encoder_kind)`: a JAX fine-tuning
+  `EncoderClassifier`'s variables (params, and batch_stats for htsat) ->
+  the port's train/finetune.py::EncoderClassifier state_dict ("encoder.*",
+  "head.*"): htsat through from_jax, gt (params["encoder"]["mae"]) and
+  audiomae through from_jax_mae, the head through from_jax_head. A gradient
+  tree maps the same way.
 - `load_mae_ckpt(path, model)`: a reference OPERA-GT or Audio-MAE
   checkpoint into the port's model by key name: every key the model holds
   must be there (the decoder's too, for a model built with its decoder, as a
@@ -206,3 +212,22 @@ def from_jax_head(params: dict) -> Dict[str, torch.Tensor]:
         sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
         sd[f"{name}.bias"] = _t(p["bias"])
     return sd
+
+
+def from_jax_classifier(variables: dict, encoder_kind: str) -> Dict[str, torch.Tensor]:
+    """flax EncoderClassifier variables -> state_dict of
+    train.finetune.EncoderClassifier (see the module doc)."""
+    params = variables["params"]
+    enc = params["encoder"]
+    if encoder_kind == "htsat":
+        inner = {"params": {"encoder": enc}}
+        if "batch_stats" in variables and variables["batch_stats"]:
+            inner["batch_stats"] = {"encoder": variables["batch_stats"]["encoder"]}
+        sd = {k[len(HTSAT_PREFIX):]: v for k, v in from_jax(inner).items()}
+    elif encoder_kind in ("gt", "audiomae"):
+        sd = from_jax_mae({"params": enc["mae"] if encoder_kind == "gt" else enc})
+    else:
+        raise NotImplementedError(f"encoder_kind {encoder_kind!r} is not ported")
+    out = {f"encoder.{k}": v for k, v in sd.items()}
+    out.update({f"head.{k}": v for k, v in from_jax_head(params["head"]).items()})
+    return out

@@ -34,6 +34,7 @@ import torch
 from ..audio import dsp, pipelines, wire
 from ..audio.pad import split_pad_sample, split_sample_simple
 from ..ops.resample import resample_poly_device
+from ..utils.precision import strict_f32
 from . import registry
 
 SR = 16000
@@ -53,7 +54,12 @@ class FeatureExtractor:
     that runs the CUDA kernels on a card; torch.float32 is the strict path
     and runs only on the CPU here (the float32 kernels are not ported).
     dim selects the operaCT output (768 latent or 512 projection); the MAE
-    towers give their embedding width (384 operaGT, 768 audiomae).
+    towers give their embedding width (384 operaGT, 768 audiomae). As in
+    the JAX extractor, which fuses only dim 768 (its extract.py:389), a
+    512-d operaCT batch runs the reference's strict float32 graph
+    (Cola.extract_feature: plain products, TF32 off) whatever
+    compute_dtype says, so it launches no swin kernel; 768 takes the
+    compute_dtype flow (the kernels on a card in bf16).
     use_pallas_mel: the mel of operaCT and operaGT through the fused log-mel
     kernel (ops/mel.py, TPU K4) instead of audio/dsp.mel_frontend; both are
     float32 (audiomae keeps its kaldi fbank either way).
@@ -175,10 +181,20 @@ class FeatureExtractor:
 
             return fn
 
+        if dim == 768:
+            def fn(wav, lengths):
+                with torch.inference_mode():
+                    mel, nf = self._mel(*self._prologue(wav, lengths))
+                    return model.extract_feature(mel, dim, nf, mm_dtype=mm, fast_softmax=fast)
+
+            return fn
+
+        # dim 512: the reference's float32 graph (plain products, TF32 off),
+        # whatever compute_dtype says, as the JAX extractor fuses only 768
         def fn(wav, lengths):
-            with torch.inference_mode():
+            with torch.inference_mode(), strict_f32():
                 mel, nf = self._mel(*self._prologue(wav, lengths))
-                return model.extract_feature(mel, dim, nf, mm_dtype=mm, fast_softmax=fast)
+                return model.extract_feature(mel, dim, nf, mm_dtype=torch.float32, impl="plain")
 
         return fn
 

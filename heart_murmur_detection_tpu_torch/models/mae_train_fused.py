@@ -1,6 +1,8 @@
-"""The MAE pretraining loss with the encoder's ViT blocks on the training
-kernels — counterpart of heart_murmur_detection_tpu/models/mae_train_fused.py
-(`mae_encode_train_fused` :36, `mae_train_loss_fused` :177).
+"""The MAE pretraining loss and the fine-tuning backbones with the encoder's
+ViT blocks on the training kernels — counterpart of
+heart_murmur_detection_tpu/models/mae_train_fused.py (`mae_encode_train_fused`
+:36, `audiomae_backbone_train_fused` :100, `gt_backbone_train_fused` :143,
+`mae_train_loss_fused` :177).
 
   x (B, T, F) spectrogram -> float32 patch embed (TF32 off) + positions ->
   random masking (noise (B, L), or drawn from a generator) -> cls -> pad to a
@@ -31,7 +33,8 @@ import torch
 from ..ops import vit
 from ..ops.vit_train import fused_vit_block_train
 from .vit_fused import _final_ln, _patch_embed
-from .vit_mae import MaskedAutoencoderViT, masking_noise, random_masking
+from .vit_mae import (AudioMAEClassifierBackbone, MaskedAutoencoderViT, masking_noise,
+                      random_masking)
 
 
 def block_params(blk, mm_dtype: torch.dtype) -> vit.VitBlockParams:
@@ -71,6 +74,44 @@ def mae_encode_train_fused(
         else:
             h = vit.fused_vit_block(h, p, n_real, False, "kernel" if impl == "kernel" else "plain")
     return _final_ln(h[:, :n_real].to(torch.float32), model.norm), mask, ids_restore
+
+
+def _backbone_train(model, x: torch.Tensor, norm: torch.nn.LayerNorm, mm_dtype: torch.dtype,
+                    impl: str) -> torch.Tensor:
+    """Unmasked encoder with the training blocks: float32 patch embed (TF32
+    off) + positions, cls, pad to a multiple of 16, the blocks, the mean of
+    the real patch tokens [1:n_real] in float32, the final LN -> (B, D)."""
+    act = torch.bfloat16 if mm_dtype == torch.bfloat16 else torch.float32
+    h = _patch_embed(x, model.patch_embed.proj, torch.float32)
+    B, L, D = h.shape
+    h = h + model.pos_embed[:, 1 : L + 1]
+    cls = (model.cls_token + model.pos_embed[:, :1]).expand(B, -1, -1)
+    h, n_real = vit.pad_tokens(torch.cat([cls, h], 1), 16)
+    h = h.to(act).contiguous()
+    for blk in model.blocks:
+        h = fused_vit_block_train(h, block_params(blk, mm_dtype), n_real, impl)
+    return _final_ln(h[:, 1:n_real].to(torch.float32).mean(1), norm)
+
+
+def gt_backbone_train_fused(model: MaskedAutoencoderViT, x: torch.Tensor,
+                            mm_dtype: torch.dtype = torch.float32,
+                            impl: str = "kernel") -> torch.Tensor:
+    """The operaGT fine-tuning encoder (the JAX GTBackbone -> MAE
+    forward_feature) with the training blocks: mel (B, 256, 64) -> (B, 384)
+    after the encoder's final LN. impl as ops.vit_train.fused_vit_block_train."""
+    return _backbone_train(model, x, model.norm, mm_dtype, impl)
+
+
+def audiomae_backbone_train_fused(model: AudioMAEClassifierBackbone, x: torch.Tensor,
+                                  mm_dtype: torch.dtype = torch.float32,
+                                  impl: str = "kernel") -> torch.Tensor:
+    """The Audio-MAE fine-tuning encoder (AudioMAEClassifierBackbone) with
+    the training blocks: fbank (B, T <= 1024, 128), zero-padded to the
+    config's img_size first -> (B, 768) after fc_norm."""
+    B, T, Fb = x.shape
+    H, W = model.config.img_size
+    x = torch.nn.functional.pad(x.to(torch.float32), (0, W - Fb, 0, H - T))
+    return _backbone_train(model, x, model.fc_norm, mm_dtype, impl)
 
 
 def mae_train_loss_fused(

@@ -52,7 +52,7 @@ _SIGNATURES = {
     "swin_reduce_launch": [_vp] * 2 + [_i] * 2 + [_vp],
     # x, qkv, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, C, heads, eps, stream
     "vit_qkv_launch": [_vp] * 6 + [_i] * 4 + [_f, _vp],
-    # x, qkv, out, w_proj, b_proj, B, Np, C, heads, n_real, fast_softmax, stream
+    # x, qkv, out, w_proj, b_proj, B, Np, C, heads, n_real, mode, stream
     "vit_attn_launch": [_vp] * 5 + [_i] * 6 + [_vp],
     # x, dh1, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, h_g, opre_g, dqkv_g, part,
     # qkv_ws, do_ws, stats_ws, B, Np, C, heads, n_real, tpb, eps, stream

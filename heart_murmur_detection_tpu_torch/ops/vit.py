@@ -5,7 +5,10 @@ entry points of heart_murmur_detection_tpu/ops/pallas_vit.py built from them.
   vit_qkv   LN1 -> qkv (q pre-scaled by 1/sqrt(hd)), written head-major
             (csrc/vit_qkv.cu; the first part of the TPU body `_attn_half`)
   vit_attn  per head softmax(q k^T, padded keys masked) v -> proj -> +x
-            (csrc/vit_attn.cu; the rest of `_attn_half`)
+            (csrc/vit_attn.cu; the rest of `_attn_half`), or one of the
+            attention modes of the TPU attention-half kernels K10
+            (bench/gt_attn_opt.py::kernel) and K11
+            (bench/vit_attn_ablate.py::attn_kernel), see ATTN_MODES
   vit_mlp   LN2 -> fc1 -> exact GELU -> fc2 -> +x, token-wise
             (csrc/swin_mlp.cu with LN eps 1e-6; the TPU body `_mlp_half`)
 
@@ -23,6 +26,26 @@ Sequence padding as the JAX package: callers pad tokens to a multiple of 16
 (pad_tokens) and pass the real count n_real; key columns >= n_real get
 -1e9 (exp underflows to an exact zero), padded query rows produce garbage
 that stays in padded rows and is sliced off after the stack.
+
+Attention modes (`mode` of vit_attn and its plain version; `fast_softmax`
+picks between the first two):
+  stable         softmax(s) with the row max, P rounded after normalising
+  fast           e = exp(s) (no row max), P = bf16(e), P v times 1 / sum(e)
+  norm_before    e = exp(s) (no row max), P = bf16(e / sum(e)), P v
+  bf16_exp       e = exp(bf16(s)) in float32, P = bf16(e), P v times
+                 1 / sum(e): the exp of a bf16 score as XLA computes K10's v5
+                 (jnp.exp of the bf16 s, whose float32 sum XLA takes over
+                 the unrounded exp and whose product operand it rounds)
+  no_softmax     P = bf16(s) (padded keys give P = 0), P v
+  q_passthrough  o = q: the attention output is the q third of qkv
+  aligned_hcat   head h reads q, k and v at columns off + (h 128) mod 2C of
+                 the (B, Np, 3C) qkv (off 0, C, 2C), then norm_before; a
+                 ValueError wherever a slice runs past 3C (at head dim 64
+                 with two or more heads, always)
+K10's modes v0, v1, v2 and K11's full are norm_before; v3 and v4 fast; v5
+bf16_exp; K11's no_softmax no_softmax; K10's noattn and K11's no_attn and
+ident q_passthrough (bench/attn_ablate.py JAX_MODES). K10 and K11 feed q unscaled:
+vit_block_layout(..., qk_scale=1.0).
 
 Dispatch: a CPU tensor runs the plain version; a CUDA bfloat16 tensor
 launches the kernel; any other CUDA dtype raises. `impl="plain"` asks for
@@ -47,7 +70,11 @@ from .swin import _check_launch, _cuda_stream, _ln, _mmf, _ptr
 LN_EPS = 1e-6
 HD = 64  # the kernels' head dim (ViT-S/16 and ViT-B/16 both use 64)
 MASK = -1e9
-
+ATTN_MODES = ("stable", "fast", "norm_before", "bf16_exp", "no_softmax", "q_passthrough",
+              "aligned_hcat")
+# the kernel's mode numbers (csrc/vit_attn.cu); aligned_hcat runs as
+# norm_before where it is defined
+_MODE_ID = {m: i for i, m in enumerate(ATTN_MODES[:6])}
 
 @dataclasses.dataclass(frozen=True)
 class VitBlockParams:
@@ -88,7 +115,8 @@ class VitBlockParams:
         return self.w_qkv.dtype
 
 
-def vit_block_layout(get, heads: int, mm_dtype: torch.dtype) -> VitBlockParams:
+def vit_block_layout(get, heads: int, mm_dtype: torch.dtype,
+                     qk_scale: Optional[float] = None) -> VitBlockParams:
     """Lay out one block's weights for the kernels with differentiable torch
     ops: `get(name)` returns the float32 tensor of a reference key (norm1.*,
     attn.qkv.*, attn.proj.*, norm2.*, mlp.fc1.*, mlp.fc2.*). The training
@@ -98,13 +126,14 @@ def vit_block_layout(get, heads: int, mm_dtype: torch.dtype) -> VitBlockParams:
     prep_vit_block builds it once, detached, for inference.
 
     As pallas_vit._attn_weights :222-238: the q rows of w_qkv and the q part
-    of b_qkv are multiplied by hd^-0.5 in float32 before the matmul-dtype
-    cast, so the kernels never scale q."""
+    of b_qkv are multiplied by qk_scale (hd^-0.5 unless given; 1.0 for the
+    unscaled q of the K10 / K11 attention halves) in float32 before the
+    matmul-dtype cast, so the kernels never scale q."""
     w_qkv, b_qkv = get("attn.qkv.weight"), get("attn.qkv.bias")
     C = w_qkv.shape[1]
     if C % heads:
         raise ValueError(f"{heads} heads must divide C = {C}")
-    scale = (C // heads) ** -0.5
+    scale = (C // heads) ** -0.5 if qk_scale is None else qk_scale
     w_qkv = torch.cat([w_qkv[:C] * scale, w_qkv[C:]])
     b_qkv = torch.cat([b_qkv[:C] * scale, b_qkv[C:]])
     mm = lambda t: t.to(mm_dtype).contiguous()
@@ -164,29 +193,80 @@ def vit_qkv_ref(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
     return qkv.reshape(B, Np, 3, p.heads, p.hd).permute(2, 0, 3, 1, 4).contiguous()
 
 
+def _mode(mode: Optional[str], fast_softmax: bool) -> str:
+    mode = mode or ("fast" if fast_softmax else "stable")
+    if mode not in ATTN_MODES:
+        raise ValueError(f"attention mode must be one of {ATTN_MODES}, got {mode!r}")
+    return mode
+
+
+def aligned_offsets(C: int, heads: int, hd: int) -> Tuple[int, ...]:
+    """aligned_hcat's column offset of head h inside each third of qkv,
+    (h 128) mod 2C (K11 `hoff`); ValueError where a head's slice of a third
+    (at off 0, C or 2C) runs past 3C, where the TPU body cannot be traced."""
+    offs = tuple((h * 128) % (2 * C) for h in range(heads))
+    over = [(third, h) for third in range(3) for h, o in enumerate(offs)
+            if third * C + o + hd > 3 * C]
+    if over:
+        third, h = over[0]
+        raise ValueError(
+            f"aligned_hcat is undefined at C={C}, {heads} heads of {hd}: head {h}'s slice of "
+            f"third {third} spans columns {third * C + offs[h]}..{third * C + offs[h] + hd} "
+            f"past 3C = {3 * C}")
+    return offs
+
+
+def _attn_core(q, k, v, mm: torch.dtype, n_real: Optional[int], mode: str) -> torch.Tensor:
+    """One attention mode on head-major q, k, v (B, heads, Np, hd): the
+    per-head output, float32 before its rounding."""
+    Np = q.shape[-2]
+    s = _mmf(q, mm) @ _mmf(k, mm).transpose(-1, -2)  # (B, heads, Np, Np) f32
+    pad = None
+    if n_real is not None and n_real < Np:
+        pad = torch.arange(Np, device=q.device) >= n_real
+    if mode == "no_softmax":
+        if pad is not None:
+            s = s.masked_fill(pad, 0.0)
+        return _mmf(s, mm) @ _mmf(v, mm)
+    if pad is not None:
+        s = s.masked_fill(pad, MASK)
+    if mode == "stable":
+        return _mmf(torch.softmax(s, -1), mm) @ _mmf(v, mm)
+    if mode == "bf16_exp":
+        s = s.to(torch.bfloat16).to(torch.float32)
+    e = torch.exp(s)  # no row max: overflows where the TPU bodies overflow
+    if mode == "norm_before":
+        return _mmf(e / e.sum(-1, keepdim=True), mm) @ _mmf(v, mm)
+    # fast, bf16_exp
+    return (_mmf(e, mm) @ _mmf(v, mm)) * (1.0 / e.sum(-1, keepdim=True))
+
+
 def vit_attn_out_ref(
     x: torch.Tensor,
     qkv: torch.Tensor,
     p: VitBlockParams,
     n_real: Optional[int] = None,
     fast_softmax: bool = False,
+    mode: Optional[str] = None,
 ) -> torch.Tensor:
     """Plain version of the vit_attn kernel: attention of the head-major
-    qkv (3, B, heads, Np, hd) over the keys < n_real, proj, + x -> (B, Np, C)
-    in x's dtype."""
+    qkv (3, B, heads, Np, hd) over the keys < n_real in `mode` (ATTN_MODES;
+    stable, or fast with fast_softmax), proj, + x -> (B, Np, C) in x's
+    dtype."""
     B, Np, C = x.shape
     act, mm = x.dtype, p.mm_dtype
+    mode = _mode(mode, fast_softmax)
     q, k, v = qkv[0], qkv[1], qkv[2]
-    s = _mmf(q, mm) @ _mmf(k, mm).transpose(-1, -2)  # (B, heads, Np, Np) f32
-    if n_real is not None and n_real < Np:
-        col = torch.arange(Np, device=x.device)
-        s = torch.where(col < n_real, s, MASK)
-    if fast_softmax:
-        e = torch.exp(s)
-        recip = 1.0 / e.sum(-1, keepdim=True)
-        o = ((_mmf(e, mm) @ _mmf(v, mm)) * recip).to(act)
+    if mode == "aligned_hcat":
+        offs = aligned_offsets(C, p.heads, p.hd)
+        flat = qkv.permute(1, 3, 0, 2, 4).reshape(B, Np, 3 * C)
+        q, k, v = (torch.stack([flat[..., t * C + o: t * C + o + p.hd] for o in offs], 1)
+                   for t in range(3))
+        mode = "norm_before"
+    if mode == "q_passthrough":
+        o = q.to(act)
     else:
-        o = (_mmf(torch.softmax(s, -1), mm) @ _mmf(v, mm)).to(act)
+        o = _attn_core(q, k, v, mm, n_real, mode).to(act)
     o = o.permute(0, 2, 1, 3).reshape(B, Np, C)
     o = _mmf(o, mm) @ _mmf(p.w_proj, mm).T + p.b_proj
     return (x.to(torch.float32) + o).to(act)
@@ -197,10 +277,11 @@ def vit_attn_ref(
     p: VitBlockParams,
     n_real: Optional[int] = None,
     fast_softmax: bool = False,
+    mode: Optional[str] = None,
 ) -> torch.Tensor:
     """Plain version of the attention half (`_attn_half`): x (B, Np, C) ->
     x + proj(attention(LN1(x))), x's dtype."""
-    return vit_attn_out_ref(x, vit_qkv_ref(x, p), p, n_real, fast_softmax)
+    return vit_attn_out_ref(x, vit_qkv_ref(x, p), p, n_real, fast_softmax, mode)
 
 
 def vit_mlp_ref(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
@@ -262,12 +343,19 @@ def vit_attn(
     p: VitBlockParams,
     n_real: Optional[int] = None,
     fast_softmax: bool = False,
+    mode: Optional[str] = None,
 ) -> torch.Tensor:
-    """Attention over the head-major qkv, proj and the residual of x (see
-    vit_attn_out_ref)."""
+    """Attention over the head-major qkv in `mode`, proj and the residual of
+    x (see vit_attn_out_ref)."""
     if x.device.type == "cpu":
-        return vit_attn_out_ref(x, qkv, p, n_real, fast_softmax)
+        return vit_attn_out_ref(x, qkv, p, n_real, fast_softmax, mode)
+    mode = _mode(mode, fast_softmax)
     _check_cuda_args(x, p, attn=True)
+    if mode == "aligned_hcat":
+        # defined only where the offsets are the plain head split
+        if aligned_offsets(x.shape[2], p.heads, p.hd) != tuple(h * HD for h in range(p.heads)):
+            raise ValueError("aligned_hcat's head slices differ from the head split")
+        mode = "norm_before"
     B, Np, C = x.shape
     if (qkv.dtype != x.dtype or not qkv.is_contiguous() or qkv.device != x.device
             or tuple(qkv.shape) != (3, B, p.heads, Np, HD)):
@@ -281,10 +369,11 @@ def vit_attn(
     out = torch.empty_like(x)
     rc = lib.vit_attn_launch(
         _ptr(x), _ptr(qkv), _ptr(out), _ptr(p.w_proj), _ptr(p.b_proj),
-        B, Np, C, p.heads, n_real, int(fast_softmax), _cuda_stream(x),
+        B, Np, C, p.heads, n_real, _MODE_ID[mode], _cuda_stream(x),
     )
     _check_launch("vit_attn", rc)
     vit_attn.launches += 1
+    vit_attn.mode_launches[mode] += 1
     return out
 
 
@@ -311,6 +400,7 @@ def vit_mlp(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
 
 vit_qkv.launches = 0
 vit_attn.launches = 0
+vit_attn.mode_launches = dict.fromkeys(_MODE_ID, 0)  # vit_attn's launches by mode
 vit_mlp.launches = 0
 COUNTED = [vit_qkv, vit_attn, vit_mlp]
 
@@ -320,9 +410,15 @@ def launch_counts() -> dict:
     return {f.__name__: f.launches for f in COUNTED}
 
 
+def mode_launch_counts() -> dict:
+    """vit_attn's launches by attention mode since the last reset."""
+    return dict(vit_attn.mode_launches)
+
+
 def reset_launch_counts() -> None:
     for f in COUNTED:
         f.launches = 0
+    vit_attn.mode_launches = dict.fromkeys(_MODE_ID, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -342,12 +438,15 @@ def fused_vit_attn(
     n_real: Optional[int] = None,
     fast_softmax: bool = False,
     impl: str = "kernel",
+    mode: Optional[str] = None,
 ) -> torch.Tensor:
-    """Attention half (LN1, qkv, attention, proj, residual) of one ViT block
-    on x (B, Np, C); n_real < Np masks the padded key columns."""
+    """Attention half (LN1, qkv, attention in `mode`, proj, residual) of one
+    ViT block on x (B, Np, C); n_real < Np masks the padded key columns."""
     if _impl(impl):
-        return vit_attn_ref(x, p, n_real, fast_softmax)
-    return vit_attn(x, vit_qkv(x, p), p, n_real, fast_softmax)
+        return vit_attn_ref(x, p, n_real, fast_softmax, mode)
+    if mode == "aligned_hcat":  # undefined shapes raise before any launch
+        aligned_offsets(x.shape[2], p.heads, p.hd)
+    return vit_attn(x, vit_qkv(x, p), p, n_real, fast_softmax, mode)
 
 
 def fused_vit_mlp(x: torch.Tensor, p: VitBlockParams, impl: str = "kernel") -> torch.Tensor:

@@ -21,7 +21,6 @@ product, as the JAX path runs them at HIGHEST or in full float32.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from typing import Dict, Optional
@@ -34,6 +33,7 @@ from ..models.htsat import HTSATConfig, init_weights
 from ..models.htsat_train_fused import Stats, cola_train_apply
 from ..train.checkpoints import ResumeCheckpointer, TopKCheckpointer
 from ..utils.logging import CSVLogger
+from ..utils.precision import strict_f32
 from . import steps
 from .data import MultiCorpusSampler, load_corpus
 
@@ -55,17 +55,6 @@ def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool]
     if fused_train is None:
         fused_train = device.type == "cuda"
     return "kernel" if fused_train else "plain"
-
-
-@contextlib.contextmanager
-def strict_f32():
-    """TF32 off for float32 matmuls and convolutions inside the block."""
-    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
 def set_bn0_stats(model: Cola, stats: Stats) -> None:

@@ -42,8 +42,9 @@ from ..models.vit_mae import (
 )
 from ..train.checkpoints import ResumeCheckpointer, TopKCheckpointer
 from ..utils.logging import CSVLogger
+from ..utils.precision import strict_f32
 from . import steps
-from .cola_training import strict_f32, train_impl
+from .cola_training import train_impl
 from .data import MultiCorpusSampler, load_corpus
 
 

@@ -1,5 +1,6 @@
 """Checkpoint save/restore with reference-compatible naming — counterpart of
-heart_murmur_detection_tpu/train/checkpoints.py (`ResumeCheckpointer` :78,
+heart_murmur_detection_tpu/train/checkpoints.py (`load_params` :28,
+`find_best_ckpt` :33, `EarlyStopping` :51, `ResumeCheckpointer` :78,
 `TopKCheckpointer` :111).
 
 The cadence and file names are the JAX package's, with the reference's
@@ -12,7 +13,9 @@ renamed, so a reader never sees half a checkpoint.
 
 from __future__ import annotations
 
+import glob
 import os
+import re
 import tempfile
 from typing import Any, List, Optional, Tuple
 
@@ -41,6 +44,57 @@ def save_params(path: str, state_dict: dict) -> str:
 
 def load_state(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_params(path: str) -> Any:
+    """What save_params wrote (the JAX load_params with torch.load)."""
+    return load_state(path)
+
+
+def find_best_ckpt(
+    dirpath: str, pattern: str, metric: str = "valid_auc", mode: str = "max"
+) -> Optional[str]:
+    """Glob `pattern` under dirpath and pick the best by the metric encoded in
+    the filename (eval_ckpts.py:79-88 behavior)."""
+    cands = glob.glob(os.path.join(dirpath, pattern))
+    best, best_v = None, None
+    rx = re.compile(rf"{metric}=([-0-9.]+)")
+    for c in cands:
+        m = rx.search(os.path.basename(c))
+        if not m:
+            continue
+        v = float(m.group(1).rstrip("."))
+        if best_v is None or (v > best_v if mode == "max" else v < best_v):
+            best, best_v = c, v
+    return best
+
+
+class EarlyStopping:
+    """PL EarlyStopping semantics (reference finetuning.py:1316-1318,
+    linear_eval.py:1151-1152): the tracked best moves — and the wait counter
+    resets — only on an improvement strictly exceeding min_delta; step()
+    returns True once `patience` consecutive non-improvements accumulate.
+    patience=None disables stopping (step() always returns False)."""
+
+    def __init__(self, mode: str = "max", min_delta: float = 1e-3,
+                 patience: Optional[int] = 10):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
+        self.sign = 1.0 if mode == "max" else -1.0
+        self.min_delta = float(min_delta)
+        self.patience = patience
+        self.best = -float("inf")
+        self.wait = 0
+
+    def step(self, value: float) -> bool:
+        if self.patience is None:
+            return False
+        v = self.sign * float(value)
+        if v - self.min_delta > self.best:
+            self.best, self.wait = v, 0
+            return False
+        self.wait += 1
+        return self.wait >= self.patience
 
 
 def _cpu(state_dict: dict) -> dict:

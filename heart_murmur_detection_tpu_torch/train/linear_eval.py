@@ -72,15 +72,41 @@ def _make_perms(rng: np.random.Generator, n: int, bs: int, epochs: int) -> np.nd
     return out.reshape(epochs, nb, bs)
 
 
-def _adam_step(params, grads, mu, nu, count: int, lr_t: float):
-    """One optax.scale_by_adam update of `params` in place (count: the
-    1-based step for the bias correction)."""
-    c1 = 1.0 - ADAM_B1 ** count
-    c2 = 1.0 - ADAM_B2 ** count
-    for p, g, m, v in zip(params, grads, mu, nu):
-        m.mul_(ADAM_B1).add_((1.0 - ADAM_B1) * g)
-        v.mul_(ADAM_B2).add_((1.0 - ADAM_B2) * g.square())
-        p.sub_(lr_t * (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS))
+class ClippedAdam:
+    """Global-norm clipping, then optax.scale_by_adam (b1 0.9, b2 0.999, eps
+    1e-8 outside the square root, bias-corrected) at lr * decay^(count //
+    steps_per_epoch), count the updates already made: the probe's and
+    fine-tuning's optimizer (optax clip_by_global_norm + scale_by_adam +
+    scale_by_learning_rate). Updates `params` in place."""
+
+    def __init__(self, params, steps_per_epoch: int, lr: float, decay: float, grad_clip: float):
+        self.params = list(params)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.nb, self.lr, self.decay, self.clip = steps_per_epoch, lr, decay, grad_clip
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads) -> None:
+        gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
+        g = torch._foreach_mul(
+            list(grads), torch.clamp(self.clip / torch.clamp(gnorm, min=1e-12), max=1.0))
+        lr_t = self.lr * self.decay ** (self.count // self.nb)
+        self.count += 1
+        c1, c2 = 1.0 - ADAM_B1 ** self.count, 1.0 - ADAM_B2 ** self.count
+        torch._foreach_mul_(self.mu, ADAM_B1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(g, 1.0 - ADAM_B1))
+        torch._foreach_mul_(self.nu, ADAM_B2)
+        sq = torch._foreach_mul(g, g)
+        torch._foreach_mul_(sq, 1.0 - ADAM_B2)
+        torch._foreach_add_(self.nu, sq)
+        upd = torch._foreach_div(self.mu, c1)
+        torch._foreach_mul_(upd, lr_t)
+        den = torch._foreach_div(self.nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, ADAM_EPS)
+        torch._foreach_div_(upd, den)
+        torch._foreach_sub_(self.params, upd)
 
 
 def _predict(head: Head, x: torch.Tensor) -> np.ndarray:
@@ -122,8 +148,7 @@ def train_linear_head(
     nb = (len(x_train) + batch_size - 1) // batch_size
     model = Head(n_cls, head, feat_dim, generator=torch.Generator().manual_seed(seed)).to(dev)
     params = list(model.parameters())
-    mu = [torch.zeros_like(p) for p in params]
-    nu = [torch.zeros_like(p) for p in params]
+    opt = ClippedAdam(params, nb, lr, lr_decay, grad_clip)
 
     cw = torch.as_tensor(
         class_weights if class_weights is not None else np.ones(n_cls, np.float32),
@@ -136,7 +161,6 @@ def train_linear_head(
         _make_perms(np.random.default_rng(seed), len(x_train), batch_size, epochs), device=dev
     )
 
-    count = 0
     best_auc, best_epoch, best_state = -1.0, -1, copy.deepcopy(model.state_dict())
     for e in range(epochs):
         for idx in perms[e]:
@@ -147,14 +171,7 @@ def train_linear_head(
             w = cw[yb] * valid
             loss = (ce * w).sum() / torch.clamp(w.sum(), min=1e-12)
             loss = loss + l2_strength * sum((p * p).sum() for p in params)
-            grads = torch.autograd.grad(loss, params)
-            with torch.no_grad():
-                gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
-                scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-                grads = [g * scale for g in grads]
-                lr_t = lr * lr_decay ** (count // nb)
-                count += 1
-                _adam_step(params, grads, mu, nu, count, lr_t)
+            opt.step(torch.autograd.grad(loss, params))
         vauc = M.auroc(y_val, _predict(model, Xv), n_cls, "macro")
         if vauc > best_auc:
             best_auc, best_epoch = vauc, e

@@ -167,3 +167,41 @@ def test_get_entire_signal_identical(tmp_path, sec, types):
     want = jpipe.get_entire_signal(p, **kw)
     np.testing.assert_array_equal(got, want)
     assert pipelines.get_entire_signal(p, input_sec=60) is None
+
+
+@pytest.mark.parametrize("sec,trim_tail", [(5.0, False), (12.5, True), (12.5, False), (21.0, True)])
+@pytest.mark.parametrize("spectrogram", [False, True])
+def test_get_split_signal_identical(tmp_path, sec, trim_tail, spectrogram):
+    """The fine-tuning cache's 8.18-s mel windows (spectrogram_pad8.npy)."""
+    p = str(tmp_path / "c.wav")
+    audio_io.write_wav(p, synth(int(sec * 16000), seed=11, silence=2000), 16000)
+    kw = dict(input_sec=8.18, spectrogram=spectrogram, trim_tail=trim_tail)
+    got = pipelines.get_split_signal(p, **kw)
+    want = jpipe.get_split_signal(p, **kw)
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("sec,trim_tail", [(4.0, False), (13.0, True), (13.0, False)])
+@pytest.mark.parametrize("spectrogram", [False, True])
+def test_get_split_signal_fbank_pad_identical(tmp_path, sec, trim_tail, spectrogram):
+    """The fine-tuning cache's 10-s kaldi fbank windows (fbank_audiomae.npy)."""
+    p = str(tmp_path / "c.wav")
+    audio_io.write_wav(p, synth(int(sec * 16000), seed=12, silence=2000), 16000)
+    kw = dict(input_sec=10, spectrogram=spectrogram, trim_tail=trim_tail)
+    got = pipelines.get_split_signal_fbank_pad(p, **kw)
+    want = jpipe.get_split_signal_fbank_pad(p, **kw)
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_host_mel_and_fbank_copies_identical():
+    y = synth(3 * 16000, seed=13)
+    np.testing.assert_array_equal(ref.pre_process_audio_mel_t(y, 16000, f_max=8000),
+                                  jref.pre_process_audio_mel_t(y, 16000, f_max=8000))
+    np.testing.assert_array_equal(ref.kaldi_fbank(y - y.mean(), 16000),
+                                  jref.kaldi_fbank(y - y.mean(), 16000))
+    for n in (16000 * 10, 16000 * 10 + 1, 16000 * 25):
+        assert pad.decide_droplast(n, 16000, 10) == jpad.decide_droplast(n, 16000, 10)

@@ -77,7 +77,29 @@ def test_extract_files_matches_jax(wavs, jax_extractor):
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
 
 
+def test_dim_512_matches_jax(wavs):
+    """operaCT 512-d features take the reference's route in both packages:
+    the JAX extractor fuses only dim 768, so its 512-d features come from
+    the float32 Cola.extract_feature graph, and so do the port's, whatever
+    compute_dtype says. Same weights (from_jax) and WAVs; features scaled to
+    unit max: max|d| <= 1e-4 and cosine >= 0.99999 (the strict f32 class)."""
+    jex = JFeatureExtractor("operaCT", dim=512, input_sec=8, batch_size=2, random_init=True)
+    want = jex.extract_files(wavs)
+    ex = FeatureExtractor("operaCT", dim=512, input_sec=8, batch_size=2, random_init=True,
+                          compute_dtype=torch.bfloat16, device="cpu")
+    ex.model.load_state_dict(convert.from_jax(jax.device_get(jex.variables)))
+    got = ex.extract_files(wavs)
+    assert got.shape == want.shape == (3, 512)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() / scale <= 1e-4
+    cos = np.sum(got * want, 1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    assert cos.min() >= 0.99999
+
+
 def test_dim_512_and_bf16_flow(wavs, jax_extractor):
+    """A 512-d extractor asked for the bf16 flow gives g of the latent: it
+    runs the float32 graph (test_dim_512_matches_jax), so it tracks g of
+    the port's own f32 768-d latent."""
     ex = _port_like(jax_extractor)
     f768 = ex.extract_files(wavs)
     ex512 = FeatureExtractor("operaCT", dim=512, batch_size=2, random_init=True,

@@ -4,7 +4,7 @@ torch version: the swin eval kernels at the four HTS-AT stage geometries,
 the swin training kernels (forward with DropPath multipliers, both backward
 halves, the weight-gradient products and the ordered reduction) at stages
 0-2, the ViT kernels (vit_qkv, vit_attn, vit_mlp) at the operaGT and
-Audio-MAE shapes, and the fused log-mel kernel (with its float64 precision
+Audio-MAE shapes, vit_attn's K10 / K11 attention modes, and the fused log-mel kernel (with its float64 precision
 check) and the polyphase resampler at the extraction path's shapes.
 
 Imports no JAX, so it also runs where JAX is absent; on a card:
@@ -290,6 +290,50 @@ def test_vit_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, fast_softma
     assert torch.equal(vit.vit_attn(x, qkv_ref, p, n_real, fast_softmax), h1)
     n1 = vit.launch_counts()
     assert {k: n1[k] - n0[k] for k in n1} == {"vit_qkv": 1, "vit_attn": 2, "vit_mlp": 1}
+
+
+# the attention modes of the TPU attention-half kernels K10 / K11 (ops/vit.py
+# ATTN_MODES); no_softmax's P v reaches magnitudes far past a softmax row's,
+# so it, like every mode, is compared by cosine
+ABLATE_MODES = ["norm_before", "fast", "bf16_exp", "no_softmax", "q_passthrough"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ABLATE_MODES)
+@pytest.mark.parametrize("n_real", [1040, 1025])
+def test_vit_attn_modes_match_plain_on_card(cuda, mode, n_real):
+    """Each K10 / K11 mode at the operaGT shape on the attention-half
+    weights of bench/attn_ablate.py (q unscaled): the branch against the
+    plain version, two launches bitwise equal, one count a launch."""
+    from heart_murmur_detection_tpu_torch.bench import attn_ablate
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 1040, 384)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    p = attn_ablate.half_params(attn_ablate.draw_weights(rng, 384), 6, cuda)
+    qkv = vit.vit_qkv(x, p)
+    vit.reset_launch_counts()
+    got = vit.vit_attn(x, qkv, p, n_real, mode=mode)
+    want = vit.vit_attn_out_ref(x, qkv, p, n_real, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _branch_cos(got, want, x) >= COS_BAR
+    assert torch.equal(vit.vit_attn(x, qkv, p, n_real, mode=mode), got)
+    assert vit.mode_launch_counts()[mode] == 2 and vit.launch_counts()["vit_attn"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,n_real", VIT_SHAPES)
+def test_vit_attn_aligned_hcat_raises_on_card(cuda, C, heads, Np, n_real):
+    """K11's aligned_hcat slices v past 3C at head dim 64: a ValueError, no
+    launch."""
+    p = _vit_params(C, heads, 1, cuda)
+    x = torch.zeros(2, Np, C, device=cuda, dtype=torch.bfloat16)
+    qkv = vit.vit_qkv(x, p)
+    vit.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned_hcat"):
+        vit.vit_attn(x, qkv, p, n_real, mode="aligned_hcat")
+    assert vit.launch_counts()["vit_attn"] == 0
 
 
 @pytest.mark.gpu
