@@ -97,9 +97,13 @@ Phases (each prints one line; any failure exits non-zero):
  21. fine-tuning: a synthetic CirCor corpus through cli.process, then
      cli.finetune compute_dtype=bfloat16 for operaCT (5 seeds, finite test
      AUROCs), operaGT and Audio-MAE (one seed each), FT_EPOCHS epochs, with
-     the launches their steps and predict batches imply; per tower at full
-     width: the step time on the kernels against the plain bf16 path, one
-     step's launches, 3 steps of both paths with the step-0 gradient rule
+     the launches their steps and predict batches imply, operaCT's seed 0
+     again to the same AUROC; per tower at full width and its own batch:
+     the step time on the kernels against the plain bf16 path, one step's
+     launches, 3 steps of both paths with the step-0 gradient rule, the
+     kernel path's 3 steps bitwise equal again, after the allocator's free
+     memory is filled with NaN and with noise, and under
+     torch.use_deterministic_algorithms
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -970,17 +974,16 @@ def phase_vit_kernels(dev):
         q, kk, vv = qkv_ref[0], qkv_ref[1][:, :, :n_real], qkv_ref[2][:, :, :n_real]
         sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kk, vv, scale=1.0))
-        for fast in (False, True):
-            got = vit.vit_attn(x, qkv_ref, p, n_real, fast)
-            want = vit.vit_attn_out_ref(x, qkv_ref, p, n_real, fast)
+        for mode in ("stable", "fast"):
+            got = vit.vit_attn(x, qkv_ref, p, n_real, mode)
+            want = vit.vit_attn_out_ref(x, qkv_ref, p, n_real, mode)
             torch.cuda.synchronize()
             c = _branch(got, want, x)
-            same = torch.equal(got, vit.vit_attn(x, qkv_ref, p, n_real, fast))
+            same = torch.equal(got, vit.vit_attn(x, qkv_ref, p, n_real, mode))
             err = float((got.float() - want.float()).abs().max())
-            k_ms = _time_ms(lambda: vit.vit_attn(x, qkv_ref, p, n_real, fast))
-            p_ms = _time_ms(lambda: vit.vit_attn_out_ref(x, qkv_ref, p, n_real, fast), iters=5,
+            k_ms = _time_ms(lambda: vit.vit_attn(x, qkv_ref, p, n_real, mode))
+            p_ms = _time_ms(lambda: vit.vit_attn_out_ref(x, qkv_ref, p, n_real, mode), iters=5,
                             warm=1)
-            mode = "fast" if fast else "stable"
             print(f"[vit kernel] vit_attn {tower} C={C} Np={Np} n_real={n_real} B={B} {mode} "
                   f"softmax: branch cos {c:.7f} max|d| {err:.4g}; bitwise repeatable {same}; "
                   f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
@@ -989,7 +992,7 @@ def phase_vit_kernels(dev):
                   f"n_real) {sdpa_ms:.4f} ms", flush=True)
             _require(c >= KERNEL_BAR and same,
                      f"vit_attn {tower} {mode}: branch cosine {c}, repeatable {same}")
-            if not fast:
+            if mode == "stable":
                 meas["vit_attn"] = (k_ms, p_ms, err, sdpa_ms)
         h1 = vit.vit_attn_out_ref(x, qkv_ref, p, n_real)
         got, want = vit.vit_mlp(h1, p), vit.vit_mlp_ref(h1, p)
@@ -1969,9 +1972,8 @@ def phase_attn_ablate(smi: str):
 # ---------------------------------------------------------------------------
 
 FT_EPOCHS = 3  # epochs of each cli.finetune seed (the protocol's 64 cut for time)
-# (pretrain, encoder kind, batch, the step-0 rule's batch)
-FT_TOWERS = (("operaCT", "htsat", 64, 64), ("operaGT", "gt", 64, 16),
-             ("audiomae", "audiomae", 32, 32))
+# (pretrain, encoder kind, batch): the step-0 rule runs at the timed batch
+FT_TOWERS = (("operaCT", "htsat", 64), ("operaGT", "gt", 64), ("audiomae", "audiomae", 32))
 
 
 def _ft_per_step(kind: str, B: int) -> dict:
@@ -2040,16 +2042,82 @@ def _ft_steps(model, xb, yb, valid, cw, mm, impl, steps):
     return losses, g0
 
 
+def _poison(fill: str):
+    """Fill the card memory the caching allocator will hand out next (a
+    block of 90% of the free memory and 256 small-pool blocks, freed again)
+    with NaN or a normal draw, so that a kernel reading memory it never
+    wrote reads other values than in the run before."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    blocks = [torch.empty(int(free * 0.9) // 4, device="cuda")]
+    blocks += [torch.empty(1 << 17, device="cuda") for _ in range(256)]
+    for b in blocks:
+        b.fill_(float("nan")) if fill == "nan" else b.normal_()
+    torch.cuda.synchronize()
+    del blocks
+
+
+def _ft_repeat(tag, model, x, y, valid, cw, ref):
+    """Repeatability of 3 kernel-path steps against the run `ref` (losses,
+    step-0 gradients): again as it was; after the allocator's free memory
+    was filled with NaN, then with a normal draw; and under
+    torch.use_deterministic_algorithms(True) (warn_only: the ops it warns of
+    are printed). Prints, for each, whether the losses and every step-0
+    gradient leaf are bitwise equal to ref and which leaves differ; fails
+    unless all are."""
+    import warnings
+
+    import torch
+
+    def run():
+        return _ft_steps(model, x, y, valid, cw, torch.bfloat16, "kernel", 3)
+
+    out = {}
+    out["again"] = run()
+    _poison("nan")
+    out["after NaN fill"] = run()
+    _poison("normal")
+    out["after normal fill"] = run()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out["deterministic algorithms"] = run()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                  if "deterministic" in str(w.message)})
+    rows = {}
+    for name, (losses, g0) in out.items():
+        diff = {q: float(((g0[q] - ref[1][q]).abs().max() / ref[1][q].abs().max().clamp(min=1e-30)))
+                for q in g0 if not torch.equal(g0[q], ref[1][q])}
+        worst = sorted(diff, key=diff.get, reverse=True)[:5]
+        rows[name] = {"losses_bitwise": losses == ref[0], "losses": losses,
+                      "leaves_differing": len(diff), "of": len(g0),
+                      "worst": {q: f"{diff[q]:.3g}" for q in worst},
+                      "finite": all(bool(torch.isfinite(g).all()) for g in g0.values())}
+    print(f"[finetune] {tag} repeatability of 3 kernel-path steps (ref losses {ref[0]}): "
+          f"{json.dumps(rows)}; ops without a deterministic version: {ops}", flush=True)
+    _require(all(r["losses_bitwise"] and not r["leaves_differing"] and r["finite"]
+                 for r in rows.values()), f"{tag}: 3 kernel-path steps do not repeat bitwise")
+
+
 def phase_finetune(smi: str, dev):
     """Phase 21: fine-tuning on the card. A synthetic CirCor corpus through
     cli.process, then cli.finetune pretrain=operaCT compute_dtype=bfloat16
     (5 seeds, FT_EPOCHS epochs each: five finite test AUROCs) and one seed
     of operaGT and of Audio-MAE, each with its kernel launches checked
-    against the count its steps and predict batches imply; then, per tower
-    at full width on one cached batch: the step time on the kernels against
-    the plain bf16 path (impl="plain"), the launches of one step, and 3
-    steps of each path from the same weights with the step-0 gradient rule
-    against strict f32 (TF32 off). Returns the operaCT run's launches."""
+    against the count its steps and predict batches imply, and operaCT's
+    seed 0 run again to the same test AUROC; then, per tower at full width
+    on one cached batch of the tower's batch size: the step time on the
+    kernels against the plain bf16 path (impl="plain"), the launches of one
+    step, 3 steps of each path from the same weights with the step-0
+    gradient rule against strict f32 (TF32 off), and the kernel path's 3
+    steps repeated bitwise (_ft_repeat). Returns the operaCT run's
+    launches."""
     import numpy as np
     import torch
 
@@ -2069,7 +2137,7 @@ def phase_finetune(smi: str, dev):
             split = np.load("feature/circor_eval/train_test_split.npy")
             n_tr, n_va, n_te = (int((split == s).sum()) for s in ("train", "val", "test"))
             runs = {}
-            for pretrain, kind, B, _ in FT_TOWERS:
+            for pretrain, kind, B in FT_TOWERS:
                 n_run = 5 if pretrain == "operaCT" else 1
                 scores, counts, sec = _ft_cli(pretrain, n_run)
                 scores = np.asarray(scores, np.float64)
@@ -2089,13 +2157,19 @@ def phase_finetune(smi: str, dev):
                 _require(all(counts[q] == v for q, v in want.items()),
                          f"{pretrain} launches {counts}, want {want}")
                 runs[pretrain] = counts
+                if pretrain == "operaCT":  # seed 0 once more in this process
+                    (again,), _, _ = _ft_cli(pretrain, 1)
+                    print(f"[finetune] cli.finetune pretrain=operaCT seed 0 again: test AUROC "
+                          f"{again!r} vs {float(scores[0])!r}, equal {again == scores[0]}",
+                          flush=True)
+                    _require(again == scores[0], "cli.finetune seed 0 does not repeat")
             x_pad8 = np.load("feature/circor_eval/spectrogram_pad8.npy")
             x_fbank = np.load("feature/circor_eval/fbank_audiomae.npy")
             y_all = np.load("feature/circor_eval/murmurs.npy").astype(np.int64)
         finally:
             os.chdir(cwd)
 
-    for pretrain, kind, B, B0 in FT_TOWERS:
+    for pretrain, kind, B in FT_TOWERS:
         xs = x_fbank if kind == "audiomae" else x_pad8
         model = ft.EncoderClassifier(kind, 3, "linear", 384 if kind == "gt" else 768,
                                      generator=torch.Generator().manual_seed(SEED)).to(dev)
@@ -2129,11 +2203,15 @@ def phase_finetune(smi: str, dev):
                   f"({times['plain'] / times['kernel']:.2f}x); one step's launches "
                   f"{ {q: one[q] for q in per} } (want {per}); {smi}", flush=True)
             _require(all(one[q] == v for q, v in per.items()), f"{pretrain} step launches {one}")
-            x0, y0, v0 = xb[:B0], yb[:B0], valid[:B0]
-            lk, gk = _ft_steps(model, x0, y0, v0, cw, torch.bfloat16, "kernel", 3)
-            lp, gp = _ft_steps(model, x0, y0, v0, cw, torch.bfloat16, "plain", 3)
-            lf, gf = _ft_steps(model, x0, y0, v0, cw, torch.float32, "autograd", 1)
-        _step0_rule(f"[finetune] {pretrain} 3 steps at B={B0}", lk, lp, lf, gk, gp, gf)
+            torch.cuda.reset_peak_memory_stats()
+            lk, gk = _ft_steps(model, xb, yb, valid, cw, torch.bfloat16, "kernel", 3)
+            lp, gp = _ft_steps(model, xb, yb, valid, cw, torch.bfloat16, "plain", 3)
+            lf, gf = _ft_steps(model, xb, yb, valid, cw, torch.float32, "autograd", 1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            _step0_rule(f"[finetune] {pretrain} 3 steps at B={B} (peak {peak:.1f} GiB allocated)",
+                        lk, lp, lf, gk, gp, gf)
+            del gp, gf
+            _ft_repeat(pretrain, model, xb, yb, valid, cw, (lk, gk))
         del model
         torch.cuda.empty_cache()
     return runs["operaCT"]

@@ -224,8 +224,11 @@ def from_jax_classifier(variables: dict, encoder_kind: str) -> Dict[str, torch.T
         if "batch_stats" in variables and variables["batch_stats"]:
             inner["batch_stats"] = {"encoder": variables["batch_stats"]["encoder"]}
         sd = {k[len(HTSAT_PREFIX):]: v for k, v in from_jax(inner).items()}
-    elif encoder_kind in ("gt", "audiomae"):
-        sd = from_jax_mae({"params": enc["mae"] if encoder_kind == "gt" else enc})
+    elif encoder_kind == "gt":
+        sd = from_jax_mae({"params": enc["mae"]})
+        sd["mask_token"] = _t(enc["mae"]["mask_token"])  # unread; in the L2 term
+    elif encoder_kind == "audiomae":
+        sd = from_jax_mae({"params": enc})
     else:
         raise NotImplementedError(f"encoder_kind {encoder_kind!r} is not ported")
     out = {f"encoder.{k}": v for k, v in sd.items()}

@@ -72,7 +72,7 @@ def mae_encode_train_fused(
         if train:
             h = fused_vit_block_train(h, p, n_real, impl)
         else:
-            h = vit.fused_vit_block(h, p, n_real, False, "kernel" if impl == "kernel" else "plain")
+            h = vit.fused_vit_block(h, p, n_real, "stable", "kernel" if impl == "kernel" else "plain")
     return _final_ln(h[:, :n_real].to(torch.float32), model.norm), mask, ids_restore
 
 

@@ -49,8 +49,9 @@ def _encode_blocks(h, blocks, mm_dtype, fast_softmax: bool, impl: str) -> torch.
     h, n_real = pad_tokens(h, 16)
     act = torch.bfloat16 if mm_dtype == torch.bfloat16 else torch.float32
     h = h.to(act).contiguous()
+    mode = "fast" if fast_softmax else "stable"
     for p in blocks:
-        h = fused_vit_block(h, p, n_real, fast_softmax, impl)
+        h = fused_vit_block(h, p, n_real, mode, impl)
     return h[:, :n_real].to(torch.float32)
 
 

@@ -489,11 +489,12 @@ class AudioMAEClassifierBackbone(_MAEEncoder):
 def init_weights(module: _MAEEncoder, generator: torch.Generator) -> None:
     """Seeded random init, drawn only from `generator`: the HTS-AT init for
     the matmul, conv and norm weights (lecun-normal, zero biases, unit
-    norms), and normal(0.02) for the cls token, as flax initialises it."""
+    norms), and normal(0.02) for the cls token and a mask token, as flax
+    initialises them."""
     htsat.init_weights(module, generator)
     with torch.no_grad():
         module.cls_token.copy_(torch.empty(module.cls_token.shape).normal_(generator=generator) * 0.02)
-        if getattr(module, "has_decoder", False):
+        if getattr(module, "mask_token", None) is not None:
             module.mask_token.copy_(
                 torch.empty(module.mask_token.shape).normal_(generator=generator) * 0.02)
     module.invalidate_prepared()

@@ -27,8 +27,8 @@ Sequence padding as the JAX package: callers pad tokens to a multiple of 16
 -1e9 (exp underflows to an exact zero), padded query rows produce garbage
 that stays in padded rows and is sliced off after the stack.
 
-Attention modes (`mode` of vit_attn and its plain version; `fast_softmax`
-picks between the first two):
+Attention modes (`mode` of vit_attn, its plain versions and the entry
+points; the extraction flow's fast_softmax picks between the first two):
   stable         softmax(s) with the row max, P rounded after normalising
   fast           e = exp(s) (no row max), P = bf16(e), P v times 1 / sum(e)
   norm_before    e = exp(s) (no row max), P = bf16(e / sum(e)), P v
@@ -52,7 +52,7 @@ launches the kernel; any other CUDA dtype raises. `impl="plain"` asks for
 the plain version on any device (the tests and the on-card reference). The
 plain versions round where the TPU body rounds: LN1 / LN2 (eps 1e-6, f32
 statistics) to the activation dtype, qkv after its bias, P to the matmul
-dtype for the P v product (normalised first, or, with fast_softmax,
+dtype for the P v product (normalised first, or, in the fast modes,
 unnormalised with P v scaled by 1/sum after), the attention output, the
 GELU output, and the residual sums once.
 """
@@ -193,8 +193,7 @@ def vit_qkv_ref(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
     return qkv.reshape(B, Np, 3, p.heads, p.hd).permute(2, 0, 3, 1, 4).contiguous()
 
 
-def _mode(mode: Optional[str], fast_softmax: bool) -> str:
-    mode = mode or ("fast" if fast_softmax else "stable")
+def _check_mode(mode: str) -> str:
     if mode not in ATTN_MODES:
         raise ValueError(f"attention mode must be one of {ATTN_MODES}, got {mode!r}")
     return mode
@@ -246,16 +245,14 @@ def vit_attn_out_ref(
     qkv: torch.Tensor,
     p: VitBlockParams,
     n_real: Optional[int] = None,
-    fast_softmax: bool = False,
-    mode: Optional[str] = None,
+    mode: str = "stable",
 ) -> torch.Tensor:
     """Plain version of the vit_attn kernel: attention of the head-major
-    qkv (3, B, heads, Np, hd) over the keys < n_real in `mode` (ATTN_MODES;
-    stable, or fast with fast_softmax), proj, + x -> (B, Np, C) in x's
-    dtype."""
+    qkv (3, B, heads, Np, hd) over the keys < n_real in `mode`
+    (ATTN_MODES), proj, + x -> (B, Np, C) in x's dtype."""
     B, Np, C = x.shape
     act, mm = x.dtype, p.mm_dtype
-    mode = _mode(mode, fast_softmax)
+    mode = _check_mode(mode)
     q, k, v = qkv[0], qkv[1], qkv[2]
     if mode == "aligned_hcat":
         offs = aligned_offsets(C, p.heads, p.hd)
@@ -276,12 +273,11 @@ def vit_attn_ref(
     x: torch.Tensor,
     p: VitBlockParams,
     n_real: Optional[int] = None,
-    fast_softmax: bool = False,
-    mode: Optional[str] = None,
+    mode: str = "stable",
 ) -> torch.Tensor:
     """Plain version of the attention half (`_attn_half`): x (B, Np, C) ->
     x + proj(attention(LN1(x))), x's dtype."""
-    return vit_attn_out_ref(x, vit_qkv_ref(x, p), p, n_real, fast_softmax, mode)
+    return vit_attn_out_ref(x, vit_qkv_ref(x, p), p, n_real, mode)
 
 
 def vit_mlp_ref(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
@@ -342,20 +338,18 @@ def vit_attn(
     qkv: torch.Tensor,
     p: VitBlockParams,
     n_real: Optional[int] = None,
-    fast_softmax: bool = False,
-    mode: Optional[str] = None,
+    mode: str = "stable",
 ) -> torch.Tensor:
     """Attention over the head-major qkv in `mode`, proj and the residual of
     x (see vit_attn_out_ref)."""
     if x.device.type == "cpu":
-        return vit_attn_out_ref(x, qkv, p, n_real, fast_softmax, mode)
-    mode = _mode(mode, fast_softmax)
+        return vit_attn_out_ref(x, qkv, p, n_real, mode)
+    mode = _check_mode(mode)
     _check_cuda_args(x, p, attn=True)
     if mode == "aligned_hcat":
-        # defined only where the offsets are the plain head split
-        if aligned_offsets(x.shape[2], p.heads, p.hd) != tuple(h * HD for h in range(p.heads)):
-            raise ValueError("aligned_hcat's head slices differ from the head split")
-        mode = "norm_before"
+        # at every shape the kernel takes (head dim 64, 6 or 12 heads) a
+        # slice runs past 3C: this raises before any launch
+        aligned_offsets(x.shape[2], p.heads, p.hd)
     B, Np, C = x.shape
     if (qkv.dtype != x.dtype or not qkv.is_contiguous() or qkv.device != x.device
             or tuple(qkv.shape) != (3, B, p.heads, Np, HD)):
@@ -436,17 +430,16 @@ def fused_vit_attn(
     x: torch.Tensor,
     p: VitBlockParams,
     n_real: Optional[int] = None,
-    fast_softmax: bool = False,
+    mode: str = "stable",
     impl: str = "kernel",
-    mode: Optional[str] = None,
 ) -> torch.Tensor:
     """Attention half (LN1, qkv, attention in `mode`, proj, residual) of one
     ViT block on x (B, Np, C); n_real < Np masks the padded key columns."""
     if _impl(impl):
-        return vit_attn_ref(x, p, n_real, fast_softmax, mode)
+        return vit_attn_ref(x, p, n_real, mode)
     if mode == "aligned_hcat":  # undefined shapes raise before any launch
         aligned_offsets(x.shape[2], p.heads, p.hd)
-    return vit_attn(x, vit_qkv(x, p), p, n_real, fast_softmax, mode)
+    return vit_attn(x, vit_qkv(x, p), p, n_real, mode)
 
 
 def fused_vit_mlp(x: torch.Tensor, p: VitBlockParams, impl: str = "kernel") -> torch.Tensor:
@@ -458,11 +451,11 @@ def fused_vit_block(
     x: torch.Tensor,
     p: VitBlockParams,
     n_real: Optional[int] = None,
-    fast_softmax: bool = False,
+    mode: str = "stable",
     impl: str = "kernel",
 ) -> torch.Tensor:
     """One eval ViT block on x (B, Np, C), Np a multiple of 16 (pad_tokens):
-    the attention half, then the MLP half. On a card every block is these
-    three launches; the TPU's whole-block / split-pair plan (block_plan) is
-    a VMEM budget that has no counterpart here."""
-    return fused_vit_mlp(fused_vit_attn(x, p, n_real, fast_softmax, impl), p, impl)
+    the attention half in `mode`, then the MLP half. On a card every block
+    is these three launches; the TPU's whole-block / split-pair plan
+    (block_plan) is a VMEM budget that has no counterpart here."""
+    return fused_vit_mlp(fused_vit_attn(x, p, n_real, mode, impl), p, impl)

@@ -74,8 +74,9 @@ def _unported(encoder_kind: str):
 class EncoderClassifier(nn.Module):
     """encoder + head (AudioClassifier, models_eval.py:320-411): parameters
     "encoder.*" under the reference's torch names (models/htsat.HTSAT,
-    models/vit_mae.MaskedAutoencoderViT without its decoder for gt,
-    AudioMAEClassifierBackbone for audiomae) and "head.*". Seeded random
+    models/vit_mae.MaskedAutoencoderViT without its decoder but with its
+    unread mask_token for gt, AudioMAEClassifierBackbone for audiomae) and
+    "head.*". Seeded random
     weights from `generator`; load a JAX init with
     extract/convert.py::from_jax_classifier."""
 
@@ -88,7 +89,12 @@ class EncoderClassifier(nn.Module):
             self.encoder = HTSAT(htsat_config or HTSATConfig())
             htsat_mod.init_weights(self.encoder, generator)
         elif encoder_kind == "gt":
-            self.encoder = vit_mae.MaskedAutoencoderViT(mae_config or vit_mae.mae_vit_small_config())
+            cfg = mae_config or vit_mae.mae_vit_small_config()
+            self.encoder = vit_mae.MaskedAutoencoderViT(cfg)
+            # the JAX GTBackbone's MAE holds its mask_token, which the forward
+            # never reads: it enters the loss through the encoder L2 term, so
+            # the clip's global norm and Adam see it (finetune.py:376-386)
+            self.encoder.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.decoder_embed_dim))
             vit_mae.init_weights(self.encoder, generator)
         elif encoder_kind == "audiomae":
             self.encoder = vit_mae.AudioMAEClassifierBackbone(

@@ -146,12 +146,6 @@ def _jax_loss_grads(kind, model, variables, x, y, valid, cw, fused):
         return loss + L2 * _tree_l2(params["head"]) + 0.2 * L2 * _tree_l2(params["encoder"])
 
     loss, g = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
-    # The JAX GTBackbone's params hold the MAE's mask_token, which its
-    # forward_feature never reads; it enters the loss only through the
-    # encoder's L2 term, and the port's encoder does not carry it.
-    mask_token = variables["params"]["encoder"].get("mae", {}).get("mask_token")
-    if mask_token is not None:
-        loss = loss - 0.2 * L2 * float(np.sum(np.square(mask_token, dtype=np.float64)))
     return float(loss), from_jax_classifier({"params": jax.device_get(g)}, kind)
 
 
@@ -285,6 +279,8 @@ def _classifier_roundtrip(kind, v):
         back = {"params": {"encoder": params}, "batch_stats": {"encoder": stats}}
     elif kind == "gt":
         back = {"params": {"encoder": {"mae": jconvert.convert_mae(enc, depth=2)["params"]}}}
+        # the JAX converter carries the mask_token only with the decoder
+        back["params"]["encoder"]["mae"]["mask_token"] = enc["mask_token"]
     else:
         back = {"params": {"encoder": jconvert.convert_audiomae_backbone(enc, depth=2)["params"]}}
     back["params"]["head"] = {"fc": {"kernel": sd["head.fc.weight"].T, "bias": sd["head.fc.bias"]}}
@@ -299,8 +295,7 @@ def test_classifier_conversion_round_trip_exact(kind, small_mae, monkeypatch):
     monkeypatch.setattr(jconvert, "_HTSAT_DEPTHS", TINY_HTSAT["depths"])
     _, v = _jax_init(kind)
     back = _classifier_roundtrip(kind, v)
-    # the MAE's mask_token, unread by the gt forward, is not carried
-    want = {k: a for k, a in _jax_leaf_paths(v["params"]) if k[-1] != "mask_token"}
+    want = dict(_jax_leaf_paths(v["params"]))
     got = dict(_jax_leaf_paths(back["params"]))
     assert set(got) == set(want)
     for k in want:

@@ -278,8 +278,9 @@ def test_vit_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, fast_softma
     n0 = vit.launch_counts()
     qkv = vit.vit_qkv(x, p)
     qkv_ref = vit.vit_qkv_ref(x, p)
-    h1 = vit.vit_attn(x, qkv_ref, p, n_real, fast_softmax)
-    h1_ref = vit.vit_attn_out_ref(x, qkv_ref, p, n_real, fast_softmax)
+    mode = "fast" if fast_softmax else "stable"
+    h1 = vit.vit_attn(x, qkv_ref, p, n_real, mode)
+    h1_ref = vit.vit_attn_out_ref(x, qkv_ref, p, n_real, mode)
     y, y_ref = vit.vit_mlp(h1_ref, p), vit.vit_mlp_ref(h1_ref, p)
     torch.cuda.synchronize()
     assert qkv.shape == qkv_ref.shape == (3, 3, heads, Np, 64)
@@ -287,7 +288,7 @@ def test_vit_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, fast_softma
     assert _branch_cos(h1, h1_ref, x) >= COS_BAR
     assert _branch_cos(y, y_ref, h1_ref) >= COS_BAR
     # bitwise repeatable
-    assert torch.equal(vit.vit_attn(x, qkv_ref, p, n_real, fast_softmax), h1)
+    assert torch.equal(vit.vit_attn(x, qkv_ref, p, n_real, mode), h1)
     n1 = vit.launch_counts()
     assert {k: n1[k] - n0[k] for k in n1} == {"vit_qkv": 1, "vit_attn": 2, "vit_mlp": 1}
 

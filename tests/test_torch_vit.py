@@ -78,8 +78,10 @@ def _jax_entry(entry, x, p, n_real, fast_softmax, mm_dtype=jnp.float32):
     return pv.fused_vit_attn(x, p, n_real, **kw)
 
 
-PORT = {"block": vit.fused_vit_block, "attn": vit.fused_vit_attn,
+PORT = {"block": lambda x, p, n_real, fast: vit.fused_vit_block(x, p, n_real, _MODE[fast]),
+        "attn": lambda x, p, n_real, fast: vit.fused_vit_attn(x, p, n_real, _MODE[fast]),
         "mlp": lambda x, p, n_real, fast: vit.fused_vit_mlp(x, p)}
+_MODE = {False: "stable", True: "fast"}
 
 
 @pytest.mark.parametrize("entry", ["block", "attn", "mlp"])
@@ -170,7 +172,8 @@ def test_cpu_tensors_never_reach_the_library():
     before = vit.launch_counts()
     qkv = vit.vit_qkv(x, pb)
     assert torch.equal(qkv, vit.vit_qkv_ref(x, pb))
-    assert torch.equal(vit.vit_attn(x, qkv, pb, 30, True), vit.vit_attn_out_ref(x, qkv, pb, 30, True))
+    assert torch.equal(vit.vit_attn(x, qkv, pb, 30, "fast"),
+                       vit.vit_attn_out_ref(x, qkv, pb, 30, "fast"))
     assert torch.equal(vit.vit_mlp(x, pb), vit.vit_mlp_ref(x, pb))
     assert vit.launch_counts() == before
     with pytest.raises(ValueError):
