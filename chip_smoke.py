@@ -20,8 +20,10 @@ Phases (each prints one line; any failure exits non-zero):
      (B=64), the forward halves with DropPath multipliers (a 0 and a 1/0.9
      among them) and both backward halves, each against its plain version
      (cosine of each branch, dx / dh1 branch and every gradient leaf >=
-     0.99999), two launches bitwise equal; the weight-gradient product and
-     the ordered reduction at the step's shapes; times per launch
+     0.99999), two launches bitwise equal; the weight-gradient products
+     (one swin_wgrad launch each, its chunk partials summed in order inside)
+     against torch.mm and the column-sum reductions at the step's shapes;
+     times per launch
   8. CP: three synthetic corpora (circor, physionet16, pascal_A; 300 clips
      of 260-1000 frames each) on disk, one epoch of COLA continued
      pretraining of the full-width operaCT at B=64 through cli.pretrain on
@@ -31,16 +33,18 @@ Phases (each prints one line; any failure exits non-zero):
      within 1e-3 relative, step-0 gradient leaves against each other and
      strict f32 (the gradient rule below); steady-state step times and a
      profile of one step
-  9. ViT kernels vs plain: vit_qkv, vit_attn and vit_mlp against their plain
-     versions at the operaGT (B=16, 1040 tokens, C 384, 6 heads) and
-     Audio-MAE (B=16, 528 tokens, C 768, 12 heads) shapes, padded keys
-     masked (n_real < Np), both softmax modes: cosine of each output (qkv) or
-     branch (out - x) >= 0.99999, two launches bitwise equal, with times, the
-     bound and the library call's time
+  9. ViT kernels vs plain: vit_qkv, vit_attn (the attention core), vit_proj
+     and vit_mlp against their plain versions at the operaGT (B=16, 1040
+     tokens, C 384, 6 heads) and Audio-MAE (B=16, 528 tokens, C 768, 12
+     heads) shapes, padded keys masked (n_real < Np), both softmax modes:
+     cosine of each output (qkv, o_pre) or branch (out - x; vit_attn then
+     vit_proj against the plain attention half) >= 0.99999, two launches
+     bitwise equal, with times, the bound and the library call's time (SDPA
+     for the core, torch.addmm plus the residual for proj)
  10. operaGT served: a random-init full-width operaGT server answers
      /healthz and /extract on the same 20 WAVs (clips over 8.18 s split into
      several chunks); served == offline; 12 vit_qkv + 12 vit_attn + 12
-     vit_mlp launches per batch
+     vit_proj + 12 vit_mlp launches per batch
  11. audiomae: offline extraction of the same WAVs (10 s chunks), 12
      launches of each ViT kernel per batch
  12. numerics, both towers: features against the plain bf16 flow (>=
@@ -89,11 +93,12 @@ Phases (each prints one line; any failure exits non-zero):
  20. attention modes (TPU K10 bench/gt_attn_opt.py, K11 bench/vit_attn_ablate.py):
      each of vit_attn's modes norm_before, fast, bf16_exp, no_softmax and
      q_passthrough at B=64 x 1040 x 384 (6 heads, all keys real, q
-     unscaled) against its plain version (branch cosine >= 0.99999, two
-     launches bitwise equal), aligned_hcat's ValueError; every mode name of
-     both files chained 8 halves deep (bench/attn_ablate.py) with its
-     launches by mode; each name's chain time against the stable vit_attn
-     chain, SDPA (scale 1.0), the plain chain and the bound
+     unscaled) against its plain version (o_pre cosine and, with vit_proj,
+     branch cosine >= 0.99999, two launches bitwise equal), aligned_hcat's
+     ValueError; every mode name of both files chained 8 halves deep
+     (bench/attn_ablate.py) with its launches by mode (vit_proj once with
+     each vit_attn); each name's chain time against the stable chain, SDPA
+     (scale 1.0), the plain chain and the bound
  21. fine-tuning: a synthetic CirCor corpus through cli.process, then
      cli.finetune compute_dtype=bfloat16 for operaCT (5 seeds, finite test
      AUROCs), operaGT and Audio-MAE (one seed each), FT_EPOCHS epochs, with
@@ -391,27 +396,27 @@ def phase_train_kernels(model, dev):
             ba.add(wa, oa)
             extra = 2 * sum(t.numel() for t in (m_g, g_g, dyk_g, da1_g, h_g, dw_g, opre_g, dqkv_g))
             extra += 2 * 4 * (part_m.numel() + part_a.numel())  # written, read by swin_reduce
-            # the step's weight products and reductions at these shapes;
-            # M: the product's rows without the padded head columns
-            reduce_parts = [part_m, part_a]
+            # the step's weight products at these shapes, one launch each; M:
+            # the product's rows without the padded head columns
             ops_w, gbytes = 0.0, 4 * (part_m.shape[1] + part_a.shape[1])
             for a_, b_, M in ((da1_g, m_g, hidden), (dyk_g, g_g, C), (dqkv_g, h_g, 3 * C),
                               (dw_g, opre_g, C)):
+                Mp, N = a_.shape[1], b_.shape[1]
                 got, want = st.swin_wgrad(a_, b_), st.wgrad_ref(a_, b_)
                 torch.cuda.synchronize()
                 c = _cos(got.cpu(), want.cpu())
                 _require(c >= KERNEL_BAR, f"swin_wgrad {tag} {tuple(a_.shape)} cosine {c}")
                 _require(torch.equal(got, st.swin_wgrad(a_, b_)), f"swin_wgrad {tag} not repeatable")
-                ws = st.swin_wgrad_partials(a_, b_)
-                S, Mp, N = ws.shape
+                S, chunk = st.wgrad_split(n, Mp, N)
                 extra += 2 * n * (Mp + N)  # the operand rows read back
-                if S > 1:
-                    reduce_parts.append(ws.reshape(S, -1))
-                    extra += 2 * 4 * S * Mp * N  # partials written, read by swin_reduce
-                w_ms = _time_ms(lambda: st.swin_wgrad_partials(a_, b_), iters=10, warm=2)
+                if S > 1:  # the chunks' partial tiles, written and summed inside
+                    rows = st.wgrad_tile_rows(Mp)
+                    extra += 2 * 4 * S * -(-Mp // rows) * rows * -(-N // st.WGRAD_TILE) * st.WGRAD_TILE
+                w_ms = _time_ms(lambda: st.swin_wgrad(a_, b_), iters=10, warm=2)
+                l_ms = _time_ms(lambda: torch.mm(a_.t(), b_), iters=10, warm=2)
                 tot["swin_wgrad"]["ms"] += blocks * w_ms
                 tot["swin_wgrad"]["plain_ms"] += blocks * _time_ms(lambda: st.wgrad_ref(a_, b_), iters=3, warm=1)
-                tot["swin_wgrad"]["library_ms"] += blocks * _time_ms(lambda: torch.mm(a_.t(), b_), iters=10, warm=2)
+                tot["swin_wgrad"]["library_ms"] += blocks * l_ms
                 # its share of the function: the product's operations and its
                 # float32 gradient written once (the operands never leave the
                 # chip in the fused function)
@@ -421,10 +426,11 @@ def phase_train_kernels(model, dev):
                 tot["swin_wgrad"]["err"] = max(tot["swin_wgrad"]["err"], float((got - want).abs().max()))
                 bw = Work()
                 bw.add(4 * M * N, 2 * n * M * N)
-                print(f"[train wgrad] {tag}: ({n}, {Mp}) x ({n}, {N}) in {S} chunks: cos {c:.7f}, "
-                      f"bitwise repeatable; {w_ms:.4f} ms, bound {bw.bound_ms:.4f} ({bw.bound_by})",
-                      flush=True)
-            for j, part in enumerate(reduce_parts):
+                print(f"[train wgrad] {tag}: ({n}, {Mp}) x ({n}, {N}) in {S} chunks of {chunk} "
+                      f"(groups of {st.wgrad_group(S)}), one launch: cos {c:.7f}, bitwise "
+                      f"repeatable; {w_ms:.4f} ms, torch.mm {l_ms:.4f} ms ({w_ms / l_ms:.2f}x), "
+                      f"bound {bw.bound_ms:.4f} ({bw.bound_by})", flush=True)
+            for part in (part_m, part_a):
                 S, L = part.shape
                 got, want = st.swin_reduce(part), st.reduce_ref(part)
                 _require(torch.equal(got, want), f"swin_reduce {tag} ({S}, {L}) differs from in-order sum")
@@ -432,9 +438,8 @@ def phase_train_kernels(model, dev):
                 tot["swin_reduce"]["plain_ms"] += blocks * _time_ms(lambda: st.reduce_ref(part), iters=3, warm=1)
                 tot["swin_reduce"]["library_ms"] += blocks * _time_ms(lambda: part.sum(0), iters=10, warm=2)
                 # its share: the column-sum gradients (biases, LN, rel-pos
-                # bias) written once; a weight product's sum is swin_wgrad's
-                L_out = L if j < 2 else 0
-                tot["swin_reduce"]["work"].add(4 * L_out, 0, n=blocks)
+                # bias) written once
+                tot["swin_reduce"]["work"].add(4 * L, 0, n=blocks)
             design[0] += blocks * extra
             fn = Work()
             fn.add(wm + wa + gbytes, om + oa + ops_w)
@@ -442,7 +447,7 @@ def phase_train_kernels(model, dev):
             print(f"[train kernels] {tag}: a launch: swin_mlp_bwd {mb_ms:.4f} ms (bound "
                   f"{bm.bound_ms:.4f}, {bm.bound_by}; plain half {mp_ms:.4f}), swin_attn_bwd "
                   f"{ab_ms:.4f} ms (bound {ba.bound_ms:.4f}, {ba.bound_by}; plain half "
-                  f"{ap_ms:.4f}); {blocks} of each a step; {len(reduce_parts)} reductions equal "
+                  f"{ap_ms:.4f}); {blocks} of each a step; both column-sum reductions equal "
                   f"to the in-order sum; K8 backward of one block bound {fn.bound_ms:.4f} ms "
                   f"({fn.bound_by}); design operand and partial traffic {extra / 1e6:.1f} MB "
                   f"= {extra / HBM_BPS * 1e3:.4f} ms at the HBM rate", flush=True)
@@ -628,20 +633,11 @@ def _write_corpora(root: str):
         np.save(os.path.join(d, "entire_spec_filenames.npy"), np.asarray(names))
 
 
-def _reduce_per_step(cfg, B: int) -> int:
-    """swin_reduce launches of one CP step: in each train block, one for each
-    backward kernel's partials and one for each weight product that
-    swin_wgrad splits into more than one token chunk."""
-    from heart_murmur_detection_tpu_torch.ops import swin_train as st
-
-    total = 0
-    for i in range(3):
-        H, C = (cfg.spec_size // cfg.patch_size) >> i, cfg.embed_dim << i
-        n, hid, Cp3 = B * H * H, int(cfg.mlp_ratio * C), 3 * cfg.num_heads[i] * st.HDP
-        prods = ((hid, C), (C, hid), (Cp3, C), (C, C))
-        split = sum(st.wgrad_split(n, M, N)[0] > 1 for M, N in prods)
-        total += 2 * cfg.depths[i] * (2 + split)  # two views
-    return total
+def _reduce_per_step(cfg) -> int:
+    """swin_reduce launches of one CP step: in each train block of stages
+    0-2 and each of the two views, one for each backward kernel's column
+    sums (swin_wgrad sums its own chunks)."""
+    return 2 * 2 * sum(cfg.depths[:3])
 
 
 def _cp_cli(root: str, fused_train: bool):
@@ -688,7 +684,7 @@ def phase_cp(smi: str, dev):
         h, counts = _cp_cli(root, True)
         n_val = 3  # one validation batch of 30 clips a corpus
         per_step = {"swin_attn_bwd": 20, "swin_mlp_bwd": 20, "swin_wgrad": 80,
-                    "swin_reduce": _reduce_per_step(base.htsat.config, B_TRAIN)}
+                    "swin_reduce": _reduce_per_step(base.htsat.config)}
         ok = all(counts[q] == v * h["steps"] for q, v in per_step.items())
         ok &= counts["swin_attn"] == counts["swin_mlp"] == 20 * h["steps"] + 24 * n_val
         _require(ok, f"launch counts {counts} for {h['steps']} steps and {n_val} eval batches "
@@ -786,7 +782,7 @@ def _step0_rule(tag, lk, lp, lf, gk, gp, gf, skip=()):
 SWIN_GROUPS = {k: k + "_kernel" for k in ("swin_attn_bwd", "swin_mlp_bwd", "swin_wgrad",
                                            "swin_reduce", "swin_attn", "swin_mlp")}
 VIT_GROUPS = {"vit_qkv": "vit_qkv_kernel", "vit_attn": "vit_attn_kernel",
-              "vit_mlp": "swin_mlp_kernel"}
+              "vit_proj": "vit_proj_kernel", "vit_mlp": "swin_mlp_kernel"}
 
 
 PAD_CYCLES = 50_000_000  # ~25 ms of spin kernel at the H100's clock
@@ -905,16 +901,18 @@ VIT_TOWERS = (("operaGT", 384, 6, 1040, 1025), ("audiomae", 768, 12, 528, 513))
 
 
 def _vit_work(B, Np, n_real, C, heads):
-    """(bytes, operations) of one launch of vit_qkv, vit_attn and vit_mlp on
-    B clips of Np tokens: each input read once, each output written once.
-    The products count every token row the launch writes; attention counts
-    the n_real real keys of each query (the padded keys are exact zeros)."""
+    """(bytes, operations) of one launch of vit_qkv, vit_attn, vit_proj and
+    vit_mlp on B clips of Np tokens: each input read once, each output
+    written once. The products count every token row the launch writes;
+    attention counts the n_real real keys of each query (the padded keys
+    are exact zeros). vit_attn reads q, k, v and writes o_pre; vit_proj
+    reads o_pre, x and the weights and writes out."""
     n = B * Np
     qkv = 2 * n * C + 2 * 3 * C * C + 4 * 5 * C + 2 * 3 * n * C, 6 * n * C * C
-    attn = (2 * n * C + 2 * 3 * n * C + 2 * C * C + 4 * C + 2 * n * C,
-            4 * B * heads * Np * n_real * (C // heads) + 2 * n * C * C)
+    attn = 2 * 3 * n * C + 2 * n * C, 4 * B * heads * Np * n_real * (C // heads)
+    proj = 2 * n * C + 2 * n * C + 2 * C * C + 4 * C + 2 * n * C, 2 * n * C * C
     mlp = 4 * n * C + 16 * C * C + 4 * 7 * C, 16 * n * C * C
-    return {"vit_qkv": qkv, "vit_attn": attn, "vit_mlp": mlp}
+    return {"vit_qkv": qkv, "vit_attn": attn, "vit_proj": proj, "vit_mlp": mlp}
 
 
 def _vit_params(C, heads, dev, seed):
@@ -936,14 +934,16 @@ def phase_vit_kernels(dev):
     """Each ViT kernel vs its plain version at both towers' shapes (B=16),
     both softmax modes. Returns {name: measurement} summed over one operaGT
     forward's 12 launches of each kernel at B=16 in the served (stable)
-    softmax mode, which the kernels JSON reports."""
+    softmax mode, which the kernels JSON reports: vit_attn is the attention
+    core (its library call SDPA on the same q, k, v), vit_proj the proj,
+    bias and residual (torch.addmm and the residual add)."""
     import torch
 
     from heart_murmur_detection_tpu_torch.ops import vit
 
     B = B_KERNEL
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "work": Work(), "library_ms": None}
-           for k in ("vit_qkv", "vit_attn", "vit_mlp")}
+           for k in ("vit_qkv", "vit_attn", "vit_proj", "vit_mlp")}
     for tower, C, heads, Np, n_real in VIT_TOWERS:
         p = _vit_params(C, heads, dev, SEED + C)
         g = torch.Generator(device="cpu").manual_seed(SEED + 10)
@@ -975,26 +975,49 @@ def phase_vit_kernels(dev):
         sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kk, vv, scale=1.0))
         for mode in ("stable", "fast"):
-            got = vit.vit_attn(x, qkv_ref, p, n_real, mode)
+            # the core alone against its plain version, then the pair
+            # against the plain attention half
+            o = vit.vit_attn(qkv_ref, p, n_real, mode)
+            o_ref = vit.vit_attn_core_ref(qkv_ref, p, n_real, mode)
+            got = vit.vit_proj(o, x, p)
             want = vit.vit_attn_out_ref(x, qkv_ref, p, n_real, mode)
             torch.cuda.synchronize()
+            co = _cos(o.float().cpu(), o_ref.float().cpu())
             c = _branch(got, want, x)
-            same = torch.equal(got, vit.vit_attn(x, qkv_ref, p, n_real, mode))
-            err = float((got.float() - want.float()).abs().max())
-            k_ms = _time_ms(lambda: vit.vit_attn(x, qkv_ref, p, n_real, mode))
-            p_ms = _time_ms(lambda: vit.vit_attn_out_ref(x, qkv_ref, p, n_real, mode), iters=5,
+            same = (torch.equal(o, vit.vit_attn(qkv_ref, p, n_real, mode))
+                    and torch.equal(got, vit.vit_proj(o, x, p)))
+            err = float((o.float() - o_ref.float()).abs().max())
+            k_ms = _time_ms(lambda: vit.vit_attn(qkv_ref, p, n_real, mode))
+            p_ms = _time_ms(lambda: vit.vit_attn_core_ref(qkv_ref, p, n_real, mode), iters=5,
                             warm=1)
             print(f"[vit kernel] vit_attn {tower} C={C} Np={Np} n_real={n_real} B={B} {mode} "
-                  f"softmax: branch cos {c:.7f} max|d| {err:.4g}; bitwise repeatable {same}; "
-                  f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
-                  f"{bounds['vit_attn'].bound_ms:.4f} ms ({bounds['vit_attn'].bound_by}); "
-                  f"scaled_dot_product_attention (attention core only, keys sliced to "
-                  f"n_real) {sdpa_ms:.4f} ms", flush=True)
-            _require(c >= KERNEL_BAR and same,
-                     f"vit_attn {tower} {mode}: branch cosine {c}, repeatable {same}")
+                  f"softmax: o_pre cos {co:.7f} max|d| {err:.4g}, with vit_proj branch cos "
+                  f"{c:.7f}; bitwise repeatable {same}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+                  f"bound {bounds['vit_attn'].bound_ms:.4f} ms ({bounds['vit_attn'].bound_by}); "
+                  f"scaled_dot_product_attention (keys sliced to n_real) {sdpa_ms:.4f} ms "
+                  f"({k_ms / sdpa_ms:.2f}x)", flush=True)
+            _require(min(co, c) >= KERNEL_BAR and same,
+                     f"vit_attn {tower} {mode}: o_pre cosine {co}, branch cosine {c}, "
+                     f"repeatable {same}")
             if mode == "stable":
                 meas["vit_attn"] = (k_ms, p_ms, err, sdpa_ms)
-        h1 = vit.vit_attn_out_ref(x, qkv_ref, p, n_real)
+                h1 = vit.vit_attn_out_ref(x, qkv_ref, p, n_real)
+                o_s = o_ref
+        got, want = vit.vit_proj(o_s, x, p), vit.vit_proj_ref(o_s, x, p)
+        torch.cuda.synchronize()
+        c = _branch(got, want, x)
+        same = torch.equal(got, vit.vit_proj(o_s, x, p))
+        err = float((got.float() - want.float()).abs().max())
+        k_ms = _time_ms(lambda: vit.vit_proj(o_s, x, p))
+        p_ms = _time_ms(lambda: vit.vit_proj_ref(o_s, x, p), iters=5, warm=1)
+        o2, x2, bp = o_s.reshape(-1, C), x.reshape(-1, C), p.b_proj.to(torch.bfloat16)
+        l_ms = _time_ms(lambda: torch.addmm(bp, o2, p.w_proj.t()).add_(x2))
+        print(f"[vit kernel] vit_proj {tower} C={C} Np={Np} B={B}: branch cos {c:.7f} max|d| "
+              f"{err:.4g}; bitwise repeatable {same}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+              f"bound {bounds['vit_proj'].bound_ms:.4f} ms ({bounds['vit_proj'].bound_by}); "
+              f"torch.addmm + residual {l_ms:.4f} ms", flush=True)
+        _require(c >= KERNEL_BAR and same, f"vit_proj {tower}: branch cosine {c}, repeatable {same}")
+        meas["vit_proj"] = (k_ms, p_ms, err, l_ms)
         got, want = vit.vit_mlp(h1, p), vit.vit_mlp_ref(h1, p)
         torch.cuda.synchronize()
         c = _branch(got, want, h1)
@@ -1019,7 +1042,8 @@ def phase_vit_kernels(dev):
 
 
 def _vit_counts_ok(counts: dict, batches: int, depth: int) -> bool:
-    return counts["vit_qkv"] == counts["vit_attn"] == counts["vit_mlp"] == depth * batches
+    return (counts["vit_qkv"] == counts["vit_attn"] == counts["vit_proj"] == counts["vit_mlp"]
+            == depth * batches)
 
 
 def phase_gt_serving(paths, device="cuda"):
@@ -1166,7 +1190,7 @@ def phase_mae_throughput(tower, ex, B, sec, smi):
     print(f"[throughput] {tower} {smi}: device-resident {sec}-s chunks B={B}: kernel path stable "
           f"{k_ms[False]:.2f} ms/batch = {B * 1000 / k_ms[False]:.1f} chunks/s, fast softmax "
           f"{k_ms[True]:.2f} ms = {B * 1000 / k_ms[True]:.1f} chunks/s; plain bf16 path "
-          f"{p_ms:.2f} ms/batch = {B * 1000 / p_ms:.1f} chunks/s; the 36 block launches' bound "
+          f"{p_ms:.2f} ms/batch = {B * 1000 / p_ms:.1f} chunks/s; the 48 block launches' bound "
           f"{bound.bound_ms:.3f} ms ({bound.bound_by})", flush=True)
     print(f"[profile] {tower} one stable batch B={B}: {wall:.2f} ms unprofiled, device busy "
           f"{busy:.2f} ms ({100 * (1 - busy / wall):.1f}% idle): "
@@ -1345,7 +1369,6 @@ def phase_vit_train_kernels(dev):
         n = B * Np
         m_g, g_g, da1_g = mrow
         h_g, opre_g, dqkv_g = arow
-        parts = [part_m, part_a]
         for a_, b_ in ((da1_g, m_g), (dy.reshape(n, C), g_g), (dqkv_g, h_g),
                        (dh1.reshape(n, C), opre_g)):
             got, want = st.swin_wgrad(a_, b_), st.wgrad_ref(a_, b_)
@@ -1353,31 +1376,31 @@ def phase_vit_train_kernels(dev):
             c = _cos(got.cpu(), want.cpu())
             _require(c >= KERNEL_BAR and torch.equal(got, st.swin_wgrad(a_, b_)),
                      f"swin_wgrad {shape} {tuple(a_.shape)} x {tuple(b_.shape)}: cosine {c}")
-            ws = st.swin_wgrad_partials(a_, b_)
-            S, M, N = ws.shape
-            if S > 1:
-                parts.append(ws.reshape(S, -1))
-            w_ms = _time_ms(lambda: st.swin_wgrad_partials(a_, b_), iters=10, warm=2)
+            M, N = got.shape
+            S, chunk = st.wgrad_split(n, M, N)
+            w_ms = _time_ms(lambda: st.swin_wgrad(a_, b_), iters=10, warm=2)
+            l_ms = _time_ms(lambda: torch.mm(a_.t(), b_), iters=10, warm=2)
             tot["swin_wgrad"]["ms"] += 12 * w_ms
             tot["swin_wgrad"]["plain_ms"] += 12 * _time_ms(lambda: st.wgrad_ref(a_, b_), iters=3, warm=1)
-            tot["swin_wgrad"]["library_ms"] += 12 * _time_ms(lambda: torch.mm(a_.t(), b_), iters=10, warm=2)
+            tot["swin_wgrad"]["library_ms"] += 12 * l_ms
             tot["swin_wgrad"]["work"].add(4 * M * N, 2 * n * M * N, n=12)
             tot["swin_wgrad"]["err"] = max(tot["swin_wgrad"]["err"], float((got - want).abs().max()))
-            print(f"[vit train wgrad] {shape}: ({n}, {M}) x ({n}, {N}) in {S} chunks: cos {c:.7f}, "
-                  f"bitwise repeatable; {w_ms:.4f} ms", flush=True)
-        for j, part in enumerate(parts):
+            print(f"[vit train wgrad] {shape}: ({n}, {M}) x ({n}, {N}) in {S} chunks of {chunk}, "
+                  f"one launch: cos {c:.7f}, bitwise repeatable; {w_ms:.4f} ms, torch.mm "
+                  f"{l_ms:.4f} ms ({w_ms / l_ms:.2f}x)", flush=True)
+        for part in (part_m, part_a):
             S, L = part.shape
             _require(torch.equal(st.swin_reduce(part), st.reduce_ref(part)),
                      f"swin_reduce {shape} ({S}, {L}) differs from the in-order sum")
             tot["swin_reduce"]["ms"] += 12 * _time_ms(lambda: st.swin_reduce(part), iters=10, warm=2)
             tot["swin_reduce"]["plain_ms"] += 12 * _time_ms(lambda: st.reduce_ref(part), iters=3, warm=1)
             tot["swin_reduce"]["library_ms"] += 12 * _time_ms(lambda: part.sum(0), iters=10, warm=2)
-            tot["swin_reduce"]["work"].add(4 * L if j < 2 else 0, 0, n=12)
+            tot["swin_reduce"]["work"].add(4 * L, 0, n=12)
         fn = Work()
         fn.add(wm + wa + ww, om + oa + ow)
         print(f"[vit train kernels] an Audio-MAE CP step (12 blocks at B={B}): K9's backward "
-              f"function bound {12 * fn.bound_ms:.4f} ms ({fn.bound_by}); {len(parts)} reductions "
-              f"a block equal to the in-order sum", flush=True)
+              f"function bound {12 * fn.bound_ms:.4f} ms ({fn.bound_by}); both column-sum "
+              f"reductions a block equal to the in-order sum", flush=True)
     return tot
 
 
@@ -1445,19 +1468,12 @@ def _mae_cli(root: str, method: str, corpora: tuple, fused_train: bool):
     return history[0], counts
 
 
-def _mae_per_step(cfg, B: int, T: int, F: int) -> dict:
+def _mae_per_step(cfg) -> dict:
     """Backward launches of one MAE CP step: one of each backward kernel a
-    block, four weight products a block, and in each block one swin_reduce
-    for each backward kernel's partials and one for each weight product
-    that swin_wgrad splits into more than one token chunk."""
-    from heart_murmur_detection_tpu_torch.ops import swin_train as st
-
-    C, hid, p = cfg.embed_dim, int(cfg.mlp_ratio * cfg.embed_dim), cfg.patch_size
-    L = (T // p) * (F // p)
-    n = B * (-(-(1 + int(L * (1 - cfg.mask_ratio))) // 16) * 16)
-    split = sum(st.wgrad_split(n, M, N)[0] > 1 for M, N in ((hid, C), (C, hid), (3 * C, C), (C, C)))
+    block, four weight products a block (each one swin_wgrad launch), and
+    one swin_reduce for each backward kernel's column sums."""
     d = cfg.depth
-    return {"vit_attn_bwd": d, "vit_mlp_bwd": d, "swin_wgrad": 4 * d, "swin_reduce": d * (2 + split)}
+    return {"vit_attn_bwd": d, "vit_mlp_bwd": d, "swin_wgrad": 4 * d, "swin_reduce": 2 * d}
 
 
 def _mae_cp_report(tag, h, counts, cfg, per_step, n_val):
@@ -1465,7 +1481,8 @@ def _mae_cp_report(tag, h, counts, cfg, per_step, n_val):
 
     ok = all(counts[q] == v * h["steps"] for q, v in per_step.items())
     fwd = cfg.depth * (h["steps"] + n_val)
-    ok &= counts["vit_qkv"] == counts["vit_attn"] == counts["vit_mlp"] == fwd
+    ok &= (counts["vit_qkv"] == counts["vit_attn"] == counts["vit_proj"] == counts["vit_mlp"]
+           == fwd)
     _require(ok, f"{tag} launch counts {counts} for {h['steps']} steps and {n_val} eval batches "
                  f"(want {per_step} a step and {cfg.depth} of each forward kernel a batch)")
     _require(all(math.isfinite(h[q]) for q in ("train_loss", "valid_loss")), f"{tag} losses {h}")
@@ -1499,7 +1516,7 @@ def phase_mae_cp(smi: str, dev):
         _write_specs(root, AM_CORPORA, SEED + 30)
         print(f"[mae cp] Audio-MAE: 3 heart corpora ({sum(c[1] for c in AM_CORPORA)} fbank clips "
               f"of 600-1400 frames x 128) written in {time.time() - t0:.1f} s", flush=True)
-        per_step = _mae_per_step(am_cfg, B_TRAIN, 1024, 128)
+        per_step = _mae_per_step(am_cfg)
         h, counts = _mae_cli(root, "audiomae", am_args, True)
         _mae_cp_report(f"[mae cp] cli.pretrain method=audiomae, train kernels, {smi}", h, counts,
                        am_cfg, per_step, 1)
@@ -1542,10 +1559,8 @@ def phase_mae_cp(smi: str, dev):
         lens = {n: OPTIMAL_MAX_LEN_MAE[n] for n in ("covidbreath", "covidcough")}
         with open(os.path.join(root, "cks", "logs", "combined", "smoke", "metrics.csv")) as f:
             row = f.read().splitlines()
-        per = [_mae_per_step(gt_cfg, B_TRAIN, t, 64) for t in lens.values()]
-        _require(per[0] == per[1], f"per-step launches differ by length: {per}")
         _mae_cp_report(f"[mae cp] cli.pretrain method=mae (max_len {lens}), train kernels", h16,
-                       c16, gt_cfg, per[0], 2)
+                       c16, gt_cfg, _mae_per_step(gt_cfg), 2)
         print(f"[mae cp] mae CSV: {row[0]} | {row[1]}", flush=True)
         cols = dict(zip(row[0].split(","), row[1].split(",")))
         _require(all(cols[f"train{s}_loss"] != "nan" for s in (0, 1)),
@@ -1879,11 +1894,11 @@ ABLATE_MODES = ("norm_before", "fast", "bf16_exp", "no_softmax", "q_passthrough"
 
 
 def _ablate_work(B, Np, C, heads, mode):
-    """(bytes, operations) of one vit_attn launch in `mode` with every key
-    real: q passthrough reads only the q third and runs only proj."""
+    """(bytes, operations) of one vit_attn launch (the attention core) in
+    `mode` with every key real: q passthrough reads the q third and writes
+    it to o_pre."""
     if mode == "q_passthrough":
-        n = B * Np
-        return 2 * n * C + 2 * n * C + 2 * C * C + 4 * C + 2 * n * C, 2 * n * C * C
+        return 2 * 2 * B * Np * C, 0
     return _vit_work(B, Np, Np, C, heads)["vit_attn"]
 
 
@@ -1891,12 +1906,13 @@ def phase_attn_ablate(smi: str):
     """Phase 20: vit_attn's attention modes, the port of K10
     (bench/gt_attn_opt.py) and K11 (bench/vit_attn_ablate.py), at their
     shape (B=64 x 1040 x 384, 6 heads, all keys real, q unscaled): each mode
-    against its plain version (branch cosine, two launches bitwise equal),
-    aligned_hcat's ValueError; then the main path, every mode name of both
-    files chained 8 halves deep (bench/attn_ablate.py), with its launches
-    by mode; and each name's 8-chain time against the production stable
-    vit_attn chain and SDPA (scale 1.0). Returns (measurements by mode for
-    the kernels JSON, launches by mode)."""
+    against its plain version (o_pre cosine, and with vit_proj the branch
+    cosine, two launches bitwise equal), aligned_hcat's ValueError; then
+    the main path, every mode name of both files chained 8 halves deep
+    (bench/attn_ablate.py), with its launches by mode; and each name's
+    8-chain time against the production stable chain and SDPA (scale 1.0).
+    Returns (measurements by mode for the kernels JSON: the attention core,
+    8 launches, against 8 SDPA calls; launches by mode)."""
     import torch
 
     from heart_murmur_detection_tpu_torch.bench import attn_ablate as ab
@@ -1910,26 +1926,34 @@ def phase_attn_ablate(smi: str):
     sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0))
     meas = {}
     for mode in ABLATE_MODES:
-        got = vit.vit_attn(x, qkv, p, mode=mode)
+        o = vit.vit_attn(qkv, p, mode=mode)
+        o_ref = vit.vit_attn_core_ref(qkv, p, mode=mode)
+        got = vit.vit_proj(o, x, p)
         want = vit.vit_attn_out_ref(x, qkv, p, mode=mode)
         torch.cuda.synchronize()
+        co = _cos(o.float().cpu(), o_ref.float().cpu())
         c = _branch(got, want, x)
-        same = torch.equal(got, vit.vit_attn(x, qkv, p, mode=mode))
-        err = float((got.float() - want.float()).abs().max())
-        k_ms = _time_ms(lambda: vit.vit_attn(x, qkv, p, mode=mode))
-        p_ms = _time_ms(lambda: vit.vit_attn_out_ref(x, qkv, p, mode=mode), iters=3, warm=1)
+        same = (torch.equal(o, vit.vit_attn(qkv, p, mode=mode))
+                and torch.equal(got, vit.vit_proj(o, x, p)))
+        err = float((o.float() - o_ref.float()).abs().max())
+        k_ms = _time_ms(lambda: vit.vit_attn(qkv, p, mode=mode))
+        pair_ms = _time_ms(lambda: vit.vit_proj(vit.vit_attn(qkv, p, mode=mode), x, p))
+        p_ms = _time_ms(lambda: vit.vit_attn_core_ref(qkv, p, mode=mode), iters=3, warm=1)
         work = Work()
         work.add(*_ablate_work(B, Np, C, H, mode), n=ab.DEPTH)
         lib = ab.DEPTH * sdpa_ms if mode in ab.SOFTMAX_MODES else None
         meas[mode] = {"ms": ab.DEPTH * k_ms, "plain_ms": ab.DEPTH * p_ms, "err": err,
                       "work": work, "library_ms": lib}
-        print(f"[attn modes] vit_attn {mode} B={B} Np={Np} C={C}: branch cos {c:.7f} max|d| "
-              f"{err:.4g}; bitwise repeatable {same}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms a "
-              f"launch; bound {work.bound_ms / ab.DEPTH:.4f} ms ({work.bound_by}); SDPA "
+        print(f"[attn modes] vit_attn {mode} B={B} Np={Np} C={C}: o_pre cos {co:.7f} max|d| "
+              f"{err:.4g}, with vit_proj branch cos {c:.7f}; bitwise repeatable {same}; kernel "
+              f"{k_ms:.4f} ms plain {p_ms:.4f} ms a launch, with vit_proj {pair_ms:.4f} ms "
+              f"({ab.DEPTH * pair_ms:.3f} ms for {ab.DEPTH}); bound "
+              f"{work.bound_ms / ab.DEPTH:.4f} ms ({work.bound_by}); SDPA "
               + (f"{sdpa_ms:.4f} ms" if lib is not None else "n/a (no softmax)"), flush=True)
-        _require(c >= KERNEL_BAR and same, f"vit_attn {mode}: branch cosine {c}, repeatable {same}")
+        _require(min(co, c) >= KERNEL_BAR and same,
+                 f"vit_attn {mode}: o_pre cosine {co}, branch cosine {c}, repeatable {same}")
     try:
-        vit.vit_attn(x, qkv, p, mode="aligned_hcat")
+        vit.vit_attn(qkv, p, mode="aligned_hcat")
         _require(False, "aligned_hcat launched at C=384, 6 heads")
     except ValueError as e:
         print(f"[attn modes] aligned_hcat raises ValueError: {e}", flush=True)
@@ -1953,9 +1977,9 @@ def phase_attn_ablate(smi: str):
     want = {m: ab.DEPTH * sum(ab.JAX_MODES[(f, n)] == m for f, ns in ab.FILES.items() for n in ns)
             for m in ABLATE_MODES}
     print(f"[attn modes] the 8-deep chains of {names} mode names: vit_qkv {counts['vit_qkv']}, "
-          f"vit_attn by mode {by_mode} (want {want})", flush=True)
-    _require(counts["vit_qkv"] == ab.DEPTH * names and all(
-        by_mode[m] == want[m] for m in ABLATE_MODES), f"chain launches {by_mode}")
+          f"vit_proj {counts['vit_proj']}, vit_attn by mode {by_mode} (want {want})", flush=True)
+    _require(counts["vit_qkv"] == counts["vit_attn"] == counts["vit_proj"] == ab.DEPTH * names
+             and all(by_mode[m] == want[m] for m in ABLATE_MODES), f"chain launches {by_mode}")
     for file, modes in ab.FILES.items():
         xf, rf = ab.inputs("cuda")
         for name in modes:
@@ -1983,27 +2007,23 @@ def _ft_per_step(kind: str, B: int) -> dict:
     from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
     from heart_murmur_detection_tpu_torch.models.vit_mae import (audiomae_base_config,
                                                                  mae_vit_small_config)
-    from heart_murmur_detection_tpu_torch.ops import swin_train as st
 
     if kind == "htsat":
         cfg = HTSATConfig()
         d = sum(cfg.depths[:3])
         return {"swin_attn": d, "swin_mlp": d, "swin_attn_bwd": d, "swin_mlp_bwd": d,
-                "swin_wgrad": 4 * d, "swin_reduce": _reduce_per_step(cfg, B) // 2}
+                "swin_wgrad": 4 * d, "swin_reduce": _reduce_per_step(cfg) // 2}
     cfg = mae_vit_small_config() if kind == "gt" else audiomae_base_config()
-    C, hid = cfg.embed_dim, int(cfg.mlp_ratio * cfg.embed_dim)
-    n = B * (-(-(1 + cfg.num_patches) // 16) * 16)
-    split = sum(st.wgrad_split(n, M, N)[0] > 1 for M, N in ((hid, C), (C, hid), (3 * C, C), (C, C)))
     d = cfg.depth
-    return {"vit_qkv": d, "vit_attn": d, "vit_mlp": d, "vit_attn_bwd": d, "vit_mlp_bwd": d,
-            "swin_wgrad": 4 * d, "swin_reduce": d * (2 + split)}
+    return {"vit_qkv": d, "vit_attn": d, "vit_proj": d, "vit_mlp": d, "vit_attn_bwd": d,
+            "vit_mlp_bwd": d, "swin_wgrad": 4 * d, "swin_reduce": 2 * d}
 
 
 def _ft_eval_per_batch(kind: str) -> dict:
     """Kernel launches of one eval (predict) batch."""
     if kind == "htsat":
         return {"swin_attn": 12, "swin_mlp": 12}
-    return {"vit_qkv": 12, "vit_attn": 12, "vit_mlp": 12}
+    return {"vit_qkv": 12, "vit_attn": 12, "vit_proj": 12, "vit_mlp": 12}
 
 
 def _ft_cli(pretrain: str, n_run: int):
@@ -2244,6 +2264,8 @@ KERNEL_SOURCES = {
     "vit_qkv": ("heart_murmur_detection_tpu_torch/csrc/vit_qkv.cu",
                 "heart_murmur_detection_tpu/ops/pallas_vit.py:66"),
     "vit_attn": ("heart_murmur_detection_tpu_torch/csrc/vit_attn.cu",
+                 "heart_murmur_detection_tpu/ops/pallas_vit.py:66"),
+    "vit_proj": ("heart_murmur_detection_tpu_torch/csrc/vit_proj.cu",
                  "heart_murmur_detection_tpu/ops/pallas_vit.py:66"),
     "vit_mlp": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp.cu",
                 "heart_murmur_detection_tpu/ops/pallas_vit.py:149"),

@@ -1,6 +1,6 @@
 """The attention-half chains of the TPU kernels K10 (bench/gt_attn_opt.py)
-and K11 (bench/vit_attn_ablate.py) on the port's vit_qkv + vit_attn
-kernels, every mode name of both files.
+and K11 (bench/vit_attn_ablate.py) on the port's vit_qkv + vit_attn +
+vit_proj kernels, every mode name of both files.
 
     python -m heart_murmur_detection_tpu_torch.bench.attn_ablate [depth]
 
@@ -11,8 +11,9 @@ b_qkv, w_proj, b_proj times 0.02; LN1 ones and zeros; q unscaled), the half
 chained `depth` (8) times. Each mode name runs as the port's mode of
 JAX_MODES. One JSON line a mode name: the cosine of one half's
 branch (out - x) against its plain version, the chain's CUDA-event time on
-the kernels, on the plain versions, and on the production vit_attn (stable
-softmax) with the same weights, one vit_attn launch alone, and
+the kernels, on the plain versions, and in the production stable softmax
+with the same weights, one vit_attn (attention core) and one vit_proj
+launch alone, and
 torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0) on the
 same q, k, v (the library time of the softmax modes' attention core; no
 call computes the others). aligned_hcat prints the ValueError that defines
@@ -114,14 +115,17 @@ def measure(file: str, name: str, x: torch.Tensor, w, depth: int = DEPTH) -> dic
         row["result"] = f"ValueError: {e}"
         return row
     qkv = vit.vit_qkv(x, p)
-    got = vit.vit_attn(x, qkv, p, mode=mode)
+    half = lambda: vit.vit_proj(vit.vit_attn(qkv, p, mode=mode), x, p)
+    got = half()
     want = vit.vit_attn_out_ref(x, qkv, p, mode=mode)
     row["branch_cos"] = branch_cos(got, want, x)
-    row["bitwise_repeat"] = bool(torch.equal(got, vit.vit_attn(x, qkv, p, mode=mode)))
+    row["bitwise_repeat"] = bool(torch.equal(got, half()))
     row["chain_ms"] = _ms(lambda: chain(x, p, mode, depth))
     row["stable_chain_ms"] = _ms(lambda: chain(x, p, "stable", depth))
     row["plain_chain_ms"] = _ms(lambda: chain(x, p, mode, depth, "plain"), iters=2, warm=1)
-    row["vit_attn_ms"] = _ms(lambda: vit.vit_attn(x, qkv, p, mode=mode))
+    o = vit.vit_attn(qkv, p, mode=mode)
+    row["vit_attn_ms"] = _ms(lambda: vit.vit_attn(qkv, p, mode=mode))
+    row["vit_proj_ms"] = _ms(lambda: vit.vit_proj(o, x, p))
     row["vit_attn_plain_ms"] = _ms(lambda: vit.vit_attn_out_ref(x, qkv, p, mode=mode), iters=3,
                                    warm=1)
     if mode in SOFTMAX_MODES:

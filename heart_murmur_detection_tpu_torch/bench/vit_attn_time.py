@@ -1,14 +1,17 @@
-"""Times of the vit_attn kernel at the MAE towers' shapes, both softmax modes.
+"""Times of the attention half after vit_qkv (the vit_attn core and the
+vit_proj launch) at the MAE towers' shapes, both softmax modes.
 
     python -m heart_murmur_detection_tpu_torch.bench.vit_attn_time [tag]
 
 For operaGT (C 384, 6 heads, 1040 tokens, 1025 real) at B=16 and 64 and
 Audio-MAE (C 768, 12 heads, 528 tokens, 513 real) at B=16 and 32, one
-random block (seed 0) and random tokens: the cosine of the kernel's branch
-(out - x) against its plain version, and the kernel's CUDA-event time a
-launch (3 warm-up launches, mean of 20). Prints one line a shape, prefixed
-by `tag`; run it once per source tree to compare two versions on one card.
-Needs a card.
+random block (seed 0) and random tokens: the cosine of the branch
+(out - x) against the plain attention half, the CUDA-event time of the
+half (3 warm-up runs, mean of 20) and of each launch alone, and SDPA's time
+on the same q, k, v (keys sliced to n_real). Prints one line a shape,
+prefixed by `tag`; run it once per source tree to compare two versions on
+one card (a tree whose vit_attn still fuses proj, before vit_proj existed,
+is timed as one launch). Needs a card.
 """
 
 from __future__ import annotations
@@ -53,14 +56,26 @@ def main(argv=None) -> int:
         p = vit.prep_vit_block(sd, heads, torch.bfloat16, "cuda")
         x = (torch.randn(B, Np, C, generator=g) * 0.5).to("cuda", torch.bfloat16)
         qkv = vit.vit_qkv(x, p)
+        split = hasattr(vit, "vit_proj")
         out = {}
         for mode in ("stable", "fast"):
-            got = vit.vit_attn(x, qkv, p, n_real, mode)
+            if split:
+                half = lambda: vit.vit_proj(vit.vit_attn(qkv, p, n_real, mode), x, p)
+            else:
+                half = lambda: vit.vit_attn(x, qkv, p, n_real, mode)
+            got = half()
             want = vit.vit_attn_out_ref(x, qkv, p, n_real, mode)
             a = (got.double() - x.double()).flatten()
             b = (want.double() - x.double()).flatten()
             out[f"cos_{mode}"] = round(float(a @ b / (a.norm() * b.norm())), 8)
-            out[f"ms_{mode}"] = round(_ms(lambda: vit.vit_attn(x, qkv, p, n_real, mode)), 4)
+            out[f"ms_{mode}"] = round(_ms(half), 4)
+            if split:
+                o = vit.vit_attn(qkv, p, n_real, mode)
+                out[f"ms_core_{mode}"] = round(_ms(lambda: vit.vit_attn(qkv, p, n_real, mode)), 4)
+                out[f"ms_proj_{mode}"] = round(_ms(lambda: vit.vit_proj(o, x, p)), 4)
+        q, k, v = qkv[0], qkv[1][:, :, :n_real], qkv[2][:, :, :n_real]
+        out["ms_sdpa"] = round(_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=1.0)), 4)
         print(tag, f"C={C} B={B}", out, flush=True)
     return 0
 

@@ -1,7 +1,9 @@
-// vit_attn: the attention, proj and residual of a ViT block's attention half,
-//   out = x + proj(concat_h attention_h(q_h, k_h, v_h)),
-//   q, k, v head-major (3, B, heads, Np, 64) bf16 from vit_qkv.cu; x and out
-//   (B, Np, C) bf16. The attention of a head is one of six modes:
+// vit_attn: the attention core of a ViT block's attention half,
+//   o_pre[b, :, 64 h .. 64 h + 63] = bf16(attention_h(q_h, k_h, v_h)),
+//   q, k, v head-major (3, B, heads, Np, 64) bf16 from vit_qkv.cu; o_pre
+//   (B, Np, C) bf16, each head's output rounded to bf16 in its column block.
+//   vit_proj.cu then adds proj, its bias and the residual. A head's
+//   attention is one of six modes:
 //     0 stable         softmax(q k^T, keys >= n_real masked) v, P rounded to
 //                      bf16 after normalising (q carries 1/sqrt(hd))
 //     1 fast           e = exp(s), no row max; bf16(e) v times 1/sum(e)
@@ -23,49 +25,44 @@
 // LN1 and qkv product of K10 / K11 are vit_qkv.cu with q unscaled; their
 // query chunks of 208 rows are a TPU tiling, not part of the function.
 //
-// Design. A block of 4 warps takes one clip's 64-row query tile and walks
-// the heads in sequence; warp w owns query rows 16w..16w+15. K and V of one
-// head (1040 x 64 x 2 x 2 B at operaGT) do not fit in shared memory beside
-// the output tile, so the block streams them in key tiles (64 keys at
-// C = 384, 32 at C = 768), and only over the keys < n_real: the TPU kernel
-// set the padded key columns to -1e9, whose probabilities are exact zeros,
-// so skipping them is exact (the last tile masks its columns past n_real
-// the same way). The next tile is loaded into registers while the current
-// one is used; a tile costs two block barriers (the K/V hand-off) and
-// nothing else, because the scores never leave registers: each warp runs
-// mma.sync m16n8k16 (bf16, float32 accumulation) with its Q fragments held
-// for the whole head, keeps S = Q K^T in the accumulator layout (a thread
-// holds two columns of rows g and g + 8), reduces rows over the 4 threads
-// of a quad, and feeds P, rounded to bf16, back as the A operand of P V.
-//  - one pass (fast, bf16_exp, no_softmax): P is formed from each score
-//    alone; the exp modes add it to the row sum, and their float32 P V
-//    accumulators stay in registers across the tiles and are scaled by
-//    1/sum after the last tile. That is the TPU kernels' own order.
-//  - two passes (stable, norm_before): the first finds each row's sum of
-//    exp(s - max) (stable: online, rescaling the sum when the max moves;
-//    norm_before: max fixed at 0, so a score that overflows exp overflows
-//    here as on the TPU); the second forms the normalised
-//    P = exp(s - max) / sum, rounds it to bf16 and runs P V. That puts the
-//    rounding where the normalise-then-bf16-product bodies put it; an
-//    online-rescaled single pass would round P before its final scale. The
-//    price is a second Q K^T per tile.
-//  - q_passthrough reads no K or V: the warp's Q fragments are its output.
-// Each head's output is rounded to bf16 into a 64 x C shared tile (48 KB at
-// C = 384, 97 KB at C = 768); the epilogue runs proj against it with WMMA (a
-// warp takes a 16-wide weight column tile against all 4 row tiles), adds the
-// float32 bias and the residual x and rounds once. Query rows past Np read
-// zeros and are not written; padded query rows < Np produce garbage that
-// stays in padded rows, as on the TPU. Shared memory: 67 KB at C = 384
-// (three blocks an SM), 106 KB at C = 768 (two). Every sum runs in a fixed
-// order and nothing is added with atomics, so two launches agree bitwise.
-//
-// Bound on this card: 4 Np^2 hd FLOPs a head and clip for attention (one
-// pass) plus 2 Np C^2 for proj, against 4 Np C + 6 Np C bytes, so the
-// operations bound it. Later work: wgmma with TMA-fed K/V tiles, two heads
-// a block at the narrow batch.
+// Bound on this card: 4 Np n_real 64 operations a head and clip (one pass)
+// against 8 Np 64 bytes: the operations bind, and, in the two-pass modes,
+// the exponentials (two a score, on the special-function units) about as
+// much as the products; exp is taken as exp2f with log2 e folded into an
+// FMA. Design:
+//  - grid B x heads x ceil(Np / 128): every head of every clip in parallel
+//    (864 blocks at operaGT B = 16, two an SM). A block is two consumer
+//    warpgroups of 64 query rows and one producer warp.
+//  - the producer loads the block's Q tile (128 x 64) once and streams the
+//    head's K and V in 64-key tiles through an 8-slot TMA ring with one
+//    full and one empty mbarrier a slot, only over the keys < n_real: the
+//    TPU kernel set the padded key columns to -1e9, whose probabilities are
+//    exact zeros, so skipping them is exact (the last tile masks its columns
+//    past n_real the same way; rows past Np read as zeros).
+//  - S = Q K^T is a wgmma m64n64k16 with both operands in shared memory
+//    (K-major); P V a wgmma with P from registers, the accumulator of S
+//    rounded to bf16 pairs (the layout at the top of wgmma_gemm.cuh), and V
+//    MN-major from shared memory, so V is never transposed.
+//  - two passes (stable, norm_before): the first runs Q K^T alone for each
+//    row's max (fixed at 0 for norm_before, so a score that overflows exp
+//    overflows here as on the TPU) and sum of exp(s - max), the second
+//    recomputes Q K^T, forms P = exp(s - max) / sum, rounds it to bf16 and
+//    runs P V. That puts the rounding where the normalise-then-bf16-product
+//    bodies put it; an online-rescaled single pass would round P before its
+//    final scale. One pass (fast, bf16_exp, no_softmax): P from each score
+//    alone, the exp modes' P V scaled by 1/sum after the last tile, the
+//    TPU kernels' own order. q_passthrough copies q and reads no K or V.
+//  - a thread keeps its row statistics over its own columns in tile order
+//    and merges them over the 4 threads of a row in a fixed order; nothing
+//    is summed with atomics, so two launches agree bitwise. Query rows past
+//    Np are not written; padded query rows < Np produce garbage that stays
+//    in padded rows, as on the TPU.
 #include "vit_attn_common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace hmdt {
+
+using namespace hop;
 
 enum AttnMode : int {
   MODE_STABLE = 0,
@@ -77,280 +74,263 @@ enum AttnMode : int {
   N_MODES = 6
 };
 
+constexpr int QT = 128;                   // query rows a block
+constexpr int KT = 64;                    // keys a tile
+constexpr int NSLOT = 8;                  // K / V tiles in flight
+constexpr int Q_BYTES = QT * AHD * 2;     // 16 KB
+constexpr int T_BYTES = KT * AHD * 2;     // 8 KB
+
+struct AttnSmem {
+  uint8_t q[Q_BYTES];
+  uint8_t ring[NSLOT][T_BYTES];
+  uint64_t qbar;
+  uint64_t full[NSLOT];
+  uint64_t empty[NSLOT];
+};
+constexpr size_t ATTN_SMEM = sizeof(AttnSmem) + 1024;  // with the alignment slack
+static_assert(ATTN_SMEM * 2 <= SMEM_LIMIT, "two blocks an SM must fit");
+
+// exp(x) is taken as exp2f(x log2 e): one multiply (or an FMA with the row
+// max) and one special-function instruction, within 2 ulp of expf, and it
+// overflows to inf past x = 88.7 as expf does.
+constexpr float LOG2E = 1.4426950408889634f;
+
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// keys a tile: 64 at C = 384; 32 at C = 768, where two blocks an SM then
-// still fit beside the 97 KB output tile
-template <int C>
-constexpr int attn_key_tile() {
-  return C >= 768 ? 32 : 64;
-}
-
-template <int C>
-struct VitAttnSmem {
-  static constexpr int KT = attn_key_tile<C>();
-  static constexpr int LDO = C + PAD;  // head outputs (bf16)
-  static constexpr size_t O = (size_t)AQ * LDO * 2;
-  static constexpr size_t T = (size_t)KT * LDT * 2;
-  static constexpr size_t off_o = 0;
-  static constexpr size_t off_k = O;
-  static constexpr size_t off_v = off_k + T;
-  static constexpr size_t bytes = off_v + T;
-  static_assert(O % 128 == 0 && T % 128 == 0,
-                "shared-memory regions must stay 128-byte aligned");
-  static_assert((size_t)AWARPS * 256 * 4 <= 2 * T, "staging must fit in the k / v tiles");
-  static_assert(bytes <= SMEM_LIMIT, "shared memory over the sm_90 limit");
-};
-
-template <int C>
-__global__ void __launch_bounds__(ATHREADS, (C >= 768 ? 2 : 3))
-vit_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ qkv,
-                bf16* __restrict__ out, const bf16* __restrict__ w_proj,
-                const float* __restrict__ b_proj, int Np, int heads, int n_real,
+// grid (ceil(Np / 128), heads, B). tq / tkv: qkv as (3 B heads, Np, 64)
+// in boxes of 128 and 64 rows.
+__global__ void __launch_bounds__(THREADS, 2)
+vit_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tkv,
+                const bf16* __restrict__ qkv, bf16* __restrict__ out, int Np, int n_real,
                 int mode) {
-  using L = VitAttnSmem<C>;
-  constexpr int KT = L::KT;
-  constexpr int NB = KT / 8;  // 8-key column blocks of a tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ob = reinterpret_cast<bf16*>(smem + L::off_o);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::off_k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::off_v);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // accumulator row (and row + 8) of this thread
-  const int t = lane & 3;   // its column pair
-  const int q0 = blockIdx.x * AQ;
-  const int b = blockIdx.y;
-  const int B = gridDim.y;
-  const int n_kt = (n_real + KT - 1) / KT;  // key tiles holding real keys
-  const int row0 = warp * 16 + g;            // this thread's rows in the tile
-  const size_t hstride = (size_t)Np * AHD;
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const int heads = gridDim.y, B = gridDim.z;
+  const int C = heads * AHD;
+  if (mode == MODE_Q_PASSTHROUGH) {  // o = q: 16-byte pieces, no shared memory
+    const bf16* qh = qkv + ((size_t)b * heads + h) * Np * AHD;
+    for (int i = threadIdx.x; i < QT * (AHD / 8); i += THREADS) {
+      const int r = q0 + i / (AHD / 8), c = (i % (AHD / 8)) * 8;
+      if (r < Np)
+        *reinterpret_cast<int4*>(out + ((size_t)b * Np + r) * C + h * AHD + c) =
+            *reinterpret_cast<const int4*>(qh + (size_t)r * AHD + c);
+    }
+    return;
+  }
+  extern __shared__ uint8_t smem_raw[];
+  AttnSmem& sm = *reinterpret_cast<AttnSmem*>(align_1024(smem_raw));
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qbar, 1);
+    for (int i = 0; i < NSLOT; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
   const bool two_pass = mode == MODE_STABLE || mode == MODE_NORM_BEFORE;
-  const bool scaled = mode == MODE_FAST || mode == MODE_BF16_EXP;  // times 1/sum after P V
-
-  for (int h = 0; h < heads; ++h) {
-    const bf16* qh = qkv + ((size_t)b * heads + h) * hstride;
-    const bf16* kh = qkv + ((size_t)(B + b) * heads + h) * hstride;
-    const bf16* vh = qkv + ((size_t)(2 * B + b) * heads + h) * hstride;
-    // this warp's Q as m16n8k16 A fragments, straight from device memory
-    uint32_t qa[AHD / 16][4];
-    load_a_rows(qh, q0 + warp * 16, Np, g, t, qa);
-    if (mode == MODE_Q_PASSTHROUGH) {
-      // the A fragments are this warp's 16 rows of q, two bf16 a register
-#pragma unroll
-      for (int kc = 0; kc < AHD / 16; ++kc)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = warp * 16 + g + (e & 1) * 8;
-          const int c = h * AHD + kc * 16 + (e >> 1) * 8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(ob + r * L::LDO + c) = qa[kc][e];
-        }
-      continue;
-    }
-    TileRegs<KT> kr, vr;
-    fetch_tile<KT>(kh, 0, Np, kr);
-    store_tile<KT>(kr, ks);
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
-    if (two_pass) {
-      // pass 1: each row's max and sum of exp(s - max), kept per thread over
-      // its columns (rescaled when the max moves), merged over the quad;
-      // norm_before keeps the max at 0
-      if (mode == MODE_NORM_BEFORE) m[0] = m[1] = 0.f;
-      __syncthreads();
+  const int n_kt = (n_real + KT - 1) / KT;  // key tiles holding real keys
+  // the tile sequence, the same for the producer and the consumers: pass 1
+  // K_0 .. K_{n-1} (two-pass modes), then K_0, V_0, K_1, V_1, ...
+  if (threadIdx.x >= CONSUMERS) {
+    if (threadIdx.x == PRODUCER) {
+      const int slab_q = b * heads + h, slab_k = (B + b) * heads + h,
+                slab_v = (2 * B + b) * heads + h;
+      mbar_expect_tx(&sm.qbar, Q_BYTES);
+      tma_load_3d(sm.q, &tq, &sm.qbar, 0, q0, slab_q);
+      int it = 0;
+      auto push = [&](int slab, int kt) {
+        const int slot = it % NSLOT;
+        mbar_wait(&sm.empty[slot], ((it / NSLOT) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[slot], T_BYTES);
+        tma_load_3d(sm.ring[slot], &tkv, &sm.full[slot], 0, kt * KT, slab);
+        ++it;
+      };
+      if (two_pass)
+        for (int kt = 0; kt < n_kt; ++kt) push(slab_k, kt);
       for (int kt = 0; kt < n_kt; ++kt) {
-        if (kt + 1 < n_kt) fetch_tile<KT>(kh, (kt + 1) * KT, Np, kr);
-        float s[NB][4];
-        score_tile<KT>(qa, ks, kt * KT, n_real, g, t, s);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          if (mode == MODE_NORM_BEFORE) {
-            float e = 0.f;
-#pragma unroll
-            for (int nb = 0; nb < NB; ++nb)
-              e += expf(s[nb][2 * hr]) + expf(s[nb][2 * hr + 1]);
-            l[hr] += e;
-            continue;
-          }
-          float tmax = s[0][2 * hr];
-#pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
-            tmax = fmaxf(tmax, fmaxf(s[nb][2 * hr], s[nb][2 * hr + 1]));
-          const float mn = fmaxf(m[hr], tmax);
-          float e = 0.f;
-#pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
-            e += expf(s[nb][2 * hr] - mn) + expf(s[nb][2 * hr + 1] - mn);
-          l[hr] = l[hr] * expf(m[hr] - mn) + e;
-          m[hr] = mn;
-        }
-        __syncthreads();  // every warp is done with this K tile
-        if (kt + 1 < n_kt) {
-          store_tile<KT>(kr, ks);
-          __syncthreads();
-        }
+        push(slab_k, kt);
+        push(slab_v, kt);
       }
-      if (mode == MODE_NORM_BEFORE) {
-        l[0] = quad_sum(l[0]);
-        l[1] = quad_sum(l[1]);
-      } else {
-        merge_row_stats(m[0], l[0]);
-        merge_row_stats(m[1], l[1]);
-      }
-      fetch_tile<KT>(kh, 0, Np, kr);
-      store_tile<KT>(kr, ks);
     }
-    fetch_tile<KT>(vh, 0, Np, vr);
-    store_tile<KT>(vr, vs);
-    __syncthreads();
-    // pass 2 (the only pass of the one-pass modes): P, rounded to bf16, times V
-    float o[AHD / 8][4];
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + wg * 64 + ((threadIdx.x / 32) & 3) * 16 + g;  // rows row0, row0 + 8
+  const uint8_t* qs = sm.q + wg * BOX_BYTES;
+  int it = 0;
+  auto next_tile = [&]() -> const uint8_t* {
+    const int slot = it % NSLOT;
+    mbar_wait(&sm.full[slot], (it / NSLOT) & 1);
+    return sm.ring[slot];
+  };
+  auto release = [&]() {
+    mbar_arrive(&sm.empty[it % NSLOT]);
+    ++it;
+  };
+  // s = Q K^T of the next tile (key tile kt), columns >= n_real masked
+  float s[32];
+  auto scores = [&](int kt) {
+    const uint8_t* ks = next_tile();
+    wg_fence();
+    wgmma_m64n64_ss_first<0, 0>(s, desc_sw128(qs, 16, ATOM), desc_sw128(ks, 16, ATOM));
 #pragma unroll
-    for (int db = 0; db < AHD / 8; ++db)
+    for (int kk = 1; kk < AHD / 16; ++kk)
+      wgmma_m64n64_ss<0, 0>(s, desc_sw128(qs + kk * 32, 16, ATOM),
+                            desc_sw128(ks + kk * 32, 16, ATOM));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    release();
+    if ((kt + 1) * KT > n_real) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
-    float sum[2] = {0.f, 0.f};  // the exp modes: this thread's share of the row sums
+      for (int j = 0; j < KT / 8; ++j) {
+        const int c = kt * KT + 8 * j + 2 * t;
+        if (c >= n_real) s[4 * j] = s[4 * j + 2] = MASK_LOGIT;
+        if (c + 1 >= n_real) s[4 * j + 1] = s[4 * j + 3] = MASK_LOGIT;
+      }
+    }
+  };
+
+  mbar_wait(&sm.qbar, 0);
+  // rows row0 (hr = 0) and row0 + 8 (hr = 1): element e of each 4-group
+  // belongs to row hr = e >> 1
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if (two_pass) {
+    // pass 1: each row's max and sum of exp(s - max) over this thread's
+    // columns (rescaled when the max moves), merged over the quad;
+    // norm_before keeps the max at 0
+    if (mode == MODE_NORM_BEFORE) m[0] = m[1] = 0.f;
     for (int kt = 0; kt < n_kt; ++kt) {
-      if (kt + 1 < n_kt) {
-        fetch_tile<KT>(kh, (kt + 1) * KT, Np, kr);
-        fetch_tile<KT>(vh, (kt + 1) * KT, Np, vr);
-      }
-      float s[NB][4];
-      score_tile<KT>(qa, ks, kt * KT, n_real, g, t, s);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1;
-          float p;
-          if (two_pass) {
-            p = expf(s[nb][e] - m[hr]) / l[hr];
-          } else if (mode == MODE_FAST) {
-            p = expf(s[nb][e]);
-            sum[hr] += p;
-          } else if (mode == MODE_BF16_EXP) {
-            p = expf(round_bf16(s[nb][e]));
-            sum[hr] += p;
-          } else {  // no_softmax: the raw score, 0 on the masked columns
-            p = kt * KT + nb * 8 + 2 * t + (e & 1) < n_real ? s[nb][e] : 0.f;
-          }
-          s[nb][e] = p;
-        }
-      }
-      // P of the tile, rounded to bf16, as the A operand of P V (the
-      // accumulator layout of two column blocks is the A layout)
-      pv_tile<KT>(s, vs, lane, o);
-      __syncthreads();  // every warp is done with this K and V tile
-      if (kt + 1 < n_kt) {
-        store_tile<KT>(kr, ks);
-        store_tile<KT>(vr, vs);
-        __syncthreads();
-      }
-    }
-    float scale[2] = {1.f, 1.f};
-    if (scaled) {
+      scores(kt);
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        scale[hr] = 1.f / quad_sum(sum[hr]);
-      }
-    }
-    // this head's 16 x 64 output of the warp, rounded to bf16, into ob
+        if (mode == MODE_NORM_BEFORE) {
+          float e = 0.f;
 #pragma unroll
-    for (int db = 0; db < AHD / 8; ++db) {
-      const int c = h * AHD + db * 8 + 2 * t;
-      float v0 = o[db][0], v1 = o[db][1], v2 = o[db][2], v3 = o[db][3];
-      if (scaled) {
-        v0 *= scale[0];
-        v1 *= scale[0];
-        v2 *= scale[1];
-        v3 *= scale[1];
-      }
-      *reinterpret_cast<uint32_t*>(ob + row0 * L::LDO + c) = pack_bf16(v0, v1);
-      *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * L::LDO + c) = pack_bf16(v2, v3);
-    }
-  }
-  __syncthreads();  // every head's output is in ob; k / v become staging
-
-  // proj (K = C) + b_proj + x -> out; a unit is one 16-wide weight column
-  // tile against the 4 row tiles
-  float* stage = reinterpret_cast<float*>(smem + L::off_k) + warp * 256;
-  constexpr int NCT = C / 16;
-  for (int ct = warp; ct < NCT; ct += AWARPS) {
-    const int n0 = ct * 16;
-    FragC acc[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) wmma::fill_fragment(acc[r], 0.f);
-#pragma unroll 2
-    for (int k0 = 0; k0 < C; k0 += 16) {
-      FragBc bw;
-      wmma::load_matrix_sync(bw, w_proj + (size_t)n0 * C + k0, C);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        FragA a;
-        wmma::load_matrix_sync(a, ob + r * 16 * L::LDO + k0, L::LDO);
-        wmma::mma_sync(acc[r], a, bw, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      wmma::store_matrix_sync(stage, acc[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int tq = q0 + r * 16 + e / 16;
-        const int c = n0 + e % 16;
-        if (tq < Np) {
-          const size_t off = ((size_t)b * Np + tq) * C + c;
-          out[off] = __float2bfloat16(__bfloat162float(x[off]) + (stage[e] + b_proj[c]));
+          for (int j = 0; j < KT / 8; ++j)
+            e += exp2f(s[4 * j + 2 * hr] * LOG2E) + exp2f(s[4 * j + 2 * hr + 1] * LOG2E);
+          l[hr] += e;
+          continue;
         }
+        float tmax = s[2 * hr];
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+          tmax = fmaxf(tmax, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+        const float mn = fmaxf(m[hr], tmax);
+        const float ml = mn * LOG2E;
+        float e = 0.f;
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+          e += exp2f(fmaf(s[4 * j + 2 * hr], LOG2E, -ml)) +
+               exp2f(fmaf(s[4 * j + 2 * hr + 1], LOG2E, -ml));
+        l[hr] = l[hr] * exp2f((m[hr] - mn) * LOG2E) + e;
+        m[hr] = mn;
       }
-      __syncwarp();
+    }
+    if (mode == MODE_NORM_BEFORE) {
+      l[0] = quad_sum(l[0]);
+      l[1] = quad_sum(l[1]);
+    } else {
+      merge_row_stats(m[0], l[0]);
+      merge_row_stats(m[1], l[1]);
     }
   }
-}
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  const float ml[2] = {m[0] * LOG2E, m[1] * LOG2E};
 
-template <int C>
-static cudaError_t launch_vit_attn(const void* x, const void* qkv, void* out,
-                                   const void* w_proj, const void* b_proj, int B, int Np,
-                                   int heads, int n_real, int mode,
-                                   cudaStream_t stream) {
-  const size_t smem = VitAttnSmem<C>::bytes;
-  auto kernel = vit_attn_kernel<C>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Np + AQ - 1) / AQ, B);
-  kernel<<<grid, ATHREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
-      static_cast<const bf16*>(w_proj), static_cast<const float*>(b_proj), Np, heads, n_real,
-      mode);
-  return cudaGetLastError();
+  // pass 2 (the only pass of the one-pass modes): P, rounded to bf16, times V
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float sum[2] = {0.f, 0.f};  // the exp modes: this thread's share of the row sums
+  for (int kt = 0; kt < n_kt; ++kt) {
+    scores(kt);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hr = (i >> 1) & 1;
+      float p;
+      if (two_pass) {
+        p = exp2f(fmaf(s[i], LOG2E, -ml[hr])) * inv[hr];
+      } else if (mode == MODE_FAST) {
+        p = exp2f(s[i] * LOG2E);
+        sum[hr] += p;
+      } else if (mode == MODE_BF16_EXP) {
+        p = exp2f(round_bf16(s[i]) * LOG2E);
+        sum[hr] += p;
+      } else {  // no_softmax: the raw score, 0 on the masked columns
+        p = kt * KT + 8 * (i >> 2) + 2 * t + (i & 1) < n_real ? s[i] : 0.f;
+      }
+      s[i] = p;
+    }
+    // P of the tile as the A operand: keys 16 kk .. 16 kk + 15 are column
+    // blocks 2 kk and 2 kk + 1 of the accumulator
+    uint32_t pa[AHD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    const uint8_t* vs = next_tile();
+    wg_fence();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      wgmma_m64n64_rs<1>(o, pa[kk], desc_sw128(vs + kk * 2048, ATOM, ATOM));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    release();
+  }
+  float scale[2] = {1.f, 1.f};
+  if (mode == MODE_FAST || mode == MODE_BF16_EXP) {
+    scale[0] = 1.f / quad_sum(sum[0]);
+    scale[1] = 1.f / quad_sum(sum[1]);
+  }
+  // this head's output rows, rounded to bf16, into its column block
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + 8 * hr;
+    if (row < Np) {
+      bf16* dst = out + ((size_t)b * Np + row) * C + h * AHD + 2 * t;
+#pragma unroll
+      for (int j = 0; j < AHD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(o[4 * j + 2 * hr] * scale[hr], o[4 * j + 2 * hr + 1] * scale[hr]);
+    }
+  }
 }
 
 }  // namespace hmdt
 
 // C interface for ctypes. Returns cudaGetLastError() after the launch (0 on
-// success). x and out distinct (B, Np, C) bf16; qkv (3, B, heads, Np, 64)
-// bf16; w_proj (C, C) bf16; b_proj float32; keys >= n_real are masked;
-// mode 0-5 as at the top of this file.
-extern "C" int vit_attn_launch(const void* x, const void* qkv, void* out,
-                               const void* w_proj, const void* b_proj, int B, int Np,
-                               int C, int heads, int n_real, int mode, void* stream) {
+// success), or the error that stopped it before. qkv (3, B, heads, Np, 64)
+// bf16; out (B, Np, C) bf16, C = 64 heads; keys >= n_real are masked; mode
+// 0-5 as at the top of this file.
+extern "C" int vit_attn_launch(const void* qkv, void* out, int B, int Np, int C, int heads,
+                               int n_real, int mode, void* stream) {
   using namespace hmdt;
-  if (B <= 0 || Np <= 0 || n_real <= 0 || n_real > Np || heads * AHD != C ||
-      B > 65535 || mode < 0 || mode >= N_MODES)
+  if (B <= 0 || Np <= 0 || n_real <= 0 || n_real > Np || heads <= 0 || heads * AHD != C ||
+      B > 65535 || heads > 65535 || mode < 0 || mode >= N_MODES)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 384:
-      return (int)launch_vit_attn<384>(x, qkv, out, w_proj, b_proj, B, Np, heads, n_real,
-                                       mode, s);
-    case 768:
-      return (int)launch_vit_attn<768>(x, qkv, out, w_proj, b_proj, B, Np, heads, n_real,
-                                       mode, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  CUtensorMap mq, mkv;
+  const uint64_t dims[3] = {(uint64_t)AHD, (uint64_t)Np, (uint64_t)3 * B * heads};
+  const uint32_t box_q[3] = {AHD, QT, 1}, box_kv[3] = {AHD, KT, 1};
+  int err = make_tensor_map(&mq, qkv, 3, dims, box_q);
+  if (!err) err = make_tensor_map(&mkv, qkv, 3, dims, box_kv);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(vit_attn_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ATTN_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Np + QT - 1) / QT, heads, B);
+  vit_attn_kernel<<<grid, THREADS, ATTN_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      mq, mkv, static_cast<const bf16*>(qkv), static_cast<bf16*>(out), Np, n_real, mode);
+  return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-// Shared pieces of the ViT attention kernels (vit_attn.cu, the forward, and
-// vit_attn_bwd.cu, the training backward): mma.sync m16n8k16 bf16 products
-// with float32 accumulation, the accumulator-to-A-fragment reuse, and the
-// streaming of 64-dim key / value / query tiles of one head through
-// registers into shared memory.
+// Shared pieces of the ViT attention kernels: for vit_attn_bwd.cu (the
+// training backward) mma.sync m16n8k16 bf16 products with float32
+// accumulation, the accumulator-to-A-fragment reuse, and the streaming of
+// 64-dim key / value / query tiles of one head through registers into
+// shared memory; for both it and vit_attn.cu (the forward core, whose wgmma
+// accumulators have the same per-warp layout) the head dim, the padded-key
+// logit, the bf16 pair packing and the row statistics over a quad.
 //
 // Accumulator layout of an m16n8k16 product (16 x 8, float32): thread
 // lane = 4 g + t holds columns 2 t, 2 t + 1 of rows g (elements 0, 1) and

@@ -46,14 +46,16 @@ _SIGNATURES = {
     # h1, dy, kmul, dh1, ln_w, ln_b, w_fc1, b_fc1, w_fc2, m_g, g_g, dyk_g,
     # da1_g, part, n_tokens, C, hidden, hw, tpb, eps, stream
     "swin_mlp_bwd_launch": [_vp] * 14 + [_i] * 5 + [_f, _vp],
-    # a, b, ws, n, M, N, chunk, stream
-    "swin_wgrad_launch": [_vp] * 3 + [_i] * 4 + [_vp],
+    # a, b, out, ws, cnt, n, M, N, chunk, group, rows, stream
+    "swin_wgrad_launch": [_vp] * 5 + [_i] * 6 + [_vp],
     # ws, out, S, L, stream
     "swin_reduce_launch": [_vp] * 2 + [_i] * 2 + [_vp],
     # x, qkv, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, C, heads, eps, stream
     "vit_qkv_launch": [_vp] * 6 + [_i] * 4 + [_f, _vp],
-    # x, qkv, out, w_proj, b_proj, B, Np, C, heads, n_real, mode, stream
-    "vit_attn_launch": [_vp] * 5 + [_i] * 6 + [_vp],
+    # qkv, out, B, Np, C, heads, n_real, mode, stream
+    "vit_attn_launch": [_vp] * 2 + [_i] * 6 + [_vp],
+    # o, x, out, w_proj, b_proj, rows, C, stream
+    "vit_proj_launch": [_vp] * 5 + [_i] * 2 + [_vp],
     # x, dh1, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, h_g, opre_g, dqkv_g, part,
     # qkv_ws, do_ws, stats_ws, B, Np, C, heads, n_real, tpb, eps, stream
     "vit_attn_bwd_launch": [_vp] * 15 + [_i] * 6 + [_f, _vp],

@@ -10,17 +10,19 @@ heart_murmur_detection_tpu/ops/pallas_swin_train.py::fused_swin_block_train
              swin_attn_bwd (x, dh1) -> dx + per-token operands + per-block
                            column sums and rel-pos bias sums
                                                 (TPU body `_bwd_attn_kernel` :320)
-             swin_wgrad    the weight gradients dW = A^T B over tokens, split
-                           over token chunks into float32 partials
-             swin_reduce   sums partials over their leading axis in order
+             swin_wgrad    the weight gradients dW = A^T B over tokens in one
+                           launch: split over fixed token chunks, the chunks'
+                           float32 partials summed in chunk order
+             swin_reduce   sums the per-block column-sum rows in block order
 
 The TPU kernels accumulate weight gradients in a VMEM block that stays
 resident across their sequential grid. CUDA blocks run in no order, so here
 nothing is summed with atomics: the backward kernels emit the per-token
 operands of each weight product (LN(x), o_pre, dqkv, k1 dh1; LN2(h1), gelu(a1),
 k2 dy, da1) and their per-block column sums, swin_wgrad multiplies the
-operands over fixed token chunks, and swin_reduce adds the chunks' partials
-in chunk order. Two runs on the same inputs give bitwise-equal gradients.
+operands over fixed token chunks and sums the chunks' partials in chunk
+order in the same launch, and swin_reduce adds the column-sum rows in block
+order. Two runs on the same inputs give bitwise-equal gradients.
 
 DropPath enters as per-sample keep multipliers k1, k2 (B,) float32 in
 {0, 1/keep}. The cyclic shift of a shifted block lives in the addressing of
@@ -46,6 +48,7 @@ forward with torch autograd (the strict float32 path).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -68,7 +71,14 @@ _SQRT1_2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 TOKEN_TILE = 64  # tokens a swin_mlp_bwd tile, and rows of a swin_wgrad chunk step
 TARGET_BLOCKS = 512  # backward blocks a launch aims for (partials per launch)
-WGRAD_TILE = 32  # swin_wgrad output tile (rows and columns)
+WGRAD_TILE = 128  # swin_wgrad output tile columns (rows: wgrad_tile_rows)
+# swin_wgrad's split cost model (wgrad_split): blocks a wave, one an SM of an
+# H100 (a second resident block shares its SM's throughput), and a chunk's
+# fixed cost (its partial tile written and summed, the pipeline's fill) in
+# 64-token steps; the pair that measured fastest over a COLA and an
+# Audio-MAE step's products (bench/wgrad_time.py shapes, PERF.md)
+WGRAD_BLOCKS = 132
+WGRAD_STEP_COST = 16
 
 
 # ---------------------------------------------------------------------------
@@ -249,48 +259,76 @@ def _blocks_for(units: int) -> Tuple[int, int]:
     return per, -(-units // per)
 
 
+@functools.lru_cache(maxsize=None)
 def wgrad_split(n: int, M: int, N: int) -> Tuple[int, int]:
     """(chunks S, tokens a chunk) of swin_wgrad for an (n, M) x (n, N)
-    product: about 2 TARGET_BLOCKS blocks of 32 x 32 output tiles, fixed by
-    the shapes alone."""
-    tiles = (M // WGRAD_TILE) * (N // WGRAD_TILE)
+    product, fixed by the shapes alone. Blocks of output tiles
+    (wgrad_tile_rows x 128) run WGRAD_BLOCKS at a time, so S chunks take
+    ceil(S tiles / WGRAD_BLOCKS) waves of one chunk's time each, a chunk
+    costing its 64-token steps plus WGRAD_STEP_COST when there is more than
+    one; S minimises that. Chunk s holds tokens [s chunk, min(n, (s + 1)
+    chunk)), a multiple of 64 each."""
+    tiles = -(-M // wgrad_tile_rows(M)) * -(-N // WGRAD_TILE)
     steps = n // TOKEN_TILE
-    S = max(1, min(steps, -(-2 * TARGET_BLOCKS // tiles)))
-    chunk = -(-steps // S) * TOKEN_TILE
+
+    def cost(S: int) -> int:
+        per = -(-steps // S)  # steps a chunk
+        chunks = -(-steps // per)
+        waves = -(-chunks * tiles // WGRAD_BLOCKS)
+        return waves * (per + (WGRAD_STEP_COST if chunks > 1 else 0))
+
+    chunk = -(-steps // min(range(1, steps + 1), key=cost)) * TOKEN_TILE
     return -(-n // chunk), chunk
 
 
-def swin_wgrad_partials(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The swin_wgrad launch: float32 partials (S, M, N) of a^T b over the
-    token chunks of wgrad_split."""
+def wgrad_tile_rows(M: int) -> int:
+    """Rows of swin_wgrad's output tile: 256 for products of 512 or more
+    rows (a tile reads B once for twice the rows), else 128."""
+    return 256 if M >= 512 else 128
+
+
+def wgrad_group(S: int) -> int:
+    """Chunks in a first-level group of swin_wgrad's ordered sum: about
+    sqrt(S), so the last block of a group and the last group each read
+    about sqrt(S) partial tiles."""
+    return max(1, math.ceil(math.sqrt(S)))
+
+
+def swin_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b over the token axis: a (n, M), b (n, N) bf16 -> (M, N) float32,
+    one launch: split over the token chunks of wgrad_split, their partials
+    summed in chunk order within groups of wgrad_group, then the group sums
+    in group order."""
+    if a.device.type == "cpu":
+        return wgrad_ref(a, b)
     a, b = a.contiguous(), b.contiguous()
     n, M = a.shape
     Nn = b.shape[1]
     if (a.dtype, b.dtype) != (torch.bfloat16, torch.bfloat16) or b.shape[0] != n:
         raise TypeError("swin_wgrad takes two bfloat16 (n, *) operands")
-    if n % TOKEN_TILE or M % WGRAD_TILE or Nn % WGRAD_TILE:
-        raise ValueError(f"swin_wgrad shapes {tuple(a.shape)} x {tuple(b.shape)}")
-    if a.device != b.device or a.device.type != "cuda":
-        raise ValueError("swin_wgrad_partials takes two tensors on one card")
+    if n % TOKEN_TILE or M % 32 or Nn % 32:
+        raise ValueError(f"swin_wgrad takes n a multiple of 64 and widths multiples of 32, "
+                         f"got {tuple(a.shape)} x {tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError("swin_wgrad takes two tensors on one card")
     S, chunk = wgrad_split(n, M, Nn)
-    ws = torch.empty(S, M, Nn, dtype=torch.float32, device=a.device)
+    group = wgrad_group(S)
+    G = -(-S // group)
+    rows = wgrad_tile_rows(M)
+    tiles = -(-M // rows) * -(-Nn // WGRAD_TILE)
+    out = torch.empty(M, Nn, dtype=torch.float32, device=a.device)
+    ws = cnt = None
+    if S > 1:  # the partial tiles, the group sums, and the arrival counters
+        ws = torch.empty((S + (G if G > 1 else 0)) * tiles * rows * WGRAD_TILE,
+                         dtype=torch.float32, device=a.device)
+        cnt = torch.zeros(tiles * (G + 1), dtype=torch.int32, device=a.device)
     rc = _lib().swin_wgrad_launch(
-        _ptr(a), _ptr(b), _ptr(ws), n, M, Nn, chunk,
+        _ptr(a), _ptr(b), _ptr(out), _ptr(ws), _ptr(cnt), n, M, Nn, chunk, group, rows,
         _cuda_stream(a),
     )
     _check_launch("swin_wgrad", rc)
     swin_wgrad.launches += 1
-    return ws
-
-
-def swin_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a^T b over the token axis: a (n, M), b (n, N) bf16 -> (M, N) float32,
-    split over token chunks and summed in chunk order."""
-    if a.device.type == "cpu":
-        return wgrad_ref(a, b)
-    ws = swin_wgrad_partials(a, b)
-    S, M, Nn = ws.shape
-    return ws[0] if S == 1 else swin_reduce(ws.reshape(S, -1)).reshape(M, Nn)
+    return out
 
 
 def swin_reduce(parts: torch.Tensor) -> torch.Tensor:

@@ -4,23 +4,27 @@ entry points of heart_murmur_detection_tpu/ops/pallas_vit.py built from them.
 
   vit_qkv   LN1 -> qkv (q pre-scaled by 1/sqrt(hd)), written head-major
             (csrc/vit_qkv.cu; the first part of the TPU body `_attn_half`)
-  vit_attn  per head softmax(q k^T, padded keys masked) v -> proj -> +x
-            (csrc/vit_attn.cu; the rest of `_attn_half`), or one of the
+  vit_attn  per head softmax(q k^T, padded keys masked) v, each head's
+            output rounded to bf16 in its column block of o_pre
+            (csrc/vit_attn.cu; the attention of `_attn_half`), or one of the
             attention modes of the TPU attention-half kernels K10
             (bench/gt_attn_opt.py::kernel) and K11
             (bench/vit_attn_ablate.py::attn_kernel), see ATTN_MODES
+  vit_proj  o_pre -> proj -> + b_proj + x (csrc/vit_proj.cu; the rest of
+            `_attn_half`)
   vit_mlp   LN2 -> fc1 -> exact GELU -> fc2 -> +x, token-wise
             (csrc/swin_mlp.cu with LN eps 1e-6; the TPU body `_mlp_half`)
 
-  fused_vit_block  vit_qkv, vit_attn, vit_mlp    (TPU K5, :296)
-  fused_vit_attn   vit_qkv, vit_attn             (TPU K6, :341)
-  fused_vit_mlp    vit_mlp                       (TPU K7, :373)
+  fused_vit_block  vit_qkv, vit_attn, vit_proj, vit_mlp  (TPU K5, :296)
+  fused_vit_attn   vit_qkv, vit_attn, vit_proj           (TPU K6, :341)
+  fused_vit_mlp    vit_mlp                               (TPU K7, :373)
 
 The TPU kernels kept the whole sequence in VMEM; on Hopper K and V of one
-head (1040 x 64 x 2 x 2 B) do not fit an SM's shared memory beside the
-output tile, so vit_attn streams them in key tiles (64 keys at C=384, 32 at
-C=768) with the scores kept in registers, and the qkv product is its own
-launch that writes q, k and v once to device memory.
+head (1040 x 64 x 2 x 2 B) stream through shared memory in 64-key tiles,
+one block for each (clip, head, 128 query rows), with the scores kept in
+registers; the qkv product is its own launch that writes q, k and v once
+to device memory, and proj its own launch that reads the head outputs
+o_pre once (vit_attn and vit_proj launch as a pair on every path).
 
 Sequence padding as the JAX package: callers pad tokens to a multiple of 16
 (pad_tokens) and pass the real count n_real; key columns >= n_real get
@@ -240,6 +244,28 @@ def _attn_core(q, k, v, mm: torch.dtype, n_real: Optional[int], mode: str) -> to
     return (_mmf(e, mm) @ _mmf(v, mm)) * (1.0 / e.sum(-1, keepdim=True))
 
 
+def _head_outputs(qkv: torch.Tensor, mm: torch.dtype, n_real: Optional[int], mode: str,
+                  act: torch.dtype) -> torch.Tensor:
+    """Each head's attention output of the head-major qkv (3, B, heads, Np,
+    hd) in `mode` (ATTN_MODES), rounded to `act`, as (B, Np, heads hd) with
+    head h in columns h hd .."""
+    _, B, heads, Np, hd = qkv.shape
+    mode = _check_mode(mode)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    if mode == "aligned_hcat":
+        C = heads * hd
+        offs = aligned_offsets(C, heads, hd)
+        flat = qkv.permute(1, 3, 0, 2, 4).reshape(B, Np, 3 * C)
+        q, k, v = (torch.stack([flat[..., t * C + o: t * C + o + hd] for o in offs], 1)
+                   for t in range(3))
+        mode = "norm_before"
+    if mode == "q_passthrough":
+        o = q.to(act)
+    else:
+        o = _attn_core(q, k, v, mm, n_real, mode).to(act)
+    return o.permute(0, 2, 1, 3).reshape(B, Np, heads * hd)
+
+
 def vit_attn_out_ref(
     x: torch.Tensor,
     qkv: torch.Tensor,
@@ -247,26 +273,33 @@ def vit_attn_out_ref(
     n_real: Optional[int] = None,
     mode: str = "stable",
 ) -> torch.Tensor:
-    """Plain version of the vit_attn kernel: attention of the head-major
-    qkv (3, B, heads, Np, hd) over the keys < n_real in `mode`
-    (ATTN_MODES), proj, + x -> (B, Np, C) in x's dtype."""
-    B, Np, C = x.shape
+    """Plain version of the vit_attn and vit_proj kernels together:
+    attention of the head-major qkv (3, B, heads, Np, hd) over the keys <
+    n_real in `mode` (ATTN_MODES), proj, + x -> (B, Np, C) in x's dtype."""
     act, mm = x.dtype, p.mm_dtype
-    mode = _check_mode(mode)
-    q, k, v = qkv[0], qkv[1], qkv[2]
-    if mode == "aligned_hcat":
-        offs = aligned_offsets(C, p.heads, p.hd)
-        flat = qkv.permute(1, 3, 0, 2, 4).reshape(B, Np, 3 * C)
-        q, k, v = (torch.stack([flat[..., t * C + o: t * C + o + p.hd] for o in offs], 1)
-                   for t in range(3))
-        mode = "norm_before"
-    if mode == "q_passthrough":
-        o = q.to(act)
-    else:
-        o = _attn_core(q, k, v, mm, n_real, mode).to(act)
-    o = o.permute(0, 2, 1, 3).reshape(B, Np, C)
+    o = _head_outputs(qkv, mm, n_real, mode, act)
     o = _mmf(o, mm) @ _mmf(p.w_proj, mm).T + p.b_proj
     return (x.to(torch.float32) + o).to(act)
+
+
+def vit_attn_core_ref(
+    qkv: torch.Tensor,
+    p: VitBlockParams,
+    n_real: Optional[int] = None,
+    mode: str = "stable",
+) -> torch.Tensor:
+    """Plain version of the vit_attn kernel: each head's attention of the
+    head-major qkv (3, B, heads, Np, hd) over the keys < n_real in `mode`,
+    rounded to qkv's dtype, heads concatenated -> o_pre (B, Np, C)."""
+    return _head_outputs(qkv, p.mm_dtype, n_real, mode, qkv.dtype)
+
+
+def vit_proj_ref(o: torch.Tensor, x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """Plain version of the vit_proj kernel: x + (o_pre W_proj^T + b_proj)
+    in float32, rounded once to x's dtype."""
+    mm = p.mm_dtype
+    o = _mmf(o, mm) @ _mmf(p.w_proj, mm).T + p.b_proj
+    return (x.to(torch.float32) + o).to(x.dtype)
 
 
 def vit_attn_ref(
@@ -334,40 +367,65 @@ def vit_qkv(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
 
 
 def vit_attn(
-    x: torch.Tensor,
     qkv: torch.Tensor,
     p: VitBlockParams,
     n_real: Optional[int] = None,
     mode: str = "stable",
 ) -> torch.Tensor:
-    """Attention over the head-major qkv in `mode`, proj and the residual of
-    x (see vit_attn_out_ref)."""
-    if x.device.type == "cpu":
-        return vit_attn_out_ref(x, qkv, p, n_real, mode)
+    """Attention of the head-major qkv in `mode`, each head rounded into its
+    column block of o_pre (B, Np, C) (see vit_attn_core_ref)."""
+    if qkv.device.type == "cpu":
+        return vit_attn_core_ref(qkv, p, n_real, mode)
     mode = _check_mode(mode)
-    _check_cuda_args(x, p, attn=True)
+    if qkv.dtype != torch.bfloat16 or p.mm_dtype != torch.bfloat16:
+        raise TypeError(f"CUDA ViT kernels take bfloat16 activations and weights, got "
+                        f"{qkv.dtype} / {p.mm_dtype}")
+    if qkv.dim() != 5 or not qkv.is_contiguous():
+        raise ValueError("qkv must be a contiguous (3, B, heads, Np, hd) tensor")
+    _, B, heads, Np, hd = qkv.shape
+    C = heads * hd
+    if C not in (384, 768) or hd != HD or heads != p.heads or p.w_proj.device != qkv.device:
+        raise ValueError(f"the attention kernel takes C 384 or 768 with head dim {HD} and the "
+                         f"block's heads on its device, got {heads} heads of {hd}")
     if mode == "aligned_hcat":
         # at every shape the kernel takes (head dim 64, 6 or 12 heads) a
         # slice runs past 3C: this raises before any launch
-        aligned_offsets(x.shape[2], p.heads, p.hd)
-    B, Np, C = x.shape
-    if (qkv.dtype != x.dtype or not qkv.is_contiguous() or qkv.device != x.device
-            or tuple(qkv.shape) != (3, B, p.heads, Np, HD)):
-        raise ValueError(f"qkv must be a contiguous bf16 (3, {B}, {p.heads}, {Np}, {HD}) tensor")
+        aligned_offsets(C, heads, hd)
     n_real = Np if n_real is None else n_real
     if not 0 < n_real <= Np:
         raise ValueError(f"n_real {n_real} outside (0, {Np}]")
     from . import _build
 
     lib = _build.load_library()
-    out = torch.empty_like(x)
+    out = torch.empty((B, Np, C), dtype=qkv.dtype, device=qkv.device)
     rc = lib.vit_attn_launch(
-        _ptr(x), _ptr(qkv), _ptr(out), _ptr(p.w_proj), _ptr(p.b_proj),
-        B, Np, C, p.heads, n_real, _MODE_ID[mode], _cuda_stream(x),
+        _ptr(qkv), _ptr(out), B, Np, C, heads, n_real, _MODE_ID[mode], _cuda_stream(qkv),
     )
     _check_launch("vit_attn", rc)
     vit_attn.launches += 1
     vit_attn.mode_launches[mode] += 1
+    return out
+
+
+def vit_proj(o: torch.Tensor, x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """proj of the head outputs o_pre, its bias and the residual x (see
+    vit_proj_ref)."""
+    if x.device.type == "cpu":
+        return vit_proj_ref(o, x, p)
+    _check_cuda_args(x, p, attn=True)
+    if o.shape != x.shape or o.dtype != x.dtype or o.device != x.device or not o.is_contiguous():
+        raise ValueError(f"o_pre must be a contiguous bf16 tensor shaped as x {tuple(x.shape)}")
+    B, Np, C = x.shape
+    from . import _build
+
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    rc = lib.vit_proj_launch(
+        _ptr(o), _ptr(x), _ptr(out), _ptr(p.w_proj), _ptr(p.b_proj), B * Np, C,
+        _cuda_stream(x),
+    )
+    _check_launch("vit_proj", rc)
+    vit_proj.launches += 1
     return out
 
 
@@ -395,8 +453,9 @@ def vit_mlp(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
 vit_qkv.launches = 0
 vit_attn.launches = 0
 vit_attn.mode_launches = dict.fromkeys(_MODE_ID, 0)  # vit_attn's launches by mode
+vit_proj.launches = 0
 vit_mlp.launches = 0
-COUNTED = [vit_qkv, vit_attn, vit_mlp]
+COUNTED = [vit_qkv, vit_attn, vit_proj, vit_mlp]
 
 
 def launch_counts() -> dict:
@@ -439,7 +498,7 @@ def fused_vit_attn(
         return vit_attn_ref(x, p, n_real, mode)
     if mode == "aligned_hcat":  # undefined shapes raise before any launch
         aligned_offsets(x.shape[2], p.heads, p.hd)
-    return vit_attn(x, vit_qkv(x, p), p, n_real, mode)
+    return vit_proj(vit_attn(vit_qkv(x, p), p, n_real, mode), x, p)
 
 
 def fused_vit_mlp(x: torch.Tensor, p: VitBlockParams, impl: str = "kernel") -> torch.Tensor:

@@ -3,7 +3,7 @@ heart_murmur_detection_tpu/ops/pallas_vit_train.py::fused_vit_block_train
 (TPU K9, :703) as a torch.autograd.Function over hand-written CUDA kernels.
 
   forward    h1 = x + attn(x), y = h1 + mlp(h1): the eval kernels vit_qkv,
-             vit_attn (stable softmax) and vit_mlp of ops/vit.py, whose
+             vit_attn (stable softmax), vit_proj and vit_mlp of ops/vit.py, whose
              bodies are K9's forward (`_fwd_full_kernel` :121 runs
              `_attn_half` / `_mlp_half`, the eval bodies); saves (x, h1)
   backward   vit_mlp_bwd   (h1, dy) -> dh1 + per-token operands + per-block
@@ -14,15 +14,17 @@ heart_murmur_detection_tpu/ops/pallas_vit_train.py::fused_vit_block_train
                            column sums: csrc/vit_attn_bwd.cu (TPU
                            `_attn_bwd_core` :246)
              swin_wgrad / swin_reduce (ops/swin_train.py) for the weight
-                           gradients and the ordered sums
+                           gradients and the column sums, each summed in a
+                           fixed order
 
 The TPU package has two weight-gradient modes, "acc" (sums in a resident
 VMEM block over its sequential grid) and "emit" (per-token operands for
 outside products), chosen by a VMEM planner (`train_plan` :404); both are
 the same math. On the card one design serves both: the backward kernels
 emit the operands and per-block column sums, swin_wgrad multiplies the
-operands over fixed token chunks and swin_reduce adds partials in order, so
-nothing is summed with atomics and two runs give bitwise-equal gradients.
+operands over fixed token chunks and sums the chunks in order in the same
+launch, and swin_reduce adds the column sums in order, so nothing is summed
+with atomics and two runs give bitwise-equal gradients.
 
 The attention scale 1/sqrt(hd) is folded into the q rows of w_qkv and the q
 bias in float32 before the bf16 cast (ops.vit.vit_block_layout, built inside
@@ -286,7 +288,7 @@ class _VitBlockTrain(torch.autograd.Function):
             h1 = vit.vit_attn_ref(x, p, n_real)
             y = vit.vit_mlp_ref(h1, p)
         else:
-            h1 = vit.vit_attn(x, vit.vit_qkv(x, p), p, n_real)
+            h1 = vit.vit_proj(vit.vit_attn(vit.vit_qkv(x, p), p, n_real), x, p)
             y = vit.vit_mlp(h1, p)
         ctx.save_for_backward(x, h1, *weights)
         ctx.meta = (n_real, plain, heads)

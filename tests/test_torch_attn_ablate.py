@@ -82,20 +82,30 @@ def _case(seed: int):
     return x, attn_ablate.draw_weights(rng, C)
 
 
-def _port_half(mode: str, x: np.ndarray, w) -> np.ndarray:
+def _port_half(mode: str, x: np.ndarray, w, path: str = "half") -> np.ndarray:
+    """The port's plain attention half in `mode`: whole (vit_attn_ref), or
+    as the two steps the card launches (vit_attn_core_ref, vit_proj_ref)."""
     p = attn_ablate.half_params(w, HEADS)
     xb = torch.from_numpy(x).to(torch.bfloat16)
-    return vit.vit_attn_ref(xb, p, mode=mode).to(torch.float32).numpy()
+    if path == "half":
+        y = vit.vit_attn_ref(xb, p, mode=mode)
+    else:
+        y = vit.vit_proj_ref(vit.vit_attn_core_ref(vit.vit_qkv_ref(xb, p), p, mode=mode), xb, p)
+    return y.to(torch.float32).numpy()
 
 
 CASES = [(f, m) for f, names in attn_ablate.FILES.items() for m in names if m != "aligned_hcat"]
+_JAX = {}  # (file, name) -> the body's output on _case(1), shared by both paths
 
 
+@pytest.mark.parametrize("path", ["half", "core_then_proj"])
 @pytest.mark.parametrize("file,name", CASES)
-def test_mode_matches_tpu_body(file, name):
+def test_mode_matches_tpu_body(file, name, path):
     x, w = _case(1)
-    want = _jax_half(file, name, x, w)
-    got = _port_half(attn_ablate.JAX_MODES[(file, name)], x, w)
+    if (file, name) not in _JAX:
+        _JAX[file, name] = _jax_half(file, name, x, w)
+    want = _JAX[file, name]
+    got = _port_half(attn_ablate.JAX_MODES[(file, name)], x, w, path)
     xb = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
     a, b = (got - xb).ravel().astype(np.float64), (want - xb).ravel().astype(np.float64)
     cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))

@@ -3,9 +3,10 @@ ctypes binding (CPU), and, on a card only, each kernel against its plain
 torch version: the swin eval kernels at the four HTS-AT stage geometries,
 the swin training kernels (forward with DropPath multipliers, both backward
 halves, the weight-gradient products and the ordered reduction) at stages
-0-2, the ViT kernels (vit_qkv, vit_attn, vit_mlp) at the operaGT and
-Audio-MAE shapes, vit_attn's K10 / K11 attention modes, and the fused log-mel kernel (with its float64 precision
-check) and the polyphase resampler at the extraction path's shapes.
+0-2, the ViT kernels (vit_qkv, vit_attn and vit_proj, vit_mlp) at the
+operaGT and Audio-MAE shapes, vit_attn's K10 / K11 attention modes, and the
+fused log-mel kernel (with its float64 precision check) and the polyphase
+resampler at the extraction path's shapes.
 
 Imports no JAX, so it also runs where JAX is absent; on a card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m gpu
@@ -56,8 +57,9 @@ def test_signatures_pass_pointers_as_void_p():
     would cut a 64-bit pointer); the ints follow, then a LayerNorm eps as a
     c_float where the kernel takes one."""
     n_ptrs = {"swin_attn_launch": 11, "swin_mlp_launch": 9, "swin_attn_bwd_launch": 16,
-              "swin_mlp_bwd_launch": 14, "swin_wgrad_launch": 3, "swin_reduce_launch": 2,
-              "vit_qkv_launch": 6, "vit_attn_launch": 5, "vit_attn_bwd_launch": 15,
+              "swin_mlp_bwd_launch": 14, "swin_wgrad_launch": 5, "swin_reduce_launch": 2,
+              "vit_qkv_launch": 6, "vit_attn_launch": 2, "vit_proj_launch": 5,
+              "vit_attn_bwd_launch": 15,
               "logmel_launch": 5}
     with_eps = {"swin_mlp_launch", "vit_qkv_launch", "swin_mlp_bwd_launch",
                 "vit_attn_bwd_launch"}
@@ -77,7 +79,8 @@ def test_build_targets_sm90a_and_hashes_sources():
     srcs = {p.rsplit("/", 1)[-1] for p in _build._sources()}
     assert {"swin_attn.cu", "swin_mlp.cu", "swin_common.cuh", "swin_attn_bwd.cu",
             "swin_mlp_bwd.cu", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu",
-            "vit_attn_common.cuh", "vit_attn_bwd.cu", "logmel.cu"} <= srcs
+            "vit_attn_common.cuh", "vit_attn_bwd.cu", "logmel.cu", "wgmma_gemm.cuh",
+            "vit_proj.cu"} <= srcs
     # the log-mel kernel is float32-exact: log10f and the FFMAs stay accurate
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     h = _build.source_hash()
@@ -197,16 +200,54 @@ def test_unit_multiplier_keeps_eval_bitwise(cuda, C, heads, H, shift):
     assert torch.equal(swin.swin_mlp(x, p), swin.swin_mlp(x, p, one))
 
 
+def _poison_free_memory(fill: str = "nan"):
+    """Fill the memory the caching allocator hands out next with NaN (or a
+    normal draw), so a kernel that reads memory it never wrote reads other
+    values than in the launch before."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    blocks = [torch.empty(int(free * 0.5) // 4, device="cuda")]
+    blocks += [torch.empty(1 << 17, device="cuda") for _ in range(64)]
+    for b in blocks:
+        b.fill_(float("nan")) if fill == "nan" else b.normal_()
+    torch.cuda.synchronize()
+    del blocks
+
+
+# (n, M, N): one chunk; widths of 96 (a 128-wide tile read past the edge);
+# the tall-skinny COLA stage-0 products (n = 262144 splits into chunks of
+# 6016 tokens, the last one short: a chunk count that does not divide n);
+# a stage-1 width; 256-row tiles (M >= 512) at the COLA stage-2 and
+# Audio-MAE widths, with two levels of the ordered sum
+WGRAD_CASES = [(64, 32, 32), (1024, 96, 1536), (4096 * 4, 384, 96), (65536, 384, 96),
+               (262144, 96, 384), (262144, 96, 128), (65536, 192, 256), (16384, 1536, 384),
+               (10240, 3072, 768), (10240, 768, 768)]
+RAGGED = (262144, 96, 384)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,M,N", [(4096 * 4, 384, 96), (1024, 96, 1536), (64, 32, 32)])
+@pytest.mark.parametrize("n,M,N", WGRAD_CASES)
 def test_wgrad_and_reduce_match_plain_on_card(cuda, n, M, N):
+    """swin_wgrad against the float32 product, one launch a product, and
+    bitwise equal again after the allocator's free memory is filled with
+    NaN (the workspace and counters it allocates then hold NaN first)."""
     g = torch.Generator().manual_seed(n + M)
     a = torch.randn(n, M, generator=g).to(cuda, torch.bfloat16)
     b = torch.randn(n, N, generator=g).to(cuda, torch.bfloat16)
+    S, chunk = swin_train.wgrad_split(n, M, N)
+    if (n, M, N) == RAGGED:
+        assert S > 1 and n % chunk  # the last chunk is short
+    swin.reset_launch_counts()
     got = swin_train.swin_wgrad(a, b)
     want = swin_train.wgrad_ref(a, b)
     torch.cuda.synchronize()
+    assert swin.launch_counts()["swin_wgrad"] == 1
+    assert got.shape == (M, N) and got.dtype == torch.float32
     assert _cos(got, want) >= COS_BAR
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert torch.equal(got, swin_train.swin_wgrad(a, b))
+    _poison_free_memory()
     assert torch.equal(got, swin_train.swin_wgrad(a, b))
     parts = torch.randn(7, 1000, generator=g).to(cuda)
     assert torch.equal(swin_train.swin_reduce(parts), swin_train.reduce_ref(parts))
@@ -279,18 +320,21 @@ def test_vit_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, fast_softma
     qkv = vit.vit_qkv(x, p)
     qkv_ref = vit.vit_qkv_ref(x, p)
     mode = "fast" if fast_softmax else "stable"
-    h1 = vit.vit_attn(x, qkv_ref, p, n_real, mode)
+    o = vit.vit_attn(qkv_ref, p, n_real, mode)
+    h1 = vit.vit_proj(o, x, p)
     h1_ref = vit.vit_attn_out_ref(x, qkv_ref, p, n_real, mode)
     y, y_ref = vit.vit_mlp(h1_ref, p), vit.vit_mlp_ref(h1_ref, p)
     torch.cuda.synchronize()
     assert qkv.shape == qkv_ref.shape == (3, 3, heads, Np, 64)
     assert _cos(qkv, qkv_ref) >= COS_BAR
+    assert _cos(o, vit.vit_attn_core_ref(qkv_ref, p, n_real, mode)) >= COS_BAR
     assert _branch_cos(h1, h1_ref, x) >= COS_BAR
     assert _branch_cos(y, y_ref, h1_ref) >= COS_BAR
     # bitwise repeatable
-    assert torch.equal(vit.vit_attn(x, qkv_ref, p, n_real, mode), h1)
+    assert torch.equal(vit.vit_attn(qkv_ref, p, n_real, mode), o)
     n1 = vit.launch_counts()
-    assert {k: n1[k] - n0[k] for k in n1} == {"vit_qkv": 1, "vit_attn": 2, "vit_mlp": 1}
+    assert {k: n1[k] - n0[k] for k in n1} == {"vit_qkv": 1, "vit_attn": 2, "vit_proj": 1,
+                                              "vit_mlp": 1}
 
 
 # the attention modes of the TPU attention-half kernels K10 / K11 (ops/vit.py
@@ -300,27 +344,61 @@ ABLATE_MODES = ["norm_before", "fast", "bf16_exp", "no_softmax", "q_passthrough"
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ABLATE_MODES)
-@pytest.mark.parametrize("n_real", [1040, 1025])
-def test_vit_attn_modes_match_plain_on_card(cuda, mode, n_real):
-    """Each K10 / K11 mode at the operaGT shape on the attention-half
-    weights of bench/attn_ablate.py (q unscaled): the branch against the
-    plain version, two launches bitwise equal, one count a launch."""
+@pytest.mark.parametrize("mode", ["stable"] + ABLATE_MODES)
+@pytest.mark.parametrize("C,heads,Np,n_real", [(384, 6, 1040, 1040), (384, 6, 1040, 1025),
+                                               (768, 12, 528, 513)])
+def test_vit_attn_modes_match_plain_on_card(cuda, mode, C, heads, Np, n_real):
+    """Each attention mode (the served one and K10 / K11's) at the operaGT
+    and Audio-MAE shapes on the attention-half weights of
+    bench/attn_ablate.py (q unscaled): o_pre against the plain core, the
+    core then vit_proj against the plain attention half, the real rows
+    unchanged when the padded keys and values change (n_real < Np), two
+    launches bitwise equal, also after the allocator's free memory is filled
+    with NaN, and one count of each kernel a launch."""
     from heart_murmur_detection_tpu_torch.bench import attn_ablate
 
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((4, 1040, 384)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((4, Np, C)).astype(np.float32))
     x = x.to(cuda, torch.bfloat16)
-    p = attn_ablate.half_params(attn_ablate.draw_weights(rng, 384), 6, cuda)
+    p = attn_ablate.half_params(attn_ablate.draw_weights(rng, C), heads, cuda)
     qkv = vit.vit_qkv(x, p)
     vit.reset_launch_counts()
-    got = vit.vit_attn(x, qkv, p, n_real, mode=mode)
+    o = vit.vit_attn(qkv, p, n_real, mode=mode)
+    got = vit.vit_proj(o, x, p)
     want = vit.vit_attn_out_ref(x, qkv, p, n_real, mode=mode)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
+    assert _cos(o, vit.vit_attn_core_ref(qkv, p, n_real, mode=mode)) >= COS_BAR
     assert _branch_cos(got, want, x) >= COS_BAR
-    assert torch.equal(vit.vit_attn(x, qkv, p, n_real, mode=mode), got)
-    assert vit.mode_launch_counts()[mode] == 2 and vit.launch_counts()["vit_attn"] == 2
+    assert vit.mode_launch_counts()[mode] == 1
+    assert vit.launch_counts()["vit_attn"] == vit.launch_counts()["vit_proj"] == 1
+    if n_real < Np:  # padded keys and values must not leak into real rows
+        other = qkv.clone()
+        other[1:, :, :, n_real:] = 3.0
+        assert torch.equal(vit.vit_attn(other, p, n_real, mode=mode)[:, :n_real], o[:, :n_real])
+    assert torch.equal(vit.vit_attn(qkv, p, n_real, mode=mode), o)
+    _poison_free_memory()
+    assert torch.equal(vit.vit_attn(qkv, p, n_real, mode=mode), o)
+    assert torch.equal(vit.vit_proj(o, x, p), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,B", [(384, 6, 1040, 16), (768, 12, 528, 16),
+                                          (768, 12, 160, 64), (384, 6, 48, 2)])
+def test_vit_proj_matches_plain_on_card(cuda, C, heads, Np, B):
+    """vit_proj (o_pre W_proj^T + b_proj + x, one rounding) against
+    vit_proj_ref at the towers' serving, CP and a small shape, bitwise
+    repeatable, also after the allocator's free memory is filled with NaN."""
+    p = _vit_params(C, heads, C + Np, cuda)
+    g = torch.Generator().manual_seed(Np)
+    x = (torch.randn(B, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    o = (torch.randn(B, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    got, want = vit.vit_proj(o, x, p), vit.vit_proj_ref(o, x, p)
+    torch.cuda.synchronize()
+    assert _branch_cos(got, want, x) >= COS_BAR
+    assert torch.equal(vit.vit_proj(o, x, p), got)
+    _poison_free_memory()
+    assert torch.equal(vit.vit_proj(o, x, p), got)
 
 
 @pytest.mark.gpu
@@ -333,8 +411,10 @@ def test_vit_attn_aligned_hcat_raises_on_card(cuda, C, heads, Np, n_real):
     qkv = vit.vit_qkv(x, p)
     vit.reset_launch_counts()
     with pytest.raises(ValueError, match="aligned_hcat"):
-        vit.vit_attn(x, qkv, p, n_real, mode="aligned_hcat")
-    assert vit.launch_counts()["vit_attn"] == 0
+        vit.vit_attn(qkv, p, n_real, mode="aligned_hcat")
+    with pytest.raises(ValueError, match="aligned_hcat"):
+        vit.fused_vit_attn(x, p, n_real, mode="aligned_hcat")
+    assert vit.launch_counts() == dict.fromkeys(vit.launch_counts(), 0)
 
 
 @pytest.mark.gpu

@@ -199,6 +199,49 @@ def test_wgrad_and_reduce_plain_versions():
     assert torch.equal(swin_train.swin_reduce(parts), want)
 
 
+# (n, M, N): the COLA stage-0..2 weight products at B=64, the ViT CP ones
+# (Audio-MAE 64 x 160 tokens, OPERA-GT 64 x 320 and 64 x 80), a ragged n
+WGRAD_SHAPES = [(262144, 384, 96), (262144, 96, 384), (262144, 96, 128), (65536, 768, 192),
+                (16384, 1536, 384), (16384, 384, 512), (10240, 3072, 768), (10240, 2304, 768),
+                (20480, 1536, 384), (5120, 384, 1536), (64 * 77 * 3, 384, 96), (64, 32, 32)]
+
+
+@pytest.mark.parametrize("n,M,N", WGRAD_SHAPES)
+def test_wgrad_split_covers_the_tokens_in_fixed_chunks(n, M, N):
+    """swin_wgrad's split-K plan is a function of (n, M, N) alone: its
+    chunks cover [0, n) exactly, in multiples of 64 tokens, with a group
+    size for the two-level ordered sum."""
+    S, chunk = swin_train.wgrad_split(n, M, N)
+    assert (S, chunk) == swin_train.wgrad_split(n, M, N)
+    bounds = [(s * chunk, min(n, (s + 1) * chunk)) for s in range(S)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(a % 64 == 0 and b % 64 == 0 and a < b for a, b in bounds)
+    assert all(bounds[i][1] == bounds[i + 1][0] for i in range(S - 1))
+    assert 1 <= S <= n // 64
+    assert swin_train.wgrad_tile_rows(M) == (256 if M >= 512 else 128)
+    group = swin_train.wgrad_group(S)
+    assert 1 <= group <= S and (group - 1) ** 2 < S <= group ** 2
+
+
+@pytest.mark.parametrize("n,M,N", [(4096, 1536, 384), (4096, 384, 1536), (4096, 384, 512),
+                                   (2048, 1152, 384), (2048, 384, 384), (2624, 384, 96)])
+def test_wgrad_ordered_sum_model_matches_ref(n, M, N):
+    """The plain model of swin_wgrad's sum (float32 partials a chunk,
+    summed in chunk order in groups, then the groups in order) agrees with
+    the one-product wgrad_ref to 1e-6 of the largest entry, at the COLA
+    stage-2 and ViT-S widths cut to a small n."""
+    r = np.random.default_rng(n + M + N)
+    a = torch.tensor(r.standard_normal((n, M)).astype(np.float32)).to(torch.bfloat16)
+    b = torch.tensor(r.standard_normal((n, N)).astype(np.float32)).to(torch.bfloat16)
+    S, chunk = swin_train.wgrad_split(n, M, N)
+    assert S > 1  # the sum has more than one chunk
+    parts = [swin_train.wgrad_ref(a[i:i + chunk], b[i:i + chunk]) for i in range(0, n, chunk)]
+    group = swin_train.wgrad_group(S)
+    sums = [swin_train.reduce_ref(torch.stack(parts[g:g + group])) for g in range(0, S, group)]
+    got, want = swin_train.reduce_ref(torch.stack(sums)), swin_train.wgrad_ref(a, b)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+
+
 def test_cpu_tensors_never_reach_the_library():
     """CPU tensors run the plain versions of every train kernel: no build,
     no launch, and the Function's kernel path equals its plain path."""

@@ -78,26 +78,36 @@ def _jax_entry(entry, x, p, n_real, fast_softmax, mm_dtype=jnp.float32):
     return pv.fused_vit_attn(x, p, n_real, **kw)
 
 
+def _attn_parts(x, p, n_real, fast):
+    """The attention half as the card runs it, plain: vit_qkv, then the
+    attention core (vit_attn) and proj (vit_proj) as two steps."""
+    o = vit.vit_attn_core_ref(vit.vit_qkv_ref(x, p), p, n_real, _MODE[fast])
+    return vit.vit_proj_ref(o, x, p)
+
+
 PORT = {"block": lambda x, p, n_real, fast: vit.fused_vit_block(x, p, n_real, _MODE[fast]),
         "attn": lambda x, p, n_real, fast: vit.fused_vit_attn(x, p, n_real, _MODE[fast]),
+        "attn_parts": _attn_parts,
         "mlp": lambda x, p, n_real, fast: vit.fused_vit_mlp(x, p)}
 _MODE = {False: "stable", True: "fast"}
 
 
-@pytest.mark.parametrize("entry", ["block", "attn", "mlp"])
+@pytest.mark.parametrize("entry", ["block", "attn", "attn_parts", "mlp"])
 @pytest.mark.parametrize("fast_softmax", [False, True])
 def test_entry_f32_matches_jax(entry, fast_softmax):
-    """K5, K6, K7 in float32 with 33 real tokens padded to 48."""
+    """K5, K6, K7 in float32 with 33 real tokens padded to 48; attn_parts
+    is K6 through the two plain steps the card splits it into."""
     p, sd = _block(C, HEADS, seed=3)
     xp, n_real = vit.pad_tokens(torch.from_numpy(_x(2, 33, C, seed=1)), 16)
     assert xp.shape[1] == 48 and n_real == 33
-    want = np.asarray(_jax_entry(entry, jnp.asarray(xp.numpy()), p, n_real, fast_softmax))
+    want = np.asarray(_jax_entry(entry.split("_")[0], jnp.asarray(xp.numpy()), p, n_real,
+                                 fast_softmax))
     pb = vit.prep_vit_block(sd, HEADS, torch.float32)
     got = PORT[entry](xp, pb, n_real, fast_softmax)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("entry", ["block", "attn", "mlp"])
+@pytest.mark.parametrize("entry", ["block", "attn", "attn_parts", "mlp"])
 @pytest.mark.parametrize("fast_softmax", [False, True])
 def test_entry_bf16_flow_matches_jax(entry, fast_softmax):
     """bf16 activations and matmuls, f32 LN / softmax / GELU on both sides,
@@ -106,7 +116,8 @@ def test_entry_bf16_flow_matches_jax(entry, fast_softmax):
     xp, n_real = vit.pad_tokens(torch.from_numpy(_x(2, 40, C, seed=2)), 16)
     xb = xp.to(torch.bfloat16)
     xj = jnp.asarray(xp.numpy()).astype(jnp.bfloat16)
-    want = np.asarray(_jax_entry(entry, xj, p, n_real, fast_softmax, jnp.bfloat16), np.float32)
+    want = np.asarray(_jax_entry(entry.split("_")[0], xj, p, n_real, fast_softmax, jnp.bfloat16),
+                      np.float32)
     pb = vit.prep_vit_block(sd, HEADS, torch.bfloat16)
     got = PORT[entry](xb, pb, n_real, fast_softmax)
     assert got.dtype == torch.bfloat16
@@ -172,9 +183,27 @@ def test_cpu_tensors_never_reach_the_library():
     before = vit.launch_counts()
     qkv = vit.vit_qkv(x, pb)
     assert torch.equal(qkv, vit.vit_qkv_ref(x, pb))
-    assert torch.equal(vit.vit_attn(x, qkv, pb, 30, "fast"),
-                       vit.vit_attn_out_ref(x, qkv, pb, 30, "fast"))
+    o = vit.vit_attn(qkv, pb, 30, "fast")
+    assert torch.equal(o, vit.vit_attn_core_ref(qkv, pb, 30, "fast"))
+    assert torch.equal(vit.vit_proj(o, x, pb), vit.vit_attn_out_ref(x, qkv, pb, 30, "fast"))
     assert torch.equal(vit.vit_mlp(x, pb), vit.vit_mlp_ref(x, pb))
     assert vit.launch_counts() == before
     with pytest.raises(ValueError):
         vit.fused_vit_block(x, pb, 30, impl="pallas")
+
+
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", vit.ATTN_MODES[:6])
+def test_core_then_proj_is_the_attention_half(mode, mm_dtype):
+    """The two plain steps the card launches, vit_attn_core_ref (each head's
+    output rounded into its column block) then vit_proj_ref, are bitwise
+    the plain attention half vit_attn_out_ref, in every mode, with padded
+    keys masked."""
+    _, sd = _block(C, HEADS, seed=17)
+    pb = vit.prep_vit_block(sd, HEADS, mm_dtype)
+    xp, n_real = vit.pad_tokens(torch.from_numpy(_x(2, 37, C, seed=7)), 16)
+    x = xp.to(mm_dtype)
+    qkv = vit.vit_qkv_ref(x, pb)
+    o = vit.vit_attn_core_ref(qkv, pb, n_real, mode)
+    assert o.shape == x.shape and o.dtype == x.dtype
+    assert torch.equal(vit.vit_proj_ref(o, x, pb), vit.vit_attn_out_ref(x, qkv, pb, n_real, mode))
