@@ -32,9 +32,12 @@
 //    narrow stage-0 products still fill all 132 SMs.
 //  - left for later: the products reach about 450-630 TFLOP/s a busy SM
 //    (half to two thirds of the tensor rate) and the grids end in a short
-//    wave; a persistent (stream-K) schedule and TMA multicast in a cluster
-//    would lift both, and the operands could stay on chip altogether if the
-//    products were fused into the backward kernels, as in the TPU bodies.
+//    wave. Measured without effect on the card: TMA multicast of the shared
+//    operand in 2-block clusters (1-2%), 32-token stages in twice the
+//    slots (slower), wider loads in the ordered sum. A persistent
+//    (stream-K) schedule would even the waves; the operands could stay on
+//    chip altogether if the products were fused into the backward kernels,
+//    as in the TPU bodies.
 //  - the ordered sum lives in the same launch: each chunk's block writes
 //    its float32 partial tile to a workspace and takes a ticket on an
 //    integer arrival counter (an atomic on a counter, never on data). The
@@ -42,8 +45,8 @@
 //    partials in chunk order; the last group sums the group sums in group
 //    order and writes out. Every output element is thus summed in one fixed
 //    order, whichever blocks finish first, so two launches agree bitwise.
-//    Two levels keep the serial tail of the last block to about 2 sqrt(S)
-//    tiles read, not S.
+//    Past 8 chunks two levels keep the serial tail of the last block to
+//    about 2 sqrt(S) tiles read, not S; up to 8, one level is faster.
 // swin_reduce reads S L floats once: bound by HBM.
 #include "wgmma_gemm.cuh"
 

@@ -79,6 +79,7 @@ WGRAD_TILE = 128  # swin_wgrad output tile columns (rows: wgrad_tile_rows)
 # Audio-MAE step's products (bench/wgrad_time.py shapes, PERF.md)
 WGRAD_BLOCKS = 132
 WGRAD_STEP_COST = 16
+WGRAD_ONE_LEVEL = 8  # chunks summed by one last block; past it, two levels
 
 
 # ---------------------------------------------------------------------------
@@ -288,10 +289,11 @@ def wgrad_tile_rows(M: int) -> int:
 
 
 def wgrad_group(S: int) -> int:
-    """Chunks in a first-level group of swin_wgrad's ordered sum: about
-    sqrt(S), so the last block of a group and the last group each read
-    about sqrt(S) partial tiles."""
-    return max(1, math.ceil(math.sqrt(S)))
+    """Chunks in a first-level group of swin_wgrad's ordered sum: all S up
+    to WGRAD_ONE_LEVEL (one level: the last block reads S partial tiles),
+    else about sqrt(S), so the last block of a group and the last group
+    each read about sqrt(S)."""
+    return S if S <= WGRAD_ONE_LEVEL else math.ceil(math.sqrt(S))
 
 
 def swin_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

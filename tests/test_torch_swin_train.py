@@ -220,7 +220,7 @@ def test_wgrad_split_covers_the_tokens_in_fixed_chunks(n, M, N):
     assert 1 <= S <= n // 64
     assert swin_train.wgrad_tile_rows(M) == (256 if M >= 512 else 128)
     group = swin_train.wgrad_group(S)
-    assert 1 <= group <= S and (group - 1) ** 2 < S <= group ** 2
+    assert group == S if S <= swin_train.WGRAD_ONE_LEVEL else (group - 1) ** 2 < S <= group ** 2
 
 
 @pytest.mark.parametrize("n,M,N", [(4096, 1536, 384), (4096, 384, 1536), (4096, 384, 512),
