@@ -37,10 +37,11 @@ Phases (each prints one line; any failure exits non-zero):
      and vit_mlp against their plain versions at the operaGT (B=16, 1040
      tokens, C 384, 6 heads) and Audio-MAE (B=16, 528 tokens, C 768, 12
      heads) shapes, padded keys masked (n_real < Np), both softmax modes:
-     cosine of each output (qkv, o_pre) or branch (out - x; vit_attn then
-     vit_proj against the plain attention half) >= 0.99999, two launches
-     bitwise equal, with times, the bound and the library call's time (SDPA
-     for the core, torch.addmm plus the residual for proj)
+     cosine of each output (qkv and vit_qkv's LN1 output, o_pre) or branch
+     (out - x; vit_attn then vit_proj against the plain attention half) >=
+     0.99999, two launches bitwise equal, with times, the bound and the
+     library call's time (SDPA for the core, torch.addmm plus the residual
+     for proj)
  10. operaGT served: a random-init full-width operaGT server answers
      /healthz and /extract on the same 20 WAVs (clips over 8.18 s split into
      several chunks); served == offline; 12 vit_qkv + 12 vit_attn + 12
@@ -58,11 +59,13 @@ Phases (each prints one line; any failure exits non-zero):
      versions at the CP shapes (Audio-MAE B=64, 160 tokens / 154 real, C 768;
      OPERA-GT B=64, 320 / 308 and 80 / 77, C 384) and once at the operaGT
      fine-tuning shape (B=4, 1040 / 1025): the dx / dh1 branch, every operand
-     row and every gradient leaf >= 0.99999, two launches bitwise equal,
-     padded rows of the input gradient exactly 0; fused_vit_block_train
-     against impl="plain" (output branch and every leaf); times a launch, the
-     plain halves, the bound of K9's backward function and SDPA's backward
-     on the same q, k, v, dO
+     row (dq, dk and dv apart) and every gradient leaf >= 0.99999, two
+     launches bitwise equal, padded rows of the input gradient and the dk /
+     dv rows of the padded keys exactly 0; fused_vit_block_train against
+     impl="plain" (output branch and every leaf); times a launch, the plain
+     halves, the bound of K9's backward function, SDPA's backward on the same
+     q, k, v, dO, vit_attn_bwd's function as a chain of library calls, and
+     each of vit_attn_bwd's six grid launches alone
  15. Audio-MAE CP: three synthetic heart corpora (fbank clips of 600-1400
      frames x 128) on disk, one epoch of method=audiomae at B=64 through
      cli.pretrain on the kernels (12 launches of each backward kernel a
@@ -954,10 +957,11 @@ def phase_vit_kernels(dev):
         for k, w in work.items():
             bounds[k] = Work()
             bounds[k].add(*w)
-        qkv = vit.vit_qkv(x, p)
+        qkv, ln1 = vit.vit_qkv(x, p, return_ln=True)
         qkv_ref = vit.vit_qkv_ref(x, p)
         torch.cuda.synchronize()
         c = _cos(qkv.float().cpu(), qkv_ref.float().cpu())
+        c_ln = _cos(ln1.float().cpu(), vit.ln1_rows(x, p).float().cpu())
         same = torch.equal(qkv, vit.vit_qkv(x, p))
         err = float((qkv.float() - qkv_ref.float()).abs().max())
         k_ms = _time_ms(lambda: vit.vit_qkv(x, p))
@@ -965,11 +969,12 @@ def phase_vit_kernels(dev):
         h = vit._ln(x, p.ln1_w, p.ln1_b, vit.LN_EPS).to(torch.bfloat16).reshape(-1, C)
         bq = p.b_qkv.to(torch.bfloat16)
         l_ms = _time_ms(lambda: torch.addmm(bq, h, p.w_qkv.t()))
-        print(f"[vit kernel] vit_qkv {tower} C={C} Np={Np} B={B}: cos {c:.7f} max|d| {err:.4g}; "
-              f"bitwise repeatable {same}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
-              f"{bounds['vit_qkv'].bound_ms:.4f} ms ({bounds['vit_qkv'].bound_by}); addmm on "
-              f"the LN output {l_ms:.4f} ms", flush=True)
-        _require(c >= KERNEL_BAR and same, f"vit_qkv {tower}: cosine {c}, repeatable {same}")
+        print(f"[vit kernel] vit_qkv {tower} C={C} Np={Np} B={B}: cos {c:.7f} max|d| {err:.4g}, "
+              f"its LN1 output cos {c_ln:.7f}; bitwise repeatable {same}; kernel {k_ms:.4f} ms "
+              f"plain {p_ms:.4f} ms bound {bounds['vit_qkv'].bound_ms:.4f} ms "
+              f"({bounds['vit_qkv'].bound_by}); addmm on the LN output {l_ms:.4f} ms", flush=True)
+        _require(min(c, c_ln) >= KERNEL_BAR and same,
+                 f"vit_qkv {tower}: cosine {c}, LN1 output {c_ln}, repeatable {same}")
         meas = {"vit_qkv": (k_ms, p_ms, err, l_ms)}
         q, kk, vv = qkv_ref[0], qkv_ref[1][:, :, :n_real], qkv_ref[2][:, :, :n_real]
         sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1273,6 +1278,7 @@ def phase_vit_train_kernels(dev):
     vit_attn_bwd, vit_mlp_bwd and that step's swin_wgrad / swin_reduce."""
     import torch
 
+    from heart_murmur_detection_tpu_torch.bench.vit_bwd_time import library_chain
     from heart_murmur_detection_tpu_torch.ops import swin_train as st
     from heart_murmur_detection_tpu_torch.ops import vit
     from heart_murmur_detection_tpu_torch.ops import vit_train as vt
@@ -1296,9 +1302,15 @@ def phase_vit_train_kernels(dev):
         _, arow, part_a = vt.vit_attn_bwd_launch(x, dh1, p, n_real)
         dx, ga, aref = vt.vit_attn_bwd_ref(x, dh1, p, n_real, rows=True)
         torch.cuda.synchronize()
+        # dqkv's thirds apart: dq (query pass), dk and dv (key pass)
+        arow_3 = (*arow[:2], *arow[2].reshape(-1, 3, C).unbind(1))
+        aref_3 = (*aref[:2], *aref[2].reshape(-1, 3, C).unbind(1))
+        pad_kv = not bool(arow[2].reshape(B, Np, 3, C)[:, n_real:, 1:].any())
+        _require(pad_kv, f"vit_attn_bwd {shape}: dk / dv rows of the padded keys are not 0")
         for what, d_1, d_2, gg1, gg2, want_d, base, want_g, rows, ref_rows, names in (
             ("vit_mlp_bwd", d1, d2, g1, g2, dh1, dy, gm, mrow, mref, ("LN2(h1)", "GELU(a1)", "da1")),
-            ("vit_attn_bwd", a1, a2, ga1, ga2, dx, dh1, ga, arow, aref, ("LN1(x)", "o_pre", "dqkv")),
+            ("vit_attn_bwd", a1, a2, ga1, ga2, dx, dh1, ga, arow_3, aref_3,
+             ("LN1(x)", "o_pre", "dq", "dk", "dv")),
         ):
             same = torch.equal(d_1, d_2) and all(torch.equal(gg1[q], gg2[q]) for q in gg1)
             _require(same, f"{what} {shape}: two launches differ")
@@ -1347,6 +1359,16 @@ def phase_vit_train_kernels(dev):
         do = torch.randn(o.shape, generator=r).to(dev, o.dtype)
         lib_ms = _time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
                           iters=10, warm=2)
+        # the whole function as library calls (bench/vit_bwd_time.py), and
+        # vit_attn_bwd's grid launches one by one
+        chain, _ = library_chain(x, dh1, p, n_real)
+        chain_ms = _time_ms(chain, iters=10, warm=2)
+        steps, _ = vt.vit_attn_bwd_steps(x, dh1, p, n_real)
+        split = {name: round(_time_ms(fn, iters=10, warm=2), 4) for name, fn in steps}
+        print(f"[vit train kernels] {shape}: vit_attn_bwd's function as library calls "
+              f"(layer_norm, addmm, mm, SDPA backward, mm, the LayerNorm backward) "
+              f"{chain_ms:.4f} ms; vit_attn_bwd's grid launches one by one (ms): {split}",
+              flush=True)
         (wm, om), (wa, oa), (ww, ow) = _vit_bwd_work(B, Np, n_real, C, heads)
         bm, ba, bw = Work(), Work(), Work()
         bm.add(wm, om)

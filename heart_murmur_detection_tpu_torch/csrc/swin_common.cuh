@@ -1,8 +1,9 @@
 // Shared pieces of the HTS-AT swin kernels (swin_attn.cu, swin_mlp.cu and
 // the training backward: swin_attn_bwd.cu, swin_mlp_bwd.cu) and of the MAE
-// ViT kernels (vit_qkv.cu, vit_attn.cu, vit_attn_bwd.cu; swin_mlp.cu serves
-// as the ViT MLP half with LayerNorm eps 1e-6). The wgmma kernels
-// (swin_wgrad.cu, vit_proj.cu, vit_attn.cu) take theirs from wgmma_gemm.cuh.
+// ViT kernels (swin_mlp.cu serves as the ViT MLP half with LayerNorm eps
+// 1e-6; vit_qkv.cu, vit_attn.cu and vit_attn_bwd.cu take the warp sums and
+// limits). The wgmma kernels (swin_wgrad.cu, vit_proj.cu, vit_qkv.cu,
+// vit_attn.cu, vit_attn_bwd.cu) take their products from wgmma_gemm.cuh.
 //
 // Both kernels take bfloat16 activations and weights and keep LayerNorm,
 // softmax, GELU and every accumulator in float32. In-kernel products are

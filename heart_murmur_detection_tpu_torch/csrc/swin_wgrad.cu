@@ -133,7 +133,7 @@ swin_wgrad_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   const int t0 = s * chunk;
   const int steps = (min(n, t0 + chunk) - t0) / GEMM_BK;
   float acc[MT][64];
-  gemm_core<true, MT>(sm, &ta, &tb, m0, n0, t0, steps, acc);
+  gemm_core<true, true, MT>(sm, &ta, &tb, m0, n0, t0, steps, acc);
 
   // this thread's accumulator rows (r + 64 i, + 8) and column pairs of the tile
   const bool consumer = threadIdx.x < CONSUMERS;

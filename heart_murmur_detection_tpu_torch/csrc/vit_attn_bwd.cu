@@ -19,380 +19,380 @@
 // dLN1 b (C)], summed later in block order by swin_reduce. No atomics: every
 // element is written by one thread, every sum taken by one thread in order.
 //
-// Design: four launches on the caller's stream (one call of the wrapper).
-//  1. prep (64-token tiles x 4): LN1(x) -> h_g and the recomputed q, k, v
-//     (rounded as the forward rounds them), and do = dh1 W_proj, both written
-//     head-major to scratch, as vit_qkv.cu writes q, k, v.
-//  2. query pass (64 query rows of one clip and head a block, 4 warps of 16
-//     rows, keys streamed in 64-key tiles as in vit_attn.cu with the scores
-//     in mma.sync registers): the row max and sum of exp; then P and
-//     dP = do v^T per tile, the row term D = rowsum(P dP) in float32 from the
-//     unrounded P, and o_pre = bf16(P) V; then dS = P (dP - D), rounded to
-//     bf16, and dq = dS K. It writes o_pre and dq rows and (max, sum, D) per
-//     query row. dQ's sum over key tiles stays inside the block, so it needs
-//     no atomics.
-//  3. key pass (64 key rows a block): walks the query tiles, recomputes
-//     P^T = exp(K Q^T - max) / sum and dP^T = V do^T from the row statistics,
-//     dS^T = P^T (dP^T - D), and accumulates dv = bf16(P^T) do and
-//     dk = bf16(dS^T) q in float32 registers, rounded once.
-//  4. dx (contiguous runs of 64-token tiles a block): dh = dqkv W_qkv
-//     (K = 3C, WMMA) into float32 shared memory, the column sums, and the LN1
-//     backward one warp a token.
-// Padded keys (>= n_real) have P exactly 0, so their key tiles are skipped in
-// pass 2 and their dk / dv rows are written as zeros; padded query rows take
-// part as in the plain version (their dh1 is 0 on the training path, so they
-// add exact zeros). K and V of one head at Np = 1040 do not fit in shared
-// memory, so both passes stream them; nothing a pass keeps grows with Np.
-//
-// Bound on this card: per block of n tokens ~14 n C^2 FLOPs for the qkv
-// recompute and the do and dh products plus ~10 Np n C for the attention
-// products (recompute included), against ~6 n C bytes in and out, so the
-// operations bound it. This first version recomputes S three times and dP
-// twice, and keeps its products on mma.sync / WMMA without a pipeline.
+// Bound on this card: per block of n tokens ~14 n C^2 operations for the
+// qkv recompute and the do and dh products plus ~12 Np n C for the six
+// attention products, against ~6 n C bytes in and out, so the operations
+// bind; at the Audio-MAE CP shape the three weight-shaped products are
+// about 85% of them. Design: six grid launches on the caller's stream (one
+// call of the wrapper), each on wgmma with TMA-fed operands (the pieces of
+// wgmma_gemm.cuh and vit_attn.cu):
+//  1. qkv: vit_qkv.cu's LN1 + qkv kernel (one LN1 a token, the W_qkv tiles
+//     streamed over all 3C columns), with its h_g output; q, k, v land
+//     head-major in scratch, rounded as the forward rounds them.
+//  2. do = dh1 W_proj on the GEMM core with A K-major (token rows) and B
+//     MN-major (the torch (out, in) weight read as (K, N)), rounded once and
+//     scattered head-major to scratch from the accumulator registers.
+//  3. query pass, a warpgroup a block of 64 query rows of one clip and head
+//     and a producer warp streaming that head's K and V tiles through a TMA
+//     ring: pass one forms S = Q K^T and dP = dO V^T with wgmma and keeps,
+//     per row, the max, sum of exp(s - max) and sum of exp(s - max) dP
+//     (rescaled together when the max moves), so D = rowsum(P dP) comes
+//     from the unrounded float32 P and dP in the same pass as the
+//     statistics; pass two forms S and dP again, P, o_pre = bf16(P) V and
+//     dS = P (dP - D), dq = bf16(dS) K, the last two as wgmma with the
+//     rounded P / dS in registers as A. It writes o_pre and dq rows and
+//     (max log2 e, 1 / sum, D) of each query row. dq's sum over key tiles
+//     stays in the warpgroup's registers: no atomics.
+//  4. key pass, a warpgroup a block of 64 key rows, the head's Q and dO
+//     tiles streamed: S^T = K Q^T and dP^T = V dO^T with wgmma, P^T and
+//     dS^T from the query rows' statistics, dv += bf16(P^T) dO and
+//     dk += bf16(dS^T) Q in float32 registers over all query tiles, rounded
+//     once. Padded keys (>= n_real) have P exactly 0: their key tiles are
+//     skipped in pass 3 and their dk / dv rows written as zeros. Padded
+//     query rows take part as in the plain version (their dh1 is 0 on the
+//     training path, so they add exact zeros).
+//  5. dh = dqkv W_qkv (K = 3C) on the GEMM core (A K-major, B MN-major),
+//     float32 rows to scratch.
+//  6. a row pass over contiguous runs of 64-token tiles: the LN1 backward
+//     (dx = dh1 + LN1^T(dh)), one warp a token, and the column sums of each
+//     run in token order, in 8- and 16-byte loads.
+// Nothing either attention pass keeps grows with Np, so both stream at every
+// sequence length (80 to 1040 tokens); each computes S and dP twice (query
+// pass) or once (key pass).
 #include "vit_attn_common.cuh"
+#include "wgmma_gemm.cuh"
+
+extern "C" int vit_qkv_launch(const void* x, void* qkv, void* h_out, const void* w_qkv,
+                              const void* b_qkv, const void* ln_w, const void* ln_b,
+                              int n_tokens, int Np, int C, int heads, float eps, void* stream);
 
 namespace hmdt {
 
-constexpr int VT = 64;  // tokens a tile of the row-wise launches (prep, dx)
+using namespace hop;
 
-// LayerNorm statistics of one token's C channels by one warp, in the order
-// ln_token computes them; lane 0 writes them.
-template <int C>
-__device__ __forceinline__ void ln_stats(const bf16* __restrict__ src, int lane, float eps,
-                                         float* mu_out, float* rstd_out) {
-  constexpr int PER = C / 32;
-  float v[PER];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    v[i] = __bfloat162float(src[lane + 32 * i]);
-    s += v[i];
-  }
-  const float mu = warp_sum(s) / (float)C;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const float d = v[i] - mu;
-    q += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(q) / (float)C + eps);
-  if (lane == 0) {
-    *mu_out = mu;
-    *rstd_out = rstd;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 1. prep: LN1 + q, k, v (blockIdx.y 0..2) and do = dh1 W_proj (blockIdx.y 3)
-// ---------------------------------------------------------------------------
-
-template <int C>
-struct PrepSmem {
-  static constexpr int LDX = C + PAD;
-  static constexpr size_t XN = (size_t)VT * LDX * 2;
-  static constexpr size_t STAGE = (size_t)NWARPS * 256 * 4;
-  static constexpr size_t bytes = XN + STAGE;
-  static_assert(XN % 128 == 0, "regions must stay 128-byte aligned");
-  static_assert(bytes <= SMEM_LIMIT, "shared memory over the sm_90 limit");
+enum BwdStep : int {
+  STEP_QKV = 1,
+  STEP_DO = 2,
+  STEP_QUERY = 4,
+  STEP_KEY = 8,
+  STEP_DH = 16,
+  STEP_ROWS = 32,
+  STEPS_ALL = 63
 };
 
-template <int C>
-__global__ void __launch_bounds__(NTHREADS)
-vit_attn_bwd_prep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dh1,
-                         const bf16* __restrict__ w_qkv, const float* __restrict__ b_qkv,
-                         const bf16* __restrict__ w_proj, const float* __restrict__ ln_w,
-                         const float* __restrict__ ln_b, bf16* __restrict__ h_g,
-                         bf16* __restrict__ qkv, bf16* __restrict__ dob, int n_tokens, int Np,
-                         int heads, float eps) {
-  using L = PrepSmem<C>;
-  constexpr int RT = VT / 16;
-  constexpr int CT = C / 16;
-  constexpr int VEC = C / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xn = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* stage = reinterpret_cast<float*>(smem + L::XN) + warp * 256;
-  const int tok0 = blockIdx.x * VT;
-  const int which = blockIdx.y;  // 0 q, 1 k, 2 v: LN1(x) W_qkv^T; 3: dh1 W_proj
-  const int B = n_tokens / Np;
+// ---------------------------------------------------------------------------
+// 2, 5. token-row products on the GEMM core: A (M, K) K-major, B (K, N)
+// MN-major, a 128 x 128 tile a block over all of K
+// ---------------------------------------------------------------------------
 
-  if (which < 3) {
-    for (int t = warp; t < VT; t += NWARPS) {
-      const int tok = tok0 + t;
-      if (tok < n_tokens) {
-        ln_token<C>(x + (size_t)tok * C, ln_w, ln_b, xn + t * L::LDX, lane, nullptr, nullptr,
-                    eps);
-      } else {
-        for (int c = lane; c < C; c += 32) xn[t * L::LDX + c] = __float2bfloat16(0.f);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < VT * VEC; i += NTHREADS) {
-      const int r = i / VEC;
-      reinterpret_cast<int4*>(xn + r * L::LDX)[i % VEC] =
-          tok0 + r < n_tokens
-              ? reinterpret_cast<const int4*>(dh1 + (size_t)(tok0 + r) * C)[i % VEC]
-              : make_int4(0, 0, 0, 0);
-    }
-  }
+enum RowsEpilogue : int {
+  EPI_F32 = 0,    // out (M, N) float32 rows
+  EPI_HEADS = 1,  // out (B, heads, Np, 64) bf16, one rounding (N = heads 64)
+};
+
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 2)
+rows_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                 void* __restrict__ out, int M, int N, int K, int Np, int heads) {
+  extern __shared__ uint8_t smem_raw[];
+  GemmSmem<1>& sm = gemm_smem<1>(smem_raw);
+  gemm_init(sm);
   __syncthreads();
-  if (which == 0) copy_rows_out(xn, L::LDX, h_g + (size_t)tok0 * C, min(VT, n_tokens - tok0), C);
+  const int n0 = blockIdx.x * GEMM_COLS, m0 = blockIdx.y * GemmCfg<1>::ROWS;
+  float acc[1][64];
+  gemm_core<false, true, 1>(sm, &ta, &tb, m0, n0, 0, (K + GEMM_BK - 1) / GEMM_BK, acc);
+  if (threadIdx.x >= CONSUMERS) return;
+  acc_pairs(acc[0], m0 + (threadIdx.x / 128) * 64, n0, [&](int row, int col, float v0, float v1) {
+    if (row >= M || col >= N) return;
+    if (EPI == EPI_F32) {
+      *reinterpret_cast<float2*>(static_cast<float*>(out) + (size_t)row * N + col) =
+          make_float2(v0, v1);
+    } else {
+      const int b = row / Np, t = row % Np;
+      const size_t off = (((size_t)b * heads + col / AHD) * Np + t) * AHD + col % AHD;
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  });
+}
 
-  for (int ct = warp; ct < CT; ct += NWARPS) {
-    FragC acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) wmma::fill_fragment(acc[r], 0.f);
-    if (which < 3) {  // B(k, n) = W_qkv[which C + n][k]
-      const bf16* wb = w_qkv + (size_t)(which * C + ct * 16) * C;
-#pragma unroll 2
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        FragBc bw;
-        wmma::load_matrix_sync(bw, wb + k0, C);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          FragA a;
-          wmma::load_matrix_sync(a, xn + r * 16 * L::LDX + k0, L::LDX);
-          wmma::mma_sync(acc[r], a, bw, acc[r]);
-        }
-      }
-    } else {  // B(k, n) = W_proj[k][n]
-#pragma unroll 2
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        FragBr bw;
-        wmma::load_matrix_sync(bw, w_proj + (size_t)k0 * C + ct * 16, C);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          FragA a;
-          wmma::load_matrix_sync(a, xn + r * 16 * L::LDX + k0, L::LDX);
-          wmma::mma_sync(acc[r], a, bw, acc[r]);
-        }
-      }
-    }
-    // (+ bias), one rounding, head-major store: column c is head c / 64
-    const int h = (ct * 16) / AHD;
-    const int d0 = (ct * 16) % AHD;
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      wmma::store_matrix_sync(stage, acc[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int tok = tok0 + r * 16 + e / 16;
-        const int c = e % 16;
-        if (tok < n_tokens) {
-          const int b = tok / Np;
-          const int t = tok % Np;
-          if (which < 3) {
-            const size_t off = ((((size_t)which * B + b) * heads + h) * Np + t) * AHD + d0 + c;
-            qkv[off] = __float2bfloat16(stage[e] + b_qkv[which * C + ct * 16 + c]);
-          } else {
-            dob[(((size_t)b * heads + h) * Np + t) * AHD + d0 + c] = __float2bfloat16(stage[e]);
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
+// out = a (M, K) b (K, N), bf16 row-major operands, K and N multiples of 8.
+template <int EPI>
+static int launch_rows_gemm(const void* a, const void* b, void* out, int M, int N, int K, int Np,
+                            int heads, cudaStream_t stream) {
+  CUtensorMap ma, mb;
+  const uint64_t da[2] = {(uint64_t)K, (uint64_t)M}, db[2] = {(uint64_t)N, (uint64_t)K};
+  const uint32_t box[2] = {BOX, BOX};
+  int err = make_tensor_map(&ma, a, 2, da, box);
+  if (!err) err = make_tensor_map(&mb, b, 2, db, box);
+  if (err) return err;
+  constexpr size_t smem = gemm_smem_bytes<1>();
+  cudaError_t e = cudaFuncSetAttribute(rows_gemm_kernel<EPI>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + GEMM_COLS - 1) / GEMM_COLS, (M + GemmCfg<1>::ROWS - 1) / GemmCfg<1>::ROWS);
+  rows_gemm_kernel<EPI><<<grid, THREADS, smem, stream>>>(ma, mb, out, M, N, K, Np, heads);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// 2. query pass: row statistics, D, o_pre and dq for 64 query rows
+// 3, 4. the attention passes: one consumer warpgroup (64 rows) and one
+// producer warp a block
 // ---------------------------------------------------------------------------
 
-constexpr int BKT = 64;  // keys (pass 2) or queries (pass 3) a streamed tile
-constexpr int BNB = BKT / 8;
+constexpr int BT = 64;                        // rows a block, and rows a streamed tile
+constexpr int BWD_CONSUMERS = 128;
+constexpr int BWD_THREADS = BWD_CONSUMERS + 32;
+constexpr int BSLOT = 8;                      // streamed tiles in flight
+constexpr int TILE_BYTES = BT * AHD * 2;      // 8 KB
+constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x log2 e), as vit_attn.cu
 
-// Load the next K and V tiles into shared memory after every warp is done
-// with the current ones (the register copies were fetched during the tile).
-__device__ __forceinline__ void swap_tiles(bool more, const TileRegs<BKT>& ar, bf16* as,
-                                           const TileRegs<BKT>& br, bf16* bs) {
-  __syncthreads();  // every warp is done with the current tiles
-  if (more) {
-    store_tile<BKT>(ar, as);
-    store_tile<BKT>(br, bs);
-    __syncthreads();
+struct BwdSmem {
+  uint8_t a[TILE_BYTES];  // the block's own tiles: Q and dO (query pass), K and V (key pass)
+  uint8_t b[TILE_BYTES];
+  uint8_t ring[BSLOT][TILE_BYTES];
+  float stats[2][3][BT];  // key pass: (max log2 e, 1 / sum, D) of a query tile, two buffers
+  uint64_t abar;
+  uint64_t full[BSLOT];
+  uint64_t empty[BSLOT];
+};
+constexpr size_t BWD_SMEM = sizeof(BwdSmem) + 1024;  // with the alignment slack
+static_assert(2 * BWD_SMEM <= SMEM_LIMIT, "two blocks an SM must fit");
+
+__device__ __forceinline__ void bwd_init(BwdSmem& sm) {
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.abar, 1);
+    for (int i = 0; i < BSLOT; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], BWD_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// The producer's ring: the tiles in the order the consumers take them.
+struct Ring {
+  BwdSmem& sm;
+  int it = 0;
+  __device__ __forceinline__ void push(const CUtensorMap* map, int slab, int row0) {
+    const int slot = it % BSLOT;
+    mbar_wait(&sm.empty[slot], ((it / BSLOT) & 1) ^ 1);
+    mbar_expect_tx(&sm.full[slot], TILE_BYTES);
+    tma_load_3d(sm.ring[slot], map, &sm.full[slot], 0, row0, slab);
+    ++it;
+  }
+  // the consumers' side: tile k after the next, waited for; release(n)
+  // frees the next n tiles
+  __device__ __forceinline__ const uint8_t* tile(int k) {
+    const int i = it + k, slot = i % BSLOT;
+    mbar_wait(&sm.full[slot], (i / BSLOT) & 1);
+    return sm.ring[slot];
+  }
+  __device__ __forceinline__ void release(int n) {
+    for (int k = 0; k < n; ++k) mbar_arrive(&sm.empty[(it + k) % BSLOT]);
+    it += n;
+  }
+};
+
+// s = A B^T for a 64-row tile A and a 64-row tile B, both (rows, 64 dims)
+// K-major in shared memory (Q K^T, dO V^T and their transposes); issued,
+// not waited for.
+__device__ __forceinline__ void tile_scores(float (&s)[32], const uint8_t* a, const uint8_t* b) {
+  wgmma_m64n64_ss_first<0, 0>(s, desc_sw128(a, 16, ATOM), desc_sw128(b, 16, ATOM));
+#pragma unroll
+  for (int kk = 1; kk < AHD / 16; ++kk)
+    wgmma_m64n64_ss<0, 0>(s, desc_sw128(a + kk * 32, 16, ATOM), desc_sw128(b + kk * 32, 16, ATOM));
+}
+
+// A 64 x 64 accumulator p rounded to bf16 as the register A operand of
+// tile_pv: keys (or queries) 16 kk .. 16 kk + 15 are its column blocks 2 kk
+// and 2 kk + 1. Packed before the products' wg_fence, so the compiler need
+// not fence the registers again.
+__device__ __forceinline__ void pack_a(const float (&p)[32], uint32_t (&pa)[BT / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) pa[kk][q] = pack_bf16(p[8 * kk + 2 * q], p[8 * kk + 2 * q + 1]);
+}
+
+// acc += P V for P packed by pack_a (rows x the tile's 64 rows of V) and V
+// (64 rows, 64 dims) MN-major in shared memory; issued, not waited for.
+__device__ __forceinline__ void tile_pv(float (&acc)[32], const uint32_t (&pa)[BT / 16][4],
+                                        const uint8_t* v) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk)
+    wgmma_m64n64_rs<1>(acc, pa[kk], desc_sw128(v + kk * 2048, ATOM, ATOM));
+}
+
+// Store a 64 x 64 accumulator's rows r < Np (this thread's rows row0,
+// row0 + 8), rounded to bf16, at dst + r * ld + its columns.
+__device__ __forceinline__ void store_rows(const float (&acc)[32], bf16* dst, size_t ld,
+                                           int row0, int Np, int t) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + 8 * hr;
+    if (r >= Np) continue;
+    bf16* d = dst + (size_t)r * ld + 2 * t;
+#pragma unroll
+    for (int j = 0; j < AHD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(d + 8 * j) = pack_bf16(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
   }
 }
 
-__global__ void __launch_bounds__(ATHREADS)
-vit_attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
-                      bf16* __restrict__ opre_g, bf16* __restrict__ dqkv_g,
-                      float* __restrict__ stats, int Np, int n_real) {
-  __shared__ __align__(128) bf16 ks[BKT * LDT];
-  __shared__ __align__(128) bf16 vs[BKT * LDT];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * AQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int heads = gridDim.y;
-  const int B = gridDim.z;
-  const int C = heads * AHD;
-  const size_t hstride = (size_t)Np * AHD;
-  const bf16* kh = qkv + ((size_t)(B + b) * heads + h) * hstride;
-  const bf16* vh = qkv + ((size_t)(2 * B + b) * heads + h) * hstride;
-  const int n_kt = (n_real + BKT - 1) / BKT;  // key tiles holding real keys
-  const int row0 = warp * 16 + g;
+// grid (ceil(Np / 64), heads, B). tqkv: the head-major q, k, v scratch as
+// (3 B heads, Np, 64); tdo: do as (B heads, Np, 64); boxes of 64 rows.
+// stats (3, B heads Np): max log2 e, 1 / sum, D of each query row.
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+vit_attn_bwd_q_kernel(const __grid_constant__ CUtensorMap tqkv,
+                      const __grid_constant__ CUtensorMap tdo, bf16* __restrict__ opre_g,
+                      bf16* __restrict__ dqkv_g, float* __restrict__ stats, int Np, int n_real) {
+  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int heads = gridDim.y, B = gridDim.z, C = heads * AHD;
+  extern __shared__ uint8_t smem_raw[];
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(align_1024(smem_raw));
+  bwd_init(sm);
+  Ring ring{sm};
+  const int n_kt = (n_real + BT - 1) / BT;  // key tiles holding real keys
+  if (threadIdx.x >= BWD_CONSUMERS) {
+    if (threadIdx.x == BWD_CONSUMERS) {
+      const int bh = b * heads + h;
+      mbar_expect_tx(&sm.abar, 2 * TILE_BYTES);
+      tma_load_3d(sm.a, &tqkv, &sm.abar, 0, q0, bh);
+      tma_load_3d(sm.b, &tdo, &sm.abar, 0, q0, bh);
+      for (int pass = 0; pass < 2; ++pass)
+        for (int kt = 0; kt < n_kt; ++kt) {
+          ring.push(&tqkv, B * heads + bh, kt * BT);      // K
+          ring.push(&tqkv, 2 * B * heads + bh, kt * BT);  // V
+        }
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int row0 = q0 + (threadIdx.x / 32) * 16 + (lane >> 2);  // rows row0, row0 + 8
+  // this tile's S and dP; the key columns >= n_real get the masked logit
+  float s[32], dp[32];
+  auto scores = [&](int kt, const uint8_t* ks, const uint8_t* vs) {
+    wg_fence();
+    tile_scores(s, sm.a, ks);
+    tile_scores(dp, sm.b, vs);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if ((kt + 1) * BT > n_real) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (kt * BT + 8 * (i >> 2) + 2 * t + (i & 1) >= n_real) s[i] = MASK_LOGIT;
+    }
+  };
+  mbar_wait(&sm.abar, 0);
 
-  uint32_t qa[AHD / 16][4], da[AHD / 16][4];
-  load_a_rows(qkv + ((size_t)b * heads + h) * hstride, q0 + warp * 16, Np, g, t, qa);
-  load_a_rows(dob + ((size_t)b * heads + h) * hstride, q0 + warp * 16, Np, g, t, da);
-  TileRegs<BKT> kr, vr;
-
-  // pass 1: each row's max and sum of exp(s - max), as vit_attn's stable pass
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  fetch_tile<BKT>(kh, 0, Np, kr);
-  store_tile<BKT>(kr, ks);
-  __syncthreads();
+  // pass 1: per row (element i is row hr = (i >> 1) & 1) the max m, and
+  // l = sum exp(s - m), d = sum exp(s - m) dP over this thread's columns,
+  // rescaled together when m moves
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) fetch_tile<BKT>(kh, (kt + 1) * BKT, Np, kr);
-    float s[BNB][4];
-    score_tile<BKT>(qa, ks, kt * BKT, n_real, g, t, s);
+    scores(kt, ring.tile(0), ring.tile(1));
+    ring.release(2);
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      float tmax = s[0][2 * hr];
+      float tmax = m[hr];
 #pragma unroll
-      for (int nb = 0; nb < BNB; ++nb) tmax = fmaxf(tmax, fmaxf(s[nb][2 * hr], s[nb][2 * hr + 1]));
-      const float mn = fmaxf(m[hr], tmax);
-      float e = 0.f;
+      for (int j = 0; j < 8; ++j) tmax = fmaxf(tmax, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+      const float ml = tmax * LOG2E;
+      const float scale = exp2f(fmaf(m[hr], LOG2E, -ml));
+      float le = 0.f, de = 0.f;
 #pragma unroll
-      for (int nb = 0; nb < BNB; ++nb)
-        e += expf(s[nb][2 * hr] - mn) + expf(s[nb][2 * hr + 1] - mn);
-      l[hr] = l[hr] * expf(m[hr] - mn) + e;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hr + e;
+          const float p = exp2f(fmaf(s[i], LOG2E, -ml));
+          le += p;
+          de += p * dp[i];
+        }
+      l[hr] = l[hr] * scale + le;
+      d[hr] = d[hr] * scale + de;
+      m[hr] = tmax;
+    }
+  }
+  // merge over the 4 threads of each row, in a fixed order
+  float ml[2], inv[2], D[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[hr], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[hr], o);
+      const float dd = __shfl_xor_sync(0xffffffffu, d[hr], o);
+      const float mn = fmaxf(m[hr], mo);
+      const float a = exp2f((m[hr] - mn) * LOG2E), c = exp2f((mo - mn) * LOG2E);
+      l[hr] = l[hr] * a + lo * c;
+      d[hr] = d[hr] * a + dd * c;
       m[hr] = mn;
     }
-    __syncthreads();
-    if (kt + 1 < n_kt) {
-      store_tile<BKT>(kr, ks);
-      __syncthreads();
-    }
-  }
-  merge_row_stats(m[0], l[0]);
-  merge_row_stats(m[1], l[1]);
-
-  // pass 2: P (float32), dP = do V^T; D = rowsum(P dP); o_pre = bf16(P) V
-  float o[AHD / 8][4];
-#pragma unroll
-  for (int db = 0; db < AHD / 8; ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
-  float dsum[2] = {0.f, 0.f};
-  fetch_tile<BKT>(kh, 0, Np, kr);
-  fetch_tile<BKT>(vh, 0, Np, vr);
-  store_tile<BKT>(kr, ks);
-  store_tile<BKT>(vr, vs);
-  __syncthreads();
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const bool more = kt + 1 < n_kt;
-    if (more) {
-      fetch_tile<BKT>(kh, (kt + 1) * BKT, Np, kr);
-      fetch_tile<BKT>(vh, (kt + 1) * BKT, Np, vr);
-    }
-    float s[BNB][4], dp[BNB][4];
-    score_tile<BKT>(qa, ks, kt * BKT, n_real, g, t, s);
-    score_tile<BKT>(da, vs, kt * BKT, NO_MASK, g, t, dp);
-#pragma unroll
-    for (int nb = 0; nb < BNB; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        const float p = expf(s[nb][e] - m[hr]) / l[hr];
-        s[nb][e] = p;
-        dsum[hr] += p * dp[nb][e];
-      }
-    }
-    pv_tile<BKT>(s, vs, lane, o);
-    swap_tiles(more, kr, ks, vr, vs);
-  }
-  const float D[2] = {quad_sum(dsum[0]), quad_sum(dsum[1])};
-  const size_t C3 = 3 * (size_t)C;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = q0 + row0 + 8 * hr;
-    if (r >= Np) continue;
-    bf16* dst = opre_g + ((size_t)b * Np + r) * C + h * AHD + 2 * t;
-#pragma unroll
-    for (int db = 0; db < AHD / 8; ++db)
-      *reinterpret_cast<uint32_t*>(dst + db * 8) = pack_bf16(o[db][2 * hr], o[db][2 * hr + 1]);
-    if (t == 0) {
-      const size_t bhn = (size_t)B * heads * Np;
-      const size_t i = ((size_t)b * heads + h) * Np + r;
-      stats[i] = m[hr];
-      stats[bhn + i] = l[hr];
-      stats[2 * bhn + i] = D[hr];
-    }
+    ml[hr] = m[hr] * LOG2E;
+    inv[hr] = 1.f / l[hr];
+    D[hr] = d[hr] * inv[hr];
   }
 
-  // pass 3: dS = P (dP - D), rounded to bf16; dq = dS K
-  float dq[AHD / 8][4];
+  // pass 2: P, o_pre = bf16(P) V, dS = P (dP - D), dq = bf16(dS) K
+  float o[32], dq[32];
 #pragma unroll
-  for (int db = 0; db < AHD / 8; ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[db][e] = 0.f;
-  fetch_tile<BKT>(kh, 0, Np, kr);
-  fetch_tile<BKT>(vh, 0, Np, vr);
-  store_tile<BKT>(kr, ks);
-  store_tile<BKT>(vr, vs);
-  __syncthreads();
+  for (int i = 0; i < 32; ++i) o[i] = dq[i] = 0.f;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const bool more = kt + 1 < n_kt;
-    if (more) {
-      fetch_tile<BKT>(kh, (kt + 1) * BKT, Np, kr);
-      fetch_tile<BKT>(vh, (kt + 1) * BKT, Np, vr);
-    }
-    float s[BNB][4], dp[BNB][4];
-    score_tile<BKT>(qa, ks, kt * BKT, n_real, g, t, s);
-    score_tile<BKT>(da, vs, kt * BKT, NO_MASK, g, t, dp);
+    const uint8_t* ks = ring.tile(0);
+    const uint8_t* vs = ring.tile(1);
+    scores(kt, ks, vs);
 #pragma unroll
-    for (int nb = 0; nb < BNB; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        const float p = expf(s[nb][e] - m[hr]) / l[hr];
-        s[nb][e] = p * (dp[nb][e] - D[hr]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int hr = (i >> 1) & 1;
+      const float p = exp2f(fmaf(s[i], LOG2E, -ml[hr])) * inv[hr];
+      s[i] = p;
+      dp[i] = p * (dp[i] - D[hr]);
     }
-    pv_tile<BKT>(s, ks, lane, dq);
-    swap_tiles(more, kr, ks, vr, vs);
+    uint32_t pa[BT / 16][4], da[BT / 16][4];
+    pack_a(s, pa);
+    pack_a(dp, da);
+    wg_fence();
+    fence_regs(o);
+    fence_regs(dq);
+    tile_pv(o, pa, vs);
+    tile_pv(dq, da, ks);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(dq);
+    ring.release(2);
   }
+  store_rows(o, opre_g + (size_t)b * Np * C + h * AHD, C, row0, Np, t);
+  store_rows(dq, dqkv_g + (size_t)b * Np * 3 * C + h * AHD, 3 * (size_t)C, row0, Np, t);
+  if (t == 0) {
+    const size_t bhn = (size_t)B * heads * Np, srow = ((size_t)b * heads + h) * Np;
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = q0 + row0 + 8 * hr;
-    if (r >= Np) continue;
-    bf16* dst = dqkv_g + ((size_t)b * Np + r) * C3 + h * AHD + 2 * t;
-#pragma unroll
-    for (int db = 0; db < AHD / 8; ++db)
-      *reinterpret_cast<uint32_t*>(dst + db * 8) = pack_bf16(dq[db][2 * hr], dq[db][2 * hr + 1]);
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = row0 + 8 * hr;
+      if (r >= Np) continue;
+      stats[srow + r] = ml[hr];
+      stats[bhn + srow + r] = inv[hr];
+      stats[2 * bhn + srow + r] = D[hr];
+    }
   }
 }
 
-// ---------------------------------------------------------------------------
-// 3. key pass: dk and dv for 64 key rows
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(ATHREADS)
-vit_attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
-                       const float* __restrict__ stats, bf16* __restrict__ dqkv_g, int Np,
-                       int n_real) {
-  __shared__ __align__(128) bf16 qs[BKT * LDT];
-  __shared__ __align__(128) bf16 ds[BKT * LDT];
-  __shared__ float sm[BKT], sl[BKT], sd[BKT];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int k0 = blockIdx.x * AQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int heads = gridDim.y;
-  const int B = gridDim.z;
-  const int C = heads * AHD;
+// grid (ceil(Np / 64), heads, B): 64 key rows a block, the query tiles
+// streamed (maps and stats as the query pass).
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+vit_attn_bwd_kv_kernel(const __grid_constant__ CUtensorMap tqkv,
+                       const __grid_constant__ CUtensorMap tdo, const float* __restrict__ stats,
+                       bf16* __restrict__ dqkv_g, int Np, int n_real) {
+  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int heads = gridDim.y, B = gridDim.z, C = heads * AHD;
   const size_t C3 = 3 * (size_t)C;
   if (k0 >= n_real) {
     // keys past n_real: P is exactly 0 in their columns, so dk = dv = 0
-    for (int i = threadIdx.x; i < AQ * 16; i += ATHREADS) {
+    for (int i = threadIdx.x; i < BT * 16; i += BWD_THREADS) {
       const int r = k0 + i / 16;
       const int which = 1 + (i % 16) / 8;
       if (r < Np)
@@ -401,270 +401,319 @@ vit_attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
     }
     return;
   }
-  const size_t hstride = (size_t)Np * AHD;
-  const bf16* qh = qkv + ((size_t)b * heads + h) * hstride;
-  const bf16* dh = dob + ((size_t)b * heads + h) * hstride;
-  const size_t bhn = (size_t)B * heads * Np;
-  const size_t srow = ((size_t)b * heads + h) * Np;
-  const int n_qt = (Np + BKT - 1) / BKT;
-  const int kr0 = k0 + warp * 16 + g;  // this thread's key rows kr0, kr0 + 8
-  const bool live[2] = {kr0 < n_real, kr0 + 8 < n_real};
-
-  uint32_t ka[AHD / 16][4], va[AHD / 16][4];
-  load_a_rows(qkv + ((size_t)(B + b) * heads + h) * hstride, k0 + warp * 16, Np, g, t, ka);
-  load_a_rows(qkv + ((size_t)(2 * B + b) * heads + h) * hstride, k0 + warp * 16, Np, g, t, va);
-  float dk[AHD / 8][4], dv[AHD / 8][4];
-#pragma unroll
-  for (int db = 0; db < AHD / 8; ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[db][e] = dv[db][e] = 0.f;
-
-  // the row statistics of query tile qt (rows past Np: P forced to 0 below)
-  auto load_stats = [&](int qt) {
-    for (int i = threadIdx.x; i < BKT; i += ATHREADS) {
-      const int q = qt * BKT + i;
-      const bool in = q < Np;
-      sm[i] = in ? stats[srow + q] : 0.f;
-      sl[i] = in ? stats[bhn + srow + q] : 1.f;
-      sd[i] = in ? stats[2 * bhn + srow + q] : 0.f;
-    }
-  };
-  TileRegs<BKT> qr, dr;
-  fetch_tile<BKT>(qh, 0, Np, qr);
-  fetch_tile<BKT>(dh, 0, Np, dr);
-  store_tile<BKT>(qr, qs);
-  store_tile<BKT>(dr, ds);
-  load_stats(0);
-  __syncthreads();
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const bool more = qt + 1 < n_qt;
-    if (more) {
-      fetch_tile<BKT>(qh, (qt + 1) * BKT, Np, qr);
-      fetch_tile<BKT>(dh, (qt + 1) * BKT, Np, dr);
-    }
-    float s[BNB][4], dp[BNB][4];
-    score_tile<BKT>(ka, qs, 0, NO_MASK, g, t, s);   // S^T: keys x queries
-    score_tile<BKT>(va, ds, 0, NO_MASK, g, t, dp);  // dP^T = V do^T
-#pragma unroll
-    for (int nb = 0; nb < BNB; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nb * 8 + 2 * t + (e & 1);
-        float p = 0.f;
-        if (live[e >> 1] && qt * BKT + qc < Np) p = expf(s[nb][e] - sm[qc]) / sl[qc];
-        s[nb][e] = p;
-        dp[nb][e] = p * (dp[nb][e] - sd[qc]);
+  extern __shared__ uint8_t smem_raw[];
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(align_1024(smem_raw));
+  bwd_init(sm);
+  Ring ring{sm};
+  const int n_qt = (Np + BT - 1) / BT;
+  const int bh = b * heads + h;
+  if (threadIdx.x >= BWD_CONSUMERS) {
+    if (threadIdx.x == BWD_CONSUMERS) {
+      mbar_expect_tx(&sm.abar, 2 * TILE_BYTES);
+      tma_load_3d(sm.a, &tqkv, &sm.abar, 0, k0, B * heads + bh);      // K
+      tma_load_3d(sm.b, &tqkv, &sm.abar, 0, k0, 2 * B * heads + bh);  // V
+      for (int qt = 0; qt < n_qt; ++qt) {
+        ring.push(&tqkv, bh, qt * BT);  // Q
+        ring.push(&tdo, bh, qt * BT);   // dO
       }
     }
-    pv_tile<BKT>(s, ds, lane, dv);   // dv += P^T do
-    pv_tile<BKT>(dp, qs, lane, dk);  // dk += dS^T q
-    __syncthreads();                 // every warp is done with this query tile
-    if (more) {
-      store_tile<BKT>(qr, qs);
-      store_tile<BKT>(dr, ds);
-      load_stats(qt + 1);
-      __syncthreads();
-    }
+    return;
   }
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int kr0 = k0 + (threadIdx.x / 32) * 16 + (lane >> 2);  // key rows kr0, kr0 + 8
+  const bool live[2] = {kr0 < n_real, kr0 + 8 < n_real};
+  const size_t bhn = (size_t)B * heads * Np, srow = (size_t)bh * Np;
+  // the statistics of a query tile, element e = 64 array + column of the
+  // 3 x 64 block: thread i holds e = i and i + 128 in registers one tile
+  // ahead; queries >= Np read as (0, 0, 0), so their P is 0 (their Q rows
+  // read as zeros, so s = 0 there and exp2 stays finite)
+  auto fetch = [&](int qt, int e) {
+    const int q = qt * BT + e % BT;
+    return e < 3 * BT && q < Np ? __ldg(stats + (e / BT) * bhn + srow + q) : 0.f;
+  };
+  float st0 = fetch(0, threadIdx.x), st1 = fetch(0, threadIdx.x + BWD_CONSUMERS);
+  float dk[32], dv[32];
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = kr0 + 8 * hr;
-    if (r >= Np) continue;
-    bf16* row = dqkv_g + ((size_t)b * Np + r) * C3 + h * AHD + 2 * t;
-#pragma unroll
-    for (int db = 0; db < AHD / 8; ++db) {
-      *reinterpret_cast<uint32_t*>(row + C + db * 8) = pack_bf16(dk[db][2 * hr], dk[db][2 * hr + 1]);
-      *reinterpret_cast<uint32_t*>(row + 2 * C + db * 8) =
-          pack_bf16(dv[db][2 * hr], dv[db][2 * hr + 1]);
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(&sm.abar, 0);
+  for (int qt = 0; qt < n_qt; ++qt) {
+    // this tile's statistics into buffer qt & 1 (every thread finished
+    // reading that buffer, two tiles ago, before the last barrier)
+    float* sb = &sm.stats[qt & 1][0][0];
+    sb[threadIdx.x] = st0;
+    if (threadIdx.x + BWD_CONSUMERS < 3 * BT) sb[threadIdx.x + BWD_CONSUMERS] = st1;
+    if (qt + 1 < n_qt) {
+      st0 = fetch(qt + 1, threadIdx.x);
+      st1 = fetch(qt + 1, threadIdx.x + BWD_CONSUMERS);
     }
+    named_sync(1, BWD_CONSUMERS);
+    const uint8_t* qs = ring.tile(0);
+    const uint8_t* ds = ring.tile(1);
+    float s[32], dp[32];
+    wg_fence();
+    tile_scores(s, sm.a, qs);   // S^T: keys x queries
+    tile_scores(dp, sm.b, ds);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // the statistics of this thread's query columns 8 j + 2 t, + 1
+      const float2 mlq = *reinterpret_cast<const float2*>(sb + 8 * j + 2 * t);
+      const float2 invq = *reinterpret_cast<const float2*>(sb + BT + 8 * j + 2 * t);
+      const float2 Dq = *reinterpret_cast<const float2*>(sb + 2 * BT + 8 * j + 2 * t);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hr + e;
+          const float pe = exp2f(fmaf(s[i], LOG2E, -(e ? mlq.y : mlq.x))) * (e ? invq.y : invq.x);
+          const float p = live[hr] ? pe : 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - (e ? Dq.y : Dq.x));
+        }
+    }
+    uint32_t pa[BT / 16][4], da[BT / 16][4];
+    pack_a(s, pa);
+    pack_a(dp, da);
+    wg_fence();
+    fence_regs(dv);
+    fence_regs(dk);
+    tile_pv(dv, pa, ds);  // dv += P^T dO
+    tile_pv(dk, da, qs);  // dk += dS^T Q
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    ring.release(2);
   }
+  bf16* rows = dqkv_g + (size_t)b * Np * C3 + h * AHD;
+  store_rows(dk, rows + C, C3, kr0, Np, t);
+  store_rows(dv, rows + 2 * C, C3, kr0, Np, t);
 }
 
 // ---------------------------------------------------------------------------
-// 4. dx: dh = dqkv W_qkv, the column sums and the LN1 backward
+// 6. the row pass: LN1 backward and the column sums
 // ---------------------------------------------------------------------------
 
-template <int C>
-struct DxSmem {
-  static constexpr int LDF = C + 4;  // f32 rows of dh
-  static constexpr size_t DH = (size_t)VT * LDF * 4;
-  static constexpr size_t COLS = (size_t)6 * C * 4;
-  static constexpr size_t off_cols = DH;
-  static constexpr size_t off_stats = DH + COLS;
-  static constexpr size_t bytes = off_stats + 2 * VT * 4;
-  static_assert(DH % 128 == 0 && COLS % 128 == 0, "regions must stay 128-byte aligned");
-  static_assert(bytes <= SMEM_LIMIT, "shared memory over the sm_90 limit");
-};
+constexpr int VT = 64;  // tokens a tile of the row pass
 
+// Four bf16 (8 bytes) or float32 (16 bytes) values at p as float32.
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// grid: blocks of `tpb` consecutive 64-token tiles. A lane takes columns
+// 4 (lane + 32 g) .. + 3 of a token (g < C / 128), a thread 8 columns of
+// dqkv or 4 of the other sums.
 template <int C>
-__global__ void __launch_bounds__(NTHREADS, 1)
-vit_attn_bwd_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dh1,
-                       const bf16* __restrict__ dqkv_g, const bf16* __restrict__ w_qkv,
-                       const float* __restrict__ ln_w, bf16* __restrict__ dx,
-                       float* __restrict__ part, int n_tiles, int tpb, float eps) {
-  using L = DxSmem<C>;
-  constexpr int PER = C / 32;
+__global__ void __launch_bounds__(NTHREADS)
+vit_attn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dh1,
+                         const bf16* __restrict__ dqkv_g, const float* __restrict__ dh,
+                         const float* __restrict__ ln_w, bf16* __restrict__ dx,
+                         float* __restrict__ part, int n_tiles, int tpb, float eps) {
+  constexpr int G4 = C / 128;
   constexpr int C3 = 3 * C;
-  constexpr int RT = VT / 16;
-  constexpr int CT = C / 16;
-  constexpr int PG = row_group(RT, CT);
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* dhf = reinterpret_cast<float*>(smem);
-  float* cols = reinterpret_cast<float*>(smem + L::off_cols);
-  float* mu = reinterpret_cast<float*>(smem + L::off_stats);
-  float* rstd = mu + VT;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  // [db_qkv | db_proj | dLN1 w | dLN1 b]; every column has one owner thread
+  __shared__ float cols[6 * C];  // [db_qkv | db_proj | dLN1 w | dLN1 b]; one owner a column
+  __shared__ float mu[VT], rstd[VT];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int i = threadIdx.x; i < 6 * C; i += NTHREADS) cols[i] = 0.f;
+  float4 w[G4];
+#pragma unroll
+  for (int g = 0; g < G4; ++g) w[g] = load4(ln_w + 4 * (lane + 32 * g));
 
   const int tile_end = min(n_tiles, (int)(blockIdx.x + 1) * tpb);
   for (int tile = blockIdx.x * tpb; tile < tile_end; ++tile) {
     const size_t tok0 = (size_t)tile * VT;
-    // 1. LN1 statistics of the tile's tokens
-    for (int t = warp; t < VT; t += NWARPS)
-      ln_stats<C>(x + (tok0 + t) * C, lane, eps, mu + t, rstd + t);
-    // 2. dh = dqkv W_qkv (64 x C, K = 3C; A is the dqkv rows the passes wrote)
-    for (int u = warp; u < CT * (RT / PG); u += NWARPS) {
-      const int n0 = (u % CT) * 16;
-      const int rt0 = (u / CT) * PG;
-      FragC acc[PG];
-#pragma unroll
-      for (int r = 0; r < PG; ++r) wmma::fill_fragment(acc[r], 0.f);
-#pragma unroll 2
-      for (int k0 = 0; k0 < C3; k0 += 16) {
-        FragBr bw;
-        wmma::load_matrix_sync(bw, w_qkv + (size_t)k0 * C + n0, C);
-#pragma unroll
-        for (int r = 0; r < PG; ++r) {
-          FragA a;
-          wmma::load_matrix_sync(a, dqkv_g + (tok0 + (rt0 + r) * 16) * C3 + k0, C3);
-          wmma::mma_sync(acc[r], a, bw, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < PG; ++r)
-        wmma::store_matrix_sync(dhf + (rt0 + r) * 16 * L::LDF + n0, acc[r], L::LDF,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // 3. column sums in token order: db_qkv of the bf16 dqkv rows, db_proj
-    //    of dh1, dLN1 w = sum dh xhat, dLN1 b = sum dh
-    for (int c = threadIdx.x; c < C3; c += NTHREADS) {
-      float s = 0.f;
-      for (int t = 0; t < VT; ++t) s += __bfloat162float(dqkv_g[(tok0 + t) * C3 + c]);
-      cols[c] += s;
-    }
-    for (int c = threadIdx.x; c < C; c += NTHREADS) {
-      float sp = 0.f, sw = 0.f, sb = 0.f;
-      for (int t = 0; t < VT; ++t) {
-        const size_t off = (tok0 + t) * C + c;
-        sp += __bfloat162float(dh1[off]);
-        const float xh = (__bfloat162float(x[off]) - mu[t]) * rstd[t];
-        const float d = dhf[t * L::LDF + c];
-        sw += d * xh;
-        sb += d;
-      }
-      cols[C3 + c] += sp;
-      cols[C3 + C + c] += sw;
-      cols[C3 + 2 * C + c] += sb;
-    }
-    // 4. dx = dh1 + rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)), dxhat = dh w
+    // 1. per token (one warp): LN1 statistics, then
+    //    dx = dh1 + rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)), dxhat = dh w
     for (int t = warp; t < VT; t += NWARPS) {
       const size_t row = (tok0 + t) * C;
-      float xh[PER], dxh[PER];
+      float4 xv[G4], dxh[G4];
+      float s = 0.f;
+#pragma unroll
+      for (int g = 0; g < G4; ++g) {
+        xv[g] = load4(x + row + 4 * (lane + 32 * g));
+        dxh[g] = load4(dh + row + 4 * (lane + 32 * g));
+        s += (xv[g].x + xv[g].y) + (xv[g].z + xv[g].w);
+      }
+      const float m = warp_sum(s) / (float)C;
+      float q = 0.f;
+#pragma unroll
+      for (int g = 0; g < G4; ++g) {
+        xv[g] = make_float4(xv[g].x - m, xv[g].y - m, xv[g].z - m, xv[g].w - m);
+        q += (xv[g].x * xv[g].x + xv[g].y * xv[g].y) + (xv[g].z * xv[g].z + xv[g].w * xv[g].w);
+      }
+      const float rs = rsqrtf(warp_sum(q) / (float)C + eps);
       float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int c = lane + 32 * i;
-        xh[i] = (__bfloat162float(x[row + c]) - mu[t]) * rstd[t];
-        dxh[i] = dhf[t * L::LDF + c] * ln_w[c];
-        s1 += dxh[i];
-        s2 += dxh[i] * xh[i];
+      for (int g = 0; g < G4; ++g) {
+        xv[g] = make_float4(xv[g].x * rs, xv[g].y * rs, xv[g].z * rs, xv[g].w * rs);
+        dxh[g] = make_float4(dxh[g].x * w[g].x, dxh[g].y * w[g].y, dxh[g].z * w[g].z,
+                             dxh[g].w * w[g].w);
+        s1 += (dxh[g].x + dxh[g].y) + (dxh[g].z + dxh[g].w);
+        s2 += (dxh[g].x * xv[g].x + dxh[g].y * xv[g].y) + (dxh[g].z * xv[g].z + dxh[g].w * xv[g].w);
       }
       const float m1 = warp_sum(s1) / (float)C;
       const float m2 = warp_sum(s2) / (float)C;
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int c = lane + 32 * i;
-        dx[row + c] = __float2bfloat16(__bfloat162float(dh1[row + c]) +
-                                       rstd[t] * (dxh[i] - m1 - xh[i] * m2));
+      for (int g = 0; g < G4; ++g) {
+        const size_t off = row + 4 * (lane + 32 * g);
+        const float4 d1 = load4(dh1 + off);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            d1.x + rs * (dxh[g].x - m1 - xv[g].x * m2), d1.y + rs * (dxh[g].y - m1 - xv[g].y * m2));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(
+            d1.z + rs * (dxh[g].z - m1 - xv[g].z * m2), d1.w + rs * (dxh[g].w - m1 - xv[g].w * m2));
+        uint2 u;
+        u.x = *reinterpret_cast<const uint32_t*>(&lo);
+        u.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(dx + off) = u;
+      }
+      if (lane == 0) {
+        mu[t] = m;
+        rstd[t] = rs;
+      }
+    }
+    __syncthreads();
+    // 2. column sums in token order: db_qkv of the bf16 dqkv rows, db_proj
+    //    of dh1, dLN1 w = sum dh xhat, dLN1 b = sum dh
+    for (int c8 = threadIdx.x; c8 < C3 / 8; c8 += NTHREADS) {
+      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8  // 8 loads in flight; the sums stay in token order
+      for (int t = 0; t < VT; ++t) {
+        const int4 u = *reinterpret_cast<const int4*>(dqkv_g + (tok0 + t) * C3 + 8 * c8);
+        const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(v[k]);
+          a[2 * k] += f.x;
+          a[2 * k + 1] += f.y;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) cols[8 * c8 + k] += a[k];
+    }
+    for (int c4 = threadIdx.x; c4 < C / 4; c4 += NTHREADS) {
+      float sp[4] = {0.f, 0.f, 0.f, 0.f}, sw[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int t = 0; t < VT; ++t) {
+        const size_t off = (tok0 + t) * C + 4 * c4;
+        const float4 p4 = load4(dh1 + off), x4 = load4(x + off), d4 = load4(dh + off);
+        const float pv[4] = {p4.x, p4.y, p4.z, p4.w}, xv[4] = {x4.x, x4.y, x4.z, x4.w},
+                    dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sp[k] += pv[k];
+          sw[k] += dv[k] * ((xv[k] - mu[t]) * rstd[t]);
+          sb[k] += dv[k];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        cols[C3 + 4 * c4 + k] += sp[k];
+        cols[C3 + C + 4 * c4 + k] += sw[k];
+        cols[C3 + 2 * C + 4 * c4 + k] += sb[k];
       }
     }
     __syncthreads();
   }
-  // 5. this block's column sums -> its partial row
+  // this block's column sums -> its partial row
   for (int i = threadIdx.x; i < 6 * C; i += NTHREADS) part[(size_t)blockIdx.x * 6 * C + i] = cols[i];
 }
 
 template <int C>
-static cudaError_t launch_attn_bwd(const void* x, const void* dh1, void* dx, const void* w_qkv,
-                                   const void* b_qkv, const void* w_proj, const void* ln_w,
-                                   const void* ln_b, void* h_g, void* opre_g, void* dqkv_g,
-                                   void* part, void* qkv_ws, void* do_ws, void* stats_ws,
-                                   int B, int Np, int heads, int n_real, int tpb, float eps,
-                                   cudaStream_t stream) {
+static int launch_attn_bwd(const void* x, const void* dh1, void* dx, const void* w_qkv,
+                           const void* b_qkv, const void* w_proj, const void* ln_w,
+                           const void* ln_b, void* h_g, void* opre_g, void* dqkv_g, void* part,
+                           void* qkv_ws, void* do_ws, void* stats_ws, void* dh_ws, int B, int Np,
+                           int heads, int n_real, int tpb, int steps, float eps,
+                           cudaStream_t stream) {
   const int n = B * Np;
-  const int n_tiles = n / VT;
-  auto prep = vit_attn_bwd_prep_kernel<C>;
-  cudaError_t err = cudaFuncSetAttribute(prep, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)PrepSmem<C>::bytes);
-  if (err != cudaSuccess) return err;
-  prep<<<dim3(n_tiles, 4), NTHREADS, PrepSmem<C>::bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dh1),
-      static_cast<const bf16*>(w_qkv), static_cast<const float*>(b_qkv),
-      static_cast<const bf16*>(w_proj), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<bf16*>(h_g), static_cast<bf16*>(qkv_ws),
-      static_cast<bf16*>(do_ws), n, Np, heads, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 grid((Np + AQ - 1) / AQ, heads, B);
-  vit_attn_bwd_q_kernel<<<grid, ATHREADS, 0, stream>>>(
-      static_cast<const bf16*>(qkv_ws), static_cast<const bf16*>(do_ws),
-      static_cast<bf16*>(opre_g), static_cast<bf16*>(dqkv_g), static_cast<float*>(stats_ws),
-      Np, n_real);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vit_attn_bwd_kv_kernel<<<grid, ATHREADS, 0, stream>>>(
-      static_cast<const bf16*>(qkv_ws), static_cast<const bf16*>(do_ws),
-      static_cast<const float*>(stats_ws), static_cast<bf16*>(dqkv_g), Np, n_real);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  auto dxk = vit_attn_bwd_dx_kernel<C>;
-  err = cudaFuncSetAttribute(dxk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DxSmem<C>::bytes);
-  if (err != cudaSuccess) return err;
-  dxk<<<(n_tiles + tpb - 1) / tpb, NTHREADS, DxSmem<C>::bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dh1),
-      static_cast<const bf16*>(dqkv_g), static_cast<const bf16*>(w_qkv),
-      static_cast<const float*>(ln_w), static_cast<bf16*>(dx), static_cast<float*>(part),
-      n_tiles, tpb, eps);
-  return cudaGetLastError();
+  int err = 0;
+  if (steps & STEP_QKV)
+    err = vit_qkv_launch(x, qkv_ws, h_g, w_qkv, b_qkv, ln_w, ln_b, n, Np, C, heads, eps, stream);
+  if (!err && (steps & STEP_DO))
+    err = launch_rows_gemm<EPI_HEADS>(dh1, w_proj, do_ws, n, C, C, Np, heads, stream);
+  if (!err && (steps & (STEP_QUERY | STEP_KEY))) {
+    CUtensorMap mqkv, mdo;
+    const uint64_t d_qkv[3] = {(uint64_t)AHD, (uint64_t)Np, (uint64_t)3 * B * heads};
+    const uint64_t d_do[3] = {(uint64_t)AHD, (uint64_t)Np, (uint64_t)B * heads};
+    const uint32_t box[3] = {AHD, BT, 1};
+    err = make_tensor_map(&mqkv, qkv_ws, 3, d_qkv, box);
+    if (!err) err = make_tensor_map(&mdo, do_ws, 3, d_do, box);
+    const dim3 grid((Np + BT - 1) / BT, heads, B);
+    if (!err && (steps & STEP_QUERY)) {
+      err = (int)cudaFuncSetAttribute(vit_attn_bwd_q_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
+      if (!err) {
+        vit_attn_bwd_q_kernel<<<grid, BWD_THREADS, BWD_SMEM, stream>>>(
+            mqkv, mdo, static_cast<bf16*>(opre_g), static_cast<bf16*>(dqkv_g),
+            static_cast<float*>(stats_ws), Np, n_real);
+        err = (int)cudaGetLastError();
+      }
+    }
+    if (!err && (steps & STEP_KEY)) {
+      err = (int)cudaFuncSetAttribute(vit_attn_bwd_kv_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
+      if (!err) {
+        vit_attn_bwd_kv_kernel<<<grid, BWD_THREADS, BWD_SMEM, stream>>>(
+            mqkv, mdo, static_cast<const float*>(stats_ws), static_cast<bf16*>(dqkv_g), Np,
+            n_real);
+        err = (int)cudaGetLastError();
+      }
+    }
+  }
+  if (!err && (steps & STEP_DH))
+    err = launch_rows_gemm<EPI_F32>(dqkv_g, w_qkv, dh_ws, n, C, 3 * C, Np, heads, stream);
+  if (!err && (steps & STEP_ROWS)) {
+    const int n_tiles = n / VT;
+    vit_attn_bwd_rows_kernel<C><<<(n_tiles + tpb - 1) / tpb, NTHREADS, 0, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dh1),
+        static_cast<const bf16*>(dqkv_g), static_cast<const float*>(dh_ws),
+        static_cast<const float*>(ln_w), static_cast<bf16*>(dx), static_cast<float*>(part),
+        n_tiles, tpb, eps);
+    err = (int)cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace hmdt
 
-// C interface for ctypes. Returns the first launch error (0 on success).
-// x, dh1, dx (B, Np, C) bf16 with B Np a multiple of 64; w_qkv (3C, C) and
-// w_proj (C, C) bf16 (torch layout, q rows scaled); b_qkv, ln_w, ln_b f32;
-// h_g, opre_g (B Np, C) and dqkv_g (B Np, 3C) bf16; part (ceil(B Np / 64 /
-// tpb), 6C) f32; scratch qkv_ws (3, B, heads, Np, 64) and do_ws (B, heads,
-// Np, 64) bf16, stats_ws (3, B heads Np) f32. Keys >= n_real are masked.
+// C interfaces for ctypes. Each returns the first launch error (0 on
+// success).
+//
+// vit_attn_bwd_launch: x, dh1, dx (B, Np, C) bf16 with B Np a multiple of
+// 64; w_qkv (3C, C) and w_proj (C, C) bf16 (torch layout, q rows scaled);
+// b_qkv, ln_w, ln_b f32; h_g, opre_g (B Np, C) and dqkv_g (B Np, 3C) bf16;
+// part (ceil(B Np / 64 / tpb), 6C) f32; scratch qkv_ws (3, B, heads, Np, 64)
+// and do_ws (B, heads, Np, 64) bf16, stats_ws (3, B heads Np) and dh_ws
+// (B Np, C) f32. Keys >= n_real are masked. steps: a mask of the six grid
+// launches to run (1 qkv, 2 do, 4 query pass, 8 key pass, 16 dh, 32 rows;
+// 63 for the whole backward; one alone re-runs that launch on what the
+// others left in the scratch).
 extern "C" int vit_attn_bwd_launch(const void* x, const void* dh1, void* dx, const void* w_qkv,
                                    const void* b_qkv, const void* w_proj, const void* ln_w,
                                    const void* ln_b, void* h_g, void* opre_g, void* dqkv_g,
                                    void* part, void* qkv_ws, void* do_ws, void* stats_ws,
-                                   int B, int Np, int C, int heads, int n_real, int tpb,
-                                   float eps, void* stream) {
+                                   void* dh_ws, int B, int Np, int C, int heads, int n_real,
+                                   int tpb, int steps, float eps, void* stream) {
   using namespace hmdt;
   if (B <= 0 || B > 65535 || Np <= 0 || (B * Np) % VT || n_real <= 0 || n_real > Np ||
-      heads * AHD != C || tpb <= 0)
+      heads * AHD != C || tpb <= 0 || steps <= 0 || steps > STEPS_ALL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HMDT_VIT_ATTN_BWD_CASE(CC)                                                       \
-  case CC:                                                                               \
-    return (int)launch_attn_bwd<CC>(x, dh1, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, h_g,  \
-                                    opre_g, dqkv_g, part, qkv_ws, do_ws, stats_ws, B,   \
-                                    Np, heads, n_real, tpb, eps, s);
+#define HMDT_VIT_ATTN_BWD_CASE(CC)                                                            \
+  case CC:                                                                                    \
+    return launch_attn_bwd<CC>(x, dh1, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, h_g, opre_g,    \
+                               dqkv_g, part, qkv_ws, do_ws, stats_ws, dh_ws, B, Np, heads,   \
+                               n_real, tpb, steps, eps, s);
   switch (C) {
     HMDT_VIT_ATTN_BWD_CASE(384)
     HMDT_VIT_ATTN_BWD_CASE(768)
@@ -672,4 +721,15 @@ extern "C" int vit_attn_bwd_launch(const void* x, const void* dh1, void* dx, con
       return (int)cudaErrorInvalidValue;
   }
 #undef HMDT_VIT_ATTN_BWD_CASE
+}
+
+// vit_mm_launch: out (M, N) f32 = a (M, K) b (K, N), a and b bf16 row-major,
+// K and N multiples of 8: the token-row product of steps 2 and 5 (A K-major,
+// B MN-major on the GEMM core) alone, with edge tiles on every side.
+extern "C" int vit_mm_launch(const void* a, const void* b, void* out, int M, int N, int K,
+                             void* stream) {
+  using namespace hmdt;
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || (M + 127) / 128 > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch_rows_gemm<EPI_F32>(a, b, out, M, N, K, 1, 1, static_cast<cudaStream_t>(stream));
 }

@@ -37,27 +37,16 @@ vit_proj_kernel(const __grid_constant__ CUtensorMap to, const __grid_constant__ 
   __syncthreads();
   const int n0 = blockIdx.x * GEMM_COLS, m0 = blockIdx.y * GemmCfg<1>::ROWS;
   float acc[1][64];
-  gemm_core<false, 1>(sm, &to, &tw, m0, n0, 0, C / GEMM_BK, acc);
+  gemm_core<false, false, 1>(sm, &to, &tw, m0, n0, 0, C / GEMM_BK, acc);
   if (threadIdx.x >= CONSUMERS) return;
-  const int lane = threadIdx.x & 31;
-  const int r = m0 + (threadIdx.x / 128) * 64 + ((threadIdx.x / 32) & 3) * 16 + (lane >> 2);
-  const int c = n0 + 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = c + 8 * j;
+  acc_pairs(acc[0], m0 + (threadIdx.x / 128) * 64, n0, [&](int row, int col, float v0, float v1) {
+    if (row >= rows) return;
     const float2 bias = *reinterpret_cast<const float2*>(b_proj + col);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r + 8 * h;
-      if (row < rows) {
-        const size_t off = (size_t)row * C + col;
-        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + off));
-        *reinterpret_cast<__nv_bfloat162*>(out + off) =
-            __floats2bfloat162_rn(xv.x + (acc[0][4 * j + 2 * h] + bias.x),
-                                  xv.y + (acc[0][4 * j + 2 * h + 1] + bias.y));
-      }
-    }
-  }
+    const size_t off = (size_t)row * C + col;
+    const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + off));
+    *reinterpret_cast<__nv_bfloat162*>(out + off) =
+        __floats2bfloat162_rn(xv.x + (v0 + bias.x), xv.y + (v1 + bias.y));
+  });
 }
 
 }  // namespace hmdt

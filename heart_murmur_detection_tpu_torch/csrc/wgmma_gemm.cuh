@@ -4,7 +4,8 @@
 //  - mbarriers: init, arrive, arrive with an expected transaction count, and
 //    a parity wait.
 //  - TMA: 2D / 3D tile loads from a CUtensorMap into shared memory that
-//    complete on an mbarrier. The maps are encoded on the host with the
+//    complete on an mbarrier, and 3D tile stores from shared memory in bulk
+//    async groups. The maps are encoded on the host with the
 //    driver's cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint
 //    (the library links no libcuda). Every map here reads bf16 boxes of 64
 //    columns (128 bytes) with the 128-byte swizzle; rows past the tensor's
@@ -16,14 +17,20 @@
 //    K, fed through a ring of slices of K = 64 by TMA. A block is two
 //    consumer warpgroups (rows 0 .. 64 MT - 1 and 64 MT .. of the tile) and
 //    one producer warp, whose lane 0 keeps the ring full. A and B are row-major
-//    bf16 in device memory, either
+//    bf16 in device memory, each in either major:
 //      MN-major  A (K, M), B (K, N): K runs down the rows (swin_wgrad: two
 //                token-row operands, K = tokens; wgmma reads both
 //                transposed, so nothing is transposed in memory)
 //      K-major   A (M, K), B (N, K): K runs along the rows (vit_proj: o_pre
-//                and the torch (out, in) weight).
+//                and the torch (out, in) weight)
+//    and mixed, A K-major with B MN-major (vit_attn_bwd.cu: token rows
+//    times a torch (out, in) weight read as (K, N), do = dh1 W_proj and
+//    dh = dqkv W_qkv).
 //    A stage holds 64 x 64 boxes (8 KB each): A's 2 MT boxes of rows /
 //    columns 0-63, 64-127, ..., then B's two.
+//  - acc_pairs: the epilogue hook, which hands each (row, column pair) of a
+//    warpgroup's accumulator to the caller's store (a float32 row store, a
+//    head-major bf16 scatter with or without a bias, a residual sum).
 //
 // The wgmma accumulator of m64nN (N / 2 floats a thread): thread
 // lane = 4 g + t of warp w of the warpgroup holds, for each 8-column block j,
@@ -119,6 +126,31 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// The reverse: a box of a 3D tensor from shared memory (in the map's
+// swizzled layout) to device memory, as a bulk async group of the issuing
+// thread; elements past the tensor's edge are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // A wgmma descriptor of a 128-byte-swizzled operand at p: `lbo` and `sbo`
@@ -274,12 +306,13 @@ __device__ __forceinline__ void gemm_init(GemmSmem<MT>& sm) {
 }
 
 // acc = the (m0, n0) 128 MT x 128 tile of A B over K = k_beg .. k_beg + 64
-// k_steps. Every thread of the block calls it; the consumer threads return
-// with their accumulators (acc[i] the layout at the top of this file for
-// rows 64 (MT w + i) .. of the tile, w = threadIdx.x / 128), the producer
-// warp once it has issued every load (its acc is untouched). Nothing of
-// the ring is read or written after the consumers return.
-template <bool MN, int MT>
+// k_steps, A MN-major if MNA (else K-major), B likewise by MNB. Every thread
+// of the block calls it; the consumer threads return with their
+// accumulators (acc[i] the layout at the top of this file for rows
+// 64 (MT w + i) .. of the tile, w = threadIdx.x / 128), the producer warp
+// once it has issued every load (its acc is untouched). Nothing of the ring
+// is read or written after the consumers return.
+template <bool MNA, bool MNB, int MT>
 __device__ __forceinline__ void gemm_core(GemmSmem<MT>& sm, const CUtensorMap* ta,
                                           const CUtensorMap* tb, int m0, int n0, int k_beg,
                                           int k_steps, float (&acc)[MT][64]) {
@@ -295,13 +328,13 @@ __device__ __forceinline__ void gemm_core(GemmSmem<MT>& sm, const CUtensorMap* t
         uint8_t* s = sm.ring[st];
 #pragma unroll
         for (int j = 0; j < Cfg::A_BOXES; ++j) {
-          if (MN) tma_load_2d(s + j * BOX_BYTES, ta, &sm.full[st], m0 + BOX * j, k0);
+          if (MNA) tma_load_2d(s + j * BOX_BYTES, ta, &sm.full[st], m0 + BOX * j, k0);
           else tma_load_2d(s + j * BOX_BYTES, ta, &sm.full[st], k0, m0 + BOX * j);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           uint8_t* d = s + (Cfg::A_BOXES + j) * BOX_BYTES;
-          if (MN) tma_load_2d(d, tb, &sm.full[st], n0 + BOX * j, k0);
+          if (MNB) tma_load_2d(d, tb, &sm.full[st], n0 + BOX * j, k0);
           else tma_load_2d(d, tb, &sm.full[st], k0, n0 + BOX * j);
         }
       }
@@ -324,14 +357,14 @@ __device__ __forceinline__ void gemm_core(GemmSmem<MT>& sm, const CUtensorMap* t
 #pragma unroll
     for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
       // B: 128 columns (MN-major: two atoms) or rows (K-major)
-      const uint64_t db = MN ? desc_sw128(sb + kk * 2048, BOX_BYTES, ATOM)
-                             : desc_sw128(sb + kk * 32, 16, ATOM);
+      const uint64_t db = MNB ? desc_sw128(sb + kk * 2048, BOX_BYTES, ATOM)
+                              : desc_sw128(sb + kk * 32, 16, ATOM);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {  // A: this warpgroup's i-th 64 columns / rows
         const uint8_t* sa = s + (wg * MT + i) * BOX_BYTES;
-        const uint64_t da = MN ? desc_sw128(sa + kk * 2048, BOX_BYTES, ATOM)
-                               : desc_sw128(sa + kk * 32, 16, ATOM);
-        wgmma_m64n128_ss<MN ? 1 : 0, MN ? 1 : 0>(acc[i], da, db);
+        const uint64_t da = MNA ? desc_sw128(sa + kk * 2048, BOX_BYTES, ATOM)
+                                : desc_sw128(sa + kk * 32, 16, ATOM);
+        wgmma_m64n128_ss<MNA ? 1 : 0, MNB ? 1 : 0>(acc[i], da, db);
       }
     }
     wg_commit();
@@ -344,6 +377,34 @@ __device__ __forceinline__ void gemm_core(GemmSmem<MT>& sm, const CUtensorMap* t
   wg_wait<0>();
 #pragma unroll
   for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
+}
+
+// The epilogue hook: f(row, col, v0, v1) for each pair of neighbouring
+// columns (col, col + 1) that this consumer thread holds of an m64n128
+// accumulator whose 64 x 128 tile starts at (r0, c0): the layout at the top
+// of this file. The caller's store clips rows and columns at its edges.
+template <typename F>
+__device__ __forceinline__ void acc_pairs(const float (&acc)[64], int r0, int c0, F&& f) {
+  const int lane = threadIdx.x & 31;
+  const int r = r0 + ((threadIdx.x / 32) & 3) * 16 + (lane >> 2);
+  const int c = c0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) f(r + 8 * h, c + 8 * j, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+}
+
+// Make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma operands, TMA), before the barrier that publishes them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of the `count` threads (a multiple of 32) that name barrier `id`
+// (1-15; 0 is __syncthreads): the consumer warpgroups meet without the
+// producer warp.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------------

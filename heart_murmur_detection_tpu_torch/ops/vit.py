@@ -2,8 +2,10 @@
 hand-written CUDA kernels, their plain torch versions, and the three eval
 entry points of heart_murmur_detection_tpu/ops/pallas_vit.py built from them.
 
-  vit_qkv   LN1 -> qkv (q pre-scaled by 1/sqrt(hd)), written head-major
-            (csrc/vit_qkv.cu; the first part of the TPU body `_attn_half`)
+  vit_qkv   LN1 -> qkv (q pre-scaled by 1/sqrt(hd)), written head-major,
+            and on request LN1(x) itself (csrc/vit_qkv.cu, LN1 once a token
+            and the product on wgmma; the first part of the TPU body
+            `_attn_half`, and the recompute that vit_attn_bwd launches)
   vit_attn  per head softmax(q k^T, padded keys masked) v, each head's
             output rounded to bf16 in its column block of o_pre
             (csrc/vit_attn.cu; the attention of `_attn_half`), or one of the
@@ -342,28 +344,41 @@ def _check_cuda_args(x: torch.Tensor, p: VitBlockParams, attn: bool):
     if attn and (C not in (384, 768) or p.hd != HD):
         raise ValueError(f"the attention kernels take C 384 or 768 with head dim {HD}, "
                          f"got C {C}, head dim {p.hd}")
+    if attn and x.shape[1] % 16:
+        raise ValueError(f"the attention kernels take tokens padded to a multiple of 16 "
+                         f"(pad_tokens), got {x.shape[1]}")
     if not attn and (C not in (96, 192, 384, 768) or p.hidden % 128):
         raise ValueError(f"the MLP kernel takes C 96-768 and hidden a multiple of 128, "
                          f"got C {C}, hidden {p.hidden}")
 
 
-def vit_qkv(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
-    """LN1 and the qkv product, head-major (see vit_qkv_ref)."""
+def ln1_rows(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """Plain LN1(x) in x's dtype as (B Np, C) rows: the operand vit_qkv_ref
+    multiplies, and vit_qkv's optional second output."""
+    return _ln(x, p.ln1_w, p.ln1_b, LN_EPS).to(x.dtype).reshape(-1, x.shape[-1])
+
+
+def vit_qkv(x: torch.Tensor, p: VitBlockParams, return_ln: bool = False):
+    """LN1 and the qkv product, head-major (see vit_qkv_ref). return_ln=True
+    also returns LN1(x) as (B Np, C) rows in x's dtype, written by the same
+    launch: (qkv, ln1)."""
     if x.device.type == "cpu":
-        return vit_qkv_ref(x, p)
+        qkv = vit_qkv_ref(x, p)
+        return (qkv, ln1_rows(x, p)) if return_ln else qkv
     _check_cuda_args(x, p, attn=True)
     B, Np, C = x.shape
     from . import _build
 
     lib = _build.load_library()
     qkv = torch.empty((3, B, p.heads, Np, HD), dtype=x.dtype, device=x.device)
+    h = torch.empty((B * Np, C), dtype=x.dtype, device=x.device) if return_ln else None
     rc = lib.vit_qkv_launch(
-        _ptr(x), _ptr(qkv), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.ln1_w), _ptr(p.ln1_b),
-        B * Np, Np, C, p.heads, LN_EPS, _cuda_stream(x),
+        _ptr(x), _ptr(qkv), _ptr(h), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.ln1_w),
+        _ptr(p.ln1_b), B * Np, Np, C, p.heads, LN_EPS, _cuda_stream(x),
     )
     _check_launch("vit_qkv", rc)
     vit_qkv.launches += 1
-    return qkv
+    return (qkv, h) if return_ln else qkv
 
 
 def vit_attn(

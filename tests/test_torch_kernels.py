@@ -58,8 +58,8 @@ def test_signatures_pass_pointers_as_void_p():
     c_float where the kernel takes one."""
     n_ptrs = {"swin_attn_launch": 11, "swin_mlp_launch": 9, "swin_attn_bwd_launch": 16,
               "swin_mlp_bwd_launch": 14, "swin_wgrad_launch": 5, "swin_reduce_launch": 2,
-              "vit_qkv_launch": 6, "vit_attn_launch": 2, "vit_proj_launch": 5,
-              "vit_attn_bwd_launch": 15,
+              "vit_qkv_launch": 7, "vit_attn_launch": 2, "vit_proj_launch": 5,
+              "vit_attn_bwd_launch": 16, "vit_mm_launch": 3,
               "logmel_launch": 5}
     with_eps = {"swin_mlp_launch", "vit_qkv_launch", "swin_mlp_bwd_launch",
                 "vit_attn_bwd_launch"}
@@ -401,6 +401,64 @@ def test_vit_proj_matches_plain_on_card(cuda, C, heads, Np, B):
     assert torch.equal(vit.vit_proj(o, x, p), got)
 
 
+# (M, K, N) of the token-row product A (M, K) B (K, N), A K-major and B
+# MN-major on the GEMM core: edge tiles in M, N and K (one K step of 8), the
+# do and dh products of the Audio-MAE CP step and of operaGT fine-tuning
+ROWS_MM_CASES = [(100, 72, 200), (130, 8, 8), (257, 1160, 392), (10240, 768, 768),
+                 (10240, 2304, 768), (4160, 1152, 384)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", ROWS_MM_CASES)
+def test_rows_mm_matches_torch_on_card(cuda, M, K, N):
+    """The GEMM core with mixed majors (vit_attn_bwd's do and dh products)
+    against the float32 product, one launch, bitwise repeatable."""
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    g = torch.Generator().manual_seed(M + K + N)
+    a = torch.randn(M, K, generator=g).to(cuda, torch.bfloat16)
+    b = torch.randn(K, N, generator=g).to(cuda, torch.bfloat16)
+    n0 = vit_train.rows_mm.launches
+    got, want = vit_train.rows_mm(a, b), torch.mm(a.float(), b.float())
+    torch.cuda.synchronize()
+    assert vit_train.rows_mm.launches == n0 + 1
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    assert _cos(got, want) >= COS_BAR
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert torch.equal(got, vit_train.rows_mm(a, b))
+
+
+# (C, heads, B, Np): 4160 tokens (B=4 x 1040, a partial last panel) at both
+# widths, the towers' eval batches, a clip shorter than a panel and the
+# Audio-MAE CP batch (three blocks a panel of 64 rows)
+QKV_CASES = [(384, 6, 4, 1040), (768, 12, 4, 1040), (384, 6, 16, 1040), (768, 12, 16, 528),
+             (384, 6, 3, 48), (768, 12, 64, 160)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,B,Np", QKV_CASES)
+def test_vit_qkv_with_ln1_output_on_card(cuda, C, heads, B, Np):
+    """vit_qkv against vit_qkv_ref, with and without its LN1 output (the
+    same q, k, v either way; LN1(x) against the plain LN1 rows), bitwise
+    repeatable, also after the allocator's free memory is filled with NaN,
+    one launch a call."""
+    p = _vit_params(C, heads, C + B, cuda)
+    g = torch.Generator().manual_seed(B * Np)
+    x = (torch.randn(B, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    vit.reset_launch_counts()
+    qkv, h = vit.vit_qkv(x, p, return_ln=True)
+    plain_qkv = vit.vit_qkv(x, p)
+    torch.cuda.synchronize()
+    assert vit.launch_counts()["vit_qkv"] == 2
+    assert qkv.shape == (3, B, heads, Np, 64) and h.shape == (B * Np, C)
+    assert _cos(qkv, vit.vit_qkv_ref(x, p)) >= COS_BAR
+    assert _cos(h, vit.ln1_rows(x, p)) >= COS_BAR
+    assert torch.equal(qkv, plain_qkv)
+    _poison_free_memory()
+    again, h2 = vit.vit_qkv(x, p, return_ln=True)
+    assert torch.equal(again, qkv) and torch.equal(h2, h)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,heads,Np,n_real", VIT_SHAPES)
 def test_vit_attn_aligned_hcat_raises_on_card(cuda, C, heads, Np, n_real):
@@ -502,6 +560,58 @@ def test_vit_train_backward_matches_plain_on_card(cuda, C, heads, Np, n_real, B)
     _, g1 = vit_train.vit_attn_bwd(x, dh1, p, n_real)
     for q, want in ga.items():
         assert _cos(g1[q], want) >= COS_BAR, q
+
+
+# the phase-14 shapes of chip_smoke.py at their own batches
+VIT_BWD_CASES = [(768, 12, 160, 154, 64), (384, 6, 320, 308, 64), (384, 6, 80, 77, 64),
+                 (384, 6, 1040, 1025, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,n_real,B", VIT_BWD_CASES)
+def test_vit_attn_bwd_launches_on_card(cuda, C, heads, Np, n_real, B):
+    """vit_attn_bwd at the CP and fine-tuning batches: dx, every operand row
+    (dq, dk, dv apart) and every gradient leaf against the plain version,
+    the padded key rows of dk and dv exactly 0, two calls bitwise equal
+    (also after the allocator's free memory is filled with NaN), and its
+    grid launches run one by one (vit_attn_bwd_steps) equal to the whole
+    call."""
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    p = _vit_params(C, heads, Np + B, cuda)
+    g = torch.Generator().manual_seed(Np + 1)
+    x = (torch.randn(B, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    dh1 = (torch.randn(B, Np, C, generator=g) * 0.1).to(cuda, torch.bfloat16)
+    dh1[:, n_real:] = 0  # the caller's y[:, :n_real] slice
+    vit_train.reset_launch_counts()
+    dx, rows, part = vit_train.vit_attn_bwd_launch(x, dh1, p, n_real)
+    want_dx, want_g, want_rows = vit_train.vit_attn_bwd_ref(x, dh1, p, n_real, rows=True)
+    torch.cuda.synchronize()
+    assert vit_train.launch_counts()["vit_attn_bwd"] == 1
+    assert _branch_cos(dx, want_dx, dh1) >= COS_BAR
+    for name, got, want in zip(("h", "o_pre"), rows, want_rows):
+        assert _cos(got, want) >= COS_BAR, name
+    got3, want3 = rows[2].reshape(B, Np, 3, C), want_rows[2].reshape(B, Np, 3, C)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert _cos(got3[:, :, i], want3[:, :, i]) >= COS_BAR, name
+    assert not got3[:, n_real:, 1:].any()
+    assert not dx[:, n_real:].any()
+    _, grads = vit_train.vit_attn_bwd(x, dh1, p, n_real)
+    for q, want in want_g.items():
+        assert _cos(grads[q], want) >= COS_BAR, q
+    _poison_free_memory()
+    dx2, rows2, part2 = vit_train.vit_attn_bwd_launch(x, dh1, p, n_real)
+    assert torch.equal(dx2, dx) and torch.equal(part2, part)
+    assert all(torch.equal(u, v) for u, v in zip(rows2, rows))
+    steps, (dx3, rows3, part3) = vit_train.vit_attn_bwd_steps(x, dh1, p, n_real)
+    assert [name for name, _ in steps] == list(vit_train.ATTN_BWD_STEPS)
+    for buf in (dx3, part3, *rows3):
+        buf.fill_(float("nan") if buf.is_floating_point() else 0)
+    for _, fn in steps:
+        fn()
+    torch.cuda.synchronize()
+    assert torch.equal(dx3, dx) and torch.equal(part3, part)
+    assert all(torch.equal(u, v) for u, v in zip(rows3, rows))
 
 
 @pytest.mark.gpu

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from heart_murmur_detection_tpu.ops import pallas_vit as pv
+from heart_murmur_detection_tpu.ops.pallas_swin import _ln as jax_ln
 from heart_murmur_detection_tpu_torch.ops import vit
 
 
@@ -190,6 +191,46 @@ def test_cpu_tensors_never_reach_the_library():
     assert vit.launch_counts() == before
     with pytest.raises(ValueError):
         vit.fused_vit_block(x, pb, 30, impl="pallas")
+
+
+def test_cuda_checks_refuse_unpadded_tokens():
+    """The attention kernels take tokens padded to a multiple of 16
+    (pad_tokens, as the JAX entry points pad them): the wrapper's check
+    refuses other lengths before any launch, and passes padded ones."""
+    _, sd = _block(C, HEADS, seed=23)
+    pb = vit.prep_vit_block(sd, HEADS, torch.bfloat16)
+    big = vit.prep_vit_block(_block(384, 6, seed=23)[1], 6, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        vit._check_cuda_args(torch.zeros(2, 40, 384, dtype=torch.bfloat16), big, attn=True)
+    vit._check_cuda_args(torch.zeros(2, 48, 384, dtype=torch.bfloat16), big, attn=True)
+    xp, n_real = vit.pad_tokens(torch.zeros(2, 40, 384), 16)
+    assert xp.shape[1] % 16 == 0 and n_real == 40
+    assert np.asarray(pv.pad_tokens(jnp.zeros((2, 40, 384)), 16)[0]).shape == tuple(xp.shape)
+    with pytest.raises(ValueError, match="C 384 or 768"):  # the width rule stays first
+        vit._check_cuda_args(torch.zeros(2, 40, C, dtype=torch.bfloat16), pb, attn=True)
+
+
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16])
+def test_vit_qkv_ln1_output_matches_jax(mm_dtype):
+    """vit_qkv(..., return_ln=True) on the plain path: the same q, k, v as
+    vit_qkv_ref and LN1(x) as (B Np, C) rows, against the JAX body's LN1
+    (`_attn_half`: _ln with eps 1e-6, cast to the activation dtype), with 37
+    real tokens padded to 48."""
+    p, sd = _block(C, HEADS, seed=19)
+    pb = vit.prep_vit_block(sd, HEADS, mm_dtype)
+    xp, _ = vit.pad_tokens(torch.from_numpy(_x(2, 37, C, seed=8)), 16)
+    x = xp.to(mm_dtype)
+    qkv, h = vit.vit_qkv(x, pb, return_ln=True)
+    assert torch.equal(qkv, vit.vit_qkv_ref(x, pb)) and torch.equal(qkv, vit.vit_qkv(x, pb))
+    assert h.shape == (2 * 48, C) and h.dtype == x.dtype
+    act = jnp.bfloat16 if mm_dtype == torch.bfloat16 else jnp.float32
+    want = jax_ln(jnp.asarray(xp.numpy()).astype(act), jnp.asarray(p["norm1"]["scale"]),
+                  jnp.asarray(p["norm1"]["bias"]), eps=1e-6).astype(act)
+    want = np.asarray(want.astype(jnp.float32)).reshape(-1, C)
+    if mm_dtype == torch.float32:
+        np.testing.assert_allclose(h.numpy(), want, atol=ATOL, rtol=RTOL)
+    else:
+        assert _cos(h.float().numpy(), want) >= 0.99999
 
 
 @pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16])
