@@ -65,7 +65,8 @@ Phases (each prints one line; any failure exits non-zero):
      impl="plain" (output branch and every leaf); times a launch, the plain
      halves, the bound of K9's backward function, SDPA's backward on the same
      q, k, v, dO, vit_attn_bwd's function as a chain of library calls, and
-     each of vit_attn_bwd's six grid launches alone
+     the device time of each of vit_attn_bwd's six grid launches by kernel
+     name (torch.profiler)
  15. Audio-MAE CP: three synthetic heart corpora (fbank clips of 600-1400
      frames x 128) on disk, one epoch of method=audiomae at B=64 through
      cli.pretrain on the kernels (12 launches of each backward kernel a
@@ -786,6 +787,10 @@ SWIN_GROUPS = {k: k + "_kernel" for k in ("swin_attn_bwd", "swin_mlp_bwd", "swin
                                            "swin_reduce", "swin_attn", "swin_mlp")}
 VIT_GROUPS = {"vit_qkv": "vit_qkv_kernel", "vit_attn": "vit_attn_kernel",
               "vit_proj": "vit_proj_kernel", "vit_mlp": "swin_mlp_kernel"}
+# vit_attn_bwd's six grid launches by kernel name (csrc/vit_attn_bwd.cu)
+ATTN_BWD_LAUNCHES = {"qkv": "vit_attn_bwd_qkv_kernel", "do": "vit_attn_bwd_mm_kernel<1>",
+                     "query pass": "vit_attn_bwd_q_kernel", "key pass": "vit_attn_bwd_kv_kernel",
+                     "dh": "vit_attn_bwd_mm_kernel<0>", "rows": "vit_attn_bwd_rows_kernel"}
 
 
 PAD_CYCLES = 50_000_000  # ~25 ms of spin kernel at the H100's clock
@@ -1360,15 +1365,15 @@ def phase_vit_train_kernels(dev):
         lib_ms = _time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
                           iters=10, warm=2)
         # the whole function as library calls (bench/vit_bwd_time.py), and
-        # vit_attn_bwd's grid launches one by one
+        # the device time of each of vit_attn_bwd's grid launches by name
         chain, _ = library_chain(x, dh1, p, n_real)
         chain_ms = _time_ms(chain, iters=10, warm=2)
-        steps, _ = vt.vit_attn_bwd_steps(x, dh1, p, n_real)
-        split = {name: round(_time_ms(fn, iters=10, warm=2), 4) for name, fn in steps}
+        split = _device_ms(lambda: vt.vit_attn_bwd_launch(x, dh1, p, n_real),
+                           groups_by=ATTN_BWD_LAUNCHES)
         print(f"[vit train kernels] {shape}: vit_attn_bwd's function as library calls "
               f"(layer_norm, addmm, mm, SDPA backward, mm, the LayerNorm backward) "
-              f"{chain_ms:.4f} ms; vit_attn_bwd's grid launches one by one (ms): {split}",
-              flush=True)
+              f"{chain_ms:.4f} ms; vit_attn_bwd's grid launches by the profiler (ms a call): "
+              f"{ {k: round(v, 4) for k, v in split.items()} }", flush=True)
         (wm, om), (wa, oa), (ww, ow) = _vit_bwd_work(B, Np, n_real, C, heads)
         bm, ba, bw = Work(), Work(), Work()
         bm.add(wm, om)
@@ -1631,7 +1636,9 @@ def phase_mae_cp(smi: str, dev):
     return counts
 
 
-MAE_GROUPS = {**VIT_GROUPS, "vit_attn_bwd": "vit_attn_bwd", "vit_mlp_bwd": "swin_mlp_bwd_kernel",
+# every kernel of vit_attn_bwd's call, its LN1 + qkv recompute and its do /
+# dh products too, is named vit_attn_bwd_* (csrc/vit_attn_bwd.cu)
+MAE_GROUPS = {"vit_attn_bwd": "vit_attn_bwd_", **VIT_GROUPS, "vit_mlp_bwd": "swin_mlp_bwd_kernel",
               "swin_wgrad": "swin_wgrad_kernel", "swin_reduce": "swin_reduce_kernel"}
 
 

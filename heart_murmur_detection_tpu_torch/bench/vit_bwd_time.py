@@ -11,11 +11,10 @@ tokens and an incoming gradient zero on the padded rows:
   - the CUDA-event time of one vit_attn_bwd_launch (the whole call, every
     grid launch in it; 3 warm-up calls, mean of 20), and of its plain
     version vit_attn_bwd_ref;
-  - the device time of each grid launch inside the call, by kernel name,
+  - the device time of each grid launch inside the call, by kernel name
+    with its template arguments (vit_attn_bwd_mm_kernel<1> is do, <0> dh),
     from torch.profiler over 3 calls (taken first, in a fresh process: the
-    card machine's profiler drops device records later in a process); and,
-    where the tree's wrapper exposes its launches one by one
-    (ops/vit_train.py::vit_attn_bwd_steps), the CUDA-event time of each;
+    card machine's profiler drops device records later in a process);
   - the same function as a chain of library calls: layer_norm, addmm for
     qkv, mm for do, SDPA's backward (keys sliced to n_real), mm for dh and
     the LayerNorm backward (aten.native_layer_norm_backward), and SDPA's
@@ -97,7 +96,7 @@ def _split(fn, n: int = 3) -> dict:
             continue
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
-        name = e.key.split("(")[0].split("<")[0].replace("void ", "").replace("hmdt::", "")
+        name = e.key.split("(")[0].replace("void ", "").replace("hmdt::", "")
         out[name] = round(out.get(name, 0.0) + us / 1e3 / n, 4)
     return out
 
@@ -170,9 +169,6 @@ def main(argv=None) -> int:
         row["library_chain_ms"] = round(_ms(chain), 4)
         row["sdpa_bwd_ms"] = round(_ms(sdpa_bwd), 4)
         row["split_profiler_ms"] = splits[name]
-        if hasattr(vt, "vit_attn_bwd_steps"):
-            steps, _ = vt.vit_attn_bwd_steps(x, dh1, p, n_real)
-            row["split_events_ms"] = {s: round(_ms(fn), 4) for s, fn in steps}
         print(tag, f"vit_attn_bwd {name} B={B} Np={Np} n_real={n_real} C={C}:",
               json.dumps(row), flush=True)
         if name == "audiomae":

@@ -25,10 +25,12 @@
 // bind; at the Audio-MAE CP shape the three weight-shaped products are
 // about 85% of them. Design: six grid launches on the caller's stream (one
 // call of the wrapper), each on wgmma with TMA-fed operands (the pieces of
-// wgmma_gemm.cuh and vit_attn.cu):
-//  1. qkv: vit_qkv.cu's LN1 + qkv kernel (one LN1 a token, the W_qkv tiles
-//     streamed over all 3C columns), with its h_g output; q, k, v land
-//     head-major in scratch, rounded as the forward rounds them.
+// wgmma_gemm.cuh and vit_attn.cu), every kernel named vit_attn_bwd_* so
+// that a profile groups them:
+//  1. qkv: vit_qkv.cu's LN1 + qkv body as vit_attn_bwd_qkv_kernel (one LN1
+//     a token, the W_qkv tiles streamed over all 3C columns), with its h_g
+//     output; q, k, v land head-major in scratch, rounded as the forward
+//     rounds them.
 //  2. do = dh1 W_proj on the GEMM core with A K-major (token rows) and B
 //     MN-major (the torch (out, in) weight read as (K, N)), rounded once and
 //     scattered head-major to scratch from the accumulator registers.
@@ -62,27 +64,19 @@
 #include "vit_attn_common.cuh"
 #include "wgmma_gemm.cuh"
 
-extern "C" int vit_qkv_launch(const void* x, void* qkv, void* h_out, const void* w_qkv,
-                              const void* b_qkv, const void* ln_w, const void* ln_b,
-                              int n_tokens, int Np, int C, int heads, float eps, void* stream);
-
 namespace hmdt {
+
+// vit_qkv.cu's launch; recompute = true runs it as vit_attn_bwd_qkv_kernel
+int qkv_launch(const void* x, void* qkv, void* h_out, const void* w_qkv, const void* b_qkv,
+               const void* ln_w, const void* ln_b, int n_tokens, int Np, int C, int heads,
+               float eps, bool recompute, cudaStream_t s);
 
 using namespace hop;
 
-enum BwdStep : int {
-  STEP_QKV = 1,
-  STEP_DO = 2,
-  STEP_QUERY = 4,
-  STEP_KEY = 8,
-  STEP_DH = 16,
-  STEP_ROWS = 32,
-  STEPS_ALL = 63
-};
-
 // ---------------------------------------------------------------------------
 // 2, 5. token-row products on the GEMM core: A (M, K) K-major, B (K, N)
-// MN-major, a 128 x 128 tile a block over all of K
+// MN-major, a 128 x 128 tile a block over all of K (in a profile,
+// vit_attn_bwd_mm_kernel<1> is do, <0> dh)
 // ---------------------------------------------------------------------------
 
 enum RowsEpilogue : int {
@@ -92,8 +86,9 @@ enum RowsEpilogue : int {
 
 template <int EPI>
 __global__ void __launch_bounds__(THREADS, 2)
-rows_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-                 void* __restrict__ out, int M, int N, int K, int Np, int heads) {
+vit_attn_bwd_mm_kernel(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb, void* __restrict__ out, int M,
+                       int N, int K, int Np, int heads) {
   extern __shared__ uint8_t smem_raw[];
   GemmSmem<1>& sm = gemm_smem<1>(smem_raw);
   gemm_init(sm);
@@ -118,8 +113,8 @@ rows_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
 
 // out = a (M, K) b (K, N), bf16 row-major operands, K and N multiples of 8.
 template <int EPI>
-static int launch_rows_gemm(const void* a, const void* b, void* out, int M, int N, int K, int Np,
-                            int heads, cudaStream_t stream) {
+static int launch_mm(const void* a, const void* b, void* out, int M, int N, int K, int Np,
+                     int heads, cudaStream_t stream) {
   CUtensorMap ma, mb;
   const uint64_t da[2] = {(uint64_t)K, (uint64_t)M}, db[2] = {(uint64_t)N, (uint64_t)K};
   const uint32_t box[2] = {BOX, BOX};
@@ -127,11 +122,11 @@ static int launch_rows_gemm(const void* a, const void* b, void* out, int M, int 
   if (!err) err = make_tensor_map(&mb, b, 2, db, box);
   if (err) return err;
   constexpr size_t smem = gemm_smem_bytes<1>();
-  cudaError_t e = cudaFuncSetAttribute(rows_gemm_kernel<EPI>,
+  cudaError_t e = cudaFuncSetAttribute(vit_attn_bwd_mm_kernel<EPI>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + GEMM_COLS - 1) / GEMM_COLS, (M + GemmCfg<1>::ROWS - 1) / GemmCfg<1>::ROWS);
-  rows_gemm_kernel<EPI><<<grid, THREADS, smem, stream>>>(ma, mb, out, M, N, K, Np, heads);
+  vit_attn_bwd_mm_kernel<EPI><<<grid, THREADS, smem, stream>>>(ma, mb, out, M, N, K, Np, heads);
   return (int)cudaGetLastError();
 }
 
@@ -633,15 +628,12 @@ static int launch_attn_bwd(const void* x, const void* dh1, void* dx, const void*
                            const void* b_qkv, const void* w_proj, const void* ln_w,
                            const void* ln_b, void* h_g, void* opre_g, void* dqkv_g, void* part,
                            void* qkv_ws, void* do_ws, void* stats_ws, void* dh_ws, int B, int Np,
-                           int heads, int n_real, int tpb, int steps, float eps,
-                           cudaStream_t stream) {
+                           int heads, int n_real, int tpb, float eps, cudaStream_t stream) {
   const int n = B * Np;
-  int err = 0;
-  if (steps & STEP_QKV)
-    err = vit_qkv_launch(x, qkv_ws, h_g, w_qkv, b_qkv, ln_w, ln_b, n, Np, C, heads, eps, stream);
-  if (!err && (steps & STEP_DO))
-    err = launch_rows_gemm<EPI_HEADS>(dh1, w_proj, do_ws, n, C, C, Np, heads, stream);
-  if (!err && (steps & (STEP_QUERY | STEP_KEY))) {
+  int err = qkv_launch(x, qkv_ws, h_g, w_qkv, b_qkv, ln_w, ln_b, n, Np, C, heads, eps, true,
+                       stream);
+  if (!err) err = launch_mm<EPI_HEADS>(dh1, w_proj, do_ws, n, C, C, Np, heads, stream);
+  if (!err) {
     CUtensorMap mqkv, mdo;
     const uint64_t d_qkv[3] = {(uint64_t)AHD, (uint64_t)Np, (uint64_t)3 * B * heads};
     const uint64_t d_do[3] = {(uint64_t)AHD, (uint64_t)Np, (uint64_t)B * heads};
@@ -649,7 +641,7 @@ static int launch_attn_bwd(const void* x, const void* dh1, void* dx, const void*
     err = make_tensor_map(&mqkv, qkv_ws, 3, d_qkv, box);
     if (!err) err = make_tensor_map(&mdo, do_ws, 3, d_do, box);
     const dim3 grid((Np + BT - 1) / BT, heads, B);
-    if (!err && (steps & STEP_QUERY)) {
+    if (!err) {
       err = (int)cudaFuncSetAttribute(vit_attn_bwd_q_kernel,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
       if (!err) {
@@ -659,7 +651,7 @@ static int launch_attn_bwd(const void* x, const void* dh1, void* dx, const void*
         err = (int)cudaGetLastError();
       }
     }
-    if (!err && (steps & STEP_KEY)) {
+    if (!err) {
       err = (int)cudaFuncSetAttribute(vit_attn_bwd_kv_kernel,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
       if (!err) {
@@ -670,9 +662,8 @@ static int launch_attn_bwd(const void* x, const void* dh1, void* dx, const void*
       }
     }
   }
-  if (!err && (steps & STEP_DH))
-    err = launch_rows_gemm<EPI_F32>(dqkv_g, w_qkv, dh_ws, n, C, 3 * C, Np, heads, stream);
-  if (!err && (steps & STEP_ROWS)) {
+  if (!err) err = launch_mm<EPI_F32>(dqkv_g, w_qkv, dh_ws, n, C, 3 * C, Np, heads, stream);
+  if (!err) {
     const int n_tiles = n / VT;
     vit_attn_bwd_rows_kernel<C><<<(n_tiles + tpb - 1) / tpb, NTHREADS, 0, stream>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(dh1),
@@ -694,26 +685,23 @@ static int launch_attn_bwd(const void* x, const void* dh1, void* dx, const void*
 // b_qkv, ln_w, ln_b f32; h_g, opre_g (B Np, C) and dqkv_g (B Np, 3C) bf16;
 // part (ceil(B Np / 64 / tpb), 6C) f32; scratch qkv_ws (3, B, heads, Np, 64)
 // and do_ws (B, heads, Np, 64) bf16, stats_ws (3, B heads Np) and dh_ws
-// (B Np, C) f32. Keys >= n_real are masked. steps: a mask of the six grid
-// launches to run (1 qkv, 2 do, 4 query pass, 8 key pass, 16 dh, 32 rows;
-// 63 for the whole backward; one alone re-runs that launch on what the
-// others left in the scratch).
+// (B Np, C) f32. Keys >= n_real are masked.
 extern "C" int vit_attn_bwd_launch(const void* x, const void* dh1, void* dx, const void* w_qkv,
                                    const void* b_qkv, const void* w_proj, const void* ln_w,
                                    const void* ln_b, void* h_g, void* opre_g, void* dqkv_g,
                                    void* part, void* qkv_ws, void* do_ws, void* stats_ws,
                                    void* dh_ws, int B, int Np, int C, int heads, int n_real,
-                                   int tpb, int steps, float eps, void* stream) {
+                                   int tpb, float eps, void* stream) {
   using namespace hmdt;
   if (B <= 0 || B > 65535 || Np <= 0 || (B * Np) % VT || n_real <= 0 || n_real > Np ||
-      heads * AHD != C || tpb <= 0 || steps <= 0 || steps > STEPS_ALL)
+      heads * AHD != C || tpb <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HMDT_VIT_ATTN_BWD_CASE(CC)                                                            \
   case CC:                                                                                    \
     return launch_attn_bwd<CC>(x, dh1, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, h_g, opre_g,    \
                                dqkv_g, part, qkv_ws, do_ws, stats_ws, dh_ws, B, Np, heads,   \
-                               n_real, tpb, steps, eps, s);
+                               n_real, tpb, eps, s);
   switch (C) {
     HMDT_VIT_ATTN_BWD_CASE(384)
     HMDT_VIT_ATTN_BWD_CASE(768)
@@ -724,12 +712,13 @@ extern "C" int vit_attn_bwd_launch(const void* x, const void* dh1, void* dx, con
 }
 
 // vit_mm_launch: out (M, N) f32 = a (M, K) b (K, N), a and b bf16 row-major,
-// K and N multiples of 8: the token-row product of steps 2 and 5 (A K-major,
-// B MN-major on the GEMM core) alone, with edge tiles on every side.
+// K and N multiples of 8: the token-row product of launches 2 and 5 (A
+// K-major, B MN-major on the GEMM core) alone, for the tests only (edge
+// tiles on every side); no path calls it.
 extern "C" int vit_mm_launch(const void* a, const void* b, void* out, int M, int N, int K,
                              void* stream) {
   using namespace hmdt;
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || (M + 127) / 128 > 65535)
     return (int)cudaErrorInvalidValue;
-  return launch_rows_gemm<EPI_F32>(a, b, out, M, N, K, 1, 1, static_cast<cudaStream_t>(stream));
+  return launch_mm<EPI_F32>(a, b, out, M, N, K, 1, 1, static_cast<cudaStream_t>(stream));
 }

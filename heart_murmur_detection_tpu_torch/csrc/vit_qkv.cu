@@ -4,7 +4,7 @@
 //   the q part of b_qkv carry 1/sqrt(hd), folded in at weight load.
 //   Written head-major: qkv (3, B, heads, Np, 64) bf16; optionally also
 //   LN1(x) itself as bf16 rows (n_tokens, C) (h_g of vit_attn_bwd.cu, which
-//   runs this kernel as its recompute of the forward).
+//   runs this kernel, as vit_attn_bwd_qkv_kernel, to recompute the forward).
 //
 // Replaces the LN1 and qkv part of the ViT attention body `_attn_half`
 // (heart_murmur_detection_tpu/ops/pallas_vit.py:66) that the TPU kernels
@@ -40,7 +40,7 @@
 //    as the swizzled boxes of 16 rows x one head, which TMA stores
 //    head-major in the background (4-byte stores straight from the
 //    registers, 16 bytes a row a warp instruction, stalled the warpgroups
-//    for ~4 us of each ~6.5-us column step on an H100);
+//    for most of each column step on an H100);
 //  - rows past n_tokens read as zeros and are never stored; a panel may
 //    span clips (each row maps to its own (b, t));
 //  - where the panels do not fill the card, the 3C columns split into
@@ -92,11 +92,12 @@ constexpr size_t qkv_smem_bytes() {
 // PR; tw: W_qkv (3C, C) in boxes of 64 x 128; tq: qkv as (3 B heads, Np,
 // 64) in boxes of 16 rows.
 template <int C>
-__global__ void __launch_bounds__(THREADS, 1)
-vit_qkv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-               const __grid_constant__ CUtensorMap tq, bf16* __restrict__ h_out,
-               const float* __restrict__ bias, const float* __restrict__ ln_w,
-               const float* __restrict__ ln_b, int n_tokens, int Np, int heads, float eps) {
+__device__ __forceinline__ void qkv_panel(const CUtensorMap* tx, const CUtensorMap* tw,
+                                          const CUtensorMap* tq, bf16* __restrict__ h_out,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ ln_w,
+                                          const float* __restrict__ ln_b, int n_tokens, int Np,
+                                          int heads, float eps) {
   using Cfg = QkvCfg<C>;
   constexpr int PR = Cfg::PR, SN = Cfg::SN, S = Cfg::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -120,7 +121,7 @@ vit_qkv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
       // the panel's x rows (rows past n_tokens read as zeros), then W
       mbar_expect_tx(&sm.xbar, Cfg::PANEL_BYTES);
       for (int kb = 0; kb < Cfg::K_STEPS; ++kb)
-        tma_load_2d(sm.panel + (size_t)kb * PR * 128, &tx, &sm.xbar, kb * BOX, p0);
+        tma_load_2d(sm.panel + (size_t)kb * PR * 128, tx, &sm.xbar, kb * BOX, p0);
       int it = 0;
       for (int ns = ns_beg; ns < ns_end; ++ns)
         for (int kb = 0; kb < Cfg::K_STEPS; ++kb, ++it) {
@@ -129,7 +130,7 @@ vit_qkv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
           mbar_expect_tx(&sm.full[st], Cfg::STAGE_BYTES);
 #pragma unroll
           for (int j = 0; j < SN / 128; ++j)
-            tma_load_2d(sm.ring[st] + j * 128 * 128, &tw, &sm.full[st], kb * BOX,
+            tma_load_2d(sm.ring[st] + j * 128 * 128, tw, &sm.full[st], kb * BOX,
                         ns * SN + 128 * j);
         }
     }
@@ -231,7 +232,7 @@ vit_qkv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
         const int bb = tok / Np, t = tok % Np;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
-          tma_store_3d(&tq, out + hh * (64 * 128) + g * (OUT_ROWS * 128), 0, t,
+          tma_store_3d(tq, out + hh * (64 * 128) + g * (OUT_ROWS * 128), 0, t,
                        (which * B + bb) * heads + head0 + hh);
       }
       bulk_commit();
@@ -282,10 +283,25 @@ vit_qkv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
   if (leader) bulk_wait<0>();  // shared memory stays until the stores are done
 }
 
+// The forward's launch and vit_attn_bwd.cu's recompute run the same body
+// under two names, so that a profile tells the two apart.
+#define HMDT_QKV_KERNEL(NAME)                                                                  \
+  template <int C>                                                                            \
+  __global__ void __launch_bounds__(THREADS, 1)                                               \
+  NAME(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,        \
+       const __grid_constant__ CUtensorMap tq, bf16* __restrict__ h_out,                      \
+       const float* __restrict__ bias, const float* __restrict__ ln_w,                        \
+       const float* __restrict__ ln_b, int n_tokens, int Np, int heads, float eps) {          \
+    qkv_panel<C>(&tx, &tw, &tq, h_out, bias, ln_w, ln_b, n_tokens, Np, heads, eps);           \
+  }
+HMDT_QKV_KERNEL(vit_qkv_kernel)
+HMDT_QKV_KERNEL(vit_attn_bwd_qkv_kernel)
+#undef HMDT_QKV_KERNEL
+
 template <int C>
 static int launch_qkv(const void* x, void* qkv, void* h_out, const void* w, const void* b,
                       const void* ln_w, const void* ln_b, int n_tokens, int Np, int heads,
-                      float eps, cudaStream_t stream) {
+                      float eps, bool recompute, cudaStream_t stream) {
   using Cfg = QkvCfg<C>;
   CUtensorMap mx, mw, mq;
   const uint64_t dx[2] = {(uint64_t)C, (uint64_t)n_tokens}, dw[2] = {(uint64_t)C, (uint64_t)3 * C};
@@ -297,7 +313,7 @@ static int launch_qkv(const void* x, void* qkv, void* h_out, const void* w, cons
   if (err) return err;
   constexpr size_t smem = qkv_smem_bytes<C>();
   static_assert(smem <= SMEM_LIMIT, "shared memory over the sm_90 limit");
-  auto kernel = vit_qkv_kernel<C>;
+  auto kernel = recompute ? vit_attn_bwd_qkv_kernel<C> : vit_qkv_kernel<C>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -319,6 +335,25 @@ static int launch_qkv(const void* x, void* qkv, void* h_out, const void* w, cons
   return (int)cudaGetLastError();
 }
 
+// The launch of either name (recompute: vit_attn_bwd.cu's); the argument
+// rules of vit_qkv_launch.
+int qkv_launch(const void* x, void* qkv, void* h_out, const void* w_qkv, const void* b_qkv,
+               const void* ln_w, const void* ln_b, int n_tokens, int Np, int C, int heads,
+               float eps, bool recompute, cudaStream_t s) {
+  if (n_tokens <= 0 || Np <= 0 || Np % OUT_ROWS || n_tokens % Np || heads * VIT_HD != C)
+    return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 384:
+      return launch_qkv<384>(x, qkv, h_out, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, heads, eps,
+                             recompute, s);
+    case 768:
+      return launch_qkv<768>(x, qkv, h_out, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, heads, eps,
+                             recompute, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace hmdt
 
 // C interface for ctypes. Returns cudaGetLastError() after the launch (0 on
@@ -329,16 +364,6 @@ extern "C" int vit_qkv_launch(const void* x, void* qkv, void* h_out, const void*
                               const void* b_qkv, const void* ln_w, const void* ln_b,
                               int n_tokens, int Np, int C, int heads, float eps,
                               void* stream) {
-  using namespace hmdt;
-  if (n_tokens <= 0 || Np <= 0 || Np % OUT_ROWS || n_tokens % Np || heads * VIT_HD != C)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 384:
-      return launch_qkv<384>(x, qkv, h_out, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, heads, eps, s);
-    case 768:
-      return launch_qkv<768>(x, qkv, h_out, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, heads, eps, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return hmdt::qkv_launch(x, qkv, h_out, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, C, heads, eps,
+                          false, static_cast<cudaStream_t>(stream));
 }

@@ -57,10 +57,10 @@ _SIGNATURES = {
     # o, x, out, w_proj, b_proj, rows, C, stream
     "vit_proj_launch": [_vp] * 5 + [_i] * 2 + [_vp],
     # x, dh1, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, h_g, opre_g, dqkv_g, part,
-    # qkv_ws, do_ws, stats_ws, dh_ws, B, Np, C, heads, n_real, tpb, steps, eps,
-    # stream
-    "vit_attn_bwd_launch": [_vp] * 16 + [_i] * 7 + [_f, _vp],
-    # a, b, out, M, N, K, stream
+    # qkv_ws, do_ws, stats_ws, dh_ws, B, Np, C, heads, n_real, tpb, eps, stream
+    "vit_attn_bwd_launch": [_vp] * 16 + [_i] * 6 + [_f, _vp],
+    # a, b, out, M, N, K, stream (vit_attn_bwd's token-row product alone, for
+    # the tests)
     "vit_mm_launch": [_vp] * 3 + [_i] * 3 + [_vp],
     # wav, out, cos, sin, fb, B, N, stream
     "logmel_launch": [_vp] * 5 + [_i] * 2 + [_vp],

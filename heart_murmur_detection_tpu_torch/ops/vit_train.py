@@ -12,9 +12,8 @@ heart_murmur_detection_tpu/ops/pallas_vit_train.py::fused_vit_block_train
                            :163)
              vit_attn_bwd  (x, dh1) -> dx + per-token operands + per-block
                            column sums: csrc/vit_attn_bwd.cu, six grid
-                           launches (ATTN_BWD_STEPS) on wgmma, the first
-                           vit_qkv.cu's LN1 + qkv kernel (TPU
-                           `_attn_bwd_core` :246)
+                           launches on wgmma, the first vit_qkv.cu's LN1 +
+                           qkv body (TPU `_attn_bwd_core` :246)
              swin_wgrad / swin_reduce (ops/swin_train.py) for the weight
                            gradients and the column sums, each summed in a
                            fixed order
@@ -209,86 +208,47 @@ def vit_mlp_bwd(
     }
 
 
-# the grid launches of one vit_attn_bwd call, in order (csrc/vit_attn_bwd.cu;
-# bit i of its steps mask runs launch i)
-ATTN_BWD_STEPS = ("qkv", "do", "query pass", "key pass", "dh", "rows")
-_ALL_STEPS = (1 << len(ATTN_BWD_STEPS)) - 1
-
-
-class _AttnBwdCall:
-    """The outputs and scratch of one vit_attn_bwd call on CUDA tensors,
-    allocated by the wrapper (the kernels allocate nothing)."""
-
-    def __init__(self, x: torch.Tensor, dh1: torch.Tensor, p: VitBlockParams,
-                 n_real: Optional[int]):
-        self.dh1 = _check_bwd_args(x, dh1, p)
-        B, Np, C = x.shape
-        self.n_real = Np if n_real is None else n_real
-        if not 0 < self.n_real <= Np:
-            raise ValueError(f"n_real {self.n_real} outside (0, {Np}]")
-        n, heads, dev = B * Np, p.heads, x.device
-        self.tpb, G = _blocks_for(n // TOKEN_TILE)
-        e = lambda *shape, dtype=x.dtype: torch.empty(*shape, dtype=dtype, device=dev)
-        self.x, self.p = x, p
-        self.h_g, self.opre_g, self.dqkv_g = e(n, C), e(n, C), e(n, 3 * C)
-        self.part = e(G, 6 * C, dtype=torch.float32)
-        self.qkv_ws, self.do_ws = e(3, B, heads, Np, HD), e(B, heads, Np, HD)
-        self.stats_ws = e(3, B * heads * Np, dtype=torch.float32)
-        self.dh_ws = e(n, C, dtype=torch.float32)
-        self.dx = torch.empty_like(x)
-
-    def run(self, steps: int = _ALL_STEPS) -> None:
-        x, p = self.x, self.p
-        B, Np, C = x.shape
-        rc = _lib().vit_attn_bwd_launch(
-            _ptr(x), _ptr(self.dh1), _ptr(self.dx), _ptr(p.w_qkv), _ptr(p.b_qkv),
-            _ptr(p.w_proj), _ptr(p.ln1_w), _ptr(p.ln1_b), _ptr(self.h_g), _ptr(self.opre_g),
-            _ptr(self.dqkv_g), _ptr(self.part), _ptr(self.qkv_ws), _ptr(self.do_ws),
-            _ptr(self.stats_ws), _ptr(self.dh_ws),
-            B, Np, C, p.heads, self.n_real, self.tpb, steps, LN_EPS, _cuda_stream(x),
-        )
-        _check_launch("vit_attn_bwd", rc)
-        vit_attn_bwd.launches += 1
-
-
 def vit_attn_bwd_launch(
     x: torch.Tensor, dh1: torch.Tensor, p: VitBlockParams, n_real: Optional[int] = None
 ):
-    """The vit_attn_bwd launch on CUDA tensors (csrc/vit_attn_bwd.cu, the six
-    grid launches of ATTN_BWD_STEPS in one call): (dx, (LN1(x), o_pre, dqkv)
-    operand rows, per-block partial rows [db_qkv | db_proj | dLN1 w |
-    dLN1 b])."""
-    call = _AttnBwdCall(x, dh1, p, n_real)
-    call.run()
-    return call.dx, (call.h_g, call.opre_g, call.dqkv_g), call.part
-
-
-def vit_attn_bwd_steps(
-    x: torch.Tensor, dh1: torch.Tensor, p: VitBlockParams, n_real: Optional[int] = None
-):
-    """The grid launches of one vit_attn_bwd call one by one, for timing:
-    runs the whole call once, then returns ([(step name, a closure that
-    re-runs that launch alone on the same buffers)], the outputs those
-    launches write, as vit_attn_bwd_launch returns them). Each closure counts
-    as a vit_attn_bwd launch."""
-    call = _AttnBwdCall(x, dh1, p, n_real)
-    call.run()
-    steps = [(name, lambda i=i: call.run(1 << i)) for i, name in enumerate(ATTN_BWD_STEPS)]
-    return steps, (call.dx, (call.h_g, call.opre_g, call.dqkv_g), call.part)
-
-
-def rows_mm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of rows_mm: a (M, K) b (K, N) in float32."""
-    return a.to(torch.float32) @ b.to(torch.float32)
+    """The vit_attn_bwd launch on CUDA tensors (csrc/vit_attn_bwd.cu, six
+    grid launches in one call, every kernel named vit_attn_bwd_*): (dx,
+    (LN1(x), o_pre, dqkv) operand rows, per-block partial rows [db_qkv |
+    db_proj | dLN1 w | dLN1 b])."""
+    dh1 = _check_bwd_args(x, dh1, p)
+    B, Np, C = x.shape
+    n_real = Np if n_real is None else n_real
+    if not 0 < n_real <= Np:
+        raise ValueError(f"n_real {n_real} outside (0, {Np}]")
+    n, heads = B * Np, p.heads
+    tpb, G = _blocks_for(n // TOKEN_TILE)
+    e = lambda *shape, dtype=x.dtype: torch.empty(*shape, dtype=dtype, device=x.device)
+    h_g, opre_g, dqkv_g = e(n, C), e(n, C), e(n, 3 * C)
+    part = e(G, 6 * C, dtype=torch.float32)
+    # scratch: head-major q, k, v and do, the query rows' statistics, dh
+    qkv_ws, do_ws = e(3, B, heads, Np, HD), e(B, heads, Np, HD)
+    stats_ws = e(3, B * heads * Np, dtype=torch.float32)
+    dh_ws = e(n, C, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    rc = _lib().vit_attn_bwd_launch(
+        _ptr(x), _ptr(dh1), _ptr(dx), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.w_proj),
+        _ptr(p.ln1_w), _ptr(p.ln1_b), _ptr(h_g), _ptr(opre_g), _ptr(dqkv_g), _ptr(part),
+        _ptr(qkv_ws), _ptr(do_ws), _ptr(stats_ws), _ptr(dh_ws),
+        B, Np, C, heads, n_real, tpb, LN_EPS, _cuda_stream(x),
+    )
+    _check_launch("vit_attn_bwd", rc)
+    vit_attn_bwd.launches += 1
+    return dx, (h_g, opre_g, dqkv_g), part
 
 
 def rows_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (M, K) b (K, N) -> float32 (M, N) on the token-row product of
-    vit_attn_bwd (the GEMM core with A K-major and B MN-major, the float32
-    row store of its dh step): the core's own check. bf16 operands, K and N
-    multiples of 8."""
+    """a (M, K) b (K, N) -> float32 (M, N) on vit_attn_bwd's token-row
+    product (the GEMM core with A K-major and B MN-major, the float32 row
+    store of its dh launch) alone. For the tests only: no path calls it, and
+    it counts no launches. On the CPU the float32 product of the operands;
+    on the card bf16 operands, K and N multiples of 8."""
     if a.device.type == "cpu":
-        return rows_mm_ref(a, b)
+        return a.to(torch.float32) @ b.to(torch.float32)
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError(f"rows_mm takes bfloat16 operands, got {a.dtype} / {b.dtype}")
     if (a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] or a.shape[1] % 8
@@ -301,7 +261,6 @@ def rows_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty(M, N, dtype=torch.float32, device=a.device)
     _check_launch("rows_mm", _lib().vit_mm_launch(_ptr(a), _ptr(b), _ptr(out), M, N, K,
                                                   _cuda_stream(a)))
-    rows_mm.launches += 1
     return out
 
 
@@ -323,7 +282,6 @@ def vit_attn_bwd(
 
 vit_mlp_bwd.launches = 0
 vit_attn_bwd.launches = 0
-rows_mm.launches = 0  # the GEMM core's own check; inside vit_attn_bwd on every path
 COUNTED = [vit_attn_bwd, vit_mlp_bwd]
 
 
