@@ -22,8 +22,9 @@ Phases (each prints one line; any failure exits non-zero):
      (cosine of each branch, dx / dh1 branch and every gradient leaf >=
      0.99999), two launches bitwise equal; the weight-gradient products
      (one swin_wgrad launch each, its chunk partials summed in order inside)
-     against torch.mm and the column-sum reductions at the step's shapes;
-     times per launch
+     against torch.mm and the column-sum reductions (swin_reduce, bitwise
+     the in-order sum) at the step's shapes, a line a (S, L) against
+     sum(0); times per launch
   8. CP: three synthetic corpora (circor, physionet16, pascal_A; 300 clips
      of 260-1000 frames each) on disk, one epoch of COLA continued
      pretraining of the full-width operaCT at B=64 through cli.pretrain on
@@ -66,7 +67,9 @@ Phases (each prints one line; any failure exits non-zero):
      halves, the bound of K9's backward function, SDPA's backward on the same
      q, k, v, dO, vit_attn_bwd's function as a chain of library calls, and
      the device time of each of vit_attn_bwd's six grid launches by kernel
-     name (torch.profiler)
+     name (torch.profiler); at the Audio-MAE shape, the step's weight
+     products against torch.mm and its column sums, a line a (S, L),
+     swin_reduce against sum(0)
  15. Audio-MAE CP: three synthetic heart corpora (fbank clips of 600-1400
      frames x 128) on disk, one epoch of method=audiomae at B=64 through
      cli.pretrain on the kernels (12 launches of each backward kernel a
@@ -81,9 +84,10 @@ Phases (each prints one line; any failure exits non-zero):
      against its plain version at the operaCT serving (B=16) and throughput
      (B=64) batches of 10-s clips, cli.process's B=16 of 32-s clips, the
      operaGT chunk batch (B=64 of 8.18 s) and a ragged batch: frame counts
-     exact, normalised mel within 1e-4, two launches bitwise equal; times of
-     the kernel, the plain version and torch.stft + the mel product, the
-     bound; its float64 error within 4x the plain float32 version's
+     exact, normalised mel within 1e-4, two launches bitwise equal; the
+     kernel and torch.stft + the mel product timed in turns (medians and
+     spreads), the plain version's time, the bound; its float64 error
+     within 4x the plain float32 version's
  19. the main path: a synthetic CirCor corpus (120 patients, 1-4 locations,
      6-32 s clips at 4 kHz) through cli.process (source_sr=4000: shipped at
      4 kHz, upsampled on the card) and cli.linear_eval (5 seeds, finite test
@@ -438,12 +442,9 @@ def phase_train_kernels(model, dev):
                 S, L = part.shape
                 got, want = st.swin_reduce(part), st.reduce_ref(part)
                 _require(torch.equal(got, want), f"swin_reduce {tag} ({S}, {L}) differs from in-order sum")
-                tot["swin_reduce"]["ms"] += blocks * _time_ms(lambda: st.swin_reduce(part), iters=10, warm=2)
-                tot["swin_reduce"]["plain_ms"] += blocks * _time_ms(lambda: st.reduce_ref(part), iters=3, warm=1)
-                tot["swin_reduce"]["library_ms"] += blocks * _time_ms(lambda: part.sum(0), iters=10, warm=2)
                 # its share: the column-sum gradients (biases, LN, rel-pos
                 # bias) written once
-                tot["swin_reduce"]["work"].add(4 * L, 0, n=blocks)
+                _reduce_row(tot["swin_reduce"], part, blocks, tag)
             design[0] += blocks * extra
             fn = Work()
             fn.add(wm + wa + gbytes, om + oa + ops_w)
@@ -459,6 +460,28 @@ def phase_train_kernels(model, dev):
           f"{design[1] * 1e3:.4f} ms; design (b)'s operand and partial traffic {design[0] / 1e9:.3f} "
           f"GB = {design[0] / HBM_BPS * 1e3:.4f} ms at the HBM rate, in no bound", flush=True)
     return tot
+
+
+def _reduce_row(tot: dict, part, launches: int, tag: str):
+    """Times swin_reduce on one partial block (S, L) against its plain
+    version and part.sum(0) (kernel and sum(0) in turns), adds them to `tot`
+    `launches` times with the bound (the L sums written once), and prints
+    the shape's line."""
+    from heart_murmur_detection_tpu_torch.ops import swin_train as st
+
+    S, L = part.shape
+    k_ms, l_ms = [], []
+    for _ in range(3):  # in turns; the least of each side (a call is host-bound below ~10 us)
+        k_ms.append(_time_ms(lambda: st.swin_reduce(part), iters=20, warm=3))
+        l_ms.append(_time_ms(lambda: part.sum(0), iters=20, warm=3))
+    k, lib = min(k_ms), min(l_ms)
+    tot["ms"] += launches * k
+    tot["plain_ms"] += launches * _time_ms(lambda: st.reduce_ref(part), iters=3, warm=1)
+    tot["library_ms"] += launches * lib
+    tot["work"].add(4 * L, 0, n=launches)
+    print(f"[swin_reduce] {tag}: ({S}, {L}) x{launches} a step, equal to the in-order sum; "
+          f"{k:.4f} ms, sum(0) {lib:.4f} ms ({k / lib:.2f}x), {4 * S * L / k / 1e6:.0f} GB/s "
+          f"read", flush=True)
 
 
 def _wavs(d: str):
@@ -1419,10 +1442,7 @@ def phase_vit_train_kernels(dev):
             S, L = part.shape
             _require(torch.equal(st.swin_reduce(part), st.reduce_ref(part)),
                      f"swin_reduce {shape} ({S}, {L}) differs from the in-order sum")
-            tot["swin_reduce"]["ms"] += 12 * _time_ms(lambda: st.swin_reduce(part), iters=10, warm=2)
-            tot["swin_reduce"]["plain_ms"] += 12 * _time_ms(lambda: st.reduce_ref(part), iters=3, warm=1)
-            tot["swin_reduce"]["library_ms"] += 12 * _time_ms(lambda: part.sum(0), iters=10, warm=2)
-            tot["swin_reduce"]["work"].add(4 * L, 0, n=12)
+            _reduce_row(tot["swin_reduce"], part, 12, shape)
         fn = Work()
         fn.add(wm + wa + ww, om + oa + ow)
         print(f"[vit train kernels] an Audio-MAE CP step (12 blocks at B={B}): K9's backward "
@@ -1710,16 +1730,19 @@ def phase_logmel(smi: str):
     meas = None
     for i, (name, B, sec) in enumerate(LOGMEL_CASES):
         m = lt.measure(B, sec, seed=SEED + 40 + i)
+        spread = lambda runs: f"{min(runs):.4f}-{max(runs):.4f}"  # noqa: E731
         print(f"[logmel] {name} B={B} N={m['N']}: frames equal {m['frames_equal']}, normalised "
               f"max|d| {m['max_abs_err']:.3g} (bar {LOGMEL_ATOL}), bitwise repeatable "
-              f"{m['bitwise']}; kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
-              f"torch.stft + power + mel product (two calls) {m['library_ms']:.4f} ms "
-              f"(log10 max|d| {m['library_max_abs_log10']:.3g}); bound {m['bound_ms']:.4f} ms "
-              f"({m['bound_by']}: {m['bytes'] / 1e6:.1f} MB at the HBM rate; the least work, a "
-              f"real FFT a frame, is {m['flops'] / 1e9:.3f} GFLOP at the 67 TFLOP/s float32 "
-              f"peak), the kernel at {100 * m['bound_ms'] / m['ms']:.2f}% of it; the dense DFT "
-              f"and mel products the kernel computes, {m['dense_flops'] / 1e9:.2f} GFLOP, take "
-              f"{m['dense_ms']:.4f} ms at that peak (not a bound); {smi}", flush=True)
+              f"{m['bitwise']}; in {len(m['ms_runs'])} turns, kernel median {m['ms']:.4f} ms "
+              f"({spread(m['ms_runs'])}), torch.stft + power + mel product (two calls) median "
+              f"{m['library_ms']:.4f} ms ({spread(m['library_runs'])}; log10 max|d| "
+              f"{m['library_max_abs_log10']:.3g}), kernel / library "
+              f"{m['ms'] / m['library_ms']:.3f}; plain {m['plain_ms']:.4f} ms; bound "
+              f"{m['bound_ms']:.4f} ms ({m['bound_by']}: {m['bytes'] / 1e6:.1f} MB at the HBM "
+              f"rate; the least work, a real FFT a frame, is {m['flops'] / 1e9:.3f} GFLOP at the "
+              f"67 TFLOP/s float32 peak), the kernel at {100 * m['bound_ms'] / m['ms']:.2f}% of "
+              f"it; the TPU kernel's dense DFT and mel products, {m['dense_flops'] / 1e9:.2f} "
+              f"GFLOP, take {m['dense_ms']:.4f} ms at that peak (not a bound); {smi}", flush=True)
         _require(m["frames_equal"] and m["bitwise"], f"logmel {name}: frames or repeatability")
         _require(m["max_abs_err"] <= LOGMEL_ATOL, f"logmel {name}: max|d| {m['max_abs_err']}")
         if name == LOGMEL_MAIN:

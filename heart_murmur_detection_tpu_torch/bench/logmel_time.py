@@ -9,10 +9,11 @@ frame counts, the normalised mel of the kernel against the plain version
 (max abs difference), two launches bitwise equal, and the CUDA-event time
 of the kernel, of the plain version and of the library reference
 (torch.stft, i.e. cuFFT, then the power and the mel product: two calls and
-the glue), with the bound: the function's least work (a real FFT a frame,
-not the dense DFT products) at the float32 non-tensor peak, or its bytes at
-the HBM rate, whichever is larger; the dense-product figure is reported
-apart as `dense_ms`.
+the glue), the kernel and the library timed in turns (PAIRS pairs: medians
+and each side's readings), with the bound: the function's least work (a
+real FFT a frame) at the float32 non-tensor peak, or its bytes at the HBM
+rate, whichever is larger; the TPU kernel's dense DFT and mel products at
+that peak are reported apart as `dense_ms`.
 Then the precision check: on a low-level tone plus noise, the kernel's and
 the plain float32 version's max error against a float64 evaluation of the
 same function. Last, what torch.profiler records of the kernel's launches
@@ -22,6 +23,7 @@ chip_smoke.py phase 18 runs the same cases.
 
 from __future__ import annotations
 
+import statistics
 import sys
 from typing import Dict, List, Tuple
 
@@ -35,8 +37,9 @@ SR = 16000
 F32_FLOPS = 67e12  # H100 SXM float32 non-tensor peak (NVIDIA data sheet)
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 # the DFT as two dense products over 513 bins and the dense mel product, one
-# frame: what the TPU kernel and the CUDA kernel compute (dense_ms)
+# frame: what the TPU kernel computes (dense_ms)
 DENSE_FLOP_FRAME = 2 * 2 * 1024 * 513 + 2 * 513 * 64
+PAIRS = 5  # kernel / library timings in turns a case
 CASES = (  # (name, B, seconds of each clip; None = ragged 3-32 s)
     ("operaCT serve 10 s", 16, 10.0),
     ("operaCT throughput 10 s", 64, 10.0),
@@ -87,7 +90,7 @@ def bound(B: int, N: int) -> Dict[str, float]:
     (least_flop_frame a frame) at the float32 peak, or its bytes (waveform
     and filterbank read once, log-mel written once; an FFT needs no DFT
     bases) at the HBM rate, whichever is larger. dense_ms: the dense DFT
-    and mel products at the float32 peak, the work the kernel does."""
+    and mel products at the float32 peak, the TPU kernel's work."""
     T = N // 512 + 1
     flops = B * T * least_flop_frame()
     nbytes = 4 * (B * N + B * T * 64 + 513 * 64)
@@ -121,14 +124,18 @@ def measure(B: int, sec, seed: int = 0) -> Dict[str, object]:
     torch.cuda.synchronize()
     lib = library_logmel(wav)
     ref = mel.fused_logmel_ref(wav)
+    ks, ls = [], []
+    for _ in range(PAIRS):  # kernel and library in turns
+        ks.append(_ms(lambda: mel.fused_logmel(wav)))
+        ls.append(_ms(lambda: library_logmel(wav), iters=10, warm=2))
     out = {
         "frames_equal": bool(torch.equal(nf, nf_p)) and got.shape == want.shape,
         "max_abs_err": float((got - want).abs().max()),
         "bitwise": bool(torch.equal(got, again)),
         "library_max_abs_log10": float((lib - ref).abs().max()),
-        "ms": _ms(lambda: mel.fused_logmel(wav)),
+        "ms": statistics.median(ks), "ms_runs": ks,
         "plain_ms": _ms(lambda: mel.fused_logmel_ref(wav), iters=5, warm=1),
-        "library_ms": _ms(lambda: library_logmel(wav), iters=10, warm=2),
+        "library_ms": statistics.median(ls), "library_runs": ls,
         "B": B, "N": int(w.shape[1]),
     }
     out.update(bound(B, w.shape[1]))

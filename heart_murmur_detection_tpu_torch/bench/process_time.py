@@ -1,6 +1,6 @@
 """Clips/s of the dataset processing CLI on a synthetic CirCor corpus.
 
-    python -m heart_murmur_detection_tpu_torch.bench.process_time [tag] [repeats]
+    python -m heart_murmur_detection_tpu_torch.bench.process_time [tag] [repeats] [pallas_mel]
 
 Writes a synthetic CirCor corpus at its 4 kHz rate (write_circor) into a
 temporary directory, then times `cli.process dataset=circor pretrain=operaCT
@@ -9,10 +9,14 @@ default; the first builds the kernels if they are not built), each from a
 clean feature directory. Prints one line a run, prefixed by `tag`: clips,
 seconds, clips/s. The wall time covers the whole CLI: the split, the model's
 random init, the host decode, trim and pad at 4 kHz, and the extraction.
+With `pallas_mel`, every FeatureExtractor the CLI builds takes
+use_pallas_mel=True (the mel through the logmel kernel, ops/mel.py), and
+the line also gives the run's logmel launches.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import shutil
 import sys
@@ -60,25 +64,33 @@ def write_circor(root: str, patients: int = 120, seed: int = 19) -> int:
 
 def main(argv: List[str] = None) -> int:
     from ..cli import process
+    from ..extract import extract as ext
+    from ..ops import mel
 
     argv = sys.argv[1:] if argv is None else argv
     tag = argv[0] if argv else "process"
     repeats = int(argv[1]) if len(argv) > 1 else 2
+    pallas_mel = len(argv) > 2 and argv[2] == "pallas_mel"
     cwd = os.getcwd()
+    fe = ext.FeatureExtractor
+    if pallas_mel:  # extract_and_save looks the class up at call time
+        ext.FeatureExtractor = functools.partial(fe, use_pallas_mel=True)
     with tempfile.TemporaryDirectory() as root:
         n_clips = write_circor(root)
         os.chdir(root)
         try:
             for i in range(repeats):
                 shutil.rmtree("feature", ignore_errors=True)
+                mel.reset_launch_counts()
                 t0 = time.time()
                 process.main(["dataset=circor", "pretrain=operaCT", "dim=768",
                               "random_init=True", "source_sr=4000"])
                 s = time.time() - t0
-                print(f"{tag} run {i}: {n_clips} clips in {s:.2f} s = {n_clips / s:.1f} clips/s",
-                      flush=True)
+                print(f"{tag} run {i}: {n_clips} clips in {s:.2f} s = {n_clips / s:.1f} clips/s"
+                      f" (logmel launches {mel.launch_counts()['logmel']})", flush=True)
         finally:
             os.chdir(cwd)
+            ext.FeatureExtractor = fe
     return 0
 
 

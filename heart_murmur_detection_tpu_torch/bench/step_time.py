@@ -1,12 +1,14 @@
-"""Step times of the two training steps that run only the swin kernels: a
-COLA continued-pretraining step of operaCT and an operaCT fine-tuning step.
+"""Step times of the training steps: a COLA continued-pretraining step of
+operaCT and an operaCT fine-tuning step (the swin kernels only), and an
+Audio-MAE continued-pretraining step (the ViT training kernels).
 
     python -m heart_murmur_detection_tpu_torch.bench.step_time [tag] [repeats]
 
-The steps of chip_smoke.py's phases 4 and 21 at their batches, on the
+The steps of chip_smoke.py's phases 8, 15 and 21 at their batches, on the
 kernels (impl="kernel", bf16): COLA at B=64 pairs of 251-frame crops (the
 circor crop) of random 64-mel clips, operaCT fine-tuning at B=64 first
-windows of 256 x 64 with TF32 off (strict_f32, as phase 21 times it).
+windows of 256 x 64 with TF32 off (strict_f32, as phase 21 times it),
+Audio-MAE at B=64 random 1024 x 128 fbank clips, mask ratio 0.7.
 Random weights from seed 0, data from numpy seed 1. Each step is warmed up
 twice, then timed by CUDA events over 5 steps, `repeats` times (default
 3). Prints one JSON line of ms a step, prefixed by `tag`; run it once per
@@ -76,6 +78,23 @@ def finetune_step(rng: np.random.Generator, dev: str = "cuda", batch: int = B):
                                  1e-4)
 
 
+def audiomae_step(rng: np.random.Generator, dev: str = "cuda", batch: int = B):
+    """A closure running one Audio-MAE CP step (ViT-B/16 encoder on the
+    kernels, the decoder in plain torch; on the CPU: the plain versions)."""
+    from ..models import vit_mae
+    from ..pretrain import steps
+
+    model = vit_mae.MaskedAutoencoderViT(vit_mae.audiomae_base_config(mask_ratio=0.7),
+                                         decoder=True)
+    vit_mae.init_weights(model, torch.Generator().manual_seed(0))
+    model.to(dev).train()
+    opt = steps.adam_with_epoch_decay(list(model.parameters()), 5)
+    x = torch.from_numpy(rng.standard_normal((batch, 1024, 128)).astype(np.float32)).to(dev)
+    noise = torch.rand(batch, 512, generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    return lambda: steps.mae_train_step(model, opt, x, torch.bfloat16, "kernel", noise)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     tag = argv[0] if argv else "step"
@@ -96,6 +115,10 @@ def main(argv=None) -> int:
     with strict_f32():
         step = finetune_step(rng)
         out["finetune_operaCT_ms"] = [round(_ms(step), 3) for _ in range(repeats)]
+    del step
+    torch.cuda.empty_cache()
+    step = audiomae_step(rng)
+    out["audiomae_cp_ms"] = [round(_ms(step), 3) for _ in range(repeats)]
     print(tag, json.dumps(out), flush=True)
     return 0
 

@@ -47,7 +47,12 @@
 //    order, whichever blocks finish first, so two launches agree bitwise.
 //    Past 8 chunks two levels keep the serial tail of the last block to
 //    about 2 sqrt(S) tiles read, not S; up to 8, one level is faster.
-// swin_reduce reads S L floats once: bound by HBM.
+// swin_reduce reads S L floats once: bound by HBM. Only the add chain of a
+// column is serial (S adds, ~1 us at S = 512); its loads are not. So a block
+// owns a tile of 4-128 columns, narrow enough that every shape gives 264
+// blocks or more (L >= 1056), and streams the S x tile slab through a
+// four-stage shared-memory ring by cp.async with every thread loading; the
+// tile's threads then sum their columns from shared memory in row order.
 #include "wgmma_gemm.cuh"
 
 namespace hmdt {
@@ -200,13 +205,75 @@ static int launch_wgrad(const CUtensorMap& ma, const CUtensorMap& mb, void* out,
   return (int)cudaGetLastError();
 }
 
-__global__ void swin_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                                   int S, int L) {
-  for (int l = blockIdx.x * blockDim.x + threadIdx.x; l < L; l += gridDim.x * blockDim.x) {
-    float s = ws[l];
-    for (int i = 1; i < S; ++i) s += ws[(size_t)i * L + l];
-    out[l] = s;
+// swin_reduce: a block owns TC consecutive columns and streams their S x TC
+// slab through a ring of RED_STAGES shared-memory stages (RED_CHUNK floats,
+// RED_CHUNK / TC rows each) by cp.async, every thread loading; thread c < TC
+// then adds column c's rows of each stage in row order. VEC: 16-byte copies
+// (L % 4 == 0 and ws 16-byte aligned), else 4-byte ones.
+constexpr int RED_THREADS = 128;
+constexpr int RED_CHUNK = 2048;
+constexpr int RED_STAGES = 4;
+constexpr int RED_MIN_BLOCKS = 264;  // two an SM: TC halves (down to 4) until the grid has them
+
+__device__ __forceinline__ void red_copy(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+template <int TC, bool VEC>
+__global__ void __launch_bounds__(RED_THREADS)
+swin_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out, int S, int L) {
+  constexpr int R = RED_CHUNK / TC;    // rows a stage
+  constexpr int W = VEC ? 4 : 1;       // floats a copy
+  __shared__ __align__(16) float ring[RED_STAGES][RED_CHUNK];
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * TC;
+  const int chunks = (S + R - 1) / R;
+  auto load = [&](int c) {
+    float* dst = ring[c % RED_STAGES];
+    for (int q = tid; q < RED_CHUNK / W; q += RED_THREADS) {
+      const int row = q / (TC / W), col = (q - row * (TC / W)) * W;
+      const int i = c * R + row;
+      if (i < S && c0 + col < L)
+        red_copy(dst + row * TC + col, ws + (size_t)i * L + c0 + col, 4 * W);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < RED_STAGES - 1; ++c) {
+    if (c < chunks) load(c);
+    asm volatile("cp.async.commit_group;\n" ::);
   }
+  const bool owner = tid < TC && c0 + tid < L;
+  float s = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    if (c + RED_STAGES - 1 < chunks) load(c + RED_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(RED_STAGES - 1));
+    __syncthreads();
+    if (owner) {
+      const float* col = ring[c % RED_STAGES] + tid;
+      const int rows = min(R, S - c * R);
+      int i = 0;
+      if (c == 0) s = col[0], i = 1;
+#pragma unroll 8
+      for (; i < rows; ++i) s += col[i * TC];
+    }
+    __syncthreads();  // the stage is refilled next
+  }
+  if (owner) out[c0 + tid] = s;
+}
+
+template <int TC>
+static int launch_reduce(const float* ws, float* out, int S, int L, cudaStream_t stream) {
+  const int blocks = (L + TC - 1) / TC;
+  if (L % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0)
+    swin_reduce_kernel<TC, true><<<blocks, RED_THREADS, 0, stream>>>(ws, out, S, L);
+  else
+    swin_reduce_kernel<TC, false><<<blocks, RED_THREADS, 0, stream>>>(ws, out, S, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hmdt
@@ -238,14 +305,22 @@ extern "C" int swin_wgrad_launch(const void* a, const void* b, void* out, void* 
                      : launch_wgrad<1>(ma, mb, out, ws, cnt, n, M, N, chunk, group, st);
 }
 
-// ws (S, L) f32 -> out (L,) f32.
+// ws (S, L) f32 -> out (L,) f32, each column summed over rows 0..S-1 in
+// that order.
 extern "C" int swin_reduce_launch(const void* ws, void* out, int S, int L, void* stream) {
   using namespace hmdt;
   if (S <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const int need = (L + threads - 1) / threads;
-  const int blocks = need < 8192 ? need : 8192;
-  swin_reduce_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ws), static_cast<float*>(out), S, L);
-  return (int)cudaGetLastError();
+  int tc = 128;
+  while (tc > 4 && (L + tc - 1) / tc < RED_MIN_BLOCKS) tc /= 2;
+  const float* w = static_cast<const float*>(ws);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tc) {
+    case 128: return launch_reduce<128>(w, o, S, L, st);
+    case 64: return launch_reduce<64>(w, o, S, L, st);
+    case 32: return launch_reduce<32>(w, o, S, L, st);
+    case 16: return launch_reduce<16>(w, o, S, L, st);
+    case 8: return launch_reduce<8>(w, o, S, L, st);
+    default: return launch_reduce<4>(w, o, S, L, st);
+  }
 }

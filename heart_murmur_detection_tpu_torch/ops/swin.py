@@ -34,7 +34,6 @@ GELU output and the block output.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Mapping, Optional
 
@@ -238,8 +237,9 @@ def swin_mlp_ref(
 # ---------------------------------------------------------------------------
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's address for a c_void_p argument (None: NULL)."""
+    return None if t is None else t.data_ptr()
 
 
 def _check_launch(name: str, rc: int):
@@ -264,8 +264,11 @@ def _check_cuda_args(x: torch.Tensor, p: SwinBlockParams, window: int):
         raise ValueError("weights and x are on different devices")
 
 
-def _cuda_stream(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+def _cuda_stream(x: torch.Tensor) -> int:
+    """The raw handle of the current stream on x's card, for a c_void_p
+    argument: one call into torch, no Stream object (a launch's host work
+    is most of a short kernel's time)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def _check_kmul(kmul: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:

@@ -55,7 +55,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import swin
+from . import _build, swin
 from .swin import (
     HDP,
     WINDOW,
@@ -247,10 +247,7 @@ def reduce_ref(parts: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    from . import _build
-
-    return _build.load_library()
+_lib = _build.load_library  # built and loaded at the first launch, then cached
 
 
 def _blocks_for(units: int) -> Tuple[int, int]:
@@ -334,15 +331,19 @@ def swin_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def swin_reduce(parts: torch.Tensor) -> torch.Tensor:
-    """Sum float32 partials (S, L) over S in row order -> (L,)."""
-    if parts.device.type == "cpu":
+    """Sum float32 partials (S, L) over S in row order -> (L,). Most of a
+    step's calls take a few microseconds on the card, less than their host
+    work, so the body does inline what the other wrappers' helpers do."""
+    if parts.is_cpu:
         return reduce_ref(parts)
     if parts.dtype != torch.float32 or parts.dim() != 2 or not parts.is_contiguous():
         raise TypeError("swin_reduce takes contiguous float32 (S, L) partials")
     S, L = parts.shape
-    out = torch.empty(L, dtype=torch.float32, device=parts.device)
-    rc = _lib().swin_reduce_launch(_ptr(parts), _ptr(out), S, L, _cuda_stream(parts))
-    _check_launch("swin_reduce", rc)
+    out = parts.new_empty(L)
+    rc = _lib().swin_reduce_launch(parts.data_ptr(), out.data_ptr(), S, L,
+                                   torch._C._cuda_getCurrentRawStream(parts.get_device()))
+    if rc:
+        _check_launch("swin_reduce", rc)
     swin_reduce.launches += 1
     return out
 

@@ -3,7 +3,7 @@ ctypes binding (CPU), and, on a card only, each kernel against its plain
 torch version: the swin eval kernels at the four HTS-AT stage geometries,
 the swin training kernels (forward with DropPath multipliers, both backward
 halves, the weight-gradient products and the ordered reduction) at stages
-0-2, the ViT kernels (vit_qkv, vit_attn and vit_proj, vit_mlp) at the
+0-2 (the reduction also at the ViT backward wrappers' shapes), the ViT kernels (vit_qkv, vit_attn and vit_proj, vit_mlp) at the
 operaGT and Audio-MAE shapes, vit_attn's K10 / K11 attention modes, and the
 fused log-mel kernel (with its float64 precision check) and the polyphase
 resampler at the extraction path's shapes.
@@ -250,6 +250,44 @@ def test_wgrad_and_reduce_match_plain_on_card(cuda, n, M, N):
     _poison_free_memory()
     assert torch.equal(got, swin_train.swin_wgrad(a, b))
     parts = torch.randn(7, 1000, generator=g).to(cuda)
+    assert torch.equal(swin_train.swin_reduce(parts), swin_train.reduce_ref(parts))
+
+
+def _vit_reduce_shapes():
+    """(S, L) of vit_mlp_bwd's and vit_attn_bwd's partial rows at the ViT-S
+    (OPERA-GT CP B=64 x 320 and x 80, fine-tuning B=4 x 1040) and ViT-B
+    (Audio-MAE CP B=64 x 160) shapes, S as the wrappers size them."""
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    out = []
+    for C, n in ((384, 64 * 320), (384, 64 * 80), (384, 4 * 1040), (768, 64 * 160)):
+        tile = vit_train.MLP_BWD_TILE.get(C, swin_train.TOKEN_TILE)
+        out.append((swin_train._blocks_for(n // tile)[1], 7 * C))
+        out.append((swin_train._blocks_for(n // swin_train.TOKEN_TILE)[1], 6 * C))
+    return out
+
+
+@pytest.mark.gpu
+def test_reduce_is_the_in_order_sum_on_card(cuda):
+    """swin_reduce bitwise equal to reduce_ref at every (S, L) of the COLA
+    stage 0-2 and the ViT backward wrappers, at widths that are not a
+    multiple of 4 and on partials that are not 16-byte aligned (its 4-byte
+    copies), one launch a call."""
+    from heart_murmur_detection_tpu_torch.bench.wgrad_time import reduce_shapes
+
+    cola, mae = reduce_shapes()
+    shapes = [(S, L) for S, L, _ in cola + mae] + _vit_reduce_shapes()
+    assert (512, 17056) in shapes and (256, 68224) in shapes and (160, 4608) in shapes
+    g = torch.Generator().manual_seed(5)
+    for S, L in shapes + [(7, 1000), (7, 1001), (1, 3), (3000, 5), (513, 1057)]:
+        parts = torch.randn(S, L, generator=g).to(cuda)
+        swin.reset_launch_counts()
+        got = swin_train.swin_reduce(parts)
+        assert swin.launch_counts()["swin_reduce"] == 1
+        assert torch.equal(got, swin_train.reduce_ref(parts)), (S, L)
+    flat = torch.randn(64 * 672 + 1, generator=g).to(cuda)
+    parts = flat[1:].view(64, 672)  # 4 bytes past a 16-byte boundary
+    assert parts.is_contiguous() and parts.data_ptr() % 16
     assert torch.equal(swin_train.swin_reduce(parts), swin_train.reduce_ref(parts))
 
 
@@ -654,10 +692,12 @@ def test_vit_train_float32_on_card_raises(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,sec", [(16, 10.0), (64, 10.0), (16, 32.0), (64, 32.0), (16, None)])
+@pytest.mark.parametrize("B,sec", [(16, 10.0), (64, 10.0), (16, 32.0), (64, 32.0), (16, None),
+                                   (1, 0.032), (1, 10.0), (5, None)])
 def test_logmel_matches_plain_on_card(cuda, B, sec):
     """The normalised mel within 1e-4 of the plain version, frame counts
-    exact, two launches bitwise equal (sec None: a ragged 3-32 s batch)."""
+    exact, two launches bitwise equal (sec None: a ragged 3-32 s batch;
+    0.032 s: N = 512, two frames)."""
     from heart_murmur_detection_tpu_torch.bench.logmel_time import clips
     from heart_murmur_detection_tpu_torch.ops import mel
 
