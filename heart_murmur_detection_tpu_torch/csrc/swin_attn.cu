@@ -1,5 +1,5 @@
 // swin_attn: the attention half of an HTS-AT swin block,
-//   h1 = x + k[b] * proj(concat_h softmax(q_h k_h^T / sqrt(hd) + bias_h (+ mask)) v_h),
+//   h1 = x + k[b] * (proj(concat_h softmax(q_h k_h^T / sqrt(hd) + bias_h (+ mask)) v_h) + b_proj),
 //   q, k, v = LN1(x) W_qkv + b_qkv, over 8x8 windows of x (B, H, W, C) bf16;
 //   k is an optional per-sample multiplier (DropPath keep multipliers of the
 //   training forward); without it (null) the eval block, k = 1.
@@ -8,385 +8,619 @@
 // pallas_swin.py:97) that the TPU kernels fused_swin_block (:480),
 // fused_swin_pair (:847) and fused_swin_block_split (:618, attention half)
 // run, and the attention half of the training forward `_train_fwd_kernel`
-// (ops/pallas_swin_train.py:233, K8).
+// (ops/pallas_swin_train.py:233, K8). As in the TPU body, q, k, v, the
+// scores, P and the head outputs never leave the chip.
 //
-// Design. A cluster of CS blocks of 8 warps handles one window of one clip:
-// CS is 2 at C = 384 and 4 at C = 768 (8 heads a block) while the windows
-// alone would leave most SMs idle (use_cluster: the clustered grid stays
-// within two waves), else 1. The cyclic shift of a shifted block is in the
-// addressing on both axes: token (r, c) of rolled window (i, j) is read from
-// and written back to x[(8i+r+s) mod H, (8j+c+s) mod W], and the mask is
-// indexed by (i, j) in the rolled frame, so no rolled copy of x exists.
-// Each block keeps LN1(x)
-// of the window (64 x C bf16) in shared memory and runs its heads one at a
-// time: q/k/v (64 x 32 each, hd padded to 32 with zero weight rows; a warp
-// takes one 16-wide weight column tile against several 16-token row tiles,
-// so each weight fragment read from L2 feeds several MMAs) ->
-// scores (64 x 64 f32) -> softmax -> P v, whose 24 real columns go into a
-// 64 x C bf16 buffer. The blocks of a cluster then copy each other's head
-// columns through distributed shared memory, and each computes proj for its
-// share of the output columns; the residual re-reads x. Rounded to bf16
-// where the TPU body rounds: qkv, the scaled q, the attention output and h1.
-// At C = 768 the two 64 x C buffers take 194 KB of the 227 KB; everything
-// per head shares the remaining 33 KB (P aliases q/k, the per-warp staging
-// aliases the scores).
-//
-// Bound on this card: the window's FLOPs are small (~0.4 GFLOP a window at
-// C = 768) and every block re-reads its weights from L2, so this version is
-// bound by the latency of those reads and by WMMA issue, not by HBM; the
-// stage-3 map is a single window a clip, which is why its heads are spread
-// over a cluster. Later work: several windows per block to amortise the
-// weight reads, wgmma with TMA-fed weight tiles.
-#include <cooperative_groups.h>
-
+// Bound on this card: about 8 C^2 + 256 C operations a token (qkv with hd
+// padded to 32, the window products, proj) against 4 C bytes, so the
+// operations bind; W_qkv and W_proj (0.1 to 1.8 MB) stay in L2 and are read
+// once a block. Design (wgmma_gemm.cuh's pieces; one producer warp and two
+// consumer warpgroups a block):
+//  - a block owns two windows at C <= 192 (128 token rows, a warpgroup a
+//    window, both on the same head at a time, so each W_qkv / W_proj box fed
+//    by TMA serves 128 rows), or one window at C >= 384 (the warpgroups take
+//    two heads at a time, then split proj's output columns). Where the
+//    windows alone would leave the card idle (the plan of ops/swin_plan.py,
+//    from the grid and the SM count), the heads of a window spread over a
+//    cluster of cs blocks; C = 768 always takes cs >= 2, whose head outputs
+//    fit beside the 96 KB LN1 panel.
+//  - LN1: 16 or 32 lanes a token, four tokens' loads in flight at once, the
+//    token's C channels read as 16-byte vectors at its place in x: the
+//    cyclic shift stays in the addressing, token (r, c)
+//    of rolled window (i, j) being x[(8i+r+s) mod H, (8j+c+s) mod W], and
+//    the mask is indexed by (i, j) in the rolled frame. Float32 statistics,
+//    rounded to bf16 into the 128-byte-swizzle K-major A panel.
+//  - qkv of a head: m64n96 wgmma (q, k, v of the head, hd padded to 32 with
+//    zero weight rows: three TMA boxes of 32 rows a 64-column step of K;
+//    columns past C = 96 or 192 of the last box read as zeros and are never
+//    multiplied). + b_qkv and one rounding to bf16, then q times the bf16
+//    constant hd^-0.5, rounded again: the plain version's points. q stays in
+//    registers as the A operand of the scores; k goes to shared memory as a
+//    K-major B tile (64 keys), v transposed as a K-major B tile (32 dims).
+//  - S = q k^T (m64n64, A from registers), + bias[h] (+ mask[window]; both
+//    read into registers while the head's qkv product runs), the
+//    softmax in registers (row max and sum over the quad of threads that
+//    holds a row), P rounded to bf16 as the register A operand of P V
+//    (m64n32). fast_softmax: e = exp(s) unnormalised, P v times 1 / sum(e).
+//  - o: the hd real columns of each head, rounded to bf16, into a 64 x C A
+//    panel; with a cluster, each block's heads are gathered from the other
+//    blocks' shared memory (16-byte copies) into the freed LN1 panel.
+//  - proj (m64n96 or m64n48 over K = C, W_proj streamed by TMA), + b_proj,
+//    times k, + x (read while the product runs), one rounding, written at
+//    the token's place in x as 4-byte column pairs from the accumulator.
+//  - no atomics; every sum has one order, so two launches agree bitwise.
 #include "swin_common.cuh"
+#include "vit_attn_common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace hmdt {
 
-namespace cg = cooperative_groups;
+using namespace hop;
 
-// blocks per window: 8 or fewer heads a block at hd = 24
-template <int C>
-constexpr int attn_cluster() {
-  return C >= 768 ? 4 : (C >= 384 ? 2 : 1);
-}
+constexpr int QKV_ROWS = 3 * HDP;                // q, k, v rows of a head in W_qkv
+constexpr int HEADBUF = NTOK * 128 + HDP * 128;  // k (64 keys) and v^T (32 dims): 12 KB
 
-template <int C>
-struct AttnSmem {
-  static constexpr int LDX = C + PAD;     // LN(x) and attention-output rows (bf16)
-  static constexpr int LDH = HDP + PAD;   // q / k / v rows (bf16)
-  static constexpr int LDS = NTOK + 4;    // score rows (f32)
-  static constexpr int LDP = NTOK + PAD;  // probability rows (bf16)
-  static constexpr size_t XN = (size_t)NTOK * LDX * 2;
-  static constexpr size_t QK = 2 * (size_t)NTOK * LDH * 2;
-  static constexpr size_t V = (size_t)NTOK * LDH * 2;
-  static constexpr size_t S = (size_t)NTOK * LDS * 4;
-  static constexpr size_t off_xn = 0;
-  static constexpr size_t off_o = XN;
-  static constexpr size_t off_qk = 2 * XN;
-  static constexpr size_t off_v = off_qk + QK;
-  static constexpr size_t off_s = off_v + V;
-  static constexpr size_t off_recip = off_s + S;
-  static constexpr size_t bytes = off_recip + NTOK * 4;
-  static_assert((size_t)NTOK * LDP * 2 <= QK, "P must fit in the q/k region");
-  static_assert((size_t)NWARPS * 256 * 4 <= S, "staging must fit in the score region");
-  static_assert(XN % 128 == 0 && QK % 128 == 0 && V % 128 == 0 && S % 128 == 0,
-                "shared-memory regions must stay 128-byte aligned");
-  static_assert(bytes <= SMEM_LIMIT, "shared memory over the sm_90 limit");
+template <int C, int WPB>
+struct AttnCfg {
+  static constexpr int ROWS = NTOK * WPB;        // token rows of the block
+  static constexpr int KB = (C + 63) / 64;       // 64-column boxes of K = C
+  static constexpr int KS16 = C / 16;            // k16 steps of K = C
+  static constexpr int HPS = WPB == 2 ? 1 : 2;   // heads of a qkv stage
+  static constexpr int STAGE = HPS * QKV_ROWS * 128;
+  static constexpr int PANEL = KB * ROWS * 128;
+  static constexpr int LPR = C == 96 ? 16 : 32;  // lanes of a token in LN1
+  static constexpr int NVL = (C / 8 + LPR - 1) / LPR;  // 16-byte vectors of a lane
 };
 
-template <int C, int CS>
-__global__ void __launch_bounds__(NTHREADS)
-swin_attn_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
-                 const bf16* __restrict__ w_qkv, const float* __restrict__ b_qkv,
-                 const bf16* __restrict__ w_proj, const float* __restrict__ b_proj,
+// Layout of the dynamic shared memory (from a 1024-byte boundary): the LN1
+// panel, the head outputs o (the block's C / cs columns), the two
+// warpgroups' k / v^T tiles, the ring, its barriers.
+template <int C, int WPB>
+__host__ __device__ constexpr size_t attn_o_bytes(int cs) {
+  return (size_t)((C / cs + 63) / 64) * AttnCfg<C, WPB>::ROWS * 128;
+}
+template <int C, int WPB>
+__host__ __device__ constexpr size_t attn_smem_bytes(int cs, int stages) {
+  return (size_t)AttnCfg<C, WPB>::PANEL + attn_o_bytes<C, WPB>(cs) + 2 * HEADBUF +
+         (size_t)stages * AttnCfg<C, WPB>::STAGE + 16 * (size_t)stages + 1024;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Byte offset of element (r, c) in a 128-byte-swizzle K-major panel of
+// `rows` rows (boxes of 64 columns).
+__device__ __forceinline__ uint32_t sw_off(int r, int c, int rows) {
+  return (uint32_t)((c >> 6) * rows * 128 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
+                    (c & 7) * 2);
+}
+
+// grid: blockIdx.x = window group (two windows, or one) * cs + rank, in
+// clusters of cs blocks. twq: W_qkv (3 heads 32, C) in boxes of 64 x 32;
+// twp: W_proj (C, C) in boxes of 64 x (PW, or 2 PW at one window a block).
+template <int C, int WPB, int PW>
+__global__ void __launch_bounds__(THREADS, 1)
+swin_attn_kernel(const __grid_constant__ CUtensorMap twq, const __grid_constant__ CUtensorMap twp,
+                 const bf16* __restrict__ x, bf16* __restrict__ out,
+                 const float* __restrict__ b_qkv, const float* __restrict__ b_proj,
                  const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                  const float* __restrict__ bias, const float* __restrict__ mask,
-                 const float* __restrict__ kmul,
-                 int H, int W, int heads, int shift, int fast_softmax) {
-  using L = AttnSmem<C>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xn = reinterpret_cast<bf16*>(smem + L::off_xn);
-  bf16* ob = reinterpret_cast<bf16*>(smem + L::off_o);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::off_qk);
-  bf16* ks = qs + NTOK * L::LDH;
-  bf16* ps = qs;  // probabilities overwrite q/k once the scores exist
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::off_v);
-  float* sf = reinterpret_cast<float*>(smem + L::off_s);
-  float* recip = reinterpret_cast<float*>(smem + L::off_recip);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* stage = sf + warp * 256;  // this warp's 16 x 16 f32 staging tile
-  const int nww = W / WIN;
-  const int win = blockIdx.x / CS;  // window index in the rolled frame
-  const int wi = win / nww;
-  const int wj = win % nww;
-  const int b = blockIdx.y;
-  int rank = 0;  // this block's place in the window's cluster
-  if constexpr (CS > 1) rank = (int)cg::this_cluster().block_rank();
-  const int hd = C / heads;
-  const int Cp = heads * HDP;
-  const int hpb = heads / CS;  // heads of this block
-  // qkv: a unit is one column tile against all 4 row tiles, so each weight
-  // fragment read from L2 feeds 4 MMAs; that leaves 6 units for 8 warps,
-  // and still timed faster on an H100 than units of 2 or 1 row tiles
-  constexpr int QG = 4;
-  // hd^-0.5 as the bf16 flow applies it: a bf16 constant times bf16 q
-  const float qscale = __bfloat162float(__float2bfloat16(1.0f / sqrtf((float)hd)));
-  const float* mask_w = mask ? mask + (size_t)win * NTOK * NTOK : nullptr;
-
-  // element offset of token t of this (rolled) window in x and out
-  auto tok_off = [&](int t) -> size_t {
-    const int r = (wi * WIN + t / WIN + shift) % H;
-    const int c = (wj * WIN + t % WIN + shift) % W;
+                 const float* __restrict__ kmul, int B, int H, int W, int heads, int shift,
+                 int fast_softmax, int cs, int stages) {
+  using Cfg = AttnCfg<C, WPB>;
+  constexpr int ROWS = Cfg::ROWS, KB = Cfg::KB;
+  constexpr int PROWS = WPB == 2 ? PW : 2 * PW;  // W_proj rows a stage
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  uint8_t* panel = base;
+  uint8_t* obuf = panel + Cfg::PANEL;
+  uint8_t* headbuf = obuf + attn_o_bytes<C, WPB>(cs);
+  uint8_t* ring = headbuf + 2 * HEADBUF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * Cfg::STAGE);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int nww = W / WIN, nw = (H / WIN) * nww, windows = B * nw;
+  const int hd = C / heads, Cp = heads * HDP, hpb = heads / cs;
+  const int rank = (int)(blockIdx.x % cs);
+  const int group = (int)(blockIdx.x / cs);
+  const int cb = C / cs;  // output columns of the block, and its head columns
+  // element offset of token t of global window gw (in the rolled frame)
+  auto tok_off = [&](int gw, int t) -> size_t {
+    const int b = gw / nw, win = gw % nw;
+    const int r = ((win / nww) * WIN + t / WIN + shift) % H;
+    const int c = ((win % nww) * WIN + t % WIN + shift) % W;
     return (((size_t)b * H + r) * W + c) * C;
   };
 
-  // 1. LN1 of the window's tokens -> xn
-  for (int t = warp; t < NTOK; t += NWARPS)
-    ln_token<C>(x + tok_off(t), ln_w, ln_b, xn + t * L::LDX, lane);
-  __syncthreads();
-
-  for (int h = rank * hpb; h < (rank + 1) * hpb; ++h) {
-    // 2. q, k, v of head h: three (64 x C) @ (C x 32) products, 6 column
-    // tiles of 4 row tiles; a unit is one column tile times QG row tiles
-    for (int u = warp; u < 6 * (4 / QG); u += NWARPS) {
-      const int which = (u % 6) / 2;  // 0 q, 1 k, 2 v
-      const int ct = u % 2;
-      const int rt0 = (u / 6) * QG;
-      const int n0 = which * Cp + h * HDP + ct * 16;  // first output feature
-      FragC acc[QG];
+  if (tid >= CONSUMERS) {
+    // the producer warp; lane 0 issues every load, the whole warp takes
+    // part in the cluster barriers
+    const int lane = tid & 31;
+    int it = 0;
+    auto push = [&](uint32_t bytes) -> uint8_t* {
+      const int st = it % stages;
+      mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+      mbar_expect_tx(&full[st], bytes);
+      ++it;
+      return ring + (size_t)st * Cfg::STAGE;
+    };
+    if (lane == 0) {
+      for (int step = 0; step < hpb / Cfg::HPS; ++step)
+        for (int kb = 0; kb < KB; ++kb) {
+          const int st = it % stages;
+          uint8_t* s = push(Cfg::STAGE);
+          for (int hh = 0; hh < Cfg::HPS; ++hh) {
+            const int h = rank * hpb + step * Cfg::HPS + hh;
+            for (int which = 0; which < 3; ++which)
+              tma_load_2d(s + (hh * 3 + which) * HDP * 128, &twq, &full[st], kb * BOX,
+                          which * Cp + h * HDP);
+          }
+        }
+    }
+    __syncwarp();
+    if (cs > 1) cluster_arrive();
+    if (lane == 0) {
+      for (int pass = 0; pass < cb / PROWS; ++pass)
+        for (int kb = 0; kb < KB; ++kb) {
+          const int st = it % stages;
+          uint8_t* s = push(PROWS * 128);
+          tma_load_2d(s, &twp, &full[st], kb * BOX, rank * cb + pass * PROWS);
+        }
+    }
+    __syncwarp();
+    if (cs > 1) cluster_wait();
+  } else {
+    const int wg = tid / 128, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // 1. LN1 of the block's rows into the panel: LPR lanes a token, lane l
+    // of a token takes the 16-byte vectors l, l + LPR, ... of its C channels
+    {
+      constexpr int LPR = Cfg::LPR, NVL = Cfg::NVL, NV = C / 8;
+      const int sub = lane % LPR;
+      float w[NVL][8], b[NVL][8];
 #pragma unroll
-      for (int r = 0; r < QG; ++r) wmma::fill_fragment(acc[r], 0.f);
-#pragma unroll 2
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        FragBc bw;
-        wmma::load_matrix_sync(bw, w_qkv + (size_t)n0 * C + k0, C);
+      for (int i = 0; i < NVL; ++i) {
+        const int vi = sub + LPR * i;
 #pragma unroll
-        for (int r = 0; r < QG; ++r) {
-          FragA a;
-          wmma::load_matrix_sync(a, xn + (rt0 + r) * 16 * L::LDX + k0, L::LDX);
-          wmma::mma_sync(acc[r], a, bw, acc[r]);
+        for (int e = 0; e < 8; ++e) {
+          w[i][e] = vi < NV ? ln_w[8 * vi + e] : 0.f;
+          b[i][e] = vi < NV ? ln_b[8 * vi + e] : 0.f;
         }
       }
-      bf16* dst = which == 0 ? qs : (which == 1 ? ks : vs);
+      // PF tokens a lane group at a time, their loads all issued first
+      constexpr int RSTEP = (CONSUMERS / 32) * (32 / LPR), PF = 4;
+      static_assert(ROWS % (PF * RSTEP) == 0, "whole groups of tokens");
+      for (int rb = warp * (32 / LPR) + lane / LPR; rb < ROWS; rb += PF * RSTEP) {
+        int4 raw[PF][NVL];
 #pragma unroll
-      for (int r = 0; r < QG; ++r) {
-        wmma::store_matrix_sync(stage, acc[r], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int c = e % 16;
-          bf16 v = __float2bfloat16(stage[e] + b_qkv[n0 + c]);
-          if (which == 0) v = __float2bfloat16(__bfloat162float(v) * qscale);
-          dst[((rt0 + r) * 16 + e / 16) * L::LDH + ct * 16 + c] = v;
+        for (int p = 0; p < PF; ++p) {
+          const int r = rb + p * RSTEP;
+          const int gw = WPB == 2 ? 2 * group + r / NTOK : group;
+          const bool ok = gw < windows;
+          const bf16* src = ok ? x + tok_off(gw, r % NTOK) : x;
+#pragma unroll
+          for (int i = 0; i < NVL; ++i) {
+            const int vi = sub + LPR * i;
+            raw[p][i] = ok && vi < NV ? *reinterpret_cast<const int4*>(src + 8 * vi)
+                                      : make_int4(0, 0, 0, 0);
+          }
         }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-
-    // 3. scores q k^T (64 x 64, K = 32), 16 tiles
-    for (int tile = warp; tile < 16; tile += NWARPS) {
-      const int rt = tile / 4;
-      const int ct = tile % 4;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int k0 = 0; k0 < HDP; k0 += 16) {
-        FragA a;
-        FragBc bk;
-        wmma::load_matrix_sync(a, qs + rt * 16 * L::LDH + k0, L::LDH);
-        wmma::load_matrix_sync(bk, ks + ct * 16 * L::LDH + k0, L::LDH);
-        wmma::mma_sync(acc, a, bk, acc);
-      }
-      wmma::store_matrix_sync(sf + rt * 16 * L::LDS + ct * 16, acc, L::LDS,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // 4. + bias (+ mask), softmax over each row in f32 -> P (bf16)
-    const float* bias_h = bias + (size_t)h * NTOK * NTOK;
-    for (int r = warp; r < NTOK; r += NWARPS) {
-      float a0 = sf[r * L::LDS + lane] + bias_h[r * NTOK + lane];
-      float a1 = sf[r * L::LDS + lane + 32] + bias_h[r * NTOK + lane + 32];
-      if (mask_w) {
-        a0 += mask_w[r * NTOK + lane];
-        a1 += mask_w[r * NTOK + lane + 32];
-      }
-      float e0, e1;
-      if (fast_softmax) {
-        // unnormalised; the row sum divides the P v output instead
-        e0 = expf(a0);
-        e1 = expf(a1);
-        const float s = warp_sum(e0 + e1);
-        if (lane == 0) recip[r] = 1.f / s;
-      } else {
-        const float m = warp_max(fmaxf(a0, a1));
-        e0 = expf(a0 - m);
-        e1 = expf(a1 - m);
-        const float s = warp_sum(e0 + e1);
-        e0 = e0 / s;
-        e1 = e1 / s;
-      }
-      ps[r * L::LDP + lane] = __float2bfloat16(e0);
-      ps[r * L::LDP + lane + 32] = __float2bfloat16(e1);
-    }
-    __syncthreads();
-
-    // 5. P v (64 x 32, K = 64), 8 tiles; the hd real columns go to ob
-    for (int tile = warp; tile < 8; tile += NWARPS) {
-      const int rt = tile / 2;
-      const int ct = tile % 2;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
+        for (int p = 0; p < PF; ++p) {
+          const int r = rb + p * RSTEP;
+          float v[NVL][8];
+          float s = 0.f;
 #pragma unroll
-      for (int k0 = 0; k0 < NTOK; k0 += 16) {
-        FragA a;
-        FragBr bv;
-        wmma::load_matrix_sync(a, ps + rt * 16 * L::LDP + k0, L::LDP);
-        wmma::load_matrix_sync(bv, vs + k0 * L::LDH + ct * 16, L::LDH);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rt * 16 + e / 16;
-        const int c = ct * 16 + e % 16;
-        if (c < hd) {
-          float v = stage[e];
-          if (fast_softmax) v *= recip[r];
-          ob[r * L::LDX + h * hd + c] = __float2bfloat16(v);
+          for (int i = 0; i < NVL; ++i) {
+            const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw[p][i]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(p2[e]);
+              v[i][2 * e] = f.x;
+              v[i][2 * e + 1] = f.y;
+              s += f.x + f.y;
+            }
+          }
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+          const float mu = s / (float)C;
+          float q = 0.f;
+#pragma unroll
+          for (int i = 0; i < NVL; ++i)
+            if (sub + LPR * i < NV)
+#pragma unroll
+              for (int e = 0; e < 8; ++e) {
+                const float d = v[i][e] - mu;
+                q += __fmul_rn(d, d);
+              }
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+          const float rstd = rsqrtf(q / (float)C + 1e-5f);
+#pragma unroll
+          for (int i = 0; i < NVL; ++i) {
+            const int vi = sub + LPR * i;
+            if (vi >= NV) continue;
+            uint4 packed;
+            uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              pw[e] = pack_bf16(ln_affine(v[i][2 * e], mu, rstd, w[i][2 * e], b[i][2 * e]),
+                                ln_affine(v[i][2 * e + 1], mu, rstd, w[i][2 * e + 1],
+                                          b[i][2 * e + 1]));
+            *reinterpret_cast<uint4*>(panel + sw_off(r, 8 * vi, ROWS)) = packed;
+          }
         }
       }
-      __syncwarp();
     }
-    __syncthreads();
+    fence_async_smem();
+    named_sync(1, CONSUMERS);
+
+    // the ring, in the producer's order (as swin_mlp.cu)
+    int it = 0, pending = -1;
+    auto take = [&]() -> const uint8_t* {
+      const int st = it % stages;
+      mbar_wait(&full[st], (it / stages) & 1);
+      return ring + (size_t)st * Cfg::STAGE;
+    };
+    auto committed = [&]() {
+      wg_wait<1>();
+      if (pending >= 0) mbar_arrive(&empty[pending]);
+      pending = it % stages;
+      ++it;
+    };
+    auto drain = [&]() {
+      wg_wait<0>();
+      if (pending >= 0) mbar_arrive(&empty[pending]);
+      pending = -1;
+    };
+
+    const int rowoff = WPB == 2 ? NTOK * wg : 0;  // this warpgroup's rows of the panel
+    const int gw = WPB == 2 ? 2 * group + wg : group;  // and its window
+    const bool valid = gw < windows;
+    const int r0 = 16 * (warp & 3) + g;  // its rows r0, r0 + 8 (tokens of the window)
+    uint8_t* kbuf = headbuf + wg * HEADBUF;
+    uint8_t* vbuf = kbuf + NTOK * 128;
+    const float qscale = round_bf16(1.0f / sqrtf((float)hd));
+    const float* mask_w = mask && valid ? mask + (size_t)(gw % nw) * NTOK * NTOK : nullptr;
+    // element (r0 + 8 hr, 8 j + 2 t + e) of a 64 x 64 score tile is
+    // s[4 j + 2 hr + e]; the window's mask in that layout, read once
+    float2 mk[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        mk[2 * j + hr] = mask_w ? __ldg(reinterpret_cast<const float2*>(
+                                      mask_w + (r0 + 8 * hr) * NTOK + 8 * j + 2 * t))
+                                : make_float2(0.f, 0.f);
+
+    // 2. the heads: two windows on one head, or one window on two heads
+    for (int step = 0; step < hpb / Cfg::HPS; ++step) {
+      const int hl = step * Cfg::HPS + (WPB == 1 ? wg : 0);  // the head among the block's
+      const int h = rank * hpb + hl;
+      // the head's rel-pos bias, loaded while the qkv product runs
+      const float* bias_h = bias + (size_t)h * NTOK * NTOK;
+      float2 bb[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          bb[2 * j + hr] = __ldg(reinterpret_cast<const float2*>(
+              bias_h + (r0 + 8 * hr) * NTOK + 8 * j + 2 * t));
+      float acc[48];
+#pragma unroll
+      for (int e = 0; e < 48; ++e) acc[e] = 0.f;
+      for (int kb = 0; kb < KB; ++kb) {
+        const uint8_t* sb = take() + (WPB == 1 ? wg * QKV_ROWS * 128 : 0);
+        wg_fence();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (4 * kb + kk >= Cfg::KS16) break;
+          wgmma_m64n96_ss<0, 0>(
+              acc, desc_sw128(panel + (size_t)kb * ROWS * 128 + rowoff * 128 + kk * 32, 16, ATOM),
+              desc_sw128(sb + kk * 32, 16, ATOM));
+        }
+        wg_commit();
+        fence_regs(acc);
+        committed();
+      }
+      drain();
+      fence_regs(acc);
+      // + b_qkv, rounded; q scaled and rounded again into the A fragments
+      // of the scores; k and v^T into this warpgroup's tiles. Element
+      // (r0 + 8 hr, 8 j + 2 t + e) of the 64 x 96 tile is acc[4 j + 2 hr + e]:
+      // columns 0-31 q, 32-63 k, 64-95 v.
+      uint32_t qa[2][4];
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        const int which = j / 4, d = 8 * (j % 4) + 2 * t;
+        const float2 bv = *reinterpret_cast<const float2*>(b_qkv + which * Cp + h * HDP + d);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = r0 + 8 * hr;
+          const float v0 = round_bf16(acc[4 * j + 2 * hr] + bv.x);
+          const float v1 = round_bf16(acc[4 * j + 2 * hr + 1] + bv.y);
+          if (which == 0) {
+            qa[j / 2][2 * (j & 1) + hr] = pack_bf16(v0 * qscale, v1 * qscale);
+          } else if (which == 1) {
+            *reinterpret_cast<uint32_t*>(kbuf + sw_off(r, d, NTOK)) = pack_bf16(v0, v1);
+          } else {
+            *reinterpret_cast<bf16*>(vbuf + sw_off(d, r, HDP)) = __float2bfloat16(v0);
+            *reinterpret_cast<bf16*>(vbuf + sw_off(d + 1, r, HDP)) = __float2bfloat16(v1);
+          }
+        }
+      }
+      fence_async_smem();
+      named_sync(2 + wg, 128);
+
+      // 3. scores: s = q k^T (K = 32, two k16 steps)
+      float s[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = 0.f;
+      wg_fence();
+      fence_regs(s);
+      wgmma_m64n64_rs<0>(s, qa[0], desc_sw128(kbuf, 16, ATOM));
+      wgmma_m64n64_rs<0>(s, qa[1], desc_sw128(kbuf + 32, 16, ATOM));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+
+      // 4. + bias[h] (+ mask), softmax over each row in float32 -> P (bf16)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          s[4 * j + 2 * hr] += bb[2 * j + hr].x;
+          s[4 * j + 2 * hr + 1] += bb[2 * j + hr].y;
+          if (mask_w) {
+            s[4 * j + 2 * hr] += mk[2 * j + hr].x;
+            s[4 * j + 2 * hr + 1] += mk[2 * j + hr].y;
+          }
+        }
+      float scale[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float m = 0.f;
+        if (!fast_softmax) {
+          m = s[2 * hr];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) m = fmaxf(m, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        }
+        float l = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ev = expf(s[4 * j + 2 * hr + e] - m);
+            s[4 * j + 2 * hr + e] = ev;
+            l += ev;
+          }
+        // times 1 / sum rather than divided: the masked scores' exp (about
+        // e^-100) are denormal, and IEEE division takes its slow path on
+        // them (2x the launch time of a shifted block on an H100)
+        const float inv = 1.f / quad_sum(l);
+        if (fast_softmax) {
+          scale[hr] = inv;  // the row sum divides P v instead
+        } else {
+          scale[hr] = 1.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            s[4 * j + 2 * hr] *= inv;
+            s[4 * j + 2 * hr + 1] *= inv;
+          }
+        }
+      }
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+
+      // 5. P v (K = 64 keys), the hd real columns rounded into o
+      float o[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) o[e] = 0.f;
+      wg_fence();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n32_rs<0>(o, pa[kk], desc_sw128(vbuf + kk * 32, 16, ATOM));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int j = 0; j < HDP / 8; ++j) {
+        if (8 * j >= hd) break;
+        const int oc = hl * hd + 8 * j + 2 * t;  // column among the block's heads
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          *reinterpret_cast<uint32_t*>(obuf + sw_off(rowoff + r0 + 8 * hr, oc, ROWS)) =
+              pack_bf16(o[4 * j + 2 * hr] * scale[hr], o[4 * j + 2 * hr + 1] * scale[hr]);
+      }
+      named_sync(2 + wg, 128);  // the tiles are free for the next head
+    }
+
+    // 6. proj's A operand: o, or, with a cluster, every block's head
+    // columns gathered into the LN1 panel (no longer read)
+    const uint8_t* pa_proj = obuf;
+    if (cs > 1) {
+      cluster_arrive();
+      cluster_wait();  // every block's o is complete
+      const int nch = cb / 8;  // 16-byte chunks of a row of a block's o
+      for (int q = 0; q < cs; ++q) {
+        const uint8_t* src = cluster_map(obuf, q);
+        for (int i = tid; i < NTOK * nch; i += CONSUMERS) {
+          const int r = i / nch, lc = 8 * (i % nch);
+          *reinterpret_cast<int4*>(panel + sw_off(r, q * cb + lc, ROWS)) =
+              *reinterpret_cast<const int4*>(src + sw_off(r, lc, ROWS));
+        }
+      }
+      pa_proj = panel;
+    }
+    fence_async_smem();
+    named_sync(1, CONSUMERS);
+
+    // 7. proj of the block's output columns, in passes of PROWS (the two
+    // warpgroups' rows, or their PW columns each), + b_proj, times k, + x
+    const int wgcol = WPB == 1 ? wg * PW : 0;
+    size_t roff[2] = {0, 0};
+    float kv = 1.f;
+    if (valid) {
+      roff[0] = tok_off(gw, r0);
+      roff[1] = tok_off(gw, r0 + 8);
+      if (kmul) kv = kmul[gw / nw];
+    }
+    for (int pass = 0; pass < cb / PROWS; ++pass) {
+      const int c0 = rank * cb + pass * PROWS + wgcol;
+      // the residual's x pairs, loaded while the product runs
+      __nv_bfloat162 xr[PW / 8][2];
+#pragma unroll
+      for (int j = 0; j < PW / 8; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          xr[j][hr] = *reinterpret_cast<const __nv_bfloat162*>(x + roff[hr] + c0 + 8 * j + 2 * t);
+      float acc[PW / 2];
+#pragma unroll
+      for (int e = 0; e < PW / 2; ++e) acc[e] = 0.f;
+      for (int kb = 0; kb < KB; ++kb) {
+        const uint8_t* sb = take() + wgcol * 128;
+        wg_fence();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (4 * kb + kk >= Cfg::KS16) break;
+          const uint64_t da =
+              desc_sw128(pa_proj + (size_t)kb * ROWS * 128 + rowoff * 128 + kk * 32, 16, ATOM);
+          const uint64_t db = desc_sw128(sb + kk * 32, 16, ATOM);
+          if constexpr (PW == 96) wgmma_m64n96_ss<0, 0>(acc, da, db);
+          else wgmma_m64n48_ss<0, 0>(acc, da, db);
+        }
+        wg_commit();
+        fence_regs(acc);
+        committed();
+      }
+      drain();
+      fence_regs(acc);
+      if (!valid) continue;
+#pragma unroll
+      for (int j = 0; j < PW / 8; ++j) {
+        const int c = c0 + 8 * j + 2 * t;
+        const float2 bp = *reinterpret_cast<const float2*>(b_proj + c);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const size_t off = roff[hr] + c;
+          const float2 xv = __bfloat1622float2(xr[j][hr]);
+          *reinterpret_cast<uint32_t*>(out + off) =
+              pack_bf16(add_scaled(xv.x, kv, acc[4 * j + 2 * hr] + bp.x),
+                        add_scaled(xv.y, kv, acc[4 * j + 2 * hr + 1] + bp.y));
+        }
+      }
+    }
   }
-
-  // 6. gather the other blocks' head columns of ob through distributed
-  // shared memory (16-byte copies of each row's segment)
-  if constexpr (CS > 1) {
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();  // every block's head outputs are in its ob
-    const int nvec = hpb * hd * 2 / 16;  // 16-byte pieces of one row's segment
-    for (int r = 0; r < CS; ++r) {
-      if (r == rank) continue;
-      const bf16* remote = cluster.map_shared_rank(ob, r);
-      for (int i = threadIdx.x; i < NTOK * nvec; i += NTHREADS) {
-        const size_t off = (size_t)(i / nvec) * L::LDX + r * hpb * hd;
-        reinterpret_cast<int4*>(ob + off)[i % nvec] =
-            reinterpret_cast<const int4*>(remote + off)[i % nvec];
-      }
-    }
-    cluster.sync();  // no block leaves while another still reads its ob
-  }
-
-  // 7. proj for this block's C / CS output columns (K = C) + b_proj + x;
-  // a unit is one column tile times PG row tiles
-  constexpr int NCT = C / 16 / CS;
-  static_assert(C % (16 * CS) == 0, "proj columns must split into 16-wide tiles");
-  constexpr int PG = row_group(4, NCT);
-  const int col0 = rank * (C / CS);
-  for (int u = warp; u < NCT * (4 / PG); u += NWARPS) {
-    const int n0 = col0 + (u % NCT) * 16;
-    const int rt0 = (u / NCT) * PG;
-    FragC acc[PG];
-#pragma unroll
-    for (int r = 0; r < PG; ++r) wmma::fill_fragment(acc[r], 0.f);
-#pragma unroll 2
-    for (int k0 = 0; k0 < C; k0 += 16) {
-      FragBc bw;
-      wmma::load_matrix_sync(bw, w_proj + (size_t)n0 * C + k0, C);
-#pragma unroll
-      for (int r = 0; r < PG; ++r) {
-        FragA a;
-        wmma::load_matrix_sync(a, ob + (rt0 + r) * 16 * L::LDX + k0, L::LDX);
-        wmma::mma_sync(acc[r], a, bw, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < PG; ++r) {
-      wmma::store_matrix_sync(stage, acc[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = (rt0 + r) * 16 + e / 16;
-        const int c = n0 + e % 16;
-        const size_t off = tok_off(row) + c;
-        const float br = stage[e] + b_proj[c];
-        out[off] = __float2bfloat16(__bfloat162float(x[off]) + (kmul ? kmul[b] * br : br));
-      }
-      __syncwarp();
-    }
+  if (cs > 1) {  // no block leaves while another still reads its o
+    cluster_arrive();
+    cluster_wait();
   }
 }
 
-template <int C, int CS>
-static cudaError_t launch_attn_cs(const void* x, void* out, const void* w_qkv,
-                                  const void* b_qkv, const void* w_proj,
-                                  const void* b_proj, const void* ln_w,
-                                  const void* ln_b, const void* bias,
-                                  const void* mask, const void* kmul, int B, int H,
-                                  int W, int heads, int shift, int fast_softmax,
-                                  cudaStream_t stream) {
-  const size_t smem = AttnSmem<C>::bytes;
-  auto kernel = swin_attn_kernel<C, CS>;
-  cudaError_t err =
+template <int C, int WPB, int PW>
+static int launch_attn(const void* x, void* out, const void* w_qkv, const void* b_qkv,
+                       const void* w_proj, const void* b_proj, const void* ln_w, const void* ln_b,
+                       const void* bias, const void* mask, const void* kmul, int B, int H, int W,
+                       int heads, int shift, int fast_softmax, int cs, int stages,
+                       cudaStream_t stream) {
+  using Cfg = AttnCfg<C, WPB>;
+  constexpr int PROWS = WPB == 2 ? PW : 2 * PW;
+  const int hpb = heads / cs;
+  // whole head steps and proj passes a block; 16-byte chunks of a block's o
+  if (heads % cs || hpb % Cfg::HPS || (C / cs) % PROWS || ((C / heads) * hpb) % 8 ||
+      (WPB == 2 && cs != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = attn_smem_bytes<C, WPB>(cs, stages);
+  // the gathered o must fit over the LN1 panel
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mp;
+  const uint64_t dq[2] = {(uint64_t)C, (uint64_t)3 * heads * HDP}, dp[2] = {(uint64_t)C, (uint64_t)C};
+  const uint32_t bq[2] = {BOX, (uint32_t)HDP}, bp[2] = {BOX, (uint32_t)PROWS};
+  int err = make_tensor_map(&mq, w_qkv, 2, dq, bq);
+  if (!err) err = make_tensor_map(&mp, w_proj, 2, dp, bp);
+  if (err) return err;
+  auto kernel = swin_attn_kernel<C, WPB, PW>;
+  cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  if (e != cudaSuccess) return (int)e;
+  const long windows = (long)B * (H / WIN) * (W / WIN);
+  const long blocks = (windows + WPB - 1) / WPB * cs;
+  if (blocks > 2147483647L) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((H / WIN) * (W / WIN) * CS, B);
-  cfg.blockDim = dim3(NTHREADS);
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.x = cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const bf16*>(x), static_cast<bf16*>(out),
-      static_cast<const bf16*>(w_qkv), static_cast<const float*>(b_qkv),
-      static_cast<const bf16*>(w_proj), static_cast<const float*>(b_proj),
-      static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
-      static_cast<const float*>(bias), static_cast<const float*>(mask),
-      static_cast<const float*>(kmul), H, W, heads, shift, fast_softmax);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-template <int C>
-static cudaError_t launch_attn(const void* x, void* out, const void* w_qkv,
-                               const void* b_qkv, const void* w_proj,
-                               const void* b_proj, const void* ln_w,
-                               const void* ln_b, const void* bias,
-                               const void* mask, const void* kmul, int B, int H,
-                               int W, int heads, int shift, int fast_softmax,
-                               cudaStream_t stream) {
-  constexpr int CS = attn_cluster<C>();
-  // a cluster needs whole heads a block and 16-byte pieces of gathered columns
-  if (CS > 1 && heads % CS == 0 && ((heads / CS) * (C / heads)) % 8 == 0 &&
-      use_cluster((long)(H / WIN) * (W / WIN) * B, CS))
-    return launch_attn_cs<C, CS>(x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b,
-                                 bias, mask, kmul, B, H, W, heads, shift,
-                                 fast_softmax, stream);
-  return launch_attn_cs<C, 1>(x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b,
-                              bias, mask, kmul, B, H, W, heads, shift, fast_softmax,
-                              stream);
+  e = cudaLaunchKernelEx(&cfg, kernel, mq, mp, static_cast<const bf16*>(x),
+                         static_cast<bf16*>(out), static_cast<const float*>(b_qkv),
+                         static_cast<const float*>(b_proj), static_cast<const float*>(ln_w),
+                         static_cast<const float*>(ln_b), static_cast<const float*>(bias),
+                         static_cast<const float*>(mask), static_cast<const float*>(kmul), B, H, W,
+                         heads, shift, fast_softmax, cs, stages);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hmdt
 
 // C interface for ctypes. Returns cudaGetLastError() after the launch (0 on
-// success); x and out are distinct (B, H, W, C) bf16 buffers; mask and kmul
-// (B floats) may be null.
-extern "C" int swin_attn_launch(const void* x, void* out, const void* w_qkv,
-                                const void* b_qkv, const void* w_proj,
-                                const void* b_proj, const void* ln_w,
-                                const void* ln_b, const void* bias,
-                                const void* mask, const void* kmul, int B, int H,
-                                int W, int C,
-                                int heads, int shift, int fast_softmax,
-                                void* stream) {
+// success), or the error that stopped it before. x and out are distinct
+// (B, H, W, C) bf16 buffers; mask and kmul (B floats) may be null. The
+// launch plan (ops/swin_plan.py::attn_plan): windows_per_block (2 at
+// C <= 192, else 1: a check that the two agree), cs the blocks of a cluster
+// over a window's heads, proj_width the output columns of a warpgroup's
+// proj pass (96 or 48), stages the ring's depth.
+extern "C" int swin_attn_launch(const void* x, void* out, const void* w_qkv, const void* b_qkv,
+                                const void* w_proj, const void* b_proj, const void* ln_w,
+                                const void* ln_b, const void* bias, const void* mask,
+                                const void* kmul, int B, int H, int W, int C, int heads,
+                                int shift, int fast_softmax, int windows_per_block, int cs,
+                                int proj_width, int stages, void* stream) {
   using namespace hmdt;
-  if (B <= 0 || H % WIN || W % WIN || heads <= 0 || C % heads ||
-      C / heads > HDP || shift < 0 || shift >= WIN)
+  if (B <= 0 || H % WIN || W % WIN || H <= 0 || W <= 0 || heads <= 0 || C % heads ||
+      C / heads > HDP || (C / heads) % 8 || shift < 0 || shift >= WIN || cs < 1 || cs > 8 ||
+      stages < 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HMDT_ATTN_CASE(CC)                                                     \
-  case CC:                                                                     \
-    return (int)launch_attn<CC>(x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w,    \
-                                ln_b, bias, mask, kmul, B, H, W, heads, shift, \
-                                fast_softmax, s);
-  switch (C) {
-    HMDT_ATTN_CASE(96)
-    HMDT_ATTN_CASE(192)
-    HMDT_ATTN_CASE(384)
-    HMDT_ATTN_CASE(768)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int wpb = C <= 192 ? 2 : 1;
+  if (windows_per_block != wpb) return (int)cudaErrorInvalidValue;
+#define HMDT_ATTN_CASE(CC, WPB, PW)                                                          \
+  if (C == CC && proj_width == PW)                                                           \
+    return launch_attn<CC, WPB, PW>(x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b, bias,  \
+                                    mask, kmul, B, H, W, heads, shift, fast_softmax, cs,     \
+                                    stages, s);
+  HMDT_ATTN_CASE(96, 2, 96)
+  HMDT_ATTN_CASE(192, 2, 96)
+  HMDT_ATTN_CASE(384, 1, 96)
+  HMDT_ATTN_CASE(384, 1, 48)
+  HMDT_ATTN_CASE(768, 1, 96)
+  HMDT_ATTN_CASE(768, 1, 48)
 #undef HMDT_ATTN_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,14 +2,16 @@
 // the training backward: swin_attn_bwd.cu, swin_mlp_bwd.cu) and of the MAE
 // ViT kernels (swin_mlp.cu serves as the ViT MLP half with LayerNorm eps
 // 1e-6; vit_qkv.cu, vit_attn.cu and vit_attn_bwd.cu take the warp sums and
-// limits). The wgmma kernels (swin_wgrad.cu, vit_proj.cu, vit_qkv.cu,
-// vit_attn.cu, vit_attn_bwd.cu) take their products from wgmma_gemm.cuh.
+// limits). The wgmma kernels (swin_attn.cu, swin_mlp.cu, swin_wgrad.cu,
+// vit_proj.cu, vit_qkv.cu, vit_attn.cu, vit_attn_bwd.cu) take their products
+// from wgmma_gemm.cuh.
 //
-// Both kernels take bfloat16 activations and weights and keep LayerNorm,
-// softmax, GELU and every accumulator in float32. In-kernel products are
-// WMMA 16x16x16 bf16 tiles with float32 accumulation; a warp writes its
-// accumulator tile to a private 16x16 float32 staging area in shared memory
-// and applies the epilogue (bias, rounding, GELU, residual) from there.
+// Every kernel takes bfloat16 activations and weights and keeps LayerNorm,
+// softmax, GELU and every accumulator in float32. The backward kernels'
+// products are WMMA 16x16x16 bf16 tiles with float32 accumulation; a warp
+// writes its accumulator tile to a private 16x16 float32 staging area in
+// shared memory and applies the epilogue (bias, rounding, GELU, residual)
+// from there.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,19 +46,6 @@ __host__ __device__ constexpr int row_group(int row_tiles, int col_tiles) {
   for (int g = row_tiles; g > 1; --g)
     if (row_tiles % g == 0 && (col_tiles * (row_tiles / g)) % NWARPS == 0) return g;
   return 1;
-}
-
-// Whether to spread one work unit (a window, a token tile) over a cluster of
-// cs blocks: only while the clustered grid stays within two waves of the
-// card. Past that the card is already full, and the cluster's extra
-// traffic (gathers, partial sums, repeated LayerNorms) costs more than it
-// spreads (measured on an H100 at the HTS-AT stage shapes, B = 16 and 64).
-inline bool use_cluster(long units, int cs) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return false;
-  return cs > 1 && units * cs <= 2L * sms;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -110,6 +99,16 @@ __device__ __forceinline__ void ln_token(const bf16* __restrict__ src,
     *mu_out = mu;
     *rstd_out = rstd;
   }
+}
+
+// LayerNorm's affine step (x - mu) * rstd * w + b, and a branch added to
+// the residual, x + k * branch, each product rounded before the add as the
+// plain torch versions round them (no fused multiply-add).
+__device__ __forceinline__ float ln_affine(float v, float mu, float rstd, float w, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(v - mu, rstd), w), b);
+}
+__device__ __forceinline__ float add_scaled(float x, float k, float branch) {
+  return __fadd_rn(x, __fmul_rn(k, branch));
 }
 
 // Copy rows of a shared-memory bf16 tile (row stride lds) to consecutive

@@ -35,11 +35,12 @@ NVCC_FLAGS = [
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, out, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b, bias, mask, kmul,
-    # B, H, W, C, heads, shift, fast_softmax, stream
-    "swin_attn_launch": [_vp] * 11 + [_i] * 7 + [_vp],
+    # B, H, W, C, heads, shift, fast_softmax, and the plan (ops/swin_plan.py):
+    # windows_per_block, cs, proj_width, stages; stream
+    "swin_attn_launch": [_vp] * 11 + [_i] * 11 + [_vp],
     # x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul,
-    # n_tokens, C, hidden, hw, eps, stream
-    "swin_mlp_launch": [_vp] * 9 + [_i] * 4 + [_f, _vp],
+    # n_tokens, C, hidden, hw, and the plan: panel_rows, ks, stages; eps, stream
+    "swin_mlp_launch": [_vp] * 9 + [_i] * 7 + [_f, _vp],
     # x, dh1, kmul, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, bias, mask,
     # h_g, dw_g, opre_g, dqkv_g, part, B, H, W, C, heads, shift, wpb, stream
     "swin_attn_bwd_launch": [_vp] * 16 + [_i] * 7 + [_vp],

@@ -4,9 +4,13 @@ heart_murmur_detection_tpu/ops/pallas_swin.py built from them.
 
   swin_attn  LN1 -> 8x8 windows -> qkv -> per-head softmax(q k^T/sqrt(hd)
              + rel-pos bias (+ shift mask)) v -> proj -> +x
-             (csrc/swin_attn.cu; the TPU body is `_strip_attn`)
+             (csrc/swin_attn.cu, wgmma and TMA; the TPU body is `_strip_attn`)
   swin_mlp   LN2 -> fc1 -> exact GELU -> fc2 -> +x
-             (csrc/swin_mlp.cu; the TPU body is `_strip_mlp`)
+             (csrc/swin_mlp.cu, wgmma and TMA; the TPU body is `_strip_mlp`)
+
+Each launch follows a plan computed on the host from the geometry and the
+card's SM count (ops/swin_plan.py: token rows or windows a block, and the
+cluster that splits the hidden chunks or the heads where the grid is small).
 
 Both take an optional per-sample multiplier kmul (B,) of the branch, the
 DropPath keep multipliers of the training forward (ops/swin_train.py);
@@ -271,6 +275,43 @@ def _cuda_stream(x: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
+_SMS = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a card, read once (the launch plans' input)."""
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def _check_aligned(*ts: Optional[torch.Tensor]):
+    """The kernels read tensors by TMA boxes and 8- or 16-byte vectors."""
+    if any(t is not None and t.data_ptr() % 16 for t in ts):
+        raise ValueError("the swin / ViT MLP and attention kernels take 16-byte aligned tensors")
+
+
+def _mlp_launch(name: str, x: torch.Tensor, w, n_tokens: int, hw: int, kmul, eps: float):
+    """One launch of csrc/swin_mlp.cu on its plan (ops/swin_plan.py); w:
+    (ln2_w, ln2_b, w_fc1, b_fc1, w_fc2, b_fc2). Returns the output."""
+    from . import _build
+    from .swin_plan import mlp_plan
+
+    C = x.shape[-1]
+    hidden = w[2].shape[0]
+    plan = mlp_plan(n_tokens, C, hidden, sm_count(x.device))
+    _check_aligned(x, *w)
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    rc = lib.swin_mlp_launch(
+        _ptr(x), _ptr(out), *(_ptr(t) for t in w), _ptr(kmul), n_tokens, C, hidden, hw,
+        plan.panel_rows, plan.ks, plan.stages, eps, _cuda_stream(x),
+    )
+    _check_launch(name, rc)
+    return out
+
+
 def _check_kmul(kmul: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
     """A per-sample branch multiplier for a kernel: float32 (B,) on x's card."""
     if kmul is None:
@@ -303,13 +344,17 @@ def swin_attn(
             raise ValueError("mask and x are on different devices")
         mask = mask.contiguous()
     from . import _build
+    from .swin_plan import attn_plan
 
+    plan = attn_plan(B, H, W, C, p.heads, sm_count(x.device))
+    _check_aligned(x, p.w_qkv, p.b_qkv, p.w_proj, p.b_proj, p.bias, mask)
     lib = _build.load_library()
     out = torch.empty_like(x)
     rc = lib.swin_attn_launch(
         _ptr(x), _ptr(out), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.w_proj),
         _ptr(p.b_proj), _ptr(p.ln1_w), _ptr(p.ln1_b), _ptr(p.bias), _ptr(mask),
-        _ptr(kmul), B, H, W, C, p.heads, shift, int(fast_softmax), _cuda_stream(x),
+        _ptr(kmul), B, H, W, C, p.heads, shift, int(fast_softmax), plan.windows_per_block,
+        plan.cs, plan.proj_width, plan.stages, _cuda_stream(x),
     )
     _check_launch("swin_attn", rc)
     swin_attn.launches += 1
@@ -325,17 +370,8 @@ def swin_mlp(
     _check_cuda_args(x, p, WINDOW)
     kmul = _check_kmul(kmul, x)
     B, H, W, C = x.shape
-    hidden = p.w_fc1.shape[0]
-    from . import _build
-
-    lib = _build.load_library()
-    out = torch.empty_like(x)
-    rc = lib.swin_mlp_launch(
-        _ptr(x), _ptr(out), _ptr(p.ln2_w), _ptr(p.ln2_b), _ptr(p.w_fc1),
-        _ptr(p.b_fc1), _ptr(p.w_fc2), _ptr(p.b_fc2), _ptr(kmul),
-        B * H * W, C, hidden, H * W, 1e-5, _cuda_stream(x),
-    )
-    _check_launch("swin_mlp", rc)
+    out = _mlp_launch("swin_mlp", x, (p.ln2_w, p.ln2_b, p.w_fc1, p.b_fc1, p.w_fc2, p.b_fc2),
+                      B * H * W, H * W, kmul, 1e-5)
     swin_mlp.launches += 1
     return out
 

@@ -71,7 +71,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .swin import _check_launch, _cuda_stream, _ln, _mmf, _ptr
+from .swin import _check_launch, _cuda_stream, _ln, _mlp_launch, _mmf, _ptr
 
 LN_EPS = 1e-6
 HD = 64  # the kernels' head dim (ViT-S/16 and ViT-B/16 both use 64)
@@ -451,16 +451,8 @@ def vit_mlp(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
         return vit_mlp_ref(x, p)
     _check_cuda_args(x, p, attn=False)
     B, Np, C = x.shape
-    from . import _build
-
-    lib = _build.load_library()
-    out = torch.empty_like(x)
-    rc = lib.swin_mlp_launch(
-        _ptr(x), _ptr(out), _ptr(p.ln2_w), _ptr(p.ln2_b), _ptr(p.w_fc1),
-        _ptr(p.b_fc1), _ptr(p.w_fc2), _ptr(p.b_fc2), _ptr(None),
-        B * Np, C, p.hidden, Np, LN_EPS, _cuda_stream(x),
-    )
-    _check_launch("vit_mlp", rc)
+    out = _mlp_launch("vit_mlp", x, (p.ln2_w, p.ln2_b, p.w_fc1, p.b_fc1, p.w_fc2, p.b_fc2),
+                      B * Np, Np, None, LN_EPS)
     vit_mlp.launches += 1
     return out
 

@@ -111,23 +111,37 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,heads,H,shift", [(96, 4, 64, 4), (192, 8, 32, 4), (384, 16, 16, 4), (768, 32, 8, 0)])
 @pytest.mark.parametrize("fast_softmax", [False, True])
-@pytest.mark.parametrize("B", [4, 72])  # clustered and single-block launches at C >= 384
+# B = 1, 16, 64 at every stage (clusters over the heads or the hidden chunks
+# where the windows or panels are few, single blocks where they are many),
+# and 4 and 72, a block short of whole waves
+@pytest.mark.parametrize("B", [1, 4, 16, 64, 72])
 def test_kernels_match_plain_on_card(cuda, C, heads, H, shift, fast_softmax, B):
+    """Both forward kernels against their plain versions on the branch,
+    without and with a per-sample multiplier, and a second launch bitwise
+    equal to the first."""
     p = _params(C, heads, C, cuda)
     mask = torch.from_numpy(_shift_attn_mask(H, H, 8, shift)).to(cuda) if shift else None
     g = torch.Generator().manual_seed(C)
     x = (torch.randn(B, H, H, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    # DropPath keep multipliers, a dropped sample (0) among them where B > 1
+    k = torch.tensor([1 / 0.9, 0.0, 1.0, 1 / 0.9] * (B // 4 + 1), device=cuda)[:B]
     n0 = swin.launch_counts()
     for s, m in ((0, None), (shift, mask)):
-        got = swin.swin_attn(x, p, m, s, fast_softmax)
-        want = swin.swin_attn_ref(x, p, m, s, fast_softmax)
+        for kmul in (None, k):
+            got = swin.swin_attn(x, p, m, s, fast_softmax, kmul=kmul)
+            want = swin.swin_attn_ref(x, p, m, s, fast_softmax, kmul=kmul)
+            again = swin.swin_attn(x, p, m, s, fast_softmax, kmul=kmul)
+            torch.cuda.synchronize()
+            assert _branch_cos(got, want, x) >= COS_BAR
+            assert torch.equal(got, again)
+    for kmul in (None, k):
+        got, want = swin.swin_mlp(x, p, kmul), swin.swin_mlp_ref(x, p, kmul)
+        again = swin.swin_mlp(x, p, kmul)
         torch.cuda.synchronize()
         assert _branch_cos(got, want, x) >= COS_BAR
-    got, want = swin.swin_mlp(x, p), swin.swin_mlp_ref(x, p)
-    torch.cuda.synchronize()
-    assert _branch_cos(got, want, x) >= COS_BAR
+        assert torch.equal(got, again)
     n1 = swin.launch_counts()
-    assert n1["swin_attn"] - n0["swin_attn"] == 2 and n1["swin_mlp"] - n0["swin_mlp"] == 1
+    assert n1["swin_attn"] - n0["swin_attn"] == 8 and n1["swin_mlp"] - n0["swin_mlp"] == 4
 
 
 @pytest.mark.gpu
@@ -370,9 +384,33 @@ def test_vit_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, fast_softma
     assert _branch_cos(y, y_ref, h1_ref) >= COS_BAR
     # bitwise repeatable
     assert torch.equal(vit.vit_attn(qkv_ref, p, n_real, mode), o)
+    assert torch.equal(vit.vit_mlp(h1_ref, p), y)
     n1 = vit.launch_counts()
     assert {k: n1[k] - n0[k] for k in n1} == {"vit_qkv": 1, "vit_attn": 2, "vit_proj": 1,
-                                              "vit_mlp": 1}
+                                              "vit_mlp": 2}
+
+
+# (C, B, tokens a clip): vit_mlp at token counts its panels (128 rows at
+# C <= 192, 64 above) do not divide: the towers' padded sequences at B = 1,
+# 16 and 64, the MAE CP visible-token counts, and rows that are no multiple
+# of 16 at all
+VIT_MLP_ROWS = [(384, 1, 1040), (384, 16, 1040), (384, 64, 1040), (768, 1, 528), (768, 16, 528),
+                (768, 64, 160), (384, 64, 320), (384, 64, 80), (384, 3, 77), (768, 5, 33),
+                (96, 7, 50), (192, 3, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,B,Np", VIT_MLP_ROWS)
+def test_vit_mlp_ragged_tokens_on_card(cuda, C, B, Np):
+    heads = max(1, C // 64)
+    p = _vit_params(C, heads, C + Np, cuda)
+    g = torch.Generator().manual_seed(Np)
+    x = (torch.randn(B, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    y, y_ref = vit.vit_mlp(x, p), vit.vit_mlp_ref(x, p)
+    again = vit.vit_mlp(x, p)
+    torch.cuda.synchronize()
+    assert _branch_cos(y, y_ref, x) >= COS_BAR
+    assert torch.equal(y, again)
 
 
 # the attention modes of the TPU attention-half kernels K10 / K11 (ops/vit.py
