@@ -24,7 +24,10 @@ Phases (each prints one line; any failure exits non-zero):
      (one swin_wgrad launch each, its chunk partials summed in order inside)
      against torch.mm and the column-sum reductions (swin_reduce, bitwise
      the in-order sum) at the step's shapes, a line a (S, L) against
-     sum(0); times per launch
+     sum(0); times per launch, each backward half's library chain
+     (bench/swin_bwd_time.py: the autograd backward of its library calls
+     in bf16) and the device time of each grid launch of a backward call
+     by kernel name (torch.profiler)
   8. CP: three synthetic corpora (circor, physionet16, pascal_A; 300 clips
      of 260-1000 frames each) on disk, one epoch of COLA continued
      pretraining of the full-width operaCT at B=64 through cli.pretrain on
@@ -65,9 +68,10 @@ Phases (each prints one line; any failure exits non-zero):
      dv rows of the padded keys exactly 0; fused_vit_block_train against
      impl="plain" (output branch and every leaf); times a launch, the plain
      halves, the bound of K9's backward function, SDPA's backward on the same
-     q, k, v, dO, vit_attn_bwd's function as a chain of library calls, and
-     the device time of each of vit_attn_bwd's six grid launches by kernel
-     name (torch.profiler); at the Audio-MAE shape, the step's weight
+     q, k, v, dO, vit_attn_bwd's function as a chain of library calls,
+     vit_mlp_bwd's as the autograd backward of its library chain, and the
+     device time of each grid launch of both calls by kernel name
+     (torch.profiler); at the Audio-MAE shape, the step's weight
      products against torch.mm and its column sums, a line a (S, L),
      swin_reduce against sum(0)
  15. Audio-MAE CP: three synthetic heart corpora (fbank clips of 600-1400
@@ -340,11 +344,13 @@ def phase_train_kernels(model, dev):
     over one CP step's launches (2 views x depth blocks a stage)."""
     import torch
 
+    from heart_murmur_detection_tpu_torch.bench.swin_bwd_time import attn_bwd_chain, mlp_bwd_chain
     from heart_murmur_detection_tpu_torch.ops import swin
     from heart_murmur_detection_tpu_torch.ops import swin_train as st
 
     B = B_TRAIN
     g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    chains = {"swin_mlp_bwd": 0.0, "swin_attn_bwd": 0.0}  # the library chains over a CP step
     cfg = model.htsat.config
     stages = model.htsat.prepared(torch.bfloat16)
     names = ("swin_attn_bwd", "swin_mlp_bwd", "swin_wgrad", "swin_reduce")
@@ -404,6 +410,20 @@ def phase_train_kernels(model, dev):
             tot["swin_attn_bwd"]["ms"] += blocks * ab_ms
             tot["swin_mlp_bwd"]["plain_ms"] += blocks * mp_ms
             tot["swin_attn_bwd"]["plain_ms"] += blocks * ap_ms
+            # the yardsticks: each half's backward as library calls in bf16
+            # (autograd), and each call's grid launches by the profiler
+            mc_ms = _time_ms(mlp_bwd_chain(h1, dy, k, p, 1e-5), iters=10, warm=2)
+            ac_ms = _time_ms(attn_bwd_chain(x, dh1, k, p, m, s), iters=10, warm=2)
+            chains["swin_mlp_bwd"] += blocks * mc_ms
+            chains["swin_attn_bwd"] += blocks * ac_ms
+            split_m = _device_ms(lambda: st.swin_mlp_bwd_launch(h1, dy, k, p), groups_by=MLP_BWD_LAUNCHES)
+            split_a = _device_ms(lambda: st.swin_attn_bwd_launch(x, dh1, k, p, m, s),
+                                 groups_by=SWIN_ATTN_BWD_LAUNCHES)
+            print(f"[train kernels] {tag}: the halves as library chains (autograd backward in "
+                  f"bf16): MLP {mc_ms:.4f} ms, attention {ac_ms:.4f} ms; the grid launches of a "
+                  f"call by the profiler (ms): swin_mlp_bwd "
+                  f"{ {q: round(v, 4) for q, v in split_m.items()} }, swin_attn_bwd "
+                  f"{ {q: round(v, 4) for q, v in split_a.items()} }", flush=True)
             _, (m_g, g_g, dyk_g, da1_g), part_m = st.swin_mlp_bwd_launch(h1, dy, k, p)
             _, (h_g, dw_g, opre_g, dqkv_g), part_a = st.swin_attn_bwd_launch(x, dh1, k, p, m, s)
             # bounds: each kernel's share of the K8 backward function (see
@@ -470,7 +490,10 @@ def phase_train_kernels(model, dev):
                   f"= {extra / HBM_BPS * 1e3:.4f} ms at the HBM rate", flush=True)
     print(f"[train kernels] a CP step: the K8 backward function (20 blocks) bound "
           f"{design[1] * 1e3:.4f} ms; design (b)'s operand and partial traffic {design[0] / 1e9:.3f} "
-          f"GB = {design[0] / HBM_BPS * 1e3:.4f} ms at the HBM rate, in no bound", flush=True)
+          f"GB = {design[0] / HBM_BPS * 1e3:.4f} ms at the HBM rate, in no bound; the backward "
+          f"halves {tot['swin_mlp_bwd']['ms']:.4f} / {tot['swin_attn_bwd']['ms']:.4f} ms against "
+          f"their library chains {chains['swin_mlp_bwd']:.4f} / {chains['swin_attn_bwd']:.4f} ms",
+          flush=True)
     return tot
 
 
@@ -834,8 +857,17 @@ def _step0_rule(tag, lk, lp, lf, gk, gp, gf, skip=()):
                       f"distance to strict f32: {far[:3]}")
 
 
-SWIN_GROUPS = {k: k + "_kernel" for k in ("swin_attn_bwd", "swin_mlp_bwd", "swin_wgrad",
-                                           "swin_reduce", "swin_attn", "swin_mlp")}
+# every kernel of a swin_mlp_bwd / swin_attn_bwd call is named swin_mlp_bwd_* /
+# swin_attn_bwd_* (csrc/swin_*_bwd.cu): those prefixes come first
+SWIN_GROUPS = {"swin_attn_bwd": "swin_attn_bwd_", "swin_mlp_bwd": "swin_mlp_bwd_",
+               **{k: k + "_kernel" for k in ("swin_wgrad", "swin_reduce", "swin_attn", "swin_mlp")}}
+# the grid launches of one swin_mlp_bwd (also vit_mlp_bwd) and one
+# swin_attn_bwd call by kernel name
+MLP_BWD_LAUNCHES = {"chunk": "swin_mlp_bwd_chunk_kernel", "dm": "swin_mlp_bwd_mm_kernel",
+                    "rows": "swin_mlp_bwd_rows_kernel"}
+SWIN_ATTN_BWD_LAUNCHES = {"W_proj by head": "swin_attn_bwd_wpt_kernel",
+                          "window": "swin_attn_bwd_window_kernel", "dh": "swin_attn_bwd_mm_kernel",
+                          "rows": "swin_attn_bwd_rows_kernel"}
 VIT_GROUPS = {"vit_qkv": "vit_qkv_kernel", "vit_attn": "vit_attn_kernel",
               "vit_proj": "vit_proj_kernel", "vit_mlp": "swin_mlp_kernel"}
 # vit_attn_bwd's six grid launches by kernel name (csrc/vit_attn_bwd.cu)
@@ -1338,6 +1370,7 @@ def phase_vit_train_kernels(dev):
     vit_attn_bwd, vit_mlp_bwd and that step's swin_wgrad / swin_reduce."""
     import torch
 
+    from heart_murmur_detection_tpu_torch.bench.swin_bwd_time import mlp_bwd_chain
     from heart_murmur_detection_tpu_torch.bench.vit_bwd_time import library_chain
     from heart_murmur_detection_tpu_torch.ops import swin_train as st
     from heart_murmur_detection_tpu_torch.ops import vit
@@ -1425,10 +1458,15 @@ def phase_vit_train_kernels(dev):
         chain_ms = _time_ms(chain, iters=10, warm=2)
         split = _device_ms(lambda: vt.vit_attn_bwd_launch(x, dh1, p, n_real),
                            groups_by=ATTN_BWD_LAUNCHES)
+        mchain_ms = _time_ms(mlp_bwd_chain(h1, dy, None, p, vit.LN_EPS), iters=10, warm=2)
+        msplit = _device_ms(lambda: vt.vit_mlp_bwd_launch(h1, dy, p), groups_by=MLP_BWD_LAUNCHES)
         print(f"[vit train kernels] {shape}: vit_attn_bwd's function as library calls "
               f"(layer_norm, addmm, mm, SDPA backward, mm, the LayerNorm backward) "
               f"{chain_ms:.4f} ms; vit_attn_bwd's grid launches by the profiler (ms a call): "
-              f"{ {k: round(v, 4) for k, v in split.items()} }", flush=True)
+              f"{ {k: round(v, 4) for k, v in split.items()} }; vit_mlp_bwd's function as a "
+              f"library chain (autograd backward of layer_norm, linear, gelu, linear in bf16) "
+              f"{mchain_ms:.4f} ms; its grid launches by the profiler (ms a call): "
+              f"{ {k: round(v, 4) for k, v in msplit.items()} }", flush=True)
         (wm, om), (wa, oa), (ww, ow) = _vit_bwd_work(B, Np, n_real, C, heads)
         bm, ba, bw = Work(), Work(), Work()
         bm.add(wm, om)
@@ -1689,8 +1727,10 @@ def phase_mae_cp(smi: str, dev):
 
 
 # every kernel of vit_attn_bwd's call, its LN1 + qkv recompute and its do /
-# dh products too, is named vit_attn_bwd_* (csrc/vit_attn_bwd.cu)
-MAE_GROUPS = {"vit_attn_bwd": "vit_attn_bwd_", **VIT_GROUPS, "vit_mlp_bwd": "swin_mlp_bwd_kernel",
+# dh products too, is named vit_attn_bwd_* (csrc/vit_attn_bwd.cu), and every
+# kernel of vit_mlp_bwd's swin_mlp_bwd_* (csrc/swin_mlp_bwd.cu): the _bwd_
+# prefixes come before the forward kernels
+MAE_GROUPS = {"vit_attn_bwd": "vit_attn_bwd_", "vit_mlp_bwd": "swin_mlp_bwd_", **VIT_GROUPS,
               "swin_wgrad": "swin_wgrad_kernel", "swin_reduce": "swin_reduce_kernel"}
 
 

@@ -14,6 +14,15 @@ twice, then timed by CUDA events over 5 steps, `repeats` times (default
 3). Prints one JSON line of ms a step, prefixed by `tag`; run it once per
 source tree (parent, change, change, parent) to compare two versions on one
 card. Needs a card.
+
+    python -m heart_murmur_detection_tpu_torch.bench.step_time [tag] [repeats] --profile
+
+also profiles a COLA step and an Audio-MAE CP step in a fresh child process
+(the card machine's profiler drops device records once a process has lived
+some tens of seconds): the device ms a step by kernel group (the port's
+kernels by name, the backward kernels' swin_*_bwd_ / vit_attn_bwd_ prefixes
+first), everything else, the idle share against the unprofiled step, and
+the top operations of everything else by device time.
 """
 
 from __future__ import annotations
@@ -95,13 +104,67 @@ def audiomae_step(rng: np.random.Generator, dev: str = "cuda", batch: int = B):
     return lambda: steps.mae_train_step(model, opt, x, torch.bfloat16, "kernel", noise)
 
 
+# kernel groups by symbol, first match wins (vit_mlp / vit_mlp_bwd run the
+# swin_mlp kernels: an Audio-MAE step's swin_mlp* groups are the ViT's)
+GROUPS = (("swin_attn_bwd", "swin_attn_bwd_"), ("swin_mlp_bwd", "swin_mlp_bwd_"),
+          ("vit_attn_bwd", "vit_attn_bwd_"), ("swin_wgrad", "swin_wgrad_kernel"),
+          ("swin_reduce", "swin_reduce_kernel"), ("swin_attn", "swin_attn_kernel"),
+          ("swin_mlp", "swin_mlp_kernel"), ("vit_qkv", "vit_qkv_kernel"),
+          ("vit_attn", "vit_attn_kernel"), ("vit_proj", "vit_proj_kernel"))
+TOP_OTHER = 12
+
+
+def profile_child() -> int:
+    """The child: one JSON line, per step, of the device ms a step by group,
+    the rest, the top operations of the rest and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(1)
+    out = {}
+    for name, make in (("cola", cola_step), ("audiomae_cp", audiomae_step)):
+        step = make(rng)
+        wall = _ms(step, 3, 2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+        groups, other = {g: 0.0 for g, _ in GROUPS}, {}
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            ms = (e.self_cuda_time_total if us is None else us) / 1e3 / 2
+            g = next((g for g, sym in GROUPS if sym in e.key), None)
+            if g is None:
+                other[e.key[:90]] = other.get(e.key[:90], 0.0) + ms
+            else:
+                groups[g] += ms
+        if name == "audiomae_cp":
+            groups = {k.replace("swin_mlp", "vit_mlp"): v for k, v in groups.items()}
+        busy = sum(groups.values()) + sum(other.values())
+        top = sorted(other.items(), key=lambda kv: -kv[1])[:TOP_OTHER]
+        out[name] = {"wall_ms": round(wall, 3), "device_busy_ms": round(busy, 3),
+                     "idle_share": round(1 - busy / wall, 4),
+                     "kernels_ms": {k: round(v, 3) for k, v in groups.items() if v},
+                     "other_ms": round(sum(other.values()), 3),
+                     "other_top_ms": [[k, round(v, 3)] for k, v in top]}
+        del step
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    tag = argv[0] if argv else "step"
-    repeats = int(argv[1]) if len(argv) > 1 else 3
     if not torch.cuda.is_available():
         print("step_time: needs a CUDA card", file=sys.stderr)
         return 1
+    if argv[:1] == ["--profile-child"]:
+        return profile_child()
+    want_profile = "--profile" in argv
+    argv = [a for a in argv if a != "--profile"]
+    tag = argv[0] if argv else "step"
+    repeats = int(argv[1]) if len(argv) > 1 else 3
     from ..utils.precision import strict_f32
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -120,6 +183,14 @@ def main(argv=None) -> int:
     step = audiomae_step(rng)
     out["audiomae_cp_ms"] = [round(_ms(step), 3) for _ in range(repeats)]
     print(tag, json.dumps(out), flush=True)
+    if want_profile:
+        child = subprocess.run([sys.executable, "-m", __spec__.name, "--profile-child"],
+                               capture_output=True, text=True)
+        lines = child.stdout.strip().splitlines()
+        if child.returncode or not lines:
+            print(tag, "profile child failed:", child.stderr[-2000:], flush=True)
+            return 1
+        print(tag, "profile:", lines[-1], flush=True)
     return 0
 
 

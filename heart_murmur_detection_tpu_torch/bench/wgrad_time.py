@@ -53,21 +53,22 @@ STAGES = ((96, 4, 2), (192, 8, 2), (384, 16, 6))
 VIT_CP = ((768, 12, 160, 154), (384, 6, 320, 308), (384, 6, 80, 77))
 
 
-def reduce_shapes():
+def reduce_shapes(sms: int = 132):
     """(S, L, launches a step) of swin_reduce in a COLA step and an Audio-MAE
     step: the partial rows of swin_mlp_bwd ([db1 | db2 | dLN2 w | dLN2 b],
     L = 4C + 3C) and swin_attn_bwd ([rel-pos bias | db_qkv | db_proj | dLN1],
     L = heads 4096 + 3 heads HDP + 3C) at each stage, and of vit_mlp_bwd
-    and vit_attn_bwd (L = 6C) at the Audio-MAE CP shape, S as the wrappers
-    size them."""
+    (L = 7C) and vit_attn_bwd (L = 6C) at the Audio-MAE CP shape, S as the
+    wrappers size them on a card of `sms` SMs (the launch plans)."""
+    from ..ops.swin_plan import attn_bwd_plan, mlp_bwd_plan
+
     cola = []
     for i, (C, heads, d) in enumerate(STAGES):
         H = 64 >> i
-        cola.append((st._blocks_for(64 * H * H // st.TOKEN_TILE)[1], 7 * C, 2 * d))
-        cola.append((st._blocks_for(64 * (H // 8) ** 2)[1],
-                     heads * 4096 + 3 * heads * swin.HDP + 3 * C, 2 * d))
+        for plan in (mlp_bwd_plan(64 * H * H, C, 4 * C, sms), attn_bwd_plan(64, H, H, C, heads, sms)):
+            cola.append((plan.part_rows, plan.part_cols, 2 * d))
     n, C = 64 * 160, 768
-    mae = [(st._blocks_for(n // vt.MLP_BWD_TILE.get(C, st.TOKEN_TILE))[1], 7 * C, 12),
+    mae = [(mlp_bwd_plan(n, C, 4 * C, sms, kmul=False).part_rows, 7 * C, 12),
            (st._blocks_for(n // st.TOKEN_TILE)[1], 6 * C, 12)]
     return cola, mae
 
@@ -170,7 +171,7 @@ def time_reduce(tag: str, g: torch.Generator) -> dict:
     events back to back, three turns a side, the median; the device time by
     the profiler; the host time a call) and the step sums."""
     red = {}
-    for step, shapes in zip(("cola", "audiomae"), reduce_shapes()):
+    for step, shapes in zip(("cola", "audiomae"), reduce_shapes(swin.sm_count(torch.device("cuda")))):
         k_sum = l_sum = 0.0
         for S, L, k in shapes:
             part = torch.randn(S, L, generator=g).to("cuda")

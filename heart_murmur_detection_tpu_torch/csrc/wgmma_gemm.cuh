@@ -1,6 +1,7 @@
 // Hopper building blocks of the wgmma kernels (swin_wgrad.cu, vit_proj.cu,
-// vit_attn.cu, vit_qkv.cu, vit_attn_bwd.cu, swin_attn.cu, swin_mlp.cu), and
-// the GEMM core that swin_wgrad and vit_proj share.
+// vit_attn.cu, vit_qkv.cu, vit_attn_bwd.cu, swin_attn.cu, swin_mlp.cu,
+// swin_attn_bwd.cu, swin_mlp_bwd.cu), and the GEMM core that swin_wgrad,
+// vit_proj and the backward kernels' token-row products share.
 //
 //  - mbarriers: init, arrive, arrive with an expected transaction count, and
 //    a parity wait.
@@ -13,7 +14,7 @@
 //    edge read as zeros.
 //  - wgmma: shared-memory matrix descriptors for that swizzle, and
 //    m64nNk16 bf16 products with float32 accumulation, both operands from
-//    shared memory (K-major or MN-major; N = 48, 64, 96, 128) or A from
+//    shared memory (K-major or MN-major; N = 32, 48, 64, 96, 128) or A from
 //    registers (N = 32, 64, 96).
 //  - cluster barriers split into arrive and wait, and distributed shared
 //    memory addresses (swin_attn.cu's head outputs, swin_mlp.cu's partial
@@ -330,6 +331,22 @@ __device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16], const uint32_t (
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// D += A B, m64n32k16, A and B from shared memory (descriptors);
+// TA / TB: 1 where the operand is MN-major (transposed).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // D += A B, m64n96k16, A from registers (the m16n8k16 A fragment of each

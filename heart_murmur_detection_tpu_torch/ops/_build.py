@@ -42,11 +42,13 @@ _SIGNATURES = {
     # n_tokens, C, hidden, hw, and the plan: panel_rows, ks, stages; eps, stream
     "swin_mlp_launch": [_vp] * 9 + [_i] * 7 + [_f, _vp],
     # x, dh1, kmul, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, bias, mask,
-    # h_g, dw_g, opre_g, dqkv_g, part, B, H, W, C, heads, shift, wpb, stream
-    "swin_attn_bwd_launch": [_vp] * 16 + [_i] * 7 + [_vp],
+    # h_g, dw_g, opre_g, dqkv_g, part, dh_ws, wpt_ws, B, H, W, C, heads, shift,
+    # and the plan (ops/swin_plan.py): stages, grid; stream
+    "swin_attn_bwd_launch": [_vp] * 18 + [_i] * 8 + [_vp],
     # h1, dy, kmul, dh1, ln_w, ln_b, w_fc1, b_fc1, w_fc2, m_g, g_g, dyk_g,
-    # da1_g, part, n_tokens, C, hidden, hw, tpb, eps, stream
-    "swin_mlp_bwd_launch": [_vp] * 14 + [_i] * 5 + [_f, _vp],
+    # da1_g, part, dm_ws, n_tokens, C, hidden, hw, and the plan: panel_rows,
+    # stages, grid; eps, stream
+    "swin_mlp_bwd_launch": [_vp] * 15 + [_i] * 7 + [_f, _vp],
     # a, b, out, ws, cnt, n, M, N, chunk, group, rows, stream
     "swin_wgrad_launch": [_vp] * 5 + [_i] * 6 + [_vp],
     # ws, out, S, L, stream

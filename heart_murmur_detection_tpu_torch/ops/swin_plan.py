@@ -1,8 +1,11 @@
-"""Launch plans of the two forward wgmma kernels, computed on the host in one
-place: csrc/swin_mlp.cu (swin_mlp, and vit_mlp with LN eps 1e-6) and
-csrc/swin_attn.cu (swin_attn). The wrappers in ops/swin.py and ops/vit.py
-pass a plan's numbers to the launch, which checks them against the kernel's
-compiled configuration; the CPU tests (tests/test_torch_swin_plan.py)
+"""Launch plans of the wgmma kernels of the swin and ViT blocks, computed on
+the host in one place: the forward kernels csrc/swin_mlp.cu (swin_mlp, and
+vit_mlp with LN eps 1e-6) and csrc/swin_attn.cu (swin_attn), and the
+backward kernels csrc/swin_mlp_bwd.cu (swin_mlp_bwd and vit_mlp_bwd) and
+csrc/swin_attn_bwd.cu (swin_attn_bwd). The wrappers in ops/swin.py,
+ops/vit.py, ops/swin_train.py and ops/vit_train.py pass a plan's numbers to
+the launch, which checks them against the kernel's compiled configuration;
+the CPU tests (tests/test_torch_swin_plan.py, tests/test_torch_bwd_plan.py)
 enumerate the plans of every geometry the towers launch.
 
 swin_mlp: a block owns a panel of token rows (128 at C <= 192, where each
@@ -20,7 +23,21 @@ proj for C / cs output columns.
 The cluster sizes come from the grid and the SM count: the fewest waves,
 counting a block of a k-block cluster as 1 / k of the work plus what the
 split adds (the partial sums or the gathered head outputs, the repeated
-LayerNorm), as vit_qkv.cu splits its columns. Nothing here touches a card.
+LayerNorm), as vit_qkv.cu splits its columns.
+
+The backward kernels are persistent: one block an SM (their shared memory
+holds one), each walking a fixed, contiguous run of work in order, so every
+column sum has one order fixed by the shapes and the SM count.
+swin_mlp_bwd's chunk kernel walks (panel, hidden chunk) units, panel-major
+(a panel of 128 token rows at C <= 192, 64 above; a chunk of 64 or 128
+hidden columns), reloading and normalising a panel where its run enters a
+new one; swin_attn_bwd's window kernel walks windows, two heads at a time.
+After each, a row pass (32-token tiles, a contiguous run of tiles a block)
+applies the LayerNorm backward. The float32 partial rows that swin_reduce
+sums are the chunk kernel's (one a warp's rows of a block: 8 a block at
+C <= 192, 4 above) or the window kernel's (4, 2, 1 a block at C = 96, 192,
+384); the row pass has a block for each of them, which fills the row's
+last 3 C columns. Nothing here touches a card.
 """
 
 from __future__ import annotations
@@ -263,3 +280,200 @@ def _attn_plan(B: int, H: int, W: int, C: int, heads: int, sms: int) -> AttnPlan
     windows = B * (H // 8) * (W // 8)
     cs = _pick(_cdiv(windows, wpb), sorted(options), sms, ATTN_SPLIT_COST)
     return AttnPlan(B, H, W, C, heads, wpb, cs, options[cs], fit(cs, options[cs]))
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels
+# ---------------------------------------------------------------------------
+
+RP_TOKENS = 32  # tokens a tile of the backward row pass (csrc/swin_bwd_common.cuh)
+MAX_BWD_STAGES = 8
+BAR_SLACK = 1024  # the 1024-byte alignment of the dynamic shared memory
+HSTAGE = 4 * HDP * 128  # swin_attn_bwd: a head's ring stage (q, k, v, W_proj^T boxes)
+ATTN_BWD_TILES = 40960  # swin_attn_bwd: a warpgroup's head tiles
+
+
+def _rp_runs(n_tokens: int, grid: int) -> List[Tuple[int, Tuple[int, int]]]:
+    """(block, [first, last) 32-token tile) of each row-pass block: block b
+    of G walks [b T / G, (b + 1) T / G) of the T tiles (some may be empty)."""
+    tiles = n_tokens // RP_TOKENS
+    return [(b, (tiles * b // grid, tiles * (b + 1) // grid)) for b in range(grid)]
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpBwdPlan:
+    C: int
+    hidden: int
+    n_tokens: int
+    panel_rows: int  # token rows of a panel
+    hidden_chunk: int  # hidden columns of a unit
+    stream_dy: bool  # dy through the ring (C = 768) instead of a held panel
+    stages: int  # ring depth
+    grid: int  # chunk-kernel blocks
+
+    @property
+    def rows_mode(self) -> bool:
+        return self.C <= 192
+
+    @property
+    def panels(self) -> int:
+        return _cdiv(self.n_tokens, self.panel_rows)
+
+    @property
+    def chunks(self) -> int:
+        return self.hidden // self.hidden_chunk
+
+    @property
+    def units(self) -> int:
+        return self.panels * self.chunks
+
+    @property
+    def rows_per_block(self) -> int:
+        """db1 partial rows of a chunk-kernel block: one a warp's 16 rows."""
+        return 8 if self.rows_mode else 4
+
+    @property
+    def part_rows(self) -> int:
+        """The partial rows: the chunk kernel's; the row pass has a block
+        for each."""
+        return self.grid * self.rows_per_block
+
+    @property
+    def rp_grid(self) -> int:
+        return self.part_rows
+
+    @property
+    def part_cols(self) -> int:
+        return self.hidden + 3 * self.C
+
+    @property
+    def panel_bytes(self) -> int:
+        return _cdiv(self.C, 64) * self.panel_rows * 128
+
+    @property
+    def stage_bytes(self) -> int:
+        return 2 * self.hidden_chunk * 128 + (self.panel_rows * 128 if self.stream_dy else 0)
+
+    @property
+    def smem_bytes(self) -> int:
+        held = 1 if self.stream_dy else 2
+        return held * self.panel_bytes + self.stages * self.stage_bytes + 8 * (2 + 2 * self.stages) \
+            + BAR_SLACK
+
+    @property
+    def acc_floats(self) -> int:
+        """a1 and dg accumulators (m64n64 each) of one consumer thread."""
+        return 2 * 32
+
+    def blocks(self) -> List[Tuple[int, Tuple[int, int]]]:
+        """(block, [first, last) unit) of each chunk-kernel block, by the
+        kernel's arithmetic; unit u is (panel u // chunks, chunk u % chunks)."""
+        return [(b, (self.units * b // self.grid, self.units * (b + 1) // self.grid))
+                for b in range(self.grid)]
+
+    def rp_blocks(self) -> List[Tuple[int, Tuple[int, int]]]:
+        return _rp_runs(self.n_tokens, self.rp_grid)
+
+
+def mlp_bwd_plan(n_tokens: int, C: int, hidden: int, sms: int, kmul: bool = True) -> MlpBwdPlan:
+    """The swin_mlp_bwd / vit_mlp_bwd launch for n_tokens rows of width C
+    on a card of `sms` SMs (kmul: with a per-sample multiplier); a
+    ValueError for a geometry the kernels do not take."""
+    if C not in WIDTHS or n_tokens <= 0 or n_tokens % 64 or sms <= 0 or hidden != 4 * C:
+        raise ValueError(f"the MLP backward takes C in {WIDTHS}, hidden 4 C and n_tokens a "
+                         f"multiple of 64, got C {C}, hidden {hidden}, n_tokens {n_tokens}")
+    if C == 768 and kmul:
+        raise ValueError("the MLP backward streams dy at C = 768 and takes no multiplier there")
+    return _mlp_bwd_plan(n_tokens, C, hidden, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _mlp_bwd_plan(n_tokens: int, C: int, hidden: int, sms: int) -> MlpBwdPlan:
+    rows = C <= 192
+    pr, chunk, stream = (128 if rows else 64), (64 if rows else 128), C == 768
+    plan = MlpBwdPlan(C, hidden, n_tokens, pr, chunk, stream, 0, 1)
+    fixed = plan.smem_bytes - 16  # the panels, two barriers and the slack
+    stages = min(MAX_BWD_STAGES, (SMEM_LIMIT - fixed) // (plan.stage_bytes + 16))
+    return dataclasses.replace(plan, stages=stages, grid=min(plan.units, sms))
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnBwdPlan:
+    B: int
+    H: int
+    W: int
+    C: int
+    heads: int
+    stages: int
+    grid: int  # window-kernel blocks
+
+    @property
+    def windows(self) -> int:
+        return self.B * (self.H // 8) * (self.W // 8)
+
+    @property
+    def n_tokens(self) -> int:
+        return 64 * self.windows
+
+    @property
+    def rows_per_block(self) -> int:
+        """Partial rows of a window-kernel block (its dbias and db_qkv in
+        the first): more at C <= 192, whose row pass covers more tokens."""
+        return {96: 4, 192: 2}.get(self.C, 1)
+
+    @property
+    def part_rows(self) -> int:
+        """The partial rows: the window kernel's; the row pass has a block
+        for each."""
+        return self.grid * self.rows_per_block
+
+    @property
+    def rp_grid(self) -> int:
+        return self.part_rows
+
+    @property
+    def part_cols(self) -> int:
+        return self.heads * 64 * 64 + 3 * self.heads * HDP + 3 * self.C
+
+    @property
+    def panel_bytes(self) -> int:
+        return _cdiv(self.C, 64) * 64 * 128
+
+    @property
+    def smem_bytes(self) -> int:
+        return 2 * self.panel_bytes + 2 * ATTN_BWD_TILES + self.stages * (HSTAGE + 16) + BAR_SLACK
+
+    @property
+    def acc_floats(self) -> int:
+        """The largest set of a consumer thread: the head's q / k / v and do
+        (m64n96, m64n32) with the prefetched bias and mask; the scores, dP
+        and the dbias partials; or the four window products with P's and
+        dS's fragments and the mask."""
+        return max(48 + 16 + 32 + 32, 32 + 32 + 32 + 32, 4 * 16 + 2 * 16 + 32)
+
+    def blocks(self) -> List[Tuple[int, Tuple[int, int]]]:
+        """(block, [first, last) window) of each window-kernel block."""
+        return [(b, (self.windows * b // self.grid, self.windows * (b + 1) // self.grid))
+                for b in range(self.grid)]
+
+    def rp_blocks(self) -> List[Tuple[int, Tuple[int, int]]]:
+        return _rp_runs(self.n_tokens, self.rp_grid)
+
+
+def attn_bwd_plan(B: int, H: int, W: int, C: int, heads: int, sms: int) -> AttnBwdPlan:
+    """The swin_attn_bwd launch for x (B, H, W, C) with `heads` heads on a
+    card of `sms` SMs; a ValueError for a geometry the kernel does not take."""
+    if C not in WIDTHS[:3] or B <= 0 or H <= 0 or W <= 0 or H % 8 or W % 8 or sms <= 0:
+        raise ValueError(f"the attention backward takes C in {WIDTHS[:3]} and H, W multiples of "
+                         f"8, got {(B, H, W, C)}")
+    if heads <= 0 or heads % 2 or C % heads or C // heads > HDP or (C // heads) % 8:
+        raise ValueError(f"the attention backward takes an even head count and a head dim of "
+                         f"8-32 in steps of 8, got C {C} with {heads} heads")
+    return _attn_bwd_plan(B, H, W, C, heads, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _attn_bwd_plan(B: int, H: int, W: int, C: int, heads: int, sms: int) -> AttnBwdPlan:
+    plan = AttnBwdPlan(B, H, W, C, heads, 0, 1)
+    stages = min(MAX_BWD_STAGES, (SMEM_LIMIT - plan.smem_bytes) // (HSTAGE + 16))
+    return dataclasses.replace(plan, stages=stages, grid=min(plan.windows, sms))

@@ -6,10 +6,15 @@ heart_murmur_detection_tpu/ops/pallas_swin_train.py::fused_swin_block_train
              swin_attn / swin_mlp of ops/swin.py with a per-sample branch
              multiplier (the TPU body `_train_fwd_kernel` :233); saves (x, h1)
   backward   swin_mlp_bwd  (h1, dy) -> dh1 + per-token operands + per-block
-                           column sums          (TPU body `_bwd_mlp_kernel` :271)
+                           column sums          (TPU body `_bwd_mlp_kernel` :271):
+                           a wgmma kernel over token panels, dm on the GEMM
+                           core, a LayerNorm row pass (three grid launches)
              swin_attn_bwd (x, dh1) -> dx + per-token operands + per-block
                            column sums and rel-pos bias sums
-                                                (TPU body `_bwd_attn_kernel` :320)
+                                                (TPU body `_bwd_attn_kernel` :320):
+                           a wgmma kernel over windows, dh on the GEMM core,
+                           a LayerNorm row pass (and W_proj regrouped by
+                           head: four grid launches)
              swin_wgrad    the weight gradients dW = A^T B over tokens in one
                            launch: split over fixed token chunks, the chunks'
                            float32 partials summed in chunk order
@@ -60,17 +65,20 @@ from .swin import (
     HDP,
     WINDOW,
     SwinBlockParams,
+    _check_aligned,
     _check_cuda_args,
     _check_launch,
     _cuda_stream,
     _mmf,
     _ptr,
+    sm_count,
 )
+from .swin_plan import attn_bwd_plan, mlp_bwd_plan
 
 _SQRT1_2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
-TOKEN_TILE = 64  # tokens a swin_mlp_bwd tile, and rows of a swin_wgrad chunk step
-TARGET_BLOCKS = 512  # backward blocks a launch aims for (partials per launch)
+TOKEN_TILE = 64  # token counts the backward kernels take, and rows of a swin_wgrad chunk step
+TARGET_BLOCKS = 512  # vit_attn_bwd's row-pass blocks a launch aims for (partials per launch)
 WGRAD_TILE = 128  # swin_wgrad output tile columns (rows: wgrad_tile_rows)
 # swin_wgrad's split cost model (wgrad_split): blocks a wave, one an SM of an
 # H100 (a second resident block shares its SM's throughput), and a chunk's
@@ -251,8 +259,9 @@ _lib = _build.load_library  # built and loaded at the first launch, then cached
 
 
 def _blocks_for(units: int) -> Tuple[int, int]:
-    """(units a block, blocks) of a backward launch: about TARGET_BLOCKS
-    blocks, each a contiguous run of units, fixed by the shapes alone."""
+    """(units a block, blocks) of vit_attn_bwd's row pass: about
+    TARGET_BLOCKS blocks, each a contiguous run of units, fixed by the
+    shapes alone."""
     per = max(1, units // TARGET_BLOCKS)
     return per, -(-units // per)
 
@@ -361,27 +370,40 @@ def _check_bwd_args(x, g, k, p):
     return g.contiguous(), swin._check_kmul(k, x)
 
 
-def swin_mlp_bwd_launch(h1, dy, k2, p: SwinBlockParams):
-    """The swin_mlp_bwd launch on CUDA tensors: (dh1, (LN2(h1), GELU(a1),
-    k2 dy, da1) operand rows, per-block partial rows [db1 | db2 | dLN2 w |
-    dLN2 b])."""
-    dy, k2 = _check_bwd_args(h1, dy, k2, p)
-    B, H, W, C = h1.shape
-    n, hidden = B * H * W, p.w_fc1.shape[0]
-    tpb, G = _blocks_for(n // TOKEN_TILE)
-    e = lambda cols: torch.empty(n, cols, dtype=h1.dtype, device=h1.device)
-    m_g, g_g, dyk_g, da1_g = e(C), e(hidden), e(C), e(hidden)
-    part = torch.empty(G, hidden + 3 * C, dtype=torch.float32, device=h1.device)
+def mlp_bwd_launch(name: str, h1, dy, kmul, p, hw: int, eps: float):
+    """One call of csrc/swin_mlp_bwd.cu (three grid launches) on its plan
+    (ops/swin_plan.py::mlp_bwd_plan): h1, dy (n, C) views of contiguous
+    tensors. Returns (dh1 (n, C), (LN2(h1), GELU(a1), k2 dy or None, da1)
+    operand rows, partial rows [db1 | db2 | dLN2 w | dLN2 b])."""
+    n, C = h1.shape
+    hidden = p.w_fc1.shape[0]
+    plan = mlp_bwd_plan(n, C, hidden, sm_count(h1.device), kmul is not None)
+    _check_aligned(h1, dy, p.ln2_w, p.ln2_b, p.w_fc1, p.b_fc1, p.w_fc2)
+    e = lambda cols, dtype=h1.dtype: torch.empty(n, cols, dtype=dtype, device=h1.device)
+    m_g, g_g, da1_g = e(C), e(hidden), e(hidden)
+    dyk_g = None if kmul is None else e(C)
+    dm_ws = e(C, torch.float32)
+    part = torch.empty(plan.part_rows, plan.part_cols, dtype=torch.float32, device=h1.device)
     dh1 = torch.empty_like(h1)
     rc = _lib().swin_mlp_bwd_launch(
-        _ptr(h1), _ptr(dy), _ptr(k2), _ptr(dh1), _ptr(p.ln2_w), _ptr(p.ln2_b),
+        _ptr(h1), _ptr(dy), _ptr(kmul), _ptr(dh1), _ptr(p.ln2_w), _ptr(p.ln2_b),
         _ptr(p.w_fc1), _ptr(p.b_fc1), _ptr(p.w_fc2),
-        _ptr(m_g), _ptr(g_g), _ptr(dyk_g), _ptr(da1_g), _ptr(part),
-        n, C, hidden, H * W, tpb, 1e-5, _cuda_stream(h1),
+        _ptr(m_g), _ptr(g_g), _ptr(dyk_g), _ptr(da1_g), _ptr(part), _ptr(dm_ws),
+        n, C, hidden, hw, plan.panel_rows, plan.stages, plan.grid, eps, _cuda_stream(h1),
     )
-    _check_launch("swin_mlp_bwd", rc)
-    swin_mlp_bwd.launches += 1
+    _check_launch(name, rc)
     return dh1, (m_g, g_g, dyk_g, da1_g), part
+
+
+def swin_mlp_bwd_launch(h1, dy, k2, p: SwinBlockParams):
+    """The swin_mlp_bwd call on CUDA tensors: (dh1, (LN2(h1), GELU(a1),
+    k2 dy, da1) operand rows, partial rows [db1 | db2 | dLN2 w | dLN2 b])."""
+    dy, k2 = _check_bwd_args(h1, dy, k2, p)
+    B, H, W, C = h1.shape
+    dh1, rows, part = mlp_bwd_launch("swin_mlp_bwd", h1.view(-1, C), dy.view(-1, C), k2, p,
+                                     H * W, 1e-5)
+    swin_mlp_bwd.launches += 1
+    return dh1.view(h1.shape), rows, part
 
 
 def swin_mlp_bwd(
@@ -401,9 +423,10 @@ def swin_mlp_bwd(
 
 
 def swin_attn_bwd_launch(x, dh1, k1, p: SwinBlockParams, mask=None, shift: int = 0):
-    """The swin_attn_bwd launch on CUDA tensors: (dx, (LN1(x), k1 dh1, o_pre,
-    dqkv) operand rows, per-block partial rows [dbias | db_qkv | db_proj |
-    dLN1 w | dLN1 b])."""
+    """The swin_attn_bwd call on CUDA tensors (four grid launches, every
+    kernel named swin_attn_bwd_*): (dx, (LN1(x), k1 dh1, o_pre, dqkv)
+    operand rows, partial rows [dbias | db_qkv | db_proj | dLN1 w |
+    dLN1 b])."""
     dh1, k1 = _check_bwd_args(x, dh1, k1, p)
     B, H, W, C = x.shape
     nw = (H // WINDOW) * (W // WINDOW)
@@ -412,17 +435,19 @@ def swin_attn_bwd_launch(x, dh1, k1, p: SwinBlockParams, mask=None, shift: int =
             raise ValueError("mask must be float32 (nW, 64, 64)")
         mask = mask.contiguous()
     heads = p.heads
-    n, Cp3 = B * H * W, 3 * heads * HDP
-    wpb, G = _blocks_for(B * nw)
-    e = lambda cols: torch.empty(n, cols, dtype=x.dtype, device=x.device)
-    h_g, dw_g, opre_g, dqkv_g = e(C), e(C), e(C), e(Cp3)
-    part = torch.empty(G, heads * 64 * 64 + Cp3 + 3 * C, dtype=torch.float32, device=x.device)
+    plan = attn_bwd_plan(B, H, W, C, heads, sm_count(x.device))
+    _check_aligned(x, dh1, p.w_qkv, p.b_qkv, p.w_proj, p.ln1_w, p.ln1_b, p.bias, mask)
+    n, Cp = B * H * W, heads * HDP
+    e = lambda *shape, dtype=x.dtype: torch.empty(*shape, dtype=dtype, device=x.device)
+    h_g, dw_g, opre_g, dqkv_g = e(n, C), e(n, C), e(n, C), e(n, 3 * Cp)
+    part = e(plan.part_rows, plan.part_cols, dtype=torch.float32)
+    dh_ws, wpt_ws = e(n, C, dtype=torch.float32), e(Cp, C)
     dx = torch.empty_like(x)
     rc = _lib().swin_attn_bwd_launch(
         _ptr(x), _ptr(dh1), _ptr(k1), _ptr(dx), _ptr(p.w_qkv), _ptr(p.b_qkv),
         _ptr(p.w_proj), _ptr(p.ln1_w), _ptr(p.ln1_b), _ptr(p.bias), _ptr(mask),
-        _ptr(h_g), _ptr(dw_g), _ptr(opre_g), _ptr(dqkv_g), _ptr(part),
-        B, H, W, C, heads, shift, wpb, _cuda_stream(x),
+        _ptr(h_g), _ptr(dw_g), _ptr(opre_g), _ptr(dqkv_g), _ptr(part), _ptr(dh_ws), _ptr(wpt_ws),
+        B, H, W, C, heads, shift, plan.stages, plan.grid, _cuda_stream(x),
     )
     _check_launch("swin_attn_bwd", rc)
     swin_attn_bwd.launches += 1

@@ -7,9 +7,9 @@ heart_murmur_detection_tpu/ops/pallas_vit_train.py::fused_vit_block_train
              bodies are K9's forward (`_fwd_full_kernel` :121 runs
              `_attn_half` / `_mlp_half`, the eval bodies); saves (x, h1)
   backward   vit_mlp_bwd   (h1, dy) -> dh1 + per-token operands + per-block
-                           column sums: csrc/swin_mlp_bwd.cu with LN eps 1e-6
-                           and no DropPath multiplier (TPU `_bwd_mlp_common`
-                           :163)
+                           column sums: csrc/swin_mlp_bwd.cu (three grid
+                           launches) with LN eps 1e-6 and no DropPath
+                           multiplier (TPU `_bwd_mlp_common` :163)
              vit_attn_bwd  (x, dh1) -> dx + per-token operands + per-block
                            column sums: csrc/vit_attn_bwd.cu, six grid
                            launches on wgmma, the first vit_qkv.cu's LN1 +
@@ -65,14 +65,12 @@ from .swin_train import (
     _lib,
     _ln_bwd_input,
     _ln_stats,
+    mlp_bwd_launch,
     swin_mlp_bwd_ref,
     swin_reduce,
     swin_wgrad,
 )
 from .vit import HD, LN_EPS, MASK, VitBlockParams
-
-# tokens a vit_mlp_bwd tile, as mlp_bwd_tile in csrc/swin_mlp_bwd.cu
-MLP_BWD_TILE = {768: 32}
 
 
 # ---------------------------------------------------------------------------
@@ -170,26 +168,15 @@ def _check_bwd_args(x: torch.Tensor, g: torch.Tensor, p: VitBlockParams):
 
 
 def vit_mlp_bwd_launch(h1: torch.Tensor, dy: torch.Tensor, p: VitBlockParams):
-    """The vit_mlp_bwd launch on CUDA tensors (csrc/swin_mlp_bwd.cu, LN eps
-    1e-6, no multiplier): (dh1, (LN2(h1), GELU(a1), da1) operand rows,
-    per-block partial rows [db1 | db2 | dLN2 w | dLN2 b])."""
+    """The vit_mlp_bwd call on CUDA tensors (csrc/swin_mlp_bwd.cu, three
+    grid launches, LN eps 1e-6, no multiplier): (dh1, (LN2(h1), GELU(a1),
+    da1) operand rows, partial rows [db1 | db2 | dLN2 w | dLN2 b])."""
     dy = _check_bwd_args(h1, dy, p)
     B, Np, C = h1.shape
-    n, hidden = B * Np, p.hidden
-    tpb, G = _blocks_for(n // MLP_BWD_TILE.get(C, TOKEN_TILE))
-    e = lambda cols: torch.empty(n, cols, dtype=h1.dtype, device=h1.device)
-    m_g, g_g, da1_g = e(C), e(hidden), e(hidden)
-    part = torch.empty(G, hidden + 3 * C, dtype=torch.float32, device=h1.device)
-    dh1 = torch.empty_like(h1)
-    rc = _lib().swin_mlp_bwd_launch(
-        _ptr(h1), _ptr(dy), _ptr(None), _ptr(dh1), _ptr(p.ln2_w), _ptr(p.ln2_b),
-        _ptr(p.w_fc1), _ptr(p.b_fc1), _ptr(p.w_fc2),
-        _ptr(m_g), _ptr(g_g), _ptr(None), _ptr(da1_g), _ptr(part),
-        n, C, hidden, Np, tpb, LN_EPS, _cuda_stream(h1),
-    )
-    _check_launch("vit_mlp_bwd", rc)
+    dh1, (m_g, g_g, _, da1_g), part = mlp_bwd_launch(
+        "vit_mlp_bwd", h1.view(-1, C), dy.view(-1, C), None, p, Np, LN_EPS)
     vit_mlp_bwd.launches += 1
-    return dh1, (m_g, g_g, da1_g), part
+    return dh1.view(h1.shape), (m_g, g_g, da1_g), part
 
 
 def vit_mlp_bwd(

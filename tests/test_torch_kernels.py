@@ -56,8 +56,8 @@ def test_signatures_pass_pointers_as_void_p():
     """Every pointer and the stream go through ctypes as c_void_p (a c_int
     would cut a 64-bit pointer); the ints follow, then a LayerNorm eps as a
     c_float where the kernel takes one."""
-    n_ptrs = {"swin_attn_launch": 11, "swin_mlp_launch": 9, "swin_attn_bwd_launch": 16,
-              "swin_mlp_bwd_launch": 14, "swin_wgrad_launch": 5, "swin_reduce_launch": 2,
+    n_ptrs = {"swin_attn_launch": 11, "swin_mlp_launch": 9, "swin_attn_bwd_launch": 18,
+              "swin_mlp_bwd_launch": 15, "swin_wgrad_launch": 5, "swin_reduce_launch": 2,
               "vit_qkv_launch": 7, "vit_attn_launch": 2, "vit_proj_launch": 5,
               "vit_attn_bwd_launch": 16, "vit_mm_launch": 3,
               "logmel_launch": 5}
@@ -78,7 +78,7 @@ def test_build_targets_sm90a_and_hashes_sources():
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     srcs = {p.rsplit("/", 1)[-1] for p in _build._sources()}
     assert {"swin_attn.cu", "swin_mlp.cu", "swin_common.cuh", "swin_attn_bwd.cu",
-            "swin_mlp_bwd.cu", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu",
+            "swin_mlp_bwd.cu", "swin_bwd_common.cuh", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu",
             "vit_attn_common.cuh", "vit_attn_bwd.cu", "logmel.cu", "wgmma_gemm.cuh",
             "vit_proj.cu"} <= srcs
     # the log-mel kernel is float32-exact: log10f and the FFMAs stay accurate
@@ -164,19 +164,22 @@ TRAIN_GEOMETRIES = [(96, 4, 64, 4), (192, 8, 32, 4), (384, 16, 16, 4)]
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,heads,H,shift", TRAIN_GEOMETRIES)
 @pytest.mark.parametrize("s", [0, 1])
-def test_train_kernels_match_plain_on_card(cuda, C, heads, H, shift, s):
-    """Forward halves with DropPath multipliers (a 0 and a 1/0.9 among them)
-    and both backward halves against their plain versions: the branch of
-    each forward output, dx's branch (dx - dh1) and every gradient leaf at a
-    cosine of 0.99999; two launches give bitwise-equal results."""
+# B = 1 (the backward kernels' grids below the SM count, a panel or window
+# run of one unit a block), 4, and 72 (every block several units, runs that
+# start inside a panel)
+@pytest.mark.parametrize("B", [1, 4, 72])
+def test_train_kernels_match_plain_on_card(cuda, C, heads, H, shift, s, B):
+    """Forward halves with DropPath multipliers (a 0 and a 1/0.9 among them,
+    from B = 4) and both backward halves against their plain versions: the
+    branch of each forward output, dx's branch (dx - dh1) and every gradient
+    leaf at a cosine of 0.99999; two launches give bitwise-equal results."""
     shift = shift * s
-    B = 4
     p = _params(C, heads, C + 1, cuda)
     mask = torch.from_numpy(_shift_attn_mask(H, H, 8, shift)).to(cuda) if shift else None
     g = torch.Generator().manual_seed(C + 2)
     x = (torch.randn(B, H, H, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
     dy = (torch.randn(B, H, H, C, generator=g) * 0.1).to(cuda, torch.bfloat16)
-    k = torch.tensor([0.0, 1 / 0.9, 1.0, 1 / 0.9], device=cuda)
+    k = torch.tensor([0.0, 1 / 0.9, 1.0, 1 / 0.9] * (B // 4) if B >= 4 else [1 / 0.9] * B, device=cuda)
     h1 = swin.swin_attn(x, p, mask, shift, kmul=k)
     h1_ref = swin.swin_attn_ref(x, p, mask, shift, kmul=k)
     y = swin.swin_mlp(h1_ref, p, k)
@@ -267,16 +270,15 @@ def test_wgrad_and_reduce_match_plain_on_card(cuda, n, M, N):
     assert torch.equal(swin_train.swin_reduce(parts), swin_train.reduce_ref(parts))
 
 
-def _vit_reduce_shapes():
+def _vit_reduce_shapes(sms):
     """(S, L) of vit_mlp_bwd's and vit_attn_bwd's partial rows at the ViT-S
     (OPERA-GT CP B=64 x 320 and x 80, fine-tuning B=4 x 1040) and ViT-B
     (Audio-MAE CP B=64 x 160) shapes, S as the wrappers size them."""
-    from heart_murmur_detection_tpu_torch.ops import vit_train
+    from heart_murmur_detection_tpu_torch.ops.swin_plan import mlp_bwd_plan
 
     out = []
     for C, n in ((384, 64 * 320), (384, 64 * 80), (384, 4 * 1040), (768, 64 * 160)):
-        tile = vit_train.MLP_BWD_TILE.get(C, swin_train.TOKEN_TILE)
-        out.append((swin_train._blocks_for(n // tile)[1], 7 * C))
+        out.append((mlp_bwd_plan(n, C, 4 * C, sms, kmul=False).part_rows, 7 * C))
         out.append((swin_train._blocks_for(n // swin_train.TOKEN_TILE)[1], 6 * C))
     return out
 
@@ -288,10 +290,14 @@ def test_reduce_is_the_in_order_sum_on_card(cuda):
     multiple of 4 and on partials that are not 16-byte aligned (its 4-byte
     copies), one launch a call."""
     from heart_murmur_detection_tpu_torch.bench.wgrad_time import reduce_shapes
+    from heart_murmur_detection_tpu_torch.ops.swin_plan import attn_bwd_plan
 
-    cola, mae = reduce_shapes()
-    shapes = [(S, L) for S, L, _ in cola + mae] + _vit_reduce_shapes()
-    assert (512, 17056) in shapes and (256, 68224) in shapes and (160, 4608) in shapes
+    sms = swin.sm_count(cuda)
+    cola, mae = reduce_shapes(sms)
+    shapes = [(S, L) for S, L, _ in cola + mae] + _vit_reduce_shapes(sms)
+    a0, a2 = attn_bwd_plan(64, 64, 64, 96, 4, sms), attn_bwd_plan(64, 16, 16, 384, 16, sms)
+    assert (a0.part_rows, 17056) in shapes and (a2.part_rows, 68224) in shapes
+    assert (160, 4608) in shapes
     g = torch.Generator().manual_seed(5)
     for S, L in shapes + [(7, 1000), (7, 1001), (1, 3), (3000, 5), (513, 1057)]:
         parts = torch.randn(S, L, generator=g).to(cuda)
@@ -591,9 +597,11 @@ def test_vit_float32_on_card_raises(cuda):
 # ---------------------------------------------------------------------------
 
 # (C, heads, Np, n_real, B): the CP shapes (Audio-MAE, OPERA-GT at max_len 256
-# and 64) and the operaGT fine-tuning shape
+# and 64) and the operaGT fine-tuning shape; one clip (vit_mlp_bwd's grid
+# below the SM count) and 72 clips (runs of several units a block)
 VIT_TRAIN_SHAPES = [(768, 12, 160, 154, 4), (384, 6, 320, 308, 4), (384, 6, 80, 77, 4),
-                    (384, 6, 1040, 1025, 4)]
+                    (384, 6, 1040, 1025, 4), (384, 6, 320, 308, 1), (768, 12, 160, 154, 72),
+                    (384, 6, 80, 77, 72)]
 
 
 @pytest.mark.gpu
