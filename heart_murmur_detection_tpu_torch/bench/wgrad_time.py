@@ -20,10 +20,14 @@ another order), timed in turns, with the step sums, each call's device
 time (torch.profiler) and host time. Last, the SHA-1 of
 every gradient leaf of the swin backward halves at chip_smoke.py phase 7's
 shapes and of the ViT ones at phase 14's CP shapes, on seeded inputs
-(grad_sha1): two trees whose kernels sum in the same order print the same.
+(grad_sha1): two trees whose kernels sum in the same order print the same;
+and the SHA-1 of the forward kernels' outputs (fwd_sha1): vit_mlp at C 96,
+192, 384 and 768, vit_qkv, vit_attn (both softmax modes) and vit_proj at
+C 384 and 768, swin_mlp at the four operaCT stages.
 Prints one line a shape and JSON lines of sums and hashes, prefixed by
-`tag`; run it once per source tree to compare two versions on one card.
-Needs a card.
+`tag`; run it once per source tree to compare two versions on one card
+(`wgrad_time <tag> sha1` prints the hashes alone; copy this module into an
+older tree's bench/ to run it there). Needs a card.
 """
 
 from __future__ import annotations
@@ -122,6 +126,39 @@ def grad_sha1() -> dict:
         dx, ga = vt.vit_attn_bwd(x, dh1, p, n_real)
         out[f"vit C={C} Np={Np}"] = _sha1({"dh1": dh1, "dx": dx, **{
             f"mlp.{q}": v for q, v in gm.items()}, **{f"attn.{q}": v for q, v in ga.items()}})
+    torch.cuda.synchronize()
+    return out
+
+
+# fwd_sha1's ViT shapes: (C, heads, tokens a clip, clips)
+VIT_FWD = ((96, 4, 64, 16), (192, 8, 64, 16), (384, 6, 1040, 16), (768, 12, 528, 16),
+           (768, 12, 160, 64))
+
+
+def fwd_sha1() -> dict:
+    """{case: SHA-1 of the output}: the forward ViT and swin MLP kernels
+    (vit_mlp with LN eps 1e-6, swin_mlp with 1e-5) and, at C 384 and 768,
+    vit_qkv, vit_attn over all but the last 15 tokens in both softmax modes
+    and vit_proj, on inputs and weights drawn from fixed seeds."""
+    dev, out = torch.device("cuda"), {}
+    t = lambda r, *sh: torch.from_numpy((r.standard_normal(sh) * 0.5).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    for C, heads, Np, B in VIT_FWD:
+        r = np.random.default_rng(300 + C + Np)
+        p = vit.prep_vit_block(_sd(C, r), heads, torch.bfloat16, dev)
+        x = t(r, B, Np, C)
+        out[f"vit_mlp C={C} B={B} Np={Np}"] = _sha1({"out": vit.vit_mlp(x, p)})
+        if C >= 384:
+            qkv = vit.vit_qkv(x, p)
+            out[f"vit_qkv C={C} B={B} Np={Np}"] = _sha1({"out": qkv})
+            for mode in ("stable", "fast"):
+                o = vit.vit_attn(qkv, p, Np - 15, mode)
+                out[f"vit_attn + vit_proj C={C} Np={Np} {mode}"] = _sha1(
+                    {"o": o, "out": vit.vit_proj(o, x, p)})
+    for i, (C, heads, _) in enumerate(STAGES + ((768, 32, 0),)):
+        H, r = 64 >> i, np.random.default_rng(400 + i)
+        p = swin.prep_block(_sd(C, r), heads, torch.zeros(heads, 64, 64), torch.bfloat16, dev)
+        out[f"swin_mlp C={C} B=16 H=W={H}"] = _sha1({"out": swin.swin_mlp(t(r, 16, H, H, C), p)})
     torch.cuda.synchronize()
     return out
 
@@ -231,10 +268,12 @@ def main(argv=None) -> int:
         print("wgrad_time: needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version is an f32 reference
-    g = torch.Generator().manual_seed(0)
-    time_reduce(tag, g)  # first: torch.profiler traces a young process whole
-    time_wgrad(tag, g)
+    if argv[1:2] != ["sha1"]:
+        g = torch.Generator().manual_seed(0)
+        time_reduce(tag, g)  # first: torch.profiler traces a young process whole
+        time_wgrad(tag, g)
     print(tag, "sha1", json.dumps(grad_sha1()), flush=True)
+    print(tag, "fwd sha1", json.dumps(fwd_sha1()), flush=True)
     return 0
 
 

@@ -16,7 +16,7 @@ import numpy as np
 
 from ..splits import train_test_split
 
-BASELINES = ("vggish", "clap", "clap2023", "hear", "opensmile")
+UNPORTED = ("vggish", "clap", "clap2023", "opensmile")  # baseline encoders not ported
 
 
 def save_json(feature_dir: str, name: str, mapping: Dict) -> None:
@@ -56,13 +56,25 @@ def extract_and_save(
     FeatureExtractor; saves and returns <pretrain><dim>_feature.npy
     (processing scripts' extract_and_save_embeddings). source_sr ships the
     clips at that rate and upsamples on the device (CirCor: 4000). The
-    baseline encoders (vggish, clap, clap2023, hear, opensmile) are not
-    ported and raise NotImplementedError."""
+    baseline encoder hear runs models/hear.py::extract_hear_feature (2-s
+    clips at 16 kHz whatever input_sec says; random weights with
+    random_init, else ckpt_path) and saves hear_feature.npy, as the JAX
+    package's dispatch does; the other baselines (vggish, clap, clap2023,
+    opensmile) are not ported and raise NotImplementedError."""
     from ...extract.extract import FeatureExtractor
 
-    if pretrain in BASELINES:
+    if pretrain in UNPORTED:
         raise NotImplementedError(f"baseline encoder {pretrain!r} is not ported")
     sound_dir_loc = np.load(os.path.join(feature_dir, "sound_dir_loc.npy"))
+    if pretrain == "hear":
+        from ...models.hear import extract_hear_feature
+
+        feats = extract_hear_feature([str(f) for f in sound_dir_loc], ckpt_path=ckpt_path,
+                                     random_init=random_init, batch_size=batch_size,
+                                     device=device)
+        out = os.path.join(feature_dir, "hear_feature.npy")
+        np.save(out, feats)
+        return out
     ex = FeatureExtractor(
         pretrain,
         dim=dim,

@@ -26,6 +26,13 @@ heart_murmur_detection_tpu/extract/convert.py.
   "head.*"): htsat through from_jax, gt (params["encoder"]["mae"]) and
   audiomae through from_jax_mae, the head through from_jax_head. A gradient
   tree maps the same way.
+- `from_jax_hear(variables)`: the JAX package's flax HeAREncoder variables
+  -> the port's models/hear.py::HeAREncoder state_dict (the MAE encoder's
+  mapping, plus the learned pos_embed and the pooler Dense).
+- `load_hear_ckpt(path_or_state_dict, model)`: a Hugging Face ViTModel
+  state_dict (google/hear-pytorch's key names, optionally under a prefix
+  such as "vit.") into the port's HeAREncoder, q, k and v fused into
+  attn.qkv in that order, as the JAX `convert_hear_vit` fuses them.
 - `load_mae_ckpt(path, model)`: a reference OPERA-GT or Audio-MAE
   checkpoint into the port's model by key name: every key the model holds
   must be there (the decoder's too, for a model built with its decoder, as a
@@ -38,7 +45,7 @@ heart_murmur_detection_tpu/extract/convert.py.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -149,6 +156,60 @@ def from_jax_mae(variables: dict, decoder: bool = False) -> Dict[str, torch.Tens
         _norm(sd, "decoder_norm", params["decoder_norm"])
         _linear(sd, "decoder_pred", params["decoder_pred"])
     return sd
+
+
+def from_jax_hear(variables: dict) -> Dict[str, torch.Tensor]:
+    """flax HeAREncoder variables -> state_dict of models.hear.HeAREncoder."""
+    params = variables["params"]
+    sd = from_jax_mae({"params": params})
+    sd["pos_embed"] = _t(params["pos_embed"])
+    _linear(sd, "pooler", params["pooler"])
+    return sd
+
+
+# HF ViTModel layer names -> the port's block names (beside q / k / v)
+_HF_BLOCK = {"layernorm_before": "norm1", "attention.output.dense": "attn.proj",
+             "layernorm_after": "norm2", "intermediate.dense": "mlp.fc1",
+             "output.dense": "mlp.fc2"}
+
+
+def load_hear_ckpt(path_or_state_dict: Union[str, Mapping], model: torch.nn.Module
+                   ) -> torch.nn.Module:
+    """Load a Hugging Face ViTModel state_dict (google/hear-pytorch: a file
+    torch.load reads, or the dict itself; keys may sit under a prefix, found
+    from the cls token) into the port's HeAREncoder. q, k and v of each
+    layer are stacked into attn.qkv in that order; the pooler comes from
+    pooler.dense. Every key the model holds must be there."""
+    sd = path_or_state_dict
+    if isinstance(sd, str):
+        sd = torch.load(sd, map_location="cpu", weights_only=False)
+        sd = sd.get("state_dict", sd)
+    anchor = "embeddings.cls_token"
+    prefix = next((k[: -len(anchor)] for k in sd if k.endswith(anchor)), None)
+    if prefix is None:
+        raise KeyError("no HF ViT embeddings (embeddings.cls_token) in the HeAR state_dict")
+    f32 = lambda v: (v.detach().to(torch.float32) if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.array(v, np.float32)))
+    hf = {k[len(prefix):]: f32(v) for k, v in sd.items() if k.startswith(prefix)}
+    out = {"cls_token": hf.get("embeddings.cls_token"),
+           "pos_embed": hf.get("embeddings.position_embeddings")}
+    for leaf in ("weight", "bias"):
+        out[f"patch_embed.proj.{leaf}"] = hf.get(f"embeddings.patch_embeddings.projection.{leaf}")
+        out[f"norm.{leaf}"] = hf.get(f"layernorm.{leaf}")
+        out[f"pooler.{leaf}"] = hf.get(f"pooler.dense.{leaf}")
+    for i in range(len(model.blocks)):
+        tp, bp = f"encoder.layer.{i}.", f"blocks.{i}."
+        for leaf in ("weight", "bias"):
+            qkv = [hf.get(f"{tp}attention.attention.{n}.{leaf}") for n in ("query", "key", "value")]
+            out[f"{bp}attn.qkv.{leaf}"] = None if None in qkv else torch.cat(qkv, 0)
+            for theirs, ours in _HF_BLOCK.items():
+                out[f"{bp}{ours}.{leaf}"] = hf.get(f"{tp}{theirs}.{leaf}")
+    own = model.state_dict()
+    missing = [k for k in own if out.get(k) is None]
+    if missing:
+        raise KeyError(f"the HeAR state_dict lacks {len(missing)} keys, e.g. {missing[:3]}")
+    model.load_state_dict({k: out[k] for k in own})
+    return model
 
 
 def load_mae_ckpt(path: str, model: torch.nn.Module) -> torch.nn.Module:

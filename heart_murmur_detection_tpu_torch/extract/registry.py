@@ -1,7 +1,7 @@
 """Model factory for the ported kinds — counterpart of
 heart_murmur_detection_tpu/extract/registry.py: operaCT (Cola(htsat)),
-operaGT (the MAE ViT-S encoder) and the audiomae kinds (the Audio-MAE ViT-B
-backbone).
+operaGT (the MAE ViT-S encoder), the audiomae kinds (the Audio-MAE ViT-B
+backbone) and hear (the HeAR ViT-L/16 encoder).
 
 Checkpoint paths mirror the reference's `cks/` layout. Nothing is
 downloaded: a missing checkpoint raises with the expected path. Random init
@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from ..models import vit_mae
+from ..models import hear, vit_mae
 from ..models.cola import Cola
 from ..models.htsat import init_weights
 from . import convert
@@ -50,6 +50,10 @@ def is_audiomae(pretrain: str) -> bool:
     return "audiomae" in pretrain
 
 
+def is_hear(pretrain: str) -> bool:
+    return pretrain == "hear"
+
+
 def default_input_sec(pretrain: str, min_len_htsat: float = 8, min_len_cnn: float = 8):
     """Per-model window policy (circor_processing.py:325-343); a copy of
     heart_murmur_detection_tpu/data/processors/common.py::default_input_sec."""
@@ -80,9 +84,20 @@ def initialize_pretrained_model(
     random (seeded) for random_init or a null-* pretrain, else from
     ckpt_path (default: the reference's checkpoint path for the kind).
     operaCT kinds give a Cola(htsat), operaGT a MaskedAutoencoderViT
-    (ViT-S), the audiomae kinds an AudioMAEClassifierBackbone (ViT-B/16).
-    Other encoder families are not ported yet and raise."""
+    (ViT-S), the audiomae kinds an AudioMAEClassifierBackbone (ViT-B/16),
+    hear a HeAREncoder (ViT-L/16; its checkpoint is a Hugging Face
+    google/hear-pytorch state_dict at ckpt_path, which has no default: the
+    reference downloads it). Other encoder families are not ported yet and
+    raise."""
     gen = torch.Generator().manual_seed(seed)
+    if is_hear(pretrain):
+        if not random_init and (ckpt_path is None or not os.path.exists(ckpt_path)):
+            raise _missing(pretrain, ckpt_path or "ckpt_path (google/hear-pytorch state_dict)")
+        model = hear.HeAREncoder(hear.HeARConfig())
+        if random_init:
+            hear.init_weights(model, gen)
+            return model.eval()
+        return convert.load_hear_ckpt(ckpt_path, model).eval()
     if is_operagt(pretrain) or is_audiomae(pretrain):
         if is_operagt(pretrain):
             model = vit_mae.MaskedAutoencoderViT(vit_mae.mae_vit_small_config())
@@ -101,7 +116,8 @@ def initialize_pretrained_model(
         return convert.load_mae_ckpt(ckpt_path, model).eval()
     if not is_operact(pretrain):
         raise NotImplementedError(
-            f"pretrain {pretrain!r}: only the operaCT, operaGT and audiomae kinds are ported"
+            f"pretrain {pretrain!r}: only the operaCT, operaGT, audiomae and hear kinds are "
+            "ported"
         )
     model = Cola()
     if random_init or pretrain.startswith("null"):

@@ -1,4 +1,4 @@
-"""The MAE encoders' eval forwards with their ViT blocks routed through
+"""The ViT towers' eval forwards with their blocks routed through
 ops/vit.py — counterpart of heart_murmur_detection_tpu/models/vit_fused.py.
 
   operaGT : mel (B, 256, 64) -> 4x4 patch embed + pos -> cls -> 12 ViT-S
@@ -6,6 +6,9 @@ ops/vit.py — counterpart of heart_murmur_detection_tpu/models/vit_fused.py.
   audiomae: fbank (B, T <= 1024, 128) -> zero-pad to (1024, 128) -> 16x16
             patch embed + pos -> cls -> 12 ViT-B blocks -> token mean ->
             fc_norm -> (B, 768)
+  hear    : waveform (B, <= 32000) -> mel-PCEN (B, 192, 128) -> 16x16
+            patch embed -> cls + learned pos -> 24 ViT-L blocks (97 tokens
+            padded to 112) -> norm of the cls token -> pooler -> (B, 512)
 
 mm_dtype=torch.bfloat16 is the bf16 flow of the JAX path: the patch embed
 takes bf16 operands with float32 accumulation, the tokens enter the blocks
@@ -97,3 +100,30 @@ def audiomae_backbone_fused(
     fb = torch.nn.functional.pad(fb.to(torch.float32), (0, W - Fb, 0, H - T))
     h = _encode(model, fb, mm_dtype, fast_softmax, impl)
     return _final_ln(h[:, 1:].mean(1), model.fc_norm)
+
+
+@torch.no_grad()
+def hear_forward_fused(
+    model,
+    audio: torch.Tensor,
+    mm_dtype: torch.dtype = torch.bfloat16,
+    fast_softmax: bool = False,
+    impl: str = "kernel",
+    from_spectrogram: bool = False,
+) -> torch.Tensor:
+    """HeAR's pooled embedding: waveform (B, <= 32000) (or its (B, 192, 128)
+    mel-PCEN with from_spectrogram) -> (B, 512); model a models.hear
+    HeAREncoder. Equals its forward(...)["pooled"]. The frontend runs in
+    float32 (the JAX bf16 path runs its DFT and mel at Precision.HIGH); the
+    norm before pooling is per token, so norm(h)[:, 0] = norm(h[:, 0]).
+    mm_dtype=torch.float32 is the strict path and runs the plain versions."""
+    from ..audio.hear_frontend import hear_preprocess
+
+    if mm_dtype == torch.float32:
+        impl = "plain"
+    x = audio.to(torch.float32) if from_spectrogram else hear_preprocess(audio)
+    h = _patch_embed(x, model.patch_embed.proj, mm_dtype)
+    cls = model.cls_token.expand(h.shape[0], -1, -1)
+    h = torch.cat([cls, h], dim=1) + model.pos_embed
+    h = _encode_blocks(h, model.prepared(mm_dtype), mm_dtype, fast_softmax, impl)
+    return _final_ln(h[:, 0], model.norm) @ model.pooler.weight.T + model.pooler.bias

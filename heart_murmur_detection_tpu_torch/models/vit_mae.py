@@ -306,20 +306,13 @@ class SwinV2CRBlock(nn.Module):
         return x + self.norm2(_dense(m, self.mlp.fc2, mm_dtype))
 
 
-class _MAEEncoder(nn.Module):
-    """Patch conv, cls token and the ViT blocks; `prepared` caches the
-    blocks laid out for ops/vit.py (dropped on load_state_dict and moves)."""
+class PreparedBlocks(nn.Module):
+    """A ViT encoder whose `blocks` (ViTBlock) `prepared` caches laid out
+    for ops/vit.py, a tuple for each (matmul dtype, device); the cache is
+    dropped on load_state_dict and moves."""
 
-    def __init__(self, cfg: MAEConfig):
+    def __init__(self):
         super().__init__()
-        self.config = cfg
-        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.embed_dim)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
-        self.blocks = nn.ModuleList(
-            ViTBlock(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio) for _ in range(cfg.depth)
-        )
-        pos = sincos_pos_embed_flexible(cfg.embed_dim, cfg.patch_hw, cls_token=True)
-        self.register_buffer("pos_embed", torch.from_numpy(pos)[None], persistent=False)
         self._prepared = {}
 
     def prepared(self, mm_dtype: torch.dtype):
@@ -344,6 +337,21 @@ class _MAEEncoder(nn.Module):
     def _load_from_state_dict(self, *args, **kwargs):
         self.invalidate_prepared()
         return super()._load_from_state_dict(*args, **kwargs)
+
+
+class _MAEEncoder(PreparedBlocks):
+    """Patch conv, cls token and the ViT blocks."""
+
+    def __init__(self, cfg: MAEConfig):
+        super().__init__()
+        self.config = cfg
+        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.embed_dim)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
+        self.blocks = nn.ModuleList(
+            ViTBlock(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio) for _ in range(cfg.depth)
+        )
+        pos = sincos_pos_embed_flexible(cfg.embed_dim, cfg.patch_hw, cls_token=True)
+        self.register_buffer("pos_embed", torch.from_numpy(pos)[None], persistent=False)
 
     def _tokens(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W) -> cls + patch tokens (B, 1 + L, D) with positions, f32."""

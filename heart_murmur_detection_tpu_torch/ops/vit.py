@@ -1,6 +1,7 @@
-"""ViT blocks for the MAE encoders (operaGT ViT-S, Audio-MAE ViT-B): three
-hand-written CUDA kernels, their plain torch versions, and the three eval
-entry points of heart_murmur_detection_tpu/ops/pallas_vit.py built from them.
+"""ViT blocks for the MAE encoders (operaGT ViT-S, Audio-MAE ViT-B) and
+HeAR's ViT-L (C 1024, 16 heads, 97 tokens padded to 112): four hand-written
+CUDA kernels, their plain torch versions, and the three eval entry points of
+heart_murmur_detection_tpu/ops/pallas_vit.py built from them.
 
   vit_qkv   LN1 -> qkv (q pre-scaled by 1/sqrt(hd)), written head-major,
             and on request LN1(x) itself (csrc/vit_qkv.cu, LN1 once a token
@@ -72,9 +73,13 @@ import torch
 import torch.nn.functional as F
 
 from .swin import _check_launch, _cuda_stream, _ln, _mlp_launch, _mmf, _ptr
+from .swin_plan import MLP_WIDTHS
 
 LN_EPS = 1e-6
-HD = 64  # the kernels' head dim (ViT-S/16 and ViT-B/16 both use 64)
+HD = 64  # the kernels' head dim (ViT-S/16, ViT-B/16 and ViT-L/16 all use 64)
+# the widths of the attention kernels: ViT-S (operaGT), ViT-B (Audio-MAE) and
+# ViT-L (HeAR, 16 heads); the MLP kernel's are swin_plan.MLP_WIDTHS
+ATTN_WIDTHS = (384, 768, 1024)
 MASK = -1e9
 ATTN_MODES = ("stable", "fast", "norm_before", "bf16_exp", "no_softmax", "q_passthrough",
               "aligned_hcat")
@@ -341,14 +346,14 @@ def _check_cuda_args(x: torch.Tensor, p: VitBlockParams, attn: bool):
     C = x.shape[2]
     if C != p.dim or p.w_qkv.device != x.device:
         raise ValueError("weights and x differ in width or device")
-    if attn and (C not in (384, 768) or p.hd != HD):
-        raise ValueError(f"the attention kernels take C 384 or 768 with head dim {HD}, "
-                         f"got C {C}, head dim {p.hd}")
+    if attn and (C not in ATTN_WIDTHS or p.hd != HD):
+        raise ValueError(f"the attention kernels take C 384 or 768 (ViT-S, ViT-B) or 1024 "
+                         f"(ViT-L) with head dim {HD}, got C {C}, head dim {p.hd}")
     if attn and x.shape[1] % 16:
         raise ValueError(f"the attention kernels take tokens padded to a multiple of 16 "
                          f"(pad_tokens), got {x.shape[1]}")
-    if not attn and (C not in (96, 192, 384, 768) or p.hidden % 128):
-        raise ValueError(f"the MLP kernel takes C 96-768 and hidden a multiple of 128, "
+    if not attn and (C not in MLP_WIDTHS or p.hidden % 128):
+        raise ValueError(f"the MLP kernel takes C in {MLP_WIDTHS} and hidden a multiple of 128, "
                          f"got C {C}, hidden {p.hidden}")
 
 
@@ -399,12 +404,12 @@ def vit_attn(
         raise ValueError("qkv must be a contiguous (3, B, heads, Np, hd) tensor")
     _, B, heads, Np, hd = qkv.shape
     C = heads * hd
-    if C not in (384, 768) or hd != HD or heads != p.heads or p.w_proj.device != qkv.device:
-        raise ValueError(f"the attention kernel takes C 384 or 768 with head dim {HD} and the "
-                         f"block's heads on its device, got {heads} heads of {hd}")
+    if C not in ATTN_WIDTHS or hd != HD or heads != p.heads or p.w_proj.device != qkv.device:
+        raise ValueError(f"the attention kernel takes C in {ATTN_WIDTHS} with head dim {HD} and "
+                         f"the block's heads on its device, got {heads} heads of {hd}")
     if mode == "aligned_hcat":
-        # at every shape the kernel takes (head dim 64, 6 or 12 heads) a
-        # slice runs past 3C: this raises before any launch
+        # at every shape the kernel takes (head dim 64, 6, 12 or 16 heads)
+        # a slice runs past 3C: this raises before any launch
         aligned_offsets(C, heads, hd)
     n_real = Np if n_real is None else n_real
     if not 0 < n_real <= Np:

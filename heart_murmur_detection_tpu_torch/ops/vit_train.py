@@ -72,6 +72,8 @@ from .swin_train import (
 )
 from .vit import HD, LN_EPS, MASK, VitBlockParams
 
+TRAIN_WIDTHS = (384, 768)  # the MAE encoders the backward kernels train (not HeAR's 1024)
+
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -159,7 +161,9 @@ def vit_attn_bwd_ref(
 
 
 def _check_bwd_args(x: torch.Tensor, g: torch.Tensor, p: VitBlockParams):
-    vit._check_cuda_args(x, p, attn=True)  # bf16, C 384 or 768, head dim 64
+    vit._check_cuda_args(x, p, attn=True)  # bf16, head dim 64, tokens padded to 16
+    if x.shape[2] not in TRAIN_WIDTHS:
+        raise ValueError(f"the ViT backward kernels take C in {TRAIN_WIDTHS}, got {x.shape[2]}")
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("the incoming gradient must match the activation")
     if (x.shape[0] * x.shape[1]) % TOKEN_TILE:

@@ -801,3 +801,85 @@ def test_resampler_matches_scipy_on_card(cuda, up, down):
     want = np.stack([resample_poly(r, up, down) for r in x]).astype(np.float32)
     assert got.shape == want.shape
     assert np.abs(got - want).max() < 3e-5
+
+
+# ---------------------------------------------------------------------------
+# HeAR's ViT-L geometry (C 1024, 16 heads of 64, hidden 4096, 97 tokens
+# padded to 112): the TPU kernels K6 / K7 that the HeAR extraction runs
+# ---------------------------------------------------------------------------
+
+HEAR = (1024, 16, 112, 97)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 16, 64])
+@pytest.mark.parametrize("fast_softmax", [False, True])
+def test_hear_kernels_match_plain_on_card(cuda, B, fast_softmax):
+    """vit_qkv (and its LN1 output), vit_attn, vit_proj and vit_mlp at C =
+    1024 against their plain versions, the padded keys masked, each bitwise
+    equal on a second launch, one launch a call."""
+    C, heads, Np, n_real = HEAR
+    p = _vit_params(C, heads, C + B, cuda)
+    g = torch.Generator().manual_seed(B)
+    x = (torch.randn(B, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    x[:, n_real:] = 0.0
+    mode = "fast" if fast_softmax else "stable"
+    vit.reset_launch_counts()
+    qkv, h = vit.vit_qkv(x, p, return_ln=True)
+    qkv_ref = vit.vit_qkv_ref(x, p)
+    o = vit.vit_attn(qkv_ref, p, n_real, mode)
+    o_ref = vit.vit_attn_core_ref(qkv_ref, p, n_real, mode)
+    h1 = vit.vit_proj(o_ref, x, p)
+    h1_ref = vit.vit_proj_ref(o_ref, x, p)
+    y, y_ref = vit.vit_mlp(h1_ref, p), vit.vit_mlp_ref(h1_ref, p)
+    torch.cuda.synchronize()
+    assert vit.launch_counts() == {"vit_qkv": 1, "vit_attn": 1, "vit_proj": 1, "vit_mlp": 1}
+    assert qkv.shape == (3, B, heads, Np, 64) and o.shape == (B, Np, C)
+    assert _cos(qkv, qkv_ref) >= COS_BAR
+    assert _cos(h, vit.ln1_rows(x, p)) >= COS_BAR
+    assert _cos(o, o_ref) >= COS_BAR
+    assert _branch_cos(h1, h1_ref, x) >= COS_BAR
+    assert _branch_cos(y, y_ref, h1_ref) >= COS_BAR
+    assert torch.equal(vit.vit_qkv(x, p), qkv)
+    assert torch.equal(vit.vit_attn(qkv_ref, p, n_real, mode), o)
+    assert torch.equal(vit.vit_proj(o_ref, x, p), h1)
+    assert torch.equal(vit.vit_mlp(h1_ref, p), y)
+
+
+@pytest.mark.gpu
+def test_hear_padded_keys_do_not_leak_on_card(cuda):
+    """At 112 tokens the key tiles end past Np: the real rows of a block do
+    not depend on what the padded rows hold."""
+    C, heads, Np, n_real = HEAR
+    p = _vit_params(C, heads, 7, cuda)
+    g = torch.Generator().manual_seed(7)
+    x = (torch.randn(2, Np, C, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    x2 = x.clone()
+    x2[:, n_real:] = 7.0
+    for mode in ("stable", "fast"):
+        a = vit.fused_vit_block(x, p, n_real, mode)
+        b = vit.fused_vit_block(x2, p, n_real, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(a[:, :n_real], b[:, :n_real])
+
+
+@pytest.mark.gpu
+def test_hear_forward_on_card(cuda):
+    """A full-width HeAR forward at B=2 on the kernels: 24 launches of each
+    ViT kernel, finite, and each clip's features close to the plain bf16
+    flow on the card (chip_smoke.py's HEAR_PLAIN_BAR: the two flows differ
+    in sum order only, ~0.99994 apart after 24 ViT-L blocks)."""
+    from heart_murmur_detection_tpu_torch.models import hear
+    from heart_murmur_detection_tpu_torch.models.vit_fused import hear_forward_fused
+
+    model = hear.HeAREncoder()
+    hear.init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    wav = (torch.randn(2, 32000, generator=torch.Generator().manual_seed(1)) * 0.2).to(cuda)
+    vit.reset_launch_counts()
+    got = hear_forward_fused(model, wav, torch.bfloat16, fast_softmax=True)
+    torch.cuda.synchronize()
+    assert vit.launch_counts() == dict.fromkeys(("vit_qkv", "vit_attn", "vit_proj", "vit_mlp"), 24)
+    want = hear_forward_fused(model, wav, torch.bfloat16, fast_softmax=True, impl="plain")
+    assert got.shape == (2, 512) and bool(got.isfinite().all())
+    assert min(_cos(got[i], want[i]) for i in range(2)) >= 0.99988
