@@ -140,6 +140,27 @@ Phases (each prints one line; any failure exits non-zero):
      (bench/hear_rate.py); a profile of one batch from a fresh process:
      each kernel, the frontend (DFT, mel, PCEN, resize), the glue, the idle
      share
+ 24. CLAP: a synthetic CirCor corpus through cli.process pretrain=clap2023
+     (HTS-AT at 44.1 kHz, 7-s clips, the 12 swin blocks a batch on the
+     kernels: as many launches a batch as an operaCT forward) and
+     pretrain=clap (Cnn14, 5-s clips, strict f32, no repo kernel), then
+     cli.linear_eval pretrain=clap2023 (5 seeds, finite test AUROCs); 20
+     clips' 2023 features against the plain bf16 flow (>= 0.99999) and the
+     strict f32 path, TF32 off (>= 0.99995); the 2022 tower on the card
+     against the CPU's float32 graph (>= 0.99999); device-resident clips/s
+     at B=16, kernel and plain bf16 paths in turns (bench/clap_rate.py);
+     a profile of one batch from a fresh process: each kernel, the 44.1 kHz
+     frontend (framing, DFT products, mel and log), the glue, the idle share
+ 25. the comparison loop from disk: a synthetic CirCor corpus through
+     cli.process (operaCT, clap2023); pretrain/prepare.py writes the COLA
+     and Audio-MAE manifests (counts = the valid train + val clips);
+     cli.pretrain method=cola compute_dtype=bfloat16 takes an epoch from
+     the port's manifest on the train kernels; cli.linear_eval (one seed)
+     and cli.finetune (operaCT, 1 epoch); cli.eval_ckpts re-tests both from
+     cks/ (the head's AUROC within 1e-6 of the trained one; the fine-tuned
+     model's float32 re-test printed beside its bf16 AUROC);
+     cli.significance model1=operaCT model2=clap2023 (5 + 5 scores, a
+     finite t and p)
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -2629,6 +2650,252 @@ def phase_hear(smi: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the CLAP towers (2023: HTS-AT at 44.1 kHz on the TPU kernels K1-K3)
+# ---------------------------------------------------------------------------
+
+CLAP_PATIENTS = 60  # the host's 44.1 kHz load and resample is this phase's cost
+CLAP_2022_BAR = 0.99999  # the Cnn14 tower on the card (strict f32) vs the CPU graph
+
+
+def phase_clap(smi: str):
+    """Phase 24: the CLAP towers end to end on the card. A synthetic CirCor
+    corpus (4 kHz WAVs) through cli.process pretrain=clap2023 and
+    pretrain=clap (host load at 44.1 kHz, 7-s / 5-s clips; the 2023 tower's
+    12 swin blocks a batch on the kernels, as many launches a batch as an
+    operaCT forward; the Cnn14 none) and cli.linear_eval pretrain=clap2023
+    (5 seeds): five finite test AUROCs; 20 clips' 2023 features against the
+    plain bf16 flow and the strict f32 path (TF32 off); the 2022 tower on
+    the card against the CPU's float32 graph; device-resident clips/s at
+    B=16, kernel path and plain bf16 path in turns; a profile of one batch
+    from a fresh child process. Returns the launches of the 2023 run."""
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench import clap_rate
+    from heart_murmur_detection_tpu_torch.bench.process_time import write_circor
+    from heart_murmur_detection_tpu_torch.cli import linear_eval, process
+    from heart_murmur_detection_tpu_torch.extract.registry import initialize_pretrained_model
+    from heart_murmur_detection_tpu_torch.models.clap import extract_clap_feature
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        n_clips = write_circor(root, CLAP_PATIENTS, seed=SEED + 24)
+        os.chdir(root)
+        try:
+            _reset_counts()  # just before the CLAP-2023 path
+            t0 = time.time()
+            (out23,) = process.main(["dataset=circor", "pretrain=clap2023", "random_init=True"])
+            s23 = time.time() - t0
+            counts = _all_counts()
+            t0 = time.time()
+            (out22,) = process.main(["dataset=circor", "pretrain=clap", "random_init=True"])
+            s22 = time.time() - t0
+            counts22 = {k: v - counts[k] for k, v in _all_counts().items()}
+            f23, f22 = np.load(out23), np.load(out22)
+            files = [os.path.join(root, str(f))
+                     for f in np.load("feature/circor_eval/sound_dir_loc.npy")]
+            t0 = time.time()
+            ((*scores,),) = linear_eval.main(["task=circor_murmurs", "pretrain=clap2023",
+                                              "n_run=5"])
+            lp_s = time.time() - t0
+        finally:
+            os.chdir(cwd)
+        batches = -(-n_clips // 16)
+        for out, f, name in ((out23, f23, "clap2023"), (out22, f22, "clap")):
+            _require(out.endswith(f"{name}_feature.npy") and f.shape == (n_clips, 1024)
+                     and bool(np.isfinite(f).all()), f"cli.process {name} features {f.shape}")
+        # one operaCT forward at the same batch: the launches a CLAP-2023 batch must match
+        cola = initialize_pretrained_model("operaCT", random_init=True, seed=SEED).cuda()
+        mel = torch.rand(16, 1001, 64, device="cuda")
+        _reset_counts()
+        cola.htsat(mel, None, torch.bfloat16, True)
+        ct = _all_counts()
+        del cola
+        _require(ct["swin_attn"] == ct["swin_mlp"] > 0
+                 and all(counts[k] == ct[k] * batches for k in ("swin_attn", "swin_mlp"))
+                 and sum(counts.values()) == counts["swin_attn"] + counts["swin_mlp"],
+                 f"cli.process clap2023 launches {counts} for {batches} batches (an operaCT "
+                 f"forward: {ct})")
+        _require(not any(counts22.values()), f"the Cnn14 tower launched {counts22}")
+        scores = np.asarray(scores, np.float64)
+        _require(len(scores) == 5 and bool(np.isfinite(scores).all()), f"test AUROCs {scores}")
+        print(f"[clap] cli.process dataset=circor pretrain=clap2023 random_init=True: {n_clips} "
+              f"clips in {s23:.1f} s = {n_clips / s23:.1f} clips/s (host load at 44.1 kHz, 7-s "
+              f"clips, the frontend and 12 swin blocks a batch on the card: launches "
+              f"{ {k: counts[k] for k in ('swin_attn', 'swin_mlp')} }, {batches} batches, "
+              f"{ct['swin_attn']} + {ct['swin_mlp']} a batch as an operaCT forward); "
+              f"pretrain=clap (Cnn14, 5-s clips, strict f32, no repo kernel) in {s22:.1f} s = "
+              f"{n_clips / s22:.1f} clips/s; cli.linear_eval task=circor_murmurs "
+              f"pretrain=clap2023 n_run=5 in {lp_s:.1f} s: test AUROC "
+              + " ".join(f"{a:.4f}" for a in scores)
+              + f", mean {scores.mean():.4f} +- {scores.std():.4f}; {smi}", flush=True)
+
+        # 20 clips of the 2023 tower against the plain bf16 flow and the
+        # strict f32 path, on the same weights (the registry's seed 0)
+        model = initialize_pretrained_model("clap2023", random_init=True, seed=0).cuda()
+        sub = files[:20]
+        kern = extract_clap_feature(sub, "2023", model=model, device="cuda")
+        plain = extract_clap_feature(sub, "2023", model=model, device="cuda", impl="plain")
+        f32 = extract_clap_feature(sub, "2023", model=model, device="cuda",
+                                   compute_dtype=torch.float32)
+        c_cli = _per_clip_cos(kern[:16], f23[:16]).min()
+        c_plain, c_f32 = _per_clip_cos(kern, plain).min(), _per_clip_cos(kern, f32).min()
+        c_pf = _per_clip_cos(plain, f32).min()
+        print(f"[clap] CLAP-2023 numerics, per-clip cosine min over {len(sub)} clips: kernel "
+              f"path vs plain bf16 flow {c_plain:.7f} (bar {SAME_ROUNDING_BAR}); vs strict f32, "
+              f"TF32 off {c_f32:.7f} (bar {F32_BAR}; plain bf16 vs strict f32 {c_pf:.7f}); the "
+              f"first batch again vs cli.process's {c_cli:.7f}", flush=True)
+        _require(c_plain >= SAME_ROUNDING_BAR, f"CLAP-2023 vs plain bf16 flow cosine {c_plain}")
+        _require(c_f32 >= F32_BAR, f"CLAP-2023 vs strict f32 cosine {c_f32}")
+        _require(c_cli >= SAME_ROUNDING_BAR, f"CLAP-2023 features vs cli.process {c_cli}")
+        del model
+
+        # the 2022 tower: the card's strict float32 against the CPU's graph
+        m22 = initialize_pretrained_model("clap", random_init=True, seed=0)
+        sub = files[:4]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(os.cpu_count() or 1)
+        t0 = time.time()
+        cpu = extract_clap_feature(sub, "2022", model=m22, batch_size=4, device="cpu")
+        cpu_s = time.time() - t0
+        torch.set_num_threads(threads)
+        card = extract_clap_feature(sub, "2022", model=m22.cuda(), batch_size=4, device="cuda")
+        c22 = _per_clip_cos(card, cpu).min()
+        c22_cli = _per_clip_cos(card, f22[:4]).min()
+        print(f"[clap] CLAP-2022 (Cnn14) on the card under strict f32 vs the CPU's float32 "
+              f"graph, per-clip cosine min over {len(sub)} clips: {c22:.8f} (bar "
+              f"{CLAP_2022_BAR}; the CPU took {cpu_s:.1f} s); vs cli.process's batch "
+              f"{c22_cli:.8f}", flush=True)
+        _require(c22 >= CLAP_2022_BAR and c22_cli >= CLAP_2022_BAR,
+                 f"CLAP-2022 card vs CPU cosine {c22}, vs cli.process {c22_cli}")
+        del m22
+        torch.cuda.empty_cache()
+
+    *_, kern_fn, plain_fn = clap_rate.setup()
+    with torch.no_grad():
+        r = clap_rate.rates(kern_fn, plain_fn, batch=clap_rate.B)
+    del kern_fn, plain_fn
+    torch.cuda.empty_cache()
+    print(f"[clap throughput] {smi}: device-resident 7-s clips at 44.1 kHz B={clap_rate.B}, in "
+          f"turns (kernel, plain, plain, kernel): kernel path {r['kernel_ms']} ms/batch = "
+          f"{r['kernel_clips_per_s']} clips/s; plain bf16 path {r['plain_ms']} ms/batch = "
+          f"{r['plain_clips_per_s']} clips/s", flush=True)
+    prof = clap_rate.profile_in_child()
+    fr = prof["frontend_ms"]
+    print(f"[clap profile] one CLAP-2023 batch B={prof['batch']} from a fresh process: "
+          f"{prof['wall_ms']:.2f} ms unprofiled, device busy {prof['device_busy_ms']:.2f} ms "
+          f"({100 * prof['idle_share']:.1f}% idle): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["kernels_ms"].items())
+          + f"; the 44.1 kHz frontend {fr['frontend_whole']:.3f} ms "
+          f"({100 * fr['frontend_whole'] / prof['device_busy_ms']:.1f}% of the busy time; "
+          f"framing {fr['framing']:.3f}, DFT products {fr['dft']:.3f}, mel and log "
+          f"{fr['mel_log']:.3f}, each alone); glue (bn0, resize, patch embed and merges, pads, "
+          f"LN, projection) {prof['glue_ms']:.3f} ms", flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the paper's comparison loop from disk
+# ---------------------------------------------------------------------------
+
+LOOP_PATIENTS = 40
+
+
+def phase_loop(smi: str):
+    """Phase 25: CP data preparation, continued pretraining, the probe,
+    fine-tuning, checkpoint re-evaluation and the significance test, each
+    through its entry point in one working directory. A synthetic CirCor
+    corpus through cli.process (operaCT, clap2023); pretrain/prepare.py
+    writes the COLA and Audio-MAE manifests (their counts: the valid train +
+    val clips); cli.pretrain takes a COLA epoch from the port's manifest on
+    the train kernels; cli.linear_eval trains one seed's head and
+    cli.finetune one operaCT model (1 epoch); cli.eval_ckpts re-tests both
+    from cks/ (the head's AUROC within 1e-6 of the trained one; the
+    fine-tuned model's float32 re-test printed beside its bf16 run);
+    cli.significance model1=operaCT model2=clap2023: both score lists and a
+    finite t and p."""
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.audio import pipelines
+    from heart_murmur_detection_tpu_torch.bench.process_time import write_circor
+    from heart_murmur_detection_tpu_torch.cli import (eval_ckpts, finetune, linear_eval, pretrain,
+                                                      process, significance)
+    from heart_murmur_detection_tpu_torch.pretrain import prepare
+
+    cwd = os.getcwd()
+    fdir = "feature/circor_eval/"
+    with tempfile.TemporaryDirectory() as root:
+        n_clips = write_circor(root, LOOP_PATIENTS, seed=SEED + 25)
+        os.chdir(root)
+        try:
+            t0 = time.time()
+            process.main(["dataset=circor", "pretrain=operaCT", "dim=768", "random_init=True",
+                          "source_sr=4000"])
+            process.main(["dataset=circor", "pretrain=clap2023", "random_init=True"])
+            proc_s = time.time() - t0
+            split = np.load(fdir + "train_test_split.npy")
+            tv = [str(f) for f, s in zip(np.load(fdir + "sound_dir_loc.npy"), split)
+                  if s in ("train", "val")]
+            want_cola = sum(pipelines.get_entire_signal(f, input_sec=8) is not None for f in tv)
+            t0 = time.time()
+            n_cola = prepare.preprocess_spectrogram_ssl(fdir, input_sec=8)
+            n_mae = prepare.preprocess_spectrogram_ssl_audiomae(fdir, input_sec=10)
+            prep_s = time.time() - t0
+            _require(n_cola == want_cola and n_mae == len(tv),
+                     f"prepared {n_cola} COLA / {n_mae} Audio-MAE clips of {len(tv)} train + val "
+                     f"({want_cola} of them at least 8 s after trimming)")
+
+            _reset_counts()  # just before the CP path
+            t0 = time.time()
+            ((_, history, _),) = pretrain.main([
+                "encoder=htsat", "method=cola", "compute_dtype=bfloat16", "batch_size=16",
+                "epoches=1", "seed=0", "title=loop", "device=cuda", "circor=True"])
+            cp_s = time.time() - t0
+            cp_counts = _all_counts()
+            loss, steps = history[0]["train_loss"], history[0]["steps"]
+            _require(np.isfinite(loss) and cp_counts["swin_attn_bwd"] > 0
+                     and cp_counts["swin_mlp_bwd"] > 0,
+                     f"COLA CP from the port's manifest: {history[0]}, launches {cp_counts}")
+
+            t0 = time.time()
+            ((lp,),) = linear_eval.main(["task=circor_murmurs", "pretrain=operaCT", "dim=768",
+                                         "n_run=1"])
+            ((ft,),) = finetune.main(["task=circor_murmurs", "pretrain=operaCT",
+                                      "compute_dtype=bfloat16", "random_init=True", "n_run=1",
+                                      "epochs=1", "device=cuda"])
+            train_s = time.time() - t0
+            t0 = time.time()
+            ((re_lp,),) = eval_ckpts.main(["task=circor_murmurs", "pretrain=operaCT768",
+                                           "head_only=True", "loss=weighted", "n_run=1"])
+            ((re_ft,),) = eval_ckpts.main(["task=circor_murmurs", "pretrain=operaCT",
+                                           "head_only=False", "loss=weighted", "batch_size=64",
+                                           "epochs=1", "n_run=1"])
+            eval_s = time.time() - t0
+            t0 = time.time()
+            s1, s2, (t, pv, _) = significance.main(["model1=operaCT", "dim1=768",
+                                                    "model2=clap2023"])
+            sig_s = time.time() - t0
+        finally:
+            os.chdir(cwd)
+    _require(abs(re_lp - lp) <= 1e-6, f"re-evaluated head AUROC {re_lp} vs trained {lp}")
+    _require(np.isfinite(re_ft), f"re-evaluated fine-tuned AUROC {re_ft}")
+    _require(len(s1) == len(s2) == 5 and bool(np.isfinite(s1 + s2).all())
+             and bool(np.isfinite([t, pv]).all()), f"significance {s1} {s2} t {t} p {pv}")
+    print(f"[loop] {n_clips} clips: cli.process operaCT + clap2023 {proc_s:.1f} s; "
+          f"pretrain/prepare.py {n_cola} COLA and {n_mae} Audio-MAE spectrograms of "
+          f"{len(tv)} train + val clips in {prep_s:.1f} s; cli.pretrain method=cola "
+          f"compute_dtype=bfloat16 B=16, one epoch ({steps} steps) from the port's manifest in "
+          f"{cp_s:.1f} s, loss {loss:.4f}, launches {cp_counts}", flush=True)
+    print(f"[loop] cli.linear_eval seed 0 test AUROC {lp:.6f}, cli.eval_ckpts head_only=True "
+          f"{re_lp:.6f} (|diff| {abs(re_lp - lp):.1e}, bar 1e-6); cli.finetune operaCT 1 epoch "
+          f"bf16 test AUROC {ft:.6f}, cli.eval_ckpts head_only=False float32 re-test "
+          f"{re_ft:.6f} (information); training {train_s:.1f} s, re-tests {eval_s:.1f} s; "
+          f"cli.significance operaCT vs clap2023 in {sig_s:.1f} s: "
+          + " ".join(f"{a:.4f}" for a in s1) + " vs " + " ".join(f"{a:.4f}" for a in s2)
+          + f", t {t:.4f}, p {pv:.4g}; {smi}", flush=True)
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -2685,6 +2952,11 @@ KERNEL_SOURCES = {
                       "heart_murmur_detection_tpu/ops/pallas_vit.py:341"),
     "vit_mlp@hear": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp.cu",
                      "heart_murmur_detection_tpu/ops/pallas_vit.py:373"),
+    # K1-K3 on the CLAP-2023 path: the operaCT geometry (phase 3's readings)
+    "swin_attn@clap2023": ("heart_murmur_detection_tpu_torch/csrc/swin_attn.cu",
+                           "heart_murmur_detection_tpu/ops/pallas_swin.py:97"),
+    "swin_mlp@clap2023": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp.cu",
+                          "heart_murmur_detection_tpu/ops/pallas_swin.py:388"),
 }
 
 
@@ -2752,6 +3024,10 @@ def main() -> int:
     hear_meas = phase_hear_kernels(dev, build_log)
     torch.cuda.empty_cache()
     hear_counts = phase_hear(smi)
+    torch.cuda.empty_cache()
+    clap_counts = phase_clap(smi)
+    torch.cuda.empty_cache()
+    phase_loop(smi)
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths
@@ -2767,6 +3043,9 @@ def main() -> int:
                         {f"vit_attn:{m}": n for m, n in ablate_counts.items()}, KERNEL_SOURCES)
     kernels += _entries(hear_meas, {f"{k}@hear": hear_counts[k]
                                     for k in ("vit_qkv", "vit_attn", "vit_proj", "vit_mlp")},
+                        KERNEL_SOURCES)
+    kernels += _entries({f"{k}@clap2023": eval_meas[k] for k in ("swin_attn", "swin_mlp")},
+                        {f"{k}@clap2023": clap_counts[k] for k in ("swin_attn", "swin_mlp")},
                         KERNEL_SOURCES)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,6 +2,7 @@
 
     wav (B, Nmax) zero-padded + lengths (B,)  ->  mel (B, Tmax, n_mels) + frames (B,)
                                               ->  kaldi fbank (B, Tmax, 128) + frames (B,)
+                                              ->  44.1 kHz CLAP log-mel (B, Tmax, 64) + frames (B,)
 
 The same math as the JAX frontends: the windowed DFT is two real matrix
 products against precomputed cos/sin bases (the split-DFT form for the mel,
@@ -192,6 +193,42 @@ def db_normalise(
         db = (db - lo) * scale
     out = torch.where(vmask, db, 0.0)
     return out.to(torch.float32), n_frames
+
+
+def logmel_frontend_general(
+    wav: torch.Tensor,
+    lengths: torch.Tensor,
+    sr: int = 44100,
+    n_mels: int = 64,
+    fmin: float = 50.0,
+    fmax: float = 14000.0,
+    n_fft: int = 1024,
+    hop: int = 320,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """torchlibrosa-semantics log-mel (Spectrogram center=True with reflect
+    padding, LogmelFilterBank ref 1.0, amin 1e-10, top_db None; msclap's
+    frontend), as the JAX logmel_frontend_general :200: reflect pad of
+    n_fft // 2, Tmax = Nmax // hop + 1 frames at any hop, periodic-Hann DFT
+    bases, power, the slaney filterbank, 10 log10(max(mel, 1e-10)).
+
+    wav: (B, Nmax) float32; lengths: (B,) valid sample counts. Returns
+    (B, Tmax, n_mels) float32 with frames at or past lengths // hop + 1
+    zeroed, and those counts (int32). Plain float32 products (XLA-level
+    code in the JAX package: no kernel)."""
+    B, Nmax = wav.shape
+    pad = n_fft // 2
+    x = torch.nn.functional.pad(wav.to(torch.float32)[:, None], (pad, pad), mode="reflect")[:, 0]
+    Tmax = Nmax // hop + 1
+    frames = frame_signal(x, n_fft, hop, Tmax)
+    cos, sin, fb = _device_constants(wav.device, sr, n_fft, n_mels, fmin, fmax)
+    re = torch.matmul(frames, cos)
+    im = torch.matmul(frames, sin)
+    power = re * re + im * im
+    mel = torch.matmul(power, fb)
+    logmel = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
+    n_frames = (lengths.to(torch.int64) // hop + 1).to(torch.int32)
+    valid = torch.arange(Tmax, device=wav.device)[None, :] < n_frames[:, None]
+    return torch.where(valid[:, :, None], logmel, 0.0), n_frames
 
 
 # ---------------------------------------------------------------------------

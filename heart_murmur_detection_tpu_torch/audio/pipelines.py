@@ -3,10 +3,10 @@
 A copy of `_load_trim`, `get_entire_signal`, `get_split_signal` and
 `get_split_signal_fbank_pad` from heart_murmur_detection_tpu/audio/
 pipelines.py (src/util.py:205-267, 309-364, 794-860), trimmed to the
-options the extraction and fine-tuning paths use (no bandpass filter: the
-chunked MAE path calls `_load_trim` as the JAX `_chunks` does, and the
-fine-tuning cache the split paths, with none); the original cannot be
-imported without jax. tests/test_torch_dsp.py pins the copies to the
+options the extraction, fine-tuning and SSL preparation paths use (no
+bandpass filter: the chunked MAE path calls `_load_trim` as the JAX
+`_chunks` does, and the fine-tuning cache and pretrain/prepare.py the
+other paths, with none); the original cannot be imported without jax. tests/test_torch_dsp.py pins the copies to the
 originals.
 """
 
@@ -36,10 +36,12 @@ def get_entire_signal(
     pad: bool = False,
     types: str = "repeat",
     max_sec: Optional[float] = None,
+    spectrogram: bool = False,
 ) -> Optional[np.ndarray]:
     """Whole-clip path (src/util.py:205-267): trim, pad-to-min, cap at max_sec.
 
-    Returns the waveform, or None when it is too short and pad=False.
+    Returns the waveform, or its (T, 64) normalised mel (f_max 8000) with
+    spectrogram=True, or None when it is too short and pad=False.
     """
     yt = _load_trim(path, sample_rate)
     duration = len(yt) / sample_rate
@@ -49,6 +51,8 @@ def get_entire_signal(
         yt = split_pad_sample(yt, input_sec, sample_rate, types)[0]
     if max_sec and duration > max_sec:
         yt = yt[: int(max_sec * sample_rate)]
+    if spectrogram:
+        return ref.pre_process_audio_mel_t(yt, sample_rate, f_max=8000)
     return yt
 
 

@@ -116,14 +116,15 @@ def profile_child() -> int:
     return 0
 
 
-def profile_in_child() -> dict:
-    """profile_child's reading, from a fresh process."""
+def profile_in_child(module: str = __spec__.name) -> dict:
+    """The last JSON line of `python -m <module> --profile-child` (this
+    module's profile_child by default), from a fresh process."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    child = subprocess.run([sys.executable, "-m", __spec__.name, "--profile-child"],
+    child = subprocess.run([sys.executable, "-m", module, "--profile-child"],
                            capture_output=True, text=True, cwd=root)
     lines = child.stdout.strip().splitlines()
     if child.returncode or not lines:
-        raise RuntimeError(f"hear_rate profile child failed: {child.stderr[-2000:]}")
+        raise RuntimeError(f"{module} profile child failed: {child.stderr[-2000:]}")
     return json.loads(lines[-1])
 
 

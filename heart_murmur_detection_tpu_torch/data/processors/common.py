@@ -16,7 +16,7 @@ import numpy as np
 
 from ..splits import train_test_split
 
-UNPORTED = ("vggish", "clap", "clap2023", "opensmile")  # baseline encoders not ported
+UNPORTED = ("vggish", "opensmile")  # baseline encoders not ported
 
 
 def save_json(feature_dir: str, name: str, mapping: Dict) -> None:
@@ -56,23 +56,33 @@ def extract_and_save(
     FeatureExtractor; saves and returns <pretrain><dim>_feature.npy
     (processing scripts' extract_and_save_embeddings). source_sr ships the
     clips at that rate and upsamples on the device (CirCor: 4000). The
-    baseline encoder hear runs models/hear.py::extract_hear_feature (2-s
-    clips at 16 kHz whatever input_sec says; random weights with
-    random_init, else ckpt_path) and saves hear_feature.npy, as the JAX
-    package's dispatch does; the other baselines (vggish, clap, clap2023,
-    opensmile) are not ported and raise NotImplementedError."""
+    baseline encoders route to their module extractors and save
+    <name>_feature.npy, as the JAX package's dispatch does
+    (circor_processing.py:241-258), whatever input_sec says: hear runs
+    models/hear.py::extract_hear_feature (2-s clips at 16 kHz), clap and
+    clap2023 models/clap.py::extract_clap_feature (5-s / 7-s clips at
+    44.1 kHz, the 2023 tower on the swin kernels on a card); their weights
+    are random with random_init, else loaded from ckpt_path. vggish and
+    opensmile are not ported and raise NotImplementedError."""
     from ...extract.extract import FeatureExtractor
 
     if pretrain in UNPORTED:
         raise NotImplementedError(f"baseline encoder {pretrain!r} is not ported")
     sound_dir_loc = np.load(os.path.join(feature_dir, "sound_dir_loc.npy"))
-    if pretrain == "hear":
-        from ...models.hear import extract_hear_feature
+    if pretrain in ("hear", "clap", "clap2023"):
+        paths = [str(f) for f in sound_dir_loc]
+        kw = dict(ckpt_path=ckpt_path, random_init=random_init, batch_size=batch_size,
+                  device=device)
+        if pretrain == "hear":
+            from ...models.hear import extract_hear_feature
 
-        feats = extract_hear_feature([str(f) for f in sound_dir_loc], ckpt_path=ckpt_path,
-                                     random_init=random_init, batch_size=batch_size,
-                                     device=device)
-        out = os.path.join(feature_dir, "hear_feature.npy")
+            feats = extract_hear_feature(paths, **kw)
+        else:
+            from ...models.clap import extract_clap_feature
+
+            feats = extract_clap_feature(
+                paths, version="2023" if pretrain == "clap2023" else "2022", **kw)
+        out = os.path.join(feature_dir, pretrain + "_feature.npy")
         np.save(out, feats)
         return out
     ex = FeatureExtractor(

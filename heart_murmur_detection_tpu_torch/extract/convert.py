@@ -33,6 +33,16 @@ heart_murmur_detection_tpu/extract/convert.py.
   state_dict (google/hear-pytorch's key names, optionally under a prefix
   such as "vit.") into the port's HeAREncoder, q, k and v fused into
   attn.qkv in that order, as the JAX `convert_hear_vit` fuses them.
+- `from_jax_clap(variables, version)`: the JAX package's flax
+  CLAPAudioEncoder variables -> the port's models/clap.py::CLAPAudioEncoder
+  state_dict (msclap's names: base.htsat.* through from_jax for 2023, the
+  Cnn14's base.bn0 / conv_block{i}.conv{j} / bn{j} / fc1 / fc_audioset for
+  2022, projection.*); the inverse of the JAX `convert_clap_audio`. The
+  HTS-AT's tscam head is not carried.
+- `load_clap_ckpt(path_or_state_dict, version)`: an msclap state_dict (a
+  file or the dict itself) whose audio tower sits under
+  `clap.audio_encoder.`, `audio_encoder.` or `model.audio_encoder.` into
+  the port's CLAPAudioEncoder by name.
 - `load_mae_ckpt(path, model)`: a reference OPERA-GT or Audio-MAE
   checkpoint into the port's model by key name: every key the model holds
   must be there (the decoder's too, for a model built with its decoder, as a
@@ -209,6 +219,71 @@ def load_hear_ckpt(path_or_state_dict: Union[str, Mapping], model: torch.nn.Modu
     if missing:
         raise KeyError(f"the HeAR state_dict lacks {len(missing)} keys, e.g. {missing[:3]}")
     model.load_state_dict({k: out[k] for k in own})
+    return model
+
+
+def _bn_stats(sd, key, p, stats):
+    _norm(sd, key, p)
+    sd[key + ".running_mean"] = _t(stats["mean"])
+    sd[key + ".running_var"] = _t(stats["var"])
+    sd[key + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def from_jax_clap(variables: dict, version: str = "2023") -> Dict[str, torch.Tensor]:
+    """flax CLAPAudioEncoder variables -> state_dict of
+    models.clap.CLAPAudioEncoder(CLAPConfig(version))."""
+    params, stats = variables["params"], variables["batch_stats"]
+    base, bstats = params["base"], stats["base"]
+    if version == "2023":
+        sd = {"base.htsat." + k[len(HTSAT_PREFIX):]: v for k, v in from_jax(
+            {"params": {"encoder": base}, "batch_stats": {"encoder": bstats}}).items()}
+    else:
+        sd = {}
+        _bn_stats(sd, "base.bn0", base["bn0"], bstats["bn0"])
+        for name in sorted(base):
+            if not name.startswith("conv_block"):
+                continue
+            for j in (1, 2):
+                k = np.asarray(base[name][f"conv{j}"]["kernel"])  # (kh, kw, in, out)
+                sd[f"base.{name}.conv{j}.weight"] = _t(k.transpose(3, 2, 0, 1))
+                _bn_stats(sd, f"base.{name}.bn{j}", base[name][f"bn{j}"], bstats[name][f"bn{j}"])
+        _linear(sd, "base.fc1", base["fc1"])
+        _linear(sd, "base.fc_audioset", base["fc_audioset"])
+    proj = params["projection"]
+    _linear(sd, "projection.linear1", proj["linear1"], bias=False)
+    _linear(sd, "projection.linear2", proj["linear2"], bias=False)
+    _norm(sd, "projection.layer_norm", proj["layer_norm"])
+    return sd
+
+
+CLAP_PREFIXES = ("clap.audio_encoder.", "audio_encoder.", "model.audio_encoder.")
+
+
+def load_clap_ckpt(path_or_state_dict: Union[str, Mapping], version: str = "2023",
+                   model: torch.nn.Module = None) -> torch.nn.Module:
+    """Load an msclap checkpoint's audio tower (a file torch.load reads, or
+    the state_dict itself) into `model` (default a new
+    CLAPAudioEncoder(CLAPConfig(version))) by key name, after the first of
+    CLAP_PREFIXES that the keys carry (the JAX convert_clap_audio :277).
+    Keys the model does not hold (the text tower, the frontend's buffers,
+    the tscam head) are ignored; a missing key raises KeyError, as does a
+    checkpoint with no audio subtree."""
+    from ..models.clap import CLAPAudioEncoder, CLAPConfig
+
+    sd = path_or_state_dict
+    if isinstance(sd, str):
+        sd = torch.load(sd, map_location="cpu", weights_only=False)
+        sd = sd.get("state_dict", sd.get("model", sd))
+    pref = next((c for c in CLAP_PREFIXES if any(k.startswith(c) for k in sd)), None)
+    if pref is None:
+        raise KeyError("no audio_encoder subtree in CLAP checkpoint")
+    sub = {k[len(pref):]: v for k, v in sd.items() if k.startswith(pref)}
+    model = model if model is not None else CLAPAudioEncoder(CLAPConfig(version=version))
+    own = model.state_dict()
+    missing = [k for k in own if k not in sub]
+    if missing:
+        raise KeyError(f"the CLAP checkpoint lacks {len(missing)} keys, e.g. {missing[:3]}")
+    model.load_state_dict({k: torch.as_tensor(sub[k]) for k in own})
     return model
 
 

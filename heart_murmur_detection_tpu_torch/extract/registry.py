@@ -1,7 +1,8 @@
 """Model factory for the ported kinds — counterpart of
 heart_murmur_detection_tpu/extract/registry.py: operaCT (Cola(htsat)),
 operaGT (the MAE ViT-S encoder), the audiomae kinds (the Audio-MAE ViT-B
-backbone) and hear (the HeAR ViT-L/16 encoder).
+backbone), hear (the HeAR ViT-L/16 encoder) and the CLAP audio towers clap
+(2022, Cnn14) and clap2023 (HTS-AT).
 
 Checkpoint paths mirror the reference's `cks/` layout. Nothing is
 downloaded: a missing checkpoint raises with the expected path. Random init
@@ -15,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from ..models import hear, vit_mae
+from ..models import clap, hear, vit_mae
 from ..models.cola import Cola
 from ..models.htsat import init_weights
 from . import convert
@@ -54,6 +55,10 @@ def is_hear(pretrain: str) -> bool:
     return pretrain == "hear"
 
 
+def is_clap(pretrain: str) -> bool:
+    return pretrain in ("clap", "clap2023")
+
+
 def default_input_sec(pretrain: str, min_len_htsat: float = 8, min_len_cnn: float = 8):
     """Per-model window policy (circor_processing.py:325-343); a copy of
     heart_murmur_detection_tpu/data/processors/common.py::default_input_sec."""
@@ -87,9 +92,18 @@ def initialize_pretrained_model(
     (ViT-S), the audiomae kinds an AudioMAEClassifierBackbone (ViT-B/16),
     hear a HeAREncoder (ViT-L/16; its checkpoint is a Hugging Face
     google/hear-pytorch state_dict at ckpt_path, which has no default: the
-    reference downloads it). Other encoder families are not ported yet and
-    raise."""
+    reference downloads it), clap / clap2023 a CLAPAudioEncoder (its
+    checkpoint an msclap state_dict at ckpt_path, no default either). Other
+    encoder families are not ported yet and raise."""
     gen = torch.Generator().manual_seed(seed)
+    if is_clap(pretrain):
+        if not random_init and (ckpt_path is None or not os.path.exists(ckpt_path)):
+            raise _missing(pretrain, ckpt_path or "ckpt_path (msclap state_dict)")
+        version = "2023" if pretrain == "clap2023" else "2022"
+        model = clap.CLAPAudioEncoder(clap.CLAPConfig(version=version))
+        if random_init:
+            return clap.init_weights(model, gen).eval()
+        return convert.load_clap_ckpt(ckpt_path, version, model).eval()
     if is_hear(pretrain):
         if not random_init and (ckpt_path is None or not os.path.exists(ckpt_path)):
             raise _missing(pretrain, ckpt_path or "ckpt_path (google/hear-pytorch state_dict)")
@@ -116,8 +130,8 @@ def initialize_pretrained_model(
         return convert.load_mae_ckpt(ckpt_path, model).eval()
     if not is_operact(pretrain):
         raise NotImplementedError(
-            f"pretrain {pretrain!r}: only the operaCT, operaGT, audiomae and hear kinds are "
-            "ported"
+            f"pretrain {pretrain!r}: only the operaCT, operaGT, audiomae, hear and clap kinds "
+            "are ported"
         )
     model = Cola()
     if random_init or pretrain.startswith("null"):
