@@ -161,6 +161,33 @@ Phases (each prints one line; any failure exits non-zero):
      model's float32 re-test printed beside its bf16 AUROC);
      cli.significance model1=operaCT model2=clap2023 (5 + 5 scores, a
      finite t and p)
+ 26. operaCE from disk, on phase 25's corpus: the OPERA-CE checkpoint at
+     the registry's path is the seed-0 init with its BatchNorms calibrated
+     on 12 of the corpus's clips; cli.process with its config defaults
+     (operaCE, dim 1280, that checkpoint) and at dim 512, then
+     cli.linear_eval with its defaults (5 finite test AUROCs); the null
+     baseline (null-efficientnet, random weights) the same way; clips/s; no
+     launch of a repository kernel; the 12 clips' features on the card
+     against the same float32 graph on the CPU (TF32 off), per clip >=
+     0.99999 at both dims, after checking that two clips' features stand
+     further apart (cosine <= 0.999)
+ 27. operaCE training: cli.pretrain encoder=efficientnet
+     compute_dtype=bfloat16 (B=16, one epoch) from phase 25's COLA
+     manifest; 3 COLA steps of the bf16 path and of the strict f32 path
+     from the same weights and batches, on the card and the CPU (dropout
+     off): the root mean square of the card's |bf16 - f32| / f32 loss gaps
+     <= 1.25x the CPU's, the step-0 gradients by the ratio rule (the JAX package's own bf16
+     flow reads ~3e-2 of the loss from its f32 step, above the ROADMAP's
+     1e-3); COLA and fine-tuning step times; cli.finetune with its defaults
+     (operaCE, one seed, one epoch) and cli.eval_ckpts: the head's re-test
+     within 1e-6 of phase 26's seed 0, the fine-tuned model's float32
+     re-test finite; no repository kernel launched
+ 28. the baselines: cli.process pretrain=vggish and cli.linear_eval (5
+     finite AUROCs), 4 clips card vs CPU >= 0.99999; pretrain=opensmile
+     (host numpy): rows equal to the host functions', the provenance
+     sidecar native-emobase; one cli.finetune run (2 epochs, float32) each
+     of CLAP-2022, CLAP-2023 and HeAR: finite AUROCs, step ms, no
+     repository kernel launched
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -772,6 +799,7 @@ def phase_cp(smi: str, dev):
     import torch
 
     from heart_murmur_detection_tpu_torch.extract.registry import initialize_pretrained_model
+    from heart_murmur_detection_tpu_torch.models import bn as bn_mod
     from heart_murmur_detection_tpu_torch.models.htsat_train_fused import _block_params
     from heart_murmur_detection_tpu_torch.ops.swin_train import fused_swin_block_train
     from heart_murmur_detection_tpu_torch.pretrain import cola_training as ct
@@ -828,7 +856,7 @@ def phase_cp(smi: str, dev):
             loss, _, stats = ct.forward_backward(model, x1, x2, gen, mm_dtype, impl, 0.1)
             grads.append({q: w.grad.detach().clone() for q, w in model.named_parameters()})
             opt.step()
-            ct.set_bn0_stats(model, stats)
+            bn_mod.commit(stats)
             losses.append(float(loss.detach()))
         return losses, grads, states
 
@@ -2802,10 +2830,11 @@ def phase_clap(smi: str):
 LOOP_PATIENTS = 40
 
 
-def phase_loop(smi: str):
+def phase_loop(smi: str, root: str):
     """Phase 25: CP data preparation, continued pretraining, the probe,
     fine-tuning, checkpoint re-evaluation and the significance test, each
-    through its entry point in one working directory. A synthetic CirCor
+    through its entry point in one working directory (root, which phases
+    26-28 go on using). A synthetic CirCor
     corpus through cli.process (operaCT, clap2023); pretrain/prepare.py
     writes the COLA and Audio-MAE manifests (their counts: the valid train +
     val clips); cli.pretrain takes a COLA epoch from the port's manifest on
@@ -2825,59 +2854,58 @@ def phase_loop(smi: str):
 
     cwd = os.getcwd()
     fdir = "feature/circor_eval/"
-    with tempfile.TemporaryDirectory() as root:
-        n_clips = write_circor(root, LOOP_PATIENTS, seed=SEED + 25)
-        os.chdir(root)
-        try:
-            t0 = time.time()
-            process.main(["dataset=circor", "pretrain=operaCT", "dim=768", "random_init=True",
-                          "source_sr=4000"])
-            process.main(["dataset=circor", "pretrain=clap2023", "random_init=True"])
-            proc_s = time.time() - t0
-            split = np.load(fdir + "train_test_split.npy")
-            tv = [str(f) for f, s in zip(np.load(fdir + "sound_dir_loc.npy"), split)
-                  if s in ("train", "val")]
-            want_cola = sum(pipelines.get_entire_signal(f, input_sec=8) is not None for f in tv)
-            t0 = time.time()
-            n_cola = prepare.preprocess_spectrogram_ssl(fdir, input_sec=8)
-            n_mae = prepare.preprocess_spectrogram_ssl_audiomae(fdir, input_sec=10)
-            prep_s = time.time() - t0
-            _require(n_cola == want_cola and n_mae == len(tv),
-                     f"prepared {n_cola} COLA / {n_mae} Audio-MAE clips of {len(tv)} train + val "
-                     f"({want_cola} of them at least 8 s after trimming)")
+    n_clips = write_circor(root, LOOP_PATIENTS, seed=SEED + 25)
+    os.chdir(root)
+    try:
+        t0 = time.time()
+        process.main(["dataset=circor", "pretrain=operaCT", "dim=768", "random_init=True",
+                      "source_sr=4000"])
+        process.main(["dataset=circor", "pretrain=clap2023", "random_init=True"])
+        proc_s = time.time() - t0
+        split = np.load(fdir + "train_test_split.npy")
+        tv = [str(f) for f, s in zip(np.load(fdir + "sound_dir_loc.npy"), split)
+              if s in ("train", "val")]
+        want_cola = sum(pipelines.get_entire_signal(f, input_sec=8) is not None for f in tv)
+        t0 = time.time()
+        n_cola = prepare.preprocess_spectrogram_ssl(fdir, input_sec=8)
+        n_mae = prepare.preprocess_spectrogram_ssl_audiomae(fdir, input_sec=10)
+        prep_s = time.time() - t0
+        _require(n_cola == want_cola and n_mae == len(tv),
+                 f"prepared {n_cola} COLA / {n_mae} Audio-MAE clips of {len(tv)} train + val "
+                 f"({want_cola} of them at least 8 s after trimming)")
 
-            _reset_counts()  # just before the CP path
-            t0 = time.time()
-            ((_, history, _),) = pretrain.main([
-                "encoder=htsat", "method=cola", "compute_dtype=bfloat16", "batch_size=16",
-                "epoches=1", "seed=0", "title=loop", "device=cuda", "circor=True"])
-            cp_s = time.time() - t0
-            cp_counts = _all_counts()
-            loss, steps = history[0]["train_loss"], history[0]["steps"]
-            _require(np.isfinite(loss) and cp_counts["swin_attn_bwd"] > 0
-                     and cp_counts["swin_mlp_bwd"] > 0,
-                     f"COLA CP from the port's manifest: {history[0]}, launches {cp_counts}")
+        _reset_counts()  # just before the CP path
+        t0 = time.time()
+        ((_, history, _),) = pretrain.main([
+            "encoder=htsat", "method=cola", "compute_dtype=bfloat16", "batch_size=16",
+            "epoches=1", "seed=0", "title=loop", "device=cuda", "circor=True"])
+        cp_s = time.time() - t0
+        cp_counts = _all_counts()
+        loss, steps = history[0]["train_loss"], history[0]["steps"]
+        _require(np.isfinite(loss) and cp_counts["swin_attn_bwd"] > 0
+                 and cp_counts["swin_mlp_bwd"] > 0,
+                 f"COLA CP from the port's manifest: {history[0]}, launches {cp_counts}")
 
-            t0 = time.time()
-            ((lp,),) = linear_eval.main(["task=circor_murmurs", "pretrain=operaCT", "dim=768",
-                                         "n_run=1"])
-            ((ft,),) = finetune.main(["task=circor_murmurs", "pretrain=operaCT",
-                                      "compute_dtype=bfloat16", "random_init=True", "n_run=1",
-                                      "epochs=1", "device=cuda"])
-            train_s = time.time() - t0
-            t0 = time.time()
-            ((re_lp,),) = eval_ckpts.main(["task=circor_murmurs", "pretrain=operaCT768",
-                                           "head_only=True", "loss=weighted", "n_run=1"])
-            ((re_ft,),) = eval_ckpts.main(["task=circor_murmurs", "pretrain=operaCT",
-                                           "head_only=False", "loss=weighted", "batch_size=64",
-                                           "epochs=1", "n_run=1"])
-            eval_s = time.time() - t0
-            t0 = time.time()
-            s1, s2, (t, pv, _) = significance.main(["model1=operaCT", "dim1=768",
-                                                    "model2=clap2023"])
-            sig_s = time.time() - t0
-        finally:
-            os.chdir(cwd)
+        t0 = time.time()
+        ((lp,),) = linear_eval.main(["task=circor_murmurs", "pretrain=operaCT", "dim=768",
+                                     "n_run=1"])
+        ((ft,),) = finetune.main(["task=circor_murmurs", "pretrain=operaCT",
+                                  "compute_dtype=bfloat16", "random_init=True", "n_run=1",
+                                  "epochs=1", "device=cuda"])
+        train_s = time.time() - t0
+        t0 = time.time()
+        ((re_lp,),) = eval_ckpts.main(["task=circor_murmurs", "pretrain=operaCT768",
+                                       "head_only=True", "loss=weighted", "n_run=1"])
+        ((re_ft,),) = eval_ckpts.main(["task=circor_murmurs", "pretrain=operaCT",
+                                       "head_only=False", "loss=weighted", "batch_size=64",
+                                       "epochs=1", "n_run=1"])
+        eval_s = time.time() - t0
+        t0 = time.time()
+        s1, s2, (t, pv, _) = significance.main(["model1=operaCT", "dim1=768",
+                                                "model2=clap2023"])
+        sig_s = time.time() - t0
+    finally:
+        os.chdir(cwd)
     _require(abs(re_lp - lp) <= 1e-6, f"re-evaluated head AUROC {re_lp} vs trained {lp}")
     _require(np.isfinite(re_ft), f"re-evaluated fine-tuned AUROC {re_ft}")
     _require(len(s1) == len(s2) == 5 and bool(np.isfinite(s1 + s2).all())
@@ -2894,6 +2922,428 @@ def phase_loop(smi: str):
           f"cli.significance operaCT vs clap2023 in {sig_s:.1f} s: "
           + " ".join(f"{a:.4f}" for a in s1) + " vs " + " ".join(f"{a:.4f}" for a in s2)
           + f", t {t:.4f}, p {pv:.4g}; {smi}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 26-28: the rest of the encoder zoo (no kernel of the repository:
+# cuDNN and torch on the card, host numpy for openSMILE)
+# ---------------------------------------------------------------------------
+
+ZOO_BAR = 0.99999  # card vs CPU, the same float32 graph (TF32 off), per clip
+# Two different clips' features must be farther apart than this (cosine) for
+# ZOO_BAR to tell a right card path from one that gives the wrong features:
+# 100 times the bar's own distance from 1.
+ZOO_APART = 1 - 100 * (1 - ZOO_BAR)
+# The EfficientNet's bf16 COLA steps against strict f32 from the same weights.
+# On a random init its bf16 step is far from its f32 step in the JAX package
+# too: about 3e-2 of the loss and a median gradient-leaf cosine of 0.98 on
+# the batch of tests/test_torch_efficientnet.py::
+# test_bf16_cola_step_stays_in_the_jax_class, which holds the port's bf16
+# flow within twice the JAX package's distance on the CPU. On the card the
+# two flows are held by the ratio rule of ROADMAP's precision classes, with
+# float32 the reference of both bf16 flows and the same two graphs on the
+# CPU the yardstick: over 3 steps, each of both flows taken from the same
+# weights, the root mean square over the steps of the card's relative loss
+# gap |bf16 - f32| / f32 no more than F32_RATIO_MEDIAN times the CPU's
+# (floored at CE_LOSS_GAP_FLOOR), and the step-0 gradients' median over
+# leaves of the (1 - cos) ratio card / CPU <= F32_RATIO_MEDIAN. A step's
+# gap is not held to the CPU's one by one: at these weights the bf16 loss
+# moves by a few 1e-2 with the rounding (the card's and the CPU's bf16
+# losses of one step differ by up to 1.8e-2 of the loss, their f32 losses
+# agree), so only its size over the steps is a property of the flow.
+CE_LOSS_GAP_FLOOR = 1e-3
+
+
+def _zero_launches(what: str, counts: dict):
+    _require(not any(counts.values()), f"{what} launched repository kernels: {counts}")
+
+
+def _calibrated_operace_ckpt(files: list, path: str) -> float:
+    """The registry's seed-0 Cola(efficientnet) with every BatchNorm's
+    running statistics set to those of the clips' mels (one train-mode pass
+    on the card at momentum 0, drop-connect off), saved as a reference-layout
+    checkpoint at path. At a random init with unit running statistics the
+    EfficientNet's eval features are the running means' offsets and hardly
+    depend on the input (tests/test_torch_efficientnet.py); calibrated, they
+    do. -> seconds taken."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.audio import dsp
+    from heart_murmur_detection_tpu_torch.extract.extract import FeatureExtractor
+    from heart_murmur_detection_tpu_torch.models import bn as bn_mod
+    from heart_murmur_detection_tpu_torch.models import efficientnet as eff
+    from heart_murmur_detection_tpu_torch.utils.precision import strict_f32
+
+    t0 = time.time()
+    ex = FeatureExtractor("operaCE", random_init=True, seed=0, device="cuda")
+    wav, lengths = dsp.pad_batch([ex._clip_waveform(f) for f in files])
+    mel, _ = dsp.mel_frontend(torch.from_numpy(wav).cuda(), torch.from_numpy(lengths).cuda())
+    model, stats = ex.model, {}
+    blocks = model.encoder.efficientnet._blocks
+    drops = [blk.drop for blk in blocks]
+    keep, eff.BN_MOMENTUM = eff.BN_MOMENTUM, 0.0
+    try:
+        for blk in blocks:
+            blk.drop = 0.0
+        with torch.no_grad(), strict_f32():
+            model.encoder(mel, stats=stats)
+    finally:
+        eff.BN_MOMENTUM = keep
+        for blk, d in zip(blocks, drops):
+            blk.drop = d
+    bn_mod.commit(stats)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()}}, path)
+    return time.time() - t0
+
+
+def phase_operace(smi: str, root: str) -> list:
+    """Phase 26: operaCE from disk on phase 25's corpus. The OPERA-CE
+    checkpoint at the registry's path is the seed-0 init with its
+    BatchNorms calibrated on 12 of the corpus's clips
+    (_calibrated_operace_ckpt). cli.process with its config defaults
+    (pretrain operaCE, dim 1280, that checkpoint) and at dim 512, then
+    cli.linear_eval with its defaults (5 seeds); the null baseline
+    (null-efficientnet, random weights) the same way; no launch of a
+    repository kernel; the 12 clips' features on the card against the same
+    float32 graph on the CPU (TF32 off) at both dims, after checking that
+    the clips' features differ from each other far beyond the bar. Returns
+    the 5 probe AUROCs."""
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.cli import linear_eval, process
+    from heart_murmur_detection_tpu_torch.extract.extract import FeatureExtractor
+    from heart_murmur_detection_tpu_torch.extract.registry import (
+        ENCODER_PATH_OPERA_CE_EFFICIENTNET)
+
+    fdir = "feature/circor_eval/"
+    ckpt = os.path.join(root, ENCODER_PATH_OPERA_CE_EFFICIENTNET)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        n = len(np.load(fdir + "sound_dir_loc.npy"))
+        files = [os.path.join(root, str(f)) for f in np.load(fdir + "sound_dir_loc.npy")][:12]
+        cal_s = _calibrated_operace_ckpt(files, ckpt)
+        outs, secs = {}, {}
+        _reset_counts()  # just before the operaCE path
+        for dim in (1280, 512):
+            t0 = time.time()
+            (outs[dim],) = process.main(["dataset=circor"] + ([] if dim == 1280 else ["dim=512"]))
+            secs[dim] = time.time() - t0
+        t0 = time.time()
+        ((*scores,),) = linear_eval.main(["task=circor_murmurs"])
+        lp_s = time.time() - t0
+        t0 = time.time()
+        (null_out,) = process.main(["dataset=circor", "pretrain=null-efficientnet",
+                                    "random_init=True"])
+        null_s = time.time() - t0
+        ((*null_scores,),) = linear_eval.main(["task=circor_murmurs",
+                                               "pretrain=null-efficientnet"])
+        counts = _all_counts()
+        feats = {dim: np.load(outs[dim]) for dim in outs}
+    finally:
+        os.chdir(cwd)
+    for dim, out in outs.items():
+        _require(out.endswith(f"operaCE{dim}_feature.npy") and feats[dim].shape == (n, dim)
+                 and bool(np.isfinite(feats[dim]).all()), f"operaCE{dim} features {out}")
+    _require(null_out.endswith("null-efficientnet1280_feature.npy"), f"null features {null_out}")
+    _zero_launches("operaCE extraction and probes", counts)
+    for name, sc in (("operaCE1280", scores), ("null-efficientnet1280", null_scores)):
+        _require(len(sc) == 5 and bool(np.isfinite(sc).all()), f"{name} test AUROCs {sc}")
+    print(f"[operaCE] checkpoint calibrated on 12 clips in {cal_s:.1f} s; cli.process "
+          f"dataset=circor (config defaults: pretrain operaCE, dim 1280, that checkpoint): {n} clips in {secs[1280]:.1f} s = {n / secs[1280]:.1f} clips/s "
+          f"(16 kHz host path, every batch padded to the longest clip, the EfficientNet in "
+          f"float32 on cuDNN); dim=512 {secs[512]:.1f} s = {n / secs[512]:.1f} clips/s; "
+          f"null-efficientnet {null_s:.1f} s; repository kernel launches {sum(counts.values())}; "
+          f"cli.linear_eval defaults (5 seeds) in {lp_s:.1f} s: test AUROC "
+          + " ".join(f"{a:.4f}" for a in scores) + f"; null-efficientnet "
+          + " ".join(f"{a:.4f}" for a in null_scores) + f"; {smi}", flush=True)
+    for dim in (1280, 512):
+        kw = dict(dim=dim, batch_size=16, ckpt_path=ckpt, pad0=True)
+        card = FeatureExtractor("operaCE", device="cuda", **kw).extract_files(files)
+        cpu = FeatureExtractor("operaCE", device="cpu", **kw).extract_files(files)
+        # the bar can only fail a card path that gives another clip's (or a
+        # wrongly framed clip's) features if the clips' features are far
+        # apart: the closest two clips on the CPU stand well below it
+        between = _per_clip_cos(np.repeat(cpu, len(cpu), 0), np.tile(cpu, (len(cpu), 1)))
+        apart = float(between.reshape(len(cpu), len(cpu))[~np.eye(len(cpu), dtype=bool)].max())
+        c = float(_per_clip_cos(card, cpu).min())
+        cc = float(_per_clip_cos(card - card.mean(0), cpu - cpu.mean(0)).min())
+        print(f"[operaCE] dim {dim}: {len(files)} clips' features on the card vs the same float32 "
+              f"graph on the CPU (TF32 off), per-clip cosine min {c:.8f} (bar {ZOO_BAR}), of the "
+              f"features less their mean over clips {cc:.8f}; the closest two clips' cosine on "
+              f"the CPU {apart:.6f} (bar {ZOO_APART:.6g})", flush=True)
+        _require(apart <= ZOO_APART, f"operaCE{dim} clips' features barely differ: {apart}")
+        _require(c >= ZOO_BAR, f"operaCE{dim} card vs CPU cosine {c}")
+    return list(scores)
+
+
+def phase_operace_train(smi: str, root: str, dev, probe_scores: list):
+    """Phase 27: operaCE training. cli.pretrain encoder=efficientnet
+    compute_dtype=bfloat16 (B=16, one epoch) from phase 25's COLA manifest;
+    3 steps of the bf16 path against the strict f32 path from the same
+    weights, batches and generator (the bf16 path takes each step from the
+    f32 path's weights), with dropout at 0.1 on the card (information) and
+    without on the card and the CPU (the gate: the loss gaps and the step-0
+    gradients of the two devices); the COLA and fine-tuning step times; cli.finetune
+    with its defaults (operaCE, one seed, one epoch, float32) and
+    cli.eval_ckpts of the probe head (within 1e-6 of phase 26's seed 0) and
+    of the fine-tuned model (finite). No launch of a repository kernel."""
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.cli import eval_ckpts, finetune, pretrain
+    from heart_murmur_detection_tpu_torch.extract.registry import initialize_pretrained_model
+    from heart_murmur_detection_tpu_torch.models import bn as bn_mod
+    from heart_murmur_detection_tpu_torch.pretrain import cola_training as ct
+    from heart_murmur_detection_tpu_torch.pretrain import steps
+    from heart_murmur_detection_tpu_torch.pretrain.data import (
+        OPTIMAL_MAX_LEN_COLA, MultiCorpusSampler, load_corpus)
+    from heart_murmur_detection_tpu_torch.train import finetune as ft
+    from heart_murmur_detection_tpu_torch.train.linear_eval import ClippedAdam
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _reset_counts()  # just before the operaCE training paths
+        t0 = time.time()
+        ((_, history, _),) = pretrain.main([
+            "encoder=efficientnet", "method=cola", "compute_dtype=bfloat16", "batch_size=16",
+            "epoches=1", "seed=0", "title=ce", "device=cuda", "circor=True"])
+        cp_s = time.time() - t0
+        t0 = time.time()
+        ((ft_auc,),) = finetune.main(["task=circor_murmurs", "random_init=True", "n_run=1",
+                                      "epochs=1"])
+        ft_s = time.time() - t0
+        t0 = time.time()
+        ((re_lp,),) = eval_ckpts.main(["task=circor_murmurs", "pretrain=operaCE1280",
+                                       "head_only=True", "loss=weighted", "n_run=1"])
+        ((re_ft,),) = eval_ckpts.main(["task=circor_murmurs", "head_only=False",
+                                       "loss=weighted", "batch_size=64", "epochs=1", "n_run=1"])
+        eval_s = time.time() - t0
+        counts = _all_counts()
+        corpus = load_corpus("circor", OPTIMAL_MAX_LEN_COLA["circor"])
+        spec = np.load("feature/circor_eval/spectrogram_pad8.npy")
+    finally:
+        os.chdir(cwd)
+    h = history[0]
+    _require(all(math.isfinite(h[q]) for q in ("train_loss", "valid_loss")), f"CE CP {h}")
+    _zero_launches("operaCE CP, fine-tuning and re-tests", counts)
+    _require(abs(re_lp - probe_scores[0]) <= 1e-6,
+             f"re-evaluated operaCE1280 head AUROC {re_lp} vs trained {probe_scores[0]}")
+    _require(math.isfinite(ft_auc) and math.isfinite(re_ft), f"fine-tuned {ft_auc}, re-test {re_ft}")
+    print(f"[operaCE train] cli.pretrain encoder=efficientnet compute_dtype=bfloat16 B=16, one "
+          f"epoch from phase 25's manifest: {h['steps']} steps, {h['pairs']} pairs in "
+          f"{h['train_seconds']:.2f} s (first step included), train loss {h['train_loss']:.4f} "
+          f"valid {h['valid_loss']:.4f}, {cp_s:.1f} s all told; cli.finetune defaults (operaCE, "
+          f"float32, 1 epoch) test AUROC {ft_auc:.6f} in {ft_s:.1f} s; cli.eval_ckpts "
+          f"head_only=True {re_lp:.6f} vs trained {probe_scores[0]:.6f} (|diff| "
+          f"{abs(re_lp - probe_scores[0]):.1e}, bar 1e-6), the fine-tuned model's float32 "
+          f"re-test {re_ft:.6f}, in {eval_s:.1f} s; repository kernel launches "
+          f"{sum(counts.values())}; {smi}", flush=True)
+
+    sampler = MultiCorpusSampler([corpus], 16, seed=SEED + 27)
+    batches = [tuple(torch.from_numpy(v).to(dev) for v in sampler.next_batch()[1])
+               for _ in range(3)]
+    base = initialize_pretrained_model("operaCE", random_init=True, seed=SEED).to(dev).train()
+
+    def no_drop(model):
+        """Dropout's rate is forward_backward's; drop-connect's is the blocks'."""
+        for blk in model.encoder.efficientnet._blocks:
+            blk.drop = 0.0
+        return model
+
+    def run(mm_dtype, weights=None, p_drop=0.1, n_steps=3, device=dev):
+        """Losses and gradients of n_steps steps on device; with `weights`,
+        each step starts from weights[i]."""
+        model = copy.deepcopy(base) if p_drop else no_drop(copy.deepcopy(base))
+        model.to(device)
+        opt = steps.adam_with_epoch_decay(list(model.parameters()), 5)
+        gen = torch.Generator(device=device).manual_seed(SEED + 27)
+        losses, grads, states = [], [], []
+        for i, (x1, x2) in enumerate(batches[:n_steps]):
+            if weights is not None:
+                model.load_state_dict(weights[i])
+            states.append(copy.deepcopy(model.state_dict()))
+            opt.zero_grad()
+            loss, _, stats = ct.forward_backward(model, x1.to(device), x2.to(device), gen,
+                                                 mm_dtype, "autograd", p_drop)
+            grads.append({q: w.grad.detach().float().cpu().clone()
+                          for q, w in model.named_parameters()})
+            opt.step()
+            bn_mod.commit(stats)
+            losses.append(float(loss))
+        return losses, grads, states
+
+    # with dropout and drop-connect at the protocol's 0.1 (information)
+    lf, _, wf = run(torch.float32)
+    lb, _, _ = run(torch.bfloat16, weights=wf)
+    # the gate: dropout and drop-connect off (deterministic), every step of
+    # both flows on both devices from the card's f32 path's weights, so that
+    # the four losses of a step share weights and batch
+    lf0, (gf, *_), wf0 = run(torch.float32, p_drop=0.0)
+    lb0, (gb, *_), _ = run(torch.bfloat16, weights=wf0, p_drop=0.0)
+    lfh, (gfh, *_), _ = run(torch.float32, weights=wf0, p_drop=0.0, device="cpu")
+    lbh, (gbh, *_), _ = run(torch.bfloat16, weights=wf0, p_drop=0.0, device="cpu")
+    rel = [abs(a - b) / abs(b) for a, b in zip(lb, lf)]
+    gap = [(a - b) / abs(b) for a, b in zip(lb0, lf0)]
+    gap_h = [(a - b) / abs(b) for a, b in zip(lbh, lfh)]
+    rms = lambda v: math.sqrt(sum(x * x for x in v) / len(v))
+    gap_r = rms(gap) / max(rms(gap_h), CE_LOSS_GAP_FLOOR)
+    cos = {q: _cos(gb[q], gf[q]) for q in gf if float(gf[q].norm()) > 0}
+    cos_h = {q: _cos(gbh[q], gfh[q]) for q in cos}
+    ratio = {q: (1 - cos[q]) / max(1 - cos_h[q], 1e-7) for q in cos}
+    vals = sorted(cos.values())
+    med, lo = vals[len(vals) // 2], min(cos, key=cos.get)
+    med_h = sorted(cos_h.values())[len(cos_h) // 2]
+    med_r = sorted(ratio.values())[len(ratio) // 2]
+    print(f"[operaCE train] 3 COLA steps B=16 x {batches[0][0].shape[1]} frames, the bf16 path "
+          f"(bf16 convolutions, float32 BatchNorms) each from the strict f32 path's weights, same "
+          f"batches and generator, dropout and drop-connect 0.1: losses bf16 "
+          f"{[round(v, 5) for v in lb]} f32 {[round(v, 5) for v in lf]}, max rel diff "
+          f"{max(rel):.4g} (information: the ROADMAP's 1e-3 is under the JAX package's own "
+          f"bf16-vs-f32 class here); dropout and drop-connect off, the same graphs on the card and "
+          f"the CPU from the card's f32 weights: (bf16 - f32) / f32 loss card "
+          f"{[round(v, 6) for v in gap]} CPU {[round(v, 6) for v in gap_h]} (f32 losses card "
+          f"{[round(v, 5) for v in lf0]} CPU {[round(v, 5) for v in lfh]}), root mean square "
+          f"card {rms(gap):.6f} / CPU {rms(gap_h):.6f} = {gap_r:.3f} (bar {F32_RATIO_MEDIAN}); "
+          f"step-0 gradient cosines bf16 vs f32 over {len(cos)} "
+          f"leaves: card median {med:.6f}, min {cos[lo]:.6f} ({lo}), "
+          f"{sum(v < GRAD_FLOOR for v in vals)} under {GRAD_FLOOR}; CPU median {med_h:.6f}; "
+          f"(1 - cos) card / CPU median {med_r:.3f} (bar {F32_RATIO_MEDIAN})", flush=True)
+    _require(gap_r <= F32_RATIO_MEDIAN,
+             f"CE bf16 - f32 loss gaps card {gap} vs CPU {gap_h}: rms ratio {gap_r}")
+    _require(med_r <= F32_RATIO_MEDIAN,
+             f"CE bf16 step-0 gradients: median (1 - cos) ratio card / CPU {med_r}")
+
+    # step times: COLA at the smoke's B=16 and the protocol's B=64 (circor's
+    # 251-frame crops); fine-tuning at the protocol's B=64 of (256, 64) mels
+    times = []
+    for B in (16, 64):
+        x1, x2 = (torch.from_numpy(v).to(dev)
+                  for v in MultiCorpusSampler([corpus], B, seed=SEED + 28).next_batch()[1])
+        for mm in (torch.bfloat16, torch.float32):
+            model = copy.deepcopy(base)
+            opt = steps.adam_with_epoch_decay(list(model.parameters()), 5)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+            ms = _time_ms(lambda: ct.train_step(model, opt, x1, x2, gen, mm, "autograd", 0.1),
+                          iters=5, warm=2)
+            times.append(f"B={x1.shape[0]} {str(mm)[6:]} {ms:.2f} ms")
+            del model, opt
+    xb = torch.from_numpy(np.resize(spec, (64,) + spec.shape[1:]).astype(np.float32)).to(dev)
+    yb = torch.zeros(64, dtype=torch.int64, device=dev)
+    yb[::2] = 1
+    valid, cw = torch.ones(64, device=dev), torch.ones(2, device=dev)
+    for mm in (torch.float32, torch.bfloat16):
+        m = ft.EncoderClassifier("efficientnet", 2, "linear", 1280,
+                                 generator=torch.Generator().manual_seed(SEED)).to(dev).train()
+        opt = ClippedAdam(list(m.parameters()), 3, 1e-4, 0.99, 1.0)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        ms = _time_ms(lambda: ft.train_step(m, opt, xb, yb, valid, cw, gen, mm, "autograd", 1e-4),
+                      iters=5, warm=2)
+        times.append(f"fine-tuning B=64 x 256 frames {str(mm)[6:]} {ms:.2f} ms")
+        del m, opt
+    print(f"[operaCE train] steady-state step times, {smi}: COLA "
+          + "; ".join(times), flush=True)
+
+
+def _timed_finetune(argv: list):
+    """cli.finetune with each train step timed (synchronised): (test AUROC,
+    step ms list, launches, seconds)."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.cli import finetune
+    from heart_murmur_detection_tpu_torch.train import finetune as ft
+
+    orig, ms = ft.train_step, []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ft.train_step = timed
+    _reset_counts()
+    t0 = time.time()
+    try:
+        ((auc,),) = finetune.main(argv)
+    finally:
+        ft.train_step = orig
+    return auc, ms, _all_counts(), time.time() - t0
+
+
+def phase_baselines(smi: str, root: str):
+    """Phase 28: the baselines on phase 25's corpus. cli.process
+    pretrain=vggish (random weights) and cli.linear_eval (5 seeds); 4
+    clips' VGGish features on the card against the CPU's float32 graph;
+    pretrain=opensmile (host numpy emobase): rows equal to the functions'
+    own on 3 files, the provenance sidecar native-emobase; one fine-tuning
+    run each of CLAP-2022, CLAP-2023 and HeAR through cli.finetune
+    (random_init, 2 epochs, float32): finite AUROCs, step times; no launch
+    of a repository kernel."""
+    import math
+
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.cli import linear_eval, process
+    from heart_murmur_detection_tpu_torch.models import vggish
+
+    fdir = "feature/circor_eval/"
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        n = len(np.load(fdir + "sound_dir_loc.npy"))
+        _reset_counts()  # just before the baselines' paths
+        t0 = time.time()
+        (vout,) = process.main(["dataset=circor", "pretrain=vggish", "random_init=True"])
+        v_s = time.time() - t0
+        ((*vscores,),) = linear_eval.main(["task=circor_murmurs", "pretrain=vggish"])
+        t0 = time.time()
+        (oout,) = process.main(["dataset=circor", "pretrain=opensmile"])
+        o_s = time.time() - t0
+        counts = _all_counts()
+        with open(fdir + "opensmile_feature.provenance.json") as f:
+            prov = json.load(f)
+        files = [os.path.join(root, str(f)) for f in np.load(fdir + "sound_dir_loc.npy")]
+        vfeat, ofeat = np.load(vout), np.load(oout)
+        runs = {}
+        for pretrain in ("clap", "clap2023", "hear"):
+            runs[pretrain] = _timed_finetune(["task=circor_murmurs", f"pretrain={pretrain}",
+                                              "random_init=True", "n_run=1", "epochs=2"])
+    finally:
+        os.chdir(cwd)
+    _require(vfeat.shape == (n, 128) and bool(np.isfinite(vfeat).all()), f"vggish {vfeat.shape}")
+    _require(ofeat.shape == (n, 988) and bool(np.isfinite(ofeat).all()), f"opensmile {ofeat.shape}")
+    _require(len(vscores) == 5 and bool(np.isfinite(vscores).all()), f"vggish AUROCs {vscores}")
+    _require(prov == {"impl": "native-emobase"}, f"opensmile provenance {prov}")
+    _zero_launches("vggish and opensmile", counts)
+    cpu = vggish.extract_vgg_feature(files[:4], random_init=True, device="cpu")
+    cv = float(_per_clip_cos(vfeat[:4], cpu).min())
+    same = all(np.array_equal(ofeat[i], np.asarray(vggish.extract_opensmile_features(files[i]))
+                              .reshape(-1)) for i in range(3))
+    print(f"[baselines] cli.process pretrain=vggish random_init=True: {n} clips in {v_s:.1f} s = "
+          f"{n / v_s:.1f} clips/s (host framing at 16 kHz, the network in float32 on cuDNN); "
+          f"cli.linear_eval pretrain=vggish (5 seeds): test AUROC "
+          + " ".join(f"{a:.4f}" for a in vscores)
+          + f"; 4 clips card vs CPU per-clip cosine min {cv:.8f} (bar {ZOO_BAR}); "
+          f"pretrain=opensmile (host numpy emobase, {prov['impl']}): {n} clips in {o_s:.1f} s = "
+          f"{n / o_s:.1f} clips/s, 3 files' rows equal to the functions' own: {same}; "
+          f"repository kernel launches {sum(counts.values())}; {smi}", flush=True)
+    _require(cv >= ZOO_BAR, f"vggish card vs CPU cosine {cv}")
+    _require(same, "opensmile features differ from the host functions'")
+    for pretrain, (auc, ms, c, secs) in runs.items():
+        _zero_launches(f"cli.finetune pretrain={pretrain}", c)
+        _require(math.isfinite(auc) and len(ms) >= 2, f"{pretrain} fine-tuning {auc}, steps {ms}")
+        print(f"[baselines] cli.finetune pretrain={pretrain} random_init=True (float32, 2 epochs): "
+              f"test AUROC {auc:.6f}, {len(ms)} steps, first {ms[0]:.1f} ms, then median "
+              f"{sorted(ms[1:])[len(ms[1:]) // 2]:.1f} ms/step, {secs:.1f} s with the cache and "
+              f"predictions; repository kernel launches {sum(c.values())}; {smi}", flush=True)
 
 
 def _entries(meas: dict, counts: dict, src: dict) -> list:
@@ -3027,7 +3477,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     clap_counts = phase_clap(smi)
     torch.cuda.empty_cache()
-    phase_loop(smi)
+    with tempfile.TemporaryDirectory() as root:
+        phase_loop(smi, root)
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        scores = phase_operace(smi, root)
+        phase_operace_train(smi, root, dev, scores)
+        torch.cuda.empty_cache()
+        phase_baselines(smi, root)
+        print(f"[zoo] phases 26-28 took {time.time() - t0:.1f} s", flush=True)
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths

@@ -10,11 +10,13 @@ Layer map (operaCT serving and COLA pretraining, operaGT / audiomae
 extraction):
   utils/    numpy WAV IO
   audio/    host pad/trim/split pipelines, wire formats, device DSP (torch:
-            mel, kaldi fbank, resize)
+            mel, kaldi fbank, resize), the host emobase functionals
   ops/      hand-written CUDA swin and ViT kernels (csrc/), their plain
             torch versions, the nvcc build and ctypes binding
   models/   HTS-AT (operaCT) and the MAE ViT encoders with reference
-            state_dict keys, the fused forwards routed through ops/, COLA
+            state_dict keys, the fused forwards routed through ops/, COLA;
+            the convolutional towers on cuDNN (EfficientNet-B0 of operaCE,
+            VGGish, CLAP-2022's Cnn14) with flax BatchNorm semantics
   extract/  weight conversion, model registry, batched FeatureExtractor
   pretrain/ COLA continued pretraining
   cli/      key=value config loader, the serving daemon, pretraining

@@ -4,8 +4,14 @@
 Usage:
   python -m heart_murmur_detection_tpu_torch.cli.finetune task=circor_murmurs pretrain=operaCT compute_dtype=bfloat16 random_init=True
 
-Reads configs/finetune_config.yaml (its default pretrain, operaCE, is not
-ported yet and raises NotImplementedError) and feature/<task>_eval/ in the
+  python -m heart_murmur_detection_tpu_torch.cli.finetune task=circor_murmurs n_run=1   # operaCE
+  python -m heart_murmur_detection_tpu_torch.cli.finetune task=circor_murmurs pretrain=clap2023 random_init=True
+
+Reads configs/finetune_config.yaml (its default pretrain is operaCE, the
+EfficientNet, whose checkpoint cks/model/encoder-operaCE.ckpt it loads
+unless random_init=True; pretrain=null starts it from random weights; clap,
+clap2023 and hear take an msclap / google/hear-pytorch state_dict through
+ckpt_path= or random_init=True) and feature/<task>_eval/ in the
 working directory (a processed heart task: sound_dir_loc, labels, split);
 caches the first-window spectrograms there, fine-tunes n_run seeds on the
 card (`device=cpu` runs on the CPU; `epochs=N` shortens the 64-epoch
@@ -52,6 +58,7 @@ def main(argv=None):
                 loss=cfg["loss"],
                 spec_augment=cfg["spec_augment"],
                 random_init=cfg.get("random_init", False),
+                ckpt_path=cfg.get("ckpt_path"),
                 compute_dtype=parse_compute_dtype(cfg),
                 device=cfg.get("device", "cuda"),
             )

@@ -4,6 +4,8 @@ heart_murmur_detection_tpu/cli/linear_eval.py (`route_heart_task` :21,
 
 Usage:
   python -m heart_murmur_detection_tpu_torch.cli.linear_eval task=circor_murmurs pretrain=operaCT dim=768 n_run=5
+  python -m heart_murmur_detection_tpu_torch.cli.linear_eval task=circor_murmurs   # operaCE1280
+  python -m heart_murmur_detection_tpu_torch.cli.linear_eval task=circor_murmurs pretrain=null-efficientnet
 
 Reads feature/<task>_eval/ in the working directory; the probe trains on the
 card, or on the CPU with `device=cpu`. Best heads land in

@@ -5,6 +5,8 @@ configs/pretrain_config.yaml.
 Usage:
   python -m heart_murmur_detection_tpu_torch.cli.pretrain encoder=htsat method=cola \\
       compute_dtype=bfloat16 circor=True physionet16=True title=operaCT-heart-all epoches=250
+  python -m heart_murmur_detection_tpu_torch.cli.pretrain encoder=efficientnet method=cola \\
+      compute_dtype=bfloat16 circor=True title=operaCE-heart-circor
   python -m heart_murmur_detection_tpu_torch.cli.pretrain method=audiomae \\
       compute_dtype=bfloat16 circor=True pascal_A=True title=audiomae-heart-all
   python -m heart_murmur_detection_tpu_torch.cli.pretrain method=mae \\
@@ -13,7 +15,8 @@ Usage:
   ... pretrain=operaCT ckpt_path=cks/model/encoder-operaCT.ckpt   # warm start
   ... pretrain=audiomae ckpt_path=src/benchmark/baseline/audioMAE/pretrained.pth
 
-Runs on one device (device=cuda by default). The corpora and their max_len
+The config's default encoder is the EfficientNet (OPERA-CE). Runs on one
+device (device=cuda by default). The corpora and their max_len
 follow the method: the COLA table, the MAE table (respiratory corpora), or
 1024 frames for every heart corpus with audiomae. The multi-device keys
 dp / tp / param_sharding are not ported and raise NotImplementedError.

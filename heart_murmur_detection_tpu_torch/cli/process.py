@@ -5,6 +5,15 @@ processors and FeatureExtractor.
 Usage:
   python -m heart_murmur_detection_tpu_torch.cli.process dataset=circor pretrain=operaCT dim=768 source_sr=4000
   python -m heart_murmur_detection_tpu_torch.cli.process dataset=pascal data=A pretrain=operaGT dim=384
+  python -m heart_murmur_detection_tpu_torch.cli.process dataset=circor   # the config: operaCE, dim 1280
+  python -m heart_murmur_detection_tpu_torch.cli.process dataset=circor pretrain=vggish random_init=True
+  python -m heart_murmur_detection_tpu_torch.cli.process dataset=circor pretrain=opensmile
+
+The config's default pretrain, operaCE, loads cks/model/encoder-operaCE.ckpt
+(random_init=True or pretrain=null for random weights) and saves
+operaCE1280_feature.npy; vggish (random weights with random_init: the
+repository has no VGGish checkpoint) and opensmile (host numpy emobase,
+with a provenance sidecar) save vggish_feature.npy / opensmile_feature.npy.
 
 Runs from the directory that holds datasets/ and writes feature/<task>_eval/.
 The extraction runs on the card; `device=cpu` runs it on the CPU.

@@ -16,8 +16,6 @@ import numpy as np
 
 from ..splits import train_test_split
 
-UNPORTED = ("vggish", "opensmile")  # baseline encoders not ported
-
 
 def save_json(feature_dir: str, name: str, mapping: Dict) -> None:
     os.makedirs(feature_dir, exist_ok=True)
@@ -62,28 +60,47 @@ def extract_and_save(
     models/hear.py::extract_hear_feature (2-s clips at 16 kHz), clap and
     clap2023 models/clap.py::extract_clap_feature (5-s / 7-s clips at
     44.1 kHz, the 2023 tower on the swin kernels on a card); their weights
-    are random with random_init, else loaded from ckpt_path. vggish and
-    opensmile are not ported and raise NotImplementedError."""
+    are random with random_init, else loaded from ckpt_path. vggish runs
+    models/vggish.py::extract_vgg_feature (0.96-s examples at 16 kHz, the
+    network in float32 on the device; random weights with random_init, as
+    the JAX package has no VGGish checkpoint path), opensmile the emobase
+    functionals of each file on the host (models/vggish.py::
+    extract_opensmile_features) and writes
+    opensmile_feature.provenance.json naming the implementation.
+    operaCE (and null / null-efficientnet) runs FeatureExtractor's
+    EfficientNet graph and saves operaCE1280_feature.npy or
+    operaCE512_feature.npy."""
     from ...extract.extract import FeatureExtractor
 
-    if pretrain in UNPORTED:
-        raise NotImplementedError(f"baseline encoder {pretrain!r} is not ported")
     sound_dir_loc = np.load(os.path.join(feature_dir, "sound_dir_loc.npy"))
-    if pretrain in ("hear", "clap", "clap2023"):
+    if pretrain in ("vggish", "hear", "clap", "clap2023", "opensmile"):
         paths = [str(f) for f in sound_dir_loc]
         kw = dict(ckpt_path=ckpt_path, random_init=random_init, batch_size=batch_size,
                   device=device)
-        if pretrain == "hear":
+        if pretrain == "vggish":
+            from ...models.vggish import extract_vgg_feature
+
+            feats = extract_vgg_feature(paths, random_init=random_init, device=device)
+        elif pretrain == "hear":
             from ...models.hear import extract_hear_feature
 
             feats = extract_hear_feature(paths, **kw)
-        else:
+        elif pretrain in ("clap", "clap2023"):
             from ...models.clap import extract_clap_feature
 
             feats = extract_clap_feature(
                 paths, version="2023" if pretrain == "clap2023" else "2022", **kw)
+        else:
+            from ...models.vggish import extract_opensmile_features, opensmile_impl
+
+            feats = np.stack([np.asarray(extract_opensmile_features(p)).reshape(-1)
+                              for p in paths])
+            # pip-opensmile and the native-emobase fallback are correlated but
+            # not bit-identical: record which one built this cache
+            with open(os.path.join(feature_dir, pretrain + "_feature.provenance.json"), "w") as f:
+                json.dump({"impl": opensmile_impl()}, f)
         out = os.path.join(feature_dir, pretrain + "_feature.npy")
-        np.save(out, feats)
+        np.save(out, np.asarray(feats))
         return out
     ex = FeatureExtractor(
         pretrain,

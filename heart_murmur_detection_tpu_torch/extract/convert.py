@@ -21,11 +21,14 @@ heart_murmur_detection_tpu/extract/convert.py.
   "bias"}} or {"fc1": ..., "fc2": ...}, numpy) -> the port's Head
   state_dict, kernels transposed.
 - `from_jax_classifier(variables, encoder_kind)`: a JAX fine-tuning
-  `EncoderClassifier`'s variables (params, and batch_stats for htsat) ->
-  the port's train/finetune.py::EncoderClassifier state_dict ("encoder.*",
-  "head.*"): htsat through from_jax, gt (params["encoder"]["mae"]) and
-  audiomae through from_jax_mae, the head through from_jax_head. A gradient
-  tree maps the same way.
+  `EncoderClassifier`'s variables (params, and batch_stats where the
+  encoder has BatchNorms) -> the port's train/finetune.py::EncoderClassifier
+  state_dict ("encoder.*", "head.*"): htsat through from_jax, gt
+  (params["encoder"]["mae"]) and audiomae through from_jax_mae,
+  efficientnet through from_jax_efficientnet, clap / clap2023 through
+  from_jax_clap (and the 2023 HTS-AT's tscam_conv, which the classifier
+  carries unread), hear through from_jax_hear, the head through
+  from_jax_head. A gradient tree maps the same way.
 - `from_jax_hear(variables)`: the JAX package's flax HeAREncoder variables
   -> the port's models/hear.py::HeAREncoder state_dict (the MAE encoder's
   mapping, plus the learned pos_embed and the pooler Dense).
@@ -43,6 +46,19 @@ heart_murmur_detection_tpu/extract/convert.py.
   file or the dict itself) whose audio tower sits under
   `clap.audio_encoder.`, `audio_encoder.` or `model.audio_encoder.` into
   the port's CLAPAudioEncoder by name.
+- `from_jax_efficientnet(variables)`: the JAX package's flax
+  Cola(efficientnet) variables -> the port's Cola(encoder="efficientnet")
+  state_dict (efficientnet-pytorch's names under encoder.cnn1 /
+  encoder.efficientnet, then [middle,] g, layer_norm, linear); the inverse
+  of the JAX `convert_cola_efficientnet`. A depthwise kernel (kh, kw, 1, C)
+  becomes (C, 1, kh, kw) as any other; the BatchNorms' flax
+  `_bn*/BatchNorm_0` scale / bias / mean / var become weight / bias /
+  running_mean / running_var. A gradient tree maps the same way.
+- `load_cola_efficientnet_ckpt(path_or_state_dict, model)`: a reference
+  OPERA-CE Cola(efficientnet) checkpoint into the port's Cola by name.
+- `from_jax_vggish(variables)`: the JAX package's flax VGGish variables ->
+  the port's models/vggish.py::VGGish state_dict (the same layer names; the
+  port flattens fc1_1's input in the flax NHWC order, so no row permutes).
 - `load_mae_ckpt(path, model)`: a reference OPERA-GT or Audio-MAE
   checkpoint into the port's model by key name: every key the model holds
   must be there (the decoder's too, for a model built with its decoder, as a
@@ -55,7 +71,7 @@ heart_murmur_detection_tpu/extract/convert.py.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -223,30 +239,45 @@ def load_hear_ckpt(path_or_state_dict: Union[str, Mapping], model: torch.nn.Modu
 
 
 def _bn_stats(sd, key, p, stats):
+    """A BatchNorm's params and, unless stats is None (a gradient tree),
+    its running statistics."""
     _norm(sd, key, p)
+    if stats is None:
+        return
     sd[key + ".running_mean"] = _t(stats["mean"])
     sd[key + ".running_var"] = _t(stats["var"])
     sd[key + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
+def _conv_w(sd, key, p):
+    """flax Conv kernel (kh, kw, in / groups, out) -> (out, in / groups,
+    kh, kw), and its bias if it has one."""
+    sd[key + ".weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[key + ".bias"] = _t(p["bias"])
+
+
 def from_jax_clap(variables: dict, version: str = "2023") -> Dict[str, torch.Tensor]:
     """flax CLAPAudioEncoder variables -> state_dict of
     models.clap.CLAPAudioEncoder(CLAPConfig(version))."""
-    params, stats = variables["params"], variables["batch_stats"]
-    base, bstats = params["base"], stats["base"]
+    params = variables["params"]
+    base = params["base"]
+    bstats = variables["batch_stats"]["base"] if "batch_stats" in variables else None
     if version == "2023":
-        sd = {"base.htsat." + k[len(HTSAT_PREFIX):]: v for k, v in from_jax(
-            {"params": {"encoder": base}, "batch_stats": {"encoder": bstats}}).items()}
+        inner = {"params": {"encoder": base}}
+        if bstats is not None:
+            inner["batch_stats"] = {"encoder": bstats}
+        sd = {"base.htsat." + k[len(HTSAT_PREFIX):]: v for k, v in from_jax(inner).items()}
     else:
         sd = {}
-        _bn_stats(sd, "base.bn0", base["bn0"], bstats["bn0"])
+        _bn_stats(sd, "base.bn0", base["bn0"], bstats and bstats["bn0"])
         for name in sorted(base):
             if not name.startswith("conv_block"):
                 continue
             for j in (1, 2):
-                k = np.asarray(base[name][f"conv{j}"]["kernel"])  # (kh, kw, in, out)
-                sd[f"base.{name}.conv{j}.weight"] = _t(k.transpose(3, 2, 0, 1))
-                _bn_stats(sd, f"base.{name}.bn{j}", base[name][f"bn{j}"], bstats[name][f"bn{j}"])
+                _conv_w(sd, f"base.{name}.conv{j}", base[name][f"conv{j}"])
+                _bn_stats(sd, f"base.{name}.bn{j}", base[name][f"bn{j}"],
+                          bstats and bstats[name][f"bn{j}"])
         _linear(sd, "base.fc1", base["fc1"])
         _linear(sd, "base.fc_audioset", base["fc_audioset"])
     proj = params["projection"]
@@ -285,6 +316,82 @@ def load_clap_ckpt(path_or_state_dict: Union[str, Mapping], version: str = "2023
         raise KeyError(f"the CLAP checkpoint lacks {len(missing)} keys, e.g. {missing[:3]}")
     model.load_state_dict({k: torch.as_tensor(sub[k]) for k in own})
     return model
+
+
+def _efficientnet_sd(enc: dict, stats: Optional[dict]) -> Dict[str, torch.Tensor]:
+    """A flax ColaEfficientNetEncoder subtree ({"cnn1", "efficientnet"})
+    and its batch_stats (None for a gradient tree) -> the port's
+    ColaEfficientNetEncoder state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_w(sd, "cnn1", enc["cnn1"])
+    net = enc["efficientnet"]
+    nst = stats["efficientnet"] if stats is not None else None
+
+    def bn(key, tree, st):
+        _bn_stats(sd, key, tree["BatchNorm_0"], st and st["BatchNorm_0"])
+
+    e = "efficientnet."
+    _conv_w(sd, e + "_conv_stem", net["_conv_stem"])
+    bn(e + "_bn0", net["_bn0"], nst and nst["_bn0"])
+    blocks = sorted(int(m[1]) for n in net if (m := re.fullmatch(r"_blocks_(\d+)", n)))
+    for i in blocks:
+        blk, bst, tp = net[f"_blocks_{i}"], nst and nst[f"_blocks_{i}"], f"{e}_blocks.{i}."
+        for conv in ("_expand_conv", "_depthwise_conv", "_se_reduce", "_se_expand",
+                     "_project_conv"):
+            if conv in blk:
+                _conv_w(sd, tp + conv, blk[conv])
+        for norm in ("_bn0", "_bn1", "_bn2"):
+            if norm in blk:
+                bn(tp + norm, blk[norm], bst and bst[norm])
+    _conv_w(sd, e + "_conv_head", net["_conv_head"])
+    bn(e + "_bn1", net["_bn1"], nst and nst["_bn1"])
+    return sd
+
+
+def from_jax_efficientnet(variables: dict) -> Dict[str, torch.Tensor]:
+    """flax Cola(efficientnet) variables -> state_dict of
+    models.cola.Cola(encoder="efficientnet")."""
+    params = variables["params"]
+    stats = variables["batch_stats"]["encoder"] if "batch_stats" in variables else None
+    sd = {f"encoder.{k}": v for k, v in _efficientnet_sd(params["encoder"], stats).items()}
+    if "middle" in params:
+        _linear(sd, "middle", params["middle"])
+    if "g" in params:
+        _linear(sd, "g", params["g"])
+        _norm(sd, "layer_norm", params["layer_norm"])
+        _linear(sd, "linear", params["linear"], bias=False)
+    return sd
+
+
+def load_cola_efficientnet_ckpt(path_or_state_dict: Union[str, Mapping],
+                                model: torch.nn.Module) -> torch.nn.Module:
+    """Load a reference OPERA-CE Cola(efficientnet) checkpoint (a Lightning
+    `.ckpt`, a bare state_dict file, or the dict itself) into the port's
+    Cola(encoder="efficientnet") by key name: encoder.cnn1.*,
+    encoder.efficientnet.* (efficientnet-pytorch's names), g, layer_norm,
+    linear [, middle]. Keys the port does not hold (efficientnet-pytorch's
+    _fc head) are ignored; a missing key raises KeyError."""
+    sd = path_or_state_dict
+    if isinstance(sd, str):
+        sd = torch.load(sd, map_location="cpu", weights_only=False)
+        sd = sd.get("state_dict", sd.get("model", sd))
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise KeyError(f"the OPERA-CE checkpoint lacks {len(missing)} keys, e.g. {missing[:3]}")
+    model.load_state_dict({k: torch.as_tensor(sd[k]) for k in own})
+    return model
+
+
+def from_jax_vggish(variables: dict) -> Dict[str, torch.Tensor]:
+    """flax VGGish variables -> state_dict of models.vggish.VGGish."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in variables["params"].items():
+        if name.startswith("conv"):
+            _conv_w(sd, name, p)
+        else:
+            _linear(sd, name, p)
+    return sd
 
 
 def load_mae_ckpt(path: str, model: torch.nn.Module) -> torch.nn.Module:
@@ -365,8 +472,20 @@ def from_jax_classifier(variables: dict, encoder_kind: str) -> Dict[str, torch.T
         sd["mask_token"] = _t(enc["mae"]["mask_token"])  # unread; in the L2 term
     elif encoder_kind == "audiomae":
         sd = from_jax_mae({"params": enc})
+    elif encoder_kind == "efficientnet":
+        stats = variables["batch_stats"]["encoder"] if variables.get("batch_stats") else None
+        sd = _efficientnet_sd(enc, stats)
+    elif encoder_kind in ("clap", "clap2023"):
+        inner = {"params": enc}
+        if variables.get("batch_stats"):
+            inner["batch_stats"] = variables["batch_stats"]["encoder"]
+        sd = from_jax_clap(inner, "2023" if encoder_kind == "clap2023" else "2022")
+        if "tscam_conv" in enc["base"]:  # unread; in the L2 term
+            _conv_w(sd, "base.htsat.tscam_conv", enc["base"]["tscam_conv"])
+    elif encoder_kind == "hear":
+        sd = from_jax_hear({"params": enc})
     else:
-        raise NotImplementedError(f"encoder_kind {encoder_kind!r} is not ported")
+        raise ValueError(f"unknown encoder_kind {encoder_kind!r}")
     out = {f"encoder.{k}": v for k, v in sd.items()}
     out.update({f"head.{k}": v for k, v in from_jax_head(params["head"]).items()})
     return out

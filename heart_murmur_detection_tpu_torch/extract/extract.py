@@ -3,6 +3,9 @@ heart_murmur_detection_tpu/extract/extract.py for the ported towers.
 
   operaCT : whole clip (<= 32 s) -> wire decode [-> upsample] -> device mel
             -> HTS-AT latent (768) [-> g (512)]
+  operaCE : whole clip (uncapped) -> wire decode [-> upsample] -> device mel
+            -> EfficientNet-B0 with masked pooling (1280) [-> g (512)],
+            float32 on cuDNN with TF32 off (also null / null-efficientnet)
   operaGT : 8.18 s 50%-hop chunks -> device mel -> ViT-S forward_feature ->
             mean over a file's chunks (384)
   audiomae: 10 s non-overlapping chunks (+ tail) -> device kaldi fbank ->
@@ -46,15 +49,19 @@ def _batched(n: int, bs: int):
 
 
 class FeatureExtractor:
-    """Batched extraction for one ported encoder (operaCT, operaGT or an
-    audiomae kind) on one device.
+    """Batched extraction for one encoder (operaCT, operaCE or its null
+    baselines, operaGT or an audiomae kind) on one device.
 
     device: "cuda" (the default) or "cpu"; a CUDA device without a card
     raises. compute_dtype: torch.bfloat16 (the default) is the bf16 flow
     that runs the CUDA kernels on a card; torch.float32 is the strict path
     and runs only on the CPU here (the float32 kernels are not ported).
-    dim selects the operaCT output (768 latent or 512 projection); the MAE
-    towers give their embedding width (384 operaGT, 768 audiomae). As in
+    dim selects the operaCT output (768 latent or 512 projection) or the
+    operaCE one (1280, the default as in the JAX extractor, or 512); the MAE
+    towers give their embedding width (384 operaGT, 768 audiomae). operaCE
+    runs the JAX extractor's float32 graph (Cola.extract_feature on the
+    EfficientNet, convolutions on cuDNN with TF32 off) whatever
+    compute_dtype says, and its clips are not capped at 32 s. As in
     the JAX extractor, which fuses only dim 768 (its extract.py:389), a
     512-d operaCT batch runs the reference's strict float32 graph
     (Cola.extract_feature: plain products, TF32 off) whatever
@@ -77,7 +84,7 @@ class FeatureExtractor:
     def __init__(
         self,
         pretrain: str,
-        dim: int = 768,
+        dim: int = 1280,
         input_sec: float = 8,
         ckpt_path: Optional[str] = None,
         batch_size: int = 16,
@@ -95,11 +102,12 @@ class FeatureExtractor:
         self.pretrain = pretrain
         self.is_audiomae = registry.is_audiomae(pretrain)
         self.is_mae = self.is_audiomae or registry.is_operagt(pretrain)
-        if not (self.is_mae or registry.is_operact(pretrain)):
-            raise NotImplementedError(
-                f"pretrain {pretrain!r}: only operaCT, operaGT and audiomae are ported"
-            )
-        if not self.is_mae and dim not in (768, 512):
+        self.is_ce = registry.is_operace(pretrain)
+        if not (self.is_mae or self.is_ce or registry.is_operact(pretrain)):
+            raise NotImplementedError(f"pretrain {pretrain!r}: no extractor for this kind")
+        if self.is_ce and dim not in (1280, 512):
+            raise NotImplementedError(f"operaCE dim {dim}: 1280 or 512")
+        if not (self.is_mae or self.is_ce) and dim not in (768, 512):
             raise NotImplementedError(f"operaCT dim {dim}: 768 or 512")
         if source_sr is not None and (SR % source_sr or 512 % (SR // source_sr)):
             raise ValueError(f"source_sr must divide {SR} with power-of-two ratio <=512")
@@ -126,14 +134,15 @@ class FeatureExtractor:
         self.pad0 = pad0
         self.compute_dtype = compute_dtype
         if fast_softmax is None:
-            fast_softmax = self.device.type == "cuda" and compute_dtype == torch.bfloat16
+            fast_softmax = (self.device.type == "cuda" and compute_dtype == torch.bfloat16
+                            and not self.is_ce)
         self.fast_softmax = fast_softmax
         self.model = registry.initialize_pretrained_model(
             pretrain, ckpt_path=ckpt_path, random_init=random_init, seed=seed
         ).to(self.device)
         if self.is_mae:
             self.dim = self.model.config.embed_dim
-        self.max_sec = None if self.is_mae else 32
+        self.max_sec = 32 if registry.is_operact(pretrain) else None
         self.n_dispatched = 0  # batches sent through the encoder
         self._on_card = self.device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(self.device) if self._on_card else None
@@ -181,20 +190,22 @@ class FeatureExtractor:
 
             return fn
 
-        if dim == 768:
+        if self.is_ce or dim == 512:
+            # the reference's float32 graph (plain products, TF32 off), whatever
+            # compute_dtype says: the JAX extractor runs the EfficientNet in
+            # float32 and fuses only operaCT's 768
             def fn(wav, lengths):
-                with torch.inference_mode():
+                with torch.inference_mode(), strict_f32():
                     mel, nf = self._mel(*self._prologue(wav, lengths))
-                    return model.extract_feature(mel, dim, nf, mm_dtype=mm, fast_softmax=fast)
+                    return model.extract_feature(mel, dim, nf, mm_dtype=torch.float32,
+                                                 impl="plain")
 
             return fn
 
-        # dim 512: the reference's float32 graph (plain products, TF32 off),
-        # whatever compute_dtype says, as the JAX extractor fuses only 768
         def fn(wav, lengths):
-            with torch.inference_mode(), strict_f32():
+            with torch.inference_mode():
                 mel, nf = self._mel(*self._prologue(wav, lengths))
-                return model.extract_feature(mel, dim, nf, mm_dtype=torch.float32, impl="plain")
+                return model.extract_feature(mel, dim, nf, mm_dtype=mm, fast_softmax=fast)
 
         return fn
 
@@ -327,9 +338,13 @@ class FeatureExtractor:
         return self._extract_whole(sound_dir_loc)
 
     def _extract_whole(self, paths) -> np.ndarray:
-        """Python decode path (the native C++ loader is not ported)."""
+        """Python decode path (the native C++ loader is not ported). Without
+        a cap (operaCE) every batch pads to the longest clip."""
+        sr = self._host_sr
         clips = [self._clip_waveform(p) for p in paths]
-        max_len = int(self.max_sec * self._host_sr) if clips else 0
+        if not clips:
+            return np.zeros((0, self.dim), np.float32)
+        max_len = int((self.max_sec or max(len(c) / sr for c in clips)) * sr)
         return self.extract_waveforms(clips, max_len=max_len)
 
     def extract_waveforms(
@@ -395,3 +410,21 @@ class FeatureExtractor:
         # 2 pins and starts the copy to the card; pack(i+2) overlaps
         # copy(i+1) overlaps compute(i)
         return self._consume(self._prefetch_iter(put(self._prefetch_iter(packed()))))
+
+
+def extract_opera_feature(
+    sound_dir_loc: Sequence[str],
+    pretrain: str = "operaCE",
+    input_sec: float = 8,
+    dim: int = 1280,
+    pad0: bool = False,
+    ckpt_path: Optional[str] = None,
+    batch_size: int = 16,
+    random_init: bool = False,
+    device="cuda",
+) -> np.ndarray:
+    """Functional API mirroring model_util.extract_opera_feature:113-182
+    (the JAX extract.py:628-648)."""
+    ex = FeatureExtractor(pretrain, dim=dim, input_sec=input_sec, ckpt_path=ckpt_path, pad0=pad0,
+                          batch_size=batch_size, random_init=random_init, device=device)
+    return ex.extract_files(list(sound_dir_loc))

@@ -1,8 +1,9 @@
-"""Model factory for the ported kinds — counterpart of
+"""Model factory — counterpart of
 heart_murmur_detection_tpu/extract/registry.py: operaCT (Cola(htsat)),
-operaGT (the MAE ViT-S encoder), the audiomae kinds (the Audio-MAE ViT-B
-backbone), hear (the HeAR ViT-L/16 encoder) and the CLAP audio towers clap
-(2022, Cnn14) and clap2023 (HTS-AT).
+operaCE and the random baselines null / null-efficientnet
+(Cola(efficientnet)), operaGT (the MAE ViT-S encoder), the audiomae kinds
+(the Audio-MAE ViT-B backbone), hear (the HeAR ViT-L/16 encoder) and the
+CLAP audio towers clap (2022, Cnn14) and clap2023 (HTS-AT).
 
 Checkpoint paths mirror the reference's `cks/` layout. Nothing is
 downloaded: a missing checkpoint raises with the expected path. Random init
@@ -21,6 +22,7 @@ from ..models.cola import Cola
 from ..models.htsat import init_weights
 from . import convert
 
+ENCODER_PATH_OPERA_CE_EFFICIENTNET = "cks/model/encoder-operaCE.ckpt"
 ENCODER_PATH_OPERA_CT_HT_SAT = "cks/model/encoder-operaCT.ckpt"
 ENCODER_PATH_OPERA_GT_VIT = "cks/model/encoder-operaGT.ckpt"
 
@@ -41,6 +43,11 @@ _AUDIOMAE_PATHS = {
 
 def is_operact(pretrain: str) -> bool:
     return "operaCT" in pretrain or pretrain == "null-htsat"
+
+
+def is_operace(pretrain: str) -> bool:
+    """The EfficientNet kinds (JAX registry.py:132-137)."""
+    return pretrain in ("operaCE", "null", "null-efficientnet")
 
 
 def is_operagt(pretrain: str) -> bool:
@@ -88,13 +95,15 @@ def initialize_pretrained_model(
     """Build the model for `pretrain` on the CPU and load its weights:
     random (seeded) for random_init or a null-* pretrain, else from
     ckpt_path (default: the reference's checkpoint path for the kind).
-    operaCT kinds give a Cola(htsat), operaGT a MaskedAutoencoderViT
+    operaCT kinds give a Cola(htsat), operaCE, null and null-efficientnet a
+    Cola(efficientnet) (operaCE's checkpoint a reference Cola(efficientnet)
+    state_dict, default cks/model/encoder-operaCE.ckpt), operaGT a MaskedAutoencoderViT
     (ViT-S), the audiomae kinds an AudioMAEClassifierBackbone (ViT-B/16),
     hear a HeAREncoder (ViT-L/16; its checkpoint is a Hugging Face
     google/hear-pytorch state_dict at ckpt_path, which has no default: the
     reference downloads it), clap / clap2023 a CLAPAudioEncoder (its
     checkpoint an msclap state_dict at ckpt_path, no default either). Other
-    encoder families are not ported yet and raise."""
+    names raise NotImplementedError."""
     gen = torch.Generator().manual_seed(seed)
     if is_clap(pretrain):
         if not random_init and (ckpt_path is None or not os.path.exists(ckpt_path)):
@@ -128,11 +137,17 @@ def initialize_pretrained_model(
         if not os.path.exists(ckpt_path):
             raise _missing(pretrain, ckpt_path)
         return convert.load_mae_ckpt(ckpt_path, model).eval()
+    if is_operace(pretrain):
+        model = Cola(encoder="efficientnet")
+        if random_init or pretrain.startswith("null"):
+            init_weights(model, gen)
+            return model.eval()
+        ckpt_path = ckpt_path or ENCODER_PATH_OPERA_CE_EFFICIENTNET
+        if not os.path.exists(ckpt_path):
+            raise _missing(pretrain, ckpt_path)
+        return convert.load_cola_efficientnet_ckpt(ckpt_path, model).eval()
     if not is_operact(pretrain):
-        raise NotImplementedError(
-            f"pretrain {pretrain!r}: only the operaCT, operaGT, audiomae, hear and clap kinds "
-            "are ported"
-        )
+        raise NotImplementedError(f"Model not found: {pretrain}")
     model = Cola()
     if random_init or pretrain.startswith("null"):
         init_weights(model, gen)

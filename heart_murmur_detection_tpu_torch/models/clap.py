@@ -8,8 +8,9 @@ msclap CLAPWrapper.py:343 and models/clap.py:25-141), audio side only.
   fmin 50, fmax 14000), 2048-d embedding, 5-s clips;
 - 2023: models/htsat.py::HTSAT (HTSATConfig(mel_bins=64), the operaCT
   geometry) at 44.1 kHz (fmax 8000), embedding = latent_output, 7-s clips;
-- the projection ln(e1 + gelu(e1) W2) with e1 = x W1, both products
-  without bias, to 1024 (clap.py:10-22; dropout is off in eval);
+- the projection ln(e1 + dropout(gelu(e1) W2)) with e1 = x W1, both
+  products without bias, to 1024 (clap.py:10-22; the dropout, p 0.5, only
+  in train mode);
 - clip loading: short clips tiled, long ones randomly cropped
   (CLAPWrapper.load_audio_into_tensor:274-299).
 
@@ -47,6 +48,7 @@ class CLAPConfig:
     fmin: float = 50.0
     d_proj: int = 1024
     classes_num: int = 527
+    proj_dropout: float = 0.5  # the projection's dropout in train mode
 
     @property
     def fmax(self) -> float:
@@ -76,9 +78,13 @@ class Projection(nn.Module):
         # (models/clap.py:63 and :131); msclap's torch module has 1e-5
         self.layer_norm = nn.LayerNorm(d_out, eps=1e-6)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None,
+                p: float = 0.0) -> torch.Tensor:
+        """p > 0: train mode, flax dropout of the second branch drawn from gen."""
+        from .htsat_train_fused import _dropout
+
         e1 = self.linear1(x)
-        return self.layer_norm(e1 + self.linear2(F.gelu(e1)))
+        return self.layer_norm(e1 + _dropout(gen, self.linear2(F.gelu(e1)), p))
 
 
 class HTSATWrapper(nn.Module):
@@ -98,14 +104,37 @@ class CLAPAudioEncoder(nn.Module):
         self.config = config
         if config.version == "2022":
             self.base = Cnn14(config.classes_num, config.mel_bins)
+            d_in = config.d_in
         else:
             self.base = HTSATWrapper(HTSATConfig(mel_bins=config.mel_bins))
-        self.projection = Projection(config.d_in, config.d_proj)
+            d_in = self.base.htsat.config.num_features  # 768, as flax infers it
+        self.projection = Projection(d_in, config.d_proj)
 
     def logmel(self, wav: torch.Tensor, lengths: torch.Tensor):
         cfg = self.config
         return logmel_frontend_general(wav, lengths, cfg.sample_rate, cfg.mel_bins, cfg.fmin,
                                        cfg.fmax, cfg.n_fft, cfg.hop)
+
+    def encode_train(self, wav: torch.Tensor, lengths: torch.Tensor,
+                     gen: Optional[torch.Generator]):
+        """The train-mode forward of fine-tuning (CLAPAudioEncoder with
+        train=True), float32 and differentiable: the Cnn14's BatchNorms or the
+        HTS-AT's bn0 on the batch statistics, the HTS-AT's DropPath and the
+        projection's dropout drawn from gen. -> (projected (B, d_proj), the
+        new running statistics as a models/bn.py dict)."""
+        from .htsat_train_fused import htsat_encode_train
+
+        logmel, nf = self.logmel(wav, lengths)
+        stats = {}
+        if self.config.version == "2022":
+            emb = self.base.forward_train(logmel, nf, stats)["embedding"]
+        else:
+            enc = self.base.htsat
+            emb, new = htsat_encode_train(enc, logmel, gen,
+                                          (enc.bn0.running_mean, enc.bn0.running_var), nf,
+                                          torch.float32, impl="autograd")
+            stats[enc.bn0] = new
+        return self.projection(emb, gen, self.config.proj_dropout), stats
 
     @torch.no_grad()
     def forward(self, wav: torch.Tensor, lengths: torch.Tensor, return_backbone: bool = False):

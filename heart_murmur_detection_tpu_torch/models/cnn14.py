@@ -8,7 +8,9 @@ padding=1, then a 2x2 average pool that floors odd sizes: 690 frames ->
 345 -> ... -> 10), 64 -> 2048 channels -> the mean over frequency -> the
 max plus the mean over the valid time steps (ceil(n_frames / 64), clipped
 to [1, T'], the max over a -1e30 fill) -> fc1 + ReLU = the (B, 2048)
-embedding. Eval semantics only (the running statistics). Module names are msclap's
+embedding. The BatchNorms run on their running statistics, or in train
+mode with flax semantics (momentum 0.9, models/bn.py) when the caller
+passes a stats dict, as CLAP-2022 fine-tuning does. Module names are msclap's
 (bn0, conv_block{i}.conv{j} / bn{j}, fc1, fc_audioset), so an msclap
 state_dict loads by name (extract/convert.py::load_clap_ckpt).
 """
@@ -21,13 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .bn import Stats, batch_norm
+
 CHANNELS = (64, 128, 256, 512, 1024, 2048)
-
-
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm on its running statistics, whatever the module's mode."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
-                        bn.eps)
+BN_MOMENTUM = 0.9  # flax
 
 
 class ConvBlock(nn.Module):
@@ -38,15 +37,17 @@ class ConvBlock(nn.Module):
         self.bn1 = nn.BatchNorm2d(out_ch, eps=1e-5)
         self.bn2 = nn.BatchNorm2d(out_ch, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(_bn(self.bn1, self.conv1(x)))
-        x = F.relu(_bn(self.bn2, self.conv2(x)))
+    def forward(self, x: torch.Tensor, stats: Optional[Stats] = None) -> torch.Tensor:
+        x = F.relu(batch_norm(self.bn1, self.conv1(x), BN_MOMENTUM, stats))
+        x = F.relu(batch_norm(self.bn2, self.conv2(x), BN_MOMENTUM, stats))
         return F.avg_pool2d(x, 2)
 
 
 class Cnn14(nn.Module):
     """log-mel (B, T, mel_bins) [+ valid frame counts] -> dict(embedding
-    (B, 2048), clipwise_output (B, classes_num))."""
+    (B, 2048), clipwise_output (B, classes_num)): forward on the running
+    statistics without gradients, forward_train with them and a stats dict
+    for train mode (models/bn.py)."""
 
     def __init__(self, classes_num: int = 527, mel_bins: int = 64):
         super().__init__()
@@ -59,10 +60,16 @@ class Cnn14(nn.Module):
 
     @torch.no_grad()
     def forward(self, logmel: torch.Tensor, n_frames: Optional[torch.Tensor] = None) -> dict:
-        x = _bn(self.bn0, logmel.transpose(1, 2)[..., None])  # bins as channels
+        return self.forward_train(logmel, n_frames, None)
+
+    def forward_train(self, logmel: torch.Tensor, n_frames: Optional[torch.Tensor],
+                      stats: Optional[Stats]) -> dict:
+        """The forward with gradients: train mode with a stats dict."""
+        x = batch_norm(self.bn0, logmel.transpose(1, 2)[..., None], BN_MOMENTUM,
+                       stats)  # bins as channels
         x = x[..., 0].transpose(1, 2)[:, None]  # (B, 1, T, F)
         for i in range(len(CHANNELS)):
-            x = getattr(self, f"conv_block{i + 1}")(x)
+            x = getattr(self, f"conv_block{i + 1}")(x, stats)
         x = x.mean(dim=3).transpose(1, 2)  # frequency mean -> (B, T', C)
         if n_frames is not None:
             tmax = x.shape[1]

@@ -56,11 +56,16 @@ def flax_path(name: str, encoder_kind: str) -> str:
     top, _, rest = name.partition(".")
     if top != "encoder":
         return "/".join([top] + rest.split("."))
-    if encoder_kind == "htsat":
+    if encoder_kind == "clap2023":  # the flax HTS-AT sits directly under base
+        rest = rest.replace("base.htsat.", "base.", 1)
+    if encoder_kind in ("htsat", "clap2023"):
         rest = re.sub(r"layers\.(\d+)\.blocks\.(\d+)", r"layers_\1_blocks_\2", rest)
         rest = re.sub(r"layers\.(\d+)\.downsample", r"layers_\1_downsample", rest)
         prefix = ["encoder"]
-    else:  # the MAE encoders: flat flax names
+    elif encoder_kind in ("efficientnet", "clap"):  # the same nesting, blocks flattened
+        rest = re.sub(r"_blocks\.(\d+)", r"_blocks_\1", rest)
+        prefix = ["encoder"]
+    else:  # the MAE encoders and HeAR: flat flax names
         rest = re.sub(r"blocks\.(\d+)", r"blocks_\1", rest)
         for torch_name, flax_name in (("patch_embed.proj", "patch_embed_proj"),
                                       ("attn.qkv", "attn_qkv"), ("attn.proj", "attn_proj"),

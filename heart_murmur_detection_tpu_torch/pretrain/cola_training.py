@@ -1,20 +1,25 @@
-"""COLA continued-pretraining loop for the HTS-AT encoder on one device —
-counterpart of heart_murmur_detection_tpu/pretrain/cola_training.py
-(`train_multiple_data`).
+"""COLA continued-pretraining loop for the HTS-AT (OPERA-CT) or
+EfficientNet-B0 (OPERA-CE) encoder on one device — counterpart of
+heart_murmur_detection_tpu/pretrain/cola_training.py (`train_multiple_data`).
 
 Protocol: batch 64 pairs, Adam 1e-4 with x0.99/epoch decay, multi-corpus
 weighted sampling (one corpus per step), top-5 checkpoints by valid_loss
 every 10 epochs, a resume checkpoint every 5, optional warm start from a base
-OPERA-CT checkpoint and optional freeze_encoder='early' (bn0 and the stage-0
-blocks, as the JAX package freezes them).
+OPERA checkpoint and optional freeze_encoder='early' (bn0 and the stage-0
+blocks of the HTS-AT, as the JAX package freezes them; its patterns name
+no EfficientNet module, so there it freezes nothing, as in the JAX package).
 
-A step: host sampler -> (x1, x2) on the device -> cola_train_apply (the
-training forward of both views, through the swin train kernels for bf16 on
-a card) -> cola_loss -> backward -> Adam -> bn0 running statistics. The eval
-loss runs the eval pair forward with the running statistics.
+A step: host sampler -> (x1, x2) on the device -> the training forward of
+both views (HTS-AT: cola_train_apply, through the swin train kernels for
+bf16 on a card; EfficientNet: Cola.train_pair, torch autograd on cuDNN with
+train-mode BatchNorms and drop-connect at dropout_p) -> cola_loss ->
+backward -> Adam -> the BatchNorms' running statistics (bn0 of the HTS-AT,
+the 49 of the EfficientNet). The eval loss runs the eval pair forward with
+the running statistics.
 
-compute_dtype=torch.bfloat16 is the bf16 flow of the JAX path (stages 0-2 in
-bf16 through the train kernels, everything else float32); None is strict
+compute_dtype=torch.bfloat16 is the bf16 flow of the JAX path (HTS-AT:
+stages 0-2 in bf16 through the train kernels, everything else float32;
+EfficientNet: bf16 convolutions with float32 BatchNorms); None is strict
 float32, differentiated by torch autograd. TF32 stays off for every float32
 product, as the JAX path runs them at HIGHEST or in full float32.
 """
@@ -28,9 +33,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..models import bn as bn_mod
 from ..models.cola import Cola, cola_loss
 from ..models.htsat import HTSATConfig, init_weights
-from ..models.htsat_train_fused import Stats, cola_train_apply
+from ..models.htsat_train_fused import cola_train_apply
 from ..train.checkpoints import ResumeCheckpointer, TopKCheckpointer
 from ..utils.logging import CSVLogger
 from ..utils.precision import strict_f32
@@ -57,16 +63,16 @@ def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool]
     return "kernel" if fused_train else "plain"
 
 
-def set_bn0_stats(model: Cola, stats: Stats) -> None:
-    with torch.no_grad():
-        model.htsat.bn0.running_mean.copy_(stats[0])
-        model.htsat.bn0.running_var.copy_(stats[1])
-
-
 def forward_backward(model: Cola, x1, x2, gen, mm_dtype, impl: str, p_drop: float):
     """One pair forward and backward: gradients land in the parameters'
-    .grad; returns (loss, accuracy, new bn0 statistics)."""
-    (z1, z2), stats = cola_train_apply(model, x1, x2, gen, p_drop, mm_dtype, impl=impl)
+    .grad; returns (loss, accuracy, the new BatchNorm statistics as a
+    models/bn.py dict: bn0 of the HTS-AT, the 49 of the EfficientNet)."""
+    if model.kind == "efficientnet":
+        dtype = None if mm_dtype == torch.float32 else mm_dtype
+        (z1, z2), stats = model.train_pair(x1, x2, gen, p_drop, dtype)
+    else:
+        (z1, z2), bn0 = cola_train_apply(model, x1, x2, gen, p_drop, mm_dtype, impl=impl)
+        stats = {model.htsat.bn0: bn0}
     loss, acc = cola_loss(z1, z2)
     loss.backward()
     return loss.detach(), acc.detach(), stats
@@ -74,11 +80,11 @@ def forward_backward(model: Cola, x1, x2, gen, mm_dtype, impl: str, p_drop: floa
 
 def train_step(model: Cola, opt: steps.EpochDecayAdam, x1, x2, gen, mm_dtype,
                impl: str, p_drop: float):
-    """One CP step: forward, backward, Adam, bn0 statistics. -> (loss, acc)."""
+    """One CP step: forward, backward, Adam, BatchNorm statistics. -> (loss, acc)."""
     opt.zero_grad()
     loss, acc, stats = forward_backward(model, x1, x2, gen, mm_dtype, impl, p_drop)
     opt.step()
-    set_bn0_stats(model, stats)
+    bn_mod.commit(stats)
     return loss, acc
 
 
@@ -112,18 +118,22 @@ def train_multiple_data(
     ckpt_path: Optional[str] = None,
     initial_state: Optional[dict] = None,
 ):
-    """Continued pretraining of Cola(htsat) -> (state_dict, history, best
+    """Continued pretraining of Cola(encoder) -> (state_dict, history, best
     checkpoint path). history has one dict an eval epoch: epoch, train_loss,
     valid_loss, valid_acc, and the epoch's steps, pairs and train_seconds
     (device-synchronised wall time of its training steps).
 
-    pretrain: warm-start the model from the port's registry (operaCT kinds;
-    ckpt_path names the checkpoint, which is not in the repository).
-    initial_state: a state_dict of models.cola.Cola to start from instead
-    of the seeded random init. dim_fea and dim_hidden resolve to the HTS-AT
-    latent (768), as in the JAX package."""
-    if encoder != "htsat":
-        raise NotImplementedError(f"encoder {encoder!r}: only the HTS-AT encoder is ported")
+    encoder: "efficientnet" (the default, as in the JAX package) or "htsat".
+    pretrain: warm-start the model from the port's registry (operaCT or
+    operaCE kinds; ckpt_path names the checkpoint, which is not in the
+    repository). initial_state: a state_dict of models.cola.Cola to start
+    from instead of the seeded random init. For the HTS-AT, dim_fea and
+    dim_hidden resolve to its latent (768), as in the JAX package; the
+    EfficientNet's features are 1280 wide, with a `middle` Linear when
+    dim_hidden differs. dropout_p is the projector's dropout and the
+    EfficientNet's drop-connect rate."""
+    if encoder not in ("htsat", "efficientnet"):
+        raise ValueError(f"encoder {encoder!r}: 'htsat' or 'efficientnet'")
     if mesh is not None or param_sharding is not None:
         raise NotImplementedError("multi-device CP (mesh, param_sharding) is not ported")
     device = torch.device(device)
@@ -132,7 +142,8 @@ def train_multiple_data(
     mm_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
     impl = train_impl(compute_dtype, fused_train, device)
 
-    model = Cola(htsat_config or HTSATConfig(), dim_out=dim_out)
+    model = Cola(htsat_config or HTSATConfig(), dim_out=dim_out, encoder=encoder,
+                 dim_hidden=dim_hidden, p=dropout_p)
     if initial_state is not None:
         model.load_state_dict(initial_state)
     else:

@@ -11,7 +11,8 @@ cross-task evaluation: an encoder fine-tuned on task A tested on task B's
 split (finetuned_dataset_name / finetuned_task, eval_ckpts.py:161-218).
 
 A fine-tuned model is evaluated as the JAX function evaluates it: the
-EncoderClassifier in float32 (on a card the plain path with TF32 off),
+EncoderClassifier in float32 (on a card the plain path with TF32 off; the
+EfficientNet of operaCE and null on cuDNN, 1280-d),
 batches of 32 with the tail padded by repeats of its first row, softmax,
 compute_metrics and the macro test AUROC. Both run on the card unless the
 caller passes device="cpu".
@@ -110,8 +111,7 @@ def encoder_kind_for_eval(pretrain: str):
     if "GT" in pretrain:
         return "gt", 384
     if "operaCE" in pretrain or pretrain == "null":
-        raise NotImplementedError(
-            f"re-evaluating {pretrain!r} (the EfficientNet encoder) waits for operaCE's port")
+        return "efficientnet", 1280
     return "htsat", 768
 
 

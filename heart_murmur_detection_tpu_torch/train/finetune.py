@@ -4,9 +4,11 @@ finetune.py (`EncoderClassifier` :58, `finetune_classifier` :130,
 src/benchmark/other_eval/finetuning.py).
 
 The protocol, step for step as the JAX package runs it:
-- inputs: cached first-window spectrograms per clip (build_ft_spectrogram_
-  cache): the (256, 64) mel of the first 8.18-s window for operaCT and
-  operaGT, the (998, 128) kaldi fbank of the first 10-s window for Audio-MAE;
+- inputs: cached first-window inputs per clip (build_ft_spectrogram_
+  cache): the (256, 64) mel of the first 8.18-s window for operaCT, operaCE
+  and operaGT, the (998, 128) kaldi fbank of the first 10-s window for
+  Audio-MAE, the 44.1-kHz waveform of a 5-s (2022) or 7-s (2023) crop for
+  CLAP, the first 2-s window at 16 kHz for HeAR;
 - model: encoder + models/heads.Head; loss = weighted softmax cross entropy
   of logits + 1e-10 over the batch's valid rows, + l2 * ||head||^2
   + 0.2 * l2 * ||encoder||^2 (every encoder parameter, frozen ones too);
@@ -28,13 +30,26 @@ The encoder's train forward and backward (EncoderClassifier.encode_train):
   audiomae_backbone_train_fused, the 12 ViT blocks on the ViT train kernels
   (TPU K9: vit_qkv + vit_attn + vit_mlp forward, vit_attn_bwd + vit_mlp_bwd +
   swin_wgrad backward).
-train_impl picks the route: the kernels (fused_train; None = on a card in
-bf16), the kernels' plain versions with their explicit backward in bf16
-otherwise, torch autograd in float32 (TF32 off). Predictions run the eval
-forwards (the eval kernels on a card in bf16; K1-K3 for htsat, K5-K7 for
-the ViTs). The rest of the zoo (efficientnet, clap, clap2023, hear) waits for
-slice 5, multi-device fine-tuning (mesh, param_sharding) for slice 6; both
-raise NotImplementedError.
+- efficientnet: models/efficientnet.py's train mode, torch autograd on
+  cuDNN: every BatchNorm on the batch statistics with its running statistics
+  updated each step (flax semantics, models/bn.py), drop-connect (0.1) from
+  the run's generator, bf16 convolutions and float32 BatchNorms under
+  compute_dtype=bfloat16;
+- clap, clap2023: CLAPAudioEncoder.encode_train in float32 whatever
+  compute_dtype says (the JAX CLAPAudioEncoder has none): the 44.1-kHz
+  frontend, the Cnn14's BatchNorms or the HTS-AT's bn0 in train mode (the
+  HTS-AT through htsat_encode_train's autograd route, DropPath on), the
+  projection's dropout;
+- hear: the HeAR ViT-L/16 in float32 (models/hear.py::HeAREncoder), the
+  CLS token.
+train_impl picks the route of htsat, gt and audiomae: the kernels
+(fused_train; None = on a card in bf16), the kernels' plain versions with
+their explicit backward in bf16 otherwise, torch autograd in float32 (TF32
+off). Predictions run the eval forwards (the eval kernels on a card in bf16;
+K1-K3 for htsat, K5-K7 for the ViTs; the EfficientNet in the compute dtype,
+CLAP and HeAR in float32, as the JAX package predicts them through
+model.apply). Multi-device fine-tuning (mesh, param_sharding) waits for
+slice 6 and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,8 +64,11 @@ import torch
 from torch import nn
 
 from ..audio import augment
+from ..models import bn as bn_mod
+from ..models import clap, hear
 from ..models import htsat as htsat_mod
 from ..models import vit_mae
+from ..models.efficientnet import ColaEfficientNetEncoder
 from ..models.heads import Head, freeze_mask_fn
 from ..models.htsat import HTSAT, HTSATConfig
 from ..models.htsat_train_fused import htsat_encode_train
@@ -60,25 +78,27 @@ from ..utils.precision import strict_f32
 from . import metrics as M
 from .linear_eval import HEART_METRICS, ClippedAdam, _make_perms, get_class_weights
 
-PORTED = ("htsat", "gt", "audiomae")
-UNPORTED = ("efficientnet", "clap", "clap2023", "hear")
-
-
-def _unported(encoder_kind: str):
-    if encoder_kind in UNPORTED:
-        return NotImplementedError(
-            f"fine-tuning encoder {encoder_kind!r} is not ported yet (slice 5: the rest of the zoo)")
-    return ValueError(f"unknown encoder_kind {encoder_kind!r}")
+def _tscam_conv(cfg: HTSATConfig, classes: int) -> nn.Conv2d:
+    """The HTS-AT's tscam head (the JAX HTSAT's tscam_conv, enable_tscam)."""
+    sf = cfg.spec_size // 2 ** (len(cfg.depths) - 1) // cfg.patch_stride[0]
+    return nn.Conv2d(cfg.num_features, classes, (sf // cfg.freq_ratio, 3), padding=(0, 1))
 
 
 class EncoderClassifier(nn.Module):
     """encoder + head (AudioClassifier, models_eval.py:320-411): parameters
     "encoder.*" under the reference's torch names (models/htsat.HTSAT,
     models/vit_mae.MaskedAutoencoderViT without its decoder but with its
-    unread mask_token for gt, AudioMAEClassifierBackbone for audiomae) and
-    "head.*". Seeded random
-    weights from `generator`; load a JAX init with
-    extract/convert.py::from_jax_classifier."""
+    unread mask_token for gt, AudioMAEClassifierBackbone for audiomae,
+    models/efficientnet.ColaEfficientNetEncoder for efficientnet,
+    models/clap.CLAPAudioEncoder for clap / clap2023 — the 2023 HTS-AT with
+    its unread tscam_conv, models/hear.HeAREncoder for hear) and "head.*".
+    The unread leaves (gt's mask_token, clap2023's tscam_conv, the Cnn14's
+    fc_audioset, HeAR's pooler) are in the JAX classifier's tree: they
+    enter the loss through the encoder L2 term, so the clip's global norm
+    and Adam see them (finetune.py:376-386). The head's input width follows
+    the encoder where the encoder fixes it (efficientnet, clap, hear), as
+    flax infers it. Seeded random weights from `generator`; load a JAX init
+    with extract/convert.py::from_jax_classifier."""
 
     def __init__(self, encoder_kind: str, classes: int, head: str = "linear",
                  feat_dim: int = 768, htsat_config: Optional[HTSATConfig] = None,
@@ -91,45 +111,84 @@ class EncoderClassifier(nn.Module):
         elif encoder_kind == "gt":
             cfg = mae_config or vit_mae.mae_vit_small_config()
             self.encoder = vit_mae.MaskedAutoencoderViT(cfg)
-            # the JAX GTBackbone's MAE holds its mask_token, which the forward
-            # never reads: it enters the loss through the encoder L2 term, so
-            # the clip's global norm and Adam see it (finetune.py:376-386)
             self.encoder.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.decoder_embed_dim))
             vit_mae.init_weights(self.encoder, generator)
         elif encoder_kind == "audiomae":
             self.encoder = vit_mae.AudioMAEClassifierBackbone(
                 mae_config or vit_mae.audiomae_base_config())
             vit_mae.init_weights(self.encoder, generator)
+        elif encoder_kind == "efficientnet":
+            self.encoder = ColaEfficientNetEncoder()
+            htsat_mod.init_weights(self.encoder, generator)
+            feat_dim = self.encoder.efficientnet._bn1.num_features
+        elif encoder_kind in ("clap", "clap2023"):
+            cfg = clap.CLAPConfig(version="2023" if encoder_kind == "clap2023" else "2022")
+            self.encoder = clap.CLAPAudioEncoder(cfg)
+            if encoder_kind == "clap2023":
+                enc = self.encoder.base.htsat
+                enc.tscam_conv = _tscam_conv(enc.config, cfg.classes_num)
+            clap.init_weights(self.encoder, generator)
+            feat_dim = cfg.d_proj
+        elif encoder_kind == "hear":
+            self.encoder = hear.HeAREncoder(hear.HeARConfig())
+            hear.init_weights(self.encoder, generator)
+            feat_dim = self.encoder.config.hidden
         else:
-            raise _unported(encoder_kind)
+            raise ValueError(f"unknown encoder_kind {encoder_kind!r}")
         self.encoder_kind = encoder_kind
         self.head = Head(classes, head, feat_dim, generator)
+
+    def invalidate_prepared(self) -> None:
+        """Drop the encoder's cached kernel layouts (after an update)."""
+        for m in self.encoder.modules():
+            if hasattr(m, "invalidate_prepared"):
+                m.invalidate_prepared()
+
+    def _lengths(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
 
     def encode_train(self, x: torch.Tensor, gen: Optional[torch.Generator],
                      mm_dtype: torch.dtype, impl: str):
         """Train-mode encoder forward, differentiable: (features (B, D)
-        float32, the new bn0 running statistics of htsat or None)."""
-        if self.encoder_kind == "htsat":
-            bn = self.encoder.bn0
-            return htsat_encode_train(self.encoder, x, gen, (bn.running_mean, bn.running_var),
-                                      mm_dtype=mm_dtype, impl=impl)
-        if self.encoder_kind == "gt":
-            return gt_backbone_train_fused(self.encoder, x, mm_dtype, impl), None
-        return audiomae_backbone_train_fused(self.encoder, x, mm_dtype, impl), None
+        float32, the new BatchNorm running statistics as a models/bn.py dict,
+        or None for an encoder without BatchNorms)."""
+        kind, enc = self.encoder_kind, self.encoder
+        if kind == "htsat":
+            bn = enc.bn0
+            h, new = htsat_encode_train(enc, x, gen, (bn.running_mean, bn.running_var),
+                                        mm_dtype=mm_dtype, impl=impl)
+            return h, {bn: new}
+        if kind == "gt":
+            return gt_backbone_train_fused(enc, x, mm_dtype, impl), None
+        if kind == "audiomae":
+            return audiomae_backbone_train_fused(enc, x, mm_dtype, impl), None
+        if kind == "efficientnet":
+            stats = {}
+            dtype = None if mm_dtype == torch.float32 else mm_dtype
+            return enc(x, None, dtype, stats, gen), stats
+        if kind in ("clap", "clap2023"):
+            return enc.encode_train(x, self._lengths(x), gen)
+        return enc(x)["cls"], None  # hear
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, mm_dtype: torch.dtype = torch.float32,
                 impl: str = "kernel") -> torch.Tensor:
         """Eval logits (B, classes): the eval forwards of extraction. Their
-        kernel layouts are cached: call encoder.invalidate_prepared() after
-        an update (predict_batched does)."""
-        enc = self.encoder
-        if self.encoder_kind == "htsat":
+        kernel layouts are cached: call invalidate_prepared() after an
+        update (predict_batched does)."""
+        kind, enc = self.encoder_kind, self.encoder
+        if kind == "htsat":
             h = enc(x, None, mm_dtype, False, impl)
-        elif self.encoder_kind == "gt":
+        elif kind == "gt":
             h = mae_forward_feature_fused(enc, x, mm_dtype, False, impl)
-        else:
+        elif kind == "audiomae":
             h = audiomae_backbone_fused(enc, x, mm_dtype, False, impl)
+        elif kind == "efficientnet":
+            h = enc(x, None, None if mm_dtype == torch.float32 else mm_dtype)
+        elif kind in ("clap", "clap2023"):
+            h = enc(x, self._lengths(x))
+        else:
+            h = enc(x)["cls"]
         return self.head(h.to(torch.float32))
 
 
@@ -162,7 +221,7 @@ def ft_loss(model: EncoderClassifier, xb: torch.Tensor, yb: torch.Tensor, valid:
             cw: torch.Tensor, gen: Optional[torch.Generator], mm_dtype: torch.dtype, impl: str,
             l2_strength: float):
     """The fine-tuning loss of one batch (finetune.py:376-386): (loss, new
-    bn0 statistics or None)."""
+    BatchNorm statistics or None)."""
     h, stats = model.encode_train(xb, gen, mm_dtype, impl)
     logits = model.head(h) + 1e-10
     ce = -torch.log_softmax(logits, dim=-1).gather(1, yb[:, None])[:, 0]
@@ -183,17 +242,15 @@ def train_step(model: EncoderClassifier, opt: ClippedAdam, xb, yb, valid, cw,
                l2_strength: float, aug: Optional[Tuple[int, int]] = None):
     """One fine-tuning step: SpecAugment (aug = (time, freq) drop widths,
     two stripes each), the loss, gradients of opt's parameters, the update;
-    bn0's running statistics (htsat) take the step's. Returns (the loss, the
-    gradients before clipping)."""
+    the BatchNorms' running statistics take the step's. Returns (the loss,
+    the gradients before clipping)."""
     if aug is not None:
         xb = augment.spec_augment(xb, gen, aug[0], 2, aug[1], 2)
     loss, stats = ft_loss(model, xb, yb, valid, cw, gen, mm_dtype, impl, l2_strength)
     grads = torch.autograd.grad(loss, opt.params)
     opt.step(grads)
-    if stats is not None:
-        with torch.no_grad():
-            model.encoder.bn0.running_mean.copy_(stats[0])
-            model.encoder.bn0.running_var.copy_(stats[1])
+    if stats:
+        bn_mod.commit(stats)
     return loss.detach(), grads
 
 
@@ -202,7 +259,7 @@ def predict_batched(model: EncoderClassifier, x: np.ndarray, mm_dtype: torch.dty
     """Softmax probabilities of x in batches of bs, a short tail padded with
     repeats of its first row (finetune.py:433-443)."""
     outs = []
-    model.encoder.invalidate_prepared()
+    model.invalidate_prepared()
     for i in range(0, len(x), bs):
         chunk = np.asarray(x[i: i + bs], np.float32)
         n = len(chunk)
@@ -262,8 +319,6 @@ def finetune_classifier(
     if mesh is not None or param_sharding is not None:
         raise NotImplementedError(
             "multi-device fine-tuning (mesh, param_sharding) is not ported yet (slice 6)")
-    if encoder_kind not in PORTED:
-        raise _unported(encoder_kind)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("finetune_classifier(device='cuda'): no CUDA card available")
@@ -334,8 +389,11 @@ def finetune_classifier(
 
 def build_ft_spectrogram_cache(feature_dir: str, pretrain: str) -> np.ndarray:
     """Create or load the cached first-window inputs (finetuning.py:967-980,
-    1120-1138): fbank_audiomae.npy (Audio-MAE) or spectrogram_pad8.npy (the
-    OPERA encoders). The CLAP and HeAR caches come with their towers."""
+    1064-1078, 1120-1138; the JAX finetune.py:497-548): fbank_audiomae.npy
+    (Audio-MAE), clap_audio_<version>.npy (each file's CLAP clip,
+    models/clap.py::load_clap_clip with one np.random.default_rng(0) over
+    the files, cut to whole hops), fbank_hear.npy (the first 2-s waveform
+    window at 16 kHz) or spectrogram_pad8.npy (the OPERA encoders)."""
     from ..audio import pipelines
 
     files = lambda: np.load(os.path.join(feature_dir, "sound_dir_loc.npy"))
@@ -345,8 +403,23 @@ def build_ft_spectrogram_cache(feature_dir: str, pretrain: str) -> np.ndarray:
             x = [pipelines.get_split_signal_fbank_pad(str(f), input_sec=10)[0] for f in files()]
             np.save(cache, np.asarray(x))
         return np.load(cache)
-    if "clap" in pretrain or pretrain == "hear":
-        raise _unported("hear" if pretrain == "hear" else "clap")
+    if "clap" in pretrain:
+        cfg = clap.CLAPConfig(version="2023" if "2023" in pretrain else "2022")
+        cache = os.path.join(feature_dir, f"clap_audio_{cfg.version}.npy")
+        if not os.path.exists(cache):
+            rng = np.random.default_rng(0)
+            n = int(cfg.duration * cfg.sample_rate) // cfg.hop * cfg.hop
+            x = [clap.load_clap_clip(str(f), cfg.duration, cfg.sample_rate, rng)[:n]
+                 for f in files()]
+            np.save(cache, np.asarray(x))
+        return np.load(cache)
+    if pretrain == "hear":
+        cache = os.path.join(feature_dir, "fbank_hear.npy")
+        if not os.path.exists(cache):
+            x = [pipelines.get_split_signal_fbank_pad(str(f), input_sec=2, spectrogram=False)[0]
+                 for f in files()]
+            np.save(cache, np.asarray(x))
+        return np.load(cache)
     cache = os.path.join(feature_dir, "spectrogram_pad8.npy")
     if not os.path.exists(cache):
         x = [pipelines.get_split_signal(str(f), input_sec=8.18, spectrogram=True)[0]
@@ -374,11 +447,14 @@ def encoder_kind_of(pretrain: str) -> Tuple[str, int, Optional[int], int, int]:
 def pretrained_encoder_state(pretrain: str, encoder_kind: str,
                              ckpt_path: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """The pretrained encoder's weights as "encoder.*" names of the
-    classifier (extract/registry.py's checkpoints)."""
+    classifier (extract/registry.py's checkpoints: the Cola encoders'
+    subtrees, the CLAP tower from an msclap state_dict, HeAR from a
+    google/hear-pytorch one)."""
     from ..extract import registry
 
     model = registry.initialize_pretrained_model(pretrain, ckpt_path=ckpt_path)
-    enc = model.htsat if encoder_kind == "htsat" else model
+    enc = {"htsat": lambda: model.htsat, "efficientnet": lambda: model.encoder}.get(
+        encoder_kind, lambda: model)()
     return {f"encoder.{k}": v for k, v in enc.state_dict().items()}
 
 
@@ -420,14 +496,24 @@ def finetune_heart(
 ) -> FTResult:
     """Fine-tune one seed on a processed heart task (feature_dir holds the
     processors' sound_dir_loc, labels and split) and save the best weights
-    as a state_dict .pt under the JAX name stem in cks/finetune/."""
+    as a state_dict .pt under the JAX name stem in cks/finetune/. CLAP and
+    HeAR need converted weights (ckpt_path: an msclap or google/hear-pytorch
+    state_dict) unless random_init, as in the JAX package (finetune.py:
+    605-630); the other kinds load the registry's checkpoint (operaCE:
+    cks/model/encoder-operaCE.ckpt) unless random_init or pretrain=null."""
     encoder_kind, feat_dim, bs, tdw, fdw = encoder_kind_of(pretrain)
-    if encoder_kind not in PORTED:
-        raise _unported(encoder_kind)
+    if (not random_init and encoder_kind in ("clap", "clap2023", "hear")
+            and ckpt_path is None):
+        raise FileNotFoundError(
+            f"{pretrain} fine-tuning needs converted weights; pass ckpt_path= (an msclap or "
+            "google/hear-pytorch state_dict) or random_init=True")
     if mesh is not None or param_sharding is not None:
         raise NotImplementedError(
             "multi-device fine-tuning (mesh, param_sharding) is not ported yet (slice 6)")
     batch_size = bs or batch_size
+    init_state = None  # the weights first: a missing checkpoint fails before the cache
+    if not random_init and pretrain != "null":
+        init_state = pretrained_encoder_state(pretrain, encoder_kind, ckpt_path)
     y_label = np.load(os.path.join(feature_dir, labels_filename))
     y_set = np.load(os.path.join(feature_dir, "train_test_split.npy"))
     valid = ~np.isnan(np.asarray(y_label, np.float64))
@@ -435,10 +521,6 @@ def finetune_heart(
     y_set = np.asarray(y_set)[valid]
     n_cls = len(set(y_label.tolist()))
     x_data = build_ft_spectrogram_cache(feature_dir, pretrain)[valid]
-
-    init_state = None
-    if not random_init and pretrain != "null":
-        init_state = pretrained_encoder_state(pretrain, encoder_kind, ckpt_path)
 
     tr, va, te = y_set == "train", y_set == "val", y_set == "test"
     cw = get_class_weights(y_label[tr], n_cls) if loss == "weighted" else None

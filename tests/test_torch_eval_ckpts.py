@@ -2,7 +2,8 @@
 (train/eval_ckpts.py, cli/eval_ckpts.py, analysis/significance.py,
 cli/significance.py) against the JAX package on the same features,
 weights and scores: a saved probe head's metrics (1e-6), a small HTS-AT
-classifier's test probabilities in float32 (1e-4), the cross-task name
+classifier's and a full-width EfficientNet (operaCE) classifier's test
+probabilities in float32 (1e-4), the cross-task name
 split, a head-only CLI run on a synthetic feature dir, the t-test, and the
 significance CLI's 5-seed scores."""
 
@@ -127,8 +128,42 @@ def test_evaluate_finetuned_model_matches_jax(feature_dir, monkeypatch):
     assert probs[0].shape == jprobs[0].shape == (24, 3)
     np.testing.assert_allclose(probs[0], jprobs[0], atol=1e-4, rtol=1e-4)
     assert abs(got["test_auc"] - want["test_auc"]) < 1e-4
-    with pytest.raises(NotImplementedError, match="operaCE"):
+    with pytest.raises(FileNotFoundError, match="finetuning_linear_operaCE_64"):
         eval_ckpts.evaluate_finetuned_model(1, pretrain="operaCE", device="cpu")
+
+
+def test_evaluate_finetuned_efficientnet_matches_jax(feature_dir, monkeypatch):
+    """An operaCE classifier (the EfficientNet-B0 at full width, a JAX init
+    carried over by from_jax_classifier, its running statistics calibrated
+    on the cached inputs as tests/test_torch_efficientnet.py does, and back
+    to flax by the JAX converter): the same float32 test probabilities as
+    the JAX function (1e-4), 1280-d features into the head."""
+    from heart_murmur_detection_tpu.extract.convert import convert_cola_efficientnet
+    from heart_murmur_detection_tpu_torch.train.finetune import EncoderClassifier
+    from tests.test_torch_efficientnet import calibrate_bn
+
+    jmodel = jft.EncoderClassifier(encoder_kind="efficientnet", classes=3, feat_dim=1280)
+    v = jax.tree.map(np.asarray, jax.jit(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(5), "dropout": jax.random.PRNGKey(6)},
+        jnp.zeros((1, 32, 16))))())
+    port = EncoderClassifier("efficientnet", 3, "linear", 1280)
+    port.load_state_dict(from_jax_classifier(v, "efficientnet"))
+    calibrate_bn(port.encoder, torch.from_numpy(np.load(feature_dir + "spectrogram_pad8.npy")))
+    enc = convert_cola_efficientnet({k: t.numpy() for k, t in port.state_dict().items()})
+    v = {"params": {"encoder": enc["params"]["encoder"], "head": jax.tree.map(
+        lambda a: a * 100.0, v["params"]["head"])},
+         "batch_stats": {"encoder": enc["batch_stats"]["encoder"]}}
+    jpath = jck.save_params(os.path.join("jax", "ce.msgpack"), v)
+    save_params("cks/finetune/circor_murmurs/finetuning_linear_operaCE_64_0.0001_64_0.0001_2"
+                "_weighted-epoch=00-valid_auc=0.50.pt", from_jax_classifier(v, "efficientnet"))
+    jprobs, probs = _probs_of(jeval, monkeypatch), _probs_of(eval_ckpts, monkeypatch)
+    want = jeval.evaluate_finetuned_model(2, pretrain="operaCE", ckpt_path=jpath)
+    got = eval_ckpts.evaluate_finetuned_model(2, pretrain="operaCE", device="cpu")
+    assert eval_ckpts.encoder_kind_for_eval("null") == ("efficientnet", 1280)
+    assert float(probs[0].std(0).max()) > 0.05
+    assert probs[0].shape == jprobs[0].shape == (24, 3)
+    np.testing.assert_allclose(probs[0], jprobs[0], atol=1e-4, rtol=1e-4)
+    assert abs(got["test_auc"] - want["test_auc"]) < 1e-4
 
 
 @pytest.mark.parametrize("name", ["pascal_A", "zchsound_clean_murmurs", "physionet16"])

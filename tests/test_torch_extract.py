@@ -155,12 +155,22 @@ def test_prefetch_iter_order_and_errors():
     {"baseline": "vggish"}, {"baseline": "opensmile"}, {"mesh": object()}, {"dim": 1280},
 ])
 def test_uncarried_options_raise(kw, tmp_path):
-    """What the port does not carry raises NotImplementedError: a baseline
-    encoder through extract_and_save, a mesh, operaCT at dim 1280."""
+    """What the port does not carry raises: VGGish weights (the repository
+    has no VGGish checkpoint: FileNotFoundError without random_init), the
+    pip openSMILE package when required (ImportError: the port carries the
+    emobase fallback), and NotImplementedError for a mesh and operaCT at dim
+    1280."""
     if "baseline" in kw:
         np.save(tmp_path / "sound_dir_loc.npy", np.array(["x.wav"]))
-        with pytest.raises(NotImplementedError):
-            extract_and_save(str(tmp_path), kw["baseline"], device="cpu")
+        if kw["baseline"] == "vggish":
+            with pytest.raises(FileNotFoundError, match="VGGish weights"):
+                extract_and_save(str(tmp_path), "vggish", device="cpu")
+        else:
+            from heart_murmur_detection_tpu_torch.models.vggish import (
+                extract_opensmile_features)
+
+            with pytest.raises(ImportError):
+                extract_opensmile_features(str(tmp_path / "x.wav"), native=False)
         return
     args = dict(dim=768, random_init=True, device="cpu")
     args.update(kw)
@@ -180,15 +190,20 @@ def test_source_sr_must_divide_with_a_power_of_two_ratio(source_sr):
 
 @pytest.mark.parametrize("pretrain", ["operaCE"])
 def test_other_towers_raise(pretrain):
-    with pytest.raises(NotImplementedError):
-        FeatureExtractor(pretrain, random_init=True, device="cpu")
+    """operaCE extracts at 1280 (the default) or 512 only; a kind without an
+    extractor raises."""
+    with pytest.raises(NotImplementedError, match="operaCE dim 768"):
+        FeatureExtractor(pretrain, dim=768, random_init=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="no extractor"):
+        FeatureExtractor("vggish", random_init=True, device="cpu")
+    assert FeatureExtractor(pretrain, random_init=True, device="cpu").dim == 1280
 
 
 def test_cuda_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        FeatureExtractor("operaCT", random_init=True)
+        FeatureExtractor("operaCT", dim=768, random_init=True)
 
 
 def test_serve_source_sr_key():

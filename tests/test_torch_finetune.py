@@ -378,11 +378,15 @@ def test_find_best_ckpt_and_load_params(tmp_path):
     assert ck.find_best_ckpt(str(tmp_path), "none-*.pt") is None
 
 
-def test_unported_encoders_and_multi_device_raise():
+def test_unported_encoders_and_multi_device_raise(narrow_zoo):
+    """Every encoder kind of the JAX classifier builds (efficientnet, clap,
+    clap2023 and hear since the zoo's port); multi-device fine-tuning still
+    raises, and an unknown kind is a ValueError."""
     x, y = _clf_data("htsat", 8, seed=0)
     for kind in ("efficientnet", "clap", "clap2023", "hear"):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            ft.finetune_classifier(x, y, x, y, encoder_kind=kind, device="cpu")
+        assert ft.EncoderClassifier(kind, 2, feat_dim=NEW_KINDS[kind][1]).encoder_kind == kind
+    with pytest.raises(ValueError, match="resnet"):
+        ft.finetune_classifier(x, y, x, y, encoder_kind="resnet", device="cpu")
     for kw in ({"mesh": object()}, {"param_sharding": "fsdp"}):
         with pytest.raises(NotImplementedError, match="slice 6"):
             ft.finetune_classifier(x, y, x, y, encoder_kind="htsat", device="cpu", **kw)
@@ -461,12 +465,14 @@ def test_cli_finetune_on_cpu(tmp_path, monkeypatch, capsys):
     model.load_state_dict(ck.load_params(os.path.join("cks/finetune/circor_murmurs", ckpts[0])))
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["task=circor_murmurs"], "slice 5"),  # the config's default pretrain, operaCE
-    (["task=circor_murmurs", "pretrain=operaCT", "dp=2"], "slice 6"),
-    (["task=circor_murmurs", "pretrain=hear"], "slice 5"),
+@pytest.mark.parametrize("argv,exc,match", [
+    # the config's default pretrain, operaCE, wants its checkpoint
+    (["task=circor_murmurs"], FileNotFoundError, "encoder-operaCE.ckpt"),
+    (["task=circor_murmurs", "pretrain=operaCT", "dp=2"], NotImplementedError, "slice 6"),
+    # HeAR (and CLAP) want converted weights or random_init
+    (["task=circor_murmurs", "pretrain=hear"], FileNotFoundError, "ckpt_path"),
 ])
-def test_cli_finetune_refusals(argv, match, tmp_path, monkeypatch):
+def test_cli_finetune_refusals(argv, exc, match, tmp_path, monkeypatch):
     from heart_murmur_detection_tpu_torch.cli import finetune as cli_finetune
 
     monkeypatch.chdir(tmp_path)
@@ -474,5 +480,223 @@ def test_cli_finetune_refusals(argv, match, tmp_path, monkeypatch):
     d.mkdir(parents=True)
     np.save(d / "murmurs.npy", np.array([0, 1, 0, 1]))
     np.save(d / "train_test_split.npy", np.array(["train", "val", "test", "train"]))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         cli_finetune.main(argv + ["device=cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the rest of the zoo: efficientnet, clap, clap2023, hear
+# ---------------------------------------------------------------------------
+
+# (input shape of a clip, feature width): the EfficientNet on (96, 64) mels;
+# CLAP on 0.5 s at 44.1 kHz (69 hops, the Cnn14's six pools reach one row);
+# HeAR on a 2-s clip at 16 kHz at tests/test_torch_hear.py's narrow width
+NEW_KINDS = {"efficientnet": ((96, 64), 1280), "clap": ((22080,), 1024),
+             "clap2023": ((22080,), 1024), "hear": ((32000,), 64)}
+# the CLAP-2023 HTS-AT narrowed (over CLAP's 64 mel bins) and HeAR's narrow tower
+CLAP_HTSAT = dict(spec_size=128, patch_size=4, embed_dim=16, depths=(1, 1, 1, 1),
+                  num_heads=(2, 2, 2, 2), window_size=2, drop_path_rate=0.0)
+HEAR_WAVE = dict(image_size=(192, 128), patch_size=16, hidden=64, depth=1, heads=2,
+                 mlp_ratio=4.0, pooled_dim=8)
+
+
+@pytest.fixture
+def narrow_zoo(monkeypatch):
+    """Both packages' CLAP-2023 HTS-AT and HeAR narrowed where their
+    classifiers build them, and every random draw of the comparison off:
+    the EfficientNet's drop-connect and the CLAP projection's dropout (the
+    JAX modules subclassed with a zero rate; the JAX package is not
+    edited)."""
+    import functools
+
+    from heart_murmur_detection_tpu.models import clap as jclap
+    from heart_murmur_detection_tpu.models import hear as jhear
+    from heart_murmur_detection_tpu_torch.models import clap, hear
+
+    class NoDropProjection(jclap.Projection):
+        p: float = 0.0
+
+    class NarrowHeAR(jhear.HeAREncoder):
+        config: jhear.HeARConfig = jhear.HeARConfig(**HEAR_WAVE)
+
+    monkeypatch.setattr(jclap, "Projection", NoDropProjection)
+    monkeypatch.setattr(jclap, "HTSATConfig", lambda **kw: JHTSATConfig(**{**CLAP_HTSAT, **kw}))
+    monkeypatch.setattr(jhear, "HeAREncoder", NarrowHeAR)
+    monkeypatch.setattr(jft, "ColaEfficientNetEncoder",
+                        functools.partial(jft.ColaEfficientNetEncoder, drop_connect_rate=0.0))
+    real = clap.CLAPConfig
+    monkeypatch.setattr(clap, "CLAPConfig", lambda **kw: real(**{**kw, "proj_dropout": 0.0}))
+    monkeypatch.setattr(clap, "HTSATConfig", lambda **kw: HTSATConfig(**{**CLAP_HTSAT, **kw}))
+    real_hear = hear.HeARConfig
+    monkeypatch.setattr(hear, "HeARConfig", lambda: real_hear(**HEAR_WAVE))
+
+
+_NEW_INITS = {}
+
+
+def _new_jax(kind):
+    """The JAX classifier of a new kind and its jitted init (numpy), made once
+    a kind (under narrow_zoo's patches, which every caller holds)."""
+    jmodel = jft.EncoderClassifier(encoder_kind=kind, classes=2, feat_dim=NEW_KINDS[kind][1])
+    if kind not in _NEW_INITS:
+        _NEW_INITS[kind] = jax.tree.map(np.asarray, jax.device_get(jax.jit(lambda: jmodel.init(
+            {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+            jnp.zeros((1,) + NEW_KINDS[kind][0])))()))
+    return jmodel, _NEW_INITS[kind]
+
+
+def _new_port(kind, v):
+    model = ft.EncoderClassifier(kind, 2, "linear", NEW_KINDS[kind][1])
+    if kind == "efficientnet":
+        for blk in model.encoder.efficientnet._blocks:
+            blk.drop = 0.0
+    model.load_state_dict(from_jax_classifier(v, kind))
+    return model
+
+
+def _new_batch(kind, B=4):
+    r = np.random.default_rng(11)
+    x = r.standard_normal((B,) + NEW_KINDS[kind][0]).astype(np.float32)
+    if kind != "efficientnet":
+        x *= 0.1  # waveforms
+    y = np.array([0, 1, 1, 0][:B], np.int32)
+    valid = np.array([1, 1, 1, 0][:B], np.float32)
+    return x, y, valid, np.array([0.3, 0.7], np.float32)
+
+
+def _named(model, stats):
+    """A models/bn.py stats dict keyed by each BatchNorm's name in model."""
+    names = {m: n for n, m in model.named_modules()}
+    return {names[bn]: v for bn, v in stats.items()}
+
+
+def _port_grads_f64(kind, v, x, y, valid, cw):
+    """The port's step in float64 (the exact reference for a leaf flax's
+    float32 misses): gradient leaves by name, as numpy."""
+    port = _new_port(kind, v).double()
+    loss, _ = ft.ft_loss(port, torch.from_numpy(x).double(), torch.from_numpy(y).long(),
+                         torch.from_numpy(valid).double(), torch.from_numpy(cw).double(), None,
+                         torch.float32, "autograd", L2)
+    params = [p for _, p in port.named_parameters()]
+    return {n: g.numpy() for (n, _), g in zip(port.named_parameters(),
+                                              torch.autograd.grad(loss, params))}
+
+
+@pytest.mark.parametrize("kind", list(NEW_KINDS))
+def test_one_step_new_kinds_match_jax_float32(kind, narrow_zoo):
+    """One fine-tuning step's loss and every gradient leaf against the JAX
+    finetune_classifier's loss_fn on its flax route (train mode: the
+    BatchNorms on the batch statistics, their new running statistics
+    compared too), in float32: the EfficientNet at full width, the Cnn14 at
+    full width, the CLAP-2023 HTS-AT and HeAR narrowed.
+
+    flax forms each BatchNorm's batch variance as mean(x^2) - mean(x)^2,
+    which loses digits on the Cnn14's bn0 over dB log-mels: on this batch
+    the JAX package's gradient leaves stand up to 1.4e-3 of their scale
+    from the same step in float64, the port's (which forms the variance as
+    mean((x - mean)^2)) within 1e-6. A leaf over the 2e-4 class therefore
+    passes only if the port is within 2e-4 of the float64 step and no
+    farther from flax than flax is from float64."""
+    jmodel, v = _new_jax(kind)
+    x, y, valid, cw = _new_batch(kind)
+    has_bn = bool(v.get("batch_stats"))
+
+    def loss_fn(params):
+        vin = {"params": params, **({"batch_stats": v["batch_stats"]} if has_bn else {})}
+        out = jmodel.apply(vin, x, train=True, rngs={"dropout": jax.random.PRNGKey(2)},
+                           mutable=["batch_stats"] if has_bn else False)
+        logits, new = out if has_bn else (out, {})
+        ce = optax.softmax_cross_entropy_with_integer_labels(logits + 1e-10, y)
+        w = cw[y] * valid
+        loss = (ce * w).sum() / jnp.maximum(w.sum(), 1e-12)
+        loss = loss + L2 * _tree_l2(params["head"]) + 0.2 * L2 * _tree_l2(params["encoder"])
+        return loss, new
+
+    (lj, new), g = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
+    gj = from_jax_classifier({"params": jax.device_get(g)}, kind)
+    port = _new_port(kind, v)
+    names = [n for n, _ in port.named_parameters()]
+    loss, stats = ft.ft_loss(port, torch.from_numpy(x), torch.from_numpy(y).long(),
+                             torch.from_numpy(valid), torch.from_numpy(cw), None, torch.float32,
+                             "autograd", L2)
+    gp = dict(zip(names, torch.autograd.grad(loss, [p for _, p in port.named_parameters()])))
+    assert abs(float(loss.detach()) - float(lj)) <= TOL * abs(float(lj)), (kind, float(loss), lj)
+    assert set(gp) == set(gj), kind
+    exact = None
+    for k, want in gj.items():
+        want = want.numpy()
+        scale = TOL * max(1.0, np.abs(want).max())
+        err = np.abs(gp[k].numpy() - want).max()
+        if err <= scale:
+            continue
+        # flax's fast variance (see the docstring): held to the float64 step
+        if exact is None:
+            exact = _port_grads_f64(kind, v, x, y, valid, cw)
+        e = exact[k]
+        assert np.abs(gp[k].numpy() - e).max() <= scale, (kind, k, err)
+        assert err <= np.abs(want - e).max() + scale, (kind, k, err)
+    if has_bn:
+        want = from_jax_classifier({"params": v["params"], **jax.device_get(new)}, kind)
+        got = _named(port, stats)
+        assert len(got) == (49 if kind == "efficientnet" else 13 if kind == "clap" else 1)
+        for name, (mean, var) in got.items():
+            for t, leaf in ((mean, "running_mean"), (var, "running_var")):
+                w = want[f"{name}.{leaf}"].numpy()
+                assert np.abs(t.numpy() - w).max() <= 1e-5 * max(1.0, np.abs(w).max()), name
+    else:
+        assert stats is None
+
+
+@pytest.mark.parametrize("mode", ["none", "all", "early"])
+@pytest.mark.parametrize("kind", list(NEW_KINDS))
+def test_freeze_mask_new_kinds_is_the_image_of_the_jax_predicate(kind, mode, narrow_zoo):
+    """The trainable set of the new kinds under from_jax_classifier's name
+    map: the JAX predicate's trainable leaves (the EfficientNet's cnn1 and
+    blocks 0-4, with '_blocks_1' matching blocks 10-15 too; the CLAP-2023
+    HTS-AT's patch embed, stages 0-2 and tscam; HeAR's patch embed)."""
+    _, v = _new_jax(kind)
+    marks = from_jax_classifier({"params": _mask_tree(v["params"], jax_freeze_mask_fn(mode))},
+                                kind)
+    want = {k for k, t in marks.items() if bool((t == 1.0).all())}
+    model = _new_port(kind, v)
+    pred = freeze_mask_fn(mode, kind)
+    assert {n for n, _ in model.named_parameters()} == set(marks)
+    assert {n for n, _ in model.named_parameters() if pred(n)} == want
+
+
+def test_cli_finetune_new_kinds_then_eval_ckpts_on_cpu(tmp_path, monkeypatch, capsys,
+                                                       narrow_zoo):
+    """cli.finetune on its config defaults (operaCE, random_init, one seed,
+    one epoch), then cli.eval_ckpts re-tests the saved EfficientNet in
+    float32; pretrain=null fine-tunes the random EfficientNet without a
+    checkpoint; cli.finetune pretrain=clap2023 and pretrain=hear random_init
+    fine-tune (narrowed) from their clap_audio_2023.npy / fbank_hear.npy
+    caches."""
+    from heart_murmur_detection_tpu_torch.cli import eval_ckpts as cli_eval
+    from heart_murmur_detection_tpu_torch.cli import finetune as cli_finetune
+    from heart_murmur_detection_tpu_torch.data.processors import circor
+
+    _circor_corpus(str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("feature/circor_eval")
+    circor.read_data(feature_dir="feature/circor_eval/")
+    ((s,),) = cli_finetune.main(["task=circor_murmurs", "random_init=True", "n_run=1",
+                                 "epochs=1", "device=cpu"])
+    assert np.isfinite(s)
+    (ck,) = os.listdir("cks/finetune/circor_murmurs")
+    assert ck.startswith("finetuning_linear_operaCE_64_0.0001_1_1e-05_0_weighted")
+    ((r,),) = cli_eval.main(["task=circor_murmurs", "head_only=False", "loss=weighted",
+                             "batch_size=64", "epochs=1", "n_run=1", "device=cpu"])
+    assert np.isfinite(r)
+    # pretrain=null (yaml's None): the random EfficientNet, no checkpoint
+    ((s,),) = cli_finetune.main(["task=circor_murmurs", "pretrain=null", "n_run=1", "epochs=1",
+                                 "device=cpu"])
+    assert np.isfinite(s)
+    assert any(c.startswith("finetuning_linear_null_64") for c in
+               os.listdir("cks/finetune/circor_murmurs"))
+    for pretrain, cache, shape in (("clap2023", "clap_audio_2023.npy", (12, 308480)),
+                                   ("hear", "fbank_hear.npy", (12, 32000))):
+        ((s,),) = cli_finetune.main([f"task=circor_murmurs", f"pretrain={pretrain}",
+                                     "random_init=True", "n_run=1", "epochs=1", "device=cpu"])
+        assert np.isfinite(s), pretrain
+        assert np.load(os.path.join("feature/circor_eval", cache)).shape == shape

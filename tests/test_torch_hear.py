@@ -481,15 +481,13 @@ def test_cli_process_then_linear_eval_hear_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("pretrain", ["vggish", "clap", "clap2023", "opensmile"])
 def test_other_baselines_still_raise(tmp_path, pretrain):
-    """vggish and opensmile are not ported; the CLAP towers are
-    (tests/test_torch_clap.py) and, with neither weights nor random_init,
-    raise for want of a checkpoint."""
-    np.save(tmp_path / "sound_dir_loc.npy", np.array(["x.wav"]))
-    if pretrain.startswith("clap"):
-        with pytest.raises(FileNotFoundError, match="msclap"):
-            extract_and_save(str(tmp_path), pretrain, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """With neither weights nor random_init, the CLAP towers
+    (tests/test_torch_clap.py) and VGGish (tests/test_torch_vggish.py) raise
+    for want of a checkpoint; opensmile (tests/test_torch_emobase.py) needs
+    no weights and raises for the missing file."""
+    np.save(tmp_path / "sound_dir_loc.npy", np.array([str(tmp_path / "x.wav")]))
+    match = {"vggish": "VGGish weights", "opensmile": "x.wav"}.get(pretrain, "msclap")
+    with pytest.raises(FileNotFoundError, match=match):
         extract_and_save(str(tmp_path), pretrain, device="cpu")
 
 

@@ -239,7 +239,7 @@ def test_early_freeze_keeps_frozen_weights_and_updates_bn0_stats(tmp_path):
 @pytest.mark.parametrize("argv,exc", [
     (["method=mae", "covidbreath=True", "dp=2"], NotImplementedError),
     (["encoder=htsat", "circor=True", "dp=2"], NotImplementedError),
-    (["encoder=efficientnet", "circor=True", "device=cpu"], NotImplementedError),
+    (["encoder=efficientnet", "circor=True", "dp=2"], NotImplementedError),
     (["encoder=htsat"], SystemExit),
 ])
 def test_cli_refusals(argv, exc, tmp_path, monkeypatch):

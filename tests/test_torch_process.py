@@ -175,8 +175,10 @@ def test_processor_files_identical(name, tmp_path):
 
 
 def test_baseline_encoders_raise(tmp_path):
+    """VGGish without weights or random_init raises (the repository holds no
+    VGGish checkpoint)."""
     np.save(tmp_path / "sound_dir_loc.npy", np.array(["x.wav"]))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="VGGish weights"):
         extract_and_save(str(tmp_path), "vggish", device="cpu")
 
 
