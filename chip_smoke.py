@@ -188,6 +188,27 @@ Phases (each prints one line; any failure exits non-zero):
      sidecar native-emobase; one cli.finetune run (2 epochs, float32) each
      of CLAP-2022, CLAP-2023 and HeAR: finite AUROCs, step ms, no
      repository kernel launched
+ 29. the legacy respiratory benchmark from disk: synthetic COPD (4 kHz),
+     ICBHI (4 / 10 / 44.1 kHz), SSBPR, NoseMic and MMLung (16 kHz) corpora
+     (bench/resp_corpora.py, the metadata with the cells pandas types in
+     its own way, read here by utils/table.py) through the ten processors'
+     five here (split and label rows = the files written; the empty ICBHI
+     diagnosis cell a "nan" label, MMLung's gap a NaN), extract_and_save with operaCT
+     (the native C++ loader for 16-kHz WAVs, its per-file Python route for
+     the rest; the route counts) and operaGT on each feature dir, launches
+     exact (12 swin_attn + 12 swin_mlp an operaCT batch, 12 of each ViT
+     kernel an operaGT batch); cli.linear_eval task=copd, icbhidisease,
+     snoring (5 finite AUROCs each); LOOCV=True task=rr and spirometry
+     (folds = subjects / recordings, finite MAE and MAPE); the NoseMic LOOCV
+     on the card against the CPU, within twice the spread of CPU runs on
+     features moved one ulp; cli.process clips/s on a 16-kHz CirCor corpus
+     through the native loader and the Python decoder in turns
+ 30. respiratory continued pretraining: pretrain/prepare.py's ICBHI
+     whole-recording and cycle manifests and HF_Lung's (counts = the valid
+     clips); cli.pretrain method=cola icbhi + hf_lung and method=mae
+     icbhicycle + hf_lung at B=16, one epoch each on the train kernels:
+     launches exactly phases 8 / 16's a step and eval batch, finite losses,
+     step ms
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -3346,6 +3367,363 @@ def phase_baselines(smi: str, root: str):
               f"predictions; repository kernel launches {sum(c.values())}; {smi}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 29-30: the legacy OPERA respiratory benchmark from disk (K1-K4 and
+# K5-K7 on extraction, K8 / K9 on continued pretraining)
+# ---------------------------------------------------------------------------
+
+# the probe tasks of phase 29 (cli.linear_eval task=...) and their feature dirs
+RESP_TASKS = {"copd": "feature/copd_eval/", "icbhidisease": "feature/icbhidisease_eval/",
+              "snoring": "feature/snoring_eval/"}
+RESP_CORPORA = ("copd", "icbhi", "ssbpr", "nosemic", "mmlung", "hf_lung")  # phases 29-30
+RESP_CIRCOR_PATIENTS = 30  # the 16-kHz CirCor corpus of the loader comparison
+LOOCV_PERTURBATIONS = 3  # CPU runs on features moved one ulp, for the spread
+
+
+class _Recording:
+    """Within the block, every FeatureExtractor the port builds is recorded
+    in `made`, and the seconds its extract_files calls take (the model's
+    init left out) add up in `seconds`."""
+
+    def __enter__(self):
+        from heart_murmur_detection_tpu_torch.extract import extract as ext
+
+        self.ext, self.base, self.made, self.seconds = ext, ext.FeatureExtractor, [], 0.0
+        rec = self
+
+        class Recorded(self.base):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                rec.made.append(self)
+
+            def extract_files(self, paths):
+                t0 = time.time()
+                try:
+                    return super().extract_files(paths)
+                finally:
+                    rec.seconds += time.time() - t0
+
+        ext.FeatureExtractor = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.ext.FeatureExtractor = self.base
+
+
+def _recorded_extract(fdir: str, pretrain: str, dim: int):
+    """extract_and_save on one feature dir at the CLI's window; returns (saved
+    path, the FeatureExtractor it built, launch counts, seconds of the call,
+    seconds of extract_files alone)."""
+    from heart_murmur_detection_tpu_torch.data.processors import common
+    from heart_murmur_detection_tpu_torch.extract.registry import default_input_sec
+
+    with _Recording() as rec:
+        _reset_counts()  # just before the extraction path
+        t0 = time.time()
+        out = common.extract_and_save(fdir, pretrain, input_sec=default_input_sec(pretrain),
+                                      dim=dim, random_init=True)
+        secs = time.time() - t0
+        counts = _all_counts()
+    return out, rec.made[0], counts, secs, rec.seconds
+
+
+def _extraction_counts_ok(ex, paths, counts) -> tuple:
+    """The launches one extraction implies: an operaCT batch runs 12
+    swin_attn + 12 swin_mlp, an operaGT batch 12 of each ViT kernel; the
+    batches counted from the files (operaCT) or from their kept chunks
+    (operaGT: the >= 16-frame gate of _extract_chunked). Returns (ok,
+    batches, what each kernel should read)."""
+    import math
+
+    if ex.is_mae:
+        n = sum(1 for p in paths for c in ex._chunks(p) if len(c) // 512 + 1 >= 16)
+        want = {"vit_qkv": 12, "vit_attn": 12, "vit_proj": 12, "vit_mlp": 12}
+    else:
+        n = len(paths)
+        want = {"swin_attn": 12, "swin_mlp": 12}
+    batches = math.ceil(n / ex.batch_size)
+    want = {k: v * batches for k, v in want.items()}
+    ok = ex.n_dispatched == batches and all(counts[k] == want.get(k, 0) for k in counts)
+    return ok, batches, want
+
+
+def phase_respiratory(smi: str, root: str):
+    """Phase 29: the legacy respiratory benchmark from disk in `root`. The
+    corpora (bench/resp_corpora.py: COPD at 4 kHz, ICBHI at 4 / 10 / 44.1
+    kHz, SSBPR, NoseMic and MMLung at 16 kHz; an empty ICBHI diagnosis cell,
+    a repeated key, MMLung's integer column and gapped column); the
+    processors, through utils/table.py; extract_and_save
+    with operaCT (whole clips: the native loader for 16-kHz WAVs, its Python
+    route for the rest) and operaGT on each feature dir, with exact launch
+    counts; cli.linear_eval on copd, icbhidisease and snoring (5 seeds,
+    finite AUROCs); the two LOOCV tasks (folds = subjects, finite MAE /
+    MAPE); the NoseMic LOOCV on the card against the CPU from the same
+    seeded heads, at twice the spread that one-ulp moves of the features
+    give on the CPU; cli.process clips/s through the native loader and the
+    Python decoder, in turns (information)."""
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench.process_time import write_circor
+    from heart_murmur_detection_tpu_torch.bench.resp_corpora import write_resp_corpora
+    from heart_murmur_detection_tpu_torch.cli import linear_eval, process
+    from heart_murmur_detection_tpu_torch.data.processors import respiratory as resp
+    from heart_murmur_detection_tpu_torch.train import legacy_tasks as lt
+    from heart_murmur_detection_tpu_torch.utils import native
+
+    t_phase = time.time()
+    written, mm_table = write_resp_corpora(root, seed=SEED + 29, corpora=RESP_CORPORA)
+    n_mm = len(mm_table["ID"])  # participants: a deep breath and a vowel each
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        t0 = time.time()
+        resp.copd_preprocess_split()
+        resp.icbhi_process_disease()
+        resp.ssbpr_preprocess()
+        resp.nosemic_process_label()
+        resp.mmlung_process_label()
+        mm_paths = resp.mmlung_sound_dirs()["Deep_Breath_file"]
+        np.save("feature/mmlung_eval/sound_dir_loc.npy", np.asarray(mm_paths))
+        proc_s = time.time() - t0
+        splits = {
+            "copd": np.load("feature/copd_eval/train_test_split.npy"),
+            "icbhidisease": np.load("feature/icbhidisease_eval/split.npy"),
+            "snoring": np.load("feature/snoring_eval/labels.npy"),
+            "nosemic": np.load("feature/nosemic_eval/uids.npy"),
+            "mmlung": np.load("feature/mmlung_eval/label.npy"),
+        }
+        want_n = {"copd": written["copd"], "icbhidisease": written["icbhi"],
+                  "snoring": written["ssbpr"] - written["ssbpr"] // 6,
+                  "nosemic": written["nosemic"], "mmlung": n_mm}
+        dirs = {**RESP_TASKS, "nosemic": "feature/nosemic_eval/", "mmlung": "feature/mmlung_eval/"}
+        files = {t: [str(f) for f in np.load(d + "sound_dir_loc.npy")] for t, d in dirs.items()}
+        for t, n in want_n.items():
+            _require(len(files[t]) == len(splits[t]) == n,
+                     f"{t}: {len(files[t])} files, {len(splits[t])} split / label rows, want {n}")
+        na = (int((np.load("feature/icbhidisease_eval/labels.npy") == "nan").sum()),
+              int(np.isnan(splits["mmlung"][:, 2]).sum()))
+        _require(na == (3, 1), f"empty metadata cells read as (ICBHI 'nan' labels, MMLung NaN "
+                               f"FEV1/FVC) {na}, want (3, 1)")
+        tally = {t: {str(k): int(v) for k, v in zip(*np.unique(splits[t], return_counts=True))}
+                 for t in ("copd", "icbhidisease")}
+        print(f"[resp] corpora {written} written and processed in {time.time() - t_phase:.1f} s "
+              f"(processors {proc_s:.2f} s): files a task "
+              f"{ {t: len(v) for t, v in files.items()} } = the processors' outputs; splits "
+              f"{tally}; snoring "
+              f"labels {sorted(set(splits['snoring'].tolist()))}; NoseMic subjects "
+              f"{len(set(splits['nosemic'].tolist()))}", flush=True)
+
+        # extraction: operaCT and operaGT on each feature dir
+        for t, d in dirs.items():
+            for pretrain, dim in (("operaCT", 768), ("operaGT", 384)):
+                out, ex, counts, secs, ex_s = _recorded_extract(d, pretrain, dim)
+                feats = np.load(out)
+                ok, batches, want = _extraction_counts_ok(ex, files[t], counts)
+                _require(ok and feats.shape == (len(files[t]), dim)
+                         and bool(np.isfinite(feats).all()),
+                         f"{t} {pretrain}: {feats.shape}, {ex.n_dispatched} batches dispatched, "
+                         f"launches {counts} (want {want} over {batches} batches)")
+                routes = ex.route_counts if not ex.is_mae else "chunked (Python decoder)"
+                if t == "mmlung":  # the reference's per-modality feature name
+                    os.replace(out, d + f"Deep_Breath_file_{pretrain}{dim}_feature.npy")
+                print(f"[resp] {t} {pretrain}: {len(files[t])} files in {secs:.2f} s, "
+                      f"extract_files {ex_s:.2f} s = {len(files[t]) / ex_s:.1f} clips/s (the "
+                      f"model's init left out); routes {routes}; {batches} batches, launches "
+                      f"{ {k: v for k, v in counts.items() if v} } (exact)", flush=True)
+                if t in ("icbhidisease", "snoring") and not ex.is_mae:
+                    want_native = t == "snoring"
+                    _require((ex.route_counts["native"] == len(files[t])) == want_native
+                             and sum(ex.route_counts.values()) == len(files[t]),
+                             f"{t} routes {ex.route_counts}")
+
+        # the probes: 5 seeds of each task
+        for t in RESP_TASKS:
+            for pretrain, dim in (("operaCT", 768),) + ((("operaGT", 384),) if t == "copd" else ()):
+                t0 = time.time()
+                (scores,) = linear_eval.main([f"task={t}", f"pretrain={pretrain}", f"dim={dim}",
+                                              "n_run=5"])
+                _require(len(scores) == 5 and bool(np.isfinite(scores).all()),
+                         f"{t} {pretrain} test AUROCs {scores}")
+                print(f"[resp] cli.linear_eval task={t} pretrain={pretrain}{dim}: test AUROC "
+                      + " ".join(f"{a:.4f}" for a in scores)
+                      + f" (mean {np.mean(scores):.4f}) in {time.time() - t0:.1f} s", flush=True)
+
+        # the LOOCV regression tasks
+        n_subjects = len(set(splits["nosemic"].tolist()) & set(lt.NOSEMIC_UIDS))
+        loocv = {}
+        for task, extra, folds in (("rr", [], n_subjects),
+                                   ("spirometry", ["label=FVC", "modality=breath"],
+                                    n_mm)):
+            t0 = time.time()
+            ((maes, mapes),) = linear_eval.main(["LOOCV=True", f"task={task}", "head=mlp",
+                                                 "pretrain=operaCT", "dim=768", *extra])
+            secs = time.time() - t0
+            _require(len(maes) == len(mapes) == folds and bool(np.isfinite(maes + mapes).all()),
+                     f"LOOCV {task}: {len(maes)} folds (want {folds}), MAE {maes}")
+            loocv[task] = maes
+            print(f"[resp] cli.linear_eval LOOCV=True task={task}: {len(maes)} folds (= "
+                  f"{'subjects' if task == 'rr' else 'recordings'}) in {secs:.1f} s "
+                  f"({secs / len(maes) * 1e3:.0f} ms a fold on the card); MAE mean "
+                  f"{np.mean(maes):.4f} +- {np.std(maes):.4f}, MAPE mean {np.mean(mapes):.4f}",
+                  flush=True)
+
+        # the NoseMic LOOCV, card vs CPU (the heads from the same seeded
+        # generator on both); the spread: the CPU run against CPU runs on
+        # features each moved one ulp, up or down at random
+        x = np.load("feature/nosemic_eval/operaCT768_feature.npy")
+        kw = dict(head="mlp", l2_strength=1e-1, epochs=64, batch_size=64, lr=1e-4)
+        cpu, _ = lt.linear_evaluation_nosemic(use_feature="operaCT768", device="cpu", **kw)
+        r = np.random.default_rng(SEED + 29)
+        spread = 0.0
+        for k in range(LOOCV_PERTURBATIONS):
+            sign = np.where(r.random(x.shape) < 0.5, -np.inf, np.inf).astype(np.float32)
+            np.save(f"feature/nosemic_eval/operaCT768ulp{k}_feature.npy", np.nextafter(x, sign))
+            pert, _ = lt.linear_evaluation_nosemic(use_feature=f"operaCT768ulp{k}", device="cpu",
+                                                   **kw)
+            spread = max(spread, float(np.max(np.abs(np.subtract(pert, cpu)))))
+        gap = float(np.max(np.abs(np.subtract(loocv["rr"], cpu))))
+        if spread > 0:
+            print(f"[resp] NoseMic LOOCV, card vs CPU over {len(cpu)} folds: max |MAE gap| "
+                  f"{gap:.3e}, bar {2 * spread:.3e} (twice the spread {spread:.3e} of "
+                  f"{LOOCV_PERTURBATIONS} CPU runs on features moved one ulp)", flush=True)
+            _require(gap <= 2 * spread, f"NoseMic LOOCV card vs CPU {gap} > 2 x {spread}")
+        else:
+            print(f"[resp] NoseMic LOOCV, card vs CPU: max |MAE gap| {gap:.3e}; the spread of "
+                  f"one-ulp feature moves read 0 (not measurable): gated on finite folds "
+                  f"and their count only", flush=True)
+        _require(len(cpu) == len(loocv["rr"]) and bool(np.isfinite(cpu).all()),
+                 f"NoseMic LOOCV on the CPU {cpu}")
+
+        # cli.process clips/s through the native loader and the Python
+        # decoder, in turns, on a 16-kHz CirCor corpus (information)
+        n_clips = write_circor(root, RESP_CIRCOR_PATIENTS, seed=SEED + 29, sr=16000)
+        argv = ["dataset=circor", "pretrain=operaCT", "dim=768", "random_init=True"]
+        load_clip = native.load_clip
+
+        def python_only(*a, **k):
+            raise ValueError("the Python decoder's turn")
+
+        rates = {"native": [], "python": []}
+        try:
+            for route in ("native", "python", "python", "native"):
+                native.load_clip = load_clip if route == "native" else python_only
+                with _Recording() as rec:
+                    t0 = time.time()
+                    process.main(argv)
+                    secs = time.time() - t0
+                rates[route].append((n_clips / secs, n_clips / rec.seconds))
+                _require(rec.made[-1].route_counts[route] == n_clips,
+                         f"{route} turn routes {rec.made[-1].route_counts}")
+        finally:
+            native.load_clip = load_clip
+        fmt = lambda r: " / ".join(f"{a:.1f} ({b:.1f})" for a, b in r)
+        print(f"[resp] cli.process dataset=circor pretrain=operaCT (16 kHz, {n_clips} clips, "
+              f"random_init), clips/s in turns, the whole CLI (extract_files alone): native "
+              f"loader {fmt(rates['native'])}, Python decoder {fmt(rates['python'])} "
+              f"(information); {smi}", flush=True)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+    print(f"[resp] phase 29 took {time.time() - t_phase:.1f} s", flush=True)
+
+
+def phase_resp_cp(smi: str, root: str):
+    """Phase 30: respiratory continued pretraining from phase 29's corpora in
+    `root`. pretrain/prepare.py writes the ICBHI whole-recording and
+    cycle manifests and HF_Lung's (their counts: the valid clips); then
+    cli.pretrain encoder=htsat method=cola (icbhi + hf_lung, crops of 50 and
+    200 frames resized to the HTS-AT's 1024) and method=mae (icbhicycle +
+    hf_lung, 64 and 256 frames padded to (256, 64)) at B=16, one epoch each
+    on the train kernels: the launches of K8's and K9's kernels exactly as
+    many a step as phases 8 and 16 read at their crops, finite losses, step
+    ms (information)."""
+    import math
+
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.audio import icbhi, pipelines
+    from heart_murmur_detection_tpu_torch.cli import pretrain
+    from heart_murmur_detection_tpu_torch.models import vit_mae
+    from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+    from heart_murmur_detection_tpu_torch.pretrain import prepare
+
+    t_phase = time.time()
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        d = "datasets/icbhi/ICBHI_final_database/"
+        wavs = sorted(d + f for f in os.listdir(d) if f.endswith(".wav"))
+        hf = sorted(os.path.join(dp, f) for sub in ("HF_Lung_V1-master", "HF_Lung_V1_IP-main")
+                    for dp, _, fs in os.walk("datasets/hf_lung/" + sub + "/train")
+                    for f in fs if f.endswith(".wav"))
+        t0 = time.time()
+        n_entire = prepare.preprocess_icbhi_entire()
+        n_cycles = prepare.preprocess_icbhi_cycles()
+        n_hf = prepare.preprocess_hflung_ssl()
+        prep_s = time.time() - t0
+        ann = icbhi.get_annotations("cycle", d)
+        want_cycles = sum(
+            pipelines.get_entire_signal("", input_sec=2, spectrogram=False, yt=c) is not None
+            for w in wavs for c, _ in icbhi.get_individual_cycles(
+                "cycle", ann[os.path.basename(w)[:-4]], d, os.path.basename(w)[:-4], 16000, 2))
+        want_entire = sum(pipelines.get_entire_signal(w, input_sec=8) is not None for w in wavs)
+        want_hf = sum(pipelines.get_entire_signal(w, input_sec=8) is not None for w in hf)
+        manifests = {"icbhi": "datasets/icbhi/entire_spec_filenames.npy",
+                     "icbhicycle": "datasets/icbhi/cycle_spec_pad2_name.npy",
+                     "hf_lung": "datasets/hf_lung/entire_spec_filenames.npy"}
+        sizes = {k: len(np.load(v)) for k, v in manifests.items()}
+        _require((n_entire, n_cycles, n_hf) == (want_entire, want_cycles, want_hf)
+                 == (sizes["icbhi"], sizes["icbhicycle"], sizes["hf_lung"]),
+                 f"manifests {sizes}, returns {(n_entire, n_cycles, n_hf)}, valid clips "
+                 f"{(want_entire, want_cycles, want_hf)}")
+        # the CP corpora: ICBHI keeps its official train split; 10% of each
+        # for validation (ceil)
+        train = {"icbhi": int((np.load("datasets/icbhi/entire_spec_split.npy") == "train").sum()),
+                 "icbhicycle": int((np.load("datasets/icbhi/cycle_spec_split.npy") == "train").sum()),
+                 "hf_lung": sizes["hf_lung"]}
+        val = {k: math.ceil(0.1 * v) for k, v in train.items()}
+        print(f"[resp cp] pretrain/prepare.py in {prep_s:.1f} s: manifests {sizes} = the valid "
+              f"clips (ICBHI {len(wavs)} recordings, HF_Lung {len(hf)}); CP train rows {train}, "
+              f"validation {val}", flush=True)
+
+        B = 16
+        _reset_counts()  # just before the COLA path
+        ((_, hist, _),) = pretrain.main([
+            "encoder=htsat", "method=cola", "compute_dtype=bfloat16", f"batch_size={B}",
+            "epoches=1", "seed=0", "title=resp", "device=cuda", "icbhi=True", "hf_lung=True"])
+        counts = _all_counts()
+        h = hist[0]
+        n_val = sum(math.ceil(val[c] / B) for c in ("icbhi", "hf_lung"))
+        per_step = {"swin_attn_bwd": 20, "swin_mlp_bwd": 20, "swin_wgrad": 80,
+                    "swin_reduce": _reduce_per_step(HTSATConfig())}
+        ok = all(counts[q] == v * h["steps"] for q, v in per_step.items())
+        ok &= counts["swin_attn"] == counts["swin_mlp"] == 20 * h["steps"] + 24 * n_val
+        _require(ok, f"COLA launch counts {counts} for {h['steps']} steps and {n_val} eval "
+                     f"batches (want {per_step} a step)")
+        _require(all(math.isfinite(h[q]) for q in ("train_loss", "valid_loss")), f"losses {h}")
+        print(f"[resp cp] cli.pretrain method=cola icbhi + hf_lung (crops 50 / 200 frames), B={B}: "
+              f"{h['steps']} steps in {h['train_seconds']:.2f} s = "
+              f"{h['train_seconds'] / h['steps'] * 1e3:.1f} ms a step (first included); train loss "
+              f"{h['train_loss']:.4f} valid {h['valid_loss']:.4f}; launches {counts} ({per_step} a "
+              f"step, 20 + 20 forward a step and 24 an eval batch: phase 8's)", flush=True)
+
+        gt_cfg = vit_mae.mae_vit_small_config(mask_ratio=0.7)
+        _reset_counts()  # just before the MAE path
+        ((_, hist, _),) = pretrain.main([
+            "method=mae", "compute_dtype=bfloat16", f"batch_size={B}", "epoches=1", "seed=0",
+            "title=resp_mae", "device=cuda", "icbhicycle=True", "hf_lung=True"])
+        counts = _all_counts()
+        n_val = sum(val[c] // B for c in ("icbhicycle", "hf_lung"))  # drop_last
+        _mae_cp_report(f"[resp cp] cli.pretrain method=mae icbhicycle + hf_lung (64 / 256 frames "
+                       f"padded to 256 x 64), B={B}, {smi}", hist[0], counts, gt_cfg,
+                       _mae_per_step(gt_cfg), n_val)
+        print(f"[resp cp] MAE step {hist[0]['train_seconds'] / hist[0]['steps'] * 1e3:.1f} ms "
+              f"(first included); phase 30 took {time.time() - t_phase:.1f} s", flush=True)
+    finally:
+        os.chdir(cwd)
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -3486,6 +3864,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_baselines(smi, root)
         print(f"[zoo] phases 26-28 took {time.time() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        phase_respiratory(smi, root)
+        phase_resp_cp(smi, root)
+        print(f"[resp] phases 29-30 took {time.time() - t0:.1f} s", flush=True)
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths

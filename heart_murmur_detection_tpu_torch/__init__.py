@@ -8,7 +8,8 @@ copied (and pinned to their originals by tests), not imported.
 
 Layer map (operaCT serving and COLA pretraining, operaGT / audiomae
 extraction):
-  utils/    numpy WAV IO
+  utils/    numpy WAV IO, the C++ host loader (native/hmdt_native.cpp,
+            built at first use), metadata tables read as pandas reads them
   audio/    host pad/trim/split pipelines, wire formats, device DSP (torch:
             mel, kaldi fbank, resize), the host emobase functionals
   ops/      hand-written CUDA swin and ViT kernels (csrc/), their plain
@@ -18,7 +19,11 @@ extraction):
             the convolutional towers on cuDNN (EfficientNet-B0 of operaCE,
             VGGish, CLAP-2022's Cnn14) with flax BatchNorm semantics
   extract/  weight conversion, model registry, batched FeatureExtractor
-  pretrain/ COLA continued pretraining
+  data/     the heart and respiratory processors, raw splits, numpy copies of
+            sklearn's splitters and scaler
+  train/    the probes (classification and LOOCV regression), the legacy
+            OPERA task functions, fine-tuning, checkpoint re-evaluation
+  pretrain/ COLA and MAE continued pretraining, SSL data preparation
   cli/      key=value config loader, the serving daemon, pretraining
 """
 

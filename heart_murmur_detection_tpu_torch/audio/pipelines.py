@@ -6,8 +6,11 @@ pipelines.py (src/util.py:205-267, 309-364, 794-860), trimmed to the
 options the extraction, fine-tuning and SSL preparation paths use (no
 bandpass filter: the chunked MAE path calls `_load_trim` as the JAX
 `_chunks` does, and the fine-tuning cache and pretrain/prepare.py the
-other paths, with none); the original cannot be imported without jax. tests/test_torch_dsp.py pins the copies to the
-originals.
+other paths, with none). `get_entire_signal` keeps the JAX signature's
+`yt=` entry for a waveform already in memory (the ICBHI respiratory cycles
+of pretrain/prepare.py). The original cannot be imported without jax.
+tests/test_torch_dsp.py and tests/test_torch_legacy.py pin the copies to
+the originals.
 """
 
 from __future__ import annotations
@@ -37,13 +40,16 @@ def get_entire_signal(
     types: str = "repeat",
     max_sec: Optional[float] = None,
     spectrogram: bool = False,
+    yt: Optional[np.ndarray] = None,
 ) -> Optional[np.ndarray]:
-    """Whole-clip path (src/util.py:205-267): trim, pad-to-min, cap at max_sec.
+    """Whole-clip path (src/util.py:205-267): trim, pad-to-min, cap at
+    max_sec; `yt` skips the load and trim.
 
     Returns the waveform, or its (T, 64) normalised mel (f_max 8000) with
     spectrogram=True, or None when it is too short and pad=False.
     """
-    yt = _load_trim(path, sample_rate)
+    if yt is None:
+        yt = _load_trim(path, sample_rate)
     duration = len(yt) / sample_rate
     if duration < input_sec:
         if not pad:

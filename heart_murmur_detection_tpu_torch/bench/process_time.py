@@ -27,8 +27,8 @@ from typing import List
 import numpy as np
 
 
-def write_circor(root: str, patients: int = 120, seed: int = 19) -> int:
-    """A synthetic CirCor corpus in the dataset's layout at its 4 kHz rate:
+def write_circor(root: str, patients: int = 120, seed: int = 19, sr: int = 4000) -> int:
+    """A synthetic CirCor corpus in the dataset's layout at its 4 kHz rate (or sr):
     datasets/circor/{training,validation,test}_data/<pid>_<loc>.wav and
     <pid>.txt; `patients` patients (3 in 5 train, 1 validation, 1 test), 1-4
     locations each, 6-32 s clips of noise; murmur Present, Absent or Unknown
@@ -37,7 +37,7 @@ def write_circor(root: str, patients: int = 120, seed: int = 19) -> int:
     from ..utils.audio_io import write_wav
 
     r = np.random.default_rng(seed)
-    sr, n_clips = 4000, 0
+    n_clips = 0
     for i in range(patients):
         split = ("training_data",) * 3 + ("validation_data", "test_data")
         d = os.path.join(root, "datasets", "circor", split[i % 5])

@@ -78,7 +78,7 @@ def finetune_step(rng: np.random.Generator, dev: str = "cuda", batch: int = B):
 
     model = ft.EncoderClassifier("htsat", 3, "linear", 768,
                                  generator=torch.Generator().manual_seed(0)).to(dev)
-    opt = ClippedAdam(model.parameters(), 3, 1e-4, 0.99, 1.0)
+    opt = ClippedAdam(model.parameters(), 3, 1e-4, 0.99, 1.0, optax_clip=True)
     xb = torch.from_numpy(rng.standard_normal((batch, FT_FRAMES, 64)).astype(np.float32)).to(dev)
     yb = torch.from_numpy(rng.integers(0, 3, batch)).to(dev)
     valid, cw = torch.ones(batch, device=dev), torch.ones(3, device=dev)

@@ -1,17 +1,21 @@
 """Linear-probe evaluation CLI — counterpart of
 heart_murmur_detection_tpu/cli/linear_eval.py (`route_heart_task` :21,
-`feature_name` :41, `main` :104) for the heart tasks and their grid search.
+`feature_name` :41, `run_legacy` :60, `main` :104): the heart tasks and
+their grid search, the legacy OPERA respiratory tasks (LEGACY_TASKS, 5
+seeds of train/legacy_tasks.py's task functions) and the two LOOCV regression
+tasks (LOOCV=True task=spirometry | rr).
 
 Usage:
   python -m heart_murmur_detection_tpu_torch.cli.linear_eval task=circor_murmurs pretrain=operaCT dim=768 n_run=5
   python -m heart_murmur_detection_tpu_torch.cli.linear_eval task=circor_murmurs   # operaCE1280
   python -m heart_murmur_detection_tpu_torch.cli.linear_eval task=circor_murmurs pretrain=null-efficientnet
+  python -m heart_murmur_detection_tpu_torch.cli.linear_eval task=copd pretrain=operaCT dim=768
+  python -m heart_murmur_detection_tpu_torch.cli.linear_eval LOOCV=True task=spirometry label=FVC modality=breath pretrain=operaCT dim=768
+  python -m heart_murmur_detection_tpu_torch.cli.linear_eval LOOCV=True task=rr head=mlp pretrain=operaGT dim=384
 
 Reads feature/<task>_eval/ in the working directory; the probe trains on the
-card, or on the CPU with `device=cpu`. Best heads land in
-cks/linear/<dataset>_<task>/ as state_dict .pt files. The LOOCV regression
-tasks and the legacy respiratory tasks are not ported and raise
-NotImplementedError.
+card, or on the CPU with `device=cpu`. Best heads of the heart tasks land in
+cks/linear/<dataset>_<task>/ as state_dict .pt files.
 """
 
 from __future__ import annotations
@@ -62,18 +66,95 @@ def feature_name(cfg) -> str:
     return feature
 
 
+def run_legacy(cfg, feature, seed, device="cuda"):
+    """Task routing for the legacy OPERA tasks (linear_eval.py:1798-1893):
+    one seed's test AUROC."""
+    from ..train import legacy_tasks as lt
+
+    t = cfg["task"]
+    if t == "covid19sounds":
+        return lt.linear_evaluation_covid19sounds(
+            1, feature, modality=cfg["modality"], l2_strength=cfg["l2_strength"],
+            lr=cfg["lr"], head=cfg["head"], seed=seed, device=device)
+    if t == "icbhidisease":
+        return lt.linear_evaluation_icbhidisease(
+            use_feature=feature, epochs=64, batch_size=32,
+            l2_strength=cfg["l2_strength"], lr=cfg["lr"], head=cfg["head"], seed=seed,
+            device=device)
+    if t == "kauh":
+        return lt.linear_evaluation_kauh(
+            use_feature=feature, epochs=50, batch_size=32,
+            l2_strength=cfg["l2_strength"], lr=cfg["lr"], head=cfg["head"], seed=seed,
+            device=device)
+    if t in ("coswarasmoker", "coswarasex"):
+        return lt.linear_evaluation_coswara(
+            use_feature=feature, epochs=64, l2_strength=cfg["l2_strength"],
+            batch_size=32, lr=cfg["lr"], modality=cfg["modality"],
+            label=t.removeprefix("coswara"), head=cfg["head"], seed=seed, device=device)
+    if t == "copd":
+        return lt.linear_evaluation_copd(
+            use_feature=feature, l2_strength=cfg["l2_strength"], lr=cfg["lr"],
+            head=cfg["head"], epochs=64, seed=seed, device=device)
+    if t in ("coughvidcovid", "coughvidsex"):
+        return lt.linear_evaluation_coughvid(
+            use_feature=feature, epochs=64, l2_strength=cfg["l2_strength"],
+            lr=cfg["lr"], batch_size=64,
+            label="covid" if t.endswith("covid") else "gender",
+            head=cfg["head"], seed=seed, device=device)
+    if t == "coviduk":
+        return lt.linear_evaluation_coviduk(
+            use_feature=feature, epochs=64, l2_strength=cfg["l2_strength"],
+            lr=cfg["lr"], batch_size=64, modality=cfg["modality"],
+            head=cfg["head"], seed=seed, device=device)
+    if t == "snoring":
+        return lt.linear_evaluation_ssbpr(
+            use_feature=feature, l2_strength=cfg["l2_strength"], lr=cfg["lr"],
+            head=cfg["head"], epochs=32, seed=seed, device=device)
+    raise SystemExit(f"unknown legacy task {t}")
+
+
+def run_loocv(cfg, feature, device="cuda"):
+    """The LOOCV regression tasks (linear_eval.py:1039-1346): the lists of
+    test MAE and MAPE, a fold each."""
+    from ..train import legacy_tasks as lt
+
+    if cfg["task"] == "spirometry":
+        return lt.linear_evaluation_mmlung(
+            use_feature=feature, l2_strength=1e-1, epochs=64, lr=1e-1,
+            batch_size=64, modality=cfg["modality"], label=cfg["label"],
+            head=cfg["head"], device=device)
+    if cfg["task"] == "rr":
+        return lt.linear_evaluation_nosemic(
+            use_feature=feature, l2_strength=1e-1, epochs=64,
+            batch_size=64, lr=1e-4, head=cfg["head"], device=device)
+    raise SystemExit(f"unknown LOOCV task {cfg['task']}")
+
+
 def main(argv=None):
-    """Runs every resolved config; returns one list of test AUROCs for each
-    probe run (the best grid point's CV scores for a grid search)."""
+    """Runs every resolved config; returns one result for each: the list of
+    test AUROCs of a probe run (the best grid point's CV scores for a grid
+    search), or the (MAEs, MAPEs) lists of a LOOCV run."""
     argv = sys.argv[1:] if argv is None else argv
     results = []
     for cfg in resolve("linear_eval_config", argv):
         feature = feature_name(cfg)
         device = cfg.get("device", "cuda")
         if cfg.get("LOOCV"):
-            raise NotImplementedError("the LOOCV regression tasks are not ported")
+            maes, mapes = run_loocv(cfg, feature, device)
+            print(f"MAE mean {np.mean(maes):.3f} ± {np.std(maes):.3f}")
+            print(f"MAPE mean {np.mean(mapes):.3f} ± {np.std(mapes):.3f}")
+            results.append((maes, mapes))
+            continue
         if cfg["task"] in LEGACY_TASKS:
-            raise NotImplementedError(f"legacy task {cfg['task']!r} is not ported")
+            scores = [run_legacy(cfg, feature, seed, device) for seed in range(cfg["n_run"])]
+            print("=" * 48)
+            print(scores)
+            print(
+                f"Five times mean task {cfg['task']} feature {feature} results: "
+                f"auc mean {np.mean(scores):.3f} ± {np.std(scores):.3f}"
+            )
+            results.append(scores)
+            continue
         ds, task, fdir, labels = route_heart_task(cfg["task"])
         if cfg.get("grid_search"):
             best = (-1, None, None)

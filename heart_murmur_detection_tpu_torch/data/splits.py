@@ -6,7 +6,8 @@ np.random.RandomState(seed) in the order sklearn 1.x draws
 (`ShuffleSplit._iter_indices`, `StratifiedShuffleSplit._iter_indices` with
 `_approximate_mode`, `StratifiedKFold._make_test_folds`), so a split here is
 the split the JAX package writes. tests/test_torch_process.py pins them to
-sklearn.
+sklearn. `standard_scale` is sklearn's StandardScaler (the LOOCV probes'
+openSMILE scaling), pinned to it by tests/test_torch_legacy.py.
 """
 
 from __future__ import annotations
@@ -107,3 +108,27 @@ def stratified_kfold(y, n_splits: int, seed: int) -> Iterator[Tuple[np.ndarray, 
     for i in range(n_splits):
         mask = test_folds == i
         yield indices[~mask], indices[mask]
+
+
+def standard_scale(x_fit: np.ndarray, *xs: np.ndarray) -> List[np.ndarray]:
+    """StandardScaler().fit(x_fit) applied to x_fit and to each of xs, as
+    sklearn computes it: float64 column means and population variances
+    (ddof 0) by the corrected two-pass sum, a near-constant column
+    (`_is_constant_feature`) scaled by 1, then x - mean and / scale in the
+    input's float dtype (float32 stays float32). Returns the scaled
+    arrays, x_fit's first."""
+    x_fit = np.asarray(x_fit)
+    dtype = x_fit.dtype if x_fit.dtype in (np.float32, np.float64) else np.float64
+    x = x_fit.astype(dtype)
+    n = x.shape[0]
+    total = np.sum(x, axis=0, dtype=np.float64)
+    mean = total / n
+    temp = x - mean
+    correction = np.sum(temp, axis=0, dtype=np.float64)
+    var = (np.sum(temp ** 2, axis=0, dtype=np.float64) - correction ** 2 / n) / n
+    eps = np.finfo(np.float64).eps
+    constant = var <= n * eps * var + (n * mean * eps) ** 2
+    scale = np.sqrt(var)
+    scale[constant] = 1.0
+    m, s = mean.astype(dtype), scale.astype(dtype)
+    return [(np.asarray(a).astype(dtype) - m) / s for a in (x_fit, *xs)]

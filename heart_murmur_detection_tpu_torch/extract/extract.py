@@ -17,6 +17,10 @@ the upsample from source_sr (ops/resample.py), the spectrogram frontend
 encoder, whose blocks are the CUDA kernels of ops/swin.py (HTS-AT) or
 ops/vit.py (the MAE ViTs) under the bf16 flow on a card.
 
+Whole clips of operaCT at 16 kHz are loaded by the C++ host loader
+(utils/native.py, the JAX extract.py:452-505 route) on two threads a batch
+ahead; other rates and formats take the Python decoder per file.
+
 Host pipeline (the JAX two-stage pack || put, extract.py:505-511): one
 worker thread packs batches (pad_batch + wire encode) into numpy, a second
 pins them and copies them to the card with non_blocking=True on a side
@@ -144,6 +148,7 @@ class FeatureExtractor:
             self.dim = self.model.config.embed_dim
         self.max_sec = 32 if registry.is_operact(pretrain) else None
         self.n_dispatched = 0  # batches sent through the encoder
+        self.route_counts = {"native": 0, "python": 0}  # files a route (_extract_whole_native)
         self._on_card = self.device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(self.device) if self._on_card else None
         self._fn_stable = None  # lazy stable-softmax re-run (_harvest)
@@ -338,14 +343,61 @@ class FeatureExtractor:
         return self._extract_whole(sound_dir_loc)
 
     def _extract_whole(self, paths) -> np.ndarray:
-        """Python decode path (the native C++ loader is not ported). Without
-        a cap (operaCE) every batch pads to the longest clip."""
+        """Whole clips. operaCT (capped at 32 s) at 16 kHz takes the native
+        loader (_extract_whole_native), where the JAX extractor takes it;
+        otherwise the Python decode path, where without a cap (operaCE)
+        every batch pads to the longest clip."""
+        if self.max_sec and self.source_sr is None:
+            return self._extract_whole_native(paths)
         sr = self._host_sr
         clips = [self._clip_waveform(p) for p in paths]
         if not clips:
             return np.zeros((0, self.dim), np.float32)
         max_len = int((self.max_sec or max(len(c) / sr for c in clips)) * sr)
         return self.extract_waveforms(clips, max_len=max_len)
+
+    def _extract_whole_native(self, paths) -> np.ndarray:
+        """The JAX extract.py:465-505 route: the C++ loader (utils/native.py,
+        built at first use; a failed build raises) decodes, trims and pads
+        each 16-kHz WAV on two host threads, a batch ahead; a file at another
+        rate or not a WAV takes the Python decode + resample of
+        _clip_waveform (the JAX `_load`'s except clause). Batches of
+        max_sec rounded up to 512 samples then go through the same pack ->
+        pinned copy -> compute pipeline as _run. route_counts counts the
+        files of each route."""
+        from ..utils import native
+
+        native.load_native()
+        max_len = ((int(self.max_sec * SR) + 511) // 512) * 512
+        min_len = int(self.input_sec * SR)
+        lock = threading.Lock()
+
+        def _load(p):
+            try:
+                out, route = native.load_clip(p, max_len, min_len, self.pad0, SR), "native"
+            except (ValueError, IOError):
+                w = self._clip_waveform(p)
+                buf = np.zeros(max_len, np.float32)
+                m = min(len(w), max_len)
+                buf[:m] = w[:m]
+                out, route = (buf, m), "python"
+            with lock:
+                self.route_counts[route] += 1
+            return out
+
+        if not paths:
+            return np.zeros((0, self.dim), np.float32)
+        loader = native.PrefetchLoader(list(paths), batch_size=self.batch_size, max_len=max_len,
+                                       min_len=min_len, pad_zero=self.pad0, sr=SR, loader=_load)
+
+        def packed():
+            for _, k, wav, lengths in loader:
+                # the last batch's empty rows repeat its first clip, as _run
+                # fills them (the JAX loader leaves them at length 0)
+                wav[k:], lengths[k:] = wav[0], lengths[0]
+                yield k, wire.encode_np(wav, self.wire), lengths
+
+        return self._pipeline(packed())
 
     def extract_waveforms(
         self, clips: List[np.ndarray], max_len: Optional[int] = None
@@ -402,14 +454,19 @@ class FeatureExtractor:
                                              max_len=max_len)
                 yield hi - lo, wire.encode_np(wav, self.wire), lengths
 
+        return self._pipeline(packed())
+
+    def _pipeline(self, packed) -> np.ndarray:
+        """Features of the (n, packed wav, lengths) batches of `packed`:
+        two pipeline threads, stage 1 packing (the generator itself: the
+        CPU-bound wire encode), stage 2 pinning and starting the copy to the
+        card, so pack(i+2) overlaps copy(i+1) overlaps compute(i)."""
+
         def put(gen):
             for n, w, lengths in gen:
                 yield (n, *self._put(w, lengths))
 
-        # two pipeline threads: stage 1 packs (CPU-bound wire encode), stage
-        # 2 pins and starts the copy to the card; pack(i+2) overlaps
-        # copy(i+1) overlaps compute(i)
-        return self._consume(self._prefetch_iter(put(self._prefetch_iter(packed()))))
+        return self._consume(self._prefetch_iter(put(self._prefetch_iter(packed))))
 
 
 def extract_opera_feature(

@@ -337,7 +337,8 @@ def finetune_classifier(
         model.load_state_dict(own)
     model.to(dev).train()
     nb = (len(x_train) + batch_size - 1) // batch_size
-    opt = ClippedAdam(trainable_params(model, freeze_encoder), nb, lr, lr_decay, grad_clip)
+    opt = ClippedAdam(trainable_params(model, freeze_encoder), nb, lr, lr_decay, grad_clip,
+                      optax_clip=True)
     cw = torch.as_tensor(
         class_weights if class_weights is not None else np.ones(n_cls, np.float32),
         dtype=torch.float32, device=dev)

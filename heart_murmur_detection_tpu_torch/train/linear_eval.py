@@ -2,7 +2,8 @@
 heart_murmur_detection_tpu/train/linear_eval.py (`get_class_weights` :38,
 `_make_perms` :55, `train_linear_head` :109, `load_feature_split` :187,
 `linear_evaluation_heart` :208, `linear_evaluation_heart_cv` :295,
-`run_seeds` :438; the reference's src/benchmark/linear_eval.py).
+`train_regression_head` :339, `run_seeds` :438; the reference's
+src/benchmark/linear_eval.py).
 
 The protocol, step for step as the JAX package runs it:
 - an epoch is `_make_perms`' batches: a fresh permutation of the train set
@@ -13,14 +14,20 @@ The protocol, step for step as the JAX package runs it:
   head parameter, biases included;
 - gradients clipped by global norm (grad_clip) before Adam;
 - Adam as optax.scale_by_adam (b1 0.9, b2 0.999, eps 1e-8 outside the
-  square root, bias-corrected), step lr * decay^(count // nb) with count
-  the step count across epochs;
+  square root, bias corrections in float32), step lr * decay^(count // nb)
+  with count the step count across epochs;
 - after each epoch the macro validation AUROC, the best epoch by strict >,
   its parameters kept; test metrics (compute_metrics over HEART_METRICS)
   from that head.
 The whole train set lives on the device and each step is a few small
 kernels with no host sync; the probe runs on the card unless the caller
 passes device="cpu".
+
+`train_regression_head` is the LOOCV tasks' regression probe (LinearHeadR,
+models_eval.py:1691-1831): the same batches, L2 and decay, the head's
+output denormalised by the train targets' mean and std, a masked MSE,
+optax's clip_by_global_norm (t / norm * clip past the clip), the best epoch
+by validation MAE (strict <) and the reference's early stopping.
 """
 
 from __future__ import annotations
@@ -74,26 +81,41 @@ def _make_perms(rng: np.random.Generator, n: int, bs: int, epochs: int) -> np.nd
 
 class ClippedAdam:
     """Global-norm clipping, then optax.scale_by_adam (b1 0.9, b2 0.999, eps
-    1e-8 outside the square root, bias-corrected) at lr * decay^(count //
-    steps_per_epoch), count the updates already made: the probe's and
-    fine-tuning's optimizer (optax clip_by_global_norm + scale_by_adam +
-    scale_by_learning_rate). Updates `params` in place."""
+    1e-8 outside the square root, bias-corrected), then the step lr *
+    decay^(count // steps_per_epoch), count the updates already made: the
+    probes' and fine-tuning's optimizer. As optax forms them, the bias
+    corrections and the decayed lr are float32 (1 - float32(0.999)^count is
+    1.3e-5 from 1 - 0.999 at count 1) and the lr scales the update after
+    the division by the root. Updates `params` in place.
 
-    def __init__(self, params, steps_per_epoch: int, lr: float, decay: float, grad_clip: float):
+    optax_clip: optax.clip_by_global_norm's t / norm * clip once the norm
+    reaches clip, as fine-tuning and the regression probe clip (JAX
+    finetune.py:211, linear_eval.py:383); otherwise train_linear_head's
+    t * min(1, clip / max(norm, 1e-12)) (JAX linear_eval.py:89-91)."""
+
+    def __init__(self, params, steps_per_epoch: int, lr: float, decay: float, grad_clip: float,
+                 optax_clip: bool = False):
         self.params = list(params)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.nb, self.lr, self.decay, self.clip = steps_per_epoch, lr, decay, grad_clip
+        self.optax_clip = optax_clip
         self.count = 0
 
     @torch.no_grad()
     def step(self, grads) -> None:
         gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
-        g = torch._foreach_mul(
-            list(grads), torch.clamp(self.clip / torch.clamp(gnorm, min=1e-12), max=1.0))
-        lr_t = self.lr * self.decay ** (self.count // self.nb)
+        if self.optax_clip:
+            keep = gnorm < self.clip
+            g = [torch.where(keep, x, x / gnorm * self.clip) for x in grads]
+        else:
+            g = torch._foreach_mul(
+                list(grads), torch.clamp(self.clip / torch.clamp(gnorm, min=1e-12), max=1.0))
+        f32 = np.float32
+        lr_t = float(f32(self.lr) * f32(self.decay) ** f32(self.count // self.nb))
         self.count += 1
-        c1, c2 = 1.0 - ADAM_B1 ** self.count, 1.0 - ADAM_B2 ** self.count
+        c1 = float(f32(1) - f32(ADAM_B1) ** f32(self.count))
+        c2 = float(f32(1) - f32(ADAM_B2) ** f32(self.count))
         torch._foreach_mul_(self.mu, ADAM_B1)
         torch._foreach_add_(self.mu, torch._foreach_mul(g, 1.0 - ADAM_B1))
         torch._foreach_mul_(self.nu, ADAM_B2)
@@ -101,11 +123,11 @@ class ClippedAdam:
         torch._foreach_mul_(sq, 1.0 - ADAM_B2)
         torch._foreach_add_(self.nu, sq)
         upd = torch._foreach_div(self.mu, c1)
-        torch._foreach_mul_(upd, lr_t)
         den = torch._foreach_div(self.nu, c2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, ADAM_EPS)
         torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, lr_t)
         torch._foreach_sub_(self.params, upd)
 
 
@@ -324,6 +346,87 @@ def linear_evaluation_heart_cv(
         )
         scores.append(res.test_auc)
     return scores
+
+
+def _on(x, dev: torch.device) -> torch.Tensor:
+    """Features or targets as float32 on dev (a tensor already there stays)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+
+def train_regression_head(
+    x_train,
+    y_train,
+    x_val,
+    y_val,
+    x_test,
+    y_test,
+    *,
+    head: str = "mlp",
+    lr: float = 1e-4,
+    l2_strength: float = 1e-1,
+    epochs: int = 64,
+    batch_size: int = 64,
+    lr_decay: float = 0.97,
+    grad_clip: float = 1.0,
+    seed: int = 0,
+    patience: Optional[int] = None,
+    min_delta: float = 1e-3,
+    device="cuda",
+):
+    """Regression probe (see the module doc): Head(1) (Linear, or Linear ->
+    ReLU -> Linear at feat_dim) with N(0, 0.01) weights from a torch
+    generator seeded with `seed`, its output * std + mean of the train
+    targets; the batches from np.random.default_rng(seed). Features may be
+    numpy arrays or tensors already on the device (the LOOCV loops keep a
+    corpus there across folds); targets are numpy. Returns (test MAE, test
+    MAPE)."""
+    from .checkpoints import EarlyStopping
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train_regression_head(device='cuda'): no CUDA card available")
+    feat_dim = x_train.shape[1]
+    mean = float(np.mean(y_train))
+    std = float(np.std(y_train))
+    nb = (len(x_train) + batch_size - 1) // batch_size
+    model = Head(1, head, feat_dim, generator=torch.Generator().manual_seed(seed)).to(dev)
+    params = list(model.parameters())
+    opt = ClippedAdam(params, nb, lr, lr_decay, grad_clip, optax_clip=True)
+    X, Xv, Xt = _on(x_train, dev), _on(x_val, dev), _on(x_test, dev)
+    Y = _on(np.asarray(y_train).reshape(-1, 1), dev)
+    perms = torch.as_tensor(
+        _make_perms(np.random.default_rng(seed), len(x_train), batch_size, epochs), device=dev
+    )
+
+    def predict(x: torch.Tensor) -> np.ndarray:
+        with torch.no_grad():
+            return (model(x) * std + mean).cpu().numpy().ravel()
+
+    y_val = np.asarray(y_val).ravel()
+    best_mae, best_state = np.inf, copy.deepcopy(model.state_dict())
+    es = EarlyStopping("min", min_delta, patience)
+    for e in range(epochs):
+        for idx in perms[e]:
+            xb, yb = X[idx.clamp(min=0)], Y[idx.clamp(min=0)]
+            valid = (idx >= 0).to(torch.float32)
+            pred = model(xb) * std + mean + 1e-10
+            se = ((pred - yb) ** 2)[:, 0]
+            loss = (se * valid).sum() / torch.clamp(valid.sum(), min=1e-12)
+            loss = loss + l2_strength * sum((p * p).sum() for p in params)
+            opt.step(torch.autograd.grad(loss, params))
+        mae = float(np.mean(np.abs(predict(Xv) - y_val)))
+        if mae < best_mae:
+            best_mae, best_state = mae, copy.deepcopy(model.state_dict())
+        if es.step(mae):
+            break
+    model.load_state_dict(best_state)
+    pt = predict(Xt)
+    yt = np.asarray(y_test).ravel()
+    test_mae = float(np.mean(np.abs(pt - yt)))
+    test_mape = float(np.mean(np.abs((pt - yt) / yt)))
+    return test_mae, test_mape
 
 
 def run_seeds(fn, n_run: int = 5, **kw):

@@ -115,3 +115,65 @@ def test_port_cp_reads_the_port_manifest(dirs, monkeypatch):
     assert all(x.ndim == 2 and x.shape[1] == 64 for x in cola.train + cola.val)
     assert len(mae.train) + len(mae.val) == sum(c[1] != "test" for c in CLIPS)
     assert all(x.shape[1] == 128 for x in mae.train + mae.val)
+
+
+# ---------------------------------------------------------------------------
+# the respiratory SSL preparers, on synthetic corpora in their layouts
+# ---------------------------------------------------------------------------
+
+RESP_CASES = {  # name -> (corpus dir under datasets/, function, kwargs)
+    "icbhi_entire": ("icbhi", "preprocess_icbhi_entire", {}),
+    "icbhi_cycles": ("icbhi", "preprocess_icbhi_cycles", {}),
+    "covid19sounds_breath": ("covid19-sounds", "preprocess_covid19sounds_ssl",
+                             {"modality": "breath", "input_sec": 4}),
+    "covid19sounds_voice": ("covid19-sounds", "preprocess_covid19sounds_ssl",
+                            {"modality": "voice", "input_sec": 4}),
+    "coughvid": ("coughvid", "preprocess_coughvid_ssl", {}),
+    "coviduk_cough": ("covidUK", "preprocess_coviduk_ssl", {"modality": "cough"}),
+    "hflung": ("hf_lung", "preprocess_hflung_ssl", {}),
+}
+
+
+@pytest.fixture(scope="module")
+def resp_root(tmp_path_factory):
+    """The respiratory corpora that the preparers read, at their own lengths
+    and 4 kHz, with the COUGHVID and COVID-UK split files (the port's split
+    writers, pinned in tests/test_torch_legacy.py)."""
+    from heart_murmur_detection_tpu_torch.bench.resp_corpora import write_resp_corpora
+    from heart_murmur_detection_tpu_torch.data import raw_splits
+
+    root = str(tmp_path_factory.mktemp("resp"))
+    write_resp_corpora(root, seed=5, sr=4000, subjects={"icbhi": 6, "hf_lung": 6},
+                       corpora=("icbhi", "covid19sounds", "coughvid", "coviduk", "hf_lung"))
+    raw_splits.coughvid_build_splits(os.path.join(root, "datasets/coughvid/"), n_female_test=4,
+                                     n_male_test=4, n_healthy_covid_test=1, n_covid_test=1)
+    raw_splits.coviduk_build_splits(os.path.join(root, "datasets/covidUK/"))
+    return root
+
+
+@pytest.mark.parametrize("name", sorted(RESP_CASES))
+def test_respiratory_ssl_preparer_matches_jax(name, resp_root, tmp_path, monkeypatch):
+    """Each package's preparer in its own copy of the corpus (the working
+    directory): the same count, every manifest and split array equal, every
+    spectrogram within 1e-5."""
+    import shutil
+
+    corpus, fn, kw = RESP_CASES[name]
+    counts, trees = [], []
+    for tag, mod in (("jax", jprep), ("port", prepare)):
+        d = tmp_path / tag
+        shutil.copytree(os.path.join(resp_root, "datasets", corpus), d / "datasets" / corpus)
+        monkeypatch.chdir(d)
+        counts.append(getattr(mod, fn)(**kw))
+        trees.append(str(d))
+    assert counts[0] == counts[1] > 0
+    files = [sorted(os.path.relpath(os.path.join(a, f), t) for a, _, fs in os.walk(t) for f in fs
+                    if f.endswith(".npy")) for t in trees]
+    assert files[0] == files[1]
+    for rel in files[0]:
+        want, got = (np.load(os.path.join(t, rel), allow_pickle=True) for t in trees)
+        assert got.dtype == want.dtype and got.shape == want.shape, rel
+        if got.dtype.kind == "f":
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, err_msg=rel)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=rel)

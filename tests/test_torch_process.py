@@ -222,6 +222,13 @@ def test_cli_process_then_linear_eval_on_cpu(tmp_path, monkeypatch):
     (["task=circor_murmurs", "LOOCV=True"], "LOOCV"),
     (["task=icbhidisease"], "legacy task"),
 ])
-def test_linear_eval_cli_refuses_unported_tasks(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_linear_eval_cli_refuses_unported_tasks(argv, match, tmp_path, monkeypatch):
+    """The LOOCV and legacy branches are ported (tests/test_torch_legacy.py
+    runs them): neither raises NotImplementedError. A LOOCV run of a task
+    that has none exits as the JAX CLI does, and a legacy task whose
+    processor has not run fails on its missing feature file."""
+    monkeypatch.chdir(tmp_path)
+    err, text = (SystemExit, "unknown LOOCV task") if match == "LOOCV" else (
+        FileNotFoundError, "icbhidisease_eval")
+    with pytest.raises(err, match=text):
         cli_linear_eval.main(argv + ["device=cpu"])
