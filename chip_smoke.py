@@ -111,9 +111,9 @@ Phases (each prints one line; any failure exits non-zero):
      (bench/attn_ablate.py) with its launches by mode (vit_proj once with
      each vit_attn); each name's chain time against the stable chain, SDPA
      (scale 1.0), the plain chain and the bound
- 21. fine-tuning: a synthetic CirCor corpus through cli.process, then
-     cli.finetune compute_dtype=bfloat16 for operaCT (5 seeds, finite test
-     AUROCs), operaGT and Audio-MAE (one seed each), FT_EPOCHS epochs, with
+ 21. fine-tuning: a synthetic CirCor corpus (REPEAT_PATIENTS) through
+     cli.process, then cli.finetune compute_dtype=bfloat16 for operaCT
+     (FT_SEEDS seeds, finite test AUROCs), operaGT and Audio-MAE (one seed each), FT_EPOCHS epochs, with
      the launches their steps and predict batches imply, operaCT's seed 0
      again to the same AUROC; per tower at full width and its own batch:
      the step time on the kernels against the plain bf16 path, one step's
@@ -128,7 +128,7 @@ Phases (each prints one line; any failure exits non-zero):
      bitwise equal, each launch's ms, bound, plain ms and library call
      (addmm; SDPA; addmm + the residual; the MLP's chain), and the ptxas
      registers and spills of the C = 1024 instantiations
- 23. HeAR: a synthetic CirCor corpus (as phase 19's) through cli.process
+ 23. HeAR: a synthetic CirCor corpus (as phase 19's, REPEAT_PATIENTS) through cli.process
      pretrain=hear (2-s clips at 16 kHz, mel-PCEN and the 24 blocks on the
      card; 24 launches of each ViT kernel a batch) and cli.linear_eval
      pretrain=hear (5 seeds, finite test AUROCs, mean +- std); 20 clips'
@@ -209,6 +209,27 @@ Phases (each prints one line; any failure exits non-zero):
      icbhicycle + hf_lung at B=16, one epoch each on the train kernels:
      launches exactly phases 8 / 16's a step and eval batch, finite losses,
      step ms
+ 31. data parallelism (parallel/), in fresh child processes from
+     parallel/launch.py, DropPath and dropout off (each rank draws its
+     own): two COLA steps of the full-width operaCT at phase 8's shape
+     (B=64 x 251 frames, bf16, the train kernels) through
+     data_parallel_mesh(1, backend="nccl") against the no-mesh run from the
+     same weights (losses within 1e-4, step-0 leaves >= GRAD_FLOOR, the
+     count under SAME_ROUNDING_BAR, the global gradient norm within 1 +-
+     1e-3); the same on two gloo ranks sharing cuda:0, 32 rows a rank
+     (losses within LOSS_RTOL, leaves >= GRAD_FLOOR, the count under
+     GRAD_BAR, the norm within 1 +- 1e-2), an Audio-MAE CP step at phase
+     16's shape (K9; the trainer's step, the global noise drawn on every
+     rank; the ranks' masks together are the single-device masks), two
+     ZeRO-3 COLA steps on the plain bf16 path (step-0 loss within
+     LOSS_RTOL and leaves >= GRAD_FLOOR against one device; losses within
+     1e-5 and leaves >= SAME_ROUNDING_BAR against plain DP on the same
+     ranks, whose step 1 follows the sharded Adam update) and
+     operaCT extraction of 16 10-s clips (K1-K3; per clip >= 0.99999
+     against one device); launches a rank a step exactly phases 8 / 16's;
+     one epoch of cli.pretrain dp=2 dist_backend=gloo (method=cola,
+     encoder=htsat, bf16, B=30) on phase 8's corpus writer; step ms at world 1
+     and 2 (two ranks share one card: not a scaling figure)
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -1882,6 +1903,9 @@ RESAMPLE_ATOL = 3e-5  # tests/test_resample.py's bar
 # in the padding, as in the JAX prologue, and moves the clip's last frames
 SOURCE_SR_BAR = 0.999
 CIRCOR_PATIENTS = 120
+# phases 21 and 23 repeat phase 19's path from disk on a corpus of their own:
+# half of its patients, for the smoke's time budget
+REPEAT_PATIENTS = 60
 
 
 def phase_logmel(smi: str):
@@ -2211,6 +2235,7 @@ def phase_attn_ablate(smi: str):
 # ---------------------------------------------------------------------------
 
 FT_EPOCHS = 3  # epochs of each cli.finetune seed (the protocol's 64 cut for time)
+FT_SEEDS = 3  # operaCT's cli.finetune seeds (the protocol's 5 cut for time)
 # (pretrain, encoder kind, batch): the step-0 rule runs at the timed batch
 FT_TOWERS = (("operaCT", "htsat", 64), ("operaGT", "gt", 64), ("audiomae", "audiomae", 32))
 
@@ -2343,7 +2368,7 @@ def _ft_repeat(tag, model, x, y, valid, cw, ref):
 def phase_finetune(smi: str, dev):
     """Phase 21: fine-tuning on the card. A synthetic CirCor corpus through
     cli.process, then cli.finetune pretrain=operaCT compute_dtype=bfloat16
-    (5 seeds, FT_EPOCHS epochs each: five finite test AUROCs) and one seed
+    (FT_SEEDS seeds, FT_EPOCHS epochs each: finite test AUROCs) and one seed
     of operaGT and of Audio-MAE, each with its kernel launches checked
     against the count its steps and predict batches imply, and operaCT's
     seed 0 run again to the same test AUROC; then, per tower at full width
@@ -2364,7 +2389,7 @@ def phase_finetune(smi: str, dev):
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as root:
-        n_clips = write_circor(root, CIRCOR_PATIENTS, seed=SEED + 21)
+        n_clips = write_circor(root, REPEAT_PATIENTS, seed=SEED + 21)
         os.chdir(root)
         try:
             process.main(["dataset=circor", "pretrain=operaCT", "dim=768", "random_init=True",
@@ -2373,7 +2398,7 @@ def phase_finetune(smi: str, dev):
             n_tr, n_va, n_te = (int((split == s).sum()) for s in ("train", "val", "test"))
             runs = {}
             for pretrain, kind, B in FT_TOWERS:
-                n_run = 5 if pretrain == "operaCT" else 1
+                n_run = FT_SEEDS if pretrain == "operaCT" else 1
                 scores, counts, sec = _ft_cli(pretrain, n_run)
                 scores = np.asarray(scores, np.float64)
                 steps = n_run * FT_EPOCHS * (-(-n_tr // B))
@@ -2616,7 +2641,7 @@ def phase_hear(smi: str):
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as root:
-        n_clips = write_circor(root, CIRCOR_PATIENTS, seed=SEED + 23)
+        n_clips = write_circor(root, REPEAT_PATIENTS, seed=SEED + 23)
         os.chdir(root)
         try:
             _reset_counts()  # just before the HeAR path
@@ -3724,6 +3749,273 @@ def phase_resp_cp(smi: str, root: str):
         os.chdir(cwd)
 
 
+DP_STEPS = 2  # phase 31's COLA steps
+DP_CLIPS = 16  # phase 31's extraction: 10-s clips, one batch
+DP_NOTE = "two ranks share one H100; not a scaling figure"
+DP_CLI_BATCH = 30  # phase 31's cli.pretrain epoch: 9 steps of 270 clips, one val batch of 30
+
+
+def _dp_data():
+    """Phase 31's inputs, made alike in every process: DP_STEPS COLA pairs
+    at phase 8's circor crop (B=64 x 251 x 64, phase 8's value range), an
+    Audio-MAE batch (B=64 x 1024 x 128), and DP_CLIPS 10-s waveforms at
+    16 kHz."""
+    import numpy as np
+
+    r = np.random.default_rng(SEED + 40)
+    mel = lambda: (r.standard_normal((B_TRAIN, 251, 64)) * 10 - 40).astype(np.float32)
+    cola = [(mel(), mel()) for _ in range(DP_STEPS)]
+    mae = r.standard_normal((B_TRAIN, 1024, 128)).astype(np.float32)
+    wavs = [(0.1 * r.standard_normal(160000)).astype(np.float32) for _ in range(DP_CLIPS)]
+    return cola, mae, wavs
+
+
+def _dp_cola(mesh, dev, impl="kernel", zero=False, time_it=False):
+    """DP_STEPS steps of the trainer's COLA step (bench/dp_scale.py::
+    cola_steps: cola_training.train_step on the full-width operaCT, seed
+    SEED, DropPath and dropout off) on this rank's rows: (losses, step-0
+    summed gradients on the CPU, launch counts of the steps, step ms or
+    None)."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench import dp_scale
+    from heart_murmur_detection_tpu_torch.pretrain import cola_training as ct
+
+    run = dp_scale.cola_steps(mesh, dev, _dp_data()[0], impl, zero, SEED,
+                              before=_reset_counts)  # counts from 0 just before the steps
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    ms = None
+    if time_it:
+        x1, x2 = run["batches"][0]
+        ms = _time_ms(lambda: ct.train_step(run["model"], run["opt"], x1, x2, None,
+                                            torch.bfloat16, impl, 0.0, mesh, run["zero"]),
+                      iters=3, warm=1)
+    return run["losses"], run["grads"], counts, ms
+
+
+def _dp_mae(mesh, dev):
+    """One Audio-MAE CP step (K9) of the trainer (mae_training.batch_rows,
+    steps.mae_train_step) on this rank's rows of the global batch, the
+    masking noise drawn from a generator on the card seeded SEED: (loss,
+    step-0 summed gradients, the global batch's masks as every rank's
+    noise rows form them, counts)."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.models import vit_mae
+    from heart_murmur_detection_tpu_torch.parallel.mesh import gather_objects
+    from heart_murmur_detection_tpu_torch.pretrain import mae_training, steps
+
+    cfg = vit_mae.audiomae_base_config(mask_ratio=0.7)
+    model = vit_mae.MaskedAutoencoderViT(cfg, decoder=True)
+    vit_mae.init_weights(model, torch.Generator().manual_seed(SEED))
+    model.to(dev).train()
+    opt = steps.adam_with_epoch_decay(list(model.parameters()), 5)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x, noise = mae_training.batch_rows(_dp_data()[1], cfg.patch_size, gen, mesh, dev)
+    _reset_counts()  # just before the data-parallel step
+    loss = steps.mae_train_step(model, opt, x, torch.bfloat16, "kernel", noise, gen, mesh)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    if noise is None:  # one device: the step's own draw (models/mae_train_fused.py), again
+        L = (x.shape[1] // cfg.patch_size) * (x.shape[2] // cfg.patch_size)
+        noise = vit_mae.masking_noise(x.shape[0], L, torch.Generator(device=dev).manual_seed(SEED),
+                                      dev)
+    _, mask, _ = vit_mae.random_masking(noise[..., None], noise, cfg.mask_ratio)
+    return (float(loss), {q: w.grad.detach().cpu() for q, w in model.named_parameters()},
+            torch.cat(gather_objects(mask.cpu(), mesh)), counts)
+
+
+def _dp_extract(mesh, dev):
+    """operaCT features of phase 31's clips (one batch of DP_CLIPS) and the
+    extraction's launch counts."""
+    from heart_murmur_detection_tpu_torch.extract.extract import FeatureExtractor
+
+    ex = FeatureExtractor("operaCT", dim=768, batch_size=DP_CLIPS, random_init=True, seed=SEED,
+                          mesh=mesh, device=dev)
+    wavs = _dp_data()[2]
+    _reset_counts()  # just before the extraction
+    feats = ex.extract_waveforms(wavs, max_len=160000)
+    return feats, _all_counts()
+
+
+def _dp_nccl_rank(mesh):
+    return _dp_cola(mesh, mesh.device, time_it=True)
+
+
+def _dp_gloo_rank(mesh):
+    """Phase 31's two-rank work on one rank; rank 0 returns it with every
+    rank's launch counts."""
+    from heart_murmur_detection_tpu_torch.parallel.mesh import gather_objects
+
+    cola = _dp_cola(mesh, mesh.device, time_it=True)
+    mae = _dp_mae(mesh, mesh.device)
+    zero = _dp_cola(mesh, mesh.device, "plain", zero=True)
+    plain = _dp_cola(mesh, mesh.device, "plain")  # the same ranks without ZeRO-3
+    feats = _dp_extract(mesh, mesh.device)
+    counts = gather_objects({"cola": cola[2], "mae": mae[3], "extract": feats[1]}, mesh)
+    return {"cola": cola, "mae": mae, "zero": zero, "plain": plain, "extract": feats,
+            "counts": counts}
+
+
+def _dp_cli_rank(mesh, method, kw):
+    """cli.pretrain's rank function with its launch counts read around it."""
+    from heart_murmur_detection_tpu_torch.cli import pretrain
+    from heart_murmur_detection_tpu_torch.parallel.mesh import gather_objects
+
+    _reset_counts()  # just before the rank's epoch
+    out = pretrain.train(mesh, method, kw)
+    return out, gather_objects(_all_counts(), mesh)
+
+
+def _dp_compare(tag, got, want, floor, bar, norm_tol, smi, skip=()):
+    """Step-0 gradients of a data-parallel run against one device
+    (bench/dp_scale.py::grad_report): each leaf's cosine >= floor
+    (required), the count under bar and bitwise equality (printed), the
+    global norm ratio within 1 +- norm_tol. Leaves named in `skip` (exact
+    gradient 0, float noise in every run) are left out of the cosines."""
+    from heart_murmur_detection_tpu_torch.bench.dp_scale import grad_report
+
+    r = grad_report(got, want, bar, skip)
+    lo, c, ratio = r["min_leaf"], r["min_leaf_cosine"], r["norm_ratio"]
+    print(f"[dp] {tag}, {smi}: step-0 gradients over {r['leaves']} leaves: min cosine "
+          f"{c:.7f} ({lo}) (floor {floor}), {r[f'leaves_under_{bar}']} leaves under {bar}, "
+          f"global norm ratio {ratio:.7f} (bar 1 +- {norm_tol}), bitwise equal: {r['bitwise']}",
+          flush=True)
+    _require(c >= floor, f"{tag}: step-0 gradient {lo} cosine {c} < {floor}")
+    _require(abs(ratio - 1) <= norm_tol, f"{tag}: gradient norm ratio {ratio}")
+
+
+def _dp_counts_ok(tag, counts: dict, per_step: dict, fwd: int, steps: int):
+    ok = all(counts[q] == v * steps for q, v in per_step.items())
+    ok &= counts["swin_attn"] == counts["swin_mlp"] == fwd
+    _require(ok, f"{tag}: launch counts {counts} for {steps} steps (want {per_step} a step and "
+                 f"{fwd} of each forward kernel)")
+
+
+def phase_dp(smi: str, dev):
+    """Phase 31: data parallelism on the card (see the module doc)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.cli import pretrain
+    from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+    from heart_murmur_detection_tpu_torch.models.vit_mae import audiomae_base_config
+    from heart_murmur_detection_tpu_torch.parallel import launch
+
+    t_phase = time.time()
+    cola_per_step = {"swin_attn_bwd": 20, "swin_mlp_bwd": 20, "swin_wgrad": 80,
+                     "swin_reduce": _reduce_per_step(HTSATConfig())}
+    mae_per_step = _mae_per_step(audiomae_base_config())
+    # the one-device references, in this process
+    l1, g1, c1, ms1 = _dp_cola(None, dev, time_it=True)
+    _dp_counts_ok("[dp] one device", c1, cola_per_step, 20 * DP_STEPS, DP_STEPS)
+    lm1, gm1, mask1, _ = _dp_mae(None, dev)
+    lz1, gz1 = _dp_cola(None, dev, "plain")[:2]
+    f1 = _dp_extract(None, dev)[0]
+    torch.cuda.empty_cache()
+    print(f"[dp] one device, {smi}: COLA losses {l1}, step {ms1:.2f} ms (B={B_TRAIN} x 251, "
+          f"train kernels); Audio-MAE loss {lm1:.6f}; plain bf16 COLA losses {lz1}",
+          flush=True)
+
+    t0 = time.time()
+    ln, gn, cn, msn = launch(_dp_nccl_rank, 1, backend="nccl", device="cuda")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ln, l1))
+    print(f"[dp] NCCL world 1, {smi}: COLA losses {ln} against {l1} without a mesh, max rel "
+          f"diff {rel:.3g} (bar 1e-4); step {msn:.2f} ms against {ms1:.2f} ms; launches {cn}; "
+          f"{time.time() - t0:.1f} s with the child's start", flush=True)
+    _require(rel <= 1e-4, f"NCCL world-1 COLA losses {ln} vs {l1}")
+    _dp_counts_ok("[dp] NCCL world 1", cn, cola_per_step, 20 * DP_STEPS, DP_STEPS)
+    _dp_compare("NCCL world 1 vs no mesh", gn, g1, GRAD_FLOOR, SAME_ROUNDING_BAR, 1e-3, smi)
+    del gn
+
+    t0 = time.time()
+    out = launch(_dp_gloo_rank, 2, backend="gloo", device="cuda")
+    lg, gg, _, msg = out["cola"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lg, l1))
+    print(f"[dp] gloo world 2 on cuda:0 ({DP_NOTE}), {smi}: COLA losses {lg} against {l1}, max "
+          f"rel diff {rel:.3g} (bar {LOSS_RTOL}); step {msg:.2f} ms a rank at {B_TRAIN // 2} "
+          f"rows against {ms1:.2f} ms on one device at {B_TRAIN}; {time.time() - t0:.1f} s with "
+          f"the children's start", flush=True)
+    _require(rel <= LOSS_RTOL, f"gloo world-2 COLA losses {lg} vs {l1}")
+    _dp_compare("gloo world 2 COLA vs one device", gg, g1, GRAD_FLOOR, GRAD_BAR, 1e-2, smi)
+    del gg, g1
+    lm, gm, mask, _ = out["mae"]
+    relm = abs(lm - lm1) / abs(lm1)
+    print(f"[dp] gloo world 2 Audio-MAE step (K9), {smi}: loss {lm:.6f} against {lm1:.6f}, rel "
+          f"diff {relm:.3g} (bar {LOSS_RTOL}); both ranks' masks (from their rows of the global "
+          f"noise) = the one-device masks: {torch.equal(mask, mask1)}", flush=True)
+    _require(relm <= LOSS_RTOL, f"Audio-MAE world-2 loss {lm} vs {lm1}")
+    _require(torch.equal(mask, mask1), "Audio-MAE masks differ")
+    _dp_compare("gloo world 2 Audio-MAE vs one device", gm, gm1, GRAD_FLOOR, GRAD_BAR, 1e-2, smi,
+                skip=ZERO_GRAD)
+    del gm, gm1
+    lz, gz = out["zero"][:2]
+    lp, gp = out["plain"][:2]
+    relz = abs(lz[0] - lz1[0]) / abs(lz1[0])
+    relp = max(abs(a - b) / abs(b) for a, b in zip(lz, lp))
+    print(f"[dp] gloo world 2 ZeRO-3 COLA, {DP_STEPS} steps, plain bf16 path, {smi}: losses {lz}; "
+          f"step 0 against one device {lz1[0]:.6f}, rel diff {relz:.3g} (bar {LOSS_RTOL}; step 1 "
+          f"one device {lz1[1]:.6f}, information: Adam's first update is lr * sign(g), so bf16 "
+          f"noise in small gradients moves it); against plain DP on the same ranks {lp}, max rel "
+          f"diff {relp:.3g} (bar 1e-5: step 1 follows the sharded Adam update), bitwise equal: "
+          f"{lz == lp}", flush=True)
+    _require(relz <= LOSS_RTOL, f"ZeRO-3 COLA loss {lz[0]} vs {lz1[0]}")
+    _require(relp <= 1e-5, f"ZeRO-3 COLA losses {lz} vs plain DP {lp}")
+    _dp_compare("gloo world 2 ZeRO-3 COLA (reduce-scattered) vs one device, plain bf16", gz, gz1,
+                GRAD_FLOOR, GRAD_BAR, 1e-2, smi)
+    _dp_compare("gloo world 2 ZeRO-3 COLA vs plain DP on the same ranks", gz, gp,
+                SAME_ROUNDING_BAR, SAME_ROUNDING_BAR, 1e-5, smi)
+    del gz, gz1, gp
+    feats = out["extract"][0]
+    cos = [_cos(a, b) for a, b in zip(feats, f1)]
+    print(f"[dp] gloo world 2 operaCT extraction of {DP_CLIPS} 10-s clips (K1-K3, "
+          f"{DP_CLIPS // 2} rows a rank), {smi}: per-clip cosine against one device min "
+          f"{min(cos):.7f} (bar {SAME_ROUNDING_BAR})", flush=True)
+    _require(feats.shape == f1.shape and min(cos) >= SAME_ROUNDING_BAR,
+             f"extraction at world 2: cosines {cos}")
+    for r, c in enumerate(out["counts"]):
+        _dp_counts_ok(f"[dp] rank {r} COLA", c["cola"], cola_per_step, 20 * DP_STEPS, DP_STEPS)
+        ok = all(c["mae"][q] == v for q, v in mae_per_step.items())
+        _require(ok, f"rank {r} Audio-MAE launches {c['mae']} (want {mae_per_step})")
+        _require(c["extract"]["swin_attn"] == c["extract"]["swin_mlp"] == 12,
+                 f"rank {r} extraction launches {c['extract']}")
+    print(f"[dp] launches a rank: {out['counts']}", flush=True)
+
+    with tempfile.TemporaryDirectory() as root:
+        _write_corpora(root)
+        cwd = os.getcwd()
+        os.chdir(root)
+        real = pretrain.launch
+        pretrain.launch = lambda fn, n, *a, **kw: real(_dp_cli_rank, n, *a, **kw)
+        try:
+            t0 = time.time()
+            (((_, hist, _), counts),) = pretrain.main([
+                "dp=2", "dist_backend=gloo", "method=cola", "encoder=htsat",
+                "compute_dtype=bfloat16", f"batch_size={DP_CLI_BATCH}", "epoches=1", "seed=0",
+                "title=dp",
+                "device=cuda", *(f"{c}=True" for c in CP_CORPORA)])
+            wall = time.time() - t0
+        finally:
+            pretrain.launch = real
+            os.chdir(cwd)
+    h = hist[0]
+    n_val = len(CP_CORPORA)  # one validation batch of the 30 clips a corpus (drop_last)
+    for r, c in enumerate(counts):
+        _dp_counts_ok(f"[dp] cli.pretrain rank {r}", c, cola_per_step,
+                      20 * h["steps"] + 24 * n_val, h["steps"])
+    _require(all(math.isfinite(h[q]) for q in ("train_loss", "valid_loss")), f"losses {h}")
+    print(f"[dp] cli.pretrain dp=2 dist_backend=gloo method=cola encoder=htsat bf16, "
+          f"B={DP_CLI_BATCH} ({DP_CLI_BATCH // 2} a rank), {DP_NOTE}, {smi}: {h['steps']} steps "
+          f"in {h['train_seconds']:.2f} s = "
+          f"{h['train_seconds'] / h['steps'] * 1e3:.1f} ms a step (first included); train loss "
+          f"{h['train_loss']:.4f} valid {h['valid_loss']:.4f}; {wall:.1f} s with the ranks' start; "
+          f"launches a rank {counts}", flush=True)
+    print(f"[dp] phase 31 took {time.time() - t_phase:.1f} s", flush=True)
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -3801,6 +4093,18 @@ def _merge(a: dict, b: dict) -> dict:
             "err": max(a["err"], b["err"]), "work": work, "library_ms": lib}
 
 
+_TICKS = []
+
+
+def _tick(label):
+    """Print the seconds since the last tick (None: start the clock)."""
+    now = time.time()
+    if label is not None:
+        print(f"[time] {label} took {now - _TICKS[-1]:.1f} s ({now - _TICKS[0]:.1f} s in all)",
+              flush=True)
+    _TICKS.append(now)
+
+
 def main() -> int:
     try:
         import torch
@@ -3820,12 +4124,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     from heart_murmur_detection_tpu_torch.extract.registry import initialize_pretrained_model
 
+    _tick(None)
     smi = phase_card()
     build_log = phase_build()
     dev = torch.device("cuda")
     model = initialize_pretrained_model("operaCT", random_init=True, seed=SEED).to(dev)
     eval_meas = phase_kernels(model, dev)
     train_meas = phase_train_kernels(model, dev)
+    _tick("phases 1-3, 7")
     del model
     with tempfile.TemporaryDirectory() as d:
         ex, paths, served, serve_counts = phase_serving(d)
@@ -3834,29 +4140,38 @@ def main() -> int:
         del ex
         torch.cuda.empty_cache()
         cp_counts = phase_cp(smi, dev)
+        _tick("phases 4-6, 8")
         torch.cuda.empty_cache()
         vit_meas, gt_counts = phase_mae(paths, smi, dev)
+        _tick("phases 9-13")
     torch.cuda.empty_cache()
     vit_train_meas = phase_vit_train_kernels(dev)
     torch.cuda.empty_cache()
     mae_counts = phase_mae_cp(smi, dev)
+    _tick("phases 14-17")
     torch.cuda.empty_cache()
     logmel_meas = phase_logmel(smi)
     logmel_counts = phase_main_path(smi)
     phase_logmel_throughput(smi)
+    _tick("phases 18-19")
     torch.cuda.empty_cache()
     ablate_meas, ablate_counts = phase_attn_ablate(smi)
+    _tick("phase 20")
     torch.cuda.empty_cache()
     phase_finetune(smi, dev)
+    _tick("phase 21")
     torch.cuda.empty_cache()
     hear_meas = phase_hear_kernels(dev, build_log)
     torch.cuda.empty_cache()
     hear_counts = phase_hear(smi)
+    _tick("phases 22-23")
     torch.cuda.empty_cache()
     clap_counts = phase_clap(smi)
+    _tick("phase 24")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         phase_loop(smi, root)
+        _tick("phase 25")
         torch.cuda.empty_cache()
         t0 = time.time()
         scores = phase_operace(smi, root)
@@ -3864,12 +4179,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_baselines(smi, root)
         print(f"[zoo] phases 26-28 took {time.time() - t0:.1f} s", flush=True)
+        _tick("phases 26-28")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         t0 = time.time()
         phase_respiratory(smi, root)
         phase_resp_cp(smi, root)
         print(f"[resp] phases 29-30 took {time.time() - t0:.1f} s", flush=True)
+        _tick("phases 29-30")
+    torch.cuda.empty_cache()
+    phase_dp(smi, dev)
+    _tick("phase 31")
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths

@@ -17,7 +17,10 @@ caches the first-window spectrograms there, fine-tunes n_run seeds on the
 card (`device=cpu` runs on the CPU; `epochs=N` shortens the 64-epoch
 protocol) and prints each seed's test AUROC and the five-seed mean and std.
 Best weights land in cks/finetune/<dataset>_<task>/ as state_dict .pt
-files. dp, tp and param_sharding (multi-device) raise NotImplementedError.
+files. dp=N fine-tunes every seed on N ranks (parallel/launch.py;
+dist_backend nccl, the default on a card, or gloo, the CPU's default, whose
+ranks may share a card; `dp=2 dist_backend=gloo device=cpu` on the CPU), and
+param_sharding=fsdp is ZeRO-3 over them; tp > 1 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,9 +29,46 @@ import sys
 
 import numpy as np
 
+from ..parallel.launch import launch
+from ..parallel.mesh import mesh_from_cli
 from ..train.finetune import finetune_heart
 from .config import parse_compute_dtype, resolve
 from .linear_eval import route_heart_task
+
+
+def run_seeds(mesh, cfg: dict, param_sharding=None):
+    """The n_run seeds of one config (in every rank of a data-parallel
+    run; rank 0 prints): their test AUROCs."""
+    ds, task, fdir, labels = route_heart_task(cfg["task"])
+    # pretrain=null coerces to None (yaml/hydra); downstream string-compares it
+    pretrain = "null" if cfg["pretrain"] is None else cfg["pretrain"]
+    scores = []
+    for seed in range(cfg["n_run"]):
+        res = finetune_heart(
+            seed=seed,
+            pretrain=pretrain,
+            epochs=int(cfg.get("epochs", 64)),
+            l2_strength=cfg["l2_strength"],
+            feat_dim=cfg["dim"],
+            dataset_name=ds,
+            task=task,
+            feature_dir=fdir,
+            labels_filename=labels,
+            freeze_encoder=cfg["freeze_encoder"],
+            loss=cfg["loss"],
+            spec_augment=cfg["spec_augment"],
+            random_init=cfg.get("random_init", False),
+            ckpt_path=cfg.get("ckpt_path"),
+            compute_dtype=parse_compute_dtype(cfg),
+            device=cfg.get("device", "cuda"),
+            mesh=mesh,
+            param_sharding=param_sharding,
+        )
+        if mesh is None or mesh.rank == 0:
+            print(f"seed {seed}: test_auc {res.test_auc:.4f} (best epoch {res.best_epoch})",
+                  flush=True)
+        scores.append(res.test_auc)
+    return scores
 
 
 def main(argv=None):
@@ -36,35 +76,13 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     results = []
     for cfg in resolve("finetune_config", argv):
-        if int(cfg.get("dp", 1)) > 1 or int(cfg.get("tp", 1)) > 1 or cfg.get("param_sharding"):
-            raise NotImplementedError(
-                "multi-device fine-tuning (dp, tp, param_sharding) is not ported yet (slice 6)")
-        ds, task, fdir, labels = route_heart_task(cfg["task"])
-        # pretrain=null coerces to None (yaml/hydra); downstream string-compares it
+        plan, param_sharding = mesh_from_cli(cfg)
+        if plan is None:
+            scores = run_seeds(None, cfg)
+        else:
+            scores = launch(run_seeds, plan.n, cfg, param_sharding, backend=plan.backend,
+                            device=cfg.get("device", "cuda"))
         pretrain = "null" if cfg["pretrain"] is None else cfg["pretrain"]
-        scores = []
-        for seed in range(cfg["n_run"]):
-            res = finetune_heart(
-                seed=seed,
-                pretrain=pretrain,
-                epochs=int(cfg.get("epochs", 64)),
-                l2_strength=cfg["l2_strength"],
-                feat_dim=cfg["dim"],
-                dataset_name=ds,
-                task=task,
-                feature_dir=fdir,
-                labels_filename=labels,
-                freeze_encoder=cfg["freeze_encoder"],
-                loss=cfg["loss"],
-                spec_augment=cfg["spec_augment"],
-                random_init=cfg.get("random_init", False),
-                ckpt_path=cfg.get("ckpt_path"),
-                compute_dtype=parse_compute_dtype(cfg),
-                device=cfg.get("device", "cuda"),
-            )
-            print(f"seed {seed}: test_auc {res.test_auc:.4f} (best epoch {res.best_epoch})",
-                  flush=True)
-            scores.append(res.test_auc)
         print("=" * 48)
         print(scores)
         print(

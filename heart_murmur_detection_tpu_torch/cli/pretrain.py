@@ -15,17 +15,26 @@ Usage:
   ... pretrain=operaCT ckpt_path=cks/model/encoder-operaCT.ckpt   # warm start
   ... pretrain=audiomae ckpt_path=src/benchmark/baseline/audioMAE/pretrained.pth
 
+  ... dp=2 dist_backend=gloo device=cpu     # data parallel: 2 ranks on the CPU
+  ... dp=2 param_sharding=fsdp                # ZeRO-3 over 2 cards (NCCL)
+
 The config's default encoder is the EfficientNet (OPERA-CE). Runs on one
 device (device=cuda by default). The corpora and their max_len
 follow the method: the COLA table, the MAE table (respiratory corpora), or
-1024 frames for every heart corpus with audiomae. The multi-device keys
-dp / tp / param_sharding are not ported and raise NotImplementedError.
+1024 frames for every heart corpus with audiomae. dp=N runs N ranks
+(parallel/launch.py; dist_backend nccl, the default on a card, takes one
+card a rank; gloo, the CPU's default, lets ranks share a card) and returns
+rank 0's result; param_sharding=fsdp is ZeRO-3 over them (parallel/
+mesh.py::mesh_from_cli: param_sharding without dp > 1 is an error); tp > 1
+raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import sys
 
+from ..parallel.launch import launch
+from ..parallel.mesh import mesh_from_cli
 from ..pretrain.cola_training import train_multiple_data
 from ..pretrain.data import OPTIMAL_MAX_LEN_COLA, OPTIMAL_MAX_LEN_MAE
 from ..pretrain.mae_training import mae_train_multiple_data
@@ -35,15 +44,22 @@ HEART_CORPORA = ("circor", "pascal_A", "pascal_B", "physionet16", "zchsound_clea
                  "zchsound_noisy")
 
 
+def train(mesh, method: str, kw: dict):
+    """One configuration's trainer (in every rank of a data-parallel run)."""
+    if method != "cola":
+        return mae_train_multiple_data(mesh=mesh, **kw)
+    return train_multiple_data(mesh=mesh, **kw)
+
+
 def main(argv=None):
     """Run every configuration of the (multirun-aware) overrides; returns
-    their (state_dict, history, best checkpoint path) results."""
+    their (state_dict, history, best checkpoint path) results (rank 0's
+    with dp > 1)."""
     argv = sys.argv[1:] if argv is None else argv
     results = []
     for cfg in resolve("pretrain_config", argv):
         method = cfg.get("method", "cola")
-        if int(cfg.get("dp", 1)) > 1 or int(cfg.get("tp", 1)) > 1 or cfg.get("param_sharding"):
-            raise NotImplementedError("multi-device CP (dp, tp, param_sharding) is not ported")
+        plan, param_sharding = mesh_from_cli(cfg)
         if method == "cola":
             max_lens = OPTIMAL_MAX_LEN_COLA
         elif method == "mae":
@@ -64,20 +80,21 @@ def main(argv=None):
             fused_train=cfg.get("fused_train"),
             device=cfg.get("device", "cuda"),
             ckpt_path=cfg.get("ckpt_path"),
+            param_sharding=param_sharding,
+            title=cfg["title"],
+            data_source=data_source,
         )
         if method != "cola":
-            results.append(mae_train_multiple_data(
-                cfg["title"], data_source=data_source, training_method=method, **common))
-            continue
-        results.append(train_multiple_data(
-            cfg["title"],
-            data_source=data_source,
-            dim_hidden=cfg.get("dim_hidden", 1280),
-            dim_out=cfg.get("dim_out", 512),
-            encoder=cfg.get("encoder", "efficientnet"),
-            freeze_encoder=cfg.get("freeze_encoder", "none"),
-            **common,
-        ))
+            kw = dict(training_method=method, **common)
+        else:
+            kw = dict(dim_hidden=cfg.get("dim_hidden", 1280), dim_out=cfg.get("dim_out", 512),
+                      encoder=cfg.get("encoder", "efficientnet"),
+                      freeze_encoder=cfg.get("freeze_encoder", "none"), **common)
+        if plan is None:
+            results.append(train(None, method, kw))
+        else:
+            results.append(launch(train, plan.n, method, kw, backend=plan.backend,
+                                  device=common["device"]))
     return results
 
 

@@ -8,8 +8,10 @@ t-tests their scores.
         task=circor_murmurs model1=operaCT dim1=768 model2=clap2023 alpha=0.01
 
 Reads feature/<task>_eval/<feature>_feature.npy in the working directory;
-the probes train on the card (`device=cpu` on the CPU). The legacy
-respiratory tasks are not ported and raise NotImplementedError.
+the probes train on the card (`device=cpu` on the CPU). The legacy OPERA
+tasks (cli/linear_eval.py's LEGACY_TASKS: the respiratory benchmark, Tasks
+1-19) run through cli/linear_eval.py::run_legacy, one seed a score, as the
+JAX get_performance routes them.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 from ..analysis.significance import test_2models
 from ..train.linear_eval import linear_evaluation_heart
 from .config import parse_overrides
-from .linear_eval import LEGACY_TASKS, route_heart_task
+from .linear_eval import LEGACY_TASKS, route_heart_task, run_legacy
 
 DEFAULTS = dict(
     task="circor_murmurs",
@@ -45,8 +47,9 @@ def get_performance(model: str, dim: int, cfg: dict):
     feature = model
     if model not in ("vggish", "opensmile", "clap", "audiomae", "hear", "clap2023") and "finetuned" not in model:
         feature += str(dim)
+    device = cfg.get("device", "cuda")
     if cfg["task"] in LEGACY_TASKS:
-        raise NotImplementedError(f"legacy task {cfg['task']!r} is not ported")
+        return [run_legacy(cfg, feature, seed, device=device) for seed in range(cfg["n_run"])]
     ds, task, fdir, labels = route_heart_task(cfg["task"])
     scores = []
     for seed in range(cfg["n_run"]):
@@ -62,7 +65,7 @@ def get_performance(model: str, dim: int, cfg: dict):
             task=task,
             feature_dir=fdir,
             labels_filename=labels,
-            device=cfg.get("device", "cuda"),
+            device=device,
         )
         scores.append(res.test_auc)
     return scores

@@ -49,6 +49,7 @@ def extract_and_save(
     wire_format: str = "int16",
     source_sr: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ) -> str:
     """Batched extraction of a processed feature dir on the port's
     FeatureExtractor; saves and returns <pretrain><dim>_feature.npy
@@ -69,11 +70,16 @@ def extract_and_save(
     opensmile_feature.provenance.json naming the implementation.
     operaCE (and null / null-efficientnet) runs FeatureExtractor's
     EfficientNet graph and saves operaCE1280_feature.npy or
-    operaCE512_feature.npy."""
+    operaCE512_feature.npy. mesh: a data-parallel FeatureExtractor in every
+    rank (the OPERA and MAE kinds; the baselines run on one device), rank 0
+    writes the file."""
     from ...extract.extract import FeatureExtractor
 
     sound_dir_loc = np.load(os.path.join(feature_dir, "sound_dir_loc.npy"))
-    if pretrain in ("vggish", "hear", "clap", "clap2023", "opensmile"):
+    baseline = pretrain in ("vggish", "hear", "clap", "clap2023", "opensmile")
+    if baseline and mesh is not None:
+        raise NotImplementedError(f"{pretrain} extraction runs on one device (no mesh)")
+    if baseline:
         paths = [str(f) for f in sound_dir_loc]
         kw = dict(ckpt_path=ckpt_path, random_init=random_init, batch_size=batch_size,
                   device=device)
@@ -113,10 +119,14 @@ def extract_and_save(
         wire_format=wire_format,
         source_sr=source_sr,
         device=device,
+        mesh=mesh,
     )
     feats = ex.extract_files([str(f) for f in sound_dir_loc])
     name = pretrain + ("" if "audiomae" in pretrain else str(dim))
     suffix = "" if not fine_tuned else f"_finetuned_{fine_tuned}_{seed}"
     out = os.path.join(feature_dir, name + suffix + "_feature.npy")
-    np.save(out, feats)
+    if mesh is None or mesh.rank == 0:
+        np.save(out, feats)
+    if mesh is not None:
+        mesh.barrier()
     return out

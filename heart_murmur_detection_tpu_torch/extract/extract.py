@@ -21,6 +21,14 @@ Whole clips of operaCT at 16 kHz are loaded by the C++ host loader
 (utils/native.py, the JAX extract.py:452-505 route) on two threads a batch
 ahead; other rates and formats take the Python decoder per file.
 
+Data parallelism (mesh, a parallel/mesh.py DataParallelMesh; the extractor
+lives in every rank): every rank loads and packs the same padded batches,
+runs its contiguous rows of each through the encoder on its device, and
+the features are gathered in rank order, so extract_waveforms and
+extract_files return exactly the rows of the single-device run on every
+rank (the batch's kernels run at B / n rows). batch_size must divide over
+the ranks.
+
 Host pipeline (the JAX two-stage pack || put, extract.py:505-511): one
 worker thread packs batches (pad_batch + wire encode) into numpy, a second
 pins them and copies them to the card with non_blocking=True on a side
@@ -41,6 +49,7 @@ import torch
 from ..audio import dsp, pipelines, wire
 from ..audio.pad import split_pad_sample, split_sample_simple
 from ..ops.resample import resample_poly_device
+from ..parallel.mesh import check_mesh, gather_rows, local_rows, shard_rows
 from ..utils.precision import strict_f32
 from . import registry
 
@@ -83,6 +92,8 @@ class FeatureExtractor:
     fast_softmax: normalise after the P v product (None = on for bf16 on a
     card, the JAX auto choice for a bf16 accelerator); a batch whose
     features come out non-finite is re-run with the stable softmax.
+    mesh: this rank's DataParallelMesh (the extractor takes the mesh's
+    device; see the module doc).
     """
 
     def __init__(
@@ -118,8 +129,10 @@ class FeatureExtractor:
         self.source_sr = source_sr
         self._up = SR // source_sr if source_sr else 1
         self.use_pallas_mel = use_pallas_mel
+        self.mesh = check_mesh(mesh)
         if mesh is not None:
-            raise NotImplementedError("mesh (multi-device extraction) is not ported")
+            local_rows(batch_size, mesh)  # "not divisible"
+            device = mesh.device
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -215,8 +228,15 @@ class FeatureExtractor:
         return fn
 
     def _dispatch(self, wav: torch.Tensor, lengths: torch.Tensor, fn=None):
-        """Enqueue one batch; returns a handle _harvest turns into numpy."""
-        out = (fn or self._fn)(wav, lengths).to(torch.float32)
+        """Enqueue one batch; returns a handle _harvest turns into numpy.
+        With a mesh the rank runs its rows and the batch's features are
+        gathered from every rank."""
+        fn = fn or self._fn
+        if self.mesh is None:
+            out = fn(wav, lengths).to(torch.float32)
+        else:
+            out = fn(shard_rows(wav, self.mesh), shard_rows(lengths, self.mesh))
+            out = gather_rows(out.to(torch.float32).contiguous(), self.mesh)
         self.n_dispatched += 1
         if not self._on_card:
             return out.numpy(), None

@@ -18,6 +18,15 @@ by the BatchNorm2d module) instead of the module: a second call through
 the same module reads the first call's statistics from the dict, as two
 flax applies chain their mutable batch_stats, and nothing changes in the
 model until the caller commits the dict after its optimizer step.
+
+Data parallelism: a dict made by new_stats(mesh) carries the mesh
+(parallel/mesh.py), and every BatchNorm that writes into it normalises
+with the global batch's statistics, as GSPMD gives the JAX package's
+unfused step, with the moments of parallel/mesh.py::sync_moments (the
+formula of the HTS-AT's bn0: ex2 - bm^2 over the ranks' local moments,
+in float64, one autograd-aware all-reduce a BatchNorm). The running
+statistics are committed from the global moments, so every rank ends with
+the same buffers.
 """
 
 from __future__ import annotations
@@ -28,7 +37,36 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import sync_moments
+
 Stats = Dict[nn.BatchNorm2d, Tuple[torch.Tensor, torch.Tensor]]
+
+
+class SyncStats(dict):
+    """A train-mode statistics dict whose BatchNorms see the global batch of
+    a data-parallel mesh."""
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.mesh = mesh
+
+
+def new_stats(mesh=None) -> Stats:
+    """An empty train-mode statistics dict: this rank's batch without a
+    mesh, the global batch with one."""
+    return {} if mesh is None else SyncStats(mesh)
+
+
+def _sync_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, momentum: float, stats: SyncStats):
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    mean, var = sync_moments(x, dims, stats.mesh)
+    y = (x - mean.view(shape)) * (torch.rsqrt(var + bn.eps) * bn.weight).view(shape) \
+        + bn.bias.view(shape)
+    old_mean, old_var = stats.get(bn, (bn.running_mean, bn.running_var))
+    stats[bn] = (momentum * old_mean + (1.0 - momentum) * mean.detach(),
+                 momentum * old_var + (1.0 - momentum) * var.detach())
+    return y
 
 
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, momentum: float,
@@ -39,6 +77,8 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, momentum: float,
     if stats is None:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
                             bn.eps)
+    if isinstance(stats, SyncStats):
+        return _sync_batch_norm(bn, x, momentum, stats)
     n = x.numel() // x.shape[1]
     old_mean, old_var = stats.get(bn, (bn.running_mean, bn.running_var))
     mean, var = old_mean.clone(), old_var.clone()

@@ -116,23 +116,25 @@ class CLAPAudioEncoder(nn.Module):
                                        cfg.fmax, cfg.n_fft, cfg.hop)
 
     def encode_train(self, wav: torch.Tensor, lengths: torch.Tensor,
-                     gen: Optional[torch.Generator]):
+                     gen: Optional[torch.Generator], mesh=None):
         """The train-mode forward of fine-tuning (CLAPAudioEncoder with
         train=True), float32 and differentiable: the Cnn14's BatchNorms or the
-        HTS-AT's bn0 on the batch statistics, the HTS-AT's DropPath and the
-        projection's dropout drawn from gen. -> (projected (B, d_proj), the
-        new running statistics as a models/bn.py dict)."""
+        HTS-AT's bn0 on the batch statistics (the global batch's with a
+        data-parallel mesh), the HTS-AT's DropPath and the projection's
+        dropout drawn from gen. -> (projected (B, d_proj), the new running
+        statistics as a models/bn.py dict)."""
+        from . import bn as bn_mod
         from .htsat_train_fused import htsat_encode_train
 
         logmel, nf = self.logmel(wav, lengths)
-        stats = {}
+        stats = bn_mod.new_stats(mesh)
         if self.config.version == "2022":
             emb = self.base.forward_train(logmel, nf, stats)["embedding"]
         else:
             enc = self.base.htsat
             emb, new = htsat_encode_train(enc, logmel, gen,
                                           (enc.bn0.running_mean, enc.bn0.running_var), nf,
-                                          torch.float32, impl="autograd")
+                                          torch.float32, impl="autograd", mesh=mesh)
             stats[enc.bn0] = new
         return self.projection(emb, gen, self.config.proj_dropout), stats
 

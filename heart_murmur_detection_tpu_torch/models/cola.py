@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import bn as bn_mod
 from .efficientnet import HEAD_CH, ColaEfficientNetEncoder
 from .htsat import HTSAT, HTSATConfig
 
@@ -88,13 +89,15 @@ class Cola(nn.Module):
         return self.linear(z1), z2
 
     def train_pair(self, x1: torch.Tensor, x2: torch.Tensor, gen: Optional[torch.Generator],
-                   p_drop: float = 0.1, dtype: Optional[torch.dtype] = None):
+                   p_drop: float = 0.1, dtype: Optional[torch.dtype] = None, mesh=None):
         """EfficientNet train-mode pair forward (Cola.__call__, train=True):
         ((linear(z1), z2), the BatchNorms' new running statistics, chained
         through the two encoder calls in order, keyed by module). Drop-connect
         and dropout draw from gen; dtype is the convolutions' compute dtype
-        (None: float32). Nothing is written into the model."""
-        stats = {}
+        (None: float32). Nothing is written into the model. mesh: x1, x2 are
+        this rank's rows of a data-parallel batch, and the 49 BatchNorms
+        normalise with the global batch's statistics (models/bn.py)."""
+        stats = bn_mod.new_stats(mesh)
         h1 = self.encoder(x1, None, dtype, stats, gen)
         h2 = self.encoder(x2, None, dtype, stats, gen)
         z1 = self.project(h1, gen, p_drop)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..audio.dsp import resize_bicubic_time
 from ..ops.swin import _ln, block_layout
+from ..parallel.mesh import sync_moments
 from ..ops.swin_train import fused_swin_block_train, rel_pos_bias
 
 Stats = Tuple[torch.Tensor, torch.Tensor]  # bn0 (running_mean, running_var)
@@ -57,12 +58,15 @@ def _keep_mult(gen: Optional[torch.Generator], B: int, rate: float, device) -> t
 
 
 def bn_train(x: torch.Tensor, weight, bias, stats: Stats, momentum: float = 0.9,
-             eps: float = 1e-5) -> Tuple[torch.Tensor, Stats]:
+             eps: float = 1e-5, mesh=None) -> Tuple[torch.Tensor, Stats]:
     """flax BatchNorm train mode over (B, T) of x (B, T, F): normalise with
     the batch statistics (biased variance) and return the new running
-    statistics momentum * old + (1 - momentum) * batch."""
-    bm = x.mean((0, 1))
-    bv = ((x - bm) ** 2).mean((0, 1))
+    statistics momentum * old + (1 - momentum) * batch.
+
+    With a mesh (parallel/mesh.py) the statistics are the global batch's
+    (parallel/mesh.py::sync_moments: the JAX ex2 - bm^2, one autograd-aware
+    all-reduce)."""
+    bm, bv = sync_moments(x, (0, 1), mesh)
     y = (x - bm) * torch.rsqrt(bv + eps) * weight + bias
     mean, var = stats
     new = (
@@ -92,6 +96,7 @@ def htsat_encode_train(
     max_fused_dim: int = 384,
     deterministic: bool = False,
     impl: str = "kernel",
+    mesh=None,
 ) -> Tuple[torch.Tensor, Stats]:
     """mel (B, T, F) -> (latent (B, 768), new bn0 running statistics).
 
@@ -99,11 +104,14 @@ def htsat_encode_train(
     (two encoder calls chain them). mm_dtype bf16 runs stages up to
     max_fused_dim through the train kernels in bf16 (impl: see
     ops.swin_train.fused_swin_block_train); float32 runs every block in
-    float32. deterministic=True keeps the DropPath multipliers at 1."""
+    float32. deterministic=True keeps the DropPath multipliers at 1. mesh:
+    this rank's share of a data-parallel batch, bn0 on the global
+    statistics (bn_train)."""
     cfg = model.config
     B, T, Fb = mel.shape
     dev = mel.device
-    x, new_stats = bn_train(mel.to(torch.float32), model.bn0.weight, model.bn0.bias, stats)
+    x, new_stats = bn_train(mel.to(torch.float32), model.bn0.weight, model.bn0.bias, stats,
+                            mesh=mesh)
 
     target_T = cfg.spec_size * cfg.freq_ratio
     if n_frames is None:
@@ -174,15 +182,18 @@ def cola_train_apply(
     max_fused_dim: int = 384,
     deterministic: bool = False,
     impl: str = "kernel",
+    mesh=None,
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Stats]:
     """Cola train-mode pair forward with the fused encoder: (x1, x2) ->
     ((z1 @ W^T, z2), new bn0 running statistics). model: a models.cola.Cola.
     The bn0 statistics chain through the two encoder calls in order, like
-    two sequential flax mutable applies; nothing is written into the model."""
+    two sequential flax mutable applies; nothing is written into the model.
+    mesh: x1, x2 are this rank's rows of a data-parallel batch (bn0 on the
+    global statistics); the caller gathers the outputs for the loss."""
     enc = model.htsat
     stats = (enc.bn0.running_mean, enc.bn0.running_var)
     kw = dict(mm_dtype=mm_dtype, max_fused_dim=max_fused_dim,
-              deterministic=deterministic, impl=impl)
+              deterministic=deterministic, impl=impl, mesh=mesh)
     h1, stats = htsat_encode_train(enc, x1, gen, stats, **kw)
     h2, stats = htsat_encode_train(enc, x2, gen, stats, **kw)
     p = 0.0 if deterministic else p_drop

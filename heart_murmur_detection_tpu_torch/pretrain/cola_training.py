@@ -17,6 +17,22 @@ backward -> Adam -> the BatchNorms' running statistics (bn0 of the HTS-AT,
 the 49 of the EfficientNet). The eval loss runs the eval pair forward with
 the running statistics.
 
+Data parallelism (mesh, a parallel/mesh.py DataParallelMesh: this function
+runs in every rank): every rank draws the same global batch from the same
+seeded sampler (drop_last, as the JAX package forces under a mesh) and runs
+its contiguous rows of it; both encoders' BatchNorms see the global batch
+(sync-BN); the projections z1, z2 of every rank are gathered so that each
+rank computes the same global cola_loss, whose backward keeps the rank's
+own rows (gather_rows); one all-reduce of the flat gradient then completes
+the step. The eval loss gathers the same way. Dropout and DropPath draw
+from a generator of the rank's own (rank_generator). param_sharding="fsdp"
+is ZeRO-3 over the data axis (parallel/mesh.py::ZeroShard: parameters and
+Adam state as a 1/n shard a rank, the model gathered at the start of each
+step, gradients reduce-scattered) on the plain path, as the JAX package
+runs param_sharding on its XLA graphs; fused_train=True with
+param_sharding is refused. The train kernels run under a plain mesh, each
+rank on its rows. Rank 0 writes the checkpoints and the CSV.
+
 compute_dtype=torch.bfloat16 is the bf16 flow of the JAX path (HTS-AT:
 stages 0-2 in bf16 through the train kernels, everything else float32;
 EfficientNet: bf16 convolutions with float32 BatchNorms); None is strict
@@ -37,6 +53,8 @@ from ..models import bn as bn_mod
 from ..models.cola import Cola, cola_loss
 from ..models.htsat import HTSATConfig, init_weights
 from ..models.htsat_train_fused import cola_train_apply
+from ..parallel.mesh import (ZeroShard, check_mesh, check_param_sharding, gather_rows,
+                             local_rows, rank_generator, shard_params_and_opt, shard_rows)
 from ..train.checkpoints import ResumeCheckpointer, TopKCheckpointer
 from ..utils.logging import CSVLogger
 from ..utils.precision import strict_f32
@@ -52,10 +70,18 @@ def _cola_early_freeze(name: str) -> bool:
 
 
 def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool],
-               device: torch.device) -> str:
+               device: torch.device, param_sharding: Optional[str] = None) -> str:
     """The swin blocks' route (ops.swin_train.fused_swin_block_train impl):
     the train kernels for bf16 on a card unless fused_train=False; the plain
-    versions of the kernels for bf16 otherwise; torch autograd in float32."""
+    versions of the kernels for bf16 otherwise; torch autograd in float32.
+    param_sharding (ZeRO-3) keeps the plain path, as the JAX package keeps
+    its XLA graphs there; fused_train=True with it is a ValueError."""
+    if param_sharding is not None:
+        if fused_train:
+            raise ValueError(
+                "fused_train under a mesh needs pure data parallelism (no param_sharding): "
+                "ZeRO-3 runs the plain path")
+        fused_train = False
     if compute_dtype != torch.bfloat16:
         return "autograd"
     if fused_train is None:
@@ -63,29 +89,45 @@ def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool]
     return "kernel" if fused_train else "plain"
 
 
-def forward_backward(model: Cola, x1, x2, gen, mm_dtype, impl: str, p_drop: float):
+def forward_backward(model: Cola, x1, x2, gen, mm_dtype, impl: str, p_drop: float, mesh=None):
     """One pair forward and backward: gradients land in the parameters'
     .grad; returns (loss, accuracy, the new BatchNorm statistics as a
-    models/bn.py dict: bn0 of the HTS-AT, the 49 of the EfficientNet)."""
+    models/bn.py dict: bn0 of the HTS-AT, the 49 of the EfficientNet).
+    mesh: x1, x2 are this rank's rows; the loss is the global batch's and
+    the gradients are this rank's share of it (parallel/mesh.py)."""
     if model.kind == "efficientnet":
         dtype = None if mm_dtype == torch.float32 else mm_dtype
-        (z1, z2), stats = model.train_pair(x1, x2, gen, p_drop, dtype)
+        (z1, z2), stats = model.train_pair(x1, x2, gen, p_drop, dtype, mesh=mesh)
     else:
-        (z1, z2), bn0 = cola_train_apply(model, x1, x2, gen, p_drop, mm_dtype, impl=impl)
+        (z1, z2), bn0 = cola_train_apply(model, x1, x2, gen, p_drop, mm_dtype, impl=impl,
+                                         mesh=mesh)
         stats = {model.htsat.bn0: bn0}
-    loss, acc = cola_loss(z1, z2)
+    loss, acc = cola_loss(gather_rows(z1, mesh), gather_rows(z2, mesh))
     loss.backward()
     return loss.detach(), acc.detach(), stats
 
 
 def train_step(model: Cola, opt: steps.EpochDecayAdam, x1, x2, gen, mm_dtype,
-               impl: str, p_drop: float):
-    """One CP step: forward, backward, Adam, BatchNorm statistics. -> (loss, acc)."""
+               impl: str, p_drop: float, mesh=None, zero: Optional[ZeroShard] = None):
+    """One CP step: forward, backward, Adam, BatchNorm statistics. -> (loss, acc).
+    mesh: this rank's rows of a data-parallel step, the gradient shares
+    summed by one all-reduce; zero: ZeRO-3 (opt updates zero.shard; the
+    model is gathered for the step and released after it)."""
     opt.zero_grad()
-    loss, acc, stats = forward_backward(model, x1, x2, gen, mm_dtype, impl, p_drop)
+    if zero is not None:
+        zero.gather()
+    loss, acc, stats = forward_backward(model, x1, x2, gen, mm_dtype, impl, p_drop, mesh)
+    steps.reduce_grads(opt, mesh, zero)
     opt.step()
     bn_mod.commit(stats)
     return loss, acc
+
+
+def eval_loss(model: Cola, x1, x2, mm_dtype, impl: str, mesh=None):
+    """The eval pair forward and cola_loss of a validation batch (the
+    global batch's, gathered from the ranks' rows, with a mesh)."""
+    z1, z2 = model.forward_pair(x1, x2, mm_dtype, "kernel" if impl == "kernel" else "plain")
+    return cola_loss(gather_rows(z1, mesh), gather_rows(z2, mesh))
 
 
 def train_multiple_data(
@@ -131,16 +173,21 @@ def train_multiple_data(
     dim_hidden resolve to its latent (768), as in the JAX package; the
     EfficientNet's features are 1280 wide, with a `middle` Linear when
     dim_hidden differs. dropout_p is the projector's dropout and the
-    EfficientNet's drop-connect rate."""
+    EfficientNet's drop-connect rate. mesh: this rank's DataParallelMesh
+    (the run takes the mesh's device); param_sharding: "fsdp" (ZeRO-3) or
+    None (see the module doc)."""
     if encoder not in ("htsat", "efficientnet"):
         raise ValueError(f"encoder {encoder!r}: 'htsat' or 'efficientnet'")
-    if mesh is not None or param_sharding is not None:
-        raise NotImplementedError("multi-device CP (mesh, param_sharding) is not ported")
-    device = torch.device(device)
+    mesh = check_mesh(mesh)
+    param_sharding = check_param_sharding(mesh, param_sharding)
+    device = mesh.device if mesh is not None else torch.device(device)
+    verbose = verbose and (mesh is None or mesh.rank == 0)  # rank 0 prints
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA card is available (pass device='cpu')")
+    if mesh is not None:
+        local_rows(batch_size, mesh)  # "not divisible" before anything runs
     mm_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
-    impl = train_impl(compute_dtype, fused_train, device)
+    impl = train_impl(compute_dtype, fused_train, device, param_sharding)
 
     model = Cola(htsat_config or HTSATConfig(), dim_out=dim_out, encoder=encoder,
                  dim_hidden=dim_hidden, p=dropout_p)
@@ -162,23 +209,33 @@ def train_multiple_data(
             load_corpus(name, max_len, "cola", manifest=manifest_fn(name) if manifest_fn else None)
             for name, max_len in data_source.items()
         ]
-    sampler = MultiCorpusSampler(corpora, batch_size, "cola", seed=seed)
+    # with a mesh, batches divide evenly over the ranks: drop_last, as the
+    # JAX package forces (its cola_training.py:107-111)
+    sampler = MultiCorpusSampler(corpora, batch_size, "cola", seed=seed,
+                                 drop_last=True if mesh is not None else None)
     trainable = steps.make_frozen(
         model, _cola_early_freeze if freeze_encoder == "early" else None)
-    opt = steps.adam_with_epoch_decay(trainable, sampler.steps_per_epoch, lr=lr, decay=0.99)
+    make_opt = lambda ps: steps.adam_with_epoch_decay(ps, sampler.steps_per_epoch, lr=lr,
+                                                      decay=0.99)
+    zero = None
+    if param_sharding is not None:
+        zero, opt = shard_params_and_opt(trainable, mesh, make_opt)
+    else:
+        opt = make_opt(trainable)
 
     run_dir = os.path.join(ckpt_root, "_".join(data_source.keys()))
-    resume_ckpt = ResumeCheckpointer(os.path.join(run_dir, title), every_n_epochs=5)
-    start_epoch = 0
+    resume_ckpt = ResumeCheckpointer(os.path.join(run_dir, title), every_n_epochs=5, mesh=mesh)
+    start_epoch, extra = 0, {}
     if resume:
         restored = resume_ckpt.restore()
         if restored is not None:
-            epoch_r, sd, opt_state, _ = restored
-            model.load_state_dict(sd)
-            opt.load_state_dict(opt_state)
+            epoch_r, sd, opt_state, extra = restored
+            steps.load_train_state(model, opt, zero, sd, opt_state)
             start_epoch = epoch_r + 1
             if verbose:
                 print(f"[cola-cp {title}] resumed at epoch {start_epoch}")
+    if zero is not None:
+        zero.release()  # the parameters rest as this rank's shard
 
     ckpt = TopKCheckpointer(
         dirpath=run_dir,
@@ -187,10 +244,12 @@ def train_multiple_data(
         mode="min",
         save_top_k=5,
         every_n_epochs=10,
+        mesh=mesh,
     )
-    logger = CSVLogger(os.path.join(log_dir, "combined"), title)
-    gen = torch.Generator(device=device).manual_seed(seed + 1 + start_epoch)
-    put = lambda a: torch.from_numpy(a).to(device, non_blocking=True)
+    logger = CSVLogger(os.path.join(log_dir, "combined"), title, mesh=mesh)
+    gen = rank_generator(seed + 1 + start_epoch, mesh, device)
+    steps.restore_rng(extra, sampler, gen, mesh)
+    put = lambda a: torch.from_numpy(shard_rows(a, mesh)).to(device, non_blocking=True)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     with strict_f32():
@@ -200,18 +259,21 @@ def train_multiple_data(
             tr_losses, pairs = [], 0
             for _ in range(sampler.steps_per_epoch):
                 s, (x1, x2) = sampler.next_batch()
-                loss, _ = train_step(model, opt, put(x1), put(x2), gen, mm_dtype, impl, dropout_p)
+                loss, _ = train_step(model, opt, put(x1), put(x2), gen, mm_dtype, impl, dropout_p,
+                                     mesh, zero)
                 tr_losses.append((s, loss))
                 pairs += x1.shape[0]
             sync()
             train_seconds = time.time() - t0
+            if zero is not None:
+                zero.gather()  # the whole model for the eval and the checkpoints
             if (epoch + 1) % eval_every == 0:
                 model.eval()
+                if model.kind == "htsat":
+                    model.htsat.invalidate_prepared()  # the eval layouts of this epoch's weights
                 vl, va = [], []
                 for s, (x1, x2) in sampler.val_batches():
-                    z1, z2 = model.forward_pair(put(x1), put(x2), mm_dtype,
-                                                "kernel" if impl == "kernel" else "plain")
-                    loss, acc = cola_loss(z1, z2)
+                    loss, acc = eval_loss(model, put(x1), put(x2), mm_dtype, impl, mesh)
                     vl.append(float(loss))
                     va.append(float(acc))
                 model.train()
@@ -243,5 +305,11 @@ def train_multiple_data(
                         f"valid {valid_loss:.4f} acc {valid_acc:.3f} ({time.time()-t0:.1f}s)"
                     )
                 ckpt.step(epoch, valid_loss, model.state_dict(), valid_acc=valid_acc)
-            resume_ckpt.save(epoch, model.state_dict(), opt.state_dict())
+            if resume_ckpt.due(epoch):
+                resume_ckpt.save(epoch, model.state_dict(), steps.full_opt_state(opt, zero),
+                                 steps.rng_state(sampler, gen, mesh))
+            if zero is not None:
+                zero.release()
+    if zero is not None:
+        zero.gather()
     return model.state_dict(), history, ckpt.best_path

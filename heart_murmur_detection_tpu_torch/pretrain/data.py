@@ -165,29 +165,44 @@ class MultiCorpusSampler:
         tot = sum(self.n_batches)
         self.weights = [b / tot for b in self.n_batches]
         self.steps_per_epoch = max(self.n_batches)
-        self._iters = [self._cycle(c) for c in self.corpora]
+        # each corpus's pass: its permutation and the next batch's start
+        self._order = [None] * len(self.corpora)
+        self._pos = [0] * len(self.corpora)
 
-    def _cycle(self, corpus: Corpus):
+    def _next_items(self, s: int):
+        """The next batch of corpus s's endless passes (a new permutation
+        from the sampler's generator when a pass runs out)."""
+        corpus = self.corpora[s]
         n = len(corpus.train)
         if self.drop_last and n < self.bs:
-            # a pass would yield zero batches and the while-loop would spin
-            # forever; cycle items across passes to fill one full batch
-            while True:
-                order = np.concatenate(
-                    [self.rng.permutation(n) for _ in range(-(-self.bs // n))]
-                )[: self.bs]
-                yield [corpus.train[j] for j in order]
-        while True:
-            order = self.rng.permutation(n)
-            end = (n // self.bs) * self.bs if self.drop_last else n
-            for i in range(0, end, self.bs):
-                yield [corpus.train[j] for j in order[i : i + self.bs]]
+            # a pass would yield zero batches; cycle items across passes to
+            # fill one full batch
+            order = np.concatenate(
+                [self.rng.permutation(n) for _ in range(-(-self.bs // n))]
+            )[: self.bs]
+            return [corpus.train[j] for j in order]
+        end = (n // self.bs) * self.bs if self.drop_last else n
+        if self._order[s] is None or self._pos[s] >= end:
+            self._order[s], self._pos[s] = self.rng.permutation(n), 0
+        i = self._pos[s]
+        self._pos[s] += self.bs
+        return [corpus.train[j] for j in self._order[s][i : i + self.bs]]
+
+    def state_dict(self) -> dict:
+        """Where the sampler stands: its generator and each corpus's pass
+        (a resumed run draws on as the uninterrupted one would)."""
+        return {"rng": self.rng.bit_generator.state, "order": list(self._order),
+                "pos": list(self._pos)}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.rng.bit_generator.state = state["rng"]
+        self._order, self._pos = list(state["order"]), list(state["pos"])
 
     def next_batch(self):
         """Returns (corpus_index, batch arrays) for one training step: (x1,
         x2) views for COLA, one (B, max_len, n_mels) batch for MAE."""
         s = int(self.rng.choice(len(self.corpora), p=self.weights))
-        items = next(self._iters[s])
+        items = self._next_items(s)
         c = self.corpora[s]
         if self.method == "cola":
             pairs = [cola_views_np(self.rng, x, c.max_len) for x in items]

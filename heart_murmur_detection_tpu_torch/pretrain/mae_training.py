@@ -20,6 +20,17 @@ backward -> Adam. The eval loss is the same loss without gradients, the
 encoder on the eval kernels. Masking noise comes from the run's generator
 (seed + 1 + the first epoch), one draw a train step and an eval batch.
 
+Data parallelism (mesh, a parallel/mesh.py DataParallelMesh: this function
+runs in every rank): every rank draws the same global batch from the same
+seeded sampler and the masking noise of the whole batch (B, L) from a
+generator seeded the same on every rank (the JAX package hoists the noise
+out of its shard_map, mae_training.py:140-142), then runs its contiguous
+rows of both through the same step; its loss share is its masked mean over
+n, and one all-reduce of the flat gradient completes the step (the JAX
+pmean, exact: equal shard sizes, a static len_keep). param_sharding="fsdp"
+is ZeRO-3 over the data axis on the plain path (fused_train=True with it
+is refused). Rank 0 writes the checkpoints and the CSV.
+
 compute_dtype=torch.bfloat16 is the bf16 flow of the JAX fused step;
 None is strict float32, differentiated by torch autograd. TF32 stays off
 for every float32 product.
@@ -40,12 +51,28 @@ from ..models.vit_mae import (
     init_weights,
     mae_vit_small_config,
 )
+from ..models import mae_train_fused
+from ..parallel.mesh import (check_mesh, check_param_sharding, local_rows,
+                             shard_params_and_opt, shard_rows)
 from ..train.checkpoints import ResumeCheckpointer, TopKCheckpointer
 from ..utils.logging import CSVLogger
 from ..utils.precision import strict_f32
 from . import steps
 from .cola_training import train_impl
 from .data import MultiCorpusSampler, load_corpus
+
+
+def batch_rows(x: np.ndarray, patch: int, gen: torch.Generator, mesh, device):
+    """A step's inputs from the global batch x (B, T, F): (this rank's rows
+    on `device`, their rows of the global batch's masking noise (B, L),
+    drawn from gen as the single-device step draws it; None without a
+    mesh, where the step draws it)."""
+    xl = torch.from_numpy(shard_rows(x, mesh)).to(device, non_blocking=True)
+    if mesh is None:
+        return xl, None
+    noise = mae_train_fused.masking_noise(x.shape[0], (x.shape[1] // patch) * (x.shape[2] // patch),
+                                          gen, device)
+    return xl, shard_rows(noise, mesh)
 
 
 def mae_train_multiple_data(
@@ -80,12 +107,16 @@ def mae_train_multiple_data(
     initial_state: a state_dict of the MAE (decoder included) to start from
     instead of the seeded random init. ckpt_path: the Audio-MAE checkpoint
     of pretrain='audiomae' (default: the reference's path, not in the
-    repository)."""
-    if mesh is not None or param_sharding is not None:
-        raise NotImplementedError("multi-device CP (mesh, param_sharding) is not ported")
-    device = torch.device(device)
+    repository). mesh: this rank's DataParallelMesh (the run takes the
+    mesh's device); param_sharding: "fsdp" (ZeRO-3) or None."""
+    mesh = check_mesh(mesh)
+    param_sharding = check_param_sharding(mesh, param_sharding)
+    device = mesh.device if mesh is not None else torch.device(device)
+    verbose = verbose and (mesh is None or mesh.rank == 0)  # rank 0 prints
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA card is available (pass device='cpu')")
+    if mesh is not None:
+        local_rows(batch_size, mesh)  # "not divisible" before anything runs
     if config_override is not None:
         cfg = config_override
     elif pretrain == "audiomae" or training_method == "audiomae":
@@ -93,7 +124,7 @@ def mae_train_multiple_data(
     else:
         cfg = mae_vit_small_config(mask_ratio=0.7)
     mm_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
-    impl = train_impl(compute_dtype, fused_train, device)
+    impl = train_impl(compute_dtype, fused_train, device, param_sharding)
 
     model = MaskedAutoencoderViT(cfg, decoder=True)
     if initial_state is not None:
@@ -116,21 +147,27 @@ def mae_train_multiple_data(
             for name, max_len in data_source.items()
         ]
     sampler = MultiCorpusSampler(corpora, batch_size, "mae", seed=seed)
-    opt = steps.adam_with_epoch_decay(list(model.parameters()), sampler.steps_per_epoch, lr=lr,
-                                      decay=0.99)
+    make_opt = lambda ps: steps.adam_with_epoch_decay(ps, sampler.steps_per_epoch, lr=lr,
+                                                      decay=0.99)
+    zero = None
+    if param_sharding is not None:
+        zero, opt = shard_params_and_opt(list(model.parameters()), mesh, make_opt)
+    else:
+        opt = make_opt(list(model.parameters()))
 
     run_dir = os.path.join(ckpt_root, "_".join(data_source.keys()))
-    resume_ckpt = ResumeCheckpointer(os.path.join(run_dir, title), every_n_epochs=5)
-    start_epoch = 0
+    resume_ckpt = ResumeCheckpointer(os.path.join(run_dir, title), every_n_epochs=5, mesh=mesh)
+    start_epoch, extra = 0, {}
     if resume:
         restored = resume_ckpt.restore()
         if restored is not None:
-            epoch_r, sd, opt_state, _ = restored
-            model.load_state_dict(sd)
-            opt.load_state_dict(opt_state)
+            epoch_r, sd, opt_state, extra = restored
+            steps.load_train_state(model, opt, zero, sd, opt_state)
             start_epoch = epoch_r + 1
             if verbose:
                 print(f"[mae-cp {title}] resumed at epoch {start_epoch}")
+    if zero is not None:
+        zero.release()  # the parameters rest as this rank's shard
 
     ckpt = TopKCheckpointer(
         dirpath=run_dir,
@@ -139,11 +176,13 @@ def mae_train_multiple_data(
         mode="min",
         save_top_k=5,
         every_n_epochs=5,
+        mesh=mesh,
     )
-    logger = CSVLogger(os.path.join(log_dir, "combined"), title)
+    logger = CSVLogger(os.path.join(log_dir, "combined"), title, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(seed + 1 + start_epoch)
-    put = lambda a: torch.from_numpy(a).to(device, non_blocking=True)
+    steps.restore_rng(extra, sampler, gen, mesh)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    rows = lambda x: batch_rows(x, cfg.patch_size, gen, mesh, device)
 
     with strict_f32():
         history = []
@@ -152,14 +191,18 @@ def mae_train_multiple_data(
             losses, samples = [], 0
             for _ in range(sampler.steps_per_epoch):
                 s, x = sampler.next_batch()
-                loss = steps.mae_train_step(model, opt, put(x), mm_dtype, impl, generator=gen)
+                xl, noise = rows(x)
+                loss = steps.mae_train_step(model, opt, xl, mm_dtype, impl, noise, gen, mesh, zero)
                 losses.append((s, loss))
                 samples += x.shape[0]
             sync()
             train_seconds = time.time() - t0
+            if zero is not None:
+                zero.gather()  # the whole model for the eval and the checkpoints
             vl = []
             for _, x in sampler.val_batches():
-                vl.append(float(steps.mae_eval_step(model, put(x), mm_dtype, impl, generator=gen)))
+                xl, noise = rows(x)
+                vl.append(float(steps.mae_eval_step(model, xl, mm_dtype, impl, noise, gen, mesh)))
             valid_loss = float(np.mean(vl)) if vl else float("nan")
             train_loss = float(np.mean([float(l) for _, l in losses]))
             per_corpus = {s: [] for s in range(len(sampler.corpora))}
@@ -180,5 +223,11 @@ def mae_train_multiple_data(
                 print(f"[mae-cp {title}] epoch {epoch} train {train_loss:.4f} "
                       f"valid {valid_loss:.4f} ({time.time() - t0:.1f}s)")
             ckpt.step(epoch, valid_loss, model.state_dict(), valid_acc=0.0)
-            resume_ckpt.save(epoch, model.state_dict(), opt.state_dict())
+            if resume_ckpt.due(epoch):
+                resume_ckpt.save(epoch, model.state_dict(), steps.full_opt_state(opt, zero),
+                                 steps.rng_state(sampler, gen, mesh))
+            if zero is not None:
+                zero.release()
+    if zero is not None:
+        zero.gather()
     return model.state_dict(), history, ckpt.best_path

@@ -1,7 +1,8 @@
 """The optimizer and the MAE steps of continued pretraining — counterpart
 of heart_murmur_detection_tpu/pretrain/steps.py (`adam_with_epoch_decay`,
 `make_frozen`, `make_mae_train_step` :82, `make_mae_eval_step` :109; the
-COLA step lives in cola_training.py).
+COLA step lives in cola_training.py), with the data-parallel pieces the
+trainers share (parallel/mesh.py).
 
 Adam (betas 0.9 / 0.999, eps 1e-8, no weight decay) whose learning rate is
 lr * decay ** (step // steps_per_epoch), with step the number of updates
@@ -18,6 +19,8 @@ from typing import Callable, Iterable, List, Optional
 import torch
 
 from ..models.mae_train_fused import mae_train_loss_fused
+from ..parallel.mesh import (DataParallelMesh, ZeroShard, all_reduce_grads, all_reduce_sum,
+                             gather_objects, place_like)
 
 
 class EpochDecayAdam:
@@ -25,7 +28,8 @@ class EpochDecayAdam:
 
     def __init__(self, params: Iterable[torch.Tensor], steps_per_epoch: int,
                  lr: float = 1e-4, decay: float = 0.99):
-        self.opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        self.params = list(params)
+        self.opt = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
         self.steps_per_epoch = max(int(steps_per_epoch), 1)
         self.lr, self.decay = lr, decay
         self.count = 0  # updates made
@@ -66,24 +70,95 @@ def make_frozen(model: torch.nn.Module,
             if trainable_fn is None or trainable_fn(name)]
 
 
+def full_opt_state(opt: EpochDecayAdam, zero: Optional[ZeroShard] = None) -> dict:
+    """The optimizer state a resume checkpoint holds: under ZeRO-3 gathered
+    to full size first (every rank takes part)."""
+    sd = opt.state_dict()
+    if zero is not None:
+        sd = {**sd, "adam": zero.full_state(sd["adam"])}
+    return sd
+
+
+def load_train_state(model: torch.nn.Module, opt: EpochDecayAdam, zero: Optional[ZeroShard],
+                     state_dict: dict, opt_state: dict) -> None:
+    """Restore a resume checkpoint: the weights placed as the run set them
+    up (parallel/mesh.py::place_like) and, under ZeRO-3, the weights and the
+    full-size optimizer state re-sharded for this rank."""
+    if zero is not None:
+        zero.gather()
+    model.load_state_dict(place_like(model.state_dict(), state_dict))
+    if zero is not None:
+        zero.load_params()
+        zero.release()
+        opt_state = {**opt_state, "adam": zero.shard_state(opt_state["adam"])}
+    opt.load_state_dict(opt_state)
+
+
+def rng_state(sampler, gen: torch.Generator, mesh: Optional[DataParallelMesh]) -> dict:
+    """The run's random state at an epoch's end, for a resume checkpoint:
+    the sampler's and every rank's generator (every rank takes part)."""
+    return {"sampler": sampler.state_dict(), "generators": gather_objects(gen.get_state(), mesh)}
+
+
+def restore_rng(extra: dict, sampler, gen: torch.Generator,
+                mesh: Optional[DataParallelMesh]) -> None:
+    """Put a resumed run's sampler and generator where the saved run left
+    them, so it draws on as the uninterrupted run would (a checkpoint from
+    another world size keeps the sampler and the reseeded generator)."""
+    if "sampler" not in extra:
+        return
+    sampler.load_state_dict(extra["sampler"])
+    gens = extra["generators"]
+    if len(gens) == (1 if mesh is None else mesh.world):
+        gen.set_state(gens[0 if mesh is None else mesh.rank])
+
+
+def reduce_grads(opt: EpochDecayAdam, mesh: Optional[DataParallelMesh],
+                 zero: Optional[ZeroShard]) -> None:
+    """Complete a data-parallel step's gradients: ZeRO-3 reduce-scatters
+    the shares into opt's shard and frees the gathered model; plain DP sums
+    them with one all-reduce."""
+    if zero is not None:
+        zero.reduce_grads()
+        zero.release()
+    elif mesh is not None:
+        all_reduce_grads(opt.params, mesh)
+
+
 def mae_train_step(model: torch.nn.Module, opt: EpochDecayAdam, x: torch.Tensor,
                    mm_dtype: torch.dtype, impl: str,
                    noise: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   mesh: Optional[DataParallelMesh] = None,
+                   zero: Optional[ZeroShard] = None) -> torch.Tensor:
     """One MAE CP step: the masked-patch loss of batch x (B, T, F) with the
     encoder on the training blocks (impl as ops.vit_train), backward, Adam.
-    Masking noise (B, L) as given, else drawn from `generator`."""
+    Masking noise (B, L) as given, else drawn from `generator`.
+
+    mesh: x and noise are this rank's rows of the global batch; the rank's
+    loss share is its masked mean over n (exact: equal shard sizes, and
+    len_keep is static), the shares' gradients are summed (reduce_grads),
+    and the global loss is returned. zero: ZeRO-3 (the model is gathered
+    for the step)."""
     opt.zero_grad()
+    if zero is not None:
+        zero.gather()
     loss = mae_train_loss_fused(model, x, noise, generator, mm_dtype, impl)
-    loss.backward()
+    n = 1 if mesh is None else mesh.world
+    (loss / n).backward()
+    reduce_grads(opt, mesh, zero)
     opt.step()
-    return loss.detach()
+    loss = loss.detach()
+    return loss if mesh is None else all_reduce_sum(loss, mesh) / n
 
 
 @torch.no_grad()
 def mae_eval_step(model: torch.nn.Module, x: torch.Tensor, mm_dtype: torch.dtype, impl: str,
                   noise: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  mesh: Optional[DataParallelMesh] = None) -> torch.Tensor:
     """The same loss without gradients; the encoder runs the eval blocks of
-    ops.vit (the kernels on a card, stable softmax)."""
-    return mae_train_loss_fused(model, x, noise, generator, mm_dtype, impl, train=False)
+    ops.vit (the kernels on a card, stable softmax). mesh: this rank's rows,
+    the global batch's loss returned."""
+    loss = mae_train_loss_fused(model, x, noise, generator, mm_dtype, impl, train=False)
+    return loss if mesh is None else all_reduce_sum(loss, mesh) / mesh.world

@@ -9,6 +9,10 @@ state_dict under the reference key names ({"state_dict": ...}), so
 extract/convert.py::load_torch_ckpt loads a continued-pretraining
 checkpoint into the extractor. Files are written to a temporary name and
 renamed, so a reader never sees half a checkpoint.
+
+With a data-parallel mesh (parallel/mesh.py) every rank keeps the same
+bookkeeping, rank 0 alone writes (and removes) the files, and a barrier
+follows each write, so no rank reads a checkpoint before it exists.
 """
 
 from __future__ import annotations
@@ -101,20 +105,35 @@ def _cpu(state_dict: dict) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in state_dict.items()}
 
 
+def written(mesh, write):
+    """write() on rank 0 (or without a mesh), then a barrier of the mesh."""
+    out = write() if mesh is None or mesh.rank == 0 else None
+    if mesh is not None:
+        mesh.barrier()
+    return out
+
+
 class ResumeCheckpointer:
     """Full-train-state 'last' checkpoint for automatic resume: saves
-    {epoch, state_dict, optimizer, extra} every N epochs to <dir>/last.ckpt."""
+    {epoch, state_dict, optimizer, extra} every N epochs to <dir>/last.ckpt
+    (rank 0 of a mesh writes)."""
 
-    def __init__(self, dirpath: str, every_n_epochs: int = 5):
+    def __init__(self, dirpath: str, every_n_epochs: int = 5, mesh=None):
         self.path = os.path.join(dirpath, "last.ckpt")
         self.every = every_n_epochs
+        self.mesh = mesh
+
+    def due(self, epoch: int) -> bool:
+        """Whether save() writes at this epoch."""
+        return (epoch + 1) % self.every == 0
 
     def save(self, epoch: int, state_dict: dict, opt_state: dict,
              extra: Optional[dict] = None) -> None:
-        if (epoch + 1) % self.every != 0:
+        if not self.due(epoch):
             return
-        save_state(self.path, {"epoch": epoch, "state_dict": _cpu(state_dict),
-                               "optimizer": opt_state, "extra": extra or {}})
+        written(self.mesh, lambda: save_state(
+            self.path, {"epoch": epoch, "state_dict": _cpu(state_dict),
+                        "optimizer": opt_state, "extra": extra or {}}))
 
     def restore(self) -> Optional[Tuple[int, dict, dict, dict]]:
         """(epoch, state_dict, optimizer state, extra) or None."""
@@ -140,7 +159,9 @@ class TopKCheckpointer:
         mode: str = "min",
         save_top_k: int = 5,
         every_n_epochs: int = 1,
+        mesh=None,
     ):
+        self.mesh = mesh
         self.dirpath = dirpath
         self.fmt = filename_fmt
         self.monitor = monitor
@@ -157,15 +178,21 @@ class TopKCheckpointer:
         if len(self.kept) >= self.k and score <= min(s for s, _ in self.kept):
             return None
         name = self.fmt.format(epoch=epoch, **{self.monitor: metric_value}, **fmt_kw)
-        path = save_state(os.path.join(self.dirpath, name), {"state_dict": _cpu(state_dict)})
+        path = os.path.join(self.dirpath, name)
         self.kept.append((score, path))
         self.kept.sort(key=lambda t: -t[0])
-        while len(self.kept) > self.k:
-            _, worst = self.kept.pop()
-            try:
-                os.remove(worst)
-            except OSError:
-                pass
+        dropped = [worst for _, worst in self.kept[self.k:]]
+        del self.kept[self.k:]
+
+        def write():
+            save_state(path, {"state_dict": _cpu(state_dict)})
+            for worst in dropped:
+                try:
+                    os.remove(worst)
+                except OSError:
+                    pass
+
+        written(self.mesh, write)
         return path
 
     @property

@@ -48,8 +48,21 @@ their explicit backward in bf16 otherwise, torch autograd in float32 (TF32
 off). Predictions run the eval forwards (the eval kernels on a card in bf16;
 K1-K3 for htsat, K5-K7 for the ViTs; the EfficientNet in the compute dtype,
 CLAP and HeAR in float32, as the JAX package predicts them through
-model.apply). Multi-device fine-tuning (mesh, param_sharding) waits for
-slice 6 and raises NotImplementedError.
+model.apply).
+
+Data parallelism (mesh, a parallel/mesh.py DataParallelMesh: the function
+runs in every rank): the inputs stay whole on every rank, each step's
+global batch is gathered (and SpecAugmented, from a generator seeded the
+same on every rank) whole, then each rank runs its contiguous rows. The
+rank's loss share is its (ce * w).sum() over the global batch's w.sum(),
+plus the two L2 terms over n, so the shares sum to the single-device loss
+whatever the class mix or the padded rows of each rank; one all-reduce of
+the flat gradient completes the step. BatchNorms see the global batch
+(sync-BN), DropPath and dropout draw from a generator of the rank's own.
+Each rank keeps the kernel route: the kernels are local to the batch.
+param_sharding="fsdp" is ZeRO-3 over the data axis (parameters and Adam
+state as a 1/n shard a rank, the clip's global norm summed over ranks).
+Every rank predicts the whole validation set; rank 0's AUROC decides.
 """
 
 from __future__ import annotations
@@ -74,6 +87,9 @@ from ..models.htsat import HTSAT, HTSATConfig
 from ..models.htsat_train_fused import htsat_encode_train
 from ..models.mae_train_fused import audiomae_backbone_train_fused, gt_backbone_train_fused
 from ..models.vit_fused import audiomae_backbone_fused, mae_forward_feature_fused
+from ..parallel.mesh import (ZeroShard, all_reduce_grads, all_reduce_sum, broadcast_value,
+                             check_mesh, check_param_sharding, local_rows, rank_generator,
+                             shard_params_and_opt)
 from ..utils.precision import strict_f32
 from . import metrics as M
 from .linear_eval import HEART_METRICS, ClippedAdam, _make_perms, get_class_weights
@@ -148,26 +164,27 @@ class EncoderClassifier(nn.Module):
         return torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
 
     def encode_train(self, x: torch.Tensor, gen: Optional[torch.Generator],
-                     mm_dtype: torch.dtype, impl: str):
+                     mm_dtype: torch.dtype, impl: str, mesh=None):
         """Train-mode encoder forward, differentiable: (features (B, D)
         float32, the new BatchNorm running statistics as a models/bn.py dict,
-        or None for an encoder without BatchNorms)."""
+        or None for an encoder without BatchNorms). mesh: x is this rank's
+        rows of a data-parallel batch; BatchNorms see the global batch."""
         kind, enc = self.encoder_kind, self.encoder
         if kind == "htsat":
             bn = enc.bn0
             h, new = htsat_encode_train(enc, x, gen, (bn.running_mean, bn.running_var),
-                                        mm_dtype=mm_dtype, impl=impl)
+                                        mm_dtype=mm_dtype, impl=impl, mesh=mesh)
             return h, {bn: new}
         if kind == "gt":
             return gt_backbone_train_fused(enc, x, mm_dtype, impl), None
         if kind == "audiomae":
             return audiomae_backbone_train_fused(enc, x, mm_dtype, impl), None
         if kind == "efficientnet":
-            stats = {}
+            stats = bn_mod.new_stats(mesh)
             dtype = None if mm_dtype == torch.float32 else mm_dtype
             return enc(x, None, dtype, stats, gen), stats
         if kind in ("clap", "clap2023"):
-            return enc.encode_train(x, self._lengths(x), gen)
+            return enc.encode_train(x, self._lengths(x), gen, mesh)
         return enc(x)["cls"], None  # hear
 
     @torch.no_grad()
@@ -203,12 +220,18 @@ class FTResult:
 
 
 def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool],
-               device: torch.device) -> str:
+               device: torch.device, param_sharding: Optional[str] = None) -> str:
     """The encoder blocks' route (ops.swin_train / ops.vit_train impl):
     "kernel" with fused_train (None: on a card in bf16) — the CUDA kernels
     for CUDA tensors, their plain versions with the explicit backward for
     CPU tensors (the JAX fused path's interpret mode); else "plain" in bf16
-    and torch "autograd" in float32 (the JAX flax path)."""
+    and torch "autograd" in float32 (the JAX flax path). param_sharding
+    (ZeRO-3) keeps the plain path; fused_train=True with it is a ValueError."""
+    if param_sharding is not None:
+        if fused_train:
+            raise ValueError("fused_train under a mesh needs pure data parallelism "
+                             "(no param_sharding): ZeRO-3 runs the plain path")
+        fused_train = False
     bf16 = compute_dtype == torch.bfloat16
     if fused_train is None:
         fused_train = device.type == "cuda" and bf16
@@ -219,17 +242,19 @@ def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool]
 
 def ft_loss(model: EncoderClassifier, xb: torch.Tensor, yb: torch.Tensor, valid: torch.Tensor,
             cw: torch.Tensor, gen: Optional[torch.Generator], mm_dtype: torch.dtype, impl: str,
-            l2_strength: float):
+            l2_strength: float, mesh=None, w_total: Optional[torch.Tensor] = None):
     """The fine-tuning loss of one batch (finetune.py:376-386): (loss, new
-    BatchNorm statistics or None)."""
-    h, stats = model.encode_train(xb, gen, mm_dtype, impl)
+    BatchNorm statistics or None). mesh: xb, yb, valid are this rank's rows
+    and the loss is the rank's share, (ce * w).sum() over w_total (the
+    global batch's w.sum()) plus the L2 terms over n."""
+    h, stats = model.encode_train(xb, gen, mm_dtype, impl, mesh)
     logits = model.head(h) + 1e-10
     ce = -torch.log_softmax(logits, dim=-1).gather(1, yb[:, None])[:, 0]
     w = cw[yb] * valid
-    loss = (ce * w).sum() / torch.clamp(w.sum(), min=1e-12)
-    loss = loss + l2_strength * sum((p * p).sum() for p in model.head.parameters())
-    loss = loss + 0.2 * l2_strength * sum((p * p).sum() for p in model.encoder.parameters())
-    return loss, stats
+    loss = (ce * w).sum() / torch.clamp(w.sum() if w_total is None else w_total, min=1e-12)
+    l2 = l2_strength * sum((p * p).sum() for p in model.head.parameters())
+    l2 = l2 + 0.2 * l2_strength * sum((p * p).sum() for p in model.encoder.parameters())
+    return loss + (l2 if mesh is None else l2 / mesh.world), stats
 
 
 def trainable_params(model: EncoderClassifier, freeze_encoder: str):
@@ -239,19 +264,40 @@ def trainable_params(model: EncoderClassifier, freeze_encoder: str):
 
 def train_step(model: EncoderClassifier, opt: ClippedAdam, xb, yb, valid, cw,
                gen: Optional[torch.Generator], mm_dtype: torch.dtype, impl: str,
-               l2_strength: float, aug: Optional[Tuple[int, int]] = None):
+               l2_strength: float, aug: Optional[Tuple[int, int]] = None, mesh=None,
+               zero: Optional[ZeroShard] = None, rank_gen: Optional[torch.Generator] = None):
     """One fine-tuning step: SpecAugment (aug = (time, freq) drop widths,
     two stripes each), the loss, gradients of opt's parameters, the update;
     the BatchNorms' running statistics take the step's. Returns (the loss,
-    the gradients before clipping)."""
+    the gradients before clipping).
+
+    mesh: xb, yb, valid are the global batch; SpecAugment draws for all of
+    it from gen, the rank runs its rows with rank_gen's dropout / DropPath,
+    and the gradients are the summed shares (the loss returned is the
+    global one). zero: ZeRO-3, opt over zero.shard (the gradients returned
+    are the rank's shard of the sums)."""
     if aug is not None:
         xb = augment.spec_augment(xb, gen, aug[0], 2, aug[1], 2)
-    loss, stats = ft_loss(model, xb, yb, valid, cw, gen, mm_dtype, impl, l2_strength)
-    grads = torch.autograd.grad(loss, opt.params)
+    w_total = None
+    if mesh is not None:
+        w_total = (cw[yb] * valid).sum()
+        rows = local_rows(xb.shape[0], mesh)
+        xb, yb, valid = xb[rows], yb[rows], valid[rows]
+    if zero is not None:
+        zero.gather()
+    loss, stats = ft_loss(model, xb, yb, valid, cw, rank_gen or gen, mm_dtype, impl,
+                          l2_strength, mesh, w_total)
+    grads = torch.autograd.grad(loss, zero.params if zero is not None else opt.params)
+    if zero is not None:
+        grads = [zero.reduce_grads(grads)]
+        zero.release()
+    elif mesh is not None:
+        grads = all_reduce_grads(opt.params, mesh, grads)
     opt.step(grads)
     if stats:
         bn_mod.commit(stats)
-    return loss.detach(), grads
+    loss = loss.detach()
+    return (loss if mesh is None else all_reduce_sum(loss, mesh)), grads
 
 
 def predict_batched(model: EncoderClassifier, x: np.ndarray, mm_dtype: torch.dtype,
@@ -315,15 +361,18 @@ def finetune_classifier(
     init, or a pretrained "encoder.*" subset); default the seeded random
     init (torch.Generator(seed)). compute_dtype torch.bfloat16 is the bf16
     flow, else strict float32. on_epoch(epoch, valid AUROC) is called after
-    each epoch."""
-    if mesh is not None or param_sharding is not None:
-        raise NotImplementedError(
-            "multi-device fine-tuning (mesh, param_sharding) is not ported yet (slice 6)")
-    dev = torch.device(device)
+    each epoch. mesh: this rank's DataParallelMesh (the run takes the mesh's
+    device; batch_size must divide over it); param_sharding: "fsdp"
+    (ZeRO-3) or None (see the module doc)."""
+    mesh = check_mesh(mesh)
+    param_sharding = check_param_sharding(mesh, param_sharding)
+    if mesh is not None and batch_size % mesh.world:
+        raise ValueError(f"batch_size {batch_size} not divisible by data axis {mesh.world}")
+    dev = mesh.device if mesh is not None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("finetune_classifier(device='cuda'): no CUDA card available")
     mm_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
-    impl = train_impl(compute_dtype, fused_train, dev)
+    impl = train_impl(compute_dtype, fused_train, dev, param_sharding)
     eval_impl = "kernel" if impl == "kernel" else "plain"
 
     model = EncoderClassifier(encoder_kind, n_cls, head, feat_dim, htsat_config, mae_config,
@@ -337,8 +386,15 @@ def finetune_classifier(
         model.load_state_dict(own)
     model.to(dev).train()
     nb = (len(x_train) + batch_size - 1) // batch_size
-    opt = ClippedAdam(trainable_params(model, freeze_encoder), nb, lr, lr_decay, grad_clip,
-                      optax_clip=True)
+    zero = None
+    if param_sharding is not None:
+        zero, opt = shard_params_and_opt(
+            trainable_params(model, freeze_encoder), mesh,
+            lambda ps: ClippedAdam(ps, nb, lr, lr_decay, grad_clip, optax_clip=True,
+                                   shard_mesh=mesh))
+    else:
+        opt = ClippedAdam(trainable_params(model, freeze_encoder), nb, lr, lr_decay, grad_clip,
+                          optax_clip=True)
     cw = torch.as_tensor(
         class_weights if class_weights is not None else np.ones(n_cls, np.float32),
         dtype=torch.float32, device=dev)
@@ -347,21 +403,28 @@ def finetune_classifier(
     perms = torch.as_tensor(_make_perms(np.random.default_rng(seed), len(x_train), batch_size,
                                         epochs), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    rank_gen = None if mesh is None else rank_generator(seed + 7, mesh, dev)
     aug = (time_drop_width, freq_drop_width) if spec_augment else None
 
     from .checkpoints import EarlyStopping
 
     es = EarlyStopping("max", min_delta, patience)
     best_auc, best_epoch, best = -1.0, -1, copy.deepcopy(model.state_dict())
+    if zero is not None:
+        zero.release()
     stopped = epochs - 1
     with strict_f32():
         for e in range(epochs):
             for idx in perms[e]:
                 xb, yb = X[idx.clamp(min=0)], Y[idx.clamp(min=0)]
                 valid = (idx >= 0).to(torch.float32)
-                train_step(model, opt, xb, yb, valid, cw, gen, mm_dtype, impl, l2_strength, aug)
+                train_step(model, opt, xb, yb, valid, cw, gen, mm_dtype, impl, l2_strength, aug,
+                           mesh, zero, rank_gen)
+            if zero is not None:
+                zero.gather()  # the whole model for the predictions and the best weights
             vauc = M.auroc(y_val, predict_batched(model, x_val, mm_dtype, eval_impl, dev),
                            n_cls, "macro")
+            vauc = broadcast_value(vauc, mesh)  # rank 0's AUROC decides for every rank
             if on_epoch is not None:
                 on_epoch(e, vauc)
             if vauc > best_auc:
@@ -369,6 +432,10 @@ def finetune_classifier(
             if es.step(vauc):
                 stopped = e
                 break
+            if zero is not None:
+                zero.release()
+        if zero is not None:
+            zero.gather()
         model.load_state_dict(best)
         result_metrics: Dict[str, object] = {}
         test_auc = float("nan")
@@ -508,10 +575,11 @@ def finetune_heart(
         raise FileNotFoundError(
             f"{pretrain} fine-tuning needs converted weights; pass ckpt_path= (an msclap or "
             "google/hear-pytorch state_dict) or random_init=True")
-    if mesh is not None or param_sharding is not None:
-        raise NotImplementedError(
-            "multi-device fine-tuning (mesh, param_sharding) is not ported yet (slice 6)")
+    mesh = check_mesh(mesh)
+    param_sharding = check_param_sharding(mesh, param_sharding)
     batch_size = bs or batch_size
+    if mesh is not None and batch_size % mesh.world:  # before the cache is built
+        raise ValueError(f"batch_size {batch_size} not divisible by data axis {mesh.world}")
     init_state = None  # the weights first: a missing checkpoint fails before the cache
     if not random_init and pretrain != "null":
         init_state = pretrained_encoder_state(pretrain, encoder_kind, ckpt_path)
@@ -521,7 +589,11 @@ def finetune_heart(
     y_label = y_label[valid].astype(np.int32)
     y_set = np.asarray(y_set)[valid]
     n_cls = len(set(y_label.tolist()))
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()  # rank 0 builds the cache first
     x_data = build_ft_spectrogram_cache(feature_dir, pretrain)[valid]
+    if mesh is not None and mesh.rank == 0:
+        mesh.barrier()
 
     tr, va, te = y_set == "train", y_set == "val", y_set == "test"
     cw = get_class_weights(y_label[tr], n_cls) if loss == "weighted" else None
@@ -535,7 +607,7 @@ def finetune_heart(
     from ..utils.logging import WandbLogger, get_run_name
 
     wandb = WandbLogger(
-        "Heart-Sound-Analysis-FT",
+        "Heart-Sound-Analysis-FT" if mesh is None or mesh.rank == 0 else None,
         get_run_name(f"{pretrain}-{dataset_name}-{task}-{head}"),
         config=dict(
             n_cls=n_cls, pretrain=pretrain, l2_strength=l2_strength, epochs=epochs,
@@ -550,16 +622,16 @@ def finetune_heart(
         batch_size=batch_size, class_weights=cw, freeze_encoder=freeze_encoder,
         spec_augment=spec_augment, time_drop_width=tdw, freq_drop_width=fdw, seed=seed,
         dataset=dataset_name, task=task, annotations_test=ann, compute_dtype=compute_dtype,
-        fused_train=fused_train, device=device,
+        mesh=mesh, param_sharding=param_sharding, fused_train=fused_train, device=device,
     )
     ck_dir = f"cks/finetune/{dataset_name}_{task}/" if task else f"cks/finetune/{dataset_name}"
     name = ckpt_name(head, pretrain, batch_size, lr, epochs, l2_strength, seed, freeze_encoder,
                      loss)
-    from .checkpoints import save_params
+    from .checkpoints import save_params, written
 
-    save_params(os.path.join(
+    written(mesh, lambda: save_params(os.path.join(
         ck_dir, f"{name}-epoch={res.best_epoch:02d}-valid_auc={res.valid_auc:.2f}.pt"),
-        res.state_dict)
+        res.state_dict))
     wandb.log({"test_auc": res.test_auc})
     wandb.finish()
     return res

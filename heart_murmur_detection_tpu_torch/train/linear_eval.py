@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..models.heads import Head
+from ..parallel.mesh import all_reduce_sum
 from . import metrics as M
 from .metrics import STANDARD_METRICS
 
@@ -91,10 +92,15 @@ class ClippedAdam:
     optax_clip: optax.clip_by_global_norm's t / norm * clip once the norm
     reaches clip, as fine-tuning and the regression probe clip (JAX
     finetune.py:211, linear_eval.py:383); otherwise train_linear_head's
-    t * min(1, clip / max(norm, 1e-12)) (JAX linear_eval.py:89-91)."""
+    t * min(1, clip / max(norm, 1e-12)) (JAX linear_eval.py:89-91).
+
+    shard_mesh: `params` are this rank's ZeRO-3 shard of a data-parallel
+    mesh (parallel/mesh.py::ZeroShard), so the global norm sums the
+    gradients' squares over the ranks."""
 
     def __init__(self, params, steps_per_epoch: int, lr: float, decay: float, grad_clip: float,
-                 optax_clip: bool = False):
+                 optax_clip: bool = False, shard_mesh=None):
+        self.shard_mesh = shard_mesh
         self.params = list(params)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -104,7 +110,10 @@ class ClippedAdam:
 
     @torch.no_grad()
     def step(self, grads) -> None:
-        gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
+        sq = sum((g * g).sum() for g in grads)
+        if self.shard_mesh is not None:
+            sq = all_reduce_sum(sq, self.shard_mesh)
+        gnorm = torch.sqrt(sq)
         if self.optax_clip:
             keep = gnorm < self.clip
             g = [torch.where(keep, x, x / gnorm * self.clip) for x in grads]

@@ -16,13 +16,19 @@ from typing import Optional
 
 
 class CSVLogger:
-    def __init__(self, save_dir: str, name: str, version: Optional[str] = None):
+    """mesh: a data-parallel run's mesh; only its rank 0 writes."""
+
+    def __init__(self, save_dir: str, name: str, version: Optional[str] = None, mesh=None):
         self.dir = os.path.join(save_dir, name, version or "")
-        os.makedirs(self.dir, exist_ok=True)
         self.path = os.path.join(self.dir, "metrics.csv")
+        self.writes = mesh is None or mesh.rank == 0
+        if self.writes:
+            os.makedirs(self.dir, exist_ok=True)
         self._fields = None
 
     def log(self, **metrics):
+        if not self.writes:
+            return
         write_header = self._fields is None and not os.path.exists(self.path)
         if self._fields is None:
             self._fields = ["step_time"] + sorted(metrics.keys())
@@ -35,9 +41,12 @@ class CSVLogger:
 
 
 class WandbLogger:
-    def __init__(self, project: str, name: str, config: Optional[dict] = None):
+    """project None: log nothing (a data-parallel run's other ranks)."""
+
+    def __init__(self, project: Optional[str], name: str, config: Optional[dict] = None):
         self._run = None
-        if os.environ.get("WANDB_API_KEY") or os.environ.get("WANDB_MODE") == "offline":
+        if project is not None and (os.environ.get("WANDB_API_KEY")
+                                    or os.environ.get("WANDB_MODE") == "offline"):
             try:
                 import wandb
 

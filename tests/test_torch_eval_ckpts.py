@@ -224,3 +224,46 @@ def test_cli_significance_matches_jax(tmp_path, monkeypatch):
         assert abs(np.mean(got) - np.mean(want)) < AUROC_SEED_BAR, (model, got, want)
     assert np.isfinite([t, p]).all()
     assert (t, p) == pytest.approx(sig.test_2models(s1, s2)[:2])
+
+
+def test_cli_significance_on_a_legacy_task(tmp_path, monkeypatch):
+    """cli.significance on a legacy OPERA task (copd, written by
+    bench/resp_corpora.py and processed by the port): the JAX
+    get_performance's branch, each seed through cli.linear_eval.run_legacy
+    with the config, the feature name and the seed, and device passed on;
+    each score is the task function's for that seed."""
+    from heart_murmur_detection_tpu.cli import significance as jcli_sig
+    from heart_murmur_detection_tpu_torch.bench.resp_corpora import write_resp_corpora
+    from heart_murmur_detection_tpu_torch.data.processors import respiratory as resp
+    from heart_murmur_detection_tpu_torch.train import legacy_tasks as lt
+
+    write_resp_corpora(str(tmp_path), corpora=("copd",), sr=4000, sec=0.05)
+    monkeypatch.chdir(tmp_path)
+    resp.copd_preprocess_split()
+    y = np.load("feature/copd_eval/labels.npy")
+    r = np.random.default_rng(4)
+    for name in ("operaCT768", "opensmile"):
+        means = r.standard_normal((int(y.max()) + 1, 16)) * 0.6
+        np.save(f"feature/copd_eval/{name}_feature.npy",
+                (means[y] + r.standard_normal((len(y), 16))).astype(np.float32))
+    calls, jcalls = [], []
+    real = cli_sig.run_legacy
+
+    def record(cfg, feature, seed, device="cuda"):
+        calls.append((cfg["task"], feature, seed, device))
+        return real(cfg, feature, seed, device=device)
+
+    monkeypatch.setattr(cli_sig, "run_legacy", record)
+    monkeypatch.setattr(jcli_sig, "run_legacy",
+                        lambda cfg, feature, seed: jcalls.append((cfg["task"], feature, seed)))
+    s1, s2, (t, p, _) = cli_sig.main(["task=copd", "model1=operaCT", "dim1=768",
+                                      "model2=opensmile", "n_run=2", "lr=1e-3", "device=cpu"])
+    cfg = {**jcli_sig.DEFAULTS, "task": "copd", "n_run": 2, "lr": 1e-3}
+    jcli_sig.get_performance("operaCT", 768, cfg)
+    jcli_sig.get_performance("opensmile", 768, cfg)
+    assert [c[:3] for c in calls] == jcalls and {c[3] for c in calls} == {"cpu"}
+    for seed, got in enumerate(s1):
+        assert got == lt.linear_evaluation_copd(use_feature="operaCT768", l2_strength=1e-5,
+                                                lr=1e-3, head="linear", epochs=64, seed=seed,
+                                                device="cpu")
+    assert len(s2) == 2 and np.isfinite([t, p]).all()

@@ -158,8 +158,8 @@ def test_uncarried_options_raise(kw, tmp_path):
     """What the port does not carry raises: VGGish weights (the repository
     has no VGGish checkpoint: FileNotFoundError without random_init), the
     pip openSMILE package when required (ImportError: the port carries the
-    emobase fallback), and NotImplementedError for a mesh and operaCT at dim
-    1280."""
+    emobase fallback), NotImplementedError for operaCT at dim 1280, and a
+    TypeError for a mesh that is not the port's DataParallelMesh."""
     if "baseline" in kw:
         np.save(tmp_path / "sound_dir_loc.npy", np.array(["x.wav"]))
         if kw["baseline"] == "vggish":
@@ -174,7 +174,7 @@ def test_uncarried_options_raise(kw, tmp_path):
         return
     args = dict(dim=768, random_init=True, device="cpu")
     args.update(kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError if "mesh" in kw else NotImplementedError):
         FeatureExtractor("operaCT", **args)
 
 

@@ -380,16 +380,22 @@ def test_find_best_ckpt_and_load_params(tmp_path):
 
 def test_unported_encoders_and_multi_device_raise(narrow_zoo):
     """Every encoder kind of the JAX classifier builds (efficientnet, clap,
-    clap2023 and hear since the zoo's port); multi-device fine-tuning still
-    raises, and an unknown kind is a ValueError."""
+    clap2023 and hear since the zoo's port); a mesh that is not the port's
+    DataParallelMesh is a TypeError, param_sharding without a mesh does
+    nothing (as in the JAX finetune_classifier), and an unknown kind is a
+    ValueError."""
     x, y = _clf_data("htsat", 8, seed=0)
     for kind in ("efficientnet", "clap", "clap2023", "hear"):
         assert ft.EncoderClassifier(kind, 2, feat_dim=NEW_KINDS[kind][1]).encoder_kind == kind
     with pytest.raises(ValueError, match="resnet"):
         ft.finetune_classifier(x, y, x, y, encoder_kind="resnet", device="cpu")
-    for kw in ({"mesh": object()}, {"param_sharding": "fsdp"}):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            ft.finetune_classifier(x, y, x, y, encoder_kind="htsat", device="cpu", **kw)
+    with pytest.raises(TypeError, match="DataParallelMesh"):
+        ft.finetune_classifier(x, y, x, y, encoder_kind="htsat", device="cpu", mesh=object())
+    kw = dict(encoder_kind="htsat", htsat_config=HTSATConfig(**TINY_HTSAT), feat_dim=128,
+              epochs=1, batch_size=4, device="cpu")
+    a = ft.finetune_classifier(x, y, x, y, param_sharding="fsdp", **kw)
+    b = ft.finetune_classifier(x, y, x, y, **kw)
+    assert all(torch.equal(a.state_dict[k], v) for k, v in b.state_dict.items())
     with pytest.raises(ValueError):
         ft.EncoderClassifier("resnet", 2)
 
@@ -468,7 +474,8 @@ def test_cli_finetune_on_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("argv,exc,match", [
     # the config's default pretrain, operaCE, wants its checkpoint
     (["task=circor_murmurs"], FileNotFoundError, "encoder-operaCE.ckpt"),
-    (["task=circor_murmurs", "pretrain=operaCT", "dp=2"], NotImplementedError, "slice 6"),
+    # the tensor axis is not ported: the error names its ROADMAP item
+    (["task=circor_murmurs", "pretrain=operaCT", "tp=2"], NotImplementedError, "queue A item 2"),
     # HeAR (and CLAP) want converted weights or random_init
     (["task=circor_murmurs", "pretrain=hear"], FileNotFoundError, "ckpt_path"),
 ])

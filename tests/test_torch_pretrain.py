@@ -237,9 +237,13 @@ def test_early_freeze_keeps_frozen_weights_and_updates_bn0_stats(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["method=mae", "covidbreath=True", "dp=2"], NotImplementedError),
-    (["encoder=htsat", "circor=True", "dp=2"], NotImplementedError),
-    (["encoder=efficientnet", "circor=True", "dp=2"], NotImplementedError),
+    # the tensor axis is not ported
+    (["method=mae", "covidbreath=True", "tp=2"], NotImplementedError),
+    # param_sharding without a mesh, as the JAX mesh_from_cli refuses it
+    (["encoder=htsat", "circor=True", "param_sharding=fsdp"], ValueError),
+    # a batch the ranks cannot split: "not divisible", raised in the ranks
+    (["encoder=efficientnet", "circor=True", "dp=2", "batch_size=3", "dist_backend=gloo",
+      "device=cpu"], ValueError),
     (["encoder=htsat"], SystemExit),
 ])
 def test_cli_refusals(argv, exc, tmp_path, monkeypatch):

@@ -1,0 +1,233 @@
+"""Rank functions of the data-parallel tests (tests/test_torch_parallel_*.py).
+
+parallel.launch runs each in spawned processes, which import this module by
+name: it imports torch and the port only (no JAX), so a rank starts fast.
+Every function takes the rank's mesh first (None: the single-device run in
+the calling process) and returns host tensors or numbers.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import numpy as np
+import torch
+
+from heart_murmur_detection_tpu_torch.parallel.mesh import ZeroShard, rank_generator, shard_rows
+
+
+def call(mesh, target: str, kwargs: dict, patches=()):
+    """module:function(mesh=mesh, **kwargs) with (module, name, value)
+    attributes patched first; the result with its tensors on the CPU."""
+    for mod, name, value in patches:
+        setattr(importlib.import_module(mod), name, value)
+    mod, fn = target.split(":")
+    return getattr(importlib.import_module(mod), fn)(mesh=mesh, **kwargs)
+
+
+class Feed:
+    """A masking_noise stand-in handing out given (B, L) arrays in order;
+    a draw of another shape fails."""
+
+    def __init__(self, noises):
+        self.noises = list(noises)
+
+    def __call__(self, B, L, gen, dev):
+        noise = self.noises.pop(0)
+        assert noise.shape == (B, L), (noise.shape, B, L)
+        return torch.tensor(noise, device=dev)
+
+
+def _summed_grads(named, grads, zero):
+    """The step's summed gradients by name: `grads` (one a parameter of
+    `named`, as the step left or returned them), or under ZeRO-3 the full
+    gradient gathered from the shards' (zero.shard.grad)."""
+    if zero is None:
+        return {k: g.detach().cpu().clone() for (k, _), g in zip(named, grads)}
+    full, out, o = zero.gather_flat(zero.shard.grad), {}, 0
+    for (k, _), n, s in zip(named, zero.numels, zero.shapes):
+        out[k] = full[o:o + n].view(s).cpu().clone()
+        o += n
+    return out
+
+
+def _optimizer(params, mesh, zero: bool, make_opt):
+    """(ZeroShard or None, optimizer) as the trainers set them up: ZeRO-3
+    (the parameters rest as this rank's shard) or the optimizer over params."""
+    from heart_murmur_detection_tpu_torch.parallel.mesh import shard_params_and_opt
+
+    if zero and mesh is not None:
+        zs, opt = shard_params_and_opt(params, mesh, make_opt)
+        zs.release()
+        return zs, opt
+    return None, make_opt(params)
+
+
+def _lr0_adam(ps):
+    """The CP optimizer at learning rate 0: the step leaves the weights."""
+    from heart_murmur_detection_tpu_torch.pretrain import steps
+
+    return steps.adam_with_epoch_decay(ps, 1, lr=0.0)
+
+
+def cola_step0(mesh, state: dict, htsat: dict, encoder: str, x1, x2, zero: bool = False,
+               mm_dtype=torch.float32, impl: str = "autograd"):
+    """One COLA step of the trainer (cola_training.train_step, Adam at lr 0)
+    on the global batch (x1, x2) from `state`, dropout and DropPath off:
+    its loss, the summed gradients it left, and the BatchNorms' running
+    statistics it committed (by buffer name)."""
+    from heart_murmur_detection_tpu_torch.models.cola import Cola
+    from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+    from heart_murmur_detection_tpu_torch.pretrain import cola_training as ct
+    from heart_murmur_detection_tpu_torch.utils.precision import strict_f32
+
+    model = Cola(HTSATConfig(**htsat), encoder=encoder, p=0.0,
+                 dim_hidden=None if encoder == "htsat" else 1280)
+    model.load_state_dict(state)
+    model.train()
+    named = list(model.named_parameters())
+    zs, opt = _optimizer([p for _, p in named], mesh, zero, _lr0_adam)
+    x1, x2 = (torch.from_numpy(shard_rows(x, mesh)) for x in (x1, x2))
+    with strict_f32():
+        loss, _ = ct.train_step(model, opt, x1, x2, rank_generator(0, mesh, "cpu"), mm_dtype,
+                                impl, 0.0, mesh, zs)
+    grads = _summed_grads(named, [p.grad for _, p in named] if zs is None else None, zs)
+    bn = {k: b.cpu().clone() for k, b in model.named_buffers()
+          if k.endswith(("running_mean", "running_var"))}
+    return float(loss), grads, bn
+
+
+def mae_step0(mesh, state: dict, cfg, x, seed: int, zero: bool = False, mm_dtype=torch.float32,
+              impl: str = "autograd"):
+    """One MAE step of the trainer (mae_training.batch_rows, then
+    steps.mae_train_step, Adam at lr 0) on the global batch x, its masking
+    noise drawn from a generator seeded `seed`: the loss, the summed
+    gradients, and the masks of the global batch (every rank's rows)."""
+    from heart_murmur_detection_tpu_torch.models import mae_train_fused
+    from heart_murmur_detection_tpu_torch.models.vit_mae import MaskedAutoencoderViT
+    from heart_murmur_detection_tpu_torch.parallel.mesh import gather_objects
+    from heart_murmur_detection_tpu_torch.pretrain import mae_training, steps
+    from heart_murmur_detection_tpu_torch.utils.precision import strict_f32
+
+    model = MaskedAutoencoderViT(cfg, decoder=True)
+    model.load_state_dict(state)
+    named = list(model.named_parameters())
+    zs, opt = _optimizer([p for _, p in named], mesh, zero, _lr0_adam)
+    gen = torch.Generator().manual_seed(seed)
+    xl, noise = mae_training.batch_rows(x, cfg.patch_size, gen, mesh, "cpu")
+    with strict_f32():
+        loss = steps.mae_train_step(model, opt, xl, mm_dtype, impl, noise, gen, mesh, zs)
+    grads = _summed_grads(named, [p.grad for _, p in named] if zs is None else None, zs)
+    # the masks the step formed: from the rows' noise, or (one device) from
+    # the generator's draw inside the masked encoder, as the step draws it
+    if zs is not None:
+        zs.gather()
+    with torch.no_grad():
+        _, mask, _ = mae_train_fused.mae_encode_train_fused(
+            model, xl, noise, None if mesh is not None else torch.Generator().manual_seed(seed))
+    mask = torch.cat(gather_objects(mask.cpu(), mesh))
+    return float(loss), grads, mask
+
+
+def ft_step0(mesh, state: dict, kind: str, htsat: dict, x, y, valid, cw, zero: bool = False,
+             aug=None):
+    """One fine-tuning step of the trainer (finetune.train_step, ClippedAdam
+    at lr 0) on the global batch (x, y, valid rows), SpecAugment `aug`
+    drawn from a generator seeded 7: its global loss and the summed
+    gradients it returned."""
+    from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+    from heart_murmur_detection_tpu_torch.train import finetune as ft
+    from heart_murmur_detection_tpu_torch.train.linear_eval import ClippedAdam
+    from heart_murmur_detection_tpu_torch.utils.precision import strict_f32
+
+    cfg = HTSATConfig(**htsat)
+    model = ft.EncoderClassifier(kind, 2, "linear", cfg.num_features, cfg)
+    model.load_state_dict(state)
+    model.train()
+    keep = set(map(id, ft.trainable_params(model, "none")))
+    named = [(k, p) for k, p in model.named_parameters() if id(p) in keep]
+    zs, opt = _optimizer([p for _, p in named], mesh, zero,
+                         lambda ps: ClippedAdam(ps, 1, 0.0, 0.99, 1.0, optax_clip=True,
+                                                shard_mesh=mesh if zero else None))
+    x, y, valid, cw = (torch.as_tensor(a) for a in (x, y, valid, cw))
+    gen = torch.Generator().manual_seed(7)
+    rank_gen = None if mesh is None else rank_generator(7, mesh, "cpu")
+    with strict_f32():
+        loss, grads = ft.train_step(model, opt, x, y, valid, cw, gen, torch.float32, "autograd",
+                                    1e-4, aug, mesh, zs, rank_gen)
+    return float(loss), _summed_grads(named, grads, zs)
+
+
+def step0_cases(mesh, cases: dict):
+    """Every case's step-0 result in one launch: {name: (fn, kwargs)}."""
+    fns = {"cola": cola_step0, "mae": mae_step0, "ft": ft_step0}
+    return {name: fns[fn](mesh, **kw) for name, (fn, kw) in cases.items()}
+
+
+def zero_state_size(mesh, n_params: int):
+    """The per-rank element count of a ZeroShard over n_params parameters
+    of 1000 elements each, with its Adam state after one step."""
+    from heart_murmur_detection_tpu_torch.pretrain import steps
+
+    ps = [torch.nn.Parameter(torch.full((1000,), float(i))) for i in range(n_params)]
+    zero = ZeroShard(ps, mesh)
+    opt = steps.adam_with_epoch_decay([zero.shard], 1)
+    zero.gather()
+    sum(p.sum() for p in ps).backward()
+    zero.reduce_grads()
+    zero.release()
+    opt.step()
+    st = opt.opt.state[zero.shard]
+    return {"shard": zero.shard.numel(), "exp_avg": st["exp_avg"].numel(),
+            "exp_avg_sq": st["exp_avg_sq"].numel(), "params": [p.numel() for p in ps],
+            "total": zero.total}
+
+
+def naive_gather(x, mesh):
+    """A broken gather_rows: an all-gather whose backward sums the
+    cotangents over the ranks (n times the gradient)."""
+    import torch.distributed.nn.functional as dfn
+
+    return torch.cat(dfn.all_gather(x), 0)
+
+
+def mean_without_backward(x, mesh):
+    """A broken all_reduce_mean_autograd: the average, cut from autograd."""
+    from heart_murmur_detection_tpu_torch.parallel.mesh import all_reduce_sum
+
+    return all_reduce_sum(x, mesh) / mesh.world
+
+
+def resume_runs(mesh, target: str, args6: dict, args8: dict):
+    """(history, state) of: a 6-epoch run, an uninterrupted 8-epoch run in
+    another directory, and the first run resumed to 8 epochs."""
+    mod, fn = target.split(":")
+    train = getattr(importlib.import_module(mod), fn)
+    a = train(mesh=mesh, **args6)
+    b = train(mesh=mesh, **args8)
+    r = train(mesh=mesh, **{**args6, "n_epoches": 8, "resume": True})
+    return [(a[1], a[0]), (b[1], b[0]), (r[1], r[0])]
+
+
+
+def extract_rank(mesh, state: dict, paths: list, fdir: str, kw: dict):
+    """operaCT features of `paths` from an extractor with `state`, and what
+    extract_and_save writes (random-init weights) into fdir, on this rank."""
+    from heart_murmur_detection_tpu_torch.data.processors.common import extract_and_save
+    from heart_murmur_detection_tpu_torch.extract.extract import FeatureExtractor
+
+    ex = FeatureExtractor("operaCT", mesh=mesh, **kw)
+    ex.model.load_state_dict(state)
+    feats = ex.extract_files(paths)
+    out = extract_and_save(fdir, "operaCT", dim=768, batch_size=kw["batch_size"],
+                           random_init=True, device=kw["device"], mesh=mesh)
+    return feats, np.load(out)
+
+
+def narrow_htsat():
+    """A narrow HTS-AT with 768 features, in place of the full width
+    (train.finetune.HTSATConfig, as tests/test_torch_finetune.py narrows it)."""
+    from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+
+    return HTSATConfig(spec_size=64, patch_size=4, embed_dim=96, depths=(1, 1, 1, 1),
+                       num_heads=(2, 2, 2, 2), window_size=2, mel_bins=64, drop_path_rate=0.0)
