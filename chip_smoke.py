@@ -230,6 +230,26 @@ Phases (each prints one line; any failure exits non-zero):
      one epoch of cli.pretrain dp=2 dist_backend=gloo (method=cola,
      encoder=htsat, bf16, B=30) on phase 8's corpus writer; step ms at world 1
      and 2 (two ranks share one card: not a scaling figure)
+ 32. the tensor axis (parallel/tensor.py, models/tp_blocks.py): four gloo
+     ranks on cuda:0 as dp2 x tp2 in one child launch, DropPath and
+     dropout off, against the same steps on one device in this process:
+     (a) two megatron COLA steps of the full-width operaCT in float32 (TF32
+     off) at 4 rows a data rank: step-0 loss within 1e-5, every gradient
+     leaf >= 0.99999, the norm within 1 +- 1e-4, every replicated leaf bit
+     for bit equal on the model peers after the steps (every leaf across
+     the data axis), stage 0's qkv (3C / 2, C) on each model rank; (b) the
+     megatron step on the bf16 plain route at phase 31's shape (B=64, 32
+     rows a data rank) at phase 31's floors (loss within 5e-4, leaves >=
+     GRAD_FLOOR, norm within 1e-2); (c) a float32 megatron Audio-MAE CP
+     step (ViT-B encoder, SwinV2-CR decoder, the global noise) and (d) a
+     float32 megatron operaCT fine-tuning step and a float32 COLA step with
+     ZeRO-3 over the model axis, at (a)'s bars; no repository kernel
+     launched on any rank; (e) cli.pretrain dp=2 tp=2 dist_backend=gloo
+     (method=cola, encoder=htsat, bf16, B=16) run in every rank as torchrun
+     would, 5 epochs of 24 circor clips of phase 8's writer (the resume
+     checkpoint of epoch 4, full tensors) then resume=True to epoch 5 from
+     it; the checkpoint loads into a one-device Cola by name. Ms a step a
+     rank (host-staged gloo on one card: not a multi-card figure)
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -4015,6 +4035,313 @@ def phase_dp(smi: str, dev):
           f"launches a rank {counts}", flush=True)
     print(f"[dp] phase 31 took {time.time() - t_phase:.1f} s", flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 32: the tensor axis (dp x tp, parallel/tensor.py) on plain torch
+# ---------------------------------------------------------------------------
+
+TP_B = 8  # phase 32's global batch: 4 rows a data rank at dp2 x tp2
+TP_STEPS = 2  # its COLA steps
+TP_NOTE = "four gloo ranks (dp2 x tp2) share one H100, collectives staged through the host; " \
+          "not a multi-card figure"
+TP_LOSS_RTOL = 1e-5  # float32, TF32 off: the step-0 loss against one device
+TP_LEAF_BAR = 0.99999  # float32: every step-0 gradient leaf's cosine
+TP_NORM_TOL = 1e-4  # float32: the global gradient norm's ratio
+# bf16 plain route, at phase 31's shape (B_TRAIN, 32 rows a data rank): the
+# step-0 loss (the leaves at GRAD_FLOOR). At TP_B the bf16 flow's own
+# batch-split spread is past these floors: on the CPU, plain DP at 4 rows a
+# rank read 3.6e-3 of the loss and a 0.99881 leaf from one device (PERF.md)
+TP_BF16_LOSS_RTOL = 5e-4
+TP_CLI_CLIPS = 24  # phase 32's cli.pretrain corpus: circor clips of phase 8's writer
+# 1 step an epoch (the 10% validation split is under one batch: no valid
+# loss); 5 epochs write the resume checkpoint, a 6th reloads it
+TP_CLI_BATCH = 16
+
+
+def _tp_data():
+    """Phase 32's inputs, made alike in every process: TP_STEPS COLA pairs
+    at phase 8's circor crop (TP_B x 251 x 64), an Audio-MAE batch (TP_B x
+    1024 x 128), a fine-tuning batch (TP_B x 256 x 64, two classes) and a
+    COLA pair at phase 31's shape (B_TRAIN x 251 x 64)."""
+    import numpy as np
+
+    r = np.random.default_rng(SEED + 50)
+    mel = lambda T, B=TP_B: (r.standard_normal((B, T, 64)) * 10 - 40).astype(np.float32)
+    cola = [(mel(251), mel(251)) for _ in range(TP_STEPS)]
+    mae = r.standard_normal((TP_B, 1024, 128)).astype(np.float32)
+    ft = mel(256), (np.arange(TP_B) % 2).astype(np.int64)
+    return cola, mae, *ft, (mel(251, B_TRAIN), mel(251, B_TRAIN))
+
+
+def _tp_cola(mesh, dev, mm, impl, megatron=False, zero=False, n_steps=TP_STEPS, time_it=False,
+             wide=False):
+    """n_steps of the trainer's COLA step on the full-width operaCT
+    (bench/dp_scale.py::cola_steps, DropPath and dropout off) on this
+    rank's rows of TP_B pairs (wide: one step of B_TRAIN): (losses, step-0
+    summed gradients on the host, the rank's parameter shapes and SHA-1s
+    after the steps, ms a step or None)."""
+    import hashlib
+
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench import dp_scale
+    from heart_murmur_detection_tpu_torch.pretrain import cola_training as ct
+
+    data = _tp_data()
+    batches = [data[4]] if wide else data[0][:n_steps]
+    run = dp_scale.cola_steps(mesh, dev, batches, impl, zero, SEED, mm_dtype=mm,
+                              megatron=megatron)
+    ms = None
+    if time_it:
+        x1, x2 = run["batches"][0]
+        ms = _time_ms(lambda: ct.train_step(run["model"], run["opt"], x1, x2, None, mm, impl, 0.0,
+                                            mesh, run["zero"]), iters=1, warm=0)
+    named = list(run["model"].named_parameters())
+    shapes = {q: tuple(w.shape) for q, w in named}
+    sha = {q: hashlib.sha1(w.detach().float().cpu().numpy().tobytes()).hexdigest()
+           for q, w in named}
+    return run["losses"], run["grads"], shapes, sha, ms
+
+
+def _tp_mae(mesh, dev, megatron=False):
+    """One Audio-MAE CP step (the ViT-B encoder and the SwinV2-CR decoder at
+    full width) of the trainer in float32 (autograd route), the masking
+    noise of the global batch drawn from a generator seeded SEED: (loss,
+    step-0 summed gradients)."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench.dp_scale import summed_grads
+    from heart_murmur_detection_tpu_torch.models import vit_mae
+    from heart_murmur_detection_tpu_torch.parallel import tensor
+    from heart_murmur_detection_tpu_torch.pretrain import mae_training, steps
+
+    cfg = vit_mae.audiomae_base_config(mask_ratio=0.7)
+    model = vit_mae.MaskedAutoencoderViT(cfg, decoder=True)
+    vit_mae.init_weights(model, torch.Generator().manual_seed(SEED))
+    model.to(dev).train()
+    if megatron:
+        tensor.shard_model(model, mesh)
+    opt = steps.adam_with_epoch_decay(list(model.parameters()), 5)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x, noise = mae_training.batch_rows(_tp_data()[1], cfg.patch_size, gen, mesh, dev)
+    loss = steps.mae_train_step(model, opt, x, torch.float32, "autograd", noise, gen, mesh)
+    return float(loss), summed_grads(list(model.named_parameters()))
+
+
+def _tp_ft(mesh, dev, megatron=False):
+    """One operaCT fine-tuning step of the trainer (finetune.train_step,
+    linear head, ClippedAdam) in float32 on the global batch, DropPath off:
+    (loss, summed gradients)."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench.dp_scale import summed_grads
+    from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+    from heart_murmur_detection_tpu_torch.parallel import tensor
+    from heart_murmur_detection_tpu_torch.train import finetune as ft
+    from heart_murmur_detection_tpu_torch.train.linear_eval import ClippedAdam
+
+    cfg = HTSATConfig(drop_path_rate=0.0)
+    model = ft.EncoderClassifier("htsat", 2, "linear", cfg.num_features, cfg,
+                                 generator=torch.Generator().manual_seed(SEED)).to(dev).train()
+    if megatron:
+        tensor.shard_model(model, mesh)
+    named = list(model.named_parameters())
+    opt = ClippedAdam([w for _, w in named], 1, 1e-4, 0.99, 1.0, optax_clip=True)
+    _, _, x, y, _ = _tp_data()
+    xb, yb = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    valid = torch.ones(TP_B, device=dev)
+    cw = torch.tensor([0.4, 0.6], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    loss, grads = ft.train_step(model, opt, xb, yb, valid, cw, gen, torch.float32, "autograd",
+                                1e-4, None, mesh, None, gen)
+    return float(loss), summed_grads(named, grads=grads)
+
+
+def _tp_cli(mesh, root: str):
+    """cli.pretrain method=cola encoder=htsat dp=2 tp=2 dist_backend=gloo
+    (bf16, the plain route) in this rank as torchrun would run it, from
+    `root`: 5 epochs of TP_CLI_BATCH (the resume checkpoint of epoch 4),
+    then resume=True to 6 (the checkpoint reloaded into the tensor axis):
+    (the two histories, the resumed run's state, the launches of both)."""
+    from heart_murmur_detection_tpu_torch.cli import pretrain
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        argv = ["dp=2", "tp=2", "dist_backend=gloo", "method=cola", "encoder=htsat",
+                "compute_dtype=bfloat16", f"batch_size={TP_CLI_BATCH}", "seed=0", "title=tp",
+                "device=cuda", "circor=True"]
+        _reset_counts()
+        ((_, h5, _),) = pretrain.main(argv + ["epoches=5"])
+        ((sd, h6, _),) = pretrain.main(argv + ["epoches=6", "resume=True"])
+        return h5, h6, {q: v.cpu() for q, v in sd.items()}, _all_counts()
+    finally:
+        os.chdir(cwd)
+
+
+def _tp_rank(mesh, root: str):
+    """Phase 32's work on one rank of the dp2 x tp2 mesh; rank 0 returns it
+    with every rank's shapes, parameter SHA-1s and launch counts."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.parallel.mesh import gather_objects
+
+    dev = mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    _reset_counts()  # the tensor axis launches no kernel of the repository
+    f32 = _tp_cola(mesh, dev, torch.float32, "autograd", megatron=True, time_it=True)
+    bf16 = _tp_cola(mesh, dev, torch.bfloat16, "plain", megatron=True, wide=True)
+    fsdp = _tp_cola(mesh, dev, torch.float32, "autograd", zero=True, n_steps=1)
+    mae = _tp_mae(mesh, dev, megatron=True)
+    fine = _tp_ft(mesh, dev, megatron=True)
+    counts = _all_counts()
+    torch.cuda.synchronize()
+    cli = _tp_cli(mesh, root)
+    ranks = gather_objects({"shapes": f32[2], "sha": f32[3], "counts": counts,
+                            "cli_counts": cli[3]}, mesh)
+    return {"f32": f32[:2] + (f32[4],), "bf16": bf16[:2], "fsdp": fsdp[:2],
+            "mae": mae, "ft": fine, "cli": cli[:3], "ranks": ranks}
+
+
+def _without_key_bias(grads: dict) -> dict:
+    """The gradients with the key third of each qkv bias left out: its
+    exact gradient is 0 (it adds a per-query constant to the logits), so
+    it holds float noise only (tests/test_torch_parallel_cola.py treats it
+    so); the q and v thirds stay."""
+    import torch
+
+    out = dict(grads)
+    for q, g in grads.items():
+        if q.endswith("attn.qkv.bias"):
+            n = g.shape[0] // 3
+            out[q] = torch.cat([g[:n], g[2 * n:]])
+    return out
+
+
+def _tp_compare(tag, got, want, rtol, floor, norm_tol, smi, skip=(), drop_key_bias=False):
+    """The step-0 loss and every gradient leaf of a tensor-parallel step
+    against one device (bench/dp_scale.py::grad_report). got, want: (loss
+    or the steps' losses, step-0 summed gradients, ...). drop_key_bias: the
+    key thirds of the qkv biases left out of the cosines (bf16, where their
+    float noise is rounded: _without_key_bias)."""
+    from heart_murmur_detection_tpu_torch.bench.dp_scale import grad_report
+
+    step0 = lambda v: v[0][0] if isinstance(v[0], list) else v[0]
+    lg, lw = step0(got), step0(want)
+    rel = abs(lg - lw) / abs(lw)
+    pick = _without_key_bias if drop_key_bias else (lambda g: g)
+    r = grad_report(pick(got[1]), pick(want[1]), floor, skip)
+    lo, c, ratio = r["min_leaf"], r["min_leaf_cosine"], r["norm_ratio"]
+    print(f"[tp] {tag}, {smi}: step-0 loss {lg:.7f} against {lw:.7f} one device, rel "
+          f"diff {rel:.3g} (bar {rtol}); {r['leaves']} gradient leaves, min cosine {c:.7f} "
+          f"({lo}) (floor {floor}), global norm ratio {ratio:.7f} (bar 1 +- {norm_tol})",
+          flush=True)
+    _require(rel <= rtol, f"{tag}: step-0 loss {lg} vs {lw}")
+    _require(c >= floor, f"{tag}: gradient leaf {lo} cosine {c} < {floor}")
+    _require(abs(ratio - 1) <= norm_tol, f"{tag}: gradient norm ratio {ratio}")
+
+
+def _write_tp_corpus(root: str):
+    """TP_CLI_CLIPS circor clips of phase 8's writer (_write_corpora's
+    layout, clip lengths and value range)."""
+    import numpy as np
+
+    r = np.random.default_rng(SEED + 4)
+    d = os.path.join(root, "feature", "circor_eval")
+    os.makedirs(os.path.join(d, "spec"))
+    names = []
+    for i, t in enumerate(r.integers(260, 1001, TP_CLI_CLIPS)):
+        f = os.path.join("feature", "circor_eval", "spec", f"{i:03d}")
+        np.save(os.path.join(root, f + ".npy"),
+                (r.standard_normal((int(t), 64)) * 10 - 40).astype(np.float32))
+        names.append(f)
+    np.save(os.path.join(d, "entire_spec_filenames.npy"), np.asarray(names))
+
+
+def phase_tp(smi: str, dev):
+    """Phase 32: the tensor axis on the card (see the module doc)."""
+    import concurrent.futures
+    import math
+
+    import torch
+
+    from heart_murmur_detection_tpu_torch.models.cola import Cola
+    from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+    from heart_murmur_detection_tpu_torch.parallel import launch
+    from heart_murmur_detection_tpu_torch.train.checkpoints import load_state
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as root, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        _write_tp_corpus(root)
+        t0 = time.time()
+        ranks = pool.submit(launch, _tp_rank, 4, root, backend="gloo", device="cuda", tp=2)
+        # the one-device references, in this process while the ranks start and work
+        # (their step times are taken after the ranks end)
+        f32_1 = _tp_cola(None, dev, torch.float32, "autograd")
+        bf16_1 = _tp_cola(None, dev, torch.bfloat16, "plain", wide=True)
+        mae_1 = _tp_mae(None, dev)
+        ft_1 = _tp_ft(None, dev)
+        out = ranks.result()
+        wall = time.time() - t0
+        ck = load_state(os.path.join(root, "cks", "model", "combined", "circor", "tp",
+                                     "last.ckpt"))
+    ms_f32 = _tp_cola(None, dev, torch.float32, "autograd", n_steps=1, time_it=True)[4]
+    ms_bf16 = _tp_cola(None, dev, torch.bfloat16, "plain", time_it=True, wide=True)[4]
+    torch.cuda.empty_cache()
+    print(f"[tp] dp2 x tp2 ({TP_NOTE}), {smi}: the ranks' work took {wall:.1f} s with their "
+          f"start (the one-device references ran alongside)", flush=True)
+    _tp_compare("megatron COLA, operaCT full width, float32 (TF32 off)", out["f32"], f32_1,
+                TP_LOSS_RTOL, TP_LEAF_BAR, TP_NORM_TOL, smi)
+    _tp_compare(f"megatron COLA, bf16 plain route, phase 31's B={B_TRAIN}", out["bf16"], bf16_1,
+                TP_BF16_LOSS_RTOL, GRAD_FLOOR, 1e-2, smi, drop_key_bias=True)
+    _tp_compare("fsdp over the model axis, COLA, float32", out["fsdp"], f32_1, TP_LOSS_RTOL,
+                TP_LEAF_BAR, TP_NORM_TOL, smi)
+    _tp_compare("megatron Audio-MAE CP (ViT-B + SwinV2-CR decoder), float32", out["mae"], mae_1,
+                TP_LOSS_RTOL, TP_LEAF_BAR, TP_NORM_TOL, smi, skip=ZERO_GRAD)
+    _tp_compare("megatron operaCT fine-tuning, float32", out["ft"], ft_1, TP_LOSS_RTOL,
+                TP_LEAF_BAR, TP_NORM_TOL, smi)
+    ranks = out["ranks"]
+    full = dict(f32_1[2])
+    qkv = "encoder.encoder.htsat.layers.0.blocks.0.attn.qkv.weight"
+    for r, rk in enumerate(ranks):
+        C = full[qkv][1]
+        _require(rk["shapes"][qkv] == (3 * C // 2, C), f"rank {r} qkv {rk['shapes'][qkv]}")
+        _require(not any(rk["counts"].values()) and not any(rk["cli_counts"].values()),
+                 f"rank {r} launched kernels on the tensor axis: {rk['counts']}")
+    sharded = {q for q, s in ranks[0]["shapes"].items() if s != full[q]}
+    peers = [(0, 1), (2, 3)]
+    same = all(ranks[a]["sha"][q] == ranks[b]["sha"][q]
+               for a, b in peers for q in full if q not in sharded)
+    across = all(ranks[a]["sha"][q] == ranks[a + 2]["sha"][q] for a in (0, 1) for q in full)
+    print(f"[tp] after {TP_STEPS} float32 steps: {len(full) - len(sharded)} replicated leaves "
+          f"bit for bit equal on the model peers: {same}; every leaf equal across the data "
+          f"axis: {across}; {len(sharded)} leaves sharded (stage 0's qkv {ranks[0]['shapes'][qkv]} "
+          f"of {full[qkv]} on each model rank); no kernel launched on any rank", flush=True)
+    _require(same and across, "replicated parameters differ across the ranks")
+    print(f"[tp] ms a step a rank ({TP_NOTE}), {smi}: COLA float32 at B={TP_B} ({TP_B // 2} rows "
+          f"a data rank) {out['f32'][2]:.1f} ms (one device {ms_f32:.1f} ms at {TP_B}); bf16 "
+          f"plain route, one device at B={B_TRAIN} {ms_bf16:.1f} ms; the CLI's bf16 steps below",
+          flush=True)
+    h5, h6, sd = out["cli"]
+    model = Cola(HTSATConfig(), encoder="htsat")
+    model.load_state_dict(ck["state_dict"])  # the checkpoint's full tensors, by name
+    model.load_state_dict(sd)
+    moments = ck["optimizer"]["adam"]["state"]
+    shapes_ok = all(moments[i]["exp_avg"].shape == w.shape
+                    for i, w in enumerate(model.parameters()))
+    _require([e["epoch"] for e in h5] == list(range(5)) and [e["epoch"] for e in h6] == [5],
+             f"epochs {[e['epoch'] for e in h5]}, resumed {[e['epoch'] for e in h6]}")
+    _require(ck["epoch"] == 4 and shapes_ok, "the resume checkpoint's epoch or moments")
+    _require(all(math.isfinite(e["train_loss"]) for e in h5 + h6), f"losses {h5} {h6}")
+    steps = sum(e["steps"] for e in h5)
+    print(f"[tp] cli.pretrain dp=2 tp=2 dist_backend=gloo method=cola encoder=htsat bf16, "
+          f"B={TP_CLI_BATCH}, {TP_CLI_CLIPS} clips, {smi}: 5 epochs "
+          f"({steps} steps, {sum(e['train_seconds'] for e in h5) / steps * 1e3:.1f} ms a step, "
+          f"first included), the resume checkpoint of epoch 4 (full tensors and Adam moments) "
+          f"loads into a one-device Cola by name, resume=True ran epoch 5 from it (train loss "
+          f"{h6[0]['train_loss']:.4f})", flush=True)
+    print(f"[tp] phase 32 took {time.time() - t_phase:.1f} s", flush=True)
+
 
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
@@ -4190,6 +4517,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dp(smi, dev)
     _tick("phase 31")
+    torch.cuda.empty_cache()
+    phase_tp(smi, dev)
+    _tick("phase 32")
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths

@@ -67,11 +67,18 @@ def pairs(n_rows: int, seed: int = 1):
     return mel(), mel()
 
 
-def summed_grads(named, zero=None) -> dict:
+def summed_grads(named, zero=None, grads=None) -> dict:
     """The summed gradients a data-parallel step left, by name, on the host:
-    each parameter's .grad, or under ZeRO-3 the shards' gathered."""
+    each parameter's .grad (or `grads`, one a parameter), a tensor-parallel
+    shard's gathered from the model axis; under ZeRO-3 the shards' gathered."""
+    from ..parallel import tensor
+
     if zero is None:
-        return {q: w.grad.detach().cpu() for q, w in named}
+        out = {}
+        for (q, w), g in zip(named, grads if grads is not None else [w.grad for _, w in named]):
+            pl = tensor.placement(w)
+            out[q] = (pl.gather(g) if pl is not None and pl.kind == "shard" else g).detach().cpu()
+        return out
     full, out, o = zero.gather_flat(zero.shard.grad), {}, 0
     for (q, _), n, shape in zip(named, zero.numels, zero.shapes):
         out[q] = full[o:o + n].view(shape).cpu()
@@ -80,18 +87,23 @@ def summed_grads(named, zero=None) -> dict:
 
 
 def cola_steps(mesh, dev, batches, impl: str = "kernel", zero: bool = False, seed: int = 0,
-               before=None) -> dict:
-    """The trainer's COLA step (cola_training.train_step, bf16, Adam as the
-    trainer builds it) over `batches` (global (x1, x2) pairs; this rank runs
-    its rows), from cola_model(seed); zero: ZeRO-3 over the mesh (the
-    trainer's shard_params_and_opt). before() runs just before the first step.
-    -> {"losses", "grads" (step 0's summed, on the host), "model", "opt",
-    "zero", "batches" (the rank's rows on dev)}."""
+               before=None, mm_dtype=torch.bfloat16, megatron: bool = False) -> dict:
+    """The trainer's COLA step (cola_training.train_step, Adam as the
+    trainer builds it; mm_dtype bf16, or float32 with impl "autograd") over
+    `batches` (global (x1, x2) pairs; this rank runs its rows), from
+    cola_model(seed); zero: ZeRO-3 over the mesh (the trainer's
+    shard_params_and_opt); megatron: the model placed on a dp x tp mesh's
+    model axis (parallel/tensor.py). before() runs just before the first
+    step. -> {"losses", "grads" (step 0's summed, on the host), "model",
+    "opt", "zero", "batches" (the rank's rows on dev)}."""
+    from ..parallel import tensor
     from ..parallel.mesh import shard_params_and_opt, shard_rows
     from ..pretrain import cola_training as ct
     from ..pretrain import steps
 
     model = cola_model(dev, seed)
+    if megatron and mesh is not None:
+        tensor.shard_model(model, mesh)
     named = list(model.named_parameters())
     make_opt = lambda ps: steps.adam_with_epoch_decay(ps, 5)
     zs = None
@@ -105,7 +117,7 @@ def cola_steps(mesh, dev, batches, impl: str = "kernel", zero: bool = False, see
         before()
     losses, grads = [], None
     for i, (x1, x2) in enumerate(xs):
-        loss, _ = ct.train_step(model, opt, x1, x2, None, torch.bfloat16, impl, 0.0, mesh, zs)
+        loss, _ = ct.train_step(model, opt, x1, x2, None, mm_dtype, impl, 0.0, mesh, zs)
         losses.append(float(loss))
         if i == 0:
             grads = summed_grads(named, zs)

@@ -25,8 +25,12 @@ follow the method: the COLA table, the MAE table (respiratory corpora), or
 (parallel/launch.py; dist_backend nccl, the default on a card, takes one
 card a rank; gloo, the CPU's default, lets ranks share a card) and returns
 rank 0's result; param_sharding=fsdp is ZeRO-3 over them (parallel/
-mesh.py::mesh_from_cli: param_sharding without dp > 1 is an error); tp > 1
-raises NotImplementedError.
+mesh.py::mesh_from_cli: param_sharding without dp > 1 is an error). dp=N
+tp=M runs N x M ranks on a dp x tp mesh: megatron tensor parallelism over
+the M model ranks (the HTS-AT's, the MAE ViT's and the SwinV2-CR decoder's
+blocks) unless param_sharding=fsdp (ZeRO-3 over the model axis), e.g.
+
+  python -m heart_murmur_detection_tpu_torch.cli.pretrain encoder=htsat method=cola circor=True dp=2 tp=2 dist_backend=gloo batch_size=4 epoches=1 title=t
 """
 
 from __future__ import annotations
@@ -93,8 +97,8 @@ def main(argv=None):
         if plan is None:
             results.append(train(None, method, kw))
         else:
-            results.append(launch(train, plan.n, method, kw, backend=plan.backend,
-                                  device=common["device"]))
+            results.append(launch(train, plan.world, method, kw, backend=plan.backend,
+                                  device=common["device"], tp=plan.tp))
     return results
 
 

@@ -27,7 +27,9 @@ runs its contiguous rows of each through the encoder on its device, and
 the features are gathered in rank order, so extract_waveforms and
 extract_files return exactly the rows of the single-device run on every
 rank (the batch's kernels run at B / n rows). batch_size must divide over
-the ranks.
+the ranks. A dp x tp mesh (TensorParallelMesh) spreads the rows over all
+its ranks with the weights whole on each, on the plain path, as the JAX
+extractor turns its kernels off under a tensor axis (extract.py:77-80).
 
 Host pipeline (the JAX two-stage pack || put, extract.py:505-511): one
 worker thread packs batches (pad_batch + wire encode) into numpy, a second
@@ -49,7 +51,7 @@ import torch
 from ..audio import dsp, pipelines, wire
 from ..audio.pad import split_pad_sample, split_sample_simple
 from ..ops.resample import resample_poly_device
-from ..parallel.mesh import check_mesh, gather_rows, local_rows, shard_rows
+from ..parallel.mesh import check_mesh, gather_rows, is_2d, local_rows, shard_rows, world_axis
 from ..utils.precision import strict_f32
 from . import registry
 
@@ -129,9 +131,10 @@ class FeatureExtractor:
         self.source_sr = source_sr
         self._up = SR // source_sr if source_sr else 1
         self.use_pallas_mel = use_pallas_mel
-        self.mesh = check_mesh(mesh)
+        self.mesh = world_axis(check_mesh(mesh))
+        self._impl = "plain" if is_2d(mesh) else "kernel"  # the encoders' blocks
         if mesh is not None:
-            local_rows(batch_size, mesh)  # "not divisible"
+            local_rows(batch_size, self.mesh)  # "not divisible"
             device = mesh.device
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -194,7 +197,7 @@ class FeatureExtractor:
             def fn(wav, lengths):
                 with torch.inference_mode():
                     fb, _ = dsp.kaldi_fbank_frontend(*self._prologue(wav, lengths))
-                    return audiomae_backbone_fused(model, fb, mm, fast)
+                    return audiomae_backbone_fused(model, fb, mm, fast, self._impl)
 
             return fn
 
@@ -204,7 +207,7 @@ class FeatureExtractor:
             def fn(wav, lengths):
                 with torch.inference_mode():
                     mel, _ = self._mel(*self._prologue(wav, lengths))
-                    return mae_forward_feature_fused(model, mel[:, :256], mm, fast)
+                    return mae_forward_feature_fused(model, mel[:, :256], mm, fast, self._impl)
 
             return fn
 
@@ -223,7 +226,8 @@ class FeatureExtractor:
         def fn(wav, lengths):
             with torch.inference_mode():
                 mel, nf = self._mel(*self._prologue(wav, lengths))
-                return model.extract_feature(mel, dim, nf, mm_dtype=mm, fast_softmax=fast)
+                return model.extract_feature(mel, dim, nf, mm_dtype=mm, fast_softmax=fast,
+                                             impl=self._impl)
 
         return fn
 

@@ -46,6 +46,10 @@ class Head(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.head == "linear":
             return self.fc(x)
+        if getattr(self, "tp_mesh", None) is not None:  # parallel/tensor.py placed it
+            from .tp_blocks import mlp_head
+
+            return mlp_head(self, x)
         return self.fc2(torch.relu(self.fc1(x)))
 
 

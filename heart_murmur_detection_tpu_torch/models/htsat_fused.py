@@ -22,6 +22,8 @@ import torch.nn.functional as F
 
 from ..audio.dsp import resize_bicubic_time
 from ..ops.swin import _ln, _mmf, fused_swin_block, fused_swin_pair
+from ..parallel.tensor import mesh_of
+from .tp_blocks import swin_block
 
 
 @torch.no_grad()
@@ -37,7 +39,9 @@ def htsat_apply_fused(
 
     model: a models.htsat.HTSAT (its weights and config). impl="kernel"
     launches the CUDA kernels for CUDA tensors (plain versions on the CPU);
-    impl="plain" runs the plain versions on any device.
+    impl="plain" runs the plain versions on any device. A model placed by
+    parallel.tensor.shard_model runs its blocks through
+    models/tp_blocks.swin_block instead (plain, whatever impl says).
     """
     cfg = model.config
     B, T, Fb = mel.shape
@@ -69,25 +73,30 @@ def htsat_apply_fused(
     x = _ln(y, pe.norm.weight, pe.norm.bias).to(mm_dtype)
 
     res = (Hp, Wp)
-    stages = model.prepared(mm_dtype)
+    tp = mesh_of(model) is not None
+    stages = model.train_stages(dev) if tp else model.prepared(mm_dtype)
     for i_layer, stage in enumerate(stages):
         H, W = res
         dim = x.shape[-1]
         xs = x.reshape(B, H, W, dim)
-        kw = dict(fast_softmax=fast_softmax, impl=impl, window=stage.window)
-        depth = len(stage.blocks)
-        b = 0
-        while b < depth:
-            pb = stage.blocks[b]
-            shift = 0 if b % 2 == 0 else stage.shift
-            if shift == 0 and b + 1 < depth and stage.shift:
-                xs = fused_swin_pair(
-                    xs, pb, stage.blocks[b + 1], stage.mask, stage.shift, **kw
-                )
-                b += 2
-                continue
-            xs = fused_swin_block(xs, pb, stage.mask if shift else None, shift, **kw)
-            b += 1
+        if tp:
+            for b, blk in enumerate(model.layers[i_layer].blocks):
+                xs = swin_block(xs, blk, stage, stage.shift if b % 2 else 0, None, None, mm_dtype)
+        else:
+            kw = dict(fast_softmax=fast_softmax, impl=impl, window=stage.window)
+            depth = len(stage.blocks)
+            b = 0
+            while b < depth:
+                pb = stage.blocks[b]
+                shift = 0 if b % 2 == 0 else stage.shift
+                if shift == 0 and b + 1 < depth and stage.shift:
+                    xs = fused_swin_pair(
+                        xs, pb, stage.blocks[b + 1], stage.mask, stage.shift, **kw
+                    )
+                    b += 2
+                    continue
+                xs = fused_swin_block(xs, pb, stage.mask if shift else None, shift, **kw)
+                b += 1
         x = xs.reshape(B, H * W, dim)
         if i_layer < len(stages) - 1:
             pm = model.layers[i_layer].downsample

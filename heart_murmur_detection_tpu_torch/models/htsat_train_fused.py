@@ -34,8 +34,10 @@ import torch.nn.functional as F
 
 from ..audio.dsp import resize_bicubic_time
 from ..ops.swin import _ln, block_layout
-from ..parallel.mesh import sync_moments
 from ..ops.swin_train import fused_swin_block_train, rel_pos_bias
+from ..parallel.mesh import sync_moments
+from ..parallel.tensor import mesh_of
+from . import tp_blocks
 
 Stats = Tuple[torch.Tensor, torch.Tensor]  # bn0 (running_mean, running_var)
 
@@ -106,7 +108,8 @@ def htsat_encode_train(
     ops.swin_train.fused_swin_block_train); float32 runs every block in
     float32. deterministic=True keeps the DropPath multipliers at 1. mesh:
     this rank's share of a data-parallel batch, bn0 on the global
-    statistics (bn_train)."""
+    statistics (bn_train). A model placed by parallel.tensor.shard_model
+    runs its blocks through models/tp_blocks.swin_block (plain route)."""
     cfg = model.config
     B, T, Fb = mel.shape
     dev = mel.device
@@ -133,6 +136,7 @@ def htsat_encode_train(
     act = torch.bfloat16 if mm_dtype == torch.bfloat16 else torch.float32
     dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths))
     stages = model.train_stages(dev)
+    tp = mesh_of(model) is not None
     res = (Hp, Wp)
     for i_layer, layer in enumerate(model.layers):
         H, W = res
@@ -141,7 +145,6 @@ def htsat_encode_train(
         fused = dim <= max_fused_dim and st.window == cfg.window_size
         for b, blk in enumerate(layer.blocks):
             shift = st.shift if b % 2 else 0
-            bias = rel_pos_bias(blk.attn.relative_position_bias_table, st.idx, st.seg)
             rate = float(dpr[sum(cfg.depths[:i_layer]) + b])
             if deterministic:
                 k1 = k2 = torch.ones(B, device=dev)
@@ -149,6 +152,13 @@ def htsat_encode_train(
                 k1 = _keep_mult(gen, B, rate, dev)
                 k2 = _keep_mult(gen, B, rate, dev)
             mask = st.mask if shift else None
+            if tp:
+                mm = mm_dtype if fused else torch.float32
+                xs = x.reshape(B, H, W, dim).to(act if fused else torch.float32)
+                xs = tp_blocks.swin_block(xs, blk, st, shift, k1, k2, mm)
+                x = xs.reshape(B, H * W, dim).to(torch.float32)
+                continue
+            bias = rel_pos_bias(blk.attn.relative_position_bias_table, st.idx, st.seg)
             if fused:
                 pb = _block_params(blk, bias, mm_dtype)
                 xs = x.reshape(B, H, W, dim).to(act)

@@ -32,6 +32,8 @@ import torch
 
 from ..ops import vit
 from ..ops.vit_train import fused_vit_block_train
+from ..parallel.tensor import mesh_of
+from . import tp_blocks
 from .vit_fused import _final_ln, _patch_embed
 from .vit_mae import (AudioMAEClassifierBackbone, MaskedAutoencoderViT, masking_noise,
                       random_masking)
@@ -40,6 +42,18 @@ from .vit_mae import (AudioMAEClassifierBackbone, MaskedAutoencoderViT, masking_
 def block_params(blk, mm_dtype: torch.dtype) -> vit.VitBlockParams:
     """One encoder block's kernel layout from its parameters, inside autograd."""
     return vit.vit_block_layout(blk.get_parameter, blk.num_heads, mm_dtype)
+
+
+def _block(h: torch.Tensor, blk, n_real: int, mm_dtype: torch.dtype, impl: str,
+           train: bool = True) -> torch.Tensor:
+    """One encoder block: the training blocks, the eval blocks (train=False),
+    or on a tensor-parallel model models/tp_blocks.vit_block."""
+    if mesh_of(blk) is not None:
+        return tp_blocks.vit_block(h, blk, n_real, mm_dtype)
+    p = block_params(blk, mm_dtype)
+    if train:
+        return fused_vit_block_train(h, p, n_real, impl)
+    return vit.fused_vit_block(h, p, n_real, "stable", "kernel" if impl == "kernel" else "plain")
 
 
 def mae_encode_train_fused(
@@ -68,11 +82,7 @@ def mae_encode_train_fused(
     h, n_real = vit.pad_tokens(torch.cat([cls, h], 1), 16)
     h = h.to(act).contiguous()
     for blk in model.blocks:
-        p = block_params(blk, mm_dtype)
-        if train:
-            h = fused_vit_block_train(h, p, n_real, impl)
-        else:
-            h = vit.fused_vit_block(h, p, n_real, "stable", "kernel" if impl == "kernel" else "plain")
+        h = _block(h, blk, n_real, mm_dtype, impl, train)
     return _final_ln(h[:, :n_real].to(torch.float32), model.norm), mask, ids_restore
 
 
@@ -89,7 +99,7 @@ def _backbone_train(model, x: torch.Tensor, norm: torch.nn.LayerNorm, mm_dtype: 
     h, n_real = vit.pad_tokens(torch.cat([cls, h], 1), 16)
     h = h.to(act).contiguous()
     for blk in model.blocks:
-        h = fused_vit_block_train(h, block_params(blk, mm_dtype), n_real, impl)
+        h = _block(h, blk, n_real, mm_dtype, impl)
     return _final_ln(h[:, 1:n_real].to(torch.float32).mean(1), norm)
 
 

@@ -25,6 +25,7 @@ import torch
 
 from ..ops.swin import _ln, _mmf
 from ..ops.vit import fused_vit_block, pad_tokens
+from ..parallel.tensor import mesh_of
 
 
 def _patch_embed(x: torch.Tensor, conv: torch.nn.Conv2d, mm_dtype: torch.dtype) -> torch.Tensor:
@@ -64,6 +65,14 @@ def _encode(model, x, mm_dtype, fast_softmax, impl) -> torch.Tensor:
     h = h + pos[:, 1 : h.shape[1] + 1]
     cls = (model.cls_token + pos[:, :1]).expand(h.shape[0], -1, -1)
     h = torch.cat([cls, h], dim=1)
+    if mesh_of(model) is not None:  # a tensor-parallel model: models/tp_blocks.py
+        from .tp_blocks import vit_block
+
+        h, n_real = pad_tokens(h, 16)
+        h = h.to(torch.bfloat16 if mm_dtype == torch.bfloat16 else torch.float32)
+        for blk in model.blocks:
+            h = vit_block(h, blk, n_real, mm_dtype)
+        return h[:, :n_real].to(torch.float32)
     return _encode_blocks(h, model.prepared(mm_dtype), mm_dtype, fast_softmax, impl)
 
 

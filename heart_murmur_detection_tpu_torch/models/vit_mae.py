@@ -286,6 +286,10 @@ class SwinV2CRBlock(nn.Module):
         return self._consts[key]
 
     def forward(self, x: torch.Tensor, mm_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        if getattr(self, "tp_mesh", None) is not None:  # parallel/tensor.py placed it
+            from .tp_blocks import swinv2cr_block
+
+            return swinv2cr_block(self, x, mm_dtype)
         H, W = self.feat_size
         B, L, C = x.shape
         if L != H * W:

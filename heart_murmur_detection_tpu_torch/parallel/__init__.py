@@ -1,5 +1,6 @@
-"""Data parallelism over torch.distributed (parallel/mesh.py) and the
-launcher of its ranks (parallel/launch.py)."""
+"""Data and tensor parallelism over torch.distributed (parallel/mesh.py,
+parallel/tensor.py) and the launcher of their ranks (parallel/launch.py)."""
 
 from .launch import launch
-from .mesh import DataParallelMesh, DataParallelPlan, data_parallel_mesh, mesh_from_cli
+from .mesh import (DataParallelMesh, DataParallelPlan, TensorParallelMesh, data_parallel_mesh,
+                   mesh_2d, mesh_from_cli)

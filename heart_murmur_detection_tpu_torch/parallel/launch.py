@@ -1,11 +1,14 @@
-"""Start the ranks of a data-parallel run and return rank 0's result.
+"""Start the ranks of a data-parallel or dp x tp run and return rank 0's
+result.
 
-    launch(fn, n, *args, backend=None, device="cuda", **kwargs)
+    launch(fn, n, *args, backend=None, device="cuda", tp=1, **kwargs)
 
 runs fn(mesh, *args, **kwargs) in n processes (the spawn start method,
 rendezvous through a file store in a temporary directory), each with the
-DataParallelMesh of its rank (parallel/mesh.py), and returns what rank 0's
-fn returned. fn must be importable by name (a module-level function).
+mesh of its rank (parallel/mesh.py: a DataParallelMesh, or with tp > 1 the
+TensorParallelMesh of n / tp data ranks by tp model ranks), and returns
+what rank 0's fn returned. fn must be importable by name (a module-level
+function).
 backend: "nccl" (the default on a card: one card a rank) or "gloo" (the
 default on the CPU; on a card, gloo ranks share cards round robin). On the
 CPU each rank runs one intra-op thread.
@@ -33,7 +36,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from .mesh import (check_backend, data_parallel_mesh, default_backend, init_group,
+from .mesh import (check_backend, data_parallel_mesh, default_backend, init_group, mesh_2d,
                    rank_device)
 
 GRACE_S = 10.0  # after a rank fails, how long the others get to end on their own
@@ -48,13 +51,22 @@ def _in_torchrun() -> bool:
                                                                    "MASTER_ADDR"))
 
 
-def _rank_main(rank, n, backend, device, tmp, fn, args, kwargs):
+def rank_mesh(n: int, tp: int, backend, device):
+    """The mesh of this rank of an n-rank group: 1-D, or n / tp by tp."""
+    if tp == 1:
+        return data_parallel_mesh(n, backend, device)
+    if n % tp:
+        raise ValueError(f"{n} ranks do not divide into a tensor axis of {tp}")
+    return mesh_2d(n // tp, tp, backend, device)
+
+
+def _rank_main(rank, n, tp, backend, device, tmp, fn, args, kwargs):
     try:
         if torch.device(device).type == "cpu":
             torch.set_num_threads(1)
         init_group(backend, rank, n, f"file://{os.path.join(tmp, 'store')}",
                    rank_device(device, rank))
-        out = fn(data_parallel_mesh(n, backend, device), *args, **kwargs)
+        out = fn(rank_mesh(n, tp, backend, device), *args, **kwargs)
         if rank == 0:
             part = os.path.join(tmp, "result.part")
             torch.save(out, part)
@@ -71,10 +83,11 @@ def _rank_main(rank, n, backend, device, tmp, fn, args, kwargs):
         raise SystemExit(1)
 
 
-def launch(fn, n: int, *args, backend=None, device="cuda", **kwargs):
-    """fn(mesh, *args, **kwargs) on n ranks -> rank 0's result."""
+def launch(fn, n: int, *args, backend=None, device="cuda", tp: int = 1, **kwargs):
+    """fn(mesh, *args, **kwargs) on n ranks (tp of them on each tensor
+    axis) -> rank 0's result."""
     if _in_torchrun():
-        return fn(data_parallel_mesh(n, backend, device), *args, **kwargs)
+        return fn(rank_mesh(n, tp, backend, device), *args, **kwargs)
     device = torch.device(device)
     backend = backend or default_backend(device)
     check_backend(backend, n, device)
@@ -82,8 +95,8 @@ def launch(fn, n: int, *args, backend=None, device="cuda", **kwargs):
         raise RuntimeError("device='cuda' but no CUDA card is available (pass device='cpu')")
     tmp = tempfile.mkdtemp(prefix="hmdt-ranks-")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, n, backend, str(device), tmp, fn, args,
-                                                  kwargs))
+    procs = [ctx.Process(target=_rank_main, args=(r, n, tp, backend, str(device), tmp, fn,
+                                                  args, kwargs))
              for r in range(n)]
     try:
         for p in procs:

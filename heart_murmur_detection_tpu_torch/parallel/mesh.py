@@ -1,7 +1,8 @@
-"""Data parallelism over torch.distributed — counterpart of
-heart_murmur_detection_tpu/parallel/mesh.py (`dp_axis` :39,
-`data_parallel_mesh` :51, `mesh_from_cli` :198, `shard_params_and_opt`
-:219, `shard_batch` :230, `place_like` :244).
+"""Data parallelism and the dp x tp mesh over torch.distributed —
+counterpart of heart_murmur_detection_tpu/parallel/mesh.py (`dp_axis` :39,
+`data_parallel_mesh` :51, `mesh_2d` :58, `param_sharding_axis` :107,
+`mesh_from_cli` :198, `shard_params_and_opt` :219, `shard_batch` :230,
+`place_like` :244).
 
 The JAX package has one controller and N devices; the port has one process
 a rank (PyTorch's own model), and every trainer runs inside every rank. A
@@ -31,8 +32,19 @@ parameters and the optimizer's state as one flat 1/n shard a rank; the
 whole model is gathered at use, at the start of a step, and gradients are
 reduce-scattered into their owner's shard.
 
-The tensor axis (mesh_2d, the Megatron specs) is not ported: `tp` > 1
-raises NotImplementedError and names its ROADMAP item.
+The tensor axis (mesh_2d :58, `param_sharding_axis` :107): a
+TensorParallelMesh is the JAX 2-D ('data', 'model') mesh, devices reshaped
+row-major to (n_data, n_model), so rank r has data index r // n_model and
+model index r % n_model (model peers are consecutive ranks). It carries two
+DataParallelMesh views, one over the rank's data-axis group and one over its
+model-axis group. Every collective that couples rows (local_rows,
+shard_rows, gather_rows, sync_moments, all_reduce_grads, all_reduce_sum) and
+rank_generator take the data view, since model peers hold the same rows;
+gather_objects, broadcast_value and the barrier take the whole world.
+Megatron placement and its forward live in parallel/tensor.py and
+models/tp_blocks.py; param_sharding="fsdp" on the 2-D mesh is ZeRO-3 over
+the model axis (ZeroShard sums the gradients over the data axis, then each
+model rank keeps its slice).
 
 gloo takes CUDA tensors for every collective used here (all_reduce,
 all_gather, reduce_scatter_tensor, broadcast, barrier; PyTorch 2.11 on an
@@ -51,9 +63,6 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-TP_ITEM = "ROADMAP.md queue A item 2, dp x tp on plain torch"
-
-
 @dataclasses.dataclass(frozen=True)
 class DataParallelMesh:
     """The 1-D data axis of an initialised process group, seen from one rank."""
@@ -69,40 +78,122 @@ class DataParallelMesh:
 
 
 @dataclasses.dataclass(frozen=True)
+class TensorParallelMesh:
+    """The 2-D ('data', 'model') mesh of an initialised process group, seen
+    from one rank (the JAX mesh_2d layout: rank = data index * n_model +
+    model index). rank / world / group are the whole world's; `data` is the
+    rank's data-axis group (the ranks of its model index, its data index as
+    rank) and `model` its model-axis group (its n_model consecutive ranks)."""
+
+    rank: int
+    world: int
+    group: Any
+    backend: str
+    device: torch.device
+    data: DataParallelMesh
+    model: DataParallelMesh
+
+    @property
+    def n_data(self) -> int:
+        return self.data.world
+
+    @property
+    def n_model(self) -> int:
+        return self.model.world
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
+
+
+@dataclasses.dataclass(frozen=True)
 class DataParallelPlan:
-    """What mesh_from_cli asks for: n ranks over `backend` (None: NCCL on a
+    """What mesh_from_cli asks for: n data-parallel ranks, each of tp ranks
+    on the tensor axis (n tp ranks in all), over `backend` (None: NCCL on a
     card, gloo on the CPU). parallel.launch turns it into a DataParallelMesh
-    in each rank."""
+    (tp = 1) or a TensorParallelMesh in each rank."""
 
     n: int
     backend: Optional[str] = None
+    tp: int = 1
+
+    @property
+    def world(self) -> int:
+        return self.n * self.tp
 
 
-def check_mesh(mesh) -> Optional[DataParallelMesh]:
+def check_mesh(mesh):
     """mesh or None; anything else is a TypeError (a JAX Mesh, say)."""
-    if mesh is not None and not isinstance(mesh, DataParallelMesh):
-        raise TypeError(f"mesh must be a parallel.mesh.DataParallelMesh, got {type(mesh).__name__}")
+    if mesh is not None and not isinstance(mesh, (DataParallelMesh, TensorParallelMesh)):
+        raise TypeError("mesh must be a parallel.mesh.DataParallelMesh or TensorParallelMesh, "
+                        f"got {type(mesh).__name__}")
     return mesh
+
+
+def is_2d(mesh) -> bool:
+    return isinstance(mesh, TensorParallelMesh)
+
+
+def data_axis(mesh) -> Optional[DataParallelMesh]:
+    """The mesh's data axis as a DataParallelMesh (the mesh itself when 1-D;
+    None without a mesh): the group every row-coupling collective runs over."""
+    return mesh.data if is_2d(mesh) else mesh
+
+
+def world_axis(mesh) -> Optional[DataParallelMesh]:
+    """Every rank of the mesh as one flat data axis (the extractor's rows)."""
+    if not is_2d(mesh):
+        return mesh
+    return DataParallelMesh(mesh.rank, mesh.world, mesh.group, mesh.backend, mesh.device)
+
+
+def data_size(mesh) -> int:
+    """The data axis's length (1 without a mesh)."""
+    return 1 if mesh is None else data_axis(mesh).world
+
+
+def param_sharding_axis(mesh, rule: str) -> str:
+    """The mesh axis parameters are sharded over (the JAX function :107):
+    "model" on a 2-D mesh; "data" for fsdp on a 1-D mesh (ZeRO-3 over pure
+    DP); megatron on a 1-D mesh is a ValueError."""
+    if is_2d(mesh):
+        return "model"
+    if rule == "fsdp":
+        return "data"
+    raise ValueError("megatron param sharding needs a 'model' mesh axis (got ('data',)); "
+                     "use a dp x tp mesh or param_sharding=fsdp")
 
 
 def check_param_sharding(mesh, param_sharding: Optional[str]) -> Optional[str]:
     """A trainer's param_sharding: without a mesh it does nothing, as in the
     JAX trainers (the CLIs refuse it there: mesh_from_cli); "fsdp" is ZeRO-3
-    over the data axis; "megatron" needs a tensor axis, which is not ported."""
+    over the data axis (1-D) or the model axis (2-D); "megatron" needs the
+    2-D mesh's model axis."""
     if param_sharding is None or mesh is None:
         return None
-    if param_sharding == "megatron":
-        raise ValueError(
-            "megatron param sharding needs a 'model' mesh axis (not ported: "
-            f"{TP_ITEM}); use param_sharding=fsdp")
-    if param_sharding != "fsdp":
+    if param_sharding not in ("megatron", "fsdp"):
         raise ValueError(f"unknown param sharding rule: {param_sharding!r}")
+    param_sharding_axis(check_mesh(mesh), param_sharding)
     return param_sharding
 
 
 def dp_axis(mesh) -> Optional[str]:
-    """The data-axis name of a mesh ("data"), None without one."""
-    return None if check_mesh(mesh) is None else "data"
+    """The data-axis name of a 1-D mesh ("data"), None without one or on a
+    2-D mesh (the JAX gate of the kernel paths: tensor-sharded parameters
+    keep the plain graphs)."""
+    return None if check_mesh(mesh) is None or is_2d(mesh) else "data"
+
+
+def plain_only(mesh, fused_train: Optional[bool], param_sharding: Optional[str]) -> bool:
+    """Whether a trainer must run its plain path: under param_sharding or a
+    2-D mesh, as the JAX trainers keep their XLA graphs there.
+    fused_train=True there is a ValueError, never a silent switch."""
+    if param_sharding is None and not is_2d(mesh):
+        return False
+    if fused_train:
+        raise ValueError(
+            "fused_train under a mesh needs pure data parallelism (a 1-D mesh, no "
+            "param_sharding): ZeRO-3 and the tensor axis run the plain path")
+    return True
 
 
 def _free_port() -> int:
@@ -192,22 +283,42 @@ def data_parallel_mesh(n: Optional[int] = None, backend: Optional[str] = None,
     return DataParallelMesh(rank, world, dist.group.WORLD, got, dev)
 
 
+def mesh_2d(n_data: int, n_model: int, backend: Optional[str] = None,
+            device=None) -> TensorParallelMesh:
+    """This rank's (n_data x n_model) mesh over the process group already
+    set up (parallel.launch with tp=n_model, or torchrun's environment), as
+    the JAX mesh_2d lays out devices: rank r at data index r // n_model and
+    model index r % n_model. Every rank makes every subgroup, in the same
+    order (torch.distributed.new_group's rule)."""
+    flat = data_parallel_mesh(n_data * n_model, backend, device)
+    data_groups = [dist.new_group([d * n_model + m for d in range(n_data)])
+                   for m in range(n_model)]
+    model_groups = [dist.new_group([d * n_model + m for m in range(n_model)])
+                    for d in range(n_data)]
+    d, m = divmod(flat.rank, n_model)
+    view = lambda rank, world, group: DataParallelMesh(rank, world, group, flat.backend,
+                                                       flat.device)
+    return TensorParallelMesh(flat.rank, flat.world, flat.group, flat.backend, flat.device,
+                              view(d, n_data, data_groups[m]), view(m, n_model, model_groups[d]))
+
+
 def mesh_from_cli(cfg: dict) -> Tuple[Optional[DataParallelPlan], Optional[str]]:
     """(plan, param_sharding) from the CLI keys dp / tp / param_sharding /
-    dist_backend — the JAX contract: dp=N is 1-D data parallelism,
-    param_sharding=fsdp is ZeRO-3 over the data axis, and param_sharding
-    without a mesh is a config error, not a silent no-op. tp > 1 (the
-    tensor axis) raises NotImplementedError."""
+    dist_backend — the JAX contract: dp=N is 1-D data parallelism; tp=M
+    adds the tensor axis (a dp x tp plan, megatron unless param_sharding
+    says fsdp, which then shards over the model axis); param_sharding=fsdp
+    with dp alone is ZeRO-3 over the data axis; param_sharding without a
+    mesh is a config error, not a silent no-op."""
     dp, tp = int(cfg.get("dp", 1)), int(cfg.get("tp", 1))
     param_sharding = cfg.get("param_sharding")
     if tp > 1:
-        raise NotImplementedError(f"tp={tp}: the tensor axis is not ported ({TP_ITEM})")
+        return DataParallelPlan(dp, cfg.get("dist_backend"), tp), param_sharding or "megatron"
     if dp > 1:
         return DataParallelPlan(dp, cfg.get("dist_backend")), param_sharding
     if param_sharding is not None:
         raise ValueError(
             f"param_sharding={param_sharding!r} requires a device mesh; "
-            "set dp=N (ZeRO-3 over data)"
+            "set dp=N (ZeRO-3 over data) or dp=N tp=M (tensor axis)"
         )
     return None, None
 
@@ -215,8 +326,9 @@ def mesh_from_cli(cfg: dict) -> Tuple[Optional[DataParallelPlan], Optional[str]]
 # -- rows ---------------------------------------------------------------------
 
 
-def local_rows(b: int, mesh: DataParallelMesh) -> slice:
-    """This rank's rows of a global batch of b rows."""
+def local_rows(b: int, mesh) -> slice:
+    """This rank's rows of a global batch of b rows (its data index's)."""
+    mesh = data_axis(mesh)
     if b % mesh.world:
         raise ValueError(f"batch of {b} rows not divisible by the data axis ({mesh.world})")
     per = b // mesh.world
@@ -250,10 +362,12 @@ class _GatherRows(torch.autograd.Function):
         return g[ctx.rows], None
 
 
-def gather_rows(x: torch.Tensor, mesh: Optional[DataParallelMesh]) -> torch.Tensor:
-    """Every rank's rows of x, concatenated in rank order (the global batch)."""
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's rows of x, concatenated in rank order (the global batch;
+    over the data axis)."""
     if mesh is None:
         return x
+    mesh = data_axis(mesh)
     if x.requires_grad:
         return _GatherRows.apply(x, mesh)
     return _all_gather(x, mesh)
@@ -275,9 +389,10 @@ class _AllReduceMean(torch.autograd.Function):
 
 
 def all_reduce_mean_autograd(x: torch.Tensor, mesh: DataParallelMesh) -> torch.Tensor:
-    """The mean over ranks of x; its backward averages the cotangents over
-    ranks (for BatchNorm moments: dx then sees every rank's use of them)."""
-    return _AllReduceMean.apply(x, mesh)
+    """The mean over the data axis of x; its backward averages the
+    cotangents over it (for BatchNorm moments: dx then sees every rank's
+    use of them)."""
+    return _AllReduceMean.apply(x, data_axis(mesh))
 
 
 def sync_moments(x: torch.Tensor, dims: Sequence[int], mesh: Optional[DataParallelMesh]):
@@ -301,10 +416,10 @@ def sync_moments(x: torch.Tensor, dims: Sequence[int], mesh: Optional[DataParall
 
 
 @torch.no_grad()
-def all_reduce_sum(x: torch.Tensor, mesh: DataParallelMesh) -> torch.Tensor:
-    """x summed over ranks (a new tensor)."""
+def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x summed over the data axis (a new tensor)."""
     y = x.detach().clone()
-    dist.all_reduce(y, group=mesh.group)
+    dist.all_reduce(y, group=data_axis(mesh).group)
     return y
 
 
@@ -331,9 +446,9 @@ def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def all_reduce_grads(params: Sequence[torch.Tensor], mesh: Optional[DataParallelMesh],
+def all_reduce_grads(params: Sequence[torch.Tensor], mesh,
                      grads: Optional[Sequence[Optional[torch.Tensor]]] = None) -> List[torch.Tensor]:
-    """Sum the gradient shares over ranks in one flat buffer, in parameter
+    """Sum the gradient shares over the data axis in one flat buffer, in parameter
     order (a parameter without a gradient contributes zeros). grads: the
     shares (default: each parameter's .grad, which takes the sums).
     Returns the summed gradients."""
@@ -343,7 +458,7 @@ def all_reduce_grads(params: Sequence[torch.Tensor], mesh: Optional[DataParallel
     if mesh is None:
         return gs
     buf = _flat(gs)
-    dist.all_reduce(buf, group=mesh.group)
+    dist.all_reduce(buf, group=data_axis(mesh).group)
     out, o = [], 0
     for p, g in zip(params, gs):
         v = buf[o:o + g.numel()].view_as(g)
@@ -354,12 +469,13 @@ def all_reduce_grads(params: Sequence[torch.Tensor], mesh: Optional[DataParallel
     return out
 
 
-def rank_generator(seed: int, mesh: Optional[DataParallelMesh], device) -> torch.Generator:
+def rank_generator(seed: int, mesh, device) -> torch.Generator:
     """The generator of a rank's own draws (dropout, DropPath,
-    drop-connect): `seed` without a mesh, else a seed folded with the rank,
-    as the JAX package folds the shard index into its key. DP then equals
-    the single-device run only at rate 0, as in the JAX package."""
-    s = seed if mesh is None else seed * 1_000_003 + mesh.rank + 1
+    drop-connect): `seed` without a mesh, else a seed folded with the rank's
+    data index, as the JAX package folds the shard index into its key (model
+    peers draw alike). DP then equals the single-device run only at rate 0,
+    as in the JAX package."""
+    s = seed if mesh is None else seed * 1_000_003 + data_axis(mesh).rank + 1
     return torch.Generator(device=device).manual_seed(s)
 
 
@@ -375,23 +491,31 @@ def _quiet(fn, *args, **kw):
 
 
 class ZeroShard:
-    """ZeRO-3 over the data axis for `params` (the trainable parameters, in
-    order): at rest each rank keeps one flat shard of shard_len elements of
-    their concatenation (zero-padded to n shard_len), `shard`, which the
-    optimizer updates (its state is shard-sized too); the parameters
-    themselves hold no storage once released. gather() all-gathers the
-    shards and points every parameter at its slice of the full buffer;
-    reduce_grads() reduce-scatters the parameters' gradients (the rank's
-    shares) into shard.grad; release() frees the full buffer. A new
-    ZeroShard leaves the parameters as they were (full) until the first
-    release()."""
+    """ZeRO-3 for `params` (the trainable parameters, in order) over the
+    data axis of a 1-D mesh or the model axis of a 2-D one (JAX
+    param_sharding_axis): at rest each rank of that axis keeps one flat
+    shard of shard_len elements of their concatenation (zero-padded to n
+    shard_len), `shard`, which the optimizer updates (its state is
+    shard-sized too); the parameters themselves hold no storage once
+    released. gather() all-gathers the shards and points every parameter at
+    its slice of the full buffer; reduce_grads() completes the gradients
+    into shard.grad; release() frees the full buffer. A new ZeroShard leaves
+    the parameters as they were (full) until the first release().
 
-    def __init__(self, params: Sequence[torch.nn.Parameter], mesh: DataParallelMesh):
-        self.params, self.mesh = list(params), mesh
+    On the 1-D mesh each rank holds its rows' share of the gradient, and a
+    reduce-scatter sums the shares into their owner's shard. On the 2-D
+    mesh the model peers ran the same rows: the shares are summed over the
+    data axis and each model rank keeps its slice of the sum (a
+    reduce-scatter over the model axis would add n_model equal copies)."""
+
+    def __init__(self, params: Sequence[torch.nn.Parameter], mesh):
+        self.params = list(params)
+        self.mesh = mesh.model if is_2d(mesh) else mesh  # the axis the shards lie on
+        self.sum_over = mesh.data if is_2d(mesh) else None
         self.shapes = [p.shape for p in self.params]
         self.numels = [p.numel() for p in self.params]
         self.total = sum(self.numels)
-        self.shard_len = -(-self.total // mesh.world)
+        self.shard_len = -(-self.total // self.mesh.world)
         p0 = self.params[0]
         self.shard = torch.nn.Parameter(torch.empty(self.shard_len, dtype=p0.dtype,
                                                     device=p0.device))
@@ -433,13 +557,18 @@ class ZeroShard:
 
     @torch.no_grad()
     def reduce_grads(self, grads: Optional[Sequence[Optional[torch.Tensor]]] = None) -> torch.Tensor:
-        """Reduce-scatter (sum) the gradient shares into this rank's shard:
-        shard.grad. grads default to the parameters' .grad."""
+        """The summed gradient shares' slice of this rank: shard.grad. grads
+        default to the parameters' .grad."""
         gs = [p.grad for p in self.params] if grads is None else list(grads)
         gs = [torch.zeros(s, dtype=self.shard.dtype, device=self.shard.device) if g is None else g
               for g, s in zip(gs, self.shapes)]
-        out = torch.empty_like(self.shard)
-        _quiet(dist.reduce_scatter_tensor, out, self._pad(_flat(gs)), group=self.mesh.group)
+        if self.sum_over is not None:
+            flat = self._pad(_flat(gs))
+            dist.all_reduce(flat, group=self.sum_over.group)
+            out = self._own(flat).clone()
+        else:
+            out = torch.empty_like(self.shard)
+            _quiet(dist.reduce_scatter_tensor, out, self._pad(_flat(gs)), group=self.mesh.group)
         self.shard.grad = out
         return out
 
@@ -463,11 +592,10 @@ class ZeroShard:
         return out
 
 
-def shard_params_and_opt(params: Sequence[torch.nn.Parameter], mesh: DataParallelMesh,
-                         make_opt):
-    """ZeRO-3 placement (the JAX shard_params_and_opt :219 over the data
-    axis): (ZeroShard of params, make_opt([shard]): the optimizer born
-    shard-sized)."""
+def shard_params_and_opt(params: Sequence[torch.nn.Parameter], mesh, make_opt):
+    """ZeRO-3 placement (the JAX shard_params_and_opt :219 with fsdp: over
+    the data axis of a 1-D mesh, the model axis of a 2-D one): (ZeroShard
+    of params, make_opt([shard]): the optimizer born shard-sized)."""
     zero = ZeroShard(params, mesh)
     return zero, make_opt([zero.shard])
 

@@ -33,6 +33,17 @@ runs param_sharding on its XLA graphs; fused_train=True with
 param_sharding is refused. The train kernels run under a plain mesh, each
 rank on its rows. Rank 0 writes the checkpoints and the CSV.
 
+On a dp x tp mesh (parallel/mesh.py::TensorParallelMesh) rows, gathers,
+sync-BN and the generators follow the data axis (model peers run the same
+rows and draw alike); param_sharding="megatron" (the CLI's default there)
+places the HTS-AT's blocks over the model axis (parallel/tensor.py; the
+EfficientNet's 4-D convs match no rule and stay replicated, as in the JAX
+package) and runs them through models/tp_blocks.py; "fsdp" is ZeRO-3 over
+the model axis; None keeps every parameter whole on every rank. Every
+2-D run takes the plain path (fused_train=True raises, as in the JAX
+trainers). Checkpoints and the returned state_dict hold the full
+single-device tensors, gathered from the model ranks.
+
 compute_dtype=torch.bfloat16 is the bf16 flow of the JAX path (HTS-AT:
 stages 0-2 in bf16 through the train kernels, everything else float32;
 EfficientNet: bf16 convolutions with float32 BatchNorms); None is strict
@@ -53,8 +64,10 @@ from ..models import bn as bn_mod
 from ..models.cola import Cola, cola_loss
 from ..models.htsat import HTSATConfig, init_weights
 from ..models.htsat_train_fused import cola_train_apply
+from ..parallel import tensor
 from ..parallel.mesh import (ZeroShard, check_mesh, check_param_sharding, gather_rows,
-                             local_rows, rank_generator, shard_params_and_opt, shard_rows)
+                             local_rows, plain_only, rank_generator, shard_params_and_opt,
+                             shard_rows)
 from ..train.checkpoints import ResumeCheckpointer, TopKCheckpointer
 from ..utils.logging import CSVLogger
 from ..utils.precision import strict_f32
@@ -70,17 +83,14 @@ def _cola_early_freeze(name: str) -> bool:
 
 
 def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool],
-               device: torch.device, param_sharding: Optional[str] = None) -> str:
+               device: torch.device, param_sharding: Optional[str] = None, mesh=None) -> str:
     """The swin blocks' route (ops.swin_train.fused_swin_block_train impl):
     the train kernels for bf16 on a card unless fused_train=False; the plain
     versions of the kernels for bf16 otherwise; torch autograd in float32.
-    param_sharding (ZeRO-3) keeps the plain path, as the JAX package keeps
-    its XLA graphs there; fused_train=True with it is a ValueError."""
-    if param_sharding is not None:
-        if fused_train:
-            raise ValueError(
-                "fused_train under a mesh needs pure data parallelism (no param_sharding): "
-                "ZeRO-3 runs the plain path")
+    param_sharding (ZeRO-3, megatron) and a 2-D mesh keep the plain path,
+    as the JAX package keeps its XLA graphs there; fused_train=True with
+    them is a ValueError (parallel/mesh.py::plain_only)."""
+    if plain_only(mesh, fused_train, param_sharding):
         fused_train = False
     if compute_dtype != torch.bfloat16:
         return "autograd"
@@ -174,8 +184,8 @@ def train_multiple_data(
     EfficientNet's features are 1280 wide, with a `middle` Linear when
     dim_hidden differs. dropout_p is the projector's dropout and the
     EfficientNet's drop-connect rate. mesh: this rank's DataParallelMesh
-    (the run takes the mesh's device); param_sharding: "fsdp" (ZeRO-3) or
-    None (see the module doc)."""
+    or TensorParallelMesh (the run takes the mesh's device); param_sharding:
+    "fsdp" (ZeRO-3), "megatron" (2-D mesh) or None (see the module doc)."""
     if encoder not in ("htsat", "efficientnet"):
         raise ValueError(f"encoder {encoder!r}: 'htsat' or 'efficientnet'")
     mesh = check_mesh(mesh)
@@ -187,7 +197,7 @@ def train_multiple_data(
     if mesh is not None:
         local_rows(batch_size, mesh)  # "not divisible" before anything runs
     mm_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
-    impl = train_impl(compute_dtype, fused_train, device, param_sharding)
+    impl = train_impl(compute_dtype, fused_train, device, param_sharding, mesh)
 
     model = Cola(htsat_config or HTSATConfig(), dim_out=dim_out, encoder=encoder,
                  dim_hidden=dim_hidden, p=dropout_p)
@@ -203,6 +213,8 @@ def train_multiple_data(
         own = model.state_dict()
         model.load_state_dict({k: loaded.get(k, v) for k, v in own.items()})
     model.to(device).train()
+    if param_sharding == "megatron":
+        tensor.shard_model(model, mesh)
 
     if corpora is None:
         corpora = [
@@ -218,7 +230,7 @@ def train_multiple_data(
     make_opt = lambda ps: steps.adam_with_epoch_decay(ps, sampler.steps_per_epoch, lr=lr,
                                                       decay=0.99)
     zero = None
-    if param_sharding is not None:
+    if param_sharding == "fsdp":
         zero, opt = shard_params_and_opt(trainable, mesh, make_opt)
     else:
         opt = make_opt(trainable)
@@ -304,12 +316,12 @@ def train_multiple_data(
                         f"[cola-cp {title}] epoch {epoch} train {train_loss:.4f} "
                         f"valid {valid_loss:.4f} acc {valid_acc:.3f} ({time.time()-t0:.1f}s)"
                     )
-                ckpt.step(epoch, valid_loss, model.state_dict(), valid_acc=valid_acc)
+                ckpt.step(epoch, valid_loss, tensor.state_dict(model), valid_acc=valid_acc)
             if resume_ckpt.due(epoch):
-                resume_ckpt.save(epoch, model.state_dict(), steps.full_opt_state(opt, zero),
+                resume_ckpt.save(epoch, tensor.state_dict(model), steps.full_opt_state(opt, zero),
                                  steps.rng_state(sampler, gen, mesh))
             if zero is not None:
                 zero.release()
     if zero is not None:
         zero.gather()
-    return model.state_dict(), history, ckpt.best_path
+    return tensor.state_dict(model), history, ckpt.best_path

@@ -31,6 +31,12 @@ pmean, exact: equal shard sizes, a static len_keep). param_sharding="fsdp"
 is ZeRO-3 over the data axis on the plain path (fused_train=True with it
 is refused). Rank 0 writes the checkpoints and the CSV.
 
+On a dp x tp mesh the rows, the noise rows and the loss mean follow the
+data axis (model peers run the same rows with the same noise);
+"megatron" places the ViT encoder's and the SwinV2-CR decoder's blocks
+over the model axis (parallel/tensor.py, models/tp_blocks.py), "fsdp" is
+ZeRO-3 over it, and every 2-D run takes the plain path.
+
 compute_dtype=torch.bfloat16 is the bf16 flow of the JAX fused step;
 None is strict float32, differentiated by torch autograd. TF32 stays off
 for every float32 product.
@@ -52,6 +58,7 @@ from ..models.vit_mae import (
     mae_vit_small_config,
 )
 from ..models import mae_train_fused
+from ..parallel import tensor
 from ..parallel.mesh import (check_mesh, check_param_sharding, local_rows,
                              shard_params_and_opt, shard_rows)
 from ..train.checkpoints import ResumeCheckpointer, TopKCheckpointer
@@ -107,8 +114,10 @@ def mae_train_multiple_data(
     initial_state: a state_dict of the MAE (decoder included) to start from
     instead of the seeded random init. ckpt_path: the Audio-MAE checkpoint
     of pretrain='audiomae' (default: the reference's path, not in the
-    repository). mesh: this rank's DataParallelMesh (the run takes the
-    mesh's device); param_sharding: "fsdp" (ZeRO-3) or None."""
+    repository). mesh: this rank's DataParallelMesh or TensorParallelMesh
+    (the run takes the mesh's device); param_sharding: "fsdp" (ZeRO-3),
+    "megatron" (2-D mesh: the ViT encoder's and the SwinV2-CR decoder's
+    blocks over the model axis, models/tp_blocks.py) or None."""
     mesh = check_mesh(mesh)
     param_sharding = check_param_sharding(mesh, param_sharding)
     device = mesh.device if mesh is not None else torch.device(device)
@@ -124,7 +133,7 @@ def mae_train_multiple_data(
     else:
         cfg = mae_vit_small_config(mask_ratio=0.7)
     mm_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
-    impl = train_impl(compute_dtype, fused_train, device, param_sharding)
+    impl = train_impl(compute_dtype, fused_train, device, param_sharding, mesh)
 
     model = MaskedAutoencoderViT(cfg, decoder=True)
     if initial_state is not None:
@@ -139,6 +148,8 @@ def mae_train_multiple_data(
             raise registry._missing(pretrain, path)
         convert.load_mae_ckpt(path, model)
     model.to(device).train()
+    if param_sharding == "megatron":
+        tensor.shard_model(model, mesh)
 
     if corpora is None:
         corpora = [
@@ -150,7 +161,7 @@ def mae_train_multiple_data(
     make_opt = lambda ps: steps.adam_with_epoch_decay(ps, sampler.steps_per_epoch, lr=lr,
                                                       decay=0.99)
     zero = None
-    if param_sharding is not None:
+    if param_sharding == "fsdp":
         zero, opt = shard_params_and_opt(list(model.parameters()), mesh, make_opt)
     else:
         opt = make_opt(list(model.parameters()))
@@ -222,12 +233,12 @@ def mae_train_multiple_data(
             if verbose:
                 print(f"[mae-cp {title}] epoch {epoch} train {train_loss:.4f} "
                       f"valid {valid_loss:.4f} ({time.time() - t0:.1f}s)")
-            ckpt.step(epoch, valid_loss, model.state_dict(), valid_acc=0.0)
+            ckpt.step(epoch, valid_loss, tensor.state_dict(model), valid_acc=0.0)
             if resume_ckpt.due(epoch):
-                resume_ckpt.save(epoch, model.state_dict(), steps.full_opt_state(opt, zero),
+                resume_ckpt.save(epoch, tensor.state_dict(model), steps.full_opt_state(opt, zero),
                                  steps.rng_state(sampler, gen, mesh))
             if zero is not None:
                 zero.release()
     if zero is not None:
         zero.gather()
-    return model.state_dict(), history, ckpt.best_path
+    return tensor.state_dict(model), history, ckpt.best_path

@@ -19,7 +19,8 @@ from typing import Callable, Iterable, List, Optional
 import torch
 
 from ..models.mae_train_fused import mae_train_loss_fused
-from ..parallel.mesh import (DataParallelMesh, ZeroShard, all_reduce_grads, all_reduce_sum,
+from ..parallel import tensor
+from ..parallel.mesh import (ZeroShard, all_reduce_grads, all_reduce_sum, data_size,
                              gather_objects, place_like)
 
 
@@ -71,37 +72,39 @@ def make_frozen(model: torch.nn.Module,
 
 
 def full_opt_state(opt: EpochDecayAdam, zero: Optional[ZeroShard] = None) -> dict:
-    """The optimizer state a resume checkpoint holds: under ZeRO-3 gathered
-    to full size first (every rank takes part)."""
+    """The optimizer state a resume checkpoint holds: under ZeRO-3 or the
+    tensor axis gathered to full size first (every rank takes part)."""
     sd = opt.state_dict()
     if zero is not None:
-        sd = {**sd, "adam": zero.full_state(sd["adam"])}
-    return sd
+        return {**sd, "adam": zero.full_state(sd["adam"])}
+    return {**sd, "adam": tensor.full_adam_state(opt.params, sd["adam"])}
 
 
 def load_train_state(model: torch.nn.Module, opt: EpochDecayAdam, zero: Optional[ZeroShard],
                      state_dict: dict, opt_state: dict) -> None:
     """Restore a resume checkpoint: the weights placed as the run set them
-    up (parallel/mesh.py::place_like) and, under ZeRO-3, the weights and the
-    full-size optimizer state re-sharded for this rank."""
+    up (parallel/mesh.py::place_like; the tensor axis's parts of them,
+    parallel/tensor.py) and, under ZeRO-3 or the tensor axis, the full-size
+    optimizer state re-sharded for this rank."""
     if zero is not None:
         zero.gather()
-    model.load_state_dict(place_like(model.state_dict(), state_dict))
+    tensor.load_state_dict(model, place_like(model.state_dict(), state_dict))
     if zero is not None:
         zero.load_params()
         zero.release()
         opt_state = {**opt_state, "adam": zero.shard_state(opt_state["adam"])}
+    else:
+        opt_state = {**opt_state, "adam": tensor.shard_adam_state(opt.params, opt_state["adam"])}
     opt.load_state_dict(opt_state)
 
 
-def rng_state(sampler, gen: torch.Generator, mesh: Optional[DataParallelMesh]) -> dict:
+def rng_state(sampler, gen: torch.Generator, mesh) -> dict:
     """The run's random state at an epoch's end, for a resume checkpoint:
     the sampler's and every rank's generator (every rank takes part)."""
     return {"sampler": sampler.state_dict(), "generators": gather_objects(gen.get_state(), mesh)}
 
 
-def restore_rng(extra: dict, sampler, gen: torch.Generator,
-                mesh: Optional[DataParallelMesh]) -> None:
+def restore_rng(extra: dict, sampler, gen: torch.Generator, mesh) -> None:
     """Put a resumed run's sampler and generator where the saved run left
     them, so it draws on as the uninterrupted run would (a checkpoint from
     another world size keeps the sampler and the reseeded generator)."""
@@ -113,15 +116,16 @@ def restore_rng(extra: dict, sampler, gen: torch.Generator,
         gen.set_state(gens[0 if mesh is None else mesh.rank])
 
 
-def reduce_grads(opt: EpochDecayAdam, mesh: Optional[DataParallelMesh],
-                 zero: Optional[ZeroShard]) -> None:
-    """Complete a data-parallel step's gradients: ZeRO-3 reduce-scatters
-    the shares into opt's shard and frees the gathered model; plain DP sums
-    them with one all-reduce."""
+def reduce_grads(opt: EpochDecayAdam, mesh, zero: Optional[ZeroShard]) -> None:
+    """Complete a data-parallel step's gradients: ZeRO-3 reduces the shares
+    into opt's shard and frees the gathered model; otherwise the gradients
+    of parameters used as a slice on the tensor axis are summed over it,
+    then every gradient over the data axis (one all-reduce each)."""
     if zero is not None:
         zero.reduce_grads()
         zero.release()
     elif mesh is not None:
+        tensor.reduce_slices(opt.params)
         all_reduce_grads(opt.params, mesh)
 
 
@@ -129,22 +133,21 @@ def mae_train_step(model: torch.nn.Module, opt: EpochDecayAdam, x: torch.Tensor,
                    mm_dtype: torch.dtype, impl: str,
                    noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   mesh: Optional[DataParallelMesh] = None,
-                   zero: Optional[ZeroShard] = None) -> torch.Tensor:
+                   mesh=None, zero: Optional[ZeroShard] = None) -> torch.Tensor:
     """One MAE CP step: the masked-patch loss of batch x (B, T, F) with the
     encoder on the training blocks (impl as ops.vit_train), backward, Adam.
     Masking noise (B, L) as given, else drawn from `generator`.
 
     mesh: x and noise are this rank's rows of the global batch; the rank's
-    loss share is its masked mean over n (exact: equal shard sizes, and
-    len_keep is static), the shares' gradients are summed (reduce_grads),
-    and the global loss is returned. zero: ZeRO-3 (the model is gathered
-    for the step)."""
+    loss share is its masked mean over n, the data axis's length (exact:
+    equal shard sizes, and len_keep is static), the shares' gradients are
+    summed (reduce_grads), and the global loss is returned. zero: ZeRO-3
+    (the model is gathered for the step)."""
     opt.zero_grad()
     if zero is not None:
         zero.gather()
     loss = mae_train_loss_fused(model, x, noise, generator, mm_dtype, impl)
-    n = 1 if mesh is None else mesh.world
+    n = data_size(mesh)
     (loss / n).backward()
     reduce_grads(opt, mesh, zero)
     opt.step()
@@ -156,9 +159,9 @@ def mae_train_step(model: torch.nn.Module, opt: EpochDecayAdam, x: torch.Tensor,
 def mae_eval_step(model: torch.nn.Module, x: torch.Tensor, mm_dtype: torch.dtype, impl: str,
                   noise: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None,
-                  mesh: Optional[DataParallelMesh] = None) -> torch.Tensor:
+                  mesh=None) -> torch.Tensor:
     """The same loss without gradients; the encoder runs the eval blocks of
     ops.vit (the kernels on a card, stable softmax). mesh: this rank's rows,
     the global batch's loss returned."""
     loss = mae_train_loss_fused(model, x, noise, generator, mm_dtype, impl, train=False)
-    return loss if mesh is None else all_reduce_sum(loss, mesh) / mesh.world
+    return loss if mesh is None else all_reduce_sum(loss, mesh) / data_size(mesh)

@@ -63,6 +63,17 @@ Each rank keeps the kernel route: the kernels are local to the batch.
 param_sharding="fsdp" is ZeRO-3 over the data axis (parameters and Adam
 state as a 1/n shard a rank, the clip's global norm summed over ranks).
 Every rank predicts the whole validation set; rank 0's AUROC decides.
+
+On a dp x tp mesh (parallel/mesh.py::TensorParallelMesh) the rows, the
+sync-BN, the weighted loss's w.sum() and the generators follow the data
+axis. param_sharding="megatron" places htsat, gt and audiomae blocks and
+an mlp head's fc1 / fc2 over the model axis (parallel/tensor.py,
+models/tp_blocks.py); the EfficientNet's convs match no rule and stay
+replicated; clap, clap2023 and hear raise NotImplementedError (their
+tensor-parallel forwards are not written: ROADMAP.md queue A item 4).
+The L2 terms and the clip's global norm count each shard once (the model
+axis's parts summed). "fsdp" is ZeRO-3 over the model axis for every
+kind. Every 2-D run takes the plain path.
 """
 
 from __future__ import annotations
@@ -87,9 +98,10 @@ from ..models.htsat import HTSAT, HTSATConfig
 from ..models.htsat_train_fused import htsat_encode_train
 from ..models.mae_train_fused import audiomae_backbone_train_fused, gt_backbone_train_fused
 from ..models.vit_fused import audiomae_backbone_fused, mae_forward_feature_fused
+from ..parallel import tensor
 from ..parallel.mesh import (ZeroShard, all_reduce_grads, all_reduce_sum, broadcast_value,
-                             check_mesh, check_param_sharding, local_rows, rank_generator,
-                             shard_params_and_opt)
+                             check_mesh, check_param_sharding, data_size, is_2d, local_rows,
+                             plain_only, rank_generator, shard_params_and_opt)
 from ..utils.precision import strict_f32
 from . import metrics as M
 from .linear_eval import HEART_METRICS, ClippedAdam, _make_perms, get_class_weights
@@ -219,18 +231,27 @@ class FTResult:
     state_dict: Dict[str, torch.Tensor]  # the best weights, on the CPU
 
 
+TP_KINDS = ("htsat", "gt", "audiomae", "efficientnet")  # the kinds megatron places
+
+
+def check_tp_kind(encoder_kind: str, param_sharding: Optional[str]) -> None:
+    """Megatron fine-tuning of a kind without a tensor-parallel forward raises."""
+    if param_sharding == "megatron" and encoder_kind not in TP_KINDS:
+        raise NotImplementedError(
+            f"megatron fine-tuning of {encoder_kind!r}: its tensor-parallel forward is not "
+            "written (ROADMAP.md queue A item 4); use param_sharding=fsdp")
+
+
 def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool],
-               device: torch.device, param_sharding: Optional[str] = None) -> str:
+               device: torch.device, param_sharding: Optional[str] = None, mesh=None) -> str:
     """The encoder blocks' route (ops.swin_train / ops.vit_train impl):
     "kernel" with fused_train (None: on a card in bf16) — the CUDA kernels
     for CUDA tensors, their plain versions with the explicit backward for
     CPU tensors (the JAX fused path's interpret mode); else "plain" in bf16
     and torch "autograd" in float32 (the JAX flax path). param_sharding
-    (ZeRO-3) keeps the plain path; fused_train=True with it is a ValueError."""
-    if param_sharding is not None:
-        if fused_train:
-            raise ValueError("fused_train under a mesh needs pure data parallelism "
-                             "(no param_sharding): ZeRO-3 runs the plain path")
+    (ZeRO-3, megatron) and a 2-D mesh keep the plain path; fused_train=True
+    there is a ValueError (parallel/mesh.py::plain_only)."""
+    if plain_only(mesh, fused_train, param_sharding):
         fused_train = False
     bf16 = compute_dtype == torch.bfloat16
     if fused_train is None:
@@ -246,15 +267,17 @@ def ft_loss(model: EncoderClassifier, xb: torch.Tensor, yb: torch.Tensor, valid:
     """The fine-tuning loss of one batch (finetune.py:376-386): (loss, new
     BatchNorm statistics or None). mesh: xb, yb, valid are this rank's rows
     and the loss is the rank's share, (ce * w).sum() over w_total (the
-    global batch's w.sum()) plus the L2 terms over n."""
+    global batch's w.sum()) plus the L2 terms over n, the data axis's
+    length (parallel/tensor.py::sq_sum counts a tensor-parallel model's
+    shards once)."""
     h, stats = model.encode_train(xb, gen, mm_dtype, impl, mesh)
     logits = model.head(h) + 1e-10
     ce = -torch.log_softmax(logits, dim=-1).gather(1, yb[:, None])[:, 0]
     w = cw[yb] * valid
     loss = (ce * w).sum() / torch.clamp(w.sum() if w_total is None else w_total, min=1e-12)
-    l2 = l2_strength * sum((p * p).sum() for p in model.head.parameters())
-    l2 = l2 + 0.2 * l2_strength * sum((p * p).sum() for p in model.encoder.parameters())
-    return loss + (l2 if mesh is None else l2 / mesh.world), stats
+    sq = lambda m: tensor.sq_sum(list(m.parameters()), list(m.parameters()))
+    l2 = l2_strength * sq(model.head) + 0.2 * l2_strength * sq(model.encoder)
+    return loss + l2 / data_size(mesh), stats
 
 
 def trainable_params(model: EncoderClassifier, freeze_encoder: str):
@@ -292,6 +315,7 @@ def train_step(model: EncoderClassifier, opt: ClippedAdam, xb, yb, valid, cw,
         grads = [zero.reduce_grads(grads)]
         zero.release()
     elif mesh is not None:
+        grads = tensor.reduce_slices(opt.params, grads)
         grads = all_reduce_grads(opt.params, mesh, grads)
     opt.step(grads)
     if stats:
@@ -361,18 +385,20 @@ def finetune_classifier(
     init, or a pretrained "encoder.*" subset); default the seeded random
     init (torch.Generator(seed)). compute_dtype torch.bfloat16 is the bf16
     flow, else strict float32. on_epoch(epoch, valid AUROC) is called after
-    each epoch. mesh: this rank's DataParallelMesh (the run takes the mesh's
-    device; batch_size must divide over it); param_sharding: "fsdp"
-    (ZeRO-3) or None (see the module doc)."""
+    each epoch. mesh: this rank's DataParallelMesh or TensorParallelMesh
+    (the run takes the mesh's device; batch_size must divide over its data
+    axis); param_sharding: "fsdp" (ZeRO-3), "megatron" (2-D mesh) or None
+    (see the module doc)."""
     mesh = check_mesh(mesh)
     param_sharding = check_param_sharding(mesh, param_sharding)
-    if mesh is not None and batch_size % mesh.world:
-        raise ValueError(f"batch_size {batch_size} not divisible by data axis {mesh.world}")
+    check_tp_kind(encoder_kind, param_sharding)
+    if batch_size % data_size(mesh):
+        raise ValueError(f"batch_size {batch_size} not divisible by data axis {data_size(mesh)}")
     dev = mesh.device if mesh is not None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("finetune_classifier(device='cuda'): no CUDA card available")
     mm_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
-    impl = train_impl(compute_dtype, fused_train, dev, param_sharding)
+    impl = train_impl(compute_dtype, fused_train, dev, param_sharding, mesh)
     eval_impl = "kernel" if impl == "kernel" else "plain"
 
     model = EncoderClassifier(encoder_kind, n_cls, head, feat_dim, htsat_config, mae_config,
@@ -385,13 +411,15 @@ def finetune_classifier(
         own.update({k: torch.as_tensor(v) for k, v in init_state.items()})
         model.load_state_dict(own)
     model.to(dev).train()
+    if param_sharding == "megatron":
+        tensor.shard_model(model, mesh)
     nb = (len(x_train) + batch_size - 1) // batch_size
     zero = None
-    if param_sharding is not None:
+    if param_sharding == "fsdp":
         zero, opt = shard_params_and_opt(
             trainable_params(model, freeze_encoder), mesh,
             lambda ps: ClippedAdam(ps, nb, lr, lr_decay, grad_clip, optax_clip=True,
-                                   shard_mesh=mesh))
+                                   shard_mesh=mesh.model if is_2d(mesh) else mesh))
     else:
         opt = ClippedAdam(trainable_params(model, freeze_encoder), nb, lr, lr_decay, grad_clip,
                           optax_clip=True)
@@ -409,7 +437,7 @@ def finetune_classifier(
     from .checkpoints import EarlyStopping
 
     es = EarlyStopping("max", min_delta, patience)
-    best_auc, best_epoch, best = -1.0, -1, copy.deepcopy(model.state_dict())
+    best_auc, best_epoch, best = -1.0, -1, copy.deepcopy(tensor.state_dict(model))
     if zero is not None:
         zero.release()
     stopped = epochs - 1
@@ -428,7 +456,7 @@ def finetune_classifier(
             if on_epoch is not None:
                 on_epoch(e, vauc)
             if vauc > best_auc:
-                best_auc, best_epoch, best = vauc, e, copy.deepcopy(model.state_dict())
+                best_auc, best_epoch, best = vauc, e, copy.deepcopy(tensor.state_dict(model))
             if es.step(vauc):
                 stopped = e
                 break
@@ -436,7 +464,7 @@ def finetune_classifier(
                 zero.release()
         if zero is not None:
             zero.gather()
-        model.load_state_dict(best)
+        tensor.load_state_dict(model, best)
         result_metrics: Dict[str, object] = {}
         test_auc = float("nan")
         if x_test is not None and len(x_test):
@@ -577,9 +605,10 @@ def finetune_heart(
             "google/hear-pytorch state_dict) or random_init=True")
     mesh = check_mesh(mesh)
     param_sharding = check_param_sharding(mesh, param_sharding)
+    check_tp_kind(encoder_kind, param_sharding)
     batch_size = bs or batch_size
-    if mesh is not None and batch_size % mesh.world:  # before the cache is built
-        raise ValueError(f"batch_size {batch_size} not divisible by data axis {mesh.world}")
+    if batch_size % data_size(mesh):  # before the cache is built
+        raise ValueError(f"batch_size {batch_size} not divisible by data axis {data_size(mesh)}")
     init_state = None  # the weights first: a missing checkpoint fails before the cache
     if not random_init and pretrain != "null":
         init_state = pretrained_encoder_state(pretrain, encoder_kind, ckpt_path)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..models.heads import Head
+from ..parallel import tensor
 from ..parallel.mesh import all_reduce_sum
 from . import metrics as M
 from .metrics import STANDARD_METRICS
@@ -94,9 +95,10 @@ class ClippedAdam:
     finetune.py:211, linear_eval.py:383); otherwise train_linear_head's
     t * min(1, clip / max(norm, 1e-12)) (JAX linear_eval.py:89-91).
 
-    shard_mesh: `params` are this rank's ZeRO-3 shard of a data-parallel
-    mesh (parallel/mesh.py::ZeroShard), so the global norm sums the
-    gradients' squares over the ranks."""
+    shard_mesh: `params` are this rank's ZeRO-3 shard (parallel/mesh.py::
+    ZeroShard; the axis it lies on), so the global norm sums the gradients'
+    squares over the ranks. Parameters placed on a tensor axis
+    (parallel/tensor.py) count each shard once."""
 
     def __init__(self, params, steps_per_epoch: int, lr: float, decay: float, grad_clip: float,
                  optax_clip: bool = False, shard_mesh=None):
@@ -110,7 +112,7 @@ class ClippedAdam:
 
     @torch.no_grad()
     def step(self, grads) -> None:
-        sq = sum((g * g).sum() for g in grads)
+        sq = tensor.sq_sum(grads, self.params)
         if self.shard_mesh is not None:
             sq = all_reduce_sum(sq, self.shard_mesh)
         gnorm = torch.sqrt(sq)

@@ -474,8 +474,10 @@ def test_cli_finetune_on_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("argv,exc,match", [
     # the config's default pretrain, operaCE, wants its checkpoint
     (["task=circor_murmurs"], FileNotFoundError, "encoder-operaCE.ckpt"),
-    # the tensor axis is not ported: the error names its ROADMAP item
-    (["task=circor_murmurs", "pretrain=operaCT", "tp=2"], NotImplementedError, "queue A item 2"),
+    # megatron fine-tuning of HeAR has no tensor-parallel forward: the error
+    # names its ROADMAP item, before any rank starts
+    (["task=circor_murmurs", "pretrain=hear", "random_init=True", "tp=2"], NotImplementedError,
+     "queue A item 4"),
     # HeAR (and CLAP) want converted weights or random_init
     (["task=circor_murmurs", "pretrain=hear"], FileNotFoundError, "ckpt_path"),
 ])

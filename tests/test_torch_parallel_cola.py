@@ -7,8 +7,10 @@ single-device loop); the bf16 plain flow against the single-device bf16
 run (rtol 3e-2, the JAX package's bar); the EfficientNet's 49 BatchNorms'
 running statistics against the single-device run's; resume of a DP and a
 ZeRO-3 run against an uninterrupted one; fused_train with param_sharding
-refused."""
+refused. Every world-2 run shares one launch of two ranks (R.cases), and the
+single-device runs run in this process meanwhile."""
 
+import concurrent.futures
 import functools
 
 import jax
@@ -27,6 +29,7 @@ from heart_murmur_detection_tpu_torch.extract.convert import from_jax
 from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
 from heart_murmur_detection_tpu_torch.parallel import launch
 from heart_murmur_detection_tpu_torch.pretrain import cola_training, data
+from tests import torch_parallel_ranks as R
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -58,14 +61,9 @@ def _args(root, n_epoches, title="dp", **kw):
                 dropout_p=0.0, **kw)
 
 
-def _port(root, mesh_n=None, **kw):
-    """The port's loop on one device (mesh_n None) or on mesh_n gloo ranks."""
-    args = _args(root, **kw)
-    if mesh_n is None:
-        return cola_training.train_multiple_data(device="cpu", **args)
-    from tests import torch_parallel_ranks as R
-
-    return launch(R.call, mesh_n, TRAINER, args, device="cpu")
+def _one(root, **kw):
+    """The port's loop on one device."""
+    return cola_training.train_multiple_data(device="cpu", **_args(root, **kw))
 
 
 @functools.lru_cache(maxsize=1)
@@ -93,24 +91,56 @@ def _close_params(got: dict, want: dict, init: dict):
                                    err_msg=k)
 
 
-def test_dp_cola_matches_jax_dp_and_the_single_device_run(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every world-2 run of this file from one launch (R.cases), and the
+    single-device and JAX runs made in this process while the ranks work."""
+    root = tmp_path_factory.mktemp("cola")
+    init = from_jax(_jax_init())
+    kw = {
+        "f32": dict(corpora=[corpus()], htsat_config=HTSATConfig(**TINY), encoder="htsat",
+                    initial_state=init, n_epoches=2),
+        "bf16": dict(corpora=[corpus()], htsat_config=HTSATConfig(**TINY), encoder="htsat",
+                     compute_dtype=torch.bfloat16, fused_train=False, n_epoches=1),
+        "eff": dict(corpora=[corpus(n_train=4, n_mels=64)], encoder="efficientnet", n_epoches=1),
+    }
+    resume = lambda ps: dict(target=TRAINER, args8=_args(
+        root / f"resume-{ps}", 8, corpora=[corpus()], htsat_config=HTSATConfig(**TINY),
+        encoder="htsat", param_sharding=ps))
+    cases = {**{k: ("call", dict(target=TRAINER, kwargs=_args(root / f"dp-{k}", **v)))
+                for k, v in kw.items()},
+             "resume-None": ("resume_runs", resume(None)),
+             "resume-fsdp": ("resume_runs", resume("fsdp"))}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(launch, R.cases, 2, cases, device="cpu")
+        out = {"init": init}
+        out.update({f"one-{k}": _one(root / f"one-{k}", **v) for k, v in kw.items()})
+        eager_init = JaxCola.init
+        JaxCola.init = lambda self, rng, *a: jax.jit(
+            lambda r, xs: eager_init(self, r, *xs))(rng, a)
+        try:
+            jv, jh, _ = jax_cola_training.train_multiple_data(
+                corpora=[corpus(jax_data)],
+                htsat_config=JaxHTSATConfig(enable_tscam=False, **TINY),
+                mesh=data_parallel_mesh(2), encoder="htsat", **_args(root / "jax", 2))
+        finally:
+            JaxCola.init = eager_init
+        out["jax"] = jv, jh
+        out.update(ranks.result())
+    return out
+
+
+def test_dp_cola_matches_jax_dp_and_the_single_device_run(runs):
     """2 epochs of 2 steps (8 train clips, batch 4 over 2 ranks), dropout and
     DropPath off, strict float32, from the JAX init: every epoch's train and
     valid loss at rtol 1e-4 of the JAX 2-device run's and of the port's
     single-device run's (the second epoch's valid loss runs on that epoch's
     weights: the eval layouts are rebuilt each eval); final parameters at
     rtol 1e-3 of both."""
-    eager_init = JaxCola.init
-    monkeypatch.setattr(JaxCola, "init", lambda self, rng, *a: jax.jit(
-        lambda r, xs: eager_init(self, r, *xs))(rng, a))
-    jv, jh, _ = jax_cola_training.train_multiple_data(
-        corpora=[corpus(jax_data)], htsat_config=JaxHTSATConfig(enable_tscam=False, **TINY),
-        mesh=data_parallel_mesh(2), encoder="htsat", **_args(tmp_path / "jax", 2))
-    init = from_jax(_jax_init())
-    kw = dict(corpora=[corpus()], htsat_config=HTSATConfig(**TINY), encoder="htsat",
-              initial_state=init, n_epoches=2)
-    sd, h, _ = _port(tmp_path / "dp", 2, **kw)
-    sd1, h1, _ = _port(tmp_path / "one", **kw)
+    jv, jh = runs["jax"]
+    init = runs["init"]
+    sd, h, _ = runs["f32"]
+    sd1, h1, _ = runs["one-f32"]
     assert [e["steps"] for e in h] == [2, 2] and [e["pairs"] for e in h] == [8, 8]
     for a, b, c in zip(h, jh, h1):
         for q in ("train_loss", "valid_loss"):
@@ -120,27 +150,24 @@ def test_dp_cola_matches_jax_dp_and_the_single_device_run(tmp_path, monkeypatch)
     _close_params(sd, sd1, init)
 
 
-def test_dp_bf16_plain_flow_tracks_the_single_device_run(tmp_path):
+def test_dp_bf16_plain_flow_tracks_the_single_device_run(runs):
     """The bf16 flow on the plain versions of the train kernels (the kernel
     route's CPU stand-in, fused_train=False) at world 2 tracks the
     single-device bf16 run within the JAX package's bf16 DP bar."""
-    kw = dict(corpora=[corpus()], htsat_config=HTSATConfig(**TINY), encoder="htsat",
-              compute_dtype=torch.bfloat16, fused_train=False, n_epoches=1)
-    _, h, _ = _port(tmp_path / "dp", 2, **kw)
-    _, h1, _ = _port(tmp_path / "one", **kw)
+    _, h, _ = runs["bf16"]
+    _, h1, _ = runs["one-bf16"]
     np.testing.assert_allclose(h[-1]["train_loss"], h1[-1]["train_loss"], rtol=3e-2)
     np.testing.assert_allclose(h[-1]["valid_loss"], h1[-1]["valid_loss"], rtol=3e-2)
 
 
-def test_dp_efficientnet_batchnorms_follow_the_global_batch(tmp_path):
+def test_dp_efficientnet_batchnorms_follow_the_global_batch(runs):
     """COLA on the EfficientNet (float32, drop-connect and dropout off), one
     step of batch 4 at world 2: the running statistics of all 49
     BatchNorms equal the single-device run's, as the losses do. (One step:
     Adam's first updates turn float noise in small gradients into whole-lr
     moves, which a second step's statistics would carry.)"""
-    kw = dict(corpora=[corpus(n_train=4, n_mels=64)], encoder="efficientnet", n_epoches=1)
-    sd, h, _ = _port(tmp_path / "dp", 2, **kw)
-    sd1, h1, _ = _port(tmp_path / "one", **kw)
+    sd, h, _ = runs["eff"]
+    sd1, h1, _ = runs["one-eff"]
     stats = [k for k in sd1 if k.endswith(("running_mean", "running_var"))]
     assert len(stats) == 2 * 49
     for k in stats:
@@ -150,21 +177,15 @@ def test_dp_efficientnet_batchnorms_follow_the_global_batch(tmp_path):
 
 
 @pytest.mark.parametrize("param_sharding", [None, "fsdp"])
-def test_resume_equals_the_uninterrupted_run(tmp_path, param_sharding):
-    """DP and ZeRO-3 at world 2: 6 epochs, then resume=True to 8 from the
-    resume checkpoint of epoch 4 runs epochs [5, 6, 7] (as the JAX
-    test_tp_resume_preserves_sharding), and its final state equals an
-    uninterrupted 8-epoch run's: the checkpoint holds the full weights and
-    (ZeRO-3) the Adam state gathered to full size, re-sharded on restore,
-    and the sampler's and generators' state."""
-    from tests import torch_parallel_ranks as R
-
-    kw = dict(corpora=[corpus()], htsat_config=HTSATConfig(**TINY), encoder="htsat",
-              param_sharding=param_sharding)
-    runs = launch(R.resume_runs, 2, TRAINER, _args(tmp_path / "a", 6, **kw),
-                  _args(tmp_path / "b", 8, **kw), device="cpu")
-    (h6, _), (h8, sd8), (hr, sdr) = runs
-    assert [e["epoch"] for e in h6] == list(range(6))
+def test_resume_equals_the_uninterrupted_run(runs, param_sharding):
+    """DP and ZeRO-3 at world 2: resume=True from the resume checkpoint of
+    epoch 4 of an 8-epoch run runs epochs [5, 6, 7] (as the JAX
+    test_tp_resume_preserves_sharding), and its final state equals the
+    uninterrupted run's: the checkpoint holds the full weights and (ZeRO-3)
+    the Adam state gathered to full size, re-sharded on restore, and the
+    sampler's and generators' state."""
+    (h8, sd8), (hr, sdr) = runs[f"resume-{param_sharding}"]
+    assert [e["epoch"] for e in h8] == list(range(8))
     assert [e["epoch"] for e in hr] == [5, 6, 7]
     for a, b in zip(hr, h8[5:]):
         assert (a["train_loss"], a["valid_loss"]) == (b["train_loss"], b["valid_loss"])

@@ -6,7 +6,11 @@ single-device run, strict float32, fed the JAX loop's masking noise: every
 epoch's train and valid loss at rtol 1e-4, final parameters at rtol 1e-3
 (tests/test_torch_mae_train.py's bars). Each rank draws the noise of the
 global batch and takes its rows (the fed draws are (B, L) of the global
-batch, which R.Feed asserts)."""
+batch, which R.Feed asserts). The world-2 runs and the fused_train refusal
+share one launch; the single-device and JAX runs run in this process
+meanwhile."""
+
+import concurrent.futures
 
 import jax
 import numpy as np
@@ -16,7 +20,6 @@ import torch
 from heart_murmur_detection_tpu.pretrain import data as jax_data
 from heart_murmur_detection_tpu.pretrain import mae_training as jax_mae_training
 from heart_murmur_detection_tpu_torch.extract import convert
-from heart_murmur_detection_tpu_torch.models import mae_train_fused
 from heart_murmur_detection_tpu_torch.parallel import launch
 from heart_murmur_detection_tpu_torch.pretrain import data, mae_training
 from tests import torch_parallel_ranks as R
@@ -47,38 +50,44 @@ def _common(root):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX single-device fused run and the port's runs (one device, DP
-    and ZeRO-3 at world 2) from the same init, batches and noise."""
+    and ZeRO-3 at world 2) from the same init, batches and noise, and the
+    ranks' message of the fused_train refusal."""
     root = tmp_path_factory.mktemp("mae")
     jcfg, cfg = _cfgs(mask_ratio=0.7)
-    jmodel = jax_mae_training.MaskedAutoencoderViT
-    eager_init = jmodel.init
-    jmodel.init = lambda self, rngs, *a: jax.jit(lambda xs: eager_init(self, rngs, *xs))(a)
-    try:
-        corpus = lambda m: [synth_corpus("a", 4, 4, 20, 60, 16, 32, m, 3)]
-        jv, jh, _ = jax_mae_training.mae_train_multiple_data(
-            corpora=corpus(jax_data), config_override=jcfg, fused_train=True,
-            **_common(root / "jax"))
-    finally:
-        jmodel.init = eager_init
+    corpus = lambda m: [synth_corpus("a", 4, 4, 20, 60, 16, 32, m, 3)]
     _, v0 = _jinit(jcfg)
     init = convert.from_jax_mae(v0, decoder=True)
     noises = _jax_step_noises(0, 2 * EPOCHS, 4, 32)
     kw = lambda tag, **extra: dict(corpora=corpus(data), config_override=cfg,
                                    initial_state=init, **_common(root / tag), **extra)
-    out = {"jax": (convert.from_jax_mae(jax.tree.map(np.asarray, jv), decoder=True), jh),
-           "init": init}
-    real = mae_train_fused.masking_noise
-    mae_train_fused.masking_noise = R.Feed(noises)
-    try:
-        sd, h, _ = mae_training.mae_train_multiple_data(device="cpu", **kw("one"))
-    finally:
-        mae_train_fused.masking_noise = real
-    out["one"] = sd, h
-    patch = (("heart_murmur_detection_tpu_torch.models.mae_train_fused", "masking_noise",
-              R.Feed(noises)),)
-    for tag, ps in (("dp", None), ("zero3", "fsdp")):
-        sd, h, _ = launch(R.call, 2, TRAINER, kw(tag, param_sharding=ps), patch, device="cpu")
-        out[tag] = sd, h
+    # a Feed of its own for each run
+    patch = lambda: (("heart_murmur_detection_tpu_torch.models.mae_train_fused",
+                      "masking_noise", R.Feed(noises)),)
+    cases = {tag: ("call", dict(target=TRAINER, kwargs=kw(tag, param_sharding=ps),
+                                patches=patch()))
+             for tag, ps in (("dp", None), ("zero3", "fsdp"))}
+    cases["refused"] = ("call", dict(target=TRAINER, expect="ValueError", kwargs=dict(
+        corpora=corpus(data), config_override=cfg, param_sharding="fsdp", fused_train=True,
+        compute_dtype=torch.bfloat16, **_common(root / "refused"))))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(launch, R.cases, 2, cases, device="cpu")
+        jmodel = jax_mae_training.MaskedAutoencoderViT
+        eager_init = jmodel.init
+        jmodel.init = lambda self, rngs, *a: jax.jit(lambda xs: eager_init(self, rngs, *xs))(a)
+        try:
+            jv, jh, _ = jax_mae_training.mae_train_multiple_data(
+                corpora=corpus(jax_data), config_override=jcfg, fused_train=True,
+                **_common(root / "jax"))
+        finally:
+            jmodel.init = eager_init
+        out = {"jax": (convert.from_jax_mae(jax.tree.map(np.asarray, jv), decoder=True), jh),
+               "init": init}
+        with R.patched(patch()):
+            sd, h, _ = mae_training.mae_train_multiple_data(device="cpu", **kw("one"))
+        out["one"] = sd, h
+        got = ranks.result()
+    out.update({tag: got[tag][:2] for tag in ("dp", "zero3")})
+    out["refused"] = got["refused"]
     return out
 
 
@@ -116,12 +125,7 @@ def test_mae_cp_at_world_2_matches_jax_and_one_device(runs, tag):
     _close_params(sd, sd1, runs["init"])
 
 
-def test_fused_train_with_param_sharding_is_refused(tmp_path):
-    """fused_train=True with param_sharding: ValueError, as the JAX package
-    refuses it (mae_training.py:113-118)."""
-    _, cfg = _cfgs()
-    with pytest.raises(ValueError, match="pure data parallelism"):
-        launch(R.call, 2, TRAINER, dict(
-            corpora=[synth_corpus("a", 4, 4, 20, 60, 16, 32, data, 3)], config_override=cfg,
-            param_sharding="fsdp", fused_train=True, compute_dtype=torch.bfloat16,
-            **_common(tmp_path)), device="cpu")
+def test_fused_train_with_param_sharding_is_refused(runs):
+    """fused_train=True with param_sharding: ValueError in the ranks, as the
+    JAX package refuses it (mae_training.py:113-118)."""
+    assert "pure data parallelism" in runs["refused"]

@@ -3,8 +3,9 @@ the CPU: operaCT extraction at world 2 against the unsharded port and the
 JAX FeatureExtractor on a 2-device mesh (tests/test_parallel.py:130's bars);
 extract_and_save written by rank 0 alone; cli.pretrain and cli.finetune
 with dp=2 end to end; the dry run of both CP families
-(parallel/dryrun.py)."""
+(parallel/dryrun.py). The two extraction cases share one launch."""
 
+import concurrent.futures
 import os
 
 import jax
@@ -34,31 +35,54 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
-def test_dp_extraction_returns_the_single_device_rows(tmp_path):
+EXTRACTOR = "heart_murmur_detection_tpu_torch.extract.extract:FeatureExtractor"
+
+
+@pytest.fixture(scope="module")
+def extraction(tmp_path_factory):
+    """3 WAVs of 6-12 s, the JAX extractor on a 2-device mesh, the port on
+    one device and extract_and_save's one-device features, and from one
+    launch of two ranks: the ranks' features and saved file, and the
+    message of the indivisible batch's refusal."""
+    tmp = tmp_path_factory.mktemp("extract")
+    paths = [_wav(str(tmp / f"c{i}.wav"), 6.0 + 3 * i, 80 + 10 * i) for i in range(3)]
+    kw = dict(dim=768, input_sec=8, batch_size=2, random_init=True)
+    jex = JFeatureExtractor("operaCT", **kw, compute_dtype=jnp.float32, use_fused_htsat=False)
+    state = convert.from_jax(jax.device_get(jex.variables))
+    pkw = dict(kw, compute_dtype=torch.float32, device="cpu")
+    fdir = tmp / "feature"
+    os.makedirs(fdir)
+    np.save(fdir / "sound_dir_loc.npy", np.asarray(paths))
+    cases = {"rows": ("extract_rank", dict(state=state, paths=paths, fdir=str(fdir), kw=pkw)),
+             "odd": ("call", dict(target=EXTRACTOR, expect="ValueError", kwargs=dict(
+                 pretrain="operaCT", dim=768, batch_size=3, random_init=True, device="cpu")))}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(launch, R.cases, 2, cases, device="cpu")
+        jmesh = JFeatureExtractor("operaCT", **kw, compute_dtype=jnp.float32,
+                                  use_fused_htsat=False, mesh=data_parallel_mesh(2))
+        jmesh.variables = put_replicated(jax.device_get(jex.variables), jmesh.mesh)
+        jmesh._fn = jmesh._build()
+        want = jmesh.extract_files(paths)
+        one = FeatureExtractor("operaCT", **pkw)
+        one.model.load_state_dict(state)
+        single = one.extract_files(paths)
+        out = ranks.result()
+    # after the ranks: rank 0 writes operaCT768_feature.npy into fdir
+    saved_file = np.load(fdir / "operaCT768_feature.npy")
+    os.makedirs(tmp / "one")
+    np.save(tmp / "one" / "sound_dir_loc.npy", np.asarray(paths))
+    saved_one = np.load(extract_and_save(str(tmp / "one"), "operaCT", dim=768, batch_size=2,
+                                         random_init=True, device="cpu"))
+    return dict(want=want, single=single, saved_one=saved_one, saved_file=saved_file, **out)
+
+
+def test_dp_extraction_returns_the_single_device_rows(extraction):
     """3 WAVs of 6-12 s in batches of 2 (the last padded) over 2 ranks, float32,
     the JAX extractor's weights: the rows of the unsharded port and of the
     JAX extractor on a 2-device mesh at rtol 1e-4 / atol 1e-5; extract_and_save
     (the bf16 flow) writes, from rank 0, the one-device run's features."""
-    paths = [_wav(str(tmp_path / f"c{i}.wav"), 6.0 + 3 * i, 80 + 10 * i) for i in range(3)]
-    kw = dict(dim=768, input_sec=8, batch_size=2, random_init=True)
-    jex = JFeatureExtractor("operaCT", **kw, compute_dtype=jnp.float32, use_fused_htsat=False)
-    jmesh = JFeatureExtractor("operaCT", **kw, compute_dtype=jnp.float32,
-                              use_fused_htsat=False, mesh=data_parallel_mesh(2))
-    jmesh.variables = put_replicated(jax.device_get(jex.variables), jmesh.mesh)
-    jmesh._fn = jmesh._build()
-    want = jmesh.extract_files(paths)
-    state = convert.from_jax(jax.device_get(jex.variables))
-    pkw = dict(kw, compute_dtype=torch.float32, device="cpu")
-    one = FeatureExtractor("operaCT", **pkw)
-    one.model.load_state_dict(state)
-    single = one.extract_files(paths)
-    fdir = tmp_path / "feature"
-    os.makedirs(fdir)
-    np.save(fdir / "sound_dir_loc.npy", np.asarray(paths))
-    saved_one = np.load(extract_and_save(str(fdir), "operaCT", dim=768, batch_size=2,
-                                         random_init=True, device="cpu"))
-    os.remove(fdir / "operaCT768_feature.npy")
-    got, saved = launch(R.extract_rank, 2, state, paths, str(fdir), pkw, device="cpu")
+    single, want, saved_one = extraction["single"], extraction["want"], extraction["saved_one"]
+    got, saved = extraction["rows"]
     assert got.shape == single.shape == want.shape == (3, 768)
     np.testing.assert_allclose(got, single, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
@@ -67,16 +91,13 @@ def test_dp_extraction_returns_the_single_device_rows(tmp_path):
     cos = (saved * saved_one).sum(1) / np.linalg.norm(saved, axis=1) / np.linalg.norm(
         saved_one, axis=1)
     assert cos.min() >= 0.99999, cos
-    np.testing.assert_array_equal(np.load(fdir / "operaCT768_feature.npy"), saved)
+    np.testing.assert_array_equal(extraction["saved_file"], saved)
 
 
-def test_dp_extractor_refuses_an_indivisible_batch():
+def test_dp_extractor_refuses_an_indivisible_batch(extraction):
     """batch_size 3 over 2 ranks: "not divisible" (the JAX case at
     tests/test_parallel.py:257)."""
-    with pytest.raises(ValueError, match="not divisible"):
-        launch(R.call, 2, "heart_murmur_detection_tpu_torch.extract.extract:FeatureExtractor",
-               dict(pretrain="operaCT", dim=768, batch_size=3, random_init=True, device="cpu"),
-               device="cpu")
+    assert "not divisible" in extraction["odd"]
 
 
 def _spec_corpus(root, n=12, seed=0):
@@ -125,8 +146,8 @@ def test_cli_finetune_dp2_on_the_cpu(tmp_path, monkeypatch):
     np.save(d / "sound_dir_loc.npy", np.array([f"{i}.wav" for i in range(24)]))
     from heart_murmur_detection_tpu_torch.cli import finetune as cli_finetune
 
-    def narrowed(fn, n, cfg, param_sharding, backend=None, device=None):
-        assert fn is cli_finetune.run_seeds and (n, backend, device) == (2, "gloo", "cpu")
+    def narrowed(fn, n, cfg, param_sharding, backend=None, device=None, tp=1):
+        assert fn is cli_finetune.run_seeds and (n, backend, device, tp) == (2, "gloo", "cpu", 1)
         return launch(R.call, n, "heart_murmur_detection_tpu_torch.cli.finetune:run_seeds",
                       {"cfg": cfg, "param_sharding": param_sharding},
                       (("heart_murmur_detection_tpu_torch.train.finetune", "HTSATConfig",

@@ -13,7 +13,12 @@ are compared leaf by leaf and by the global norm. Two deliberately broken varian
 show what the bar catches: an all-gather whose backward sums the
 cotangents (n times the gradient) and a BatchNorm whose synced moments have
 no backward. Also the mesh's rules: mesh_from_cli against the JAX
-function, shard_rows against shard_batch's layout, ZeRO-3's state size."""
+function, shard_rows against shard_batch's layout, ZeRO-3's state size.
+The world-2 cases (the broken variants and ZeRO-3's state size among them)
+share one launch, the world-4 case a second; the single-device steps run
+in this process meanwhile."""
+
+import concurrent.futures
 
 import numpy as np
 import pytest
@@ -90,16 +95,38 @@ def _cases(world):
             "ft-zero3": ("ft", {**ftk, "zero": True})}
 
 
+BROKEN = {  # a variant, its case, and the (module, name, value) it patches in the ranks
+    "gather": ("cola-dp", ("heart_murmur_detection_tpu_torch.pretrain.cola_training",
+                           "gather_rows", R.naive_gather)),
+    "bn": ("efficientnet-dp", ("heart_murmur_detection_tpu_torch.parallel.mesh",
+                               "all_reduce_mean_autograd", R.mean_without_backward)),
+}
+
+
 @pytest.fixture(scope="module")
 def step0():
-    """{(world, case): (single-device result, mesh result)}."""
-    out = {}
-    for world in (2, 4):
-        cases = _cases(world)
-        got = launch(R.step0_cases, world, cases, device="cpu")
-        fns = {"cola": R.cola_step0, "mae": R.mae_step0, "ft": R.ft_step0}
-        for name, (fn, kw) in cases.items():
-            out[(world, name)] = fns[fn](None, **kw), got[name]
+    """{(world, case): (single-device result, mesh result)}, the broken
+    variants' mesh results under ("broken", variant) and ZeRO-3's state
+    sizes under "zero-size"."""
+    fns = {"cola": "cola_step0", "mae": "mae_step0", "ft": "ft_step0"}
+    two, four = _cases(2), _cases(4)
+    cases2 = {name: (fns[fn], kw) for name, (fn, kw) in two.items()}
+    for b, (case, patch) in BROKEN.items():
+        cases2[f"broken-{b}"] = ("call", dict(target="tests.torch_parallel_ranks:step0_cases",
+                                              kwargs={"cases": {case: two[case]}},
+                                              patches=(patch,)))
+    cases2["zero-size"] = ("zero_state_size", dict(n_params=5))
+    cases4 = {name: (fns[fn], kw) for name, (fn, kw) in four.items()}
+    ranks = lambda: (launch(R.cases, 2, cases2, device="cpu"),
+                     launch(R.cases, 4, cases4, device="cpu"))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(ranks)
+        single = {name: getattr(R, fns[fn])(None, **kw) for name, (fn, kw) in two.items()}
+        got2, got4 = pending.result()
+    out = {(2, name): (single[name], got2[name]) for name in two}
+    out.update({(4, name): (single[name], got4[name]) for name in four})  # the same inputs
+    out.update({("broken", b): got2[f"broken-{b}"][case] for b, (case, _) in BROKEN.items()})
+    out["zero-size"] = got2["zero-size"]
     return out
 
 
@@ -142,14 +169,9 @@ def test_the_gradient_rule_catches_broken_reductions(step0, broken):
     other rank's path through them): the bar rejects both by orders of
     magnitude over the split's float32 noise. (bn0 of the HTS-AT normalises
     the input, so its moments carry no gradient to any parameter.)"""
-    case = {"gather": "cola-dp", "bn": "efficientnet-dp"}[broken]
-    patch = {"gather": ("heart_murmur_detection_tpu_torch.pretrain.cola_training", "gather_rows",
-                        R.naive_gather),
-             "bn": ("heart_murmur_detection_tpu_torch.parallel.mesh", "all_reduce_mean_autograd",
-                    R.mean_without_backward)}[broken]
+    case = BROKEN[broken][0]
     want = step0[(2, case)][0]
-    got = launch(R.call, 2, "tests.torch_parallel_ranks:step0_cases",
-                 {"cases": {case: _cases(2)[case]}}, (patch,), device="cpu")[case]
+    got = step0[("broken", broken)]
     off, ratio = _grad_rule(want[1], got[1])
     gmax = max(float(g.abs().max()) for g in want[1].values())
     worst = max(float((got[1][k] - want[1][k]).abs().max()) for k in want[1]) / gmax
@@ -178,21 +200,16 @@ def test_shard_rows_is_shard_batch_layout():
 
 @pytest.mark.parametrize("cfg", [
     {}, {"dp": 2}, {"dp": 4, "param_sharding": "fsdp"}, {"dp": 1, "param_sharding": "fsdp"},
-    {"tp": 2}, {"dp": 2, "tp": 2, "param_sharding": "fsdp"}, {"dp": 2, "dist_backend": "gloo"},
+    {"tp": 2}, {"dp": 2, "tp": 2}, {"dp": 2, "tp": 2, "param_sharding": "fsdp"},
+    {"dp": 2, "dist_backend": "gloo"},
 ])
 def test_mesh_from_cli_matches_jax(cfg):
     """The JAX contract: dp=N -> an N-rank plan with param_sharding as given;
-    nothing -> (None, None); param_sharding without a mesh -> ValueError.
-    tp > 1 builds a tensor axis in the JAX package; the port raises
-    NotImplementedError naming its ROADMAP item."""
+    tp=M -> a dp x tp plan, megatron unless param_sharding says fsdp (JAX
+    tests/test_cli_config.py:40); nothing -> (None, None); param_sharding
+    without a mesh -> ValueError."""
     from heart_murmur_detection_tpu.parallel import mesh as jmesh
 
-    if cfg.get("tp", 1) > 1:
-        with pytest.raises(NotImplementedError, match="queue A item 2"):
-            mesh.mesh_from_cli(cfg)
-        jm, _ = jmesh.mesh_from_cli(cfg)
-        assert "model" in jm.axis_names
-        return
     try:
         want = jmesh.mesh_from_cli(cfg)
     except ValueError as e:
@@ -204,14 +221,18 @@ def test_mesh_from_cli_matches_jax(cfg):
     assert ps == want[1]
     if want[0] is None:
         assert plan is None
-    else:
-        assert plan.n == want[0].devices.size and plan.backend == cfg.get("dist_backend")
+        return
+    assert plan.backend == cfg.get("dist_backend") and plan.world == want[0].devices.size
+    assert (plan.n, plan.tp) == tuple(want[0].devices.shape) + (1,) * (2 - want[0].devices.ndim)
+    if cfg.get("tp", 1) > 1:
+        assert want[0].axis_names == ("data", "model")
 
 
 def test_trainer_mesh_rules():
     """A mesh that is not the port's raises TypeError; megatron has no
-    tensor axis to shard over; NCCL is never given more ranks than cards;
-    a multi-rank mesh needs a process group."""
+    tensor axis to shard over on the 1-D mesh (its error names the 'model'
+    axis, as the JAX param_sharding_axis's); NCCL is never given more ranks
+    than cards; a multi-rank mesh needs a process group."""
     with pytest.raises(TypeError, match="DataParallelMesh"):
         mesh.check_mesh(object())
     m = mesh.DataParallelMesh(0, 2, None, "gloo", torch.device("cpu"))
@@ -224,11 +245,11 @@ def test_trainer_mesh_rules():
         mesh.data_parallel_mesh(2, device="cpu")
 
 
-def test_zero3_holds_a_shard_of_the_adam_state():
+def test_zero3_holds_a_shard_of_the_adam_state(step0):
     """ZeRO-3 over 2 ranks: each holds ceil(total / 2) elements of the
     parameters and of each Adam moment; the parameters hold no storage at
     rest."""
-    got = launch(R.zero_state_size, 2, 5, device="cpu")
+    got = step0["zero-size"]
     assert got["total"] == 5000 and got["shard"] == got["exp_avg"] == got["exp_avg_sq"] == 2500
     assert got["params"] == [0] * 5
 
