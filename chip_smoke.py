@@ -250,6 +250,25 @@ Phases (each prints one line; any failure exits non-zero):
      checkpoint of epoch 4, full tensors) then resume=True to epoch 5 from
      it; the checkpoint loads into a one-device Cola by name. Ms a step a
      rank (host-staged gloo on one card: not a multi-card figure)
+ 33. analysis (analysis/, models/htsat.py, utils/profiling.py): gradient
+     saliency of the full-width operaCT plus a linear head on 8 clips of
+     8 s through K8 (the HTS-AT training forward on bn0's running
+     statistics, DropPath off; the input gradient from swin_attn_bwd /
+     swin_mlp_bwd, 10 launches each, no swin_wgrad / swin_reduce launch)
+     against the plain bf16 flow (the same classes, each clip's map cosine
+     >= GRAD_FLOOR, else the ratio rule against strict f32), the same
+     backward with the weights taking gradients (its input gradient bit for
+     bit the same, its ms beside); long-clip inference of 4 clips of 120 s
+     (3751 frames, 6 crops each) with the tscam outputs through K1-K3 in
+     batches of 16 crops (launches exact; latent and clipwise logits >=
+     SAME_ROUNDING_BAR against the plain bf16 flow; at batches of 4 crops
+     equal to the mean of the per-crop forwards within 1e-6; clips/s);
+     masked-spectrogram reconstruction of operaGT (ViT-S, 256 x 64) and
+     Audio-MAE (ViT-B, 1024 x 128) with the decoder, the encoder on the
+     ViT forward kernels (depth launches of each), against the plain bf16
+     flow (the same mask, recon cosine >= SAME_ROUNDING_BAR, loss within
+     1e-3); utils.profiling.trace in a fresh child process, whose trace
+     file holds swin_attn's device records
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -4343,6 +4362,225 @@ def phase_tp(smi: str, dev):
     print(f"[tp] phase 32 took {time.time() - t_phase:.1f} s", flush=True)
 
 
+# Phase 33: the analysis paths at full width
+SAL_B, SAL_FRAMES = 8, 251  # saliency: 8 clips of 8 s
+LONG_B, LONG_FRAMES = 4, 3751  # long-clip inference: 4 clips of 120 s, 6 crops each
+RECON_B = 4  # reconstruction: clips a tower
+TRACE_CHILD = """
+import sys, torch
+sys.path.insert(0, {root!r})
+from heart_murmur_detection_tpu_torch.extract.registry import initialize_pretrained_model
+from heart_murmur_detection_tpu_torch.utils.profiling import trace
+model = initialize_pretrained_model("operaCT", random_init=True, seed=0).cuda()
+mel = torch.rand(16, 251, 64, generator=torch.Generator().manual_seed(0)).cuda()
+model.htsat(mel, mm_dtype=torch.bfloat16)
+torch.cuda.synchronize()
+with trace("smoke", out_dir={out!r}, enabled=True):
+    model.htsat(mel, mm_dtype=torch.bfloat16)
+"""
+
+
+def _ratio_rule(k, p, f32) -> tuple:
+    """Each clip's (1 - cos(kernel, f32)) / (1 - cos(plain, f32)): (median,
+    max, the cosines against f32)."""
+    import numpy as np
+
+    ck = [_cos(a, c) for a, c in zip(k, f32)]
+    cp = [_cos(b, c) for b, c in zip(p, f32)]
+    r = [(1 - a) / max(1 - b, 1e-12) for a, b in zip(ck, cp)]
+    return float(np.median(r)), max(r), ck, cp
+
+
+def _phase_saliency(smi: str, dev):
+    """Saliency of an operaCT tower plus a linear head on K8's route."""
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.analysis import saliency as S
+    from heart_murmur_detection_tpu_torch.extract.registry import initialize_pretrained_model
+    from heart_murmur_detection_tpu_torch.models.heads import Head
+    from heart_murmur_detection_tpu_torch.models.htsat_train_fused import htsat_encode_train
+
+    model = initialize_pretrained_model("operaCT", random_init=True, seed=SEED).to(dev)
+    head = Head(2, "linear", 768, torch.Generator().manual_seed(SEED + 33)).to(dev)
+    g = torch.Generator().manual_seed(SEED + 33)
+    mel = torch.rand(SAL_B, SAL_FRAMES, 64, generator=g).to(dev)
+    run = lambda impl, dt=torch.bfloat16: S.saliency_for_linear_head(
+        S.operact_encoder(model, dt, impl), head, mel)
+    _reset_counts()
+    sal_k, cls_k = run("kernel")
+    counts = _all_counts()
+    sal_p, cls_p = run("plain")
+    sal_f, cls_f = run("autograd", torch.float32)
+    n_blocks = sum(model.htsat.config.depths[:3])  # stages 0-2 on the kernels
+    want = {"swin_attn": n_blocks, "swin_mlp": n_blocks, "swin_attn_bwd": n_blocks,
+            "swin_mlp_bwd": n_blocks, "swin_wgrad": 0, "swin_reduce": 0}
+    print(f"[analysis] saliency launches (B={SAL_B} of {SAL_FRAMES} frames): "
+          + ", ".join(f"{k} {counts[k]}" for k in want), flush=True)
+    _require(all(counts[k] == n for k, n in want.items()),
+             f"saliency launches {counts} != {want}")
+    _require(np.array_equal(cls_k, cls_p), f"saliency classes {cls_k} != plain {cls_p}")
+    cos = [_cos(a, b) for a, b in zip(sal_k, sal_p)]
+    med, worst, ck, cp = _ratio_rule(sal_k, sal_p, sal_f)
+    print(f"[analysis] saliency K8 vs plain bf16 per clip: min cos {min(cos):.7f} "
+          f"(floor {GRAD_FLOOR}); vs strict f32: kernel {min(ck):.7f}, plain {min(cp):.7f}, "
+          f"(1 - cos) ratio median {med:.3f} max {worst:.3f}; classes {cls_k.tolist()} "
+          f"(f32 {cls_f.tolist()})", flush=True)
+    _require(min(cos) >= GRAD_FLOOR or (med <= F32_RATIO_MEDIAN and worst <= F32_RATIO_LEAF),
+             f"saliency: min cos {min(cos)} < {GRAD_FLOOR} and ratio {med} / {worst}")
+
+    # the weight products the frozen weights skip: the same backward with
+    # the weights taking gradients, its input gradient bit for bit the same
+    enc = model.htsat
+
+    def with_weights():
+        x = mel.detach().clone().requires_grad_(True)
+        h = htsat_encode_train(enc, x, None, None, mm_dtype=torch.bfloat16, deterministic=True,
+                               impl="kernel")[0]
+        logits = head(h)
+        (gx,) = torch.autograd.grad(logits.gather(1, torch.as_tensor(cls_k, device=dev)[:, None])
+                                    .sum(), x)
+        return gx
+
+    _reset_counts()
+    gx = with_weights()
+    wcounts = _all_counts()
+    same = np.array_equal(gx.abs().cpu().numpy(), sal_k)
+    k_ms = _time_ms(lambda: run("kernel"), iters=5, warm=1)
+    w_ms = _time_ms(with_weights, iters=5, warm=1)
+    p_ms = _time_ms(lambda: run("plain"), iters=3, warm=1)
+    print(f"[analysis] saliency ms a batch of {SAL_B}: K8 {k_ms:.2f}, with the weight gradients "
+          f"{w_ms:.2f} (swin_wgrad {wcounts['swin_wgrad']}, swin_reduce "
+          f"{wcounts['swin_reduce']} launches; input gradient bitwise the same: {same}), "
+          f"plain bf16 {p_ms:.2f} ({smi})", flush=True)
+    _require(same, "saliency: the input gradient moved when the weight products were skipped")
+    return counts
+
+
+def _phase_long(smi: str, dev):
+    """Long-clip inference and the tscam outputs on K1-K3."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.extract.registry import initialize_pretrained_model
+    from heart_murmur_detection_tpu_torch.models.htsat import htsat_forward_long
+    from heart_murmur_detection_tpu_torch.models.htsat_fused import htsat_apply_fused
+
+    enc = initialize_pretrained_model("operaCT", random_init=True, seed=SEED).to(dev).htsat
+    g = torch.Generator().manual_seed(SEED + 34)
+    mel = torch.rand(LONG_B, LONG_FRAMES, 64, generator=g).to(dev)
+    bf = torch.bfloat16
+    run = lambda impl, bs=B_KERNEL: htsat_forward_long(enc, mel, batch_size=bs, mm_dtype=bf,
+                                                       impl=impl)
+    _reset_counts()
+    out_k = run("kernel")
+    counts = _all_counts()
+    n_crops = len(range(0, LONG_FRAMES - 1024 - 1, 512))
+    chunks = -(-n_crops * LONG_B // B_KERNEL)
+    n_fwd = sum(enc.config.depths)
+    print(f"[analysis] long-clip launches ({LONG_B} clips of {LONG_FRAMES} frames, {n_crops} "
+          f"crops each, {chunks} batches of <= {B_KERNEL}): swin_attn {counts['swin_attn']}, "
+          f"swin_mlp {counts['swin_mlp']}", flush=True)
+    _require(counts["swin_attn"] == counts["swin_mlp"] == chunks * n_fwd,
+             f"long-clip launches {counts} != {chunks * n_fwd} each")
+    out_p = run("plain")
+    cos = {k: min(_cos(a.cpu(), b.cpu()) for a, b in zip(out_k[k], out_p[k]))
+           for k in ("latent_output", "clipwise_logits", "framewise_output")}
+    # per-crop forwards of the clips (each a batch of LONG_B rows), averaged;
+    # the long path at LONG_B rows a batch runs the same launches
+    starts = range(0, LONG_FRAMES - 1024 - 1, 512)
+    crops = [htsat_apply_fused(enc, mel[:, s : s + 1024].contiguous(), mm_dtype=bf, tscam=True)
+             for s in starts]
+    mean = {k: torch.stack([c[k] for c in crops]).mean(0) for k in out_k}
+    out_b = run("kernel", LONG_B)
+    d_mean = max(float((out_b[k] - mean[k]).abs().max()) for k in out_k)
+    d_rows = max(float((out_k[k] - out_b[k]).abs().max()) for k in out_k)
+    shapes = {k: tuple(v.shape) for k, v in out_k.items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in out_k.values())
+    k_ms = _time_ms(lambda: run("kernel"), iters=3, warm=1)
+    p_ms = _time_ms(lambda: run("plain"), iters=2, warm=1)
+    print(f"[analysis] long-clip outputs {shapes}, finite {finite}; kernel vs plain bf16 min "
+          f"cos a clip: " + ", ".join(f"{k} {v:.7f}" for k, v in cos.items())
+          + f" (bar {SAME_ROUNDING_BAR} on latent and clipwise_logits); max |long - mean of "
+          f"per-crop forwards| {d_mean:.3g} (bar 1e-6); batches of {B_KERNEL} vs {LONG_B} "
+          f"rows {d_rows:.3g}; {LONG_B * 1000 / k_ms:.2f} clips/s of 120 s ({k_ms:.1f} ms), "
+          f"plain bf16 {LONG_B * 1000 / p_ms:.2f} ({p_ms:.1f} ms) ({smi})", flush=True)
+    _require(finite and shapes["framewise_output"] == (LONG_B, 1024, 527),
+             f"long-clip outputs {shapes} finite {finite}")
+    _require(min(cos["latent_output"], cos["clipwise_logits"]) >= SAME_ROUNDING_BAR,
+             f"long-clip kernel vs plain {cos}")
+    _require(d_mean <= 1e-6, f"long-clip result vs the mean of per-crop forwards: {d_mean}")
+    return counts
+
+
+def _phase_recon(smi: str, dev):
+    """MAE reconstruction on K9's forward kernels, both towers."""
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.analysis.masked_spec import reconstruct
+    from heart_murmur_detection_tpu_torch.models import vit_mae
+
+    counts = {}
+    for tower, cfg in (("operaGT", vit_mae.mae_vit_small_config()),
+                       ("audiomae", vit_mae.audiomae_base_config())):
+        model = vit_mae.MaskedAutoencoderViT(cfg, decoder=True)
+        vit_mae.init_weights(model, torch.Generator().manual_seed(SEED))
+        model = model.to(dev).eval()
+        g = torch.Generator().manual_seed(SEED + 35)
+        mel = torch.rand(RECON_B, *cfg.img_size, generator=g).numpy()
+        _reset_counts()
+        k = reconstruct(model, mel, seed=SEED, mm_dtype=torch.bfloat16, impl="kernel")
+        c = _all_counts()
+        counts[tower] = c
+        p = reconstruct(model, mel, seed=SEED, mm_dtype=torch.bfloat16, impl="plain")
+        same_mask = np.array_equal(k[1], p[1])
+        cos = min(_cos(a, b) for a, b in zip(k[2], p[2]))
+        rel = abs(k[3] - p[3]) / abs(p[3])
+        k_ms = _time_ms(lambda: reconstruct(model, mel, seed=SEED, mm_dtype=torch.bfloat16),
+                        iters=3, warm=1)
+        names = ("vit_qkv", "vit_attn", "vit_proj", "vit_mlp")
+        print(f"[analysis] reconstruction {tower} B={RECON_B} {cfg.img_size}: launches "
+              + ", ".join(f"{n} {c[n]}" for n in names)
+              + f"; mask equal to the plain flow's {same_mask}; recon min cos {cos:.7f} (bar "
+              f"{SAME_ROUNDING_BAR}); loss {k[3]:.6f} vs plain {p[3]:.6f} (rel {rel:.2e}, bar "
+              f"1e-3); {k_ms:.1f} ms a batch ({smi})", flush=True)
+        _require(all(c[n] == cfg.depth for n in names), f"{tower} reconstruction launches {c}")
+        _require(same_mask and cos >= SAME_ROUNDING_BAR and rel <= 1e-3,
+                 f"{tower} reconstruction: mask {same_mask} cos {cos} loss rel {rel}")
+        del model
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _phase_trace(root: str):
+    """utils.profiling.trace in a fresh child: its file holds swin_attn's
+    device records by name."""
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ)
+        subprocess.run([sys.executable, "-c", TRACE_CHILD.format(root=root, out=out)],
+                       check=True, timeout=300, env=env, cwd=root)
+        path = os.path.join(out, "smoke", "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    attn = [e for e in kernels if "swin_attn_kernel" in e.get("name", "")]
+    print(f"[analysis] trace: {len(kernels)} device kernel records, {len(attn)} of them "
+          f"swin_attn_kernel (a forward launches 12)", flush=True)
+    _require(len(attn) > 0, "the trace file holds no swin_attn device record")
+
+
+def phase_analysis(smi: str, dev, root: str):
+    """Phase 33: saliency, long-clip inference and tscam, reconstruction,
+    a trace (see the module doc); returns the long-clip path's launches."""
+    t_phase = time.time()
+    _phase_saliency(smi, dev)
+    long = _phase_long(smi, dev)
+    _phase_recon(smi, dev)
+    _phase_trace(root)
+    print(f"[analysis] phase 33 took {time.time() - t_phase:.1f} s", flush=True)
+    return long
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -4404,6 +4642,11 @@ KERNEL_SOURCES = {
                            "heart_murmur_detection_tpu/ops/pallas_swin.py:97"),
     "swin_mlp@clap2023": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp.cu",
                           "heart_murmur_detection_tpu/ops/pallas_swin.py:388"),
+    # K1-K3 on the long-clip path (models/htsat.py::htsat_forward_long)
+    "swin_attn@long": ("heart_murmur_detection_tpu_torch/csrc/swin_attn.cu",
+                       "heart_murmur_detection_tpu/ops/pallas_swin.py:97"),
+    "swin_mlp@long": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp.cu",
+                      "heart_murmur_detection_tpu/ops/pallas_swin.py:388"),
 }
 
 
@@ -4441,11 +4684,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    root = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(root, "heart_murmur_detection_tpu_torch")):
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root_dir, "heart_murmur_detection_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repo (package not found)", file=sys.stderr)
         return 1
-    sys.path.insert(0, root)
+    sys.path.insert(0, root_dir)
     # every plain version run here is a float32 reference: no TF32 in its
     # products (cuDNN convolutions would default to it)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -4520,6 +4763,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_tp(smi, dev)
     _tick("phase 32")
+    torch.cuda.empty_cache()
+    long_counts = phase_analysis(smi, dev, root_dir)
+    _tick("phase 33")
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths
@@ -4538,6 +4784,11 @@ def main() -> int:
                         KERNEL_SOURCES)
     kernels += _entries({f"{k}@clap2023": eval_meas[k] for k in ("swin_attn", "swin_mlp")},
                         {f"{k}@clap2023": clap_counts[k] for k in ("swin_attn", "swin_mlp")},
+                        KERNEL_SOURCES)
+    # K1-K3 on the long-clip path: B=16 batches of the operaCT geometry
+    # (phase 3's readings)
+    kernels += _entries({f"{k}@long": eval_meas[k] for k in ("swin_attn", "swin_mlp")},
+                        {f"{k}@long": long_counts[k] for k in ("swin_attn", "swin_mlp")},
                         KERNEL_SOURCES)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,1 @@
+from . import embeddings, logs, masked_spec, rank, saliency, significance

@@ -1,8 +1,16 @@
 """Spectrogram augmentations: the host-side (numpy) COLA augmentations — a
 copy of the numpy half of heart_murmur_detection_tpu/audio/augment.py
 (:113-131), which tests/test_torch_pretrain.py pins to the original — and
-the device-side SpecAugment of fine-tuning (`spec_augment` :93,
-`_drop_stripes` :76) in torch.
+the device-side ones in torch: the COLA views (`random_crop` :28,
+`random_mask` :37, `random_multiply` :56, `cola_views` :60) and the
+SpecAugment of fine-tuning (`spec_augment` :93, `_drop_stripes` :76).
+
+Each device augmentation draws its uniforms from an explicit
+torch.Generator and applies them with a deterministic function (crop_at,
+mask_at, multiply_at), which the tests hold to the JAX function on the
+JAX draws. random_mask's Markov chain over rows is evaluated without a
+sequential scan: row t is masked when some row s <= t started a run (u1_s
+< rate_start) and every row after s continued it (u2 < rate_seq).
 
 SpecAugment is split in two: spec_augment_draw draws each sample's stripes
 (widths and starts) from an explicit torch.Generator, and drop_stripes_at
@@ -50,6 +58,65 @@ def np_random_mask(rng, x, rate_start=0.1, rate_seq=0.2):
 
 def np_random_multiply(rng, x):
     return x * (0.9 + rng.random() / 5.0)
+
+
+# ---------------------------------------------------------------------------
+# device COLA augmentations (torch), on one (T, F) spectrogram
+# ---------------------------------------------------------------------------
+
+
+def crop_at(x: torch.Tensor, u: torch.Tensor, crop_size: int) -> torch.Tensor:
+    """The crop of x (T, F) at start int(u (T - crop_size)), clipped."""
+    T = x.shape[0]
+    start = torch.clamp((u * (T - crop_size)).to(torch.int64), 0, max(T - crop_size, 0))
+    return x[start + torch.arange(crop_size, device=x.device)]
+
+
+def random_crop(gen: Optional[torch.Generator], x: torch.Tensor, crop_size: int) -> torch.Tensor:
+    """Contiguous time crop. x: (T, F) -> (crop_size, F)."""
+    return crop_at(x, torch.rand((), generator=gen, device=x.device), crop_size)
+
+
+def mask_at(x: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, rate_start: float = 0.1,
+            rate_seq: float = 0.2) -> torch.Tensor:
+    """Markov row masking of x (T, F) to its mean on the draws u1, u2 (T,):
+    z_t = (u1_t < rate_start) | (z_{t-1} & (u2_t < rate_seq))."""
+    t = torch.arange(x.shape[0], device=x.device)
+    none = torch.full_like(t, -1)
+    last_start = torch.cummax(torch.where(u1 < rate_start, t, none), 0).values
+    last_break = torch.cummax(torch.where(u2 < rate_seq, none, t), 0).values
+    z = (last_start >= 0) & (last_break <= last_start)
+    return torch.where(z[:, None], x.mean(), x)
+
+
+def random_mask(gen: Optional[torch.Generator], x: torch.Tensor, rate_start: float = 0.1,
+                rate_seq: float = 0.2) -> torch.Tensor:
+    """Markov row masking to the clip mean. x: (T, F)."""
+    u = torch.rand(2, x.shape[0], generator=gen, device=x.device)
+    return mask_at(x, u[0], u[1], rate_start, rate_seq)
+
+
+def multiply_at(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    return x * (0.9 + u / 5.0)
+
+
+def random_multiply(gen: Optional[torch.Generator], x: torch.Tensor) -> torch.Tensor:
+    """A global gain ~ U(0.9, 1.1)."""
+    return multiply_at(x, torch.rand((), generator=gen, device=x.device))
+
+
+def cola_views(gen: Optional[torch.Generator], x: torch.Tensor, crop_size: int,
+               augment: bool = True):
+    """The COLA positive-pair pipeline (cola_training.py:63-76): mask -> two
+    independent crops -> independent gains. x: (T, F)."""
+    if augment:
+        x = random_mask(gen, x)
+    x1 = random_crop(gen, x, crop_size)
+    x2 = random_crop(gen, x, crop_size)
+    if augment:
+        x1 = random_multiply(gen, x1)
+        x2 = random_multiply(gen, x2)
+    return x1, x2
 
 
 # ---------------------------------------------------------------------------

@@ -99,6 +99,15 @@ def frame_signal(x: torch.Tensor, win: int, hop: int, Tmax: int) -> torch.Tensor
     return torch.cat(parts, dim=2) if width > 1 else parts[0]
 
 
+def frame_half_hop(x: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Frames with hop = n_fft // 2 by a reshape: (B, N) -> (B, N // hop - 1,
+    n_fft), N a multiple of the hop (the JAX frame_half_hop :99)."""
+    B, N = x.shape
+    hop = n_fft // 2
+    segs = x.reshape(B, N // hop, hop)
+    return torch.cat([segs[:, :-1], segs[:, 1:]], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # mel frontend (librosa parity)
 # ---------------------------------------------------------------------------
@@ -155,6 +164,7 @@ def mel_frontend(
     hop: int = 512,
     top_db: float = 80.0,
     normalize: bool = True,
+    use_fft: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched pre_process_audio_mel_t (src/util.py:481-501).
 
@@ -162,13 +172,26 @@ def mel_frontend(
       wav: (B, Nmax) float32 (or int16 PCM), each row zero-padded beyond its
         length; Nmax a multiple of hop.
       lengths: (B,) int32 valid sample counts.
+      use_fft: the power spectrum from torch.fft.rfft of the half-hop frames
+        (the JAX use_fft :155) instead of the split-DFT products.
     Returns:
       mel: (B, Tmax, n_mels) min-max normalised (invalid frames zeroed),
       n_frames: (B,) int32 valid frame counts (= lengths//hop + 1).
     """
     if not torch.is_floating_point(wav):
         wav = wav.to(torch.float32) / 32768.0
-    logm = 10.0 * log10_mel(wav, sr, n_mels, fmin, fmax, n_fft, hop)
+    if use_fft:
+        if hop * 2 != n_fft:
+            raise ValueError("the mel frontend assumes 50% hop (reference uses 1024/512)")
+        Tmax = wav.shape[1] // hop + 1
+        x = torch.nn.functional.pad(wav, (n_fft // 2, n_fft // 2))
+        w = torch.as_tensor(ref.hann_periodic(n_fft), dtype=torch.float32, device=wav.device)
+        power = torch.fft.rfft(frame_half_hop(x, n_fft)[:, :Tmax] * w, dim=-1).abs() ** 2
+        fb = torch.as_tensor(_mel_fb(sr, n_fft, n_mels, fmin, fmax), dtype=torch.float32,
+                             device=wav.device)
+        logm = 10.0 * torch.log10(torch.clamp(torch.matmul(power, fb), min=1e-10))
+    else:
+        logm = 10.0 * log10_mel(wav, sr, n_mels, fmin, fmax, n_fft, hop)
     return db_normalise(logm, lengths, hop, top_db, normalize)
 
 
@@ -345,6 +368,13 @@ def resize_bicubic_time(
         xq = x.to(compute_dtype).to(torch.float32)
         return torch.bmm(wq, xq).to(compute_dtype)
     return torch.bmm(w, x.to(torch.float32))
+
+
+def resize_bicubic_static(x: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Static-shape bicubic (align_corners=True) along axis 1 (the JAX :370):
+    every row's source length is x.shape[1]."""
+    src = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+    return resize_bicubic_time(x, src, out_len)
 
 
 # ---------------------------------------------------------------------------

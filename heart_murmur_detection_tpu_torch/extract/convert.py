@@ -8,9 +8,12 @@ heart_murmur_detection_tpu/extract/convert.py.
   gradients compare leaf by leaf. flax Dense kernel (in, out) ->
   Linear weight (out, in); Conv kernel (kh, kw, in, out) -> (out, in, kh, kw);
   LayerNorm/BatchNorm scale -> weight; BatchNorm mean/var -> running_mean/var.
-  The tscam head is not carried.
-- `load_torch_ckpt(path, model)`: a reference OPERA-CT `.ckpt` into the
-  port's Cola, keys matched by name (the port keeps the reference names).
+  The tscam head (`tscam_conv`, where the tree has one) is carried as any
+  other conv.
+- `load_torch_ckpt(path, model)`: a reference OPERA-CT `.ckpt`, the port's
+  own continued-pretraining checkpoint or a fine-tuned classifier's
+  state_dict into the port's Cola, keys matched by name (the port keeps the
+  reference names).
 - `from_jax_mae(variables, decoder=False)`: the JAX package's flax
   MaskedAutoencoderViT or AudioMAEClassifierBackbone variables -> the port's
   state_dict (models/vit_mae.py) of the encoder, or with decoder=True of the
@@ -41,7 +44,7 @@ heart_murmur_detection_tpu/extract/convert.py.
   state_dict (msclap's names: base.htsat.* through from_jax for 2023, the
   Cnn14's base.bn0 / conv_block{i}.conv{j} / bn{j} / fc1 / fc_audioset for
   2022, projection.*); the inverse of the JAX `convert_clap_audio`. The
-  HTS-AT's tscam head is not carried.
+  2023 HTS-AT's tscam head is carried through from_jax.
 - `load_clap_ckpt(path_or_state_dict, version)`: an msclap state_dict (a
   file or the dict itself) whose audio tower sits under
   `clap.audio_encoder.`, `audio_encoder.` or `model.audio_encoder.` into
@@ -129,6 +132,8 @@ def from_jax(variables: dict) -> Dict[str, torch.Tensor]:
             _norm(sd, tp + "norm", enc[name]["norm"])
             _linear(sd, tp + "reduction", enc[name]["reduction"], bias=False)
     _norm(sd, p + "norm", enc["norm"])
+    if "tscam_conv" in enc:
+        _conv_w(sd, p + "tscam_conv", enc["tscam_conv"])
     if "g" in params:
         _linear(sd, "g", params["g"])
         _norm(sd, "layer_norm", params["layer_norm"])
@@ -296,9 +301,10 @@ def load_clap_ckpt(path_or_state_dict: Union[str, Mapping], version: str = "2023
     the state_dict itself) into `model` (default a new
     CLAPAudioEncoder(CLAPConfig(version))) by key name, after the first of
     CLAP_PREFIXES that the keys carry (the JAX convert_clap_audio :277).
-    Keys the model does not hold (the text tower, the frontend's buffers,
-    the tscam head) are ignored; a missing key raises KeyError, as does a
-    checkpoint with no audio subtree."""
+    Keys the model does not hold (the text tower, the frontend's buffers)
+    are ignored; a missing key raises KeyError (except the 2023 HTS-AT's
+    tscam head, which then keeps the model's values), as does a checkpoint
+    with no audio subtree."""
     from ..models.clap import CLAPAudioEncoder, CLAPConfig
 
     sd = path_or_state_dict
@@ -311,10 +317,10 @@ def load_clap_ckpt(path_or_state_dict: Union[str, Mapping], version: str = "2023
     sub = {k[len(pref):]: v for k, v in sd.items() if k.startswith(pref)}
     model = model if model is not None else CLAPAudioEncoder(CLAPConfig(version=version))
     own = model.state_dict()
-    missing = [k for k in own if k not in sub]
+    missing = [k for k in own if k not in sub and ".tscam_conv." not in k]
     if missing:
         raise KeyError(f"the CLAP checkpoint lacks {len(missing)} keys, e.g. {missing[:3]}")
-    model.load_state_dict({k: torch.as_tensor(sub[k]) for k in own})
+    model.load_state_dict({k: torch.as_tensor(sub.get(k, v)) for k, v in own.items()})
     return model
 
 
@@ -420,16 +426,21 @@ def load_mae_ckpt(path: str, model: torch.nn.Module) -> torch.nn.Module:
 
 
 def load_torch_ckpt(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Load a reference Cola(htsat) checkpoint (Lightning `.ckpt` or a bare
-    state_dict) into the port's Cola. The htsat subtree may sit under
-    encoder.encoder.htsat., encoder.htsat. or htsat.; keys the port does not
-    carry (tscam_conv, head, ...) are ignored; a missing key raises."""
+    """Load a Cola(htsat) checkpoint (a reference Lightning `.ckpt`, the
+    port's cli.pretrain checkpoint, a bare state_dict) into the port's Cola
+    by name. The htsat subtree may sit under encoder.encoder.htsat.,
+    encoder.htsat. or htsat.; a fine-tuned classifier's state_dict
+    (cli.finetune's `.pt`: "encoder.*" and "head.*") gives its encoder, as
+    the JAX registry's _adapt_msgpack_ckpt maps a fine-tuned tree onto
+    Cola.encoder. Keys the port does not carry (head, ...) are ignored; a
+    missing key raises, except the tscam head's and, from a classifier, the
+    projector's (g, layer_norm, linear), which keep the model's values, as
+    the JAX registry merges a checkpoint into its initial tree."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt.get("model", ckpt))
-    enc_prefix = next(
-        (c for c in (HTSAT_PREFIX, "encoder.htsat.", "htsat.") if any(k.startswith(c) for k in sd)),
-        None,
-    )
+    classifier = any(k.startswith("head.") for k in sd) and "encoder.bn0.weight" in sd
+    prefixes = (HTSAT_PREFIX, "encoder.htsat.", "htsat.") + (("encoder.",) if classifier else ())
+    enc_prefix = next((c for c in prefixes if any(k.startswith(c) for k in sd)), None)
     if enc_prefix is None:
         raise KeyError(f"no htsat subtree in checkpoint {path}")
     renamed = {}
@@ -439,6 +450,10 @@ def load_torch_ckpt(path: str, model: torch.nn.Module) -> torch.nn.Module:
         elif not k.startswith(("encoder.", "htsat.")):
             renamed[k] = v
     own = model.state_dict()
+    kept = (HTSAT_PREFIX + "tscam_conv.",) + (("g.", "layer_norm.", "linear.") if classifier else ())
+    for k in own:
+        if k not in renamed and k.startswith(kept):
+            renamed[k] = own[k]
     missing = [k for k in own if k not in renamed]
     if missing:
         raise KeyError(f"checkpoint {path} lacks {len(missing)} keys, e.g. {missing[:3]}")
@@ -480,8 +495,6 @@ def from_jax_classifier(variables: dict, encoder_kind: str) -> Dict[str, torch.T
         if variables.get("batch_stats"):
             inner["batch_stats"] = variables["batch_stats"]["encoder"]
         sd = from_jax_clap(inner, "2023" if encoder_kind == "clap2023" else "2022")
-        if "tscam_conv" in enc["base"]:  # unread; in the L2 term
-            _conv_w(sd, "base.htsat.tscam_conv", enc["base"]["tscam_conv"])
     elif encoder_kind == "hear":
         sd = from_jax_hear({"params": enc})
     else:

@@ -509,3 +509,17 @@ def extract_opera_feature(
     ex = FeatureExtractor(pretrain, dim=dim, input_sec=input_sec, ckpt_path=ckpt_path, pad0=pad0,
                           batch_size=batch_size, random_init=random_init, device=device)
     return ex.extract_files(list(sound_dir_loc))
+
+
+def extract_audiomae_feature(
+    sound_dir_loc: Sequence[str],
+    input_sec: float = 10,
+    ckpt_path: Optional[str] = None,
+    **kw,
+) -> np.ndarray:
+    """Functional API mirroring extract_feature.extract_audioMAE_feature:105-171
+    (the JAX extract.py:651-656): Audio-MAE features (768) of each file,
+    10-s chunks averaged; kw go to FeatureExtractor (batch_size,
+    random_init, device, ...)."""
+    ex = FeatureExtractor("audiomae", dim=768, input_sec=input_sec, ckpt_path=ckpt_path, **kw)
+    return ex.extract_files(list(sound_dir_loc))

@@ -1,13 +1,16 @@
-"""Model factory — counterpart of
-heart_murmur_detection_tpu/extract/registry.py: operaCT (Cola(htsat)),
+"""Checkpoint registry and model factory — counterpart of
+heart_murmur_detection_tpu/extract/registry.py: operaCT and its
+continued-pretraining checkpoints by name (_CP_PATHS, get_encoder_path;
+Cola(htsat)),
 operaCE and the random baselines null / null-efficientnet
 (Cola(efficientnet)), operaGT (the MAE ViT-S encoder), the audiomae kinds
 (the Audio-MAE ViT-B backbone), hear (the HeAR ViT-L/16 encoder) and the
 CLAP audio towers clap (2022, Cnn14) and clap2023 (HTS-AT).
 
-Checkpoint paths mirror the reference's `cks/` layout. Nothing is
-downloaded: a missing checkpoint raises with the expected path. Random init
-draws from a seeded torch.Generator.
+Checkpoint paths mirror the reference's `cks/` layout (model_util.py:25-60),
+so a user's existing `cks/` tree works unchanged. Nothing is downloaded: a
+missing checkpoint raises the JAX package's FileNotFoundError with the
+expected path. Random init draws from a seeded torch.Generator.
 """
 
 from __future__ import annotations
@@ -27,6 +30,24 @@ ENCODER_PATH_OPERA_CT_HT_SAT = "cks/model/encoder-operaCT.ckpt"
 ENCODER_PATH_OPERA_GT_VIT = "cks/model/encoder-operaGT.ckpt"
 
 _CP_DIR = "cks/model/combined"
+
+# continued-pretraining checkpoints keyed as in model_util.py:28-60
+_CP_PATHS = {
+    "operaCT-heart-indomain-physionet16": f"{_CP_DIR}/physionet16/encoder-operaCT-physionet16-indomain-epoch=239--valid_acc=0.98-valid_loss=0.0524.ckpt",
+    "operaCT-heart-indomain-circor": f"{_CP_DIR}/circor/encoder-operaCT-circor-indomain-epoch=209--valid_acc=0.99-valid_loss=0.0397.ckpt",
+    "operaCT-heart-indomain-pretrained-physionet16": f"{_CP_DIR}/physionet16/encoder-operaCT-physionet16-indomain-pretrained-epoch=169--valid_acc=0.99-valid_loss=0.0300.ckpt",
+    "operaCT-heart-indomain-pretrained-circor": f"{_CP_DIR}/circor/encoder-operaCT-circor-indomain-pretrained-epoch=229--valid_acc=0.99-valid_loss=0.0342.ckpt",
+    "operaCT-heart-nonoisy-circor": f"{_CP_DIR}/pascal_A_pascal_B_physionet16_zchsound_clean/encoder-operaCT-nocircor-nonoisy-epoch=249--valid_acc=0.96-valid_loss=0.2138.ckpt",
+    "operaCT-heart-nonoisy-pascal": f"{_CP_DIR}/circor_physionet16_zchsound_clean/encoder-operaCT-nopascal-nonoisy-epoch=159--valid_acc=0.94-valid_loss=0.3256.ckpt",
+    "operaCT-heart-nonoisy-physionet16": f"{_CP_DIR}/circor_pascal_A_pascal_B_zchsound_clean/encoder-operaCT-nophysionet-nonoisy-epoch=249--valid_acc=0.95-valid_loss=0.2898.ckpt",
+    "operaCT-heart-nonoisy-zchsound": f"{_CP_DIR}/circor_pascal_A_pascal_B_physionet16/encoder-operaCT-nozchsound-epoch=169--valid_acc=0.94-valid_loss=0.3174.ckpt",
+    "operaCT-heart-all": f"{_CP_DIR}/circor_pascal_A_pascal_B_physionet16_zchsound_clean_zchsound_noisy/encoder-operaCT-heart-all-epoch=159--valid_acc=0.94-valid_loss=0.3790.ckpt",
+    "operaCT-heart-all-scratch": f"{_CP_DIR}/circor_pascal_A_pascal_B_physionet16_zchsound_clean_zchsound_noisy/encoder-operaCT-heart-all-scratch-epoch=209--valid_acc=0.92-valid_loss=0.3899.ckpt",
+    "operaCT-heart-cross-circor": f"{_CP_DIR}/pascal_A_pascal_B_physionet16_zchsound_clean_zchsound_noisy/model.ckpt",
+    "operaCT-heart-cross-pascal": f"{_CP_DIR}/circor_physionet16_zchsound_clean_zchsound_noisy/model.ckpt",
+    "operaCT-heart-cross-zchsound": f"{_CP_DIR}/circor_pascal_A_pascal_B_physionet16/model.ckpt",
+    "operaCT-heart-cross-physionet16": f"{_CP_DIR}/circor_pascal_A_pascal_B_zchsound_clean_zchsound_noisy/model.ckpt",
+}
 
 _AUDIOMAE_PATHS = {
     "audiomae": "src/benchmark/baseline/audioMAE/pretrained.pth",
@@ -86,6 +107,46 @@ def _missing(pretrain: str, path: str):
     )
 
 
+def _encoder_paths() -> dict:
+    paths = {
+        "operaCT": ENCODER_PATH_OPERA_CT_HT_SAT,
+        "operaCE": ENCODER_PATH_OPERA_CE_EFFICIENTNET,
+        "operaGT": ENCODER_PATH_OPERA_GT_VIT,
+        **_CP_PATHS,
+    }
+    # the zchsound_clean / zchsound_noisy variants share the zchsound CP checkpoint
+    for suffix in ("zchsound_clean", "zchsound_noisy"):
+        paths[f"operaCT-heart-nonoisy-{suffix}"] = _CP_PATHS["operaCT-heart-nonoisy-zchsound"]
+        paths[f"operaCT-heart-cross-{suffix}"] = _CP_PATHS["operaCT-heart-cross-zchsound"]
+    return paths
+
+
+def get_encoder_path(pretrain: str) -> str:
+    """The checkpoint path of an OPERA encoder or a continued-pretraining
+    name (the JAX get_encoder_path :63-86, without its download): KeyError
+    for an unknown name, FileNotFoundError where the file is missing."""
+    paths = _encoder_paths()
+    if pretrain not in paths:
+        raise KeyError(f"unknown pretrain: {pretrain}")
+    path = paths[pretrain]
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"checkpoint for '{pretrain}' not found at {path}; "
+            "run pretraining or place the checkpoint there"
+        )
+    return path
+
+
+def get_audiomae_encoder_path(pretrain: str) -> str:
+    """The checkpoint path of an Audio-MAE name (the JAX :89-95)."""
+    if pretrain not in _AUDIOMAE_PATHS:
+        raise KeyError(f"unknown audiomae pretrain: {pretrain}")
+    path = _AUDIOMAE_PATHS[pretrain]
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"checkpoint not found: {path}")
+    return path
+
+
 def initialize_pretrained_model(
     pretrain: str,
     ckpt_path: Optional[str] = None,
@@ -94,8 +155,12 @@ def initialize_pretrained_model(
 ) -> torch.nn.Module:
     """Build the model for `pretrain` on the CPU and load its weights:
     random (seeded) for random_init or a null-* pretrain, else from
-    ckpt_path (default: the reference's checkpoint path for the kind).
-    operaCT kinds give a Cola(htsat), operaCE, null and null-efficientnet a
+    ckpt_path (default: the name's path, get_encoder_path or
+    get_audiomae_encoder_path, as the JAX :155-159 resolves it). operaCT
+    kinds (operaCT and every continued-pretraining name) give a Cola(htsat)
+    whose checkpoint convert.load_torch_ckpt reads (a fine-tuned
+    classifier's too: its encoder, the rest of the seeded init kept),
+    operaCE, null and null-efficientnet a
     Cola(efficientnet) (operaCE's checkpoint a reference Cola(efficientnet)
     state_dict, default cks/model/encoder-operaCE.ckpt), operaGT a MaskedAutoencoderViT
     (ViT-S), the audiomae kinds an AudioMAEClassifierBackbone (ViT-B/16),
@@ -124,16 +189,14 @@ def initialize_pretrained_model(
     if is_operagt(pretrain) or is_audiomae(pretrain):
         if is_operagt(pretrain):
             model = vit_mae.MaskedAutoencoderViT(vit_mae.mae_vit_small_config())
-            default = ENCODER_PATH_OPERA_GT_VIT
+            resolve = get_encoder_path
         else:
             model = vit_mae.AudioMAEClassifierBackbone(vit_mae.audiomae_base_config())
-            default = _AUDIOMAE_PATHS.get(pretrain)
+            resolve = get_audiomae_encoder_path
         if random_init:
             vit_mae.init_weights(model, gen)
             return model.eval()
-        ckpt_path = ckpt_path or default
-        if ckpt_path is None:
-            raise KeyError(f"unknown audiomae pretrain: {pretrain}")
+        ckpt_path = ckpt_path or resolve(pretrain)
         if not os.path.exists(ckpt_path):
             raise _missing(pretrain, ckpt_path)
         return convert.load_mae_ckpt(ckpt_path, model).eval()
@@ -142,7 +205,7 @@ def initialize_pretrained_model(
         if random_init or pretrain.startswith("null"):
             init_weights(model, gen)
             return model.eval()
-        ckpt_path = ckpt_path or ENCODER_PATH_OPERA_CE_EFFICIENTNET
+        ckpt_path = ckpt_path or get_encoder_path("operaCE")
         if not os.path.exists(ckpt_path):
             raise _missing(pretrain, ckpt_path)
         return convert.load_cola_efficientnet_ckpt(ckpt_path, model).eval()
@@ -152,13 +215,8 @@ def initialize_pretrained_model(
     if random_init or pretrain.startswith("null"):
         init_weights(model, gen)
         return model.eval()
-    if ckpt_path is None:
-        if pretrain != "operaCT":
-            raise NotImplementedError(
-                f"pretrain {pretrain!r}: pass ckpt_path (the continued-pretraining "
-                "checkpoint registry is not ported)"
-            )
-        ckpt_path = ENCODER_PATH_OPERA_CT_HT_SAT
+    ckpt_path = ckpt_path or get_encoder_path(pretrain)
     if not os.path.exists(ckpt_path):
         raise _missing(pretrain, ckpt_path)
+    init_weights(model, gen)  # what a checkpoint leaves out keeps the seeded init
     return convert.load_torch_ckpt(ckpt_path, model).eval()

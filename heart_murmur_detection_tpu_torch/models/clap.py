@@ -106,7 +106,8 @@ class CLAPAudioEncoder(nn.Module):
             self.base = Cnn14(config.classes_num, config.mel_bins)
             d_in = config.d_in
         else:
-            self.base = HTSATWrapper(HTSATConfig(mel_bins=config.mel_bins))
+            self.base = HTSATWrapper(HTSATConfig(mel_bins=config.mel_bins,
+                                                  num_classes=config.classes_num))
             d_in = self.base.htsat.config.num_features  # 768, as flax infers it
         self.projection = Projection(d_in, config.d_proj)
 

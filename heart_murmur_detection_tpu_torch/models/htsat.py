@@ -8,8 +8,20 @@ layers.{i}.downsample.{norm, reduction}, norm), so a reference checkpoint
 loads without renaming. The eval forward is
 models.htsat_fused.htsat_apply_fused, routed through the swin kernels of
 ops/swin.py; the training forward is models.htsat_train_fused
-.htsat_encode_train, routed through ops/swin_train.py. The tscam head
-(clipwise/framewise outputs) is not carried.
+.htsat_encode_train, routed through ops/swin_train.py.
+
+The tscam head (enable_tscam, the JAX default) is `tscam_conv`, the
+reference's (c_freq_bin, 3) conv from the final 8x8 map to num_classes
+logits: htsat_apply_fused(..., tscam=True) adds framewise_output,
+clipwise_output and clipwise_logits to latent_output, and
+htsat_forward_long averages every output over sliding crops of a long clip.
+No loss of the port reads the head, so its weight and bias are buffers,
+not parameters: a training step leaves them where they are, as the JAX
+package's zero-gradient Adam update does. A state without the head (a
+checkpoint written before it was carried, a JAX tree with enable_tscam
+off) keeps the head as built, as the JAX registry merges a checkpoint into
+its initial tree. A geometry whose final map has fewer frequency rows than
+freq_ratio (c_freq_bin 0, the narrow test configs) has no head.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.swin import SwinBlockParams, prep_block
 
@@ -39,6 +52,8 @@ class HTSATConfig:
     qkv_bias: bool = True
     drop_path_rate: float = 0.1  # DropPath rates linspace(0, rate, sum(depths)) over the blocks
     mel_bins: int = 64
+    num_classes: int = 527  # the tscam head's logits
+    enable_tscam: bool = True
 
     @property
     def freq_ratio(self) -> int:
@@ -47,6 +62,17 @@ class HTSATConfig:
     @property
     def num_features(self) -> int:
         return int(self.embed_dim * 2 ** (len(self.depths) - 1))  # 768
+
+    @property
+    def final_side(self) -> int:
+        """SF = ST: the side of the final token map (8)."""
+        return self.spec_size // 2 ** (len(self.depths) - 1) // self.patch_stride[0]
+
+    @property
+    def c_freq_bin(self) -> int:
+        """Frequency rows of the final map a time group (2): the tscam
+        conv's kernel height."""
+        return self.final_side // self.freq_ratio
 
 
 def _relative_position_index(wh: int, ww: int) -> np.ndarray:
@@ -154,6 +180,31 @@ class BasicLayer(nn.Module):
             self.downsample = PatchMerging(dim)
 
 
+class TscamConv(nn.Module):
+    """The tscam head's conv (htsat.py:678-683): num_features -> num_classes
+    over a (c_freq_bin, 3) kernel, padding (0, 1); weight and bias under the
+    reference's names, held as buffers (see the module doc)."""
+
+    def __init__(self, dim: int, classes: int, kh: int):
+        super().__init__()
+        self.register_buffer("weight", torch.zeros(classes, dim, kh, 3))
+        self.register_buffer("bias", torch.zeros(classes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..utils.precision import strict_f32
+
+        with strict_f32():
+            return F.conv2d(x, self.weight, self.bias, padding=(0, 1))
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict,
+                              missing_keys, unexpected_keys, error_msgs):
+        n = len(missing_keys)
+        super()._load_from_state_dict(state_dict, prefix, local_metadata, strict,
+                                      missing_keys, unexpected_keys, error_msgs)
+        if not any(k.startswith(prefix) for k in state_dict):  # a state without the head
+            del missing_keys[n:]
+
+
 @dataclasses.dataclass(frozen=True)
 class PreparedStage:
     """One stage's blocks laid out for the kernels, plus its shift mask."""
@@ -189,6 +240,9 @@ class HTSAT(nn.Module):
         )
         self.layers = nn.ModuleList(BasicLayer(cfg, i) for i in range(len(cfg.depths)))
         self.norm = nn.LayerNorm(cfg.num_features, eps=1e-5)
+        self.tscam_conv = None
+        if cfg.enable_tscam and cfg.c_freq_bin:
+            self.tscam_conv = TscamConv(cfg.num_features, cfg.num_classes, cfg.c_freq_bin)
         self._prepared = {}
         self._train_stages = {}
 
@@ -255,10 +309,72 @@ class HTSAT(nn.Module):
         mm_dtype: torch.dtype = torch.float32,
         fast_softmax: bool = False,
         impl: str = "kernel",
-    ) -> torch.Tensor:
+        tscam: bool = False,
+    ):
         from .htsat_fused import htsat_apply_fused
 
-        return htsat_apply_fused(self, mel, n_frames, mm_dtype, fast_softmax, impl)
+        return htsat_apply_fused(self, mel, n_frames, mm_dtype, fast_softmax, impl, tscam)
+
+
+def tscam_outputs(model: HTSAT, x: torch.Tensor) -> dict:
+    """The tscam head on the final LayerNorm's tokens x (B, SF * ST, C),
+    float32 (the JAX HTSAT :379-398): the SF x ST map unfolded so each
+    c_freq_bin rows of a time group sit on one row, the (c_freq_bin, 3)
+    conv, its logits (B, 4 ST, classes) -> framewise_output (their sigmoid
+    repeated 8 * patch_stride[1] times along time), clipwise_logits (their
+    time mean) and clipwise_output (its sigmoid)."""
+    cfg = model.config
+    if model.tscam_conv is None:
+        raise ValueError("this HTS-AT has no tscam head (enable_tscam off, or c_freq_bin 0)")
+    B, _, C = x.shape
+    SF = ST = cfg.final_side
+    c = cfg.c_freq_bin
+    fmap = x.to(torch.float32).reshape(B, SF // c, c, ST, C).permute(0, 2, 1, 3, 4)
+    fmap = fmap.reshape(B, c, -1, C).permute(0, 3, 1, 2)  # NCHW (B, C, c, 4 ST)
+    logits = model.tscam_conv(fmap).reshape(B, cfg.num_classes, -1).transpose(1, 2)
+    clip = logits.mean(dim=1)
+    return {
+        "framewise_output": torch.sigmoid(logits).repeat_interleave(
+            8 * cfg.patch_stride[1], dim=1),
+        "clipwise_output": torch.sigmoid(clip),
+        "clipwise_logits": clip,
+    }
+
+
+def htsat_forward_long(
+    model: HTSAT,
+    mel: torch.Tensor,
+    crop_size: int = 1024,
+    overlap: int = 512,
+    batch_size: int = 16,
+    mm_dtype: torch.dtype = torch.float32,
+    fast_softmax: bool = False,
+    impl: str = "kernel",
+) -> dict:
+    """Sliding-window inference for clips longer than a crop (the JAX
+    htsat_forward_long :281-305, htsat.py:939-979): crops of crop_size
+    frames starting at arange(0, T - crop_size - 1, overlap), each output
+    averaged over the crops; with no start, one plain forward. The crops of
+    all clips are stacked on the batch axis, crop-major, and run through
+    htsat_apply_fused batch_size rows at a time (bn0 is on its running
+    statistics, so rows are independent). mel (B, T, F) -> {"latent_output"
+    [, the tscam outputs, where the model has the head]}."""
+    from .htsat_fused import htsat_apply_fused
+
+    tscam = model.tscam_conv is not None
+    B, T, _ = mel.shape
+
+    def run(x: torch.Tensor) -> dict:
+        out = htsat_apply_fused(model, x, None, mm_dtype, fast_softmax, impl, tscam)
+        return out if tscam else {"latent_output": out}
+
+    starts = np.arange(0, T - crop_size - 1, overlap)
+    if len(starts) == 0:
+        return run(mel)
+    crops = torch.cat([mel[:, s : s + crop_size] for s in starts])  # (n B, crop, F)
+    parts = [run(crops[lo : lo + batch_size]) for lo in range(0, crops.shape[0], batch_size)]
+    return {k: torch.cat([p[k] for p in parts]).reshape(len(starts), B, *parts[0][k].shape[1:])
+            .mean(dim=0) for k in parts[0]}
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -278,6 +394,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
     with torch.no_grad():
         for m in module.modules():
+            if isinstance(m, TscamConv):
+                continue  # drawn last, so the other weights' draws are as without the head
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 fan_in = m.weight[0].numel()
                 trunc_normal_(m.weight, 1.0 / math.sqrt(fan_in))
@@ -291,3 +409,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                     m.running_var.fill_(1.0)
             elif isinstance(m, WindowAttention):
                 trunc_normal_(m.relative_position_bias_table, 0.02)
+        for m in module.modules():
+            if isinstance(m, TscamConv):
+                trunc_normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
+                m.bias.zero_()

@@ -34,8 +34,11 @@ def htsat_apply_fused(
     mm_dtype: torch.dtype = torch.float32,
     fast_softmax: bool = False,
     impl: str = "kernel",
-) -> torch.Tensor:
-    """mel (B, T, F) [+ per-clip frame counts] -> latent_output (B, 768).
+    tscam: bool = False,
+):
+    """mel (B, T, F) [+ per-clip frame counts] -> latent_output (B, 768);
+    with tscam=True a dict of latent_output and the tscam head's outputs
+    (models.htsat.tscam_outputs, float32, on the final LayerNorm's tokens).
 
     model: a models.htsat.HTSAT (its weights and config). impl="kernel"
     launches the CUDA kernels for CUDA tensors (plain versions on the CPU);
@@ -109,4 +112,8 @@ def htsat_apply_fused(
             res = (H // 2, W // 2)
 
     x = _ln(x, model.norm.weight, model.norm.bias)
-    return x.mean(dim=1)
+    if not tscam:
+        return x.mean(dim=1)
+    from .htsat import tscam_outputs
+
+    return {"latent_output": x.mean(dim=1), **tscam_outputs(model, x)}

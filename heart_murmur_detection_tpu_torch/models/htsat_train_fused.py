@@ -103,7 +103,9 @@ def htsat_encode_train(
     """mel (B, T, F) -> (latent (B, 768), new bn0 running statistics).
 
     model: a models.htsat.HTSAT; stats: the bn0 running statistics to update
-    (two encoder calls chain them). mm_dtype bf16 runs stages up to
+    (two encoder calls chain them), or None for bn0 on its running
+    statistics, as the eval forward normalises (None comes back; the
+    input gradient of analysis/saliency.py takes this route). mm_dtype bf16 runs stages up to
     max_fused_dim through the train kernels in bf16 (impl: see
     ops.swin_train.fused_swin_block_train); float32 runs every block in
     float32. deterministic=True keeps the DropPath multipliers at 1. mesh:
@@ -113,8 +115,13 @@ def htsat_encode_train(
     cfg = model.config
     B, T, Fb = mel.shape
     dev = mel.device
-    x, new_stats = bn_train(mel.to(torch.float32), model.bn0.weight, model.bn0.bias, stats,
-                            mesh=mesh)
+    bn = model.bn0
+    if stats is None:  # the eval route: bn0 on its running statistics
+        x = (mel.to(torch.float32) - bn.running_mean) * torch.rsqrt(
+            bn.running_var + bn.eps) * bn.weight + bn.bias
+        new_stats = None
+    else:
+        x, new_stats = bn_train(mel.to(torch.float32), bn.weight, bn.bias, stats, mesh=mesh)
 
     target_T = cfg.spec_size * cfg.freq_ratio
     if n_frames is None:

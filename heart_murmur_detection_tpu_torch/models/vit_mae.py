@@ -435,6 +435,14 @@ class MaskedAutoencoderViT(_MAEEncoder):
         x = x.reshape(B, H // p, p, W // p, p).permute(0, 1, 3, 2, 4)
         return x.reshape(B, (H // p) * (W // p), p * p)
 
+    def unpatchify(self, tokens: torch.Tensor) -> torch.Tensor:
+        """patchify's inverse at the config's img_size (JAX :429): (B, L,
+        p*p) -> (B, H, W)."""
+        p = self.config.patch_size
+        H, W = self.config.img_size
+        x = tokens.reshape(tokens.shape[0], H // p, W // p, p, p).permute(0, 1, 3, 2, 4)
+        return x.reshape(tokens.shape[0], H, W)
+
     def masked_loss(self, x: torch.Tensor, pred: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Mean squared error over the masked patches (normalised pixels with
         norm_pix_loss)."""

@@ -407,12 +407,17 @@ def swin_mlp_bwd_launch(h1, dy, k2, p: SwinBlockParams):
 
 
 def swin_mlp_bwd(
-    h1: torch.Tensor, dy: torch.Tensor, k2: torch.Tensor, p: SwinBlockParams
+    h1: torch.Tensor, dy: torch.Tensor, k2: torch.Tensor, p: SwinBlockParams,
+    weights: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Backward of the MLP half (see swin_mlp_bwd_ref for the math)."""
+    """Backward of the MLP half (see swin_mlp_bwd_ref for the math).
+    weights=False returns dh1 alone on a card (no swin_reduce or swin_wgrad
+    launch; dh1 is the same bits)."""
     if h1.device.type == "cpu":
         return swin_mlp_bwd_ref(h1, dy, k2, p)
     dh1, (m_g, g_g, dyk_g, da1_g), part = swin_mlp_bwd_launch(h1, dy, k2, p)
+    if not weights:
+        return dh1, {}
     C, hidden = h1.shape[-1], p.w_fc1.shape[0]
     db1, db2, dln2w, dln2b = swin_reduce(part).split([hidden, C, C, C])
     return dh1, {
@@ -462,13 +467,17 @@ def swin_attn_bwd(
     mask: Optional[torch.Tensor] = None,
     shift: int = 0,
     window: int = WINDOW,
+    weights: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Backward of the attention half (see swin_attn_bwd_ref for the math)."""
+    """Backward of the attention half (see swin_attn_bwd_ref for the math).
+    weights=False returns dx alone on a card, as swin_mlp_bwd does."""
     if x.device.type == "cpu":
         return swin_attn_bwd_ref(x, dh1, k1, p, mask, shift, window)
     if window != WINDOW:
         raise ValueError(f"the kernels take window {WINDOW}, got {window}")
     dx, (h_g, dw_g, opre_g, dqkv_g), part = swin_attn_bwd_launch(x, dh1, k1, p, mask, shift)
+    if not weights:
+        return dx, {}
     C, heads = x.shape[-1], p.heads
     nb, Cp3 = heads * 64 * 64, 3 * heads * HDP
     dbias, dbqkv, dbproj, dln1w, dln1b = swin_reduce(part).split([nb, Cp3, C, C, C])
@@ -522,12 +531,17 @@ class _SwinBlockTrain(torch.autograd.Function):
         shift, plain, heads, hd = ctx.meta
         p = SwinBlockParams(heads, hd, **dict(zip(_FIELDS, weights)))
         dy = dy.contiguous()
+        # no weight requires a gradient (an input gradient alone, as a
+        # saliency map takes): the kernels skip the weight products
+        need_w = any(ctx.needs_input_grad[8:])
         if plain:
             dh1, gm = swin_mlp_bwd_ref(h1, dy, k2, p)
             dx, ga = swin_attn_bwd_ref(x, dh1, k1, p, mask, shift, _window(p))
         else:
-            dh1, gm = swin_mlp_bwd(h1, dy, k2, p)
-            dx, ga = swin_attn_bwd(x, dh1, k1, p, mask, shift, _window(p))
+            dh1, gm = swin_mlp_bwd(h1, dy, k2, p, need_w)
+            dx, ga = swin_attn_bwd(x, dh1, k1, p, mask, shift, _window(p), need_w)
+        if not need_w:
+            return (dx, *[None] * (7 + len(weights)))
         g = {**gm, **ga}
         # each gradient in its weight's dtype: the bf16 matrices' gradients
         # round to bf16 here, as at the JAX custom_vjp boundary

@@ -182,9 +182,9 @@ def _leaves(tree, prefix=()):
 
 
 def _msclap_sd(port, v, version, prefix):
-    """A synthetic msclap state_dict: the port's weights under `prefix`,
-    plus keys the port does not hold (the text tower, the frontend's
-    buffers and, for 2023, the tscam head the JAX tower applies)."""
+    """A synthetic msclap state_dict: the port's weights under `prefix`
+    (for 2023 with the JAX tower's tscam head), plus keys the port does not
+    hold (the text tower, the frontend's buffers)."""
     sd = {prefix + k: t.clone() for k, t in port.state_dict().items()}
     sd["caption_encoder.base.embeddings.word_embeddings.weight"] = torch.zeros(3, 4)
     base = prefix + ("base.htsat." if version == "2023" else "base.")
@@ -199,11 +199,11 @@ def _msclap_sd(port, v, version, prefix):
 
 def test_from_jax_clap_roundtrip_exact(towers):
     """from_jax_clap -> the JAX package's convert_clap_audio gives back the
-    same flax tree (minus the tscam head, which the port does not carry)."""
+    same flax tree (the 2023 HTS-AT's tscam head included)."""
     version, v, _, port = towers
     sd = {"audio_encoder." + k: t.numpy() for k, t in port.state_dict().items()}
     back = convert_clap_audio(sd, version)
-    want = {k: x for k, x in _leaves(v) if "tscam_conv" not in k}
+    want = dict(_leaves(v))
     got = dict(_leaves(back))
     assert set(got) == set(want)
     for k in want:
