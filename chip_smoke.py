@@ -137,9 +137,8 @@ Phases (each prints one line; any failure exits non-zero):
      ~0.99994 over 24 ViT-L blocks) and the strict f32 path, TF32 off
      (>= 0.9999, HeAR's class, and within 2x the plain flow's distance);
      device-resident clips/s at B=64, kernel and plain bf16 paths in turns
-     (bench/hear_rate.py); a profile of one batch from a fresh process:
-     each kernel, the frontend (DFT, mel, PCEN, resize), the glue, the idle
-     share
+     (bench/hear_rate.py, whose --profile gives a batch's profile from a
+     fresh process)
  24. CLAP: a synthetic CirCor corpus through cli.process pretrain=clap2023
      (HTS-AT at 44.1 kHz, 7-s clips, the 12 swin blocks a batch on the
      kernels: as many launches a batch as an operaCT forward) and
@@ -148,9 +147,8 @@ Phases (each prints one line; any failure exits non-zero):
      clips' 2023 features against the plain bf16 flow (>= 0.99999) and the
      strict f32 path, TF32 off (>= 0.99995); the 2022 tower on the card
      against the CPU's float32 graph (>= 0.99999); device-resident clips/s
-     at B=16, kernel and plain bf16 paths in turns (bench/clap_rate.py);
-     a profile of one batch from a fresh process: each kernel, the 44.1 kHz
-     frontend (framing, DFT products, mel and log), the glue, the idle share
+     at B=16, kernel and plain bf16 paths in turns (bench/clap_rate.py,
+     whose --profile gives a batch's profile from a fresh process)
  25. the comparison loop from disk: a synthetic CirCor corpus through
      cli.process (operaCT, clap2023); pretrain/prepare.py writes the COLA
      and Audio-MAE manifests (counts = the valid train + val clips);
@@ -269,6 +267,20 @@ Phases (each prints one line; any failure exits non-zero):
      flow (the same mask, recon cosine >= SAME_ROUNDING_BAR, loss within
      1e-3); utils.profiling.trace in a fresh child process, whose trace
      file holds swin_attn's device records
+ 34. megatron fine-tuning of every encoder kind (parallel/tensor.py,
+     models/tp_blocks.py, train/finetune.py): four gloo ranks on cuda:0 in
+     one child launch run finetune_classifier (float32, TF32 off, one
+     epoch of 3 steps at 4 rows a data rank, one validation batch) under
+     param_sharding=megatron: CLAP 2022 (the full Cnn14, fc1
+     column-parallel), CLAP 2023 (its HTS-AT) and HeAR (the ViT-L/16) at
+     dp2 x tp2, and operaGT (ViT-S, 6 heads over 4 model ranks: the head
+     split) at dp1 x tp4 over the same ranks; each against the same call on
+     one device in this process at phase 32's bars (step-0 loss, every
+     step-0 gradient leaf, the norm), each rank's qkv / fc1 at 1/tp of its
+     rows, the returned state bit for bit equal on every rank (cuDNN in its
+     deterministic mode there: parallel/tensor.py::shard_model), no
+     repository kernel launched on any rank; ms a step a rank (host-staged
+     gloo on one card: not a multi-card figure)
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -277,6 +289,7 @@ last line is the result JSON. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1027,7 +1040,7 @@ ATTN_BWD_LAUNCHES = {"qkv": "vit_attn_bwd_qkv_kernel", "do": "vit_attn_bwd_mm_ke
 
 
 PAD_CYCLES = 50_000_000  # ~25 ms of spin kernel at the H100's clock
-PROFILE_TRIES = 8
+PROFILE_TRIES = 3  # a process past the profiler's window fails every try
 
 
 def _trace_rows(fn, n: int) -> list:
@@ -1833,21 +1846,6 @@ def phase_mae_cp(smi: str, dev):
         cols = dict(zip(row[0].split(","), row[1].split(",")))
         _require(all(cols[f"train{s}_loss"] != "nan" for s in (0, 1)),
                  f"an epoch that did not draw both lengths: {cols}")
-        cwd = os.getcwd()
-        os.chdir(root)
-        try:
-            gt_corpora = [load_corpus(n, ml, "mae") for n, ml in lens.items()]
-        finally:
-            os.chdir(cwd)
-    gt_base = vit_mae.MaskedAutoencoderViT(gt_cfg, decoder=True)
-    vit_mae.init_weights(gt_base, torch.Generator().manual_seed(SEED))
-    gt_base.to(dev).train()
-    for c in gt_corpora:  # one step's profile at each length
-        x = torch.from_numpy(MultiCorpusSampler([c], B_TRAIN, "mae", seed=SEED).next_batch()[1])
-        L = (x.shape[1] // gt_cfg.patch_size) * (x.shape[2] // gt_cfg.patch_size)
-        _mae_profile(f"OPERA-GT MAE ({c.name}, {x.shape[1]} x {x.shape[2]})", gt_base,
-                     x.to(dev), torch.rand(B_TRAIN, L, generator=gen, device=dev), steps)
-    del gt_base, gt_corpora
 
     # phase 17: 3 steps of each path from the same weights, batches and noise
     def run(impl, mm_dtype=torch.bfloat16, n_steps=3):
@@ -2750,16 +2748,6 @@ def phase_hear(smi: str):
           f"{r['kernel_clips_per_s']} clips/s; plain bf16 path {r['plain_ms']} ms/batch = "
           f"{r['plain_clips_per_s']} clips/s; the 96 block launches' bound {bound.bound_ms:.3f} "
           f"ms ({bound.bound_by})", flush=True)
-    prof = hear_rate.profile_in_child()
-    print(f"[hear profile] one batch B={prof['batch']} from a fresh process: "
-          f"{prof['wall_ms']:.2f} ms unprofiled, device busy {prof['device_busy_ms']:.2f} ms "
-          f"({100 * prof['idle_share']:.1f}% idle): "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["kernels_ms"].items())
-          + f"; frontend {prof['frontend_ms']['frontend_whole']:.3f} ms (DFT "
-          f"{prof['frontend_ms']['dft']:.3f}, mel {prof['frontend_ms']['mel']:.3f}, PCEN "
-          f"{prof['frontend_ms']['pcen']:.3f}, resize {prof['frontend_ms']['resize']:.3f}, each "
-          f"alone); glue (framing, min-max, patch embed, pads, LN, pooler) "
-          f"{prof['glue_ms']:.3f} ms", flush=True)
     return counts
 
 
@@ -2894,17 +2882,6 @@ def phase_clap(smi: str):
           f"turns (kernel, plain, plain, kernel): kernel path {r['kernel_ms']} ms/batch = "
           f"{r['kernel_clips_per_s']} clips/s; plain bf16 path {r['plain_ms']} ms/batch = "
           f"{r['plain_clips_per_s']} clips/s", flush=True)
-    prof = clap_rate.profile_in_child()
-    fr = prof["frontend_ms"]
-    print(f"[clap profile] one CLAP-2023 batch B={prof['batch']} from a fresh process: "
-          f"{prof['wall_ms']:.2f} ms unprofiled, device busy {prof['device_busy_ms']:.2f} ms "
-          f"({100 * prof['idle_share']:.1f}% idle): "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["kernels_ms"].items())
-          + f"; the 44.1 kHz frontend {fr['frontend_whole']:.3f} ms "
-          f"({100 * fr['frontend_whole'] / prof['device_busy_ms']:.1f}% of the busy time; "
-          f"framing {fr['framing']:.3f}, DFT products {fr['dft']:.3f}, mel and log "
-          f"{fr['mel_log']:.3f}, each alone); glue (bn0, resize, patch embed and merges, pads, "
-          f"LN, projection) {prof['glue_ms']:.3f} ms", flush=True)
     return counts
 
 
@@ -4362,6 +4339,192 @@ def phase_tp(smi: str, dev):
     print(f"[tp] phase 32 took {time.time() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 34: megatron fine-tuning of every encoder kind (parallel/tensor.py)
+# ---------------------------------------------------------------------------
+
+ZOO_TP_ROWS = 4  # rows a data rank a step
+ZOO_TP_STEPS = 3  # fine-tuning steps: one epoch of ZOO_TP_STEPS batches
+ZOO_TP_VAL = 8  # validation clips (one padded predict batch of 64)
+# (encoder kind, model ranks, what the tensor axis splits): CLAP 2022 / 2023
+# and HeAR at dp2 x tp2, operaGT's ViT-S (6 heads) at dp1 x tp4, the head split
+ZOO_TP_KINDS = (
+    ("clap", 2, "the full Cnn14 on 5-s clips at 44.1 kHz, fc1 column-parallel"),
+    ("clap2023", 2, "the CLAP HTS-AT, C 96-768, heads 4/8/16/32, on 7-s clips at 44.1 kHz"),
+    ("hear", 2, "the ViT-L/16, C 1024, 16 heads, 24 blocks, on 2-s clips"),
+    ("gt", 4, "operaGT's ViT-S, C 384, 6 heads over 4 model ranks: the head split"),
+)
+ZOO_TP_NOTE = "four gloo ranks share one H100, collectives staged through the host; " \
+              "not a multi-card figure"
+
+
+@contextlib.contextmanager
+def _no_draws():
+    """The CLAP projection's dropout and the CLAP HTS-AT's DropPath off
+    where the classifier builds them (the ranks draw from generators of
+    their data index, one device from its own), as phase 32 runs."""
+    from heart_murmur_detection_tpu_torch.models import clap
+
+    cfg, htsat = clap.CLAPConfig, clap.HTSATConfig
+    clap.CLAPConfig = lambda **kw: cfg(**{**kw, "proj_dropout": 0.0})
+    clap.HTSATConfig = lambda **kw: htsat(**{**kw, "drop_path_rate": 0.0})
+    try:
+        yield
+    finally:
+        clap.CLAPConfig, clap.HTSATConfig = cfg, htsat
+
+
+def _zoo_tp_data(kind: str, n_data: int):
+    """Phase 34's clips of a kind, made alike in every process:
+    ZOO_TP_STEPS batches of ZOO_TP_ROWS rows a data rank, then ZOO_TP_VAL
+    validation clips; two classes, class 1 with a 440 Hz tone (waveforms)
+    or 3 dB up (operaGT's 256 x 64 mels)."""
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.models.clap import CLAPConfig
+
+    r = np.random.default_rng(SEED + 60)
+    n = ZOO_TP_ROWS * n_data * ZOO_TP_STEPS + ZOO_TP_VAL
+    y = (np.arange(n) % 2).astype(np.int64)
+    if kind == "gt":
+        return (r.standard_normal((n, 256, 64)) * 10 - 40 + 3 * y[:, None, None]).astype(
+            np.float32), y
+    cfg = CLAPConfig(version="2023" if kind == "clap2023" else "2022")
+    sr, m = (16000, 32000) if kind == "hear" else (cfg.sample_rate, cfg.n_samples)
+    tone = np.sin(2 * np.pi * 440 * np.arange(m) / sr).astype(np.float32)
+    x = 0.05 * r.standard_normal((n, m), dtype=np.float32) + 0.2 * y[:, None] * tone
+    return x.astype(np.float32), y
+
+
+def _zoo_tp_run(mesh, kind: str, n_data: int, dev):
+    """finetune_classifier of `kind` in float32 on this rank's mesh under
+    megatron (mesh None: one device), one epoch of ZOO_TP_STEPS steps, the
+    trainer's train_step wrapped to record each step's loss and ms, step
+    0's summed gradients and the rank's parameter shapes: (losses, step-0
+    gradients, shapes, ms a step, valid AUROC, SHA-1 of each leaf of the
+    state it returns)."""
+    import hashlib
+
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench.dp_scale import summed_grads
+    from heart_murmur_detection_tpu_torch.train import finetune as ft
+
+    x, y = _zoo_tp_data(kind, n_data)
+    n_train = len(x) - ZOO_TP_VAL
+    rec = {"losses": [], "ms": [], "grads": None, "shapes": None}
+    real = ft.train_step
+
+    def step(model, opt, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = real(model, opt, *args, **kw)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(float(loss))
+        if rec["grads"] is None:
+            names = {id(w): q for q, w in model.named_parameters()}
+            rec["grads"] = summed_grads([(names[id(w)], w) for w in opt.params], grads=grads)
+            rec["shapes"] = {q: tuple(w.shape) for q, w in model.named_parameters()}
+        return loss, grads
+
+    ft.train_step = step
+    try:
+        with _no_draws():
+            res = ft.finetune_classifier(
+                x[:n_train], y[:n_train], x[n_train:], y[n_train:], encoder_kind=kind, n_cls=2,
+                feat_dim=384 if kind == "gt" else 1024, epochs=1,
+                batch_size=ZOO_TP_ROWS * n_data, seed=SEED, mesh=mesh,
+                param_sharding=None if mesh is None else "megatron", device=dev)
+    finally:
+        ft.train_step = real
+    sha = {q: hashlib.sha1(v.float().numpy().tobytes()).hexdigest()
+           for q, v in res.state_dict.items()}
+    return rec["losses"], rec["grads"], rec["shapes"], rec["ms"], res.valid_auc, sha
+
+
+def _zoo_tp_rank(mesh):
+    """Phase 34's work on one rank: the dp2 x tp2 kinds on the launch's
+    mesh, operaGT on a dp1 x tp4 mesh over the same four ranks; rank 0
+    returns the runs with every rank's shapes, SHA-1s and launch counts."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.parallel.mesh import gather_objects, mesh_2d
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    _reset_counts()  # the tensor axis launches no kernel of the repository
+    wide = mesh_2d(1, 4, mesh.backend, mesh.device)
+    runs, mine = {}, {}
+    for kind, tp, _ in ZOO_TP_KINDS:
+        m = mesh if tp == mesh.n_model else wide
+        losses, grads, shapes, ms, auc, sha = _zoo_tp_run(m, kind, m.n_data, mesh.device)
+        if mesh.rank == 0:
+            runs[kind] = (losses, grads, ms, auc)
+        mine[kind] = {"shapes": shapes, "sha": sha}
+        del grads
+        torch.cuda.empty_cache()
+    mine["counts"] = _all_counts()
+    return {"runs": runs, "ranks": gather_objects(mine, mesh)}
+
+
+def phase_zoo_tp(smi: str, dev):
+    """Phase 34: megatron fine-tuning of every encoder kind on the tensor
+    axis (see the module doc)."""
+    import concurrent.futures
+    import statistics
+
+    import torch
+
+    from heart_murmur_detection_tpu_torch.parallel import launch
+
+    t_phase = time.time()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t0 = time.time()
+        ranks = pool.submit(launch, _zoo_tp_rank, 4, backend="gloo", device="cuda", tp=2)
+        # the one-device references, in this process while the ranks start and work
+        one = {kind: _zoo_tp_run(None, kind, 4 // tp, dev) for kind, tp, _ in ZOO_TP_KINDS}
+        out = ranks.result()
+        wall = time.time() - t0
+    torch.cuda.empty_cache()
+    print(f"[zoo tp] ({ZOO_TP_NOTE}), {smi}: the ranks' work took {wall:.1f} s with their start "
+          f"(the one-device references ran alongside)", flush=True)
+    ranks = out["ranks"]
+    for kind, tp, what in ZOO_TP_KINDS:
+        losses, grads, ms, auc = out["runs"][kind]
+        l1, g1, full, ms1, auc1, _ = one[kind]
+        n_data = 4 // tp
+        tag = f"megatron {kind} fine-tuning ({what}), dp{n_data} x tp{tp}, float32 (TF32 off)"
+        _tp_compare(tag, (losses, grads), (l1, g1), TP_LOSS_RTOL, TP_LEAF_BAR, TP_NORM_TOL, smi)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, l1)]
+        _require(len(losses) == len(l1) == ZOO_TP_STEPS, f"{kind}: steps {len(losses)}")
+        col = [q for q in full if q.endswith(("qkv.weight", "fc1.weight"))
+               and not q.startswith("head.")]
+        peers = [list(range(d * tp, (d + 1) * tp)) for d in range(n_data)]
+        for r, rk in enumerate(ranks):
+            sh = rk[kind]["shapes"]
+            bad = [q for q in col if sh[q] != (full[q][0] // tp, full[q][1])]
+            _require(col and not bad, f"rank {r} {kind}: column layers {bad[:3]} not 1/{tp}")
+            _require(not any(rk["counts"].values()),
+                     f"rank {r} launched kernels on the tensor axis: {rk['counts']}")
+        whole = [q for q in full if ranks[0][kind]["shapes"][q] == full[q]]
+        apart = sorted({q for g in peers for a in g for q in whole
+                        if ranks[a][kind]["sha"][q] != ranks[g[0]][kind]["sha"][q]})
+        across = all(ranks[r][kind]["sha"] == ranks[0][kind]["sha"] for r in range(4))
+        _require(not apart and across, f"{kind}: the ranks' states differ after the steps "
+                 f"(replicated leaves apart on model peers: {apart[:4]} of {len(apart)})")
+        med = statistics.median(ms[1:])
+        print(f"[zoo tp] {kind}: losses of the {ZOO_TP_STEPS} steps "
+              f"{', '.join(f'{v:.7f}' for v in losses)} against one device "
+              f"{', '.join(f'{v:.7f}' for v in l1)} (rel diff {', '.join(f'{v:.3g}' for v in rel)}"
+              f"); valid AUROC {auc:.4f} against {auc1:.4f}; {len(col)} column-parallel layers "
+              f"at 1/{tp} of their rows on every rank ({col[0]} {ranks[0][kind]['shapes'][col[0]]}"
+              f" of {full[col[0]]}); {len(whole)} replicated leaves bit for bit equal on the model "
+              f"peers, every leaf across the ranks: {across}; no kernel launched; {med:.1f} ms a "
+              f"step a rank ({ZOO_TP_NOTE}; {smi}; one device {statistics.median(ms1[1:]):.1f} ms "
+              f"at B={ZOO_TP_ROWS * n_data})", flush=True)
+    print(f"[zoo tp] phase 34 took {time.time() - t_phase:.1f} s", flush=True)
+
+
 # Phase 33: the analysis paths at full width
 SAL_B, SAL_FRAMES = 8, 251  # saliency: 8 clips of 8 s
 LONG_B, LONG_FRAMES = 4, 3751  # long-clip inference: 4 clips of 120 s, 6 crops each
@@ -4766,6 +4929,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     long_counts = phase_analysis(smi, dev, root_dir)
     _tick("phase 33")
+    torch.cuda.empty_cache()
+    phase_zoo_tp(smi, dev)
+    _tick("phase 34")
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths

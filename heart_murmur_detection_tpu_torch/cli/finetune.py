@@ -22,7 +22,10 @@ dist_backend nccl, the default on a card, or gloo, the CPU's default, whose
 ranks may share a card; `dp=2 dist_backend=gloo device=cpu` on the CPU), and
 param_sharding=fsdp is ZeRO-3 over them. dp=N tp=M runs N x M ranks on a
 dp x tp mesh (parallel/mesh.py::mesh_2d), megatron tensor parallelism over
-the M model ranks unless param_sharding=fsdp (ZeRO-3 over them).
+the M model ranks unless param_sharding=fsdp (ZeRO-3 over them), for every
+pretrain, e.g. on the CPU:
+
+  python -m heart_murmur_detection_tpu_torch.cli.finetune task=circor_murmurs pretrain=hear random_init=True dp=2 tp=2 dist_backend=gloo device=cpu
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 
 from ..parallel.launch import launch
 from ..parallel.mesh import mesh_from_cli
-from ..train.finetune import check_tp_kind, encoder_kind_of, finetune_heart
+from ..train.finetune import finetune_heart
 from .config import parse_compute_dtype, resolve
 from .linear_eval import route_heart_task
 
@@ -80,7 +83,6 @@ def main(argv=None):
     for cfg in resolve("finetune_config", argv):
         plan, param_sharding = mesh_from_cli(cfg)
         pretrain = "null" if cfg["pretrain"] is None else cfg["pretrain"]
-        check_tp_kind(encoder_kind_of(pretrain)[0], param_sharding)  # before any rank starts
         if plan is None:
             scores = run_seeds(None, cfg)
         else:

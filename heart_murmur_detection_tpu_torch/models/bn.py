@@ -73,7 +73,13 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, momentum: float,
                stats: Optional[Stats] = None) -> torch.Tensor:
     """x (B, C, ...) -> output in the parameters' dtype. stats None: eval (the running
     statistics); a dict: train mode, the new running statistics into it."""
-    x = x.to(bn.weight.dtype)  # float32 (or a float64 model's float64)
+    # float32 (or a float64 model's float64), in the contiguous layout: on a
+    # tensor that is channels-last-contiguous only through a size-1 dim
+    # (the Cnn14's bn0 input, mel bins as channels: (B, F, T, 1) from a
+    # transpose), PyTorch's CPU batch_norm backward returns wrong weight
+    # and bias gradients (2.13: off from the sum of the output gradient by
+    # far more than rounding; tests/test_torch_finetune.py pins it)
+    x = x.to(bn.weight.dtype).contiguous()
     if stats is None:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
                             bn.eps)

@@ -10,7 +10,10 @@ max plus the mean over the valid time steps (ceil(n_frames / 64), clipped
 to [1, T'], the max over a -1e30 fill) -> fc1 + ReLU = the (B, 2048)
 embedding. The BatchNorms run on their running statistics, or in train
 mode with flax semantics (momentum 0.9, models/bn.py) when the caller
-passes a stats dict, as CLAP-2022 fine-tuning does. Module names are msclap's
+passes a stats dict, as CLAP-2022 fine-tuning does. On a tensor axis
+(parallel/tensor.py::shard_model: fc1 column-parallel, the JAX rule) fc1
+runs on the rank's columns and its ReLU output is all-gathered over the
+model axis (`tensor.gather`) before fc_audioset. Module names are msclap's
 (bn0, conv_block{i}.conv{j} / bn{j}, fc1, fc_audioset), so an msclap
 state_dict loads by name (extract/convert.py::load_clap_ckpt).
 """
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
 from .bn import Stats, batch_norm
 
 CHANNELS = (64, 128, 256, 512, 1024, 2048)
@@ -81,5 +85,10 @@ class Cnn14(nn.Module):
                 ok.sum(dim=1), min=1).to(x.dtype)
         else:
             xmax, xmean = x.amax(dim=1), x.mean(dim=1)
-        h = F.relu(self.fc1(xmax + xmean))
+        if tensor.sharded(self.fc1):  # column-parallel over a tensor axis
+            x = tensor.column_in(xmax + xmean, self.fc1)
+            h = F.relu(F.linear(x, self.fc1.weight, tensor.local(self.fc1.bias)))
+            h = tensor.gather(h, tensor.placement(self.fc1.weight).mesh)
+        else:
+            h = F.relu(self.fc1(xmax + xmean))
         return {"embedding": h, "clipwise_output": torch.sigmoid(self.fc_audioset(h))}

@@ -11,7 +11,9 @@ attn.qkv / attn.proj / norm2 / mlp.fc1 / mlp.fc2, norm, pooler
 (extract/convert.py maps the JAX variables and the HF `google/hear-pytorch`
 names onto them).
 
-`forward` is the strict float32 flax semantics (the tests' reference);
+`forward` is the strict float32 flax semantics (the tests' reference); on
+a model placed over a tensor axis (parallel/tensor.py::shard_model) its
+blocks run models/tp_blocks.vit_block in float32;
 `extract_hear_feature` runs models/vit_fused.py::hear_forward_fused, whose
 24 blocks are the CUDA kernels of ops/vit.py on a card.
 """
@@ -26,7 +28,9 @@ import torch
 import torch.nn as nn
 
 from ..audio.hear_frontend import N_SAMPLES, hear_preprocess
+from ..parallel.tensor import mesh_of
 from . import vit_mae
+from .tp_blocks import vit_block
 from .vit_mae import PatchEmbed, PreparedBlocks, ViTBlock
 
 
@@ -66,8 +70,9 @@ class HeAREncoder(PreparedBlocks):
         h = self.patch_embed.proj(x[:, None]).flatten(2).transpose(1, 2)
         cls = self.cls_token.expand(h.shape[0], -1, -1)
         h = torch.cat([cls, h], dim=1) + self.pos_embed
+        tp = mesh_of(self) is not None  # placed by parallel/tensor.py: models/tp_blocks.py
         for blk in self.blocks:
-            h = blk(h)
+            h = vit_block(h, blk, None, torch.float32) if tp else blk(h)
         h = self.norm(h)
         return {"pooled": self.pooler(h[:, 0]), "cls": h[:, 0], "tokens": h[:, 1:]}
 

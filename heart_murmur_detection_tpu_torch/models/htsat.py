@@ -17,7 +17,9 @@ clipwise_output and clipwise_logits to latent_output, and
 htsat_forward_long averages every output over sliding crops of a long clip.
 No loss of the port reads the head, so its weight and bias are buffers,
 not parameters: a training step leaves them where they are, as the JAX
-package's zero-gradient Adam update does. A state without the head (a
+package's zero-gradient Adam update does. The fine-tuning classifier
+(train/finetune.py) holds them as parameters instead (TscamConv's
+trainable), because its L2 term reads every encoder weight. A state without the head (a
 checkpoint written before it was carried, a JAX tree with enable_tscam
 off) keeps the head as built, as the JAX registry merges a checkpoint into
 its initial tree. A geometry whose final map has fewer frequency rows than
@@ -183,12 +185,18 @@ class BasicLayer(nn.Module):
 class TscamConv(nn.Module):
     """The tscam head's conv (htsat.py:678-683): num_features -> num_classes
     over a (c_freq_bin, 3) kernel, padding (0, 1); weight and bias under the
-    reference's names, held as buffers (see the module doc)."""
+    reference's names, held as buffers (see the module doc), or as
+    parameters with trainable=True (the fine-tuning classifier's, whose L2
+    term reads them)."""
 
-    def __init__(self, dim: int, classes: int, kh: int):
+    def __init__(self, dim: int, classes: int, kh: int, trainable: bool = False):
         super().__init__()
-        self.register_buffer("weight", torch.zeros(classes, dim, kh, 3))
-        self.register_buffer("bias", torch.zeros(classes))
+        weight, bias = torch.zeros(classes, dim, kh, 3), torch.zeros(classes)
+        if trainable:
+            self.weight, self.bias = nn.Parameter(weight), nn.Parameter(bias)
+        else:
+            self.register_buffer("weight", weight)
+            self.register_buffer("bias", bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from ..utils.precision import strict_f32

@@ -10,7 +10,15 @@ attention runs on the rank's heads alone; the row-parallel proj / fc2 give
 partial products that one all-reduce sums (`reduce`), and the bias, the
 DropPath multiplier and the residual follow on the whole activations. A
 layer that the rule leaves replicated (a dimension the model axis does not
-divide) runs whole, without a collective. The rounding points are those of
+divide) runs whole, without a collective.
+
+A block whose heads the model axis does not divide takes the head split
+(parallel/tensor.py): its qkv gives the rank's contiguous 3C / n columns,
+one all-gather (`tensor.gather`) makes every head's q, k and v, attention
+runs over all heads on every model rank (the whole relative-position
+table, tau and meta-MLP bias), and the rank's C / n columns of the head
+outputs (`tensor.split`, whose backward all-gathers their cotangent) go
+into the row-parallel proj. The rounding points are those of
 the plain versions (ops/swin.py::swin_attn_ref / swin_mlp_ref,
 ops/vit.py::vit_attn_ref / vit_mlp_ref, models/vit_mae.py's decoder), so in
 float32 a block is the single-device block up to the order of the sums.
@@ -19,7 +27,8 @@ float32 a block is the single-device block up to the order of the sums.
   and models/htsat_fused.htsat_apply_fused dispatch to it), the local
   heads' columns of the relative-position table, the shift mask;
 - vit_block: the ViT block of the MAE encoders (models/mae_train_fused.py,
-  models/vit_fused.py), q scaled in float32 before the matmul-dtype cast;
+  models/vit_fused.py) and of HeAR (models/hear.py), q scaled in float32
+  before the matmul-dtype cast;
 - swinv2cr_block: the SwinV2-CR decoder block (models/vit_mae.py), the
   local heads' tau, the continuous position bias of the meta-MLP with a
   column-parallel fc1 and a row-parallel fc2, whose whole output each rank
@@ -50,8 +59,31 @@ def _mlp(x: torch.Tensor, mlp, norm_out: torch.Tensor, mm_dtype, act) -> torch.T
     return tensor.row(m, mlp.fc2, mm_dtype)
 
 
-def _local_heads(qkv_weight: torch.Tensor, hd: int) -> int:
-    return qkv_weight.shape[0] // (3 * hd)
+def _qkv(attn, h: torch.Tensor, mm_dtype, act, weight=None, bias=None) -> torch.Tensor:
+    """The qkv columns this rank attends with (h has passed column_in):
+    the rank's heads' (split by heads, or replicated: all), or in a
+    head-split block every head's, all-gathered from the ranks' contiguous
+    parts; rounded to act."""
+    qkv = tensor.column(h, attn.qkv, mm_dtype, weight, bias).to(act)
+    if tensor.head_split(attn):
+        qkv = tensor.gather(qkv, tensor.placement(attn.qkv.weight).mesh)
+    return qkv
+
+
+def _proj(attn, o: torch.Tensor, mm_dtype) -> torch.Tensor:
+    """The row-parallel proj of the head outputs o: in a head-split block o
+    holds every head and the rank hands on its columns (`tensor.split`),
+    where the proj is sharded."""
+    if tensor.head_split(attn) and tensor.sharded(attn.proj):
+        o = tensor.split(o, tensor.placement(attn.proj.weight).mesh)
+    return tensor.row(o, attn.proj, mm_dtype)
+
+
+def _local_heads(attn, hd: int) -> int:
+    """The heads this rank attends over: all in a head-split block."""
+    if tensor.head_split(attn):
+        return tensor.placement(attn.qkv.weight).size // (3 * hd)
+    return attn.qkv.weight.shape[0] // (3 * hd)
 
 
 def swin_block(x: torch.Tensor, blk, stage, shift: int, k1: Optional[torch.Tensor],
@@ -64,14 +96,13 @@ def swin_block(x: torch.Tensor, blk, stage, shift: int, k1: Optional[torch.Tenso
     act, mm = x.dtype, mm_dtype
     attn, window = blk.attn, stage.window
     hd = C // blk.heads
-    heads = _local_heads(attn.qkv.weight, hd)
+    heads = _local_heads(attn, hd)
     nwh, nww = H // window, W // window
     N, Bn = window * window, B * (H // window) * (W // window)
     xr = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
     xw = xr.reshape(B, nwh, window, nww, window, C).permute(0, 1, 3, 2, 4, 5).reshape(Bn, N, C)
     h = tensor.column_in(_ln(xw, blk.norm1.weight, blk.norm1.bias), attn.qkv)
-    qkv = tensor.column(h, attn.qkv, mm).to(act)
-    qkv = qkv.reshape(Bn, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    qkv = _qkv(attn, h, mm, act).reshape(Bn, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]
     qs = q * torch.tensor(hd**-0.5, dtype=act, device=q.device)
     bias = rel_pos_bias(tensor.local(attn.relative_position_bias_table), stage.idx, stage.seg)
@@ -80,7 +111,7 @@ def swin_block(x: torch.Tensor, blk, stage, shift: int, k1: Optional[torch.Tenso
         a = (a.reshape(B, nwh * nww, heads, N, N) + stage.mask[None, :, None]).reshape(
             Bn, heads, N, N)
     o = (_mmf(torch.softmax(a, -1), mm) @ _mmf(v, mm)).to(act)
-    o = tensor.row(o.permute(0, 2, 1, 3).reshape(Bn, N, heads * hd), attn.proj, mm)
+    o = _proj(attn, o.permute(0, 2, 1, 3).reshape(Bn, N, heads * hd), mm)
     if k1 is not None:
         o = k1.reshape(B, 1, 1).repeat_interleave(nwh * nww, 0) * o
     h1 = (xw.to(torch.float32) + o).to(act)
@@ -101,29 +132,34 @@ def vit_block(x: torch.Tensor, blk, n_real: Optional[int], mm_dtype: torch.dtype
     act, mm = x.dtype, mm_dtype
     attn = blk.attn
     hd = C // blk.num_heads
-    heads = _local_heads(attn.qkv.weight, hd)
+    heads = _local_heads(attn, hd)
     if n_real is not None and n_real >= Np:
         n_real = None
-    # q's rows scaled by hd^-0.5 in float32 before the cast (vit_block_layout)
-    cl = heads * hd
+    # q's rows scaled by hd^-0.5 in float32 before the cast (vit_block_layout):
+    # the rank's rows among the first C of the full qkv
     w, b = attn.qkv.weight, tensor.local(attn.qkv.bias)
-    w = torch.cat([w[:cl] * hd**-0.5, w[cl:]])
-    b = torch.cat([b[:cl] * hd**-0.5, b[cl:]])
+    pl = tensor.placement(attn.qkv.weight)
+    if pl is None or pl.kind != "shard":
+        q_rows = torch.arange(w.shape[0], device=w.device) < C
+    else:
+        q_rows = pl.index(pl.mesh.model.rank, w.device) < C
+    scale = torch.where(q_rows, hd**-0.5, 1.0).to(w.dtype)
+    w, b = w * scale[:, None], b * scale
     h = tensor.column_in(_ln(x, blk.norm1.weight, blk.norm1.bias, LN_EPS).to(act), attn.qkv)
-    qkv = tensor.column(h, attn.qkv, mm, w, b).to(act)
-    qkv = qkv.reshape(B, Np, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    o = tensor.row(_head_outputs(qkv, mm, n_real, "stable", act), attn.proj, mm)
+    qkv = _qkv(attn, h, mm, act, w, b).reshape(B, Np, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    o = _proj(attn, _head_outputs(qkv, mm, n_real, "stable", act), mm)
     x = (x.to(torch.float32) + o).to(act)
     m = _mlp(x, blk.mlp, _ln(x, blk.norm2.weight, blk.norm2.bias, LN_EPS).to(act), mm, act)
     return (x.to(torch.float32) + m).to(act)
 
 
 def _meta_bias(attn, rel: torch.Tensor, heads: int) -> torch.Tensor:
-    """The rank's heads' continuous position bias (heads, N, N) float32."""
+    """The rank's heads' continuous position bias (heads, N, N) float32
+    (every head's in a head-split block)."""
     mlp = attn.meta_mlp
     h = torch.relu(tensor.column(rel, mlp.fc1, torch.float32))
     bias = tensor.row(h, mlp.fc2, torch.float32)  # (N*N, all heads), on every rank
-    if tensor.sharded(attn.qkv):
+    if tensor.sharded(attn.qkv) and not tensor.head_split(attn):
         mesh = tensor.placement(attn.qkv.weight).mesh
         bias = tensor.copy(bias, mesh)
         bias = bias.narrow(1, mesh.model.rank * heads, heads)
@@ -136,8 +172,8 @@ def _swinv2cr_attn(attn, x: torch.Tensor, mask, rel, mm_dtype) -> torch.Tensor:
     the row-parallel proj's summed output (Bw, L, C) float32."""
     Bw, L, C = x.shape
     hd = C // attn.num_heads
-    nh = _local_heads(attn.qkv.weight, hd)
-    qkv = tensor.column(tensor.column_in(x, attn.qkv), attn.qkv, mm_dtype)
+    nh = _local_heads(attn, hd)
+    qkv = _qkv(attn, tensor.column_in(x, attn.qkv), mm_dtype, torch.float32)
     qkv = qkv.reshape(Bw, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]
     tau = tensor.local(attn.tau).clamp(min=0.01).reshape(1, nh, 1, 1)
@@ -156,7 +192,7 @@ def _swinv2cr_attn(attn, x: torch.Tensor, mask, rel, mm_dtype) -> torch.Tensor:
         a = (a.reshape(Bw // nW, nW, nh, L, L) + mask[None, :, None]).reshape(Bw, nh, L, L)
     a = torch.softmax(a, -1)
     out = (_mmf(a, mm_dtype) @ _mmf(v, mm_dtype)).transpose(1, 2).reshape(Bw, L, nh * hd)
-    return tensor.row(out, attn.proj, mm_dtype)
+    return _proj(attn, out, mm_dtype)
 
 
 def swinv2cr_block(blk, x: torch.Tensor, mm_dtype: torch.dtype) -> torch.Tensor:

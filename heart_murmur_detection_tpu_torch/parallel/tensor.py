@@ -19,13 +19,18 @@ fsdp_dim is `_fsdp_spec` (the largest divisible flax axis of a parameter of
 at least min_size elements), for the table only: at run time ZeRO-3 is
 parallel/mesh.py::ZeroShard, one flat shard a rank.
 
-At run time a column-parallel qkv is split by heads, not into contiguous
-blocks of its 3C rows as GSPMD splits the kernel: each model rank holds the
-q, k and v rows of its heads / n_model heads, so attention needs no
-collective. Its shape is the same (3C / n_model rows), and the full tensor
-gathered for a checkpoint is the single-device layout. A head count that
-the model axis does not divide, where the rule shards qkv, is a ValueError
-(GSPMD would split a head across ranks; ROADMAP.md queue C).
+At run time a column-parallel qkv whose head count the model axis divides
+is split by heads, not into contiguous blocks of its 3C rows as GSPMD
+splits the kernel: each model rank holds the q, k and v rows of its heads /
+n_model heads, so attention needs no collective. Where the heads do not
+divide (ViT-S's 6 heads at tp=4, an HTS-AT stage's 4 heads at tp=8), the
+block takes the head split: the rank holds the contiguous block of 3C /
+n_model rows, as GSPMD splits the kernel, and models/tp_blocks.py
+all-gathers the qkv activations (`gather`), runs attention over every head
+on every model rank, and hands the rank's C / n_model columns of the head
+outputs to the row-parallel proj (`split`). Either way the shape is 3C /
+n_model rows, and the full tensor gathered for a checkpoint is the
+single-device layout.
 
 Replicated parameters come in two kinds (Placement.kind):
 - used whole on every model rank (norms, the patch embed, a row-parallel
@@ -36,6 +41,11 @@ Replicated parameters come in two kinds (Placement.kind):
   relative-position table's columns of the local heads, the SwinV2-CR
   per-head tau): each rank's gradient is nonzero only in its slice, so
   reduce_slices sums them over the model axis.
+In a head-split block the tables and tau are used whole: every model rank
+runs attention over all heads, and `split`'s backward all-gathers the head
+outputs' cotangent, so the attention's backward, and with it these
+gradients and the gathered qkv's, are the same on every model rank
+(`gather`'s backward then keeps the rank's part, with no collective).
 Every gradient is then summed over the data axis only (all_reduce_grads).
 
 shard_model places a model: the sharded parameters keep their Parameter
@@ -51,18 +61,13 @@ layout (every model rank takes part): checkpoints hold the full tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..ops.swin import _mmf
 from .mesh import TensorParallelMesh, _flat
-
-# the modules whose tensor-parallel forwards models/tp_blocks.py holds (by
-# class name), and which tower each is
-_TOWERS = {"SwinBlock": "HTS-AT", "ViTBlock": "ViT", "SwinV2CRBlock": "SwinV2-CR decoder"}
-
 
 # -- the placement table -------------------------------------------------------
 
@@ -115,29 +120,44 @@ def fsdp_dim(name: str, shape: Sequence[int], n_model: int, min_size: int = 1024
 class Spec:
     """One parameter's row of the table: the dim it is sharded over (None:
     replicated) and, for a replicated parameter used as a slice, the dim
-    along which each rank reads its slice."""
+    along which each rank reads its slice; by_heads: the part is by heads
+    in each of q, k, v (a qkv weight or bias whose heads the model axis
+    divides), else one contiguous 1/n block."""
 
     shard: Optional[int] = None
     slice: Optional[int] = None
+    by_heads: bool = False
 
 
 def param_specs(named_shapes, n_model: int, rule: str = "megatron",
-                fsdp_min_size: int = 1024) -> Dict[str, Spec]:
+                fsdp_min_size: int = 1024,
+                heads: Optional[Mapping[str, int]] = None) -> Dict[str, Spec]:
     """The placement table (transformer_param_specs over port names):
     {name: Spec} for `named_shapes` ((name, tensor or shape) pairs, e.g. a
-    model's named_parameters())."""
+    model's named_parameters()). heads: {attention module name: head count};
+    a sharded qkv whose heads n_model does not divide takes the head split
+    (contiguous parts, its tables and tau whole); a qkv without an entry is
+    split by heads."""
     shapes = {k: tuple(v.shape if torch.is_tensor(v) else v) for k, v in named_shapes}
     if rule == "fsdp":
         return {k: Spec(fsdp_dim(k, s, n_model, fsdp_min_size)) for k, s in shapes.items()}
     if rule != "megatron":
         raise ValueError(f"unknown param sharding rule: {rule!r}")
+    heads = heads or {}
     out = {k: Spec(megatron_dim(k, s, n_model)) for k, s in shapes.items()}
     for k in shapes:
         parent, _, leaf = k.rpartition(".")
-        if leaf == "bias" and out.get(parent + ".weight", Spec()).shard == 0:
-            out[k] = Spec(slice=0)  # a column-parallel layer's bias
-        elif leaf in ("relative_position_bias_table", "tau") and \
-                out.get(parent + ".qkv.weight", Spec()).shard == 0:
+        if leaf == "weight" and parent.endswith(".qkv") and out[k].shard == 0:
+            h = heads.get(parent[:-len(".qkv")])
+            out[k] = Spec(0, by_heads=h is None or h % n_model == 0)
+    for k in shapes:
+        parent, _, leaf = k.rpartition(".")
+        col = out.get(parent + ".weight", Spec())
+        qkv = out.get(parent + ".qkv.weight", Spec())
+        if leaf == "bias" and col.shard == 0:
+            out[k] = Spec(slice=0, by_heads=col.by_heads)  # a column-parallel layer's bias
+        elif leaf in ("relative_position_bias_table", "tau") and qkv.shard == 0 and \
+                qkv.by_heads:
             out[k] = Spec(slice=1 if leaf == "relative_position_bias_table" else 0)
     return out
 
@@ -150,7 +170,8 @@ class Placement:
     """A placed parameter's part: "shard" (this rank holds its part of dim)
     or "slice" (held whole, this rank reads its part of dim). size: the
     full length along dim; thirds: the part is by heads in each of q, k, v
-    (a qkv weight or bias), else one contiguous 1/n block."""
+    (a qkv weight or bias split by heads), else one contiguous 1/n block
+    (every other layer, and a head-split qkv)."""
 
     kind: str
     dim: int
@@ -205,31 +226,36 @@ def _heads(block) -> int:
     raise ValueError(f"{type(block).__name__} has no head count")
 
 
+def _attn_heads(model: torch.nn.Module) -> Dict[str, int]:
+    """{attention module name: head count} of every block with a qkv."""
+    out = {}
+    for name, block in model.named_modules():
+        attn = getattr(block, "attn", None)
+        if attn is not None and hasattr(attn, "qkv"):
+            out[f"{name}.attn" if name else "attn"] = _heads(block)
+    return out
+
+
 def shard_model(model: torch.nn.Module, mesh: TensorParallelMesh) -> torch.nn.Module:
     """Place `model` (on its device, before its optimizer is made) by the
     megatron rule over the mesh's model axis, in place; returns it. A block
-    whose qkv the rule shards must have a head count the model axis
-    divides (ValueError naming the block and its heads)."""
-    n = mesh.n_model
-    specs = param_specs(model.named_parameters(), n, "megatron")
-    for name, block in model.named_modules():
-        attn = getattr(block, "attn", None)
-        if attn is None or not hasattr(attn, "qkv"):
-            continue
-        heads = _heads(block)
-        if specs[f"{name}.attn.qkv.weight"].shard is not None and heads % n:
-            tower = _TOWERS.get(type(block).__name__, type(block).__name__)
-            raise ValueError(
-                f"tp={n}: {name} ({tower}) has {heads} heads, which {n} model ranks do not "
-                "divide; the port splits a column-parallel qkv by heads (ROADMAP.md queue C)")
+    whose qkv the rule shards is split by heads where the model axis
+    divides its heads, else it takes the head split (see the module doc).
+    On a card it turns cuDNN's deterministic mode on for the process."""
+    if mesh.device.type == "cuda":
+        # the model peers' replicas take bit-equal gradients only from
+        # deterministic kernels: cuDNN's default convolution backward is not
+        # (the Cnn14, HeAR's patch embed, the EfficientNet)
+        torch.backends.cudnn.deterministic = True
+    specs = param_specs(model.named_parameters(), mesh.n_model, "megatron",
+                        heads=_attn_heads(model))
     for name, p in model.named_parameters():
         sp = specs[name]
         dim = sp.shard if sp.shard is not None else sp.slice
         if dim is None:
             continue
-        thirds = _names(name)[-2].endswith("qkv")
-        pl = Placement("shard" if sp.shard is not None else "slice", dim, p.shape[dim], thirds,
-                       mesh)
+        pl = Placement("shard" if sp.shard is not None else "slice", dim, p.shape[dim],
+                       sp.by_heads, mesh)
         if pl.kind == "shard":
             p.data = pl.take(p.data).contiguous()
         p.tp = pl
@@ -273,6 +299,44 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _Gather(torch.autograd.Function):
+    """All-gather of the last dim over the model axis forward (the ranks'
+    parts in rank order), the rank's part of the cotangent backward: the
+    input of a computation that every model rank runs whole and alike, so
+    that its cotangent is the same on every rank (Megatron's gather from
+    the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, n):
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.rank, ctx.width = rank, x.shape[-1]
+        return torch.cat(parts, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.rank * ctx.width, ctx.width).contiguous(), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """The rank's contiguous 1/n part of the last dim forward, the
+    all-gather of the parts' cotangents backward: the whole activations of
+    a computation every model rank runs alike, on their way into a
+    row-parallel layer (Megatron's scatter to the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, n):
+        ctx.group, ctx.n = group, n
+        width = x.shape[-1] // n
+        return x.narrow(-1, rank * width, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = [torch.empty_like(g) for _ in range(ctx.n)]
+        dist.all_gather(parts, g.contiguous(), group=ctx.group)
+        return torch.cat(parts, -1), None, None, None
+
+
 def copy(x: torch.Tensor, mesh: TensorParallelMesh) -> torch.Tensor:
     return _Copy.apply(x, mesh.model.group)
 
@@ -281,10 +345,27 @@ def reduce(x: torch.Tensor, mesh: TensorParallelMesh) -> torch.Tensor:
     return _Reduce.apply(x, mesh.model.group)
 
 
+def gather(x: torch.Tensor, mesh: TensorParallelMesh) -> torch.Tensor:
+    """Every model rank's x concatenated along the last dim (see _Gather)."""
+    return _Gather.apply(x, mesh.model.group, mesh.model.rank, mesh.n_model)
+
+
+def split(x: torch.Tensor, mesh: TensorParallelMesh) -> torch.Tensor:
+    """This model rank's contiguous part of x's last dim (see _Split)."""
+    return _Split.apply(x, mesh.model.group, mesh.model.rank, mesh.n_model)
+
+
 def sharded(lin: torch.nn.Module) -> bool:
     """Whether a Linear's weight is split over the model axis."""
     pl = placement(lin.weight)
     return pl is not None and pl.kind == "shard"
+
+
+def head_split(attn: torch.nn.Module) -> bool:
+    """Whether an attention's qkv takes the head split: sharded over the
+    model axis in contiguous rows, the heads not divided (module doc)."""
+    pl = placement(attn.qkv.weight)
+    return pl is not None and pl.kind == "shard" and not pl.thirds
 
 
 def local(p: torch.Tensor) -> torch.Tensor:

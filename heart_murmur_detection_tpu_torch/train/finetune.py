@@ -66,14 +66,16 @@ Every rank predicts the whole validation set; rank 0's AUROC decides.
 
 On a dp x tp mesh (parallel/mesh.py::TensorParallelMesh) the rows, the
 sync-BN, the weighted loss's w.sum() and the generators follow the data
-axis. param_sharding="megatron" places htsat, gt and audiomae blocks and
-an mlp head's fc1 / fc2 over the model axis (parallel/tensor.py,
-models/tp_blocks.py); the EfficientNet's convs match no rule and stay
-replicated; clap, clap2023 and hear raise NotImplementedError (their
-tensor-parallel forwards are not written: ROADMAP.md queue A item 4).
-The L2 terms and the clip's global norm count each shard once (the model
-axis's parts summed). "fsdp" is ZeRO-3 over the model axis for every
-kind. Every 2-D run takes the plain path.
+axis. param_sharding="megatron" places every kind over the model axis by
+the JAX rule (parallel/tensor.py, models/tp_blocks.py): the swin blocks of
+htsat and clap2023, the ViT blocks of gt, audiomae and hear, the Cnn14's
+fc1 (clap; its output all-gathered before fc_audioset and the projection),
+an mlp head's fc1 / fc2; the EfficientNet's convs, the tscam heads, the
+CLAP projections and HeAR's pooler match no rule and stay replicated. A
+block whose heads the model axis does not divide takes the head split
+(parallel/tensor.py). The L2 terms and the clip's global norm count each
+shard once (the model axis's parts summed). "fsdp" is ZeRO-3 over the
+model axis for every kind. Every 2-D run takes the plain path.
 """
 
 from __future__ import annotations
@@ -106,10 +108,14 @@ from ..utils.precision import strict_f32
 from . import metrics as M
 from .linear_eval import HEART_METRICS, ClippedAdam, _make_perms, get_class_weights
 
-def _tscam_conv(cfg: HTSATConfig, classes: int) -> nn.Conv2d:
-    """The HTS-AT's tscam head (the JAX HTSAT's tscam_conv, enable_tscam)."""
-    sf = cfg.spec_size // 2 ** (len(cfg.depths) - 1) // cfg.patch_stride[0]
-    return nn.Conv2d(cfg.num_features, classes, (sf // cfg.freq_ratio, 3), padding=(0, 1))
+def _trainable_tscam(enc: HTSAT) -> None:
+    """The HTS-AT's tscam head, where its config has one (enable_tscam and
+    c_freq_bin > 0), as parameters under the buffers' names: the JAX
+    classifier's tree holds it, so its L2 term, the clip and Adam read it.
+    init_weights draws it last, as it draws the buffers."""
+    if enc.tscam_conv is not None:
+        classes, dim, kh, _ = enc.tscam_conv.weight.shape
+        enc.tscam_conv = htsat_mod.TscamConv(dim, classes, kh, trainable=True)
 
 
 class EncoderClassifier(nn.Module):
@@ -120,8 +126,9 @@ class EncoderClassifier(nn.Module):
     models/efficientnet.ColaEfficientNetEncoder for efficientnet,
     models/clap.CLAPAudioEncoder for clap / clap2023 — the 2023 HTS-AT with
     its unread tscam_conv, models/hear.HeAREncoder for hear) and "head.*".
-    The unread leaves (gt's mask_token, clap2023's tscam_conv, the Cnn14's
-    fc_audioset, HeAR's pooler) are in the JAX classifier's tree: they
+    The unread leaves (gt's mask_token, the HTS-AT's tscam_conv of htsat and
+    clap2023 (_trainable_tscam), the Cnn14's fc_audioset, HeAR's pooler) are
+    in the JAX classifier's tree: they
     enter the loss through the encoder L2 term, so the clip's global norm
     and Adam see them (finetune.py:376-386). The head's input width follows
     the encoder where the encoder fixes it (efficientnet, clap, hear), as
@@ -135,6 +142,7 @@ class EncoderClassifier(nn.Module):
         super().__init__()
         if encoder_kind == "htsat":
             self.encoder = HTSAT(htsat_config or HTSATConfig())
+            _trainable_tscam(self.encoder)
             htsat_mod.init_weights(self.encoder, generator)
         elif encoder_kind == "gt":
             cfg = mae_config or vit_mae.mae_vit_small_config()
@@ -153,8 +161,7 @@ class EncoderClassifier(nn.Module):
             cfg = clap.CLAPConfig(version="2023" if encoder_kind == "clap2023" else "2022")
             self.encoder = clap.CLAPAudioEncoder(cfg)
             if encoder_kind == "clap2023":
-                enc = self.encoder.base.htsat
-                enc.tscam_conv = _tscam_conv(enc.config, cfg.classes_num)
+                _trainable_tscam(self.encoder.base.htsat)
             clap.init_weights(self.encoder, generator)
             feat_dim = cfg.d_proj
         elif encoder_kind == "hear":
@@ -229,17 +236,6 @@ class FTResult:
     stopped_epoch: int
     metrics: Dict[str, object]
     state_dict: Dict[str, torch.Tensor]  # the best weights, on the CPU
-
-
-TP_KINDS = ("htsat", "gt", "audiomae", "efficientnet")  # the kinds megatron places
-
-
-def check_tp_kind(encoder_kind: str, param_sharding: Optional[str]) -> None:
-    """Megatron fine-tuning of a kind without a tensor-parallel forward raises."""
-    if param_sharding == "megatron" and encoder_kind not in TP_KINDS:
-        raise NotImplementedError(
-            f"megatron fine-tuning of {encoder_kind!r}: its tensor-parallel forward is not "
-            "written (ROADMAP.md queue A item 4); use param_sharding=fsdp")
 
 
 def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool],
@@ -391,7 +387,6 @@ def finetune_classifier(
     (see the module doc)."""
     mesh = check_mesh(mesh)
     param_sharding = check_param_sharding(mesh, param_sharding)
-    check_tp_kind(encoder_kind, param_sharding)
     if batch_size % data_size(mesh):
         raise ValueError(f"batch_size {batch_size} not divisible by data axis {data_size(mesh)}")
     dev = mesh.device if mesh is not None else torch.device(device)
@@ -605,7 +600,6 @@ def finetune_heart(
             "google/hear-pytorch state_dict) or random_init=True")
     mesh = check_mesh(mesh)
     param_sharding = check_param_sharding(mesh, param_sharding)
-    check_tp_kind(encoder_kind, param_sharding)
     batch_size = bs or batch_size
     if batch_size % data_size(mesh):  # before the cache is built
         raise ValueError(f"batch_size {batch_size} not divisible by data axis {data_size(mesh)}")

@@ -35,6 +35,7 @@ from heart_murmur_detection_tpu_torch.models.heads import freeze_mask_fn
 from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
 from heart_murmur_detection_tpu_torch.train import checkpoints as ck
 from heart_murmur_detection_tpu_torch.train import finetune as ft
+from tests import torch_parallel_ranks as R
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -174,6 +175,60 @@ def test_one_step_loss_and_gradients_match_jax_float32(kind, small_mae):
                 want = want.numpy()
                 err = np.abs(gp[k].numpy() - want).max()
                 assert err <= TOL * max(1.0, np.abs(want).max()), (tag, k, err)
+
+
+# a narrow HTS-AT whose tscam head exists: a final 4 x 4 map, freq_ratio 2,
+# so c_freq_bin 2 (a 5 x 128 x 2 x 3 conv)
+TSCAM_HTSAT = dict(spec_size=128, patch_size=4, embed_dim=16, depths=(1, 1, 1, 1),
+                   num_heads=(2, 2, 2, 2), window_size=2, mel_bins=64, drop_path_rate=0.0,
+                   num_classes=5)
+
+
+def test_htsat_tscam_head_is_a_parameter_matching_jax(monkeypatch):
+    """The htsat classifier at a geometry with the tscam head (the JAX
+    classifier's HTSATConfig default, enable_tscam): the head is a pair of
+    parameters under the buffers' names, so the encoder L2 term, the clip
+    and Adam see it; one step's loss and every gradient leaf, the head's
+    included, match the JAX loss_fn on the same weights (the flax route) at
+    the new kinds' float32 bar, and the head's share of the loss is over
+    twice that bar. from_jax_classifier carries the head, and the JAX converter
+    gives it back bit for bit."""
+    jmodel = jft.EncoderClassifier(encoder_kind="htsat", classes=2, feat_dim=128,
+                                   htsat_config=JHTSATConfig(**TSCAM_HTSAT))
+    x, y, valid, cw = _batch("htsat")
+    x = np.random.default_rng(4).standard_normal((4, 96, 64)).astype(np.float32)
+    v = jax.tree.map(np.asarray, jax.jit(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 96, 64))))())
+    assert v["params"]["encoder"]["tscam_conv"]["kernel"].shape == (2, 3, 128, 5)
+    port = ft.EncoderClassifier("htsat", 2, "linear", 128, HTSATConfig(**TSCAM_HTSAT))
+    params = dict(port.named_parameters())
+    assert params["encoder.tscam_conv.weight"].shape == (5, 128, 2, 3)
+    assert "encoder.tscam_conv.bias" in params
+    assert not any("tscam" in k for k, _ in port.named_buffers())
+    sd = from_jax_classifier(v, "htsat")
+    port.load_state_dict(sd)
+    np.testing.assert_array_equal(port.encoder.tscam_conv.weight.detach().numpy(),
+                                  v["params"]["encoder"]["tscam_conv"]["kernel"].transpose(
+                                      3, 2, 0, 1))
+    lj, gj = _jax_loss_grads("htsat", jmodel, v, x, y, valid, cw, False)
+    lp, gp = _port_loss_grads(port, x, y, valid, cw, "autograd")
+    assert abs(lp - lj) <= TOL * abs(lj), (lp, lj)
+    assert set(gp) == set(gj) and "encoder.tscam_conv.weight" in gj
+    for k, want in gj.items():
+        want = want.numpy()
+        err = np.abs(gp[k].numpy() - want).max()
+        assert err <= TOL * max(1.0, np.abs(want).max()), (k, err)
+    head_l2 = 0.2 * L2 * sum(float((t.detach() ** 2).sum()) for n, t in params.items()
+                             if "tscam" in n)
+    assert head_l2 > 2 * TOL * abs(lj), (head_l2, lj)  # a loss without it misses the bar
+    # the JAX converter takes the port's state back to the same flax leaves
+    monkeypatch.setattr(jconvert, "_HTSAT_DEPTHS", TSCAM_HTSAT["depths"])
+    enc = {k[len("encoder."):]: t.numpy() for k, t in sd.items() if k.startswith("encoder.")}
+    back, _ = jconvert.convert_htsat(enc)
+    for leaf in ("kernel", "bias"):
+        np.testing.assert_array_equal(np.asarray(back["tscam_conv"][leaf]),
+                                      v["params"]["encoder"]["tscam_conv"][leaf])
 
 
 def _clf_data(kind, n, seed):
@@ -474,23 +529,45 @@ def test_cli_finetune_on_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("argv,exc,match", [
     # the config's default pretrain, operaCE, wants its checkpoint
     (["task=circor_murmurs"], FileNotFoundError, "encoder-operaCE.ckpt"),
-    # megatron fine-tuning of HeAR has no tensor-parallel forward: the error
-    # names its ROADMAP item, before any rank starts
-    (["task=circor_murmurs", "pretrain=hear", "random_init=True", "tp=2"], NotImplementedError,
-     "queue A item 4"),
     # HeAR (and CLAP) want converted weights or random_init
     (["task=circor_murmurs", "pretrain=hear"], FileNotFoundError, "ckpt_path"),
 ])
 def test_cli_finetune_refusals(argv, exc, match, tmp_path, monkeypatch):
     from heart_murmur_detection_tpu_torch.cli import finetune as cli_finetune
 
+    _task_dir(tmp_path, monkeypatch)
+    with pytest.raises(exc, match=match):
+        cli_finetune.main(argv + ["device=cpu"])
+
+
+def _task_dir(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     d = tmp_path / "feature" / "circor_eval"
     d.mkdir(parents=True)
     np.save(d / "murmurs.npy", np.array([0, 1, 0, 1]))
     np.save(d / "train_test_split.npy", np.array(["train", "val", "test", "train"]))
-    with pytest.raises(exc, match=match):
-        cli_finetune.main(argv + ["device=cpu"])
+
+
+@pytest.mark.parametrize("pretrain", ["hear", "clap", "clap2023"])
+def test_cli_finetune_tp2_starts_a_megatron_run(pretrain, tmp_path, monkeypatch):
+    """cli.finetune pretrain=<hear | clap | clap2023> random_init=True tp=2:
+    nothing refuses megatron fine-tuning of these kinds any more; the CLI
+    hands run_seeds to 2 ranks on a 1 x 2 tensor axis under megatron (the
+    launch is recorded here; tests/test_torch_parallel_tp.py runs HeAR's on
+    gloo ranks)."""
+    from heart_murmur_detection_tpu_torch.cli import finetune as cli_finetune
+
+    seen = []
+
+    def launch(fn, world, cfg, param_sharding, backend=None, device="cuda", tp=1):
+        seen.append((fn, world, param_sharding, backend, device, tp, cfg["pretrain"]))
+        return [0.5]
+
+    _task_dir(tmp_path, monkeypatch)
+    monkeypatch.setattr(cli_finetune, "launch", launch)
+    assert cli_finetune.main(["task=circor_murmurs", f"pretrain={pretrain}",
+                              "random_init=True", "tp=2", "device=cpu"]) == [[0.5]]
+    assert seen == [(cli_finetune.run_seeds, 2, "megatron", None, "cpu", 2, pretrain)]
 
 
 # ---------------------------------------------------------------------------
@@ -502,25 +579,21 @@ def test_cli_finetune_refusals(argv, exc, match, tmp_path, monkeypatch):
 # HeAR on a 2-s clip at 16 kHz at tests/test_torch_hear.py's narrow width
 NEW_KINDS = {"efficientnet": ((96, 64), 1280), "clap": ((22080,), 1024),
              "clap2023": ((22080,), 1024), "hear": ((32000,), 64)}
-# the CLAP-2023 HTS-AT narrowed (over CLAP's 64 mel bins) and HeAR's narrow tower
-CLAP_HTSAT = dict(spec_size=128, patch_size=4, embed_dim=16, depths=(1, 1, 1, 1),
-                  num_heads=(2, 2, 2, 2), window_size=2, drop_path_rate=0.0)
-HEAR_WAVE = dict(image_size=(192, 128), patch_size=16, hidden=64, depth=1, heads=2,
-                 mlp_ratio=4.0, pooled_dim=8)
+# the CLAP-2023 HTS-AT narrowed (over CLAP's 64 mel bins) and HeAR's narrow
+# tower: R.CLAP_HTSAT, R.HEAR_WAVE (the rank functions narrow the port's alike)
+CLAP_HTSAT, HEAR_WAVE = R.CLAP_HTSAT, R.HEAR_WAVE
 
 
-@pytest.fixture
-def narrow_zoo(monkeypatch):
+def apply_narrow_zoo(mp: pytest.MonkeyPatch) -> None:
     """Both packages' CLAP-2023 HTS-AT and HeAR narrowed where their
     classifiers build them, and every random draw of the comparison off:
     the EfficientNet's drop-connect and the CLAP projection's dropout (the
     JAX modules subclassed with a zero rate; the JAX package is not
-    edited)."""
+    edited). The port's side is R.NARROW_ZOO."""
     import functools
 
     from heart_murmur_detection_tpu.models import clap as jclap
     from heart_murmur_detection_tpu.models import hear as jhear
-    from heart_murmur_detection_tpu_torch.models import clap, hear
 
     class NoDropProjection(jclap.Projection):
         p: float = 0.0
@@ -528,16 +601,19 @@ def narrow_zoo(monkeypatch):
     class NarrowHeAR(jhear.HeAREncoder):
         config: jhear.HeARConfig = jhear.HeARConfig(**HEAR_WAVE)
 
-    monkeypatch.setattr(jclap, "Projection", NoDropProjection)
-    monkeypatch.setattr(jclap, "HTSATConfig", lambda **kw: JHTSATConfig(**{**CLAP_HTSAT, **kw}))
-    monkeypatch.setattr(jhear, "HeAREncoder", NarrowHeAR)
-    monkeypatch.setattr(jft, "ColaEfficientNetEncoder",
-                        functools.partial(jft.ColaEfficientNetEncoder, drop_connect_rate=0.0))
-    real = clap.CLAPConfig
-    monkeypatch.setattr(clap, "CLAPConfig", lambda **kw: real(**{**kw, "proj_dropout": 0.0}))
-    monkeypatch.setattr(clap, "HTSATConfig", lambda **kw: HTSATConfig(**{**CLAP_HTSAT, **kw}))
-    real_hear = hear.HeARConfig
-    monkeypatch.setattr(hear, "HeARConfig", lambda: real_hear(**HEAR_WAVE))
+    mp.setattr(jclap, "Projection", NoDropProjection)
+    mp.setattr(jclap, "HTSATConfig", lambda **kw: JHTSATConfig(**{**CLAP_HTSAT, **kw}))
+    mp.setattr(jhear, "HeAREncoder", NarrowHeAR)
+    mp.setattr(jft, "ColaEfficientNetEncoder",
+               functools.partial(jft.ColaEfficientNetEncoder, drop_connect_rate=0.0))
+    for mod, name, value in R.NARROW_ZOO:
+        mp.setattr(mod + "." + name, value)
+
+
+@pytest.fixture
+def narrow_zoo(monkeypatch):
+    """apply_narrow_zoo for the test's duration."""
+    apply_narrow_zoo(monkeypatch)
 
 
 _NEW_INITS = {}
@@ -654,6 +730,37 @@ def test_one_step_new_kinds_match_jax_float32(kind, narrow_zoo):
                 assert np.abs(t.numpy() - w).max() <= 1e-5 * max(1.0, np.abs(w).max()), name
     else:
         assert stats is None
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_batch_norm_of_a_transposed_input(train):
+    """models/bn.batch_norm on the Cnn14's bn0 layout (mel bins as channels:
+    (B, F, T, 1) from a transpose, channels-last-contiguous only through its
+    size-1 dim), in float64: the output and the weight and bias gradients
+    equal the contiguous input's, the bias gradient the sum of the output
+    gradient. PyTorch's CPU batch_norm backward got both gradients wrong on
+    that layout (by more than the sums themselves here), so CLAP-2022
+    fine-tuning moved bn0 the wrong way; bn.batch_norm hands it a
+    contiguous input."""
+    from heart_murmur_detection_tpu_torch.models import bn as bn_mod
+
+    r = torch.Generator().manual_seed(0)
+    base = torch.randn(8, 69, 64, generator=r, dtype=torch.float64) * 5 - 30
+    g = torch.randn(8, 64, 69, 1, generator=r, dtype=torch.float64)
+    bn = torch.nn.BatchNorm2d(64).double()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=r)
+        bn.bias.uniform_(-1, 1, generator=r)
+        if not train:
+            bn.running_mean.fill_(-30.0)
+            bn.running_var.fill_(25.0)
+    out = []
+    for x in (base.transpose(1, 2)[..., None], base.transpose(1, 2)[..., None].contiguous()):
+        y = bn_mod.batch_norm(bn, x, 0.9, {} if train else None)
+        out.append((y.detach(), *torch.autograd.grad((y * g).sum(), [bn.weight, bn.bias])))
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(out[0][2], g.sum((0, 2, 3)), rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("mode", ["none", "all", "early"])

@@ -2,10 +2,11 @@
 table against the JAX transformer_param_specs (tests/test_parallel.py:303,
 :363) on trees carried over by extract/convert.py (a tiny HTS-AT Cola, a
 tiny MAE with its SwinV2-CR decoder, a fine-tuning classifier with an mlp
-head) for mesh_2d(2, 4) and (2, 2), megatron and fsdp; the replicated
-parameters used as a slice; the head-count ValueError; megatron on a 1-D
-mesh; fused_train refused on a 2-D mesh; the head-split layout of a
-column-parallel qkv."""
+head, and the CLAP 2022 / 2023 and HeAR classifiers) for mesh_2d(2, 4)
+and (2, 2), megatron and fsdp; the replicated parameters used as a slice;
+the head split of a qkv whose heads the model axis does not divide;
+megatron on a 1-D mesh; fused_train refused on a 2-D mesh; the by-heads
+layout of a column-parallel qkv."""
 
 import jax
 import jax.numpy as jnp
@@ -122,6 +123,57 @@ def test_placement_table_matches_transformer_param_specs(trees, tree, shape, rul
             assert kinds["head.fc1.weight"] == "col" and kinds["head.fc2.weight"] == "row"
 
 
+@pytest.fixture(scope="module")
+def zoo_trees():
+    """{kind: (JAX params tree, converter, the port's classifier)} of the
+    CLAP 2022 (its Cnn14 at full width), CLAP 2023 and HeAR classifiers,
+    both packages' towers narrowed as tests/test_torch_finetune.py narrows
+    them."""
+    from tests.test_torch_finetune import NEW_KINDS, _new_jax, apply_narrow_zoo
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        apply_narrow_zoo(mp)
+        for kind in ("clap", "clap2023", "hear"):
+            _, v = _new_jax(kind)
+            out[kind] = (v["params"], lambda t, k=kind: from_jax_classifier({"params": t}, k),
+                         ft.EncoderClassifier(kind, 2, "linear", NEW_KINDS[kind][1]))
+    return out
+
+
+# per kind: (a leaf the megatron rule shards column-wise, leaves it keeps whole)
+ZOO_LEAVES = {
+    "clap": ("encoder.base.fc1.weight", ("encoder.base.fc_audioset.weight",
+                                          "encoder.projection.linear1.weight")),
+    "clap2023": ("encoder.base.htsat.layers.0.blocks.0.attn.qkv.weight",
+                 ("encoder.base.htsat.tscam_conv.weight", "encoder.projection.linear2.weight")),
+    "hear": ("encoder.blocks.0.mlp.fc1.weight", ("encoder.pooler.weight",
+                                                 "encoder.patch_embed.proj.weight")),
+}
+
+
+@pytest.mark.parametrize("rule", ["megatron", "fsdp"])
+@pytest.mark.parametrize("shape", [(2, 4), (2, 2)])
+@pytest.mark.parametrize("kind", list(ZOO_LEAVES))
+def test_zoo_placement_table_matches_transformer_param_specs(zoo_trees, kind, shape, rule):
+    """The CLAP 2022 / 2023 and HeAR classifiers: every parameter's shard
+    dim equals the JAX spec's; under megatron the Cnn14's fc1, the swin
+    and ViT blocks' qkv / fc1 are column-parallel, and the tscam head,
+    fc_audioset, the CLAP projection, HeAR's pooler and patch embed stay
+    replicated."""
+    params, convert, model = zoo_trees[kind]
+    kw = {"fsdp_min_size": 64} if rule == "fsdp" else {}
+    want = _jax_dims(params, jmesh.transformer_param_specs(
+        params, jmesh.mesh_2d(*shape), rule=rule, **kw), convert)
+    got = tensor.param_specs(model.named_parameters(), shape[1], rule, **kw)
+    names = [k for k, _ in model.named_parameters()]
+    assert set(names) <= set(want)
+    assert {k: got[k].shard for k in names} == {k: want[k] for k in names}
+    if rule == "megatron":
+        col, whole = ZOO_LEAVES[kind]
+        assert want[col] == 0 and all(want[k] is None for k in whole)
+
+
 def test_odd_and_one_axis_cases():
     """A dimension the model axis does not divide stays replicated (the
     JAX `odd` fc1 at 65 columns, :333); fsdp's tiny / odd leaves (:363);
@@ -169,18 +221,59 @@ def test_slices_are_the_replicated_parameters_read_in_parts(trees):
             assert got[k].slice == (1 if k.endswith("table") else 0)
 
 
-def test_heads_the_model_axis_cannot_split_raise():
-    """ViT-S's 6 heads at tp=4 and the HTS-AT stage 0's 4 heads at tp=8:
-    the rule shards their qkv (3C divides), the port's split by heads
-    cannot; the ValueError names the block, its tower and heads."""
-    vit = MaskedAutoencoderViT(MAEConfig(img_size=(32, 16), patch_size=4, embed_dim=96, depth=1,
-                                         num_heads=6))
-    with pytest.raises(ValueError, match=r"blocks\.0 \(ViT\) has 6 heads.*4 model ranks"):
-        tensor.shard_model(vit, fake_mesh(1, 4))
-    htsat = Cola(HTSATConfig(**{**TINY, "embed_dim": 32, "num_heads": (4, 8, 16, 32)}),
-                 encoder="htsat", p=0.0)
-    with pytest.raises(ValueError, match=r"layers\.0\.blocks\.0 \(HTS-AT\) has 4 heads"):
-        tensor.shard_model(htsat, fake_mesh(1, 8))
+def _placed_parts(model, n: int) -> list:
+    """shard_model of a copy of `model` on each model rank of a 1 x n
+    fake_mesh (no collective runs): [(rank's named parameters, rank)]."""
+    import copy
+
+    return [(dict(tensor.shard_model(copy.deepcopy(model), fake_mesh(1, n, r))
+                  .named_parameters()), r) for r in range(n)]
+
+
+@pytest.mark.parametrize("tower", ["vit-s tp=4", "htsat tp=8"])
+def test_heads_the_model_axis_cannot_split_take_the_head_split(tower):
+    """ViT-S's 6 heads at tp=4 and the HTS-AT stage 0's 4 heads at tp=8
+    (the rule shards their qkv: 3C divides): no ValueError; each rank holds
+    the contiguous block of 3C / n qkv rows (GSPMD's split of the kernel)
+    and of the bias, the stage's relative-position table whole (read by
+    every rank); blocks whose heads divide keep the split by heads; the
+    parts put back by Placement.index are the single-device tensors (the
+    checkpoint's gather)."""
+    if tower.startswith("vit"):
+        model = MaskedAutoencoderViT(MAEConfig(img_size=(32, 16), patch_size=4, embed_dim=96,
+                                               depth=1, num_heads=6))
+        n, split, by_heads = 4, "blocks.0.attn", None
+    else:
+        model = Cola(HTSATConfig(**{**TINY, "embed_dim": 32, "num_heads": (4, 8, 16, 32)}),
+                     encoder="htsat", p=0.0)
+        n = 8
+        split = "encoder.encoder.htsat.layers.0.blocks.0.attn"
+        by_heads = "encoder.encoder.htsat.layers.1.blocks.0.attn"  # 8 heads
+    full = dict(model.named_parameters())
+    parts = _placed_parts(model, n)
+    w = full[f"{split}.qkv.weight"]
+    for named, r in parts:
+        pw, pb = named[f"{split}.qkv.weight"], named[f"{split}.qkv.bias"]
+        pl = tensor.placement(pw)
+        assert pl.kind == "shard" and not pl.thirds and pw.shape == (w.shape[0] // n, w.shape[1])
+        per = w.shape[0] // n
+        assert torch.equal(pw, w[r * per:(r + 1) * per])
+        assert tensor.placement(pb).kind == "slice" and not tensor.placement(pb).thirds
+        assert torch.equal(tensor.local(pb), full[f"{split}.qkv.bias"][r * per:(r + 1) * per])
+        if by_heads is not None:
+            assert tensor.placement(named[f"{split}.relative_position_bias_table"]) is None
+            assert tensor.placement(named[f"{by_heads}.qkv.weight"]).thirds
+            assert tensor.placement(named[f"{by_heads}.relative_position_bias_table"]).kind \
+                == "slice"
+    for k, v in full.items():
+        pl = tensor.placement(parts[0][0][k])
+        if pl is None or pl.kind == "slice":
+            assert all(torch.equal(named[k], v) for named, _ in parts), k
+            continue
+        back = torch.empty_like(v)
+        for named, r in parts:
+            back.index_copy_(pl.dim, pl.index(r, "cpu"), named[k].detach())
+        assert torch.equal(back, v), k
 
 
 def test_column_qkv_is_split_by_heads():

@@ -237,10 +237,6 @@ def test_early_freeze_keeps_frozen_weights_and_updates_bn0_stats(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    # the HTS-AT's 4 stage-0 heads do not split over 3 model ranks, where the
-    # megatron rule shards their qkv (3 x 96 rows): raised in the ranks
-    (["encoder=htsat", "circor=True", "tp=3", "batch_size=3", "dist_backend=gloo",
-      "device=cpu"], ValueError),
     # param_sharding without a mesh, as the JAX mesh_from_cli refuses it
     (["encoder=htsat", "circor=True", "param_sharding=fsdp"], ValueError),
     # a batch the ranks cannot split: "not divisible", raised in the ranks
@@ -252,6 +248,39 @@ def test_cli_refusals(argv, exc, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(exc):
         cli_pretrain.main(argv)
+
+
+def test_cli_tp3_starts_a_megatron_run_of_head_split_blocks(tmp_path, monkeypatch):
+    """cli.pretrain encoder=htsat tp=3: the full-width HTS-AT's heads (4, 8,
+    16, 32) divide over no 3 model ranks, where the megatron rule shards
+    every qkv (3C rows), and nothing refuses it any more: the CLI hands the
+    trainer to 3 ranks on a 1 x 3 tensor axis under megatron (the launch
+    is recorded here), and each rank's placement (shard_model on a
+    collective-free mesh) holds the contiguous 3C / 3 rows of every qkv,
+    which put back by index give the single-device weights."""
+    from tests.test_torch_parallel_tp_specs import _placed_parts
+
+    seen = []
+
+    def launch(fn, world, method, kw, backend=None, device="cuda", tp=1):
+        seen.append((world, method, kw["encoder"], kw["param_sharding"], backend, tp))
+        return "ran"
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(cli_pretrain, "launch", launch)
+    assert cli_pretrain.main(["encoder=htsat", "circor=True", "tp=3", "batch_size=3",
+                              "dist_backend=gloo", "device=cpu"]) == ["ran"]
+    assert seen == [(3, "cola", "htsat", "megatron", "gloo", 3)]
+    model = Cola(HTSATConfig(), encoder="htsat", p=0.0)
+    full = dict(model.named_parameters())
+    qkv = [k for k in full if k.endswith("attn.qkv.weight")]
+    assert len(qkv) == 12
+    parts = _placed_parts(model, 3)
+    for k in qkv:
+        rows = full[k].shape[0] // 3
+        back = torch.cat([named[k] for named, _ in parts])
+        assert all(named[k].shape == (rows, full[k].shape[1]) for named, _ in parts), k
+        assert torch.equal(back, full[k]), k
 
 
 def test_cuda_device_without_a_card_raises(tmp_path):

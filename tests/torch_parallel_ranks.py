@@ -19,9 +19,41 @@ import time
 import numpy as np
 import torch
 
+from heart_murmur_detection_tpu_torch.models.clap import CLAPConfig as _CLAPConfig
+from heart_murmur_detection_tpu_torch.models.hear import HeARConfig as _HeARConfig
+from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig as _HTSATConfig
 from heart_murmur_detection_tpu_torch.parallel import tensor
 from heart_murmur_detection_tpu_torch.parallel.mesh import (ZeroShard, data_axis, gather_objects,
                                                             rank_generator, shard_rows)
+
+# the CLAP-2023 HTS-AT narrowed (over CLAP's 64 mel bins) and HeAR's narrow
+# tower (tests/test_torch_hear.py's width), where the classifiers build them
+CLAP_HTSAT = dict(spec_size=128, patch_size=4, embed_dim=16, depths=(1, 1, 1, 1),
+                  num_heads=(2, 2, 2, 2), window_size=2, drop_path_rate=0.0)
+HEAR_WAVE = dict(image_size=(192, 128), patch_size=16, hidden=64, depth=1, heads=2,
+                 mlp_ratio=4.0, pooled_dim=8)
+
+
+def clap_htsat(**kw):
+    """models.clap.HTSATConfig narrowed to CLAP_HTSAT."""
+    return _HTSATConfig(**{**CLAP_HTSAT, **kw})
+
+
+def clap_config(**kw):
+    """models.clap.CLAPConfig with the projection's dropout off."""
+    return _CLAPConfig(**{**kw, "proj_dropout": 0.0})
+
+
+def hear_config():
+    """models.hear.HeARConfig narrowed to HEAR_WAVE."""
+    return _HeARConfig(**HEAR_WAVE)
+
+
+# the port's side of tests/test_torch_finetune.py::narrow_zoo, as (module,
+# name, value) patches a rank can take (`patched`, `call`)
+NARROW_ZOO = (("heart_murmur_detection_tpu_torch.models.clap", "CLAPConfig", clap_config),
+              ("heart_murmur_detection_tpu_torch.models.clap", "HTSATConfig", clap_htsat),
+              ("heart_murmur_detection_tpu_torch.models.hear", "HeARConfig", hear_config))
 
 
 @contextlib.contextmanager
@@ -205,33 +237,64 @@ def mae_step0(mesh, state: dict, cfg, x, seed: int, zero: bool = False, mm_dtype
 
 
 def ft_step0(mesh, state: dict, kind: str, htsat: dict, x, y, valid, cw, zero: bool = False,
-             aug=None, head: str = "linear", megatron: bool = False):
+             aug=None, head: str = "linear", megatron: bool = False, mae=None, feat_dim=None,
+             dtype=torch.float32):
     """One fine-tuning step of the trainer (finetune.train_step, ClippedAdam
     at lr 0) on the global batch (x, y, valid rows), SpecAugment `aug`
     drawn from a generator seeded 7: its global loss and the summed
-    gradients it returned."""
+    gradients it returned; with megatron also every parameter's shape on
+    this rank. mae: the gt / audiomae MAEConfig's fields; feat_dim: the
+    head's input width (default the HTS-AT's features); dtype: the model's
+    and the batch's (float64 for a tower whose every op takes it)."""
     from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+    from heart_murmur_detection_tpu_torch.models.vit_mae import MAEConfig
     from heart_murmur_detection_tpu_torch.train import finetune as ft
     from heart_murmur_detection_tpu_torch.train.linear_eval import ClippedAdam
     from heart_murmur_detection_tpu_torch.utils.precision import strict_f32
 
     cfg = HTSATConfig(**htsat)
-    model = ft.EncoderClassifier(kind, 2, head, cfg.num_features, cfg)
+    model = ft.EncoderClassifier(kind, 2, head, feat_dim or cfg.num_features, cfg,
+                                 MAEConfig(**mae) if mae else None)
     model.load_state_dict(state)
-    model.train()
+    model.to(dtype).train()
     keep = set(map(id, ft.trainable_params(model, "none")))
     named = [(k, p) for k, p in model.named_parameters() if id(p) in keep]
     zs, opt = _optimizer([p for _, p in named], mesh, zero,
                          lambda ps: ClippedAdam(ps, 1, 0.0, 0.99, 1.0, optax_clip=True,
                                                 shard_mesh=mesh if zero else None),
                          model, megatron)
-    x, y, valid, cw = (torch.as_tensor(a) for a in (x, y, valid, cw))
+    x, valid, cw = (torch.as_tensor(a).to(dtype) for a in (x, valid, cw))
+    y = torch.as_tensor(y)
     gen = torch.Generator().manual_seed(7)
     rank_gen = None if mesh is None else rank_generator(7, mesh, "cpu")
     with strict_f32():
         loss, grads = ft.train_step(model, opt, x, y, valid, cw, gen, torch.float32, "autograd",
                                     1e-4, aug, mesh, zs, rank_gen)
+    if megatron:
+        return float(loss), _summed_grads(named, grads, zs), {k: tuple(p.shape) for k, p in named}
     return float(loss), _summed_grads(named, grads, zs)
+
+
+def sub_mesh_ft_step0(mesh, n_model: int, patches=(), **kw):
+    """ft_step0 on a 1 x n_model tensor axis over the first n_model ranks of
+    the launch's group (the rest wait): a model axis the launch's own mesh
+    does not have (tp=3 in a 4-rank launch). Rank 0's result."""
+    import torch.distributed as dist
+
+    from heart_murmur_detection_tpu_torch.parallel.mesh import DataParallelMesh, TensorParallelMesh
+
+    model_group = dist.new_group(list(range(n_model)))  # every rank makes every group
+    alone = [dist.new_group([r]) for r in range(mesh.world)]
+    out = None
+    if mesh.rank < n_model:
+        view = lambda r, w, g: DataParallelMesh(r, w, g, mesh.backend, mesh.device)
+        sub = TensorParallelMesh(mesh.rank, n_model, model_group, mesh.backend, mesh.device,
+                                 view(0, 1, alone[mesh.rank]), view(mesh.rank, n_model,
+                                                                    model_group))
+        with patched(patches):
+            out = ft_step0(sub, **kw)
+    dist.barrier(group=mesh.group)
+    return out
 
 
 def step0_cases(mesh, cases: dict):
@@ -335,10 +398,11 @@ NARROW = (("heart_murmur_detection_tpu_torch.pretrain.cola_training", "HTSATConf
 
 
 def cli_tp_runs(mesh, root: str):
-    """cli.pretrain (COLA on the HTS-AT) and cli.finetune (operaCT, one
-    seed) with dp=2 tp=2 dist_backend=gloo device=cpu, run from `root` in
-    every rank of a 4-rank group as torchrun would run them, the HTS-AT
-    narrowed (NARROW): their results."""
+    """cli.pretrain (COLA on the HTS-AT) and cli.finetune (operaCT, then
+    HeAR from its fbank_hear.npy cache; one seed each) with dp=2 tp=2
+    dist_backend=gloo device=cpu, run from `root` in every rank of a 4-rank
+    group as torchrun would run them, the HTS-AT and HeAR narrowed (NARROW,
+    NARROW_ZOO): their results."""
     import os
 
     from heart_murmur_detection_tpu_torch.cli import finetune as cli_finetune
@@ -347,12 +411,14 @@ def cli_tp_runs(mesh, root: str):
     here = os.getcwd()
     os.chdir(root)
     try:
-        with patched(NARROW):
+        with patched(NARROW + NARROW_ZOO):
             mesh_args = ["dp=2", "tp=2", "dist_backend=gloo", "device=cpu"]
             pre = cli_pretrain.main(["encoder=htsat", "method=cola", "circor=True",
                                      "batch_size=4", "epoches=1", "title=t"] + mesh_args)
             fin = cli_finetune.main(["task=circor_murmurs", "pretrain=operaCT",
                                      "random_init=True", "n_run=1", "epochs=1"] + mesh_args)
+            hear = cli_finetune.main(["task=circor_murmurs", "pretrain=hear",
+                                      "random_init=True", "n_run=1", "epochs=1"] + mesh_args)
     finally:
         os.chdir(here)
-    return pre, fin
+    return pre, fin, hear
