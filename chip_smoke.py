@@ -123,11 +123,13 @@ Phases (each prints one line; any failure exits non-zero):
      torch.use_deterministic_algorithms
  22. HeAR kernels vs plain: vit_qkv, vit_attn (the core, both softmax
      modes), vit_proj and vit_mlp at HeAR's ViT-L geometry (C 1024, 16
-     heads of 64, hidden 4096, 112 tokens with 97 real; TPU K6 / K7) at B=16
-     and B=1: cosine of each output or branch >= 0.99999, two launches
-     bitwise equal, each launch's ms, bound, plain ms and library call
-     (addmm; SDPA; addmm + the residual; the MLP's chain), and the ptxas
-     registers and spills of the C = 1024 instantiations
+     heads of 64, hidden 4096, 112 tokens with 97 real; TPU K6 / K7): the
+     attention core at B=16 and B=1 (its ms, bound, plain ms and SDPA), the
+     other three at B = 1, 16 and 64 (bench/mlp_layouts.py: each timed as a
+     replayed CUDA graph in turns with its library calls, addmm, addmm + the
+     residual, the MLP's chain); cosine of each output or branch >= 0.99999,
+     two launches bitwise equal, and the ptxas registers and spills of the
+     C = 1024 kernels
  23. HeAR: a synthetic CirCor corpus (as phase 19's, REPEAT_PATIENTS) through cli.process
      pretrain=hear (2-s clips at 16 kHz, mel-PCEN and the 24 blocks on the
      card; 24 launches of each ViT kernel a batch) and cli.linear_eval
@@ -2542,23 +2544,27 @@ def _ptxas_of(log: str, marker: str) -> list:
     return out
 
 
-def phase_hear_kernels(dev, build_log: str):
-    """Phase 22: vit_qkv, vit_attn (the core), vit_proj and vit_mlp at HeAR's
-    geometry (C 1024, 16 heads of 64, hidden 4096, 112 tokens with 97 real)
-    against their plain versions at B=16 and B=1, both softmax modes:
-    cosine of each output (qkv and its LN1 output, o_pre) or branch (out -
-    x) >= KERNEL_BAR, two launches bitwise equal; each launch's CUDA-event
-    ms, bound, plain ms and library call (addmm; SDPA on the same q, k, v;
-    addmm + the residual; the MLP's layer_norm, addmm, gelu, addmm chain);
-    the ptxas lines of the C = 1024 instantiations. Returns {name@hear:
-    measurement} summed over one B=16 forward's 24 launches of each kernel
-    in the extraction's fast softmax mode."""
+def phase_hear_kernels(dev, build_log: str, smi: str):
+    """Phase 22: the four ViT kernels at HeAR's geometry (C 1024, 16 heads
+    of 64, hidden 4096, 112 tokens with 97 real). The vit_attn core at B=16
+    and B=1, both softmax modes: o_pre and, through vit_proj, the attention
+    half's branch (out - x) at cosine >= KERNEL_BAR against the plain
+    versions, two launches bitwise equal; CUDA-event ms, bound, plain ms and
+    SDPA on the same q, k, v. Then, at B = 1, 16 and 64,
+    bench/mlp_layouts.py's comparison: vit_qkv (and its LN1 output),
+    vit_proj and vit_mlp (the branch) at cosine >= KERNEL_BAR, two launches
+    bitwise equal, each timed (a CUDA graph of 20 launches replayed,
+    medians over 5 turns) in turns with its library calls (torch.addmm on
+    the LN output; addmm + the residual; the MLP's layer_norm, addmm, gelu,
+    addmm, add chain). The ptxas lines of the C = 1024 kernels. Returns
+    {name@hear: measurement} summed over one B=16 forward's 24 launches of
+    each kernel in the extraction's fast softmax mode."""
     import torch
 
-    from heart_murmur_detection_tpu_torch.bench.swin_fwd_time import mlp_chain
+    from heart_murmur_detection_tpu_torch.bench import mlp_layouts
     from heart_murmur_detection_tpu_torch.ops import vit
 
-    for ln in _ptxas_of(build_log, "ILi1024E"):
+    for ln in _ptxas_of(build_log, "ILi1024E") + _ptxas_of(build_log, "vit_rows_gemm"):
         print(f"[hear kernel] ptxas {ln}", flush=True)
     C, heads, Np, n_real = HEAR_GEOM
     p = _vit_params(C, heads, dev, SEED + 22)
@@ -2567,31 +2573,10 @@ def phase_hear_kernels(dev, build_log: str):
         g = torch.Generator(device="cpu").manual_seed(SEED + 22 + B)
         x = (torch.randn(B, Np, C, generator=g) * 0.5).to(dev, torch.bfloat16)
         x[:, n_real:] = 0.0  # the padded rows of a first block
-        work = _vit_work(B, Np, n_real, C, heads)
-        bound = {}
-        for k, w in work.items():
-            bound[k] = Work()
-            bound[k].add(*w)
-        meas = {}
-        qkv, ln1 = vit.vit_qkv(x, p, return_ln=True)
+        w_attn = _vit_work(B, Np, n_real, C, heads)["vit_attn"]
+        bound = Work()
+        bound.add(*w_attn)
         ref = vit.vit_qkv_ref(x, p)
-        torch.cuda.synchronize()
-        c, c_ln = _cos(qkv.float().cpu(), ref.float().cpu()), _cos(ln1.float().cpu(),
-                                                                   vit.ln1_rows(x, p).float().cpu())
-        same = torch.equal(qkv, vit.vit_qkv(x, p))
-        err = float((qkv.float() - ref.float()).abs().max())
-        k_ms = _time_ms(lambda: vit.vit_qkv(x, p))
-        p_ms = _time_ms(lambda: vit.vit_qkv_ref(x, p), iters=5, warm=1)
-        h = vit.ln1_rows(x, p)
-        bq = p.b_qkv.to(torch.bfloat16)
-        l_ms = _time_ms(lambda: torch.addmm(bq, h, p.w_qkv.t()))
-        print(f"[hear kernel] vit_qkv C={C} Np={Np} B={B}: cos {c:.7f} max|d| {err:.4g}, its LN1 "
-              f"output cos {c_ln:.7f}; bitwise repeatable {same}; kernel {k_ms:.4f} ms plain "
-              f"{p_ms:.4f} ms bound {bound['vit_qkv'].bound_ms:.4f} ms "
-              f"({bound['vit_qkv'].bound_by}); addmm on the LN output {l_ms:.4f} ms", flush=True)
-        _require(min(c, c_ln) >= KERNEL_BAR and same,
-                 f"vit_qkv HeAR B={B}: cosine {c}, LN1 output {c_ln}, repeatable {same}")
-        meas["vit_qkv"] = (k_ms, p_ms, err, l_ms)
         q, kk, vv = ref[0], ref[1][:, :, :n_real], ref[2][:, :, :n_real]
         sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kk, vv, scale=1.0))
@@ -2609,51 +2594,45 @@ def phase_hear_kernels(dev, build_log: str):
             print(f"[hear kernel] vit_attn C={C} Np={Np} n_real={n_real} B={B} {mode} softmax: "
                   f"o_pre cos {co:.7f} max|d| {err:.4g}, with vit_proj branch cos {cb:.7f}; "
                   f"bitwise repeatable {same}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
-                  f"{bound['vit_attn'].bound_ms:.4f} ms ({bound['vit_attn'].bound_by}); "
+                  f"{bound.bound_ms:.4f} ms ({bound.bound_by}); "
                   f"scaled_dot_product_attention (keys sliced to n_real) {sdpa_ms:.4f} ms",
                   flush=True)
             _require(min(co, cb) >= KERNEL_BAR and same,
                      f"vit_attn HeAR B={B} {mode}: o_pre cosine {co}, branch {cb}, repeatable {same}")
-            if mode == "fast":  # the extraction's mode
-                meas["vit_attn"] = (k_ms, p_ms, err, sdpa_ms)
-                o_f = o_ref
-                h1 = want
-        got, want = vit.vit_proj(o_f, x, p), vit.vit_proj_ref(o_f, x, p)
-        torch.cuda.synchronize()
-        c, same = _branch(got, want, x), torch.equal(got, vit.vit_proj(o_f, x, p))
-        err = float((got.float() - want.float()).abs().max())
-        k_ms = _time_ms(lambda: vit.vit_proj(o_f, x, p))
-        p_ms = _time_ms(lambda: vit.vit_proj_ref(o_f, x, p), iters=5, warm=1)
-        o2, x2, bp = o_f.reshape(-1, C), x.reshape(-1, C), p.b_proj.to(torch.bfloat16)
-        l_ms = _time_ms(lambda: torch.addmm(bp, o2, p.w_proj.t()).add_(x2))
-        print(f"[hear kernel] vit_proj C={C} Np={Np} B={B}: branch cos {c:.7f} max|d| {err:.4g}; "
-              f"bitwise repeatable {same}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
-              f"{bound['vit_proj'].bound_ms:.4f} ms ({bound['vit_proj'].bound_by}); torch.addmm + "
-              f"residual {l_ms:.4f} ms", flush=True)
-        _require(c >= KERNEL_BAR and same, f"vit_proj HeAR B={B}: branch {c}, repeatable {same}")
-        meas["vit_proj"] = (k_ms, p_ms, err, l_ms)
-        got, want = vit.vit_mlp(h1, p), vit.vit_mlp_ref(h1, p)
-        torch.cuda.synchronize()
-        c, same = _branch(got, want, h1), torch.equal(got, vit.vit_mlp(h1, p))
-        err = float((got.float() - want.float()).abs().max())
-        k_ms = _time_ms(lambda: vit.vit_mlp(h1, p))
-        p_ms = _time_ms(lambda: vit.vit_mlp_ref(h1, p), iters=5, warm=1)
-        c_ms = _time_ms(mlp_chain(h1, p, vit.LN_EPS))
-        bm = bound["vit_mlp"]
-        print(f"[hear kernel] vit_mlp C={C} hidden {4 * C} Np={Np} B={B}: branch cos {c:.7f} "
-              f"max|d| {err:.4g}; bitwise repeatable {same}; kernel {k_ms:.4f} ms plain "
-              f"{p_ms:.4f} ms bound {bm.bound_ms:.4f} ms ({bm.bound_by}, {bm.bound_ms / k_ms:.1%} "
-              f"of it); library chain (layer_norm, addmm, gelu, addmm, add) {c_ms:.4f} ms",
-              flush=True)
-        _require(c >= KERNEL_BAR and same, f"vit_mlp HeAR B={B}: branch {c}, repeatable {same}")
-        meas["vit_mlp"] = (k_ms, p_ms, err, c_ms)
-        if B == B_KERNEL:  # the extraction batch: 24 launches a forward
-            for k, (k_ms, p_ms, err, l_ms) in meas.items():
+            if mode == "fast" and B == B_KERNEL:  # the extraction's mode and batch
                 w = Work()
-                w.add(*work[k], n=HEAR_DEPTH)
-                tot[f"{k}@hear"] = {"ms": HEAR_DEPTH * k_ms, "plain_ms": HEAR_DEPTH * p_ms,
-                                    "err": err, "work": w,
-                                    "library_ms": None if k == "vit_mlp" else HEAR_DEPTH * l_ms}
+                w.add(*w_attn, n=HEAR_DEPTH)
+                tot["vit_attn@hear"] = {"ms": HEAR_DEPTH * k_ms, "plain_ms": HEAR_DEPTH * p_ms,
+                                        "err": err, "work": w, "library_ms": HEAR_DEPTH * sdpa_ms}
+    # vit_qkv, vit_proj and vit_mlp against their library calls, in turns
+    halves = (("vit_qkv", "rows", "addmm"), ("vit_proj", "kernel", "addmm"),
+              ("vit_mlp", "rows", "chain"))
+    for B in (1, B_KERNEL, 64):
+        r = mlp_layouts.compare(B, p, seed=SEED + 22)
+        for ln in mlp_layouts.report("[hear layouts]", B, r, smi):
+            print(ln, flush=True)
+        for half, key, _ in halves:
+            c = min(r[half]["cos"][key], r[half]["cos"].get("ln1", 1.0))
+            same = r[half]["same"][key]
+            _require(c >= KERNEL_BAR and same,
+                     f"{half} HeAR B={B} ({key}): cosine {c}, repeatable {same}")
+        if B != B_KERNEL:
+            continue
+        work = _vit_work(B, Np, n_real, C, heads)
+        for half, key, lib in halves:
+            w = Work()
+            w.add(*work[half], n=HEAR_DEPTH)
+            ms = r[half]["ms"]
+            # the MLP's chain is five calls: no one library call computes it
+            tot[f"{half}@hear"] = {"ms": HEAR_DEPTH * ms[key],
+                                   "plain_ms": HEAR_DEPTH * r[half]["plain_ms"],
+                                   "err": r[half]["max_abs_err"][key], "work": w,
+                                   "library_ms": None if half == "vit_mlp" else HEAR_DEPTH * ms[lib]}
+        print(f"[hear layouts] one B={B} forward's 24 launches (CUDA-graph replay, medians over "
+              f"turns): " + "; ".join(
+                  f"{half} {HEAR_DEPTH * r[half]['ms'][key]:.3f} ms ({lib} "
+                  f"{HEAR_DEPTH * r[half]['ms'][lib]:.3f})" for half, key, lib in halves)
+              + f"; {smi}", flush=True)
     return tot
 
 
@@ -4792,13 +4771,13 @@ KERNEL_SOURCES = {
         ("q_passthrough", "bench/gt_attn_opt.py:50; bench/vit_attn_ablate.py:43"))},
     # the four ViT kernels at HeAR's ViT-L geometry: K6 fused_vit_attn and
     # K7 fused_vit_mlp, which the JAX package's HeAR extraction runs
-    "vit_qkv@hear": ("heart_murmur_detection_tpu_torch/csrc/vit_qkv.cu",
+    "vit_qkv@hear": ("heart_murmur_detection_tpu_torch/csrc/vit_rows.cu",
                      "heart_murmur_detection_tpu/ops/pallas_vit.py:341"),
     "vit_attn@hear": ("heart_murmur_detection_tpu_torch/csrc/vit_attn.cu",
                       "heart_murmur_detection_tpu/ops/pallas_vit.py:341"),
     "vit_proj@hear": ("heart_murmur_detection_tpu_torch/csrc/vit_proj.cu",
                       "heart_murmur_detection_tpu/ops/pallas_vit.py:341"),
-    "vit_mlp@hear": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp.cu",
+    "vit_mlp@hear": ("heart_murmur_detection_tpu_torch/csrc/vit_rows.cu",
                      "heart_murmur_detection_tpu/ops/pallas_vit.py:373"),
     # K1-K3 on the CLAP-2023 path: the operaCT geometry (phase 3's readings)
     "swin_attn@clap2023": ("heart_murmur_detection_tpu_torch/csrc/swin_attn.cu",
@@ -4894,7 +4873,7 @@ def main() -> int:
     phase_finetune(smi, dev)
     _tick("phase 21")
     torch.cuda.empty_cache()
-    hear_meas = phase_hear_kernels(dev, build_log)
+    hear_meas = phase_hear_kernels(dev, build_log, smi)
     torch.cuda.empty_cache()
     hear_counts = phase_hear(smi)
     _tick("phases 22-23")

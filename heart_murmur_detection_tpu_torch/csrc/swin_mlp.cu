@@ -8,9 +8,10 @@
 // fused_swin_pair (:847) and fused_swin_block_split (:618, MLP half) run,
 // the MLP half of `_train_fwd_kernel` (ops/pallas_swin_train.py:233, K8),
 // and, as `vit_mlp`, the ViT MLP body `_mlp_half` (ops/pallas_vit.py:149)
-// of fused_vit_block (:296, K5) and fused_vit_mlp (:373, K7): the same
-// token-wise LN, fc1, exact GELU, fc2 and residual. As in the TPU body,
-// GELU(fc1) never leaves the chip.
+// of fused_vit_block (:296, K5) and fused_vit_mlp (:373, K7) at C 384 and
+// 768 (HeAR's C 1024 runs csrc/vit_rows.cu): the same token-wise LN, fc1,
+// exact GELU, fc2 and residual. As in the TPU body, GELU(fc1) never leaves
+// the chip.
 //
 // Bound on this card: 16 C^2 operations a token against 4 C bytes, so the
 // products bind at every width (about 10 us a stage at B = 16, whatever the
@@ -27,7 +28,7 @@
 //  - W1 and W2 stream through one TMA ring of 16 KB stages, in the order the
 //    consumers take them: for each hidden chunk of HN (128; 64 at C = 192),
 //    the W1 boxes (HN rows x 64 of K) over K = C, then the W2 boxes (96
-//    output rows, 128 at C = 1024, x 64 hidden columns) over the chunk.
+//    output rows x 64 hidden columns) over the chunk.
 //  - fc1 of a chunk runs on wgmma over the valid k16 steps of C (no product
 //    over the zero-filled columns); + b1 and the exact erf GELU in float32,
 //    rounded to bf16 (the plain version's rounding point).
@@ -38,10 +39,9 @@
 //    shared-memory A tile, and both read the whole chunk for their halves of
 //    the output columns.
 //  - fc2 accumulates in float32 across the chunks in registers (m64n96
-//    accumulators: 48, 96 or 96 floats a thread; one m64n128 at C = 1024).
+//    accumulators: 48, 96 or 96 floats a thread).
 //  - at C = 768 the block's output columns are half of C (the other half is
-//    another block, which recomputes fc1: 1.5x the products of that stage),
-//    at C = 1024 a quarter (below);
+//    another block, which recomputes fc1: 1.5x the products of that stage);
 //    where the panels alone would leave the card idle (a plan computed by
 //    the wrapper, ops/swin_plan.py, from the grid and the SM count), the
 //    hidden chunks split over a cluster of ks blocks. Every block parks its
@@ -49,17 +49,6 @@
 //    share of the rows over the cluster in rank order through distributed
 //    shared memory (no atomics: two launches agree bitwise), adds b2,
 //    multiplies by k, adds x and rounds once to bf16, four columns a thread.
-//  - C = 1024 (HeAR's ViT-L, the MLP of the TPU's K7 at hidden 4096): a
-//    block's output columns are HMDT_MLP_NB_1024 = 256, a quarter of C, one
-//    W2 box of 128 rows a warpgroup (96 divides no part of 1024), so four
-//    blocks a panel each recompute fc1: 4 x 8 C^2 + 8 C^2 = 40 C^2
-//    operations a token, against the 16 C^2 of fc1 and fc2 once (24 C^2
-//    with half of C a block). Half of C a block would hold 128 fc2 floats
-//    a thread beside fc1's 32, and a 288-thread block gets 168 registers:
-//    that layout spills and runs slower than this one, which spills nothing
-//    (96 accumulator floats); bench/mlp_layouts.py builds both and times
-//    them. Shared memory: the 128 KB panel, two 16 KB GELU chunks and four
-//    ring stages (225 KB); the parked sums (64 x 264 floats) alias the panel.
 #include "swin_common.cuh"
 #include "vit_attn_common.cuh"
 #include "wgmma_gemm.cuh"
@@ -69,11 +58,8 @@ namespace hmdt {
 using namespace hop;
 
 constexpr int MLP_STAGE = 16384;  // bytes a ring stage
-constexpr int W2_ROWS = 96;       // output rows of a W2 box (128 at C = 1024)
+constexpr int W2_ROWS = 96;       // output rows of a W2 box
 constexpr int PART_PAD = 8;       // float32 padding of a parked row
-#ifndef HMDT_MLP_NB_1024
-#define HMDT_MLP_NB_1024 256  // output columns of a block at C = 1024
-#endif
 
 template <int C>
 struct MlpCfg {
@@ -83,10 +69,9 @@ struct MlpCfg {
   // C = 96: fc2 of a chunk still runs while the next chunk's fc1 is issued
   static constexpr bool OVERLAP = C == 96;
   // output columns of a block
-  static constexpr int NB = C <= 384 ? C : C == 1024 ? HMDT_MLP_NB_1024 : 384;
+  static constexpr int NB = C <= 384 ? C : 384;
   static constexpr int NS = C / NB;               // blocks over the output columns
-  static constexpr int W2R = C == 1024 ? 128 : W2_ROWS;  // output rows of a W2 box
-  static constexpr int T2 = NB / W2R;             // W2 boxes of a 64-column k-slice
+  static constexpr int T2 = NB / W2_ROWS;         // W2 boxes of a 64-column k-slice
   static constexpr int NA = ROWS ? T2 : T2 / 2;   // fc2 accumulators of a warpgroup
   static constexpr int FN = ROWS ? HN : HN / 2;   // fc1 columns of a warpgroup
   static constexpr int KB = (C + 63) / 64;        // 64-column boxes of K = C
@@ -94,7 +79,7 @@ struct MlpCfg {
   static constexpr int PANEL = KB * PR * 128;
   static constexpr int G_BYTES = ROWS ? 0 : 2 * (HN / 64) * 64 * 128;  // two GELU chunks
   static constexpr int LDP = NB + PART_PAD;       // float32 row of the parked sums
-  static_assert(NB % W2R == 0 && (ROWS || T2 % 2 == 0), "whole W2 boxes a warpgroup");
+  static_assert(NB % W2_ROWS == 0 && (ROWS || T2 % 2 == 0), "whole W2 boxes a warpgroup");
   static_assert(FN == 64 || FN == 128, "fc1 on m64n64 or m64n128");
 };
 
@@ -111,7 +96,7 @@ __host__ __device__ constexpr size_t mlp_smem_bytes(int stages) {
 
 // grid: blockIdx.x = (panel * NS + ns) * ks + rank, clusters of ks blocks.
 // tx: x (n_tokens, C) in boxes of 64 x PR; tw1: W1 (hidden, C) in boxes of
-// 64 x HN; tw2: W2 (C, hidden) in boxes of 64 x W2R.
+// 64 x HN; tw2: W2 (C, hidden) in boxes of 64 x W2_ROWS.
 template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
 swin_mlp_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw1,
@@ -165,7 +150,7 @@ swin_mlp_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
         for (int kb = 0; kb < KB; ++kb) push(&tw1, kb * BOX, h0, HN * 128);
         for (int s = 0; s < HN / 64; ++s)
           for (int t = 0; t < Cfg::T2; ++t)
-            push(&tw2, h0 + 64 * s, col0 + Cfg::W2R * t, Cfg::W2R * 128);
+            push(&tw2, h0 + 64 * s, col0 + W2_ROWS * t, W2_ROWS * 128);
       }
     }
   } else {
@@ -256,11 +241,11 @@ swin_mlp_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
 
     const uint8_t* pa = panel + (Cfg::ROWS ? wg * 64 * 128 : 0);  // this warpgroup's rows
     const int g = lane >> 2, t = lane & 3;
-    float acc[Cfg::NA][Cfg::W2R / 2];
+    float acc[Cfg::NA][W2_ROWS / 2];
 #pragma unroll
     for (int a = 0; a < Cfg::NA; ++a)
 #pragma unroll
-      for (int e = 0; e < Cfg::W2R / 2; ++e) acc[a][e] = 0.f;
+      for (int e = 0; e < W2_ROWS / 2; ++e) acc[a][e] = 0.f;
     float a1[Cfg::FN / 2];
     // the rounded GELU chunk: in rows mode the register A operand of fc2.
     // At C = 96 fc2's last products still read it while the next chunk's
@@ -351,8 +336,7 @@ swin_mlp_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
             for (int kk = 0; kk < 4; ++kk) {
               const uint64_t da = desc_sw128(gt + s * 64 * 128 + kk * 32, 16, ATOM);
               const uint64_t db = desc_sw128(sb + kk * 32, 16, ATOM);
-              if constexpr (Cfg::W2R == 128) wgmma_m64n128_ss<0, 0>(acc[a], da, db);
-              else wgmma_m64n96_ss<0, 0>(acc[a], da, db);
+              wgmma_m64n96_ss<0, 0>(acc[a], da, db);
             }
             wg_commit();
             fence_regs(acc[a]);
@@ -370,14 +354,14 @@ swin_mlp_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
     // panel and the ring, float32 rows of NB columns
     named_sync(1, CONSUMERS);
     const int r = (Cfg::ROWS ? 64 * wg : 0) + 16 * (warp & 3) + g;
-    const int cw = Cfg::ROWS ? 0 : wg * Cfg::NA * Cfg::W2R;
+    const int cw = Cfg::ROWS ? 0 : wg * Cfg::NA * W2_ROWS;
 #pragma unroll
     for (int a = 0; a < Cfg::NA; ++a)
 #pragma unroll
-      for (int j = 0; j < Cfg::W2R / 8; ++j)
+      for (int j = 0; j < W2_ROWS / 8; ++j)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr)
-          *reinterpret_cast<float2*>(part + (r + 8 * hr) * Cfg::LDP + cw + Cfg::W2R * a + 8 * j +
+          *reinterpret_cast<float2*>(part + (r + 8 * hr) * Cfg::LDP + cw + W2_ROWS * a + 8 * j +
                                      2 * t) =
               make_float2(acc[a][4 * j + 2 * hr], acc[a][4 * j + 2 * hr + 1]);
   }
@@ -437,7 +421,7 @@ static int launch_mlp(const void* x, void* out, const void* ln_w, const void* ln
   const uint64_t dx[2] = {(uint64_t)C, (uint64_t)n_tokens};
   const uint64_t d1[2] = {(uint64_t)C, (uint64_t)hidden}, d2[2] = {(uint64_t)hidden, (uint64_t)C};
   const uint32_t bx[2] = {BOX, (uint32_t)Cfg::PR}, b1x[2] = {BOX, (uint32_t)Cfg::HN},
-                 b2x[2] = {BOX, (uint32_t)Cfg::W2R};
+                 b2x[2] = {BOX, (uint32_t)W2_ROWS};
   int err = make_tensor_map(&mx, x, 2, dx, bx);
   if (!err) err = make_tensor_map(&m1, w1, 2, d1, b1x);
   if (!err) err = make_tensor_map(&m2, w2, 2, d2, b2x);
@@ -496,7 +480,6 @@ extern "C" int swin_mlp_launch(const void* x, void* out, const void* ln_w, const
     HMDT_MLP_CASE(192)
     HMDT_MLP_CASE(384)
     HMDT_MLP_CASE(768)
-    HMDT_MLP_CASE(1024)
     default:
       return (int)cudaErrorInvalidValue;
   }

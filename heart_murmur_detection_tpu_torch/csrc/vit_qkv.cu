@@ -19,25 +19,21 @@
 // k, v out): on the line between the two at C = 384 (about 0.06 ms for an
 // operaGT batch of 64 clips), the operations at C = 768. W_qkv (0.9 / 3.5
 // MB) stays in L2 and is read once a panel; at C = 768 those L2 reads
-// (about 566 MB at the Audio-MAE CP shape) are what holds the kernel back;
-// at C = 1024 (6.3 MB of W_qkv) the operations bind.
+// (about 566 MB at the Audio-MAE CP shape) are what holds the kernel back.
+// HeAR's C = 1024 runs csrc/vit_rows.cu instead (an LN1 row pass, then a
+// GEMM): a 128 KB panel there left this design a two-stage ring.
 // Design (wgmma_gemm.cuh's pieces):
-//  - a block owns a panel of PR token rows (128 at C = 384, 64 at C = 768
-//    and 1024: a panel of 96 KB, 128 KB at C = 1024) times all of K = C.
+//  - a block owns a panel of PR token rows (128 at C = 384, 64 at C = 768:
+//    a panel of 96 KB) times all of K = C.
 //    The producer warp loads the panel's x rows by TMA in the
 //    128-byte-swizzle layout of a K-major A operand; the two consumer
 //    warpgroups compute LN1 of the panel once (one warp a token, float32
 //    statistics from shared memory, rounded to bf16) and write it back in
 //    place, so the panel is the A operand of every product of the block;
 //  - the producer warp streams W_qkv in K-major tiles of 64 K x SN output
-//    columns (SN = 128 at C = 384, 256 at C = 768 and 1024) through a TMA
+//    columns (SN = 128 at C = 384, 256 at C = 768) through a TMA
 //    ring of full / empty mbarriers over all 3C output columns, from the
-//    first instruction, while the consumers are still in LN1. At C = 1024
-//    (HeAR's ViT-L, the TPU's K6) the ring holds two 32 KB stages: with
-//    the panel and the out tiles that is 225 KB of the 227. SN 128 would
-//    have allowed five 16 KB stages, but each warpgroup would then run
-//    m64n64 over half the columns, with an epilogue of one head a
-//    warpgroup: SN 256 keeps the one code path of C = 768;
+//    first instruction, while the consumers are still in LN1;
 //  - each consumer warpgroup runs m64n128k16 wgmma over its 64 rows x 128
 //    columns of each tile (at PR = 128 the warpgroups split the rows, at
 //    PR = 64 the columns) into one of two accumulators in turn; while the
@@ -65,11 +61,10 @@ template <int C>
 struct QkvCfg {
   static constexpr int PR = C == 384 ? 128 : 64;       // token rows a panel
   static constexpr int SN = PR == 128 ? 128 : 256;     // output columns a stage
-  static constexpr int N_STEPS = 3 * C / SN;           // 9 at C = 384 and 768, 12 at 1024
+  static constexpr int N_STEPS = 3 * C / SN;           // 9 at C = 384 and 768
   static constexpr int K_STEPS = C / BOX;
   static constexpr int STAGE_BYTES = SN * 128;         // SN rows of 64 K
-  // at C = 1024 the 128 KB panel and the 32 KB out tiles leave room for two
-  static constexpr int STAGES = C == 384 ? 6 : C == 768 ? 3 : 2;
+  static constexpr int STAGES = C == 384 ? 6 : 3;
   static constexpr int PANEL_BYTES = PR * C * 2;
   // a stage's columns stay inside one of the q, k, v thirds, and each third
   // is whole column steps (the split over blockIdx.y)
@@ -357,9 +352,6 @@ int qkv_launch(const void* x, void* qkv, void* h_out, const void* w_qkv, const v
     case 768:
       return launch_qkv<768>(x, qkv, h_out, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, heads, eps,
                              recompute, s);
-    case 1024:
-      return launch_qkv<1024>(x, qkv, h_out, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, heads, eps,
-                              recompute, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -370,7 +362,8 @@ int qkv_launch(const void* x, void* qkv, void* h_out, const void* w_qkv, const v
 // C interface for ctypes. Returns cudaGetLastError() after the launch (0 on
 // success), or the error that stopped it before. x (n_tokens, C) bf16 with
 // n_tokens = B * Np, Np a multiple of 16; qkv (3, B, heads, Np, 64) bf16; h_out (n_tokens, C)
-// bf16 or null; w (3C, C) bf16; b, ln_w, ln_b float32; C 384, 768 or 1024.
+// bf16 or null; w (3C, C) bf16; b, ln_w, ln_b float32; C 384 or 768 (at C
+// 1024 vit_qkv_rows_launch, csrc/vit_rows.cu).
 extern "C" int vit_qkv_launch(const void* x, void* qkv, void* h_out, const void* w_qkv,
                               const void* b_qkv, const void* ln_w, const void* ln_b,
                               int n_tokens, int Np, int C, int heads, float eps,

@@ -55,6 +55,12 @@ _SIGNATURES = {
     "swin_reduce_launch": [_vp] * 2 + [_i] * 2 + [_vp],
     # x, qkv, h_out, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, C, heads, eps, stream
     "vit_qkv_launch": [_vp] * 7 + [_i] * 4 + [_f, _vp],
+    # x, qkv, h, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, C, heads, and the
+    # plan (ops/vit_plan.py): the GEMM's grid; eps, stream
+    "vit_qkv_rows_launch": [_vp] * 7 + [_i] * 5 + [_f, _vp],
+    # x, out, h, g, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, n_tokens, C,
+    # hidden, and the plan: fc1's and fc2's grids; eps, stream
+    "vit_mlp_rows_launch": [_vp] * 10 + [_i] * 5 + [_f, _vp],
     # qkv, out, B, Np, C, heads, n_real, mode, stream
     "vit_attn_launch": [_vp] * 2 + [_i] * 6 + [_vp],
     # o, x, out, w_proj, b_proj, rows, C, stream

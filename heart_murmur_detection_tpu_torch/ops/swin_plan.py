@@ -11,9 +11,8 @@ enumerate the plans of every geometry the towers launch.
 swin_mlp: a block owns a panel of token rows (128 at C <= 192, where each
 warpgroup holds 64 rows and every output column; 64 at C >= 384, where the
 two warpgroups split the block's output columns), the block's output columns
-(all of C; half of it at C = 768 and a quarter at C = 1024 (HeAR's ViT-L,
-W2 boxes of 128 rows): two or four blocks a panel, each recomputing fc1),
-and a share of the hidden chunks: a cluster of `ks` blocks over the hidden
+(all of C; half of it at C = 768: two blocks a panel, each recomputing
+fc1), and a share of the hidden chunks: a cluster of `ks` blocks over the hidden
 dimension, whose fc2 sums are added in rank order.
 
 swin_attn: a block owns two windows at C <= 192 (a warpgroup a window) or
@@ -56,13 +55,11 @@ WIDTHS = (96, 192, 384, 768)  # the swin blocks' widths (swin_attn and the backw
 
 MLP_STAGE = 16384  # bytes of a ring stage (csrc/swin_mlp.cu)
 W2_ROWS = 96  # output rows of a W2 box
-# csrc/swin_mlp.cu's MlpCfg by width: (output columns of a block, output
-# rows of a W2 box). C = 1024 (HeAR's ViT-L MLP): a quarter of C a block on
-# W2 boxes of 128 rows keeps fc2's accumulators (64 floats a thread) beside
-# fc1's within the registers
-MLP_LAYOUT = {96: (96, W2_ROWS), 192: (192, W2_ROWS), 384: (384, W2_ROWS),
-              768: (384, W2_ROWS), 1024: (256, 128)}
-MLP_WIDTHS = tuple(MLP_LAYOUT)  # swin_mlp also runs HeAR's ViT-L MLP (vit_mlp)
+# csrc/swin_mlp.cu's MlpCfg by width: the output columns of a block
+MLP_LAYOUT = {96: 96, 192: 192, 384: 384, 768: 384}
+# swin_mlp also runs the MAE encoders' ViT MLP (vit_mlp; HeAR's C 1024 runs
+# csrc/vit_rows.cu, ops/vit_plan.py)
+MLP_WIDTHS = tuple(MLP_LAYOUT)
 PART_PAD = 8  # float32 padding of a parked row of fc2 sums
 MLP_SPLIT_COST = 0.1  # a hidden split's extra work, as a share of a whole block's
 
@@ -165,16 +162,14 @@ def mlp_plan(n_tokens: int, C: int, hidden: int, sms: int) -> MlpPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def _mlp_plan(n_tokens: int, C: int, hidden: int, sms: int, out_cols: int = 0) -> MlpPlan:
-    """mlp_plan's rules; out_cols other than 0 replaces MLP_LAYOUT's output
-    columns of a block (a layout bench/mlp_layouts.py builds)."""
+def _mlp_plan(n_tokens: int, C: int, hidden: int, sms: int) -> MlpPlan:
     rows = C <= 192
     chunk = 64 if C == 192 else 128
     if hidden <= 0 or hidden % chunk:
         raise ValueError(f"the MLP kernel takes hidden a multiple of {chunk} at C {C}, "
                          f"got {hidden}")
     pr = 128 if rows else 64
-    nb = out_cols or MLP_LAYOUT[C][0]
+    nb = MLP_LAYOUT[C]
     ns = C // nb
     panels = _cdiv(n_tokens, pr)
     chunks = hidden // chunk

@@ -6,7 +6,8 @@ heart_murmur_detection_tpu/ops/pallas_vit.py built from them.
   vit_qkv   LN1 -> qkv (q pre-scaled by 1/sqrt(hd)), written head-major,
             and on request LN1(x) itself (csrc/vit_qkv.cu, LN1 once a token
             and the product on wgmma; the first part of the TPU body
-            `_attn_half`, and the recompute that vit_attn_bwd launches)
+            `_attn_half`, and the recompute that vit_attn_bwd launches; at
+            C 1024 csrc/vit_rows.cu: an LN1 row pass, then a GEMM)
   vit_attn  per head softmax(q k^T, padded keys masked) v, each head's
             output rounded to bf16 in its column block of o_pre
             (csrc/vit_attn.cu; the attention of `_attn_half`), or one of the
@@ -16,7 +17,9 @@ heart_murmur_detection_tpu/ops/pallas_vit.py built from them.
   vit_proj  o_pre -> proj -> + b_proj + x (csrc/vit_proj.cu; the rest of
             `_attn_half`)
   vit_mlp   LN2 -> fc1 -> exact GELU -> fc2 -> +x, token-wise
-            (csrc/swin_mlp.cu with LN eps 1e-6; the TPU body `_mlp_half`)
+            (csrc/swin_mlp.cu with LN eps 1e-6; at C 1024 csrc/vit_rows.cu:
+            an LN2 row pass, fc1 + GELU and fc2 + residual GEMMs; the TPU
+            body `_mlp_half`)
 
   fused_vit_block  vit_qkv, vit_attn, vit_proj, vit_mlp  (TPU K5, :296)
   fused_vit_attn   vit_qkv, vit_attn, vit_proj           (TPU K6, :341)
@@ -72,13 +75,16 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .swin import _check_launch, _cuda_stream, _ln, _mlp_launch, _mmf, _ptr
+from . import vit_plan
+from .swin import (_check_aligned, _check_launch, _cuda_stream, _ln, _mlp_launch, _mmf, _ptr,
+                   sm_count)
 from .swin_plan import MLP_WIDTHS
 
 LN_EPS = 1e-6
 HD = 64  # the kernels' head dim (ViT-S/16, ViT-B/16 and ViT-L/16 all use 64)
 # the widths of the attention kernels: ViT-S (operaGT), ViT-B (Audio-MAE) and
-# ViT-L (HeAR, 16 heads); the MLP kernel's are swin_plan.MLP_WIDTHS
+# ViT-L (HeAR, 16 heads); the MLP kernels' are swin_plan.MLP_WIDTHS (csrc/swin_mlp.cu)
+# and vit_plan.ROWS_WIDTHS (csrc/vit_rows.cu)
 ATTN_WIDTHS = (384, 768, 1024)
 MASK = -1e9
 ATTN_MODES = ("stable", "fast", "norm_before", "bf16_exp", "no_softmax", "q_passthrough",
@@ -352,8 +358,9 @@ def _check_cuda_args(x: torch.Tensor, p: VitBlockParams, attn: bool):
     if attn and x.shape[1] % 16:
         raise ValueError(f"the attention kernels take tokens padded to a multiple of 16 "
                          f"(pad_tokens), got {x.shape[1]}")
-    if not attn and (C not in MLP_WIDTHS or p.hidden % 128):
-        raise ValueError(f"the MLP kernel takes C in {MLP_WIDTHS} and hidden a multiple of 128, "
+    widths = MLP_WIDTHS + vit_plan.ROWS_WIDTHS
+    if not attn and (C not in widths or p.hidden % 128):
+        raise ValueError(f"the MLP kernels take C in {widths} and hidden a multiple of 128, "
                          f"got C {C}, hidden {p.hidden}")
 
 
@@ -366,7 +373,7 @@ def ln1_rows(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
 def vit_qkv(x: torch.Tensor, p: VitBlockParams, return_ln: bool = False):
     """LN1 and the qkv product, head-major (see vit_qkv_ref). return_ln=True
     also returns LN1(x) as (B Np, C) rows in x's dtype, written by the same
-    launch: (qkv, ln1)."""
+    call: (qkv, ln1)."""
     if x.device.type == "cpu":
         qkv = vit_qkv_ref(x, p)
         return (qkv, ln1_rows(x, p)) if return_ln else qkv
@@ -376,11 +383,20 @@ def vit_qkv(x: torch.Tensor, p: VitBlockParams, return_ln: bool = False):
 
     lib = _build.load_library()
     qkv = torch.empty((3, B, p.heads, Np, HD), dtype=x.dtype, device=x.device)
-    h = torch.empty((B * Np, C), dtype=x.dtype, device=x.device) if return_ln else None
-    rc = lib.vit_qkv_launch(
-        _ptr(x), _ptr(qkv), _ptr(h), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.ln1_w),
-        _ptr(p.ln1_b), B * Np, Np, C, p.heads, LN_EPS, _cuda_stream(x),
-    )
+    rows = C in vit_plan.ROWS_WIDTHS  # C 1024: the row pass writes LN1(x) in any case
+    h = torch.empty((B * Np, C), dtype=x.dtype, device=x.device) if return_ln or rows else None
+    if rows:
+        _check_aligned(x, p.w_qkv, p.b_qkv, p.ln1_w, p.ln1_b)
+        plan = vit_plan.qkv_plan(B * Np, C, sm_count(x.device))
+        rc = lib.vit_qkv_rows_launch(
+            _ptr(x), _ptr(qkv), _ptr(h), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.ln1_w),
+            _ptr(p.ln1_b), B * Np, Np, C, p.heads, plan.qkv.grid, LN_EPS, _cuda_stream(x),
+        )
+    else:
+        rc = lib.vit_qkv_launch(
+            _ptr(x), _ptr(qkv), _ptr(h), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.ln1_w),
+            _ptr(p.ln1_b), B * Np, Np, C, p.heads, LN_EPS, _cuda_stream(x),
+        )
     _check_launch("vit_qkv", rc)
     vit_qkv.launches += 1
     return (qkv, h) if return_ln else qkv
@@ -450,15 +466,39 @@ def vit_proj(o: torch.Tensor, x: torch.Tensor, p: VitBlockParams) -> torch.Tenso
 
 
 def vit_mlp(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
-    """MLP half of a ViT block on the swin_mlp kernel with LN eps 1e-6 (see
-    vit_mlp_ref)."""
+    """MLP half of a ViT block on the swin_mlp kernel with LN eps 1e-6, at
+    C 1024 on csrc/vit_rows.cu (see vit_mlp_ref)."""
     if x.device.type == "cpu":
         return vit_mlp_ref(x, p)
     _check_cuda_args(x, p, attn=False)
     B, Np, C = x.shape
-    out = _mlp_launch("vit_mlp", x, (p.ln2_w, p.ln2_b, p.w_fc1, p.b_fc1, p.w_fc2, p.b_fc2),
-                      B * Np, Np, None, LN_EPS)
+    w = (p.ln2_w, p.ln2_b, p.w_fc1, p.b_fc1, p.w_fc2, p.b_fc2)
+    if C in vit_plan.ROWS_WIDTHS:
+        out = _mlp_rows_launch(x, w, B * Np)
+    else:
+        out = _mlp_launch("vit_mlp", x, w, B * Np, Np, None, LN_EPS)
     vit_mlp.launches += 1
+    return out
+
+
+def _mlp_rows_launch(x: torch.Tensor, w, n_tokens: int) -> torch.Tensor:
+    """The MLP half at C 1024 (csrc/vit_rows.cu: the LN2 row pass, fc1 with
+    GELU, fc2 with the residual, on ops/vit_plan.py's plan); w as
+    _mlp_launch's."""
+    from . import _build
+
+    C, hidden = x.shape[-1], w[2].shape[0]
+    plan = vit_plan.mlp_plan(n_tokens, C, hidden, sm_count(x.device))
+    _check_aligned(x, *w)
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    h = torch.empty((n_tokens, C), dtype=x.dtype, device=x.device)
+    g = torch.empty((n_tokens, hidden), dtype=x.dtype, device=x.device)
+    rc = lib.vit_mlp_rows_launch(
+        _ptr(x), _ptr(out), _ptr(h), _ptr(g), *(_ptr(t) for t in w), n_tokens, C, hidden,
+        plan.fc1.grid, plan.fc2.grid, LN_EPS, _cuda_stream(x),
+    )
+    _check_launch("vit_mlp", rc)
     return out
 
 

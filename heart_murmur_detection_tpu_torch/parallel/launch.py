@@ -20,6 +20,15 @@ returns its result.
 A rank that raises ends the run: the others get a short grace to finish or
 fail on their own and are then terminated; the first failing rank's
 exception is raised here, its traceback chained.
+
+fn, args and kwargs reach the ranks through one torch.save file in that
+directory, not as the spawned processes' own arguments: multiprocessing
+pickles those with torch's reducers, which move every CPU tensor's storage
+into shared memory in place, each holding a file descriptor open in this
+process (183 for an operaCT state dict, still open after the dict was
+dropped). A test process that launched a few state dicts ran out of
+descriptors ("Too many open files" where the open-file limit is low), and
+a thread reading a tensor while the launch moved its storage raced it.
 """
 
 from __future__ import annotations
@@ -60,10 +69,11 @@ def rank_mesh(n: int, tp: int, backend, device):
     return mesh_2d(n // tp, tp, backend, device)
 
 
-def _rank_main(rank, n, tp, backend, device, tmp, fn, args, kwargs):
+def _rank_main(rank, n, tp, backend, device, tmp):
     try:
         if torch.device(device).type == "cpu":
             torch.set_num_threads(1)
+        fn, args, kwargs = torch.load(os.path.join(tmp, "call.pt"), weights_only=False)
         init_group(backend, rank, n, f"file://{os.path.join(tmp, 'store')}",
                    rank_device(device, rank))
         out = fn(rank_mesh(n, tp, backend, device), *args, **kwargs)
@@ -95,10 +105,10 @@ def launch(fn, n: int, *args, backend=None, device="cuda", tp: int = 1, **kwargs
         raise RuntimeError("device='cuda' but no CUDA card is available (pass device='cpu')")
     tmp = tempfile.mkdtemp(prefix="hmdt-ranks-")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, n, tp, backend, str(device), tmp, fn,
-                                                  args, kwargs))
+    procs = [ctx.Process(target=_rank_main, args=(r, n, tp, backend, str(device), tmp))
              for r in range(n)]
     try:
+        torch.save((fn, args, kwargs), os.path.join(tmp, "call.pt"))
         for p in procs:
             p.start()
         alive, deadline = list(procs), None
@@ -128,5 +138,6 @@ def launch(fn, n: int, *args, backend=None, device="cuda", tp: int = 1, **kwargs
         for p in procs:
             if p.is_alive():
                 p.terminate()
+            if p.pid is not None:
                 p.join()
         shutil.rmtree(tmp, ignore_errors=True)

@@ -60,9 +60,9 @@ def test_signatures_pass_pointers_as_void_p():
               "swin_mlp_bwd_launch": 15, "swin_wgrad_launch": 5, "swin_reduce_launch": 2,
               "vit_qkv_launch": 7, "vit_attn_launch": 2, "vit_proj_launch": 5,
               "vit_attn_bwd_launch": 16, "vit_mm_launch": 3,
-              "logmel_launch": 5}
+              "logmel_launch": 5, "vit_qkv_rows_launch": 7, "vit_mlp_rows_launch": 10}
     with_eps = {"swin_mlp_launch", "vit_qkv_launch", "swin_mlp_bwd_launch",
-                "vit_attn_bwd_launch"}
+                "vit_attn_bwd_launch", "vit_qkv_rows_launch", "vit_mlp_rows_launch"}
     assert set(_build._SIGNATURES) == set(n_ptrs)
     for name, argtypes in _build._SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p, name  # the stream
@@ -80,7 +80,7 @@ def test_build_targets_sm90a_and_hashes_sources():
     assert {"swin_attn.cu", "swin_mlp.cu", "swin_common.cuh", "swin_attn_bwd.cu",
             "swin_mlp_bwd.cu", "swin_bwd_common.cuh", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu",
             "vit_attn_common.cuh", "vit_attn_bwd.cu", "logmel.cu", "wgmma_gemm.cuh",
-            "vit_proj.cu"} <= srcs
+            "vit_proj.cu", "vit_rows.cu"} <= srcs
     # the log-mel kernel is float32-exact: log10f and the FFMAs stay accurate
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     h = _build.source_hash()
@@ -399,10 +399,12 @@ def test_vit_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, fast_softma
 # (C, B, tokens a clip): vit_mlp at token counts its panels (128 rows at
 # C <= 192, 64 above) do not divide: the towers' padded sequences at B = 1,
 # 16 and 64, the MAE CP visible-token counts, and rows that are no multiple
-# of 16 at all
+# of 16 at all; at C 1024 (HeAR, csrc/vit_rows.cu: 128-row tiles) HeAR's
+# batches and a ragged count
 VIT_MLP_ROWS = [(384, 1, 1040), (384, 16, 1040), (384, 64, 1040), (768, 1, 528), (768, 16, 528),
                 (768, 64, 160), (384, 64, 320), (384, 64, 80), (384, 3, 77), (768, 5, 33),
-                (96, 7, 50), (192, 3, 130)]
+                (96, 7, 50), (192, 3, 130), (1024, 1, 112), (1024, 16, 112), (1024, 64, 112),
+                (1024, 3, 77)]
 
 
 @pytest.mark.gpu
@@ -510,10 +512,12 @@ def test_rows_mm_matches_torch_on_card(cuda, M, K, N):
 
 
 # (C, heads, B, Np): 4160 tokens (B=4 x 1040, a partial last panel) at both
-# widths, the towers' eval batches, a clip shorter than a panel and the
-# Audio-MAE CP batch (three blocks a panel of 64 rows)
+# widths, the towers' eval batches, a clip shorter than a panel, the
+# Audio-MAE CP batch (three blocks a panel of 64 rows) and HeAR's batches
+# (C 1024: the row pass and the GEMM of csrc/vit_rows.cu)
 QKV_CASES = [(384, 6, 4, 1040), (768, 12, 4, 1040), (384, 6, 16, 1040), (768, 12, 16, 528),
-             (384, 6, 3, 48), (768, 12, 64, 160)]
+             (384, 6, 3, 48), (768, 12, 64, 160), (1024, 16, 1, 112), (1024, 16, 16, 112),
+             (1024, 16, 64, 112)]
 
 
 @pytest.mark.gpu

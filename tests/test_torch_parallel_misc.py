@@ -6,6 +6,7 @@ with dp=2 end to end; the dry run of both CP families
 (parallel/dryrun.py). The two extraction cases share one launch."""
 
 import concurrent.futures
+import gc
 import os
 
 import jax
@@ -56,6 +57,7 @@ def extraction(tmp_path_factory):
     cases = {"rows": ("extract_rank", dict(state=state, paths=paths, fdir=str(fdir), kw=pkw)),
              "odd": ("call", dict(target=EXTRACTOR, expect="ValueError", kwargs=dict(
                  pretrain="operaCT", dim=768, batch_size=3, random_init=True, device="cpu")))}
+    fds = len(os.listdir("/proc/self/fd"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(launch, R.cases, 2, cases, device="cpu")
         jmesh = JFeatureExtractor("operaCT", **kw, compute_dtype=jnp.float32,
@@ -67,13 +69,16 @@ def extraction(tmp_path_factory):
         one.model.load_state_dict(state)
         single = one.extract_files(paths)
         out = ranks.result()
+    gc.collect()
+    fds = len(os.listdir("/proc/self/fd")) - fds
     # after the ranks: rank 0 writes operaCT768_feature.npy into fdir
     saved_file = np.load(fdir / "operaCT768_feature.npy")
     os.makedirs(tmp / "one")
     np.save(tmp / "one" / "sound_dir_loc.npy", np.asarray(paths))
     saved_one = np.load(extract_and_save(str(tmp / "one"), "operaCT", dim=768, batch_size=2,
                                          random_init=True, device="cpu"))
-    return dict(want=want, single=single, saved_one=saved_one, saved_file=saved_file, **out)
+    return dict(want=want, single=single, saved_one=saved_one, saved_file=saved_file,
+                new_fds=fds, n_tensors=len(state), **out)
 
 
 def test_dp_extraction_returns_the_single_device_rows(extraction):
@@ -98,6 +103,18 @@ def test_dp_extractor_refuses_an_indivisible_batch(extraction):
     """batch_size 3 over 2 ranks: "not divisible" (the JAX case at
     tests/test_parallel.py:257)."""
     assert "not divisible" in extraction["odd"]
+
+
+def test_dp_launch_leaves_no_descriptor_open(extraction):
+    """The launch with the 183-tensor state dict as an argument (beside the
+    JAX and one-device extractions) leaves no file descriptor open in this
+    process: parallel.launch hands its arguments to the ranks through a file.
+    Pickled as the spawned processes' own arguments, each tensor's storage
+    moved into shared memory and kept a descriptor open here, and a test
+    process that launched a few such dicts met its open-file limit (the
+    extraction cases above failed together in a full run)."""
+    assert extraction["n_tensors"] > 100
+    assert extraction["new_fds"] <= 16, extraction["new_fds"]
 
 
 def _spec_corpus(root, n=12, seed=0):

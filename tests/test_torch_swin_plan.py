@@ -20,7 +20,7 @@ import torch
 from heart_murmur_detection_tpu.models.htsat import _shift_attn_mask
 from heart_murmur_detection_tpu.ops import pallas_swin as ps
 from heart_murmur_detection_tpu.ops import pallas_vit as pv
-from heart_murmur_detection_tpu_torch.ops import swin, swin_plan, vit
+from heart_murmur_detection_tpu_torch.ops import swin, swin_plan, vit, vit_plan
 
 SMS = 132  # an H100 SXM
 
@@ -35,9 +35,9 @@ VIT = ([(B * 1040, 384) for B in (16, 64)] + [(B * 528, 768) for B in (32, 16)]
        + [(B * 160, 768) for B in (64, 4)] + [(B * Np, 384) for B in (64, 4) for Np in (320, 80)]
        + [(2 * 48, 384), (2 * 48, 768)])
 # HeAR's ViT-L MLP (vit_mlp at C 1024, hidden 4096): 1, 16 and 64 clips of 97
-# tokens padded to 112
+# tokens padded to 112, which csrc/vit_rows.cu serves (ops/vit_plan.py)
 HEAR = [(B * 112, 1024) for B in (1, 16, 64)]
-MLP_CASES = [(B * H * H, C) for B, C, _, H in CT] + VIT + HEAR
+MLP_CASES = [(B * H * H, C) for B, C, _, H in CT] + VIT
 
 
 def _ids(cases):
@@ -149,19 +149,13 @@ def test_plans_refuse_what_the_kernels_do_not_take():
 
 @pytest.mark.parametrize("n", [n for n, _ in HEAR])
 def test_mlp_plan_at_vit_l(n):
-    """The C = 1024 layout (csrc/swin_mlp.cu's MlpCfg<1024>): four blocks a
-    panel of 64 rows, each over 256 output columns as one W2 box of 128
-    rows a warpgroup, hidden chunks of 128, so 64 fc2 and 32 fc1
-    accumulator floats a consumer thread; the parked sums fit over the panel
-    and ring; the swin attention (and its backward) still refuse C 1024."""
-    plan = swin_plan.mlp_plan(n, 1024, 4096, SMS)
-    w2_rows = swin_plan.MLP_LAYOUT[1024][1]
-    assert (plan.panel_rows, plan.out_cols, plan.out_splits, w2_rows,
-            plan.hidden_chunk) == (64, 256, 4, 128, 128)
-    assert plan.acc_floats == 64 + 32 <= swin_plan.REG_BUDGET
-    assert w2_rows * 128 <= swin_plan.MLP_STAGE  # a W2 box fits a stage
-    assert plan.smem_bytes <= swin_plan.SMEM_LIMIT and plan.stages >= 4
-    assert plan.parked_bytes <= plan.ring_offset + plan.stages * swin_plan.MLP_STAGE
+    """C = 1024 (HeAR's ViT-L) is not csrc/swin_mlp.cu's: its plan refuses
+    the width, which ops/vit_plan.py's row-pass-and-GEMM plan (the launch
+    ops/vit.py takes there) serves with fc1 once a token; the swin attention
+    (and its backward) still refuse C 1024."""
+    with pytest.raises(ValueError):
+        swin_plan.mlp_plan(n, 1024, 4096, SMS)
+    assert vit_plan.mlp_plan(n, 1024, 4096, SMS).operations == 16 * 1024 * 1024 * n
     with pytest.raises(ValueError):
         swin_plan.attn_plan(1, 8, 8, 1024, 32, SMS)
     with pytest.raises(ValueError):
@@ -179,14 +173,13 @@ def test_plan_constants_match_the_sources():
     assert num(mlp, "W2_ROWS") == swin_plan.W2_ROWS
     assert num(mlp, "PART_PAD") == swin_plan.PART_PAD
     assert "HN = C == 192 ? 64 : 128" in mlp  # the hidden chunk
-    # each width's block columns and W2 box rows (MlpCfg's NB and W2R)
-    assert "NB = C <= 384 ? C : C == 1024 ? HMDT_MLP_NB_1024 : 384;" in mlp
-    assert "W2R = C == 1024 ? 128 : W2_ROWS;" in mlp
-    nb_1024 = int(re.search(r"#define HMDT_MLP_NB_1024 (\d+)", mlp).group(1))
-    for C, (nb, w2) in swin_plan.MLP_LAYOUT.items():
-        assert nb == (C if C <= 384 else nb_1024 if C == 1024 else 384), C
-        assert w2 == (128 if C == 1024 else swin_plan.W2_ROWS), C
-        assert nb % w2 == 0 and C % nb == 0, C
+    # each width's block columns (MlpCfg's NB) and the widths of the launch
+    assert "NB = C <= 384 ? C : 384;" in mlp
+    cases = sorted(int(c) for c in re.findall(r"HMDT_MLP_CASE\((\d+)\)", mlp))
+    assert tuple(cases) == swin_plan.MLP_WIDTHS
+    for C, nb in swin_plan.MLP_LAYOUT.items():
+        assert nb == (C if C <= 384 else 384), C
+        assert nb % swin_plan.W2_ROWS == 0 and C % nb == 0, C
     assert num(common, "HDP") == swin_plan.HDP
     assert num(common, "SMEM_LIMIT") == swin_plan.SMEM_LIMIT
     assert "NTOK * 128 + HDP * 128" in attn  # HEADBUF: k (64 keys) and v^T (32 dims)
