@@ -283,6 +283,22 @@ Phases (each prints one line; any failure exits non-zero):
      deterministic mode there: parallel/tensor.py::shard_model), no
      repository kernel launched on any rank; ms a step a rank (host-staged
      gloo on one card: not a multi-card figure)
+ 35. float32 serving: (a) swin_attn_f32 and swin_mlp_f32 (csrc/swin_attn_f32.cu,
+     csrc/swin_mlp_f32.cu, the float32 mode of TPU K1-K3) against their
+     plain float32 versions (TF32 off) at every stage geometry at B=16, on
+     the random-init operaCT's weights laid out at float32, shift 0 and the
+     stage's shift, both softmax modes at stage 0: max |d| <= 3e-5 and a
+     second launch bitwise equal; each kernel's ms as a replayed CUDA graph
+     beside its bound (FFMA float32 peak: SMs x 128 x 2 x nvidia-smi's
+     clocks.max.sm), the plain version's ms and, for the MLP, the float32
+     library chain's; (b) FeatureExtractor("operaCT", 768,
+     compute_dtype=float32) over phase 19's corpus (its writer and seed,
+     the first 16 patients, source_sr=4000): per-clip cosine >= 0.999999
+     against the same extractor's plain strict-float32 route, 4 + 4 float32
+     launches a batch (stages 0-1) and no other kernel launch; clips/s of
+     device-resident 10-s clips at B=16 and B=64 beside the bf16
+     extractor's, in turns; (c) operaCT 512, operaCE, operaGT and audiomae
+     at float32 on the card: finite features, no kernel launch
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -4723,6 +4739,218 @@ def phase_analysis(smi: str, dev, root: str):
     return long
 
 
+F32_KERNEL_ATOL = 3e-5  # float32 kernel vs its plain version (tests/test_torch_swin.py's block bar)
+F32_ROUTE_BAR = 0.999999  # float32 operaCT 768: kernel route vs plain route, per clip
+F32_PATIENTS = 16  # phase 35's corpus: phase 19's writer and seed, its first patients
+F32_STAGES = ((96, 4, 64, 4), (192, 8, 32, 4), (384, 16, 16, 4), (768, 32, 8, 0))
+
+
+def _f32_peak(smi_clock: str, sms: int) -> float:
+    """The card's FFMA float32 peak: SMs x 128 lanes x 2 operations x the SM
+    clock nvidia-smi reports (clocks.max.sm)."""
+    return sms * 128 * 2 * float(smi_clock.split()[0]) * 1e6
+
+
+def _attn_f32_work(B, H, W, C, heads, shift):
+    """swin_attn_f32's bytes and operations: x in, out, the weights (real
+    head rows), the gathered bias and the mask once each; qkv, the window
+    products and proj (8 n C^2 + 256 n C)."""
+    n = B * H * W
+    nbytes = 4 * (2 * n * C + 4 * C * C + 6 * C + heads * 4096)
+    nbytes += 4 * (H * W // 64) * 4096 if shift else 0
+    return nbytes, n * (8 * C * C + 256 * C)
+
+
+def _mlp_f32_work(B, H, W, C):
+    n = B * H * W
+    return 4 * (2 * n * C + 8 * C * C + 7 * C), 16 * n * C * C
+
+
+def _f32_kernels(dev, smi_clock: str):
+    """Phase 35 (a): swin_attn_f32 and swin_mlp_f32 against their plain
+    float32 versions at every stage geometry (B=16, the random-init
+    operaCT's weights laid out at float32). Returns {name: measurement}:
+    sums over the launches of one float32 operaCT forward (stages 0-1)."""
+    import torch
+    import torch.nn.functional as F
+
+    from heart_murmur_detection_tpu_torch.bench.mlp_layouts import graph_ms
+    from heart_murmur_detection_tpu_torch.extract.registry import initialize_pretrained_model
+    from heart_murmur_detection_tpu_torch.ops import swin
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak = _f32_peak(smi_clock, sms)
+    model = initialize_pretrained_model("operaCT", random_init=True, seed=SEED).to(dev)
+    stages = model.htsat.prepared(torch.float32)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 35)
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "work": Work(peak), "library_ms": None}
+           for k in ("swin_attn_f32", "swin_mlp_f32")}
+    tot["swin_mlp_f32"]["library_ms"] = 0.0
+    for i, (st, (C, heads, H, sh)) in enumerate(zip(stages, F32_STAGES)):
+        _require(st.blocks[0].dim == C and st.shift == sh, f"stage {i} geometry")
+        x = (torch.randn(B_KERNEL, H, H, C, generator=g) * 0.5).to(dev)
+        on_path = C <= 192  # the float32 route's kernel stages
+        for s in ((0, sh) if sh else (0,)):
+            p, m = st.blocks[1 if s else 0], st.mask if s else None
+            for fast in ((False, True) if i == 0 else (False,)):
+                kern = lambda: swin.swin_attn_f32(x, p, m, s, fast)
+                plain = lambda: swin.swin_attn_ref(x, p, m, s, fast)
+                got, again, want = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                same = torch.equal(got, again)
+                k_ms, p_ms = graph_ms(kern), _time_ms(plain, iters=5, warm=1)
+                one = Work(peak)
+                one.add(*_attn_f32_work(B_KERNEL, H, H, C, heads, s))
+                if on_path and not fast:
+                    t = tot["swin_attn_f32"]
+                    t["ms"] += k_ms
+                    t["plain_ms"] += p_ms
+                    t["err"] = max(t["err"], err)
+                    t["work"].add(*_attn_f32_work(B_KERNEL, H, H, C, heads, s))
+                print(f"[f32] swin_attn_f32 C={C} H=W={H} shift={s} fast_softmax={fast} "
+                      f"B={B_KERNEL}: max|d| {err:.3g} (bar {F32_KERNEL_ATOL}); second launch "
+                      f"bitwise equal {same}; kernel {k_ms:.4f} ms (graph replay) bound "
+                      f"{one.bound_ms:.4f} ms ({one.bound_by}, {one.bound_ms / k_ms:.1%} of it) "
+                      f"plain {p_ms:.4f} ms{'' if on_path else '; off the float32 route'}",
+                      flush=True)
+                _require(err <= F32_KERNEL_ATOL and same,
+                         f"swin_attn_f32 C={C} shift={s} fast={fast}: max|d| {err} or not "
+                         f"repeatable ({same})")
+            # the MLP half: per token, so once a block
+            x2 = x.reshape(-1, C)
+            kern = lambda: swin.swin_mlp_f32(x, p)
+            plain = lambda: swin.swin_mlp_ref(x, p)
+            chain = lambda: torch.addmm(p.b_fc2, F.gelu(torch.addmm(
+                p.b_fc1, F.layer_norm(x2, (C,), p.ln2_w, p.ln2_b, 1e-5), p.w_fc1.t())),
+                p.w_fc2.t()).add_(x2)
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            same = torch.equal(got, again)
+            k_ms, p_ms, c_ms = graph_ms(kern), _time_ms(plain, iters=5, warm=1), graph_ms(chain)
+            one = Work(peak)
+            one.add(*_mlp_f32_work(B_KERNEL, H, H, C))
+            if on_path:
+                t = tot["swin_mlp_f32"]
+                t["ms"] += k_ms
+                t["plain_ms"] += p_ms
+                t["library_ms"] += c_ms
+                t["err"] = max(t["err"], err)
+                t["work"].add(*_mlp_f32_work(B_KERNEL, H, H, C))
+            print(f"[f32] swin_mlp_f32 C={C} H=W={H} (block of shift {s}) B={B_KERNEL}: max|d| "
+                  f"{err:.3g} (bar {F32_KERNEL_ATOL}); second launch bitwise equal {same}; kernel "
+                  f"{k_ms:.4f} ms (graph replay) bound {one.bound_ms:.4f} ms ({one.bound_by}, "
+                  f"{one.bound_ms / k_ms:.1%} of it) plain {p_ms:.4f} ms; float32 library chain "
+                  f"(layer_norm, addmm, gelu, addmm, add; TF32 off) {c_ms:.4f} ms"
+                  f"{'' if on_path else '; off the float32 route'}", flush=True)
+            _require(err <= F32_KERNEL_ATOL and same,
+                     f"swin_mlp_f32 C={C}: max|d| {err} or not repeatable ({same})")
+    print(f"[f32] FFMA float32 peak {peak / 1e12:.1f} TFLOP/s ({sms} SMs at {smi_clock})",
+          flush=True)
+    return tot
+
+
+def _f32_rates(smi: str, dev, ex32, ex16):
+    """clips/s of the float32 and the bf16 extractor's batch forwards on
+    device-resident 10-s clips, B=16 and B=64, in turns."""
+    import torch
+
+    n = 10 * 16000
+    npad = (n + 511) // 512 * 512
+    g = torch.Generator(device="cpu").manual_seed(SEED + 36)
+    for B in (B_KERNEL, 64):
+        wav = torch.zeros(B, npad, dtype=torch.int16)
+        wav[:, :n] = (torch.randn(B, n, generator=g) * 3000).to(torch.int16)
+        wav = wav.to(dev)
+        lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+        f32_fn, bf16_fn = ex32._build(), ex16._build()
+        ms = {"float32": [], "bf16": []}
+        for turn in range(2):
+            order = (("float32", f32_fn), ("bf16", bf16_fn))
+            for name, fn in (order if turn == 0 else order[::-1]):
+                ms[name].append(_time_ms(lambda: fn(wav, lengths), iters=5, warm=1))
+        f32_ms, bf16_ms = (sum(v) / len(v) for v in (ms["float32"], ms["bf16"]))
+        print(f"[f32] {smi}: operaCT 768 device-resident 10-s clips B={B}: float32 route "
+              f"{f32_ms:.2f} ms/batch = {B * 1000 / f32_ms:.1f} clips/s; bf16 route {bf16_ms:.2f} "
+              f"ms/batch = {B * 1000 / bf16_ms:.1f} clips/s (mean of 2 turns each)", flush=True)
+
+
+def phase_f32(smi: str, dev):
+    """Phase 35: float32 serving. (a) the float32 kernels against their
+    plain versions; (b) operaCT 768 at float32 from disk over phase 19's
+    corpus (its writer and seed, the first F32_PATIENTS patients): every
+    clip against the same extractor's plain strict-float32 route, 4 + 4
+    float32 launches a batch and no bf16 swin launch, clips/s beside the
+    bf16 extractor; (c) operaCT 512, operaCE, operaGT and audiomae at
+    float32: finite features, no kernel launch. Returns ((a)'s measurements,
+    (b)'s launch counts)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench.process_time import write_circor
+    from heart_murmur_detection_tpu_torch.extract.extract import FeatureExtractor
+
+    t_phase = time.time()
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip()
+    meas = _f32_kernels(dev, clock)
+    with tempfile.TemporaryDirectory() as root:
+        n_clips = write_circor(root, F32_PATIENTS, seed=SEED + 19)
+        paths = sorted(glob.glob(os.path.join(root, "datasets", "circor", "*", "*.wav")))
+        _require(len(paths) == n_clips, f"corpus {len(paths)} files of {n_clips}")
+        kw = dict(batch_size=B_KERNEL, random_init=True, seed=SEED, source_sr=4000)
+        ex32 = FeatureExtractor("operaCT", dim=768, compute_dtype=torch.float32, **kw)
+        _require(not ex32.fast_softmax, "fast_softmax on at float32")
+        _reset_counts()  # just before the float32 main path
+        t0 = time.time()
+        feats = ex32.extract_files(paths)
+        ext_s = time.time() - t0
+        counts = _all_counts()
+        batches = ex32.n_dispatched
+        old = ex32._fn
+        ex32._fn = _reference_fn(ex32, torch.float32)
+        try:
+            plain = ex32.extract_files(paths)
+        finally:
+            ex32._fn = old
+        cos = _per_clip_cos(feats, plain)
+        f32_counts = {k: counts[k] for k in ("swin_attn_f32", "swin_mlp_f32")}
+        others = {k: v for k, v in counts.items() if k not in f32_counts and v}
+        print(f"[f32] operaCT 768 compute_dtype=float32 on {n_clips} clips of phase 19's corpus "
+              f"(source_sr=4000): {ext_s:.2f} s from disk; per-clip cosine to the plain "
+              f"strict-float32 route min {cos.min():.9f} (bar {F32_ROUTE_BAR}), max|d| "
+              f"{float(np.abs(feats - plain).max()):.3g}; launches {f32_counts} over {batches} "
+              f"batches (4 + 4 each), other kernels {others or 'none'}", flush=True)
+        _require(feats.shape == (n_clips, 768) and bool(np.isfinite(feats).all()),
+                 f"float32 features {feats.shape}")
+        _require(float(cos.min()) >= F32_ROUTE_BAR, f"float32 route vs plain cosine {cos.min()}")
+        _require(f32_counts == {"swin_attn_f32": 4 * batches, "swin_mlp_f32": 4 * batches}
+                 and not others, f"float32 launches {counts} for {batches} batches")
+        ex16 = FeatureExtractor("operaCT", dim=768, compute_dtype=torch.bfloat16, **kw)
+        _f32_rates(smi, dev, ex32, ex16)
+        del ex16
+        sub = paths[:4]
+        for pretrain, dim, width in (("operaCT", 512, 512), ("operaCE", 1280, 1280),
+                                     ("operaGT", 768, 384), ("audiomae", 768, 768)):
+            ex = FeatureExtractor(pretrain, dim=dim, compute_dtype=torch.float32, **kw)
+            _reset_counts()
+            f = ex.extract_files(sub)
+            c = _all_counts()
+            print(f"[f32] {pretrain} dim {width} at float32: features {f.shape}, finite "
+                  f"{bool(np.isfinite(f).all())}; kernel launches {sum(c.values())} (want 0)",
+                  flush=True)
+            _require(f.shape == (len(sub), width) and bool(np.isfinite(f).all()),
+                     f"{pretrain} float32 features {f.shape}")
+            _zero_launches(f"{pretrain} float32 extraction", c)
+            del ex
+            torch.cuda.empty_cache()
+    print(f"[f32] phase 35 took {time.time() - t_phase:.1f} s", flush=True)
+    return meas, f32_counts
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -4789,6 +5017,11 @@ KERNEL_SOURCES = {
                        "heart_murmur_detection_tpu/ops/pallas_swin.py:97"),
     "swin_mlp@long": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp.cu",
                       "heart_murmur_detection_tpu/ops/pallas_swin.py:388"),
+    # the float32 mode of K1-K3 (the TPU bodies at mm_dtype=float32)
+    "swin_attn_f32": ("heart_murmur_detection_tpu_torch/csrc/swin_attn_f32.cu",
+                      "heart_murmur_detection_tpu/ops/pallas_swin.py:97"),
+    "swin_mlp_f32": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp_f32.cu",
+                     "heart_murmur_detection_tpu/ops/pallas_swin.py:388"),
 }
 
 
@@ -4911,6 +5144,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_zoo_tp(smi, dev)
     _tick("phase 34")
+    torch.cuda.empty_cache()
+    f32_meas, f32_counts = phase_f32(smi, dev)
+    _tick("phase 35")
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths
@@ -4935,6 +5171,7 @@ def main() -> int:
     kernels += _entries({f"{k}@long": eval_meas[k] for k in ("swin_attn", "swin_mlp")},
                         {f"{k}@long": long_counts[k] for k in ("swin_attn", "swin_mlp")},
                         KERNEL_SOURCES)
+    kernels += _entries(f32_meas, f32_counts, KERNEL_SOURCES)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,8 @@ The host decodes, trims, splits and pads; the device runs the wire decode,
 the upsample from source_sr (ops/resample.py), the spectrogram frontend
 (with use_pallas_mel, the fused log-mel kernel of ops/mel.py) and the
 encoder, whose blocks are the CUDA kernels of ops/swin.py (HTS-AT) or
-ops/vit.py (the MAE ViTs) under the bf16 flow on a card.
+ops/vit.py (the MAE ViTs) under the bf16 flow on a card, and at float32
+the float32 swin kernels for HTS-AT stages 0-1 (FeatureExtractor's doc).
 
 Whole clips of operaCT at 16 kHz are loaded by the C++ host loader
 (utils/native.py, the JAX extract.py:452-505 route) on two threads a batch
@@ -41,6 +42,7 @@ batch behind, so packing, transfers and compute overlap.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import List, Optional, Sequence
@@ -69,8 +71,14 @@ class FeatureExtractor:
 
     device: "cuda" (the default) or "cpu"; a CUDA device without a card
     raises. compute_dtype: torch.bfloat16 (the default) is the bf16 flow
-    that runs the CUDA kernels on a card; torch.float32 is the strict path
-    and runs only on the CPU here (the float32 kernels are not ported).
+    that runs the bf16 kernels on a card; torch.float32 follows the JAX
+    extractor's float32 routes (anything else is a ValueError): operaCT's
+    768 runs models/htsat_fused.py at float32, the float32 kernels
+    (swin_attn_f32 / swin_mlp_f32) for stages 0-1 on a card and the plain
+    float32 block for stages 2-3, as the JAX route fuses C <= 192 and leaves
+    the rest to XLA; operaGT and audiomae run their plain float32 ViT graph
+    and launch no kernel, as the JAX extractor turns its fused ViT off at
+    float32; every float32 batch runs with TF32 off (utils/precision.py).
     dim selects the operaCT output (768 latent or 512 projection) or the
     operaCE one (1280, the default as in the JAX extractor, or 512); the MAE
     towers give their embedding width (384 operaGT, 768 audiomae). operaCE
@@ -92,7 +100,8 @@ class FeatureExtractor:
     prologue, the FIR's ringing past each clip's end stays in the padding
     (the 16 kHz host path has zeros there, so a clip's last frames differ).
     fast_softmax: normalise after the P v product (None = on for bf16 on a
-    card, the JAX auto choice for a bf16 accelerator); a batch whose
+    card, the JAX auto choice for a bf16 accelerator; off at float32); a
+    batch whose
     features come out non-finite is re-run with the stable softmax.
     mesh: this rank's DataParallelMesh (the extractor takes the mesh's
     device; see the module doc).
@@ -131,6 +140,8 @@ class FeatureExtractor:
         self.source_sr = source_sr
         self._up = SR // source_sr if source_sr else 1
         self.use_pallas_mel = use_pallas_mel
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"compute_dtype {compute_dtype}: torch.bfloat16 or torch.float32")
         self.mesh = world_axis(check_mesh(mesh))
         self._impl = "plain" if is_2d(mesh) else "kernel"  # the encoders' blocks
         if mesh is not None:
@@ -140,10 +151,6 @@ class FeatureExtractor:
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("FeatureExtractor(device='cuda'): no CUDA card available")
-            if compute_dtype != torch.bfloat16:
-                raise NotImplementedError(
-                    "on a card the kernels take bfloat16; the float32 kernels are not ported"
-                )
         elif self.device.type != "cpu":
             raise ValueError(f"device {device!r}: 'cuda' or 'cpu'")
         self.wire = wire_format
@@ -190,14 +197,20 @@ class FeatureExtractor:
         """The batch forward (wav, lengths) -> features (B, dim) on the device."""
         fast = self.fast_softmax if fast_softmax is None else fast_softmax
         model, dim, mm = self.model, self.dim, self.compute_dtype
+        f32 = mm == torch.float32
+        # the float32 batches: TF32 off throughout (the JAX float32 graphs)
+        precision = strict_f32 if f32 else contextlib.nullcontext
+        # the MAE towers at float32 run the plain ViT graph, as the JAX
+        # extractor runs its XLA graph there (use_fused_vit needs bf16)
+        vit_impl = "plain" if f32 else self._impl
 
         if self.is_audiomae:
             from ..models.vit_fused import audiomae_backbone_fused
 
             def fn(wav, lengths):
-                with torch.inference_mode():
+                with torch.inference_mode(), precision():
                     fb, _ = dsp.kaldi_fbank_frontend(*self._prologue(wav, lengths))
-                    return audiomae_backbone_fused(model, fb, mm, fast, self._impl)
+                    return audiomae_backbone_fused(model, fb, mm, fast, vit_impl)
 
             return fn
 
@@ -205,9 +218,9 @@ class FeatureExtractor:
             from ..models.vit_fused import mae_forward_feature_fused
 
             def fn(wav, lengths):
-                with torch.inference_mode():
+                with torch.inference_mode(), precision():
                     mel, _ = self._mel(*self._prologue(wav, lengths))
-                    return mae_forward_feature_fused(model, mel[:, :256], mm, fast, self._impl)
+                    return mae_forward_feature_fused(model, mel[:, :256], mm, fast, vit_impl)
 
             return fn
 
@@ -224,7 +237,7 @@ class FeatureExtractor:
             return fn
 
         def fn(wav, lengths):
-            with torch.inference_mode():
+            with torch.inference_mode(), precision():
                 mel, nf = self._mel(*self._prologue(wav, lengths))
                 return model.extract_feature(mel, dim, nf, mm_dtype=mm, fast_softmax=fast,
                                              impl=self._impl)

@@ -7,10 +7,15 @@ pairs, stage 3 as split blocks) with patch merging between them -> LN ->
 token mean -> (B, 768).
 
 mm_dtype=torch.bfloat16 is the bf16 flow of the JAX path: from the resize
-on, activations are bf16 with float32 LayerNorm, softmax and GELU, and the
-blocks run the CUDA kernels on a card. mm_dtype=torch.float32 is the strict
-float32 path (plain versions only; the kernels take bf16). The products
-outside the kernels (resize, patch embed, patch merging) are plain torch.
+on, activations are bf16 with float32 LayerNorm, softmax and GELU, and every
+stage's blocks run the bf16 kernels on a card (the JAX bf16 route fuses
+every stage, C 768 through its split kernel). mm_dtype=torch.float32 is the
+JAX float32 route: the stages up to max_fused_dim (None: 192, stages 0-1)
+run the float32 kernels on a card (csrc/swin_attn_f32.cu, swin_mlp_f32.cu),
+the wider ones the plain float32 block `block_plain` (the JAX `_block_jnp`,
+which the JAX package leaves to XLA), all under utils/precision.strict_f32
+(TF32 off). The products outside the kernels (resize, patch embed, patch
+merging) are plain torch.
 """
 
 from __future__ import annotations
@@ -21,9 +26,19 @@ import torch
 import torch.nn.functional as F
 
 from ..audio.dsp import resize_bicubic_time
-from ..ops.swin import _ln, _mmf, fused_swin_block, fused_swin_pair
+from ..ops.swin import WINDOW, _ln, _mmf, fused_swin_block, fused_swin_pair
 from ..parallel.tensor import mesh_of
+from ..utils.precision import strict_f32
 from .tp_blocks import swin_block
+
+
+def block_plain(xs, p, mask, shift, window):
+    """One swin block as plain float32 torch (B, H, W, C) -> same: the
+    counterpart of the JAX `_block_jnp` (heart_murmur_detection_tpu/models/
+    htsat_fused.py:34), which the float32 route runs for the stages past
+    max_fused_dim; its softmax is the stable one whatever fast_softmax says,
+    as there."""
+    return fused_swin_block(xs, p, mask, shift, False, "plain", window)
 
 
 @torch.no_grad()
@@ -35,10 +50,16 @@ def htsat_apply_fused(
     fast_softmax: bool = False,
     impl: str = "kernel",
     tscam: bool = False,
+    max_fused_dim: Optional[int] = None,
 ):
     """mel (B, T, F) [+ per-clip frame counts] -> latent_output (B, 768);
     with tscam=True a dict of latent_output and the tscam head's outputs
     (models.htsat.tscam_outputs, float32, on the final LayerNorm's tokens).
+
+    max_fused_dim: the widest stage whose blocks go through the kernel entry
+    points at float32 (None: 192, the JAX auto choice; 384 at bf16, where
+    the wider stages take the kernels all the same, as the JAX bf16 route's
+    split kernel does); the float32 stages past it run block_plain.
 
     model: a models.htsat.HTSAT (its weights and config). impl="kernel"
     launches the CUDA kernels for CUDA tensors (plain versions on the CPU);
@@ -46,6 +67,15 @@ def htsat_apply_fused(
     parallel.tensor.shard_model runs its blocks through
     models/tp_blocks.swin_block instead (plain, whatever impl says).
     """
+    if mm_dtype == torch.float32:
+        with strict_f32():
+            return _apply(model, mel, n_frames, mm_dtype, fast_softmax, impl, tscam,
+                          192 if max_fused_dim is None else max_fused_dim)
+    return _apply(model, mel, n_frames, mm_dtype, fast_softmax, impl, tscam, None)
+
+
+def _apply(model, mel, n_frames, mm_dtype, fast_softmax, impl, tscam, max_fused_dim):
+    """htsat_apply_fused's body; max_fused_dim None fuses every stage."""
     cfg = model.config
     B, T, Fb = mel.shape
     dev = mel.device
@@ -85,6 +115,10 @@ def htsat_apply_fused(
         if tp:
             for b, blk in enumerate(model.layers[i_layer].blocks):
                 xs = swin_block(xs, blk, stage, stage.shift if b % 2 else 0, None, None, mm_dtype)
+        elif max_fused_dim is not None and (dim > max_fused_dim or stage.window != WINDOW):
+            for b, pb in enumerate(stage.blocks):
+                shift = stage.shift if b % 2 else 0
+                xs = block_plain(xs, pb, stage.mask if shift else None, shift, stage.window)
         else:
             kw = dict(fast_softmax=fast_softmax, impl=impl, window=stage.window)
             depth = len(stage.blocks)

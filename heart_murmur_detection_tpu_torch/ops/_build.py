@@ -41,6 +41,15 @@ _SIGNATURES = {
     # x, out, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul,
     # n_tokens, C, hidden, hw, and the plan: panel_rows, ks, stages; eps, stream
     "swin_mlp_launch": [_vp] * 9 + [_i] * 7 + [_f, _vp],
+    # x, out, o_ws, w_qkv, b_qkv, w_proj, b_proj, ln_w, ln_b, bias, mask, kmul,
+    # B, H, W, C, heads, shift, fast_softmax, and the plan
+    # (ops/swin_plan.py::attn_f32_plan): the core's threads and shared bytes,
+    # proj's tile rows, columns, threads and shared bytes; stream
+    "swin_attn_f32_launch": [_vp] * 12 + [_i] * 13 + [_vp],
+    # x, out, g_ws, ln_w, ln_b, w_fc1, b_fc1, w_fc2, b_fc2, kmul, n_tokens, C,
+    # hidden, hw, and the plan (mlp_f32_plan): tile rows, columns, threads,
+    # shared bytes; eps, stream
+    "swin_mlp_f32_launch": [_vp] * 10 + [_i] * 8 + [_f, _vp],
     # x, dh1, kmul, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, bias, mask,
     # h_g, dw_g, opre_g, dqkv_g, part, dh_ws, wpt_ws, B, H, W, C, heads, shift,
     # and the plan (ops/swin_plan.py): stages, grid; stream

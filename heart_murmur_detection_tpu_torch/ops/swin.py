@@ -8,6 +8,13 @@ heart_murmur_detection_tpu/ops/pallas_swin.py built from them.
   swin_mlp   LN2 -> fc1 -> exact GELU -> fc2 -> +x
              (csrc/swin_mlp.cu, wgmma and TMA; the TPU body is `_strip_mlp`)
 
+and their float32 mode (the TPU bodies at mm_dtype=float32, Precision.HIGHEST):
+
+  swin_attn_f32  the same half in float32 (csrc/swin_attn_f32.cu: a core
+                 launch a (window, head), then proj, FFMA on the CUDA cores)
+  swin_mlp_f32   the same half in float32 (csrc/swin_mlp_f32.cu: fc1 + GELU
+                 into a workspace, then fc2, FFMA on the CUDA cores)
+
 Each launch follows a plan computed on the host from the geometry and the
 card's SM count (ops/swin_plan.py: token rows or windows a block, and the
 cluster that splits the hidden chunks or the heads where the grid is small).
@@ -28,9 +35,13 @@ read and written in place of the roll, so no rolled copy of x is ever made.
 The TPU pair kept a whole map in VMEM; a stage-0 map (768 KiB a clip) does
 not fit an SM's shared memory, so on Hopper a pair is four launches.
 
-Dispatch: a CPU tensor runs the plain version; a CUDA bfloat16 tensor
-launches the kernel; any other CUDA dtype raises. `impl="plain"` asks for
-the plain version on any device (the tests and the on-card reference).
+Dispatch: a CPU tensor runs the plain version. On a card, bfloat16
+activations with bfloat16 weights launch the bf16 kernels, float32
+activations with float32 weights (prep_block at mm_dtype=float32) launch
+the float32 kernels (swin_attn_f32 / swin_mlp_f32, counted apart), and any
+other pairing raises. A kernel that fails to launch raises; nothing falls
+back to the plain version on a card. `impl="plain"` asks for the plain
+version on any device (the tests and the on-card reference).
 The plain versions round to the activation dtype at the same points as the
 TPU body and the kernels: qkv, the scaled q, the attention output, h1, the
 GELU output and the block output.
@@ -251,10 +262,14 @@ def _check_launch(name: str, rc: int):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _check_cuda_args(x: torch.Tensor, p: SwinBlockParams, window: int):
-    if x.dtype != torch.bfloat16 or p.mm_dtype != torch.bfloat16:
+def _check_cuda_args(x: torch.Tensor, p: SwinBlockParams, window: int,
+                     dtype: torch.dtype = torch.bfloat16):
+    """The arguments of a kernel of the given mode: bf16 (the bf16 kernels
+    and the train kernels) or float32 (swin_attn_f32 / swin_mlp_f32, which
+    also take head dim 24 alone)."""
+    if x.dtype != dtype or p.mm_dtype != dtype:
         raise TypeError(
-            f"CUDA swin kernels take bfloat16 activations and weights, got "
+            f"these CUDA swin kernels take {dtype} activations and weights, got "
             f"{x.dtype} / {p.mm_dtype}"
         )
     if not x.is_contiguous() or x.dim() != 4:
@@ -262,10 +277,29 @@ def _check_cuda_args(x: torch.Tensor, p: SwinBlockParams, window: int):
     if window != WINDOW:
         raise ValueError(f"the kernels take window {WINDOW}, got {window}")
     B, H, W, C = x.shape
-    if C not in (96, 192, 384, 768) or H % WINDOW or W % WINDOW or p.hdp != HDP:
+    if (C not in (96, 192, 384, 768) or H % WINDOW or W % WINDOW or p.hdp != HDP
+            or (dtype == torch.float32 and p.hd != 24)):
         raise ValueError(f"unsupported swin geometry {tuple(x.shape)}, head dim {p.hd}")
     if p.w_qkv.device != x.device:
         raise ValueError("weights and x are on different devices")
+
+
+def _is_f32(x: torch.Tensor, p: SwinBlockParams) -> bool:
+    """A CUDA call in the float32 mode: float32 activations and weights."""
+    return x.dtype == torch.float32 and p.mm_dtype == torch.float32
+
+
+def _check_mask(mask: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """A shift mask for a kernel: float32 (nW, 64, 64) on x's card."""
+    if mask is None:
+        return None
+    B, H, W, C = x.shape
+    nw = (H // WINDOW) * (W // WINDOW)
+    if mask.dtype != torch.float32 or tuple(mask.shape) != (nw, 64, 64):
+        raise ValueError("mask must be float32 (nW, 64, 64)")
+    if mask.device != x.device:
+        raise ValueError("mask and x are on different devices")
+    return mask.contiguous()
 
 
 def _cuda_stream(x: torch.Tensor) -> int:
@@ -333,16 +367,12 @@ def swin_attn(
     """Attention half of a swin block (see swin_attn_ref for the math)."""
     if x.device.type == "cpu":
         return swin_attn_ref(x, p, mask, shift, fast_softmax, window, kmul)
+    if _is_f32(x, p):
+        return swin_attn_f32(x, p, mask, shift, fast_softmax, window, kmul)
     _check_cuda_args(x, p, window)
     kmul = _check_kmul(kmul, x)
     B, H, W, C = x.shape
-    if mask is not None:
-        nw = (H // WINDOW) * (W // WINDOW)
-        if mask.dtype != torch.float32 or tuple(mask.shape) != (nw, 64, 64):
-            raise ValueError("mask must be float32 (nW, 64, 64)")
-        if mask.device != x.device:
-            raise ValueError("mask and x are on different devices")
-        mask = mask.contiguous()
+    mask = _check_mask(mask, x)
     from . import _build
     from .swin_plan import attn_plan
 
@@ -367,6 +397,8 @@ def swin_mlp(
     """MLP half of a swin block (see swin_mlp_ref for the math)."""
     if x.device.type == "cpu":
         return swin_mlp_ref(x, p, kmul)
+    if _is_f32(x, p):
+        return swin_mlp_f32(x, p, kmul)
     _check_cuda_args(x, p, WINDOW)
     kmul = _check_kmul(kmul, x)
     B, H, W, C = x.shape
@@ -376,10 +408,78 @@ def swin_mlp(
     return out
 
 
+def swin_attn_f32(
+    x: torch.Tensor,
+    p: SwinBlockParams,
+    mask: Optional[torch.Tensor] = None,
+    shift: int = 0,
+    fast_softmax: bool = False,
+    window: int = WINDOW,
+    kmul: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention half of a swin block in float32 (x and p float32; see
+    swin_attn_ref for the math): csrc/swin_attn_f32.cu on a card, the plain
+    version on the CPU."""
+    if x.device.type == "cpu":
+        return swin_attn_ref(x, p, mask, shift, fast_softmax, window, kmul)
+    _check_cuda_args(x, p, window, torch.float32)
+    kmul = _check_kmul(kmul, x)
+    mask = _check_mask(mask, x)
+    from . import _build
+    from .swin_plan import F32_THREADS, F32_TILE_COLS, F32_TILE_ROWS, attn_f32_plan
+
+    B, H, W, C = x.shape
+    plan = attn_f32_plan(B, H, W, C, p.heads)
+    _check_aligned(x, p.w_qkv, p.w_proj)
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    o_ws = x.new_empty(plan.workspace_shape)
+    rc = lib.swin_attn_f32_launch(
+        _ptr(x), _ptr(out), _ptr(o_ws), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.w_proj),
+        _ptr(p.b_proj), _ptr(p.ln1_w), _ptr(p.ln1_b), _ptr(p.bias), _ptr(mask), _ptr(kmul),
+        B, H, W, C, p.heads, shift, int(fast_softmax), F32_THREADS, plan.core_smem_bytes,
+        F32_TILE_ROWS, F32_TILE_COLS, F32_THREADS, plan.proj.smem_bytes, _cuda_stream(x),
+    )
+    _check_launch("swin_attn_f32", rc)
+    swin_attn_f32.launches += 1
+    return out
+
+
+def swin_mlp_f32(
+    x: torch.Tensor, p: SwinBlockParams, kmul: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """MLP half of a swin block in float32 (see swin_mlp_ref for the math):
+    csrc/swin_mlp_f32.cu on a card, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return swin_mlp_ref(x, p, kmul)
+    _check_cuda_args(x, p, WINDOW, torch.float32)
+    kmul = _check_kmul(kmul, x)
+    from . import _build
+    from .swin_plan import F32_THREADS, F32_TILE_COLS, F32_TILE_ROWS, mlp_f32_plan
+
+    B, H, W, C = x.shape
+    hidden = p.w_fc1.shape[0]
+    plan = mlp_f32_plan(B * H * W, C, hidden)
+    _check_aligned(x, p.w_fc1, p.w_fc2)
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    g_ws = x.new_empty(plan.workspace_shape)
+    rc = lib.swin_mlp_f32_launch(
+        _ptr(x), _ptr(out), _ptr(g_ws), _ptr(p.ln2_w), _ptr(p.ln2_b), _ptr(p.w_fc1),
+        _ptr(p.b_fc1), _ptr(p.w_fc2), _ptr(p.b_fc2), _ptr(kmul), B * H * W, C, hidden, H * W,
+        F32_TILE_ROWS, F32_TILE_COLS, F32_THREADS, plan.fc1.smem_bytes, 1e-5, _cuda_stream(x),
+    )
+    _check_launch("swin_mlp_f32", rc)
+    swin_mlp_f32.launches += 1
+    return out
+
+
 swin_attn.launches = 0
 swin_mlp.launches = 0
+swin_attn_f32.launches = 0
+swin_mlp_f32.launches = 0
 # every counted kernel wrapper; ops/swin_train.py adds its own on import
-COUNTED = [swin_attn, swin_mlp]
+COUNTED = [swin_attn, swin_mlp, swin_attn_f32, swin_mlp_f32]
 
 
 def launch_counts() -> dict:

@@ -1,12 +1,15 @@
-"""Launch plans of the wgmma kernels of the swin and ViT blocks, computed on
-the host in one place: the forward kernels csrc/swin_mlp.cu (swin_mlp, and
-vit_mlp with LN eps 1e-6) and csrc/swin_attn.cu (swin_attn), and the
+"""Launch plans of the kernels of the swin and ViT blocks, computed on the
+host in one place: the wgmma forward kernels csrc/swin_mlp.cu (swin_mlp,
+and vit_mlp with LN eps 1e-6) and csrc/swin_attn.cu (swin_attn), the
 backward kernels csrc/swin_mlp_bwd.cu (swin_mlp_bwd and vit_mlp_bwd) and
-csrc/swin_attn_bwd.cu (swin_attn_bwd). The wrappers in ops/swin.py,
-ops/vit.py, ops/swin_train.py and ops/vit_train.py pass a plan's numbers to
-the launch, which checks them against the kernel's compiled configuration;
-the CPU tests (tests/test_torch_swin_plan.py, tests/test_torch_bwd_plan.py)
-enumerate the plans of every geometry the towers launch.
+csrc/swin_attn_bwd.cu (swin_attn_bwd), and the float32 forward kernels
+csrc/swin_attn_f32.cu and csrc/swin_mlp_f32.cu (fixed tiles: a core block
+a (window, head), a product block a 64 x 96 output tile). The wrappers in
+ops/swin.py, ops/vit.py, ops/swin_train.py and ops/vit_train.py pass a
+plan's numbers to the launch, which checks them against the kernel's
+compiled configuration; the CPU tests (tests/test_torch_swin_plan.py,
+tests/test_torch_bwd_plan.py, tests/test_torch_swin_f32.py) enumerate the
+plans of every geometry the towers launch.
 
 swin_mlp: a block owns a panel of token rows (128 at C <= 192, where each
 warpgroup holds 64 rows and every output column; 64 at C >= 384, where the
@@ -285,6 +288,117 @@ def _attn_plan(B: int, H: int, W: int, C: int, heads: int, sms: int) -> AttnPlan
     windows = B * (H // 8) * (W // 8)
     cs = _pick(_cdiv(windows, wpb), sorted(options), sms, ATTN_SPLIT_COST)
     return AttnPlan(B, H, W, C, heads, wpb, cs, options[cs], fit(cs, options[cs]))
+
+
+# ---------------------------------------------------------------------------
+# the float32 forward kernels (csrc/swin_attn_f32.cu, csrc/swin_mlp_f32.cu)
+# ---------------------------------------------------------------------------
+
+F32_TILE_ROWS = 64  # token rows of a product block (csrc/swin_f32_common.cuh GBM)
+F32_TILE_COLS = 96  # output columns of a product block (GBN)
+F32_TILE_K = 16  # k depth of a product step (GBK)
+F32_THREADS = 128  # threads of a product block and of an attention core block
+F32_HD = 24  # the head dim the attention core takes (every HTS-AT stage's)
+F32_CORE_K = 32  # k depth of the core's qkv step (ABK)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmF32Plan:
+    """One launch of the float32 token-row product: M rows of N outputs
+    over K, a block a (64 rows, 96 columns) tile."""
+
+    M: int
+    N: int
+    K: int
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return self.M // F32_TILE_ROWS, self.N // F32_TILE_COLS
+
+    @property
+    def smem_bytes(self) -> int:
+        # the k-major A and W tiles (rows padded by 4 floats) and the row statistics
+        return 4 * (F32_TILE_K * (F32_TILE_ROWS + 4) + F32_TILE_K * (F32_TILE_COLS + 4)
+                    + 2 * F32_TILE_ROWS)
+
+    def tiles(self) -> List[Tuple[Tuple[int, int], Tuple[int, int]]]:
+        """(rows, columns) of each block, by the kernel's index arithmetic."""
+        gx, gy = self.grid
+        return [((bx * F32_TILE_ROWS, (bx + 1) * F32_TILE_ROWS),
+                 (by * F32_TILE_COLS, (by + 1) * F32_TILE_COLS))
+                for bx in range(gx) for by in range(gy)]
+
+
+def _gemm_f32(M: int, N: int, K: int) -> GemmF32Plan:
+    if M <= 0 or M % F32_TILE_ROWS or N <= 0 or N % F32_TILE_COLS or K <= 0 or K % F32_TILE_K:
+        raise ValueError(f"the float32 product takes rows in 64s, columns in 96s and a depth "
+                         f"in 16s, got ({M}, {N}, {K})")
+    return GemmF32Plan(M, N, K)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnF32Plan:
+    B: int
+    H: int
+    W: int
+    C: int
+    heads: int
+    proj: GemmF32Plan  # the second launch: o (windows x 64, C) times W_proj^T
+
+    @property
+    def windows(self) -> int:
+        return self.B * (self.H // 8) * (self.W // 8)
+
+    @property
+    def core_grid(self) -> Tuple[int, int]:
+        """(windows, heads): a core block a window's head."""
+        return self.windows, self.heads
+
+    @property
+    def core_smem_bytes(self) -> int:
+        # token offsets; the qkv tiles, aliased by the 64 x 65 scores; q^T
+        # (rows padded by 4), k^T, v; the row statistics and reciprocals
+        tiles = F32_CORE_K * 68 + F32_CORE_K * (3 * F32_HD + 4)
+        region = max(tiles, 64 * 65)
+        return 8 * 64 + 4 * (region + F32_HD * 68 + 2 * F32_HD * 64 + 3 * 64)
+
+    @property
+    def workspace_shape(self) -> Tuple[int, int]:
+        return self.windows * 64, self.C
+
+
+def attn_f32_plan(B: int, H: int, W: int, C: int, heads: int) -> AttnF32Plan:
+    """The swin_attn_f32 launches for x (B, H, W, C) with `heads` heads; a
+    ValueError for a geometry the kernels do not take."""
+    if C not in WIDTHS or B <= 0 or H <= 0 or W <= 0 or H % 8 or W % 8:
+        raise ValueError(f"the float32 attention kernel takes C in {WIDTHS} and H, W multiples "
+                         f"of 8, got {(B, H, W, C)}")
+    if heads * F32_HD != C:
+        raise ValueError(f"the float32 attention kernel takes a head dim of {F32_HD}, got C {C} "
+                         f"with {heads} heads")
+    return AttnF32Plan(B, H, W, C, heads, _gemm_f32(B * H * W, C, C))
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpF32Plan:
+    n_tokens: int
+    C: int
+    hidden: int
+    fc1: GemmF32Plan  # LN2(x) W_fc1^T + b_fc1, GELU -> the workspace (n, hidden)
+    fc2: GemmF32Plan  # the workspace W_fc2^T + b_fc2, times k, + x
+
+    @property
+    def workspace_shape(self) -> Tuple[int, int]:
+        return self.n_tokens, self.hidden
+
+
+def mlp_f32_plan(n_tokens: int, C: int, hidden: int) -> MlpF32Plan:
+    """The swin_mlp_f32 launches for n_tokens rows of width C; a ValueError
+    for a geometry the kernels do not take."""
+    if C not in WIDTHS:
+        raise ValueError(f"the float32 MLP kernel takes C in {WIDTHS}, got {C}")
+    return MlpF32Plan(n_tokens, C, hidden, _gemm_f32(n_tokens, hidden, C),
+                      _gemm_f32(n_tokens, C, hidden))
 
 
 # ---------------------------------------------------------------------------

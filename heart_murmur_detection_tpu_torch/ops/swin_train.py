@@ -519,6 +519,10 @@ class _SwinBlockTrain(torch.autograd.Function):
             h1 = swin.swin_attn_ref(x, p, mask, shift, window=_window(p), kmul=k1)
             y = swin.swin_mlp_ref(h1, p, k2)
         else:
+            if x.is_cuda:
+                # the train kernels take bf16: a float32 block raises here,
+                # before the forward launches
+                _check_cuda_args(x, p, _window(p))
             h1 = swin.swin_attn(x, p, mask, shift, window=_window(p), kmul=k1)
             y = swin.swin_mlp(h1, p, k2)
         ctx.save_for_backward(x, h1, k1, k2, mask, *weights)

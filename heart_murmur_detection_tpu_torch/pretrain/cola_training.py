@@ -84,19 +84,24 @@ def _cola_early_freeze(name: str) -> bool:
 
 def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool],
                device: torch.device, param_sharding: Optional[str] = None, mesh=None) -> str:
-    """The swin blocks' route (ops.swin_train.fused_swin_block_train impl):
-    the train kernels for bf16 on a card unless fused_train=False; the plain
-    versions of the kernels for bf16 otherwise; torch autograd in float32.
+    """The swin blocks' route (ops.swin_train.fused_swin_block_train impl),
+    one rule with train/finetune.py::train_impl: "kernel" with fused_train
+    (None: on a card in bf16) — the train kernels for CUDA tensors, their
+    plain versions with the explicit backward for CPU tensors (the JAX fused
+    path's interpret mode); at float32 on a card the train kernels raise
+    their dtype TypeError (they take bf16), never a silent switch to
+    autograd; else "plain" in bf16 and torch "autograd" in float32.
     param_sharding (ZeRO-3, megatron) and a 2-D mesh keep the plain path,
     as the JAX package keeps its XLA graphs there; fused_train=True with
     them is a ValueError (parallel/mesh.py::plain_only)."""
     if plain_only(mesh, fused_train, param_sharding):
         fused_train = False
-    if compute_dtype != torch.bfloat16:
-        return "autograd"
+    bf16 = compute_dtype == torch.bfloat16
     if fused_train is None:
-        fused_train = device.type == "cuda"
-    return "kernel" if fused_train else "plain"
+        fused_train = device.type == "cuda" and bf16
+    if fused_train:
+        return "kernel"
+    return "plain" if bf16 else "autograd"
 
 
 def forward_backward(model: Cola, x1, x2, gen, mm_dtype, impl: str, p_drop: float, mesh=None):

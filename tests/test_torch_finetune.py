@@ -33,6 +33,7 @@ from heart_murmur_detection_tpu_torch.extract.convert import from_jax_classifier
 from heart_murmur_detection_tpu_torch.models import vit_mae
 from heart_murmur_detection_tpu_torch.models.heads import freeze_mask_fn
 from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+from heart_murmur_detection_tpu_torch.pretrain import cola_training
 from heart_murmur_detection_tpu_torch.train import checkpoints as ck
 from heart_murmur_detection_tpu_torch.train import finetune as ft
 from tests import torch_parallel_ranks as R
@@ -456,12 +457,21 @@ def test_unported_encoders_and_multi_device_raise(narrow_zoo):
 
 
 def test_train_impl_routes():
+    """One rule for fine-tuning and continued pretraining (COLA, and MAE
+    through the same function): fused_train=True is "kernel" at float32
+    too (the explicit-backward plain versions on the CPU; on a card the
+    train kernels refuse float32), never a silent switch to autograd."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert ft.train_impl(torch.bfloat16, None, cuda) == "kernel"
-    assert ft.train_impl(torch.bfloat16, None, cpu) == "plain"
-    assert ft.train_impl(None, None, cuda) == "autograd"
-    assert ft.train_impl(None, True, cpu) == "kernel"
-    assert ft.train_impl(torch.bfloat16, False, cuda) == "plain"
+    for impl in (ft.train_impl, cola_training.train_impl):
+        assert impl(torch.bfloat16, None, cuda) == "kernel"
+        assert impl(torch.bfloat16, None, cpu) == "plain"
+        assert impl(None, None, cuda) == "autograd"
+        assert impl(None, True, cpu) == "kernel"
+        assert impl(torch.bfloat16, False, cuda) == "plain"
+        assert impl(torch.float32, True, cpu) == "kernel"
+        assert impl(torch.float32, True, cuda) == "kernel"
+        assert impl(torch.float32, None, cuda) == "autograd"
+        assert impl(torch.float32, False, cpu) == "autograd"
 
 
 def test_jax_and_port_ckpt_names_agree():

@@ -1,7 +1,7 @@
 """The CUDA kernels of heart_murmur_detection_tpu_torch: the build and its
 ctypes binding (CPU), and, on a card only, each kernel against its plain
-torch version: the swin eval kernels at the four HTS-AT stage geometries,
-the swin training kernels (forward with DropPath multipliers, both backward
+torch version: the swin eval kernels at the four HTS-AT stage geometries (bf16, and
+the float32 mode), the swin training kernels (forward with DropPath multipliers, both backward
 halves, the weight-gradient products and the ordered reduction) at stages
 0-2 (the reduction also at the ViT backward wrappers' shapes), the ViT kernels (vit_qkv, vit_attn and vit_proj, vit_mlp) at the
 operaGT and Audio-MAE shapes, vit_attn's K10 / K11 attention modes, and the
@@ -60,9 +60,11 @@ def test_signatures_pass_pointers_as_void_p():
               "swin_mlp_bwd_launch": 15, "swin_wgrad_launch": 5, "swin_reduce_launch": 2,
               "vit_qkv_launch": 7, "vit_attn_launch": 2, "vit_proj_launch": 5,
               "vit_attn_bwd_launch": 16, "vit_mm_launch": 3,
-              "logmel_launch": 5, "vit_qkv_rows_launch": 7, "vit_mlp_rows_launch": 10}
+              "logmel_launch": 5, "vit_qkv_rows_launch": 7, "vit_mlp_rows_launch": 10,
+              "swin_attn_f32_launch": 12, "swin_mlp_f32_launch": 10}
     with_eps = {"swin_mlp_launch", "vit_qkv_launch", "swin_mlp_bwd_launch",
-                "vit_attn_bwd_launch", "vit_qkv_rows_launch", "vit_mlp_rows_launch"}
+                "vit_attn_bwd_launch", "vit_qkv_rows_launch", "vit_mlp_rows_launch",
+                "swin_mlp_f32_launch"}
     assert set(_build._SIGNATURES) == set(n_ptrs)
     for name, argtypes in _build._SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p, name  # the stream
@@ -80,7 +82,8 @@ def test_build_targets_sm90a_and_hashes_sources():
     assert {"swin_attn.cu", "swin_mlp.cu", "swin_common.cuh", "swin_attn_bwd.cu",
             "swin_mlp_bwd.cu", "swin_bwd_common.cuh", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu",
             "vit_attn_common.cuh", "vit_attn_bwd.cu", "logmel.cu", "wgmma_gemm.cuh",
-            "vit_proj.cu", "vit_rows.cu"} <= srcs
+            "vit_proj.cu", "vit_rows.cu", "swin_attn_f32.cu", "swin_mlp_f32.cu",
+            "swin_f32_common.cuh"} <= srcs
     # the log-mel kernel is float32-exact: log10f and the FFMAs stay accurate
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     h = _build.source_hash()
@@ -146,11 +149,72 @@ def test_kernels_match_plain_on_card(cuda, C, heads, H, shift, fast_softmax, B):
 
 @pytest.mark.gpu
 def test_non_bf16_on_card_raises(cuda):
-    p = _params(96, 4, 1, cuda, torch.float32)
+    """Activations and weights of one dtype, bf16 or float32, launch a
+    kernel; any other pairing raises."""
+    p32, p16 = _params(96, 4, 1, cuda, torch.float32), _params(96, 4, 1, cuda)
+    for x, p in ((torch.zeros(1, 8, 8, 96, device=cuda), p16),
+                 (torch.zeros(1, 8, 8, 96, device=cuda, dtype=torch.bfloat16), p32),
+                 (torch.zeros(1, 8, 8, 96, device=cuda, dtype=torch.float16), p16)):
+        with pytest.raises(TypeError):
+            swin.swin_attn(x, p)
+        with pytest.raises(TypeError):
+            swin.swin_mlp(x, p)
     with pytest.raises(TypeError):
-        swin.swin_attn(torch.zeros(1, 8, 8, 96, device=cuda), p)
+        swin.swin_attn_f32(torch.zeros(1, 8, 8, 96, device=cuda), p16)
     with pytest.raises(TypeError):
-        swin.swin_mlp(torch.zeros(1, 8, 8, 96, device=cuda), p)
+        swin.swin_mlp_f32(torch.zeros(1, 8, 8, 96, device=cuda, dtype=torch.bfloat16), p16)
+
+
+F32_ATOL = 3e-5  # float32 kernel vs its plain version (tests/test_torch_swin.py's block bar)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,H,shift", [(96, 4, 64, 4), (192, 8, 32, 4), (384, 16, 16, 4), (768, 32, 8, 0)])
+@pytest.mark.parametrize("fast_softmax", [False, True])
+@pytest.mark.parametrize("B", [1, 16])
+def test_f32_kernels_match_plain_on_card(cuda, C, heads, H, shift, fast_softmax, B):
+    """swin_attn_f32 and swin_mlp_f32 against their plain float32 versions
+    (TF32 off), with the shift and its mask where the stage shifts, with and
+    without a per-sample multiplier: max |d| <= 3e-5, and a second launch
+    bitwise equal to the first; the dispatching wrappers take them for
+    float32 blocks and count them apart from the bf16 kernels."""
+    p = _params(C, heads, C, cuda, torch.float32)
+    mask = torch.from_numpy(_shift_attn_mask(H, H, 8, shift)).to(cuda) if shift else None
+    g = torch.Generator().manual_seed(C)
+    x = (torch.randn(B, H, H, C, generator=g) * 0.5).to(cuda)
+    k = torch.tensor([1 / 0.9, 0.0, 1.0, 1 / 0.9] * (B // 4 + 1), device=cuda)[:B]
+    n0 = swin.launch_counts()
+    for s, m in ((0, None), (shift, mask)):
+        for kmul in (None, k):
+            got = swin.swin_attn(x, p, m, s, fast_softmax, kmul=kmul)
+            want = swin.swin_attn_ref(x, p, m, s, fast_softmax, kmul=kmul)
+            again = swin.swin_attn_f32(x, p, m, s, fast_softmax, kmul=kmul)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= F32_ATOL
+            assert torch.equal(got, again)
+    for kmul in (None, k):
+        got, want = swin.swin_mlp(x, p, kmul), swin.swin_mlp_ref(x, p, kmul)
+        again = swin.swin_mlp_f32(x, p, kmul)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= F32_ATOL
+        assert torch.equal(got, again)
+    n1 = swin.launch_counts()
+    assert n1["swin_attn_f32"] - n0["swin_attn_f32"] == 8
+    assert n1["swin_mlp_f32"] - n0["swin_mlp_f32"] == 4
+    assert n1["swin_attn"] == n0["swin_attn"] and n1["swin_mlp"] == n0["swin_mlp"]
+
+
+@pytest.mark.gpu
+def test_f32_train_kernels_raise_on_card(cuda):
+    """fused_train at float32 on a card: the train kernels take bf16 and
+    refuse a float32 block before any launch, never a switch to autograd."""
+    p = _params(96, 4, 2, cuda, torch.float32)
+    x = torch.zeros(2, 8, 8, 96, device=cuda, requires_grad=True)
+    k = torch.ones(2, device=cuda)
+    n0 = swin.launch_counts()
+    with pytest.raises(TypeError):
+        swin_train.fused_swin_block_train(x, p, None, 0, k, k, "kernel")
+    assert swin.launch_counts() == n0
 
 
 def _cos(a, b):
