@@ -299,6 +299,31 @@ Phases (each prints one line; any failure exits non-zero):
      device-resident 10-s clips at B=16 and B=64 beside the bf16
      extractor's, in turns; (c) operaCT 512, operaCE, operaGT and audiomae
      at float32 on the card: finite features, no kernel launch
+ 36. float32 training (the float32 mode of TPU K8): (a) swin_mlp_bwd_f32,
+     swin_attn_bwd_f32 (csrc/swin_mlp_bwd_f32.cu, csrc/swin_attn_bwd_f32.cu),
+     the four swin_wgrad_f32 products (csrc/swin_wgrad_f32.cu) and the two
+     swin_reduce calls of a block against their plain float32 versions
+     (TF32 off) at stages 0-2, shift 0 and the stage's shift, B=64, 0.05-scale
+     weights, x x 0.5, dy x 0.1, DropPath multipliers with a 0 and a 1/0.9:
+     dh1 and dx within 3e-5, the dx - dh1 branch and every gradient leaf at
+     a cosine >= 0.999999 and within 1e-4 of the leaf's largest entry, two
+     launches bitwise equal, the padded qkv rows 0; each kernel's ms as a
+     replayed CUDA graph beside its FFMA bound, the plain version's ms, each
+     half's float32 library chain (autograd, by CUDA events) and torch.mm
+     for the products; (b) one float32 COLA step (the trainer's
+     train_step, DropPath and dropout off) with fused_train=True at B=64
+     pairs of 251 and of 63 frames against the strict-float32 autograd
+     route from the same weights and batch: loss within 1e-5, every leaf
+     >= 0.99999 (the key thirds of the qkv biases, exactly 0 in exact
+     arithmetic, left out), norm within 1 +- 1e-4; exactly 20 + 20 float32
+     forward, 20 + 20 float32 backward, 80 swin_wgrad_f32 and 40
+     swin_reduce launches, no other kernel; both routes' step ms; (c)
+     cli.pretrain encoder=htsat method=cola fused_train=True without
+     compute_dtype (phase 32's circor corpus writer, B=8, one epoch):
+     finite losses, backward launches exactly (b)'s a step, the eval passes
+     only float32 forward launches; (d) finetune_classifier of operaCT at
+     float32 with fused_train=True (one seed, one epoch of two B=64
+     batches): finite AUROCs, one view's float32 backward launches a step
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -4951,6 +4976,328 @@ def phase_f32(smi: str, dev):
     return meas, f32_counts
 
 
+F32_TRAIN_STAGES = ((96, 4, 64, 4), (192, 8, 32, 4), (384, 16, 16, 4))  # stages 0-2 of operaCT
+F32_BRANCH_BAR = 0.999999  # float32 kernel vs its plain version: dx / dh1 branch, every leaf
+F32_LEAF_REL = 1e-4  # max |kernel - plain| of a gradient leaf over its largest entry
+F32_CROPS = (251, 63)  # phase 8's COLA crops: circor / physionet16, pascal_A
+F32_FT_ROWS = 64  # phase 36 (d): fine-tuning batch (2 steps) and 16 + 16 held-out clips
+
+
+def _swin_f32_params(C, heads, seed, dev):
+    """A swin block's float32 kernel layout at 0.05-scale weights (norm
+    weights 1 + that), the gathered bias of a 10x table (the card tests'
+    _params)."""
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.models.htsat import _relative_position_index
+    from heart_murmur_detection_tpu_torch.ops import swin
+
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy((r.standard_normal(s) * 0.05).astype(np.float32))
+    sd = {"norm1.weight": 1 + f(C), "norm1.bias": f(C), "attn.qkv.weight": f(3 * C, C),
+          "attn.qkv.bias": f(3 * C), "attn.proj.weight": f(C, C), "attn.proj.bias": f(C),
+          "norm2.weight": 1 + f(C), "norm2.bias": f(C), "mlp.fc1.weight": f(4 * C, C),
+          "mlp.fc1.bias": f(4 * C), "mlp.fc2.weight": f(C, 4 * C), "mlp.fc2.bias": f(C)}
+    idx = torch.as_tensor(_relative_position_index(8, 8).reshape(-1))
+    bias = (f(15 * 15, heads) * 10)[idx].reshape(64, 64, heads).permute(2, 0, 1)
+    return swin.prep_block(sd, heads, bias, torch.float32, dev)
+
+
+def _bwd_f32_work(n, C, heads, mask):
+    """_bwd_work's shares of K8's backward function at float32: the same
+    operations, 4-byte activations and weights."""
+    hid = 4 * C
+    mlp = 4 * (3 * n * C + 2 * hid * C + 3 * C + hid), 6 * n * C * hid
+    attn = 4 * (3 * n * C + 4 * C * C + 6 * C + heads * 4096)
+    attn += 4 * mask.numel() if mask is not None else 0
+    return mlp, (attn, n * (14 * C * C + 768 * C))
+
+
+def _f32_train_kernels(dev, peak: float, blocks_per_shift):
+    """Phase 36 (a): the float32 train kernels against their plain float32
+    versions at stages 0-2, shift 0 and shifted, B=64. Returns {name:
+    measurement}, summed over one COLA step's launches (blocks_per_shift[i]
+    blocks of each shift at stage i)."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench.mlp_layouts import graph_ms
+    from heart_murmur_detection_tpu_torch.bench.swin_bwd_time import attn_bwd_chain, mlp_bwd_chain
+    from heart_murmur_detection_tpu_torch.models.htsat import _shift_attn_mask
+    from heart_murmur_detection_tpu_torch.ops import swin
+    from heart_murmur_detection_tpu_torch.ops import swin_train as st
+    from heart_murmur_detection_tpu_torch.ops.swin_plan import wgrad_f32_plan
+
+    B = B_TRAIN
+    g = torch.Generator(device="cpu").manual_seed(SEED + 37)
+    names = ("swin_attn_bwd_f32", "swin_mlp_bwd_f32", "swin_wgrad_f32", "swin_reduce@f32")
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "work": Work(peak),
+               "library_ms": 0.0 if k in ("swin_wgrad_f32", "swin_reduce@f32") else None}
+           for k in names}
+    chains = {"swin_mlp_bwd_f32": 0.0, "swin_attn_bwd_f32": 0.0}
+    k = torch.tensor([0.0, 1 / 0.9, 1.0, 1 / 0.9] * (B // 4), device=dev)
+    for i, (C, heads, H, sh) in enumerate(F32_TRAIN_STAGES):
+        p = _swin_f32_params(C, heads, SEED + 36 + i, dev)
+        n, blocks = B * H * H, blocks_per_shift[i]
+        x = (torch.randn(B, H, H, C, generator=g) * 0.5).to(dev)
+        dy = (torch.randn(B, H, H, C, generator=g) * 0.1).to(dev)
+        for s in (0, sh):
+            m = torch.from_numpy(_shift_attn_mask(H, H, 8, s)).to(dev) if s else None
+            tag = f"C={C} H=W={H} shift={s} B={B}"
+            h1 = swin.swin_attn_ref(x, p, m, s, kmul=k)
+            runs_m = [st.swin_mlp_bwd_f32(h1, dy, k, p) for _ in range(2)]
+            dh1, gm = st.swin_mlp_bwd_ref(h1, dy, k, p)
+            runs_a = [st.swin_attn_bwd_f32(x, dh1, k, p, m, s) for _ in range(2)]
+            dx, ga = st.swin_attn_bwd_ref(x, dh1, k, p, m, s)
+            torch.cuda.synchronize()
+            for what, runs, want_d, base, want_g in (
+                ("swin_mlp_bwd_f32", runs_m, dh1, dy, gm), ("swin_attn_bwd_f32", runs_a, dx, dh1, ga)
+            ):
+                (d1, g1), (d2, g2) = runs
+                same = torch.equal(d1, d2) and all(torch.equal(g1[q], g2[q]) for q in g1)
+                err = float((d1 - want_d).abs().max())
+                cos = {"d_in": _branch(d1, want_d, base)}
+                cos.update({q: _cos(g1[q].cpu(), want_g[q].cpu()) for q in want_g})
+                rel = {q: float((g1[q] - want_g[q]).abs().max() / want_g[q].abs().max())
+                       for q in want_g}
+                lo, hi = min(cos, key=cos.get), max(rel, key=rel.get)
+                tot[what]["err"] = max(tot[what]["err"], err)
+                print(f"[f32 train] {what} {tag}: bitwise repeatable {same}; max|d| {err:.3g} "
+                      f"(bar {F32_KERNEL_ATOL}); least cosine {cos[lo]:.9f} ({lo}); largest "
+                      f"leaf max|d| / max|plain| {rel[hi]:.3g} ({hi})", flush=True)
+                _require(same, f"{what} {tag}: two launches differ")
+                _require(err <= F32_KERNEL_ATOL, f"{what} {tag}: max|d| {err}")
+                _require(cos[lo] >= F32_BRANCH_BAR, f"{what} {tag}: {lo} cosine {cos[lo]}")
+                _require(rel[hi] <= F32_LEAF_REL, f"{what} {tag}: {hi} max|d| {rel[hi]} of max")
+            pad = runs_a[0][1]["w_qkv"].reshape(3, heads, 32, C)[:, :, 24:]
+            _require(bool((pad == 0).all()), f"swin_attn_bwd_f32 {tag}: padded qkv rows not 0")
+            # times: the kernels as replayed CUDA graphs; the plain halves;
+            # each half's float32 library chain (autograd, TF32 off) by events
+            mb_ms = graph_ms(lambda: st.swin_mlp_bwd_f32_launch(h1, dy, k, p))
+            ab_ms = graph_ms(lambda: st.swin_attn_bwd_f32_launch(x, dh1, k, p, m, s))
+            mp_ms = _time_ms(lambda: st.swin_mlp_bwd_ref(h1, dy, k, p), iters=2, warm=1)
+            ap_ms = _time_ms(lambda: st.swin_attn_bwd_ref(x, dh1, k, p, m, s), iters=2, warm=1)
+            mc_ms = _time_ms(mlp_bwd_chain(h1, dy, k, p, 1e-5, torch.float32), iters=5, warm=1)
+            ac_ms = _time_ms(attn_bwd_chain(x, dh1, k, p, m, s, torch.float32), iters=5, warm=1)
+            (wm, om), (wa, oa) = _bwd_f32_work(n, C, heads, m)
+            bm, ba = Work(peak), Work(peak)
+            bm.add(wm, om)
+            ba.add(wa, oa)
+            for what, t_ms, p_ms, c_ms, w, o in (("swin_mlp_bwd_f32", mb_ms, mp_ms, mc_ms, wm, om),
+                                                  ("swin_attn_bwd_f32", ab_ms, ap_ms, ac_ms, wa, oa)):
+                tot[what]["ms"] += blocks * t_ms
+                tot[what]["plain_ms"] += blocks * p_ms
+                tot[what]["work"].add(w, o, n=blocks)
+                chains[what] += blocks * c_ms
+            print(f"[f32 train] {tag}: a launch (graph replay): swin_mlp_bwd_f32 {mb_ms:.4f} ms "
+                  f"(FFMA bound {bm.bound_ms:.4f}, {bm.bound_ms / mb_ms:.1%} of it; float32 chain "
+                  f"{mc_ms:.4f}; plain {mp_ms:.4f}), swin_attn_bwd_f32 {ab_ms:.4f} ms (bound "
+                  f"{ba.bound_ms:.4f}, {ba.bound_ms / ab_ms:.1%}; chain {ac_ms:.4f}; plain "
+                  f"{ap_ms:.4f}); {blocks} of each a COLA step", flush=True)
+            # the four weight products and the two reductions of the block
+            _, (m_g, g_g, dyk_g, da1_g), part_m = st.swin_mlp_bwd_f32_launch(h1, dy, k, p)
+            _, (h_g, dw_g, opre_g, dqkv_g), part_a = st.swin_attn_bwd_f32_launch(x, dh1, k, p, m, s)
+            for a_, b_, M in ((da1_g, m_g, 4 * C), (dyk_g, g_g, C), (dqkv_g, h_g, 3 * C),
+                              (dw_g, opre_g, C)):
+                Mp, N = a_.shape[1], b_.shape[1]
+                got, want = st.swin_wgrad_f32(a_, b_), st.wgrad_ref(a_, b_)
+                again = st.swin_wgrad_f32(a_, b_)
+                torch.cuda.synchronize()
+                c = _cos(got.cpu(), want.cpu())
+                rel = float((got - want).abs().max() / want.abs().max())
+                _require(c >= F32_BRANCH_BAR and rel <= F32_LEAF_REL and torch.equal(got, again),
+                         f"swin_wgrad_f32 {tag} {tuple(a_.shape)}: cos {c} rel {rel}")
+                w_ms = graph_ms(lambda: st.swin_wgrad_f32(a_, b_))
+                l_ms = graph_ms(lambda: torch.mm(a_.t(), b_))
+                t = tot["swin_wgrad_f32"]
+                t["ms"] += blocks * w_ms
+                t["plain_ms"] += blocks * _time_ms(lambda: st.wgrad_ref(a_, b_), iters=2, warm=1)
+                t["library_ms"] += blocks * l_ms
+                t["work"].add(4 * M * N, 2 * n * M * N, n=blocks)
+                t["err"] = max(t["err"], float((got - want).abs().max()))
+                bw = Work(peak)
+                bw.add(4 * M * N, 2 * n * M * N)
+                wp = wgrad_f32_plan(n, Mp, N)
+                print(f"[f32 train wgrad] {tag}: ({n}, {Mp}) x ({n}, {N}) in {wp.S} chunks of "
+                      f"{wp.chunk}: cos {c:.9f}, max|d| / max {rel:.3g}, bitwise repeatable; "
+                      f"{w_ms:.4f} ms (graph replay), torch.mm {l_ms:.4f} ms ({w_ms / l_ms:.2f}x), "
+                      f"FFMA bound {bw.bound_ms:.4f} ({bw.bound_ms / w_ms:.1%} of it)", flush=True)
+            for part in (part_m, part_a):
+                got, want = st.swin_reduce(part), st.reduce_ref(part)
+                _require(torch.equal(got, want), f"swin_reduce {tag} {tuple(part.shape)}")
+                _reduce_row(tot["swin_reduce@f32"], part, blocks, f"float32 {tag}")
+            del runs_m, runs_a, m_g, g_g, dyk_g, da1_g, h_g, dw_g, opre_g, dqkv_g
+            torch.cuda.empty_cache()
+    print(f"[f32 train] a COLA step (B={B}, 20 launches of each backward kernel, 80 weight "
+          f"products, 40 reductions): swin_mlp_bwd_f32 {tot['swin_mlp_bwd_f32']['ms']:.3f} ms "
+          f"(bound {tot['swin_mlp_bwd_f32']['work'].bound_ms:.3f}; float32 chain "
+          f"{chains['swin_mlp_bwd_f32']:.3f}), swin_attn_bwd_f32 "
+          f"{tot['swin_attn_bwd_f32']['ms']:.3f} ms (bound "
+          f"{tot['swin_attn_bwd_f32']['work'].bound_ms:.3f}; chain "
+          f"{chains['swin_attn_bwd_f32']:.3f}), swin_wgrad_f32 {tot['swin_wgrad_f32']['ms']:.3f} ms "
+          f"(bound {tot['swin_wgrad_f32']['work'].bound_ms:.3f}; torch.mm "
+          f"{tot['swin_wgrad_f32']['library_ms']:.3f}), swin_reduce "
+          f"{tot['swin_reduce@f32']['ms']:.3f} ms", flush=True)
+    return tot
+
+
+def _f32_cola_step(dev, smi: str, crop: int):
+    """Phase 36 (b): one float32 COLA step (cola_training.train_step through
+    bench/dp_scale.py::cola_steps, DropPath and dropout off) at B=64 pairs
+    of `crop` frames with fused_train=True against the strict-float32
+    autograd route on the same weights and batch; the kernel step's
+    launches."""
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench import dp_scale
+    from heart_murmur_detection_tpu_torch.pretrain import cola_training as ct
+
+    r = np.random.default_rng(SEED + 38 + crop)
+    mel = lambda: (r.standard_normal((B_TRAIN, crop, 64)) * 10 - 40).astype(np.float32)
+    batch = [(mel(), mel())]
+    got = dp_scale.cola_steps(None, dev, batch, ct.train_impl(None, True, dev), seed=SEED,
+                              before=_reset_counts, mm_dtype=torch.float32)
+    counts = _all_counts()
+    want = dp_scale.cola_steps(None, dev, batch, ct.train_impl(None, None, dev), seed=SEED,
+                               mm_dtype=torch.float32)
+    per_step = {"swin_attn_f32": 20, "swin_mlp_f32": 20, "swin_attn_bwd_f32": 20,
+                "swin_mlp_bwd_f32": 20, "swin_wgrad_f32": 80, "swin_reduce": 40}
+    others = {q: v for q, v in counts.items() if q not in per_step and v}
+    print(f"[f32 cola] B={B_TRAIN} x {crop} frames, fused_train=True at float32: launches "
+          f"{ {q: counts[q] for q in per_step} }, other kernels {others or 'none'}", flush=True)
+    _require({q: counts[q] for q in per_step} == per_step and not others,
+             f"float32 COLA step launches {counts} (want {per_step})")
+    _tp_compare(f"float32 COLA step, B={B_TRAIN} x {crop} frames, fused_train=True (the train "
+                f"kernels) against the strict-float32 autograd route", (got["losses"], got["grads"]),
+                (want["losses"], want["grads"]), TP_LOSS_RTOL, TP_LEAF_BAR, TP_NORM_TOL, smi,
+                drop_key_bias=True)
+    key = {q: float(g[g.shape[0] // 3: 2 * g.shape[0] // 3].abs().max())
+           for q, g in got["grads"].items() if q.endswith("attn.qkv.bias")}
+    print(f"[f32 cola] the key thirds of the qkv bias gradients (exactly 0 in exact "
+          f"arithmetic, left out of the cosines): largest |g| {max(key.values()):.3g}", flush=True)
+    ms = {}
+    for tag, run in (("kernel", got), ("autograd", want)):
+        x1, x2 = run["batches"][0]
+        impl = "kernel" if tag == "kernel" else "autograd"
+        ms[tag] = _time_ms(lambda: ct.train_step(run["model"], run["opt"], x1, x2, None,
+                                                 torch.float32, impl, 0.0), iters=3, warm=1)
+    print(f"[f32 cola] {smi}: a float32 COLA step at B={B_TRAIN} x {crop} frames: train kernels "
+          f"{ms['kernel']:.2f} ms, strict-float32 autograd route (cuBLAS, TF32 off) "
+          f"{ms['autograd']:.2f} ms ({ms['kernel'] / ms['autograd']:.2f}x)", flush=True)
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def _f32_cli(smi: str):
+    """Phase 36 (c): cli.pretrain encoder=htsat method=cola fused_train=True
+    without compute_dtype (float32) for one epoch on phase 32's circor
+    corpus writer; returns the launches of the run."""
+    import math
+
+    from heart_murmur_detection_tpu_torch.cli import pretrain
+
+    per_step = {"swin_attn_bwd_f32": 20, "swin_mlp_bwd_f32": 20, "swin_wgrad_f32": 80,
+                "swin_reduce": 40}
+    with tempfile.TemporaryDirectory() as root:
+        _write_tp_corpus(root)
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            argv = ["encoder=htsat", "method=cola", "fused_train=True", "batch_size=8",
+                    "epoches=1", "seed=0", "title=f32", "device=cuda", "circor=True"]
+            _reset_counts()  # just before the float32 training path
+            t0 = time.time()
+            ((_, history, _),) = pretrain.main(argv)
+            secs = time.time() - t0
+            counts = _all_counts()
+        finally:
+            os.chdir(cwd)
+    h = history[0]
+    steps = h["steps"]
+    fwd = counts["swin_attn_f32"] - 20 * steps
+    others = {q: v for q, v in counts.items() if v and q not in per_step
+              and q not in ("swin_attn_f32", "swin_mlp_f32")}
+    print(f"[f32 cli] cli.pretrain encoder=htsat method=cola fused_train=True (float32), "
+          f"{smi}: {steps} steps of B=8 in {secs:.1f} s with the eval; train loss "
+          f"{h['train_loss']:.4f}, valid {h['valid_loss']:.4f}; launches {counts}: backward "
+          f"{ {q: counts[q] for q in per_step} } (want {steps} x {per_step}), float32 forward "
+          f"20 a step + {fwd} in the eval passes, other kernels {others or 'none'}", flush=True)
+    _require(steps > 0 and all(math.isfinite(h[q]) for q in ("train_loss", "valid_loss")),
+             f"float32 cli.pretrain history {h}")
+    _require(all(counts[q] == v * steps for q, v in per_step.items()),
+             f"float32 cli.pretrain backward launches {counts} for {steps} steps")
+    _require(fwd >= 0 and counts["swin_mlp_f32"] == counts["swin_attn_f32"] and not others,
+             f"float32 cli.pretrain forward launches {counts}")
+    return counts
+
+
+def _f32_finetune(smi: str):
+    """Phase 36 (d): finetune_classifier of operaCT (htsat, random init,
+    seed SEED) at float32 with fused_train=True, one epoch of two
+    F32_FT_ROWS batches: a finite AUROC, the float32 backward launches of
+    one view's 10 fused blocks a step."""
+    import math
+
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.train import finetune as ft
+
+    r = np.random.default_rng(SEED + 39)
+    n = 2 * F32_FT_ROWS + 32
+    y = (np.arange(n) % 2).astype(np.int64)
+    # class 1 0.5 dB up under a per-clip level of 1 dB spread: classes that
+    # overlap, so that the AUROC is not 0 or 1 by the head's sign alone
+    level = r.standard_normal(n) + 0.5 * y
+    x = (r.standard_normal((n, 256, 64)) * 10 - 40 + level[:, None, None]).astype(np.float32)
+    tr, va = 2 * F32_FT_ROWS, 2 * F32_FT_ROWS + 16
+    _reset_counts()
+    t0 = time.time()
+    res = ft.finetune_classifier(x[:tr], y[:tr], x[tr:va], y[tr:va], x[va:], y[va:],
+                                 encoder_kind="htsat", epochs=1, batch_size=F32_FT_ROWS,
+                                 seed=SEED, fused_train=True, device="cuda")
+    secs = time.time() - t0
+    counts = _all_counts()
+    steps = counts["swin_attn_bwd_f32"] // 10
+    print(f"[f32 ft] finetune_classifier operaCT float32 fused_train=True, {smi}: one epoch of "
+          f"{tr} clips at B={F32_FT_ROWS} in {secs:.1f} s; valid AUROC {res.valid_auc:.4f}, test "
+          f"AUROC {res.test_auc:.4f}; launches {counts}", flush=True)
+    _require(math.isfinite(res.valid_auc) and math.isfinite(res.test_auc),
+             f"float32 fine-tuning AUROCs {res.valid_auc} {res.test_auc}")
+    _require(steps == tr // F32_FT_ROWS and counts["swin_mlp_bwd_f32"] == 10 * steps
+             and counts["swin_wgrad_f32"] == 40 * steps and counts["swin_reduce"] == 20 * steps
+             and not any(counts[q] for q in ("swin_attn", "swin_mlp", "swin_attn_bwd",
+                                             "swin_mlp_bwd", "swin_wgrad")),
+             f"float32 fine-tuning launches {counts}")
+
+
+def phase_f32_train(smi: str, dev):
+    """Phase 36: float32 training through K8's float32 mode. (a) the
+    float32 train kernels against their plain versions; (b) a float32 COLA
+    step with fused_train=True against the strict-float32 autograd route at
+    phase 8's crops; (c) cli.pretrain fused_train=True at float32, whose
+    launches are the kernels JSON's; (d) operaCT fine-tuning at float32 with
+    fused_train=True. Returns ((a)'s measurements, (c)'s launch counts)."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.models.htsat import HTSATConfig
+
+    t_phase = time.time()
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip()
+    peak = _f32_peak(clock, torch.cuda.get_device_properties(0).multi_processor_count)
+    meas = _f32_train_kernels(dev, peak, HTSATConfig().depths[:3])
+    torch.cuda.empty_cache()
+    for crop in F32_CROPS:
+        _f32_cola_step(dev, smi, crop)
+    counts = _f32_cli(smi)
+    counts["swin_reduce@f32"] = counts["swin_reduce"]
+    torch.cuda.empty_cache()
+    _f32_finetune(smi)
+    print(f"[f32 train] phase 36 took {time.time() - t_phase:.1f} s", flush=True)
+    return meas, counts
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -5022,6 +5369,15 @@ KERNEL_SOURCES = {
                       "heart_murmur_detection_tpu/ops/pallas_swin.py:97"),
     "swin_mlp_f32": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp_f32.cu",
                      "heart_murmur_detection_tpu/ops/pallas_swin.py:388"),
+    # the float32 mode of K8 (the TPU backward bodies at mm_dtype=float32)
+    "swin_attn_bwd_f32": ("heart_murmur_detection_tpu_torch/csrc/swin_attn_bwd_f32.cu",
+                          "heart_murmur_detection_tpu/ops/pallas_swin_train.py:320"),
+    "swin_mlp_bwd_f32": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp_bwd_f32.cu",
+                         "heart_murmur_detection_tpu/ops/pallas_swin_train.py:271"),
+    "swin_wgrad_f32": ("heart_murmur_detection_tpu_torch/csrc/swin_wgrad_f32.cu",
+                       "heart_murmur_detection_tpu/ops/pallas_swin_train.py:606"),
+    "swin_reduce@f32": ("heart_murmur_detection_tpu_torch/csrc/swin_wgrad.cu",
+                        "heart_murmur_detection_tpu/ops/pallas_swin_train.py:606"),
 }
 
 
@@ -5147,6 +5503,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_meas, f32_counts = phase_f32(smi, dev)
     _tick("phase 35")
+    torch.cuda.empty_cache()
+    f32_train_meas, f32_train_counts = phase_f32_train(smi, dev)
+    _tick("phase 36")
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths
@@ -5172,6 +5531,7 @@ def main() -> int:
                         {f"{k}@long": long_counts[k] for k in ("swin_attn", "swin_mlp")},
                         KERNEL_SOURCES)
     kernels += _entries(f32_meas, f32_counts, KERNEL_SOURCES)
+    kernels += _entries(f32_train_meas, f32_train_counts, KERNEL_SOURCES)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -97,28 +97,30 @@ def _grad_call(out, inputs, g):
     return lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
 
 
-def mlp_bwd_chain(h1, dy, k, p, eps):
+def mlp_bwd_chain(h1, dy, k, p, eps, dtype=torch.bfloat16):
     """The MLP half's backward as the autograd backward of library calls in
-    bf16 on the same inputs (h1 (..., C), the kernel layout p, a per-sample
-    multiplier k or None): a closure of one backward call."""
-    bf = lambda t: t.detach().to(torch.bfloat16).requires_grad_()
+    `dtype` (bf16, or float32 with TF32 left to the caller) on the same
+    inputs (h1 (..., C), the kernel layout p, a per-sample multiplier k or
+    None): a closure of one backward call."""
+    bf = lambda t: t.detach().to(dtype).requires_grad_()
     C = h1.shape[-1]
     x = h1.detach().reshape(h1.shape[0], -1, C).requires_grad_()
     lw, lb, w1, b1, w2, b2 = (bf(t) for t in (p.ln2_w, p.ln2_b, p.w_fc1, p.b_fc1, p.w_fc2, p.b_fc2))
     m = F.linear(F.gelu(F.linear(F.layer_norm(x, (C,), lw, lb, eps), w1, b1)), w2, b2)
     if k is not None:
-        m = k.to(torch.bfloat16).reshape(-1, 1, 1) * m
+        m = k.to(dtype).reshape(-1, 1, 1) * m
     return _grad_call(x + m, (x, lw, lb, w1, b1, w2, b2), dy.reshape(x.shape))
 
 
-def attn_bwd_chain(x, dh1, k, p, mask=None, shift=0):
+def attn_bwd_chain(x, dh1, k, p, mask=None, shift=0, dtype=torch.bfloat16):
     """The attention half's backward as the autograd backward of library
-    calls in bf16 on the same inputs (x (B, H, W, C), the kernel layout p
-    with its padded q / k / v rows taken back to hd, the gathered rel-pos
-    bias, the mask, the multiplier k): a closure of one backward call."""
+    calls in `dtype` (bf16, or float32) on the same inputs (x (B, H, W, C),
+    the kernel layout p with its padded q / k / v rows taken back to hd, the
+    gathered rel-pos bias, the mask, the multiplier k): a closure of one
+    backward call."""
     B, H, W, C = x.shape
     heads, hd = p.heads, p.hd
-    bf = lambda t: t.detach().to(torch.bfloat16).requires_grad_()
+    bf = lambda t: t.detach().to(dtype).requires_grad_()
     rows = lambda t: t.reshape(3, heads, -1, *t.shape[1:])[:, :, :hd].reshape(3 * C, *t.shape[1:])
     lw, lb, wq, bq, wp, bp, bias = (bf(t) for t in (p.ln1_w, p.ln1_b, rows(p.w_qkv), rows(p.b_qkv),
                                                     p.w_proj, p.b_proj, p.bias))
@@ -129,9 +131,9 @@ def attn_bwd_chain(x, dh1, k, p, mask=None, shift=0):
     q, kk, v = qkv.reshape(-1, 64, 3, heads, hd).permute(2, 0, 3, 1, 4)
     s = (q * hd ** -0.5) @ kk.transpose(-1, -2) + bias
     if mask is not None:
-        s = (s.reshape(B, -1, heads, 64, 64) + mask.to(torch.bfloat16)[None, :, None]).reshape(s.shape)
+        s = (s.reshape(B, -1, heads, 64, 64) + mask.to(dtype)[None, :, None]).reshape(s.shape)
     o = (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(-1, 64, C)
-    y = (F.linear(o, wp, bp).reshape(B, -1, 64, C) * k.to(torch.bfloat16).reshape(-1, 1, 1, 1))
+    y = (F.linear(o, wp, bp).reshape(B, -1, 64, C) * k.to(dtype).reshape(-1, 1, 1, 1))
     y = y.reshape(B, H // 8, W // 8, 8, 8, C).permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, C)
     y = torch.roll(y, (shift, shift), (1, 2)) if shift else y
     return _grad_call(xi + y, (xi, lw, lb, wq, bq, wp, bp, bias), dh1)

@@ -108,7 +108,9 @@ def htsat_encode_train(
     input gradient of analysis/saliency.py takes this route). mm_dtype bf16 runs stages up to
     max_fused_dim through the train kernels in bf16 (impl: see
     ops.swin_train.fused_swin_block_train); float32 runs every block in
-    float32. deterministic=True keeps the DropPath multipliers at 1. mesh:
+    float32, the same stages through the train kernels' float32 mode
+    (swin_attn_f32 / swin_mlp_f32 forward, swin_attn_bwd_f32 /
+    swin_mlp_bwd_f32 / swin_wgrad_f32 backward on a card). deterministic=True keeps the DropPath multipliers at 1. mesh:
     this rank's share of a data-parallel batch, bn0 on the global
     statistics (bn_train). A model placed by parallel.tensor.shard_model
     runs its blocks through models/tp_blocks.swin_block (plain route)."""

@@ -58,8 +58,23 @@ _SIGNATURES = {
     # da1_g, part, dm_ws, n_tokens, C, hidden, hw, and the plan: panel_rows,
     # stages, grid; eps, stream
     "swin_mlp_bwd_launch": [_vp] * 15 + [_i] * 7 + [_f, _vp],
+    # h1, dy, kmul, dh1, ln_w, ln_b, w_fc1, b_fc1, w_fc2, m_g, g_g, dyk_g,
+    # da1_g, part, dm_ws, w1t_ws, w2t_ws, n_tokens, C, hidden, hw, and the
+    # plan (ops/swin_plan.py::mlp_bwd_f32_plan): the row pass's blocks, the
+    # product's tile rows, columns, threads and shared bytes, the row
+    # kernels' threads; eps, stream
+    "swin_mlp_bwd_f32_launch": [_vp] * 17 + [_i] * 10 + [_f, _vp],
+    # x, dh1, kmul, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, bias, mask, h_g,
+    # dw_g, opre_g, dqkv_g, part, d_ws, wpt_ws, wqt_ws, B, H, W, C, heads,
+    # shift, and the plan (attn_bwd_f32_plan): the core's runs, threads and
+    # shared bytes, the product's tile rows, columns, threads and shared
+    # bytes, the row kernels' threads; stream
+    "swin_attn_bwd_f32_launch": [_vp] * 19 + [_i] * 14 + [_vp],
     # a, b, out, ws, cnt, n, M, N, chunk, group, rows, stream
     "swin_wgrad_launch": [_vp] * 5 + [_i] * 6 + [_vp],
+    # a, b, out, ws, n, M, N, and the plan (wgrad_f32_plan): chunk, the tile
+    # side, threads; stream
+    "swin_wgrad_f32_launch": [_vp] * 4 + [_i] * 6 + [_vp],
     # ws, out, S, L, stream
     "swin_reduce_launch": [_vp] * 2 + [_i] * 2 + [_vp],
     # x, qkv, h_out, w_qkv, b_qkv, ln_w, ln_b, n_tokens, Np, C, heads, eps, stream

@@ -2,14 +2,16 @@
 host in one place: the wgmma forward kernels csrc/swin_mlp.cu (swin_mlp,
 and vit_mlp with LN eps 1e-6) and csrc/swin_attn.cu (swin_attn), the
 backward kernels csrc/swin_mlp_bwd.cu (swin_mlp_bwd and vit_mlp_bwd) and
-csrc/swin_attn_bwd.cu (swin_attn_bwd), and the float32 forward kernels
+csrc/swin_attn_bwd.cu (swin_attn_bwd), the float32 forward kernels
 csrc/swin_attn_f32.cu and csrc/swin_mlp_f32.cu (fixed tiles: a core block
-a (window, head), a product block a 64 x 96 output tile). The wrappers in
+a (window, head), a product block a 64 x 96 output tile) and the float32
+backward kernels (below). The wrappers in
 ops/swin.py, ops/vit.py, ops/swin_train.py and ops/vit_train.py pass a
 plan's numbers to the launch, which checks them against the kernel's
 compiled configuration; the CPU tests (tests/test_torch_swin_plan.py,
-tests/test_torch_bwd_plan.py, tests/test_torch_swin_f32.py) enumerate the
-plans of every geometry the towers launch.
+tests/test_torch_bwd_plan.py, tests/test_torch_swin_f32.py,
+tests/test_torch_swin_train_f32.py) enumerate the plans of every geometry
+the towers launch.
 
 swin_mlp: a block owns a panel of token rows (128 at C <= 192, where each
 warpgroup holds 64 rows and every output column; 64 at C >= 384, where the
@@ -40,7 +42,17 @@ applies the LayerNorm backward. The float32 partial rows that swin_reduce
 sums are the chunk kernel's (one a warp's rows of a block: 8 a block at
 C <= 192, 4 above) or the window kernel's (4, 2, 1 a block at C = 96, 192,
 384); the row pass has a block for each of them, which fills the row's
-last 3 C columns. Nothing here touches a card.
+last 3 C columns.
+
+The float32 backward kernels (csrc/swin_mlp_bwd_f32.cu,
+csrc/swin_attn_bwd_f32.cu, csrc/swin_wgrad_f32.cu) split their work by
+fixed numbers rather than the SM count, so that every sum's order depends
+on the shapes alone: the MLP row pass over F32_MLP_BWD_ROWS contiguous
+token runs (its partial rows), the attention core over about
+F32_ATTN_BWD_BLOCKS (window run, head) blocks (the runs are its partial
+rows, and the row pass has a block for each), the weight products over
+about F32_WGRAD_BLOCKS (96 x 96 tile, token chunk) blocks. Nothing here
+touches a card.
 """
 
 from __future__ import annotations
@@ -596,3 +608,180 @@ def _attn_bwd_plan(B: int, H: int, W: int, C: int, heads: int, sms: int) -> Attn
     plan = AttnBwdPlan(B, H, W, C, heads, 0, 1)
     stages = min(MAX_BWD_STAGES, (SMEM_LIMIT - plan.smem_bytes) // (HSTAGE + 16))
     return dataclasses.replace(plan, stages=stages, grid=min(plan.windows, sms))
+
+
+# ---------------------------------------------------------------------------
+# the float32 backward kernels (csrc/swin_mlp_bwd_f32.cu,
+# csrc/swin_attn_bwd_f32.cu, csrc/swin_wgrad_f32.cu)
+# ---------------------------------------------------------------------------
+
+F32_ROW_THREADS = 256  # the LayerNorm row kernels: a warp a token (RTHREADS)
+F32_ROW_WARPS = F32_ROW_THREADS // 32
+# blocks of the row pass of swin_mlp_bwd_f32 (its partial rows); of the
+# core of swin_attn_bwd_f32 over its (window run, head) pairs; and of the
+# first swin_wgrad_f32 launch: a few per SM at the card's 132 (fixed
+# numbers, so that every sum's order depends on the shapes alone)
+F32_MLP_BWD_ROWS = 528
+F32_ATTN_BWD_BLOCKS = 1056
+F32_WGRAD_BLOCKS = 264
+F32_BWD_THREADS = 128  # a core block of swin_attn_bwd_f32 (BTHREADS)
+F32_WGRAD_TILE = 96  # swin_wgrad_f32's output tile side (WT)
+F32_WGRAD_K = 16  # its tokens a step (WK)
+F32_WGRAD_THREADS = 192  # WTHREADS
+
+
+def _runs(total: int, grid: int) -> List[Tuple[int, Tuple[int, int]]]:
+    """(block, [first, last)) of each of `grid` blocks over `total` units,
+    block q taking [total q / G, total (q + 1) / G), as the kernels split."""
+    return [(q, (total * q // grid, total * (q + 1) // grid)) for q in range(grid)]
+
+
+def ln_bwd_smem_bytes(C: int) -> int:
+    """The row pass's shared bytes: each warp's three column sums of C."""
+    return 4 * F32_ROW_WARPS * 3 * C
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpBwdF32Plan:
+    n_tokens: int
+    C: int
+    hidden: int
+    grid: int  # row-pass blocks, one partial row each
+    fc1: GemmF32Plan  # LN2(h1) W1^T + b1 -> GELU(a1) and a1
+    dg: GemmF32Plan  # (k dy) W2 times GELU'(a1) -> da1
+    dm: GemmF32Plan  # da1 W1 -> the dm workspace
+
+    @property
+    def part_rows(self) -> int:
+        return self.grid
+
+    @property
+    def part_cols(self) -> int:
+        """[db1 (hidden) | db2 | dLN2 w | dLN2 b (C each)]."""
+        return self.hidden + 3 * self.C
+
+    @property
+    def row_smem_bytes(self) -> int:
+        return ln_bwd_smem_bytes(self.C)
+
+    def rp_blocks(self) -> List[Tuple[int, Tuple[int, int]]]:
+        """(block, [first, last) token) of each row-pass block."""
+        return _runs(self.n_tokens, self.grid)
+
+
+def mlp_bwd_f32_plan(n_tokens: int, C: int, hidden: int) -> MlpBwdF32Plan:
+    """The swin_mlp_bwd_f32 launches for n_tokens rows of width C; a
+    ValueError for a geometry the kernels do not take."""
+    if C not in WIDTHS[:3] or hidden <= 0 or hidden % F32_TILE_COLS:
+        raise ValueError(f"the float32 MLP backward takes C in {WIDTHS[:3]} and a hidden width "
+                         f"in 96s, got C {C}, hidden {hidden}")
+    return MlpBwdF32Plan(n_tokens, C, hidden, min(F32_MLP_BWD_ROWS, n_tokens // F32_TILE_ROWS),
+                         _gemm_f32(n_tokens, hidden, C), _gemm_f32(n_tokens, hidden, C),
+                         _gemm_f32(n_tokens, C, hidden))
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnBwdF32Plan:
+    B: int
+    H: int
+    W: int
+    C: int
+    heads: int
+    grid: int  # the core's window runs (a block a run and head), and the row pass's blocks
+    qkv: GemmF32Plan  # LN1(x) W_qkv^T + b_qkv -> the dqkv rows
+    do: GemmF32Plan  # (k1 dh1) W_proj -> the workspace
+    dh: GemmF32Plan  # dqkv W_qkv -> the workspace
+
+    @property
+    def windows(self) -> int:
+        return self.B * (self.H // 8) * (self.W // 8)
+
+    @property
+    def n_tokens(self) -> int:
+        return 64 * self.windows
+
+    @property
+    def core_grid(self) -> Tuple[int, int]:
+        return self.grid, self.heads
+
+    @property
+    def core_smem_bytes(self) -> int:
+        # q^T and do^T (rows padded by 4), k^T and v^T, q, k, v and do
+        # row-major, P and dS (rows padded by 1), the dq | dk | dv tile
+        hd = F32_HD
+        return 4 * (2 * hd * 68 + 2 * hd * 64 + 4 * 64 * hd + 2 * 64 * 65 + 64 * (3 * hd + 1))
+
+    @property
+    def row_smem_bytes(self) -> int:
+        return ln_bwd_smem_bytes(self.C)
+
+    @property
+    def part_rows(self) -> int:
+        return self.grid
+
+    @property
+    def part_cols(self) -> int:
+        """[dbias (heads 64 64) | db_qkv (3 heads 32) | db_proj | dLN1 w | dLN1 b]."""
+        return self.heads * 64 * 64 + 3 * self.heads * HDP + 3 * self.C
+
+    def blocks(self) -> List[Tuple[int, Tuple[int, int]]]:
+        """(block, [first, last) window) of each core run (every head)."""
+        return _runs(self.windows, self.grid)
+
+    def rp_blocks(self) -> List[Tuple[int, Tuple[int, int]]]:
+        return _runs(self.n_tokens, self.grid)
+
+
+def attn_bwd_f32_plan(B: int, H: int, W: int, C: int, heads: int) -> AttnBwdF32Plan:
+    """The swin_attn_bwd_f32 launches for x (B, H, W, C) with `heads`
+    heads; a ValueError for a geometry the kernels do not take."""
+    if C not in WIDTHS[:3] or B <= 0 or H <= 0 or W <= 0 or H % 8 or W % 8:
+        raise ValueError(f"the float32 attention backward takes C in {WIDTHS[:3]} and H, W "
+                         f"multiples of 8, got {(B, H, W, C)}")
+    if heads * F32_HD != C:
+        raise ValueError(f"the float32 attention backward takes a head dim of {F32_HD}, got C "
+                         f"{C} with {heads} heads")
+    windows = B * (H // 8) * (W // 8)
+    n, Cp3 = 64 * windows, 3 * heads * HDP
+    grid = min(windows, _cdiv(F32_ATTN_BWD_BLOCKS, heads))
+    return AttnBwdF32Plan(B, H, W, C, heads, grid, _gemm_f32(n, Cp3, C), _gemm_f32(n, C, C),
+                          _gemm_f32(n, C, Cp3))
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradF32Plan:
+    n: int
+    M: int
+    N: int
+    chunk: int  # tokens a chunk, a multiple of 64
+
+    @property
+    def S(self) -> int:
+        return _cdiv(self.n, self.chunk)
+
+    @property
+    def tiles(self) -> int:
+        return (self.M // F32_WGRAD_TILE) * (self.N // F32_WGRAD_TILE)
+
+    @property
+    def ws_floats(self) -> int:
+        """The chunks' partial products, when there is more than one."""
+        return self.S * self.M * self.N if self.S > 1 else 0
+
+    def chunks(self) -> List[Tuple[int, int]]:
+        return [(s * self.chunk, min(self.n, (s + 1) * self.chunk)) for s in range(self.S)]
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_f32_plan(n: int, M: int, N: int) -> WgradF32Plan:
+    """swin_wgrad_f32's split of an (n, M) x (n, N) product over token
+    chunks, fixed by the shapes alone: about F32_WGRAD_BLOCKS (tile, chunk)
+    blocks, each chunk a multiple of 64 tokens; a ValueError for a shape
+    the kernel does not take."""
+    if n <= 0 or n % 64 or M <= 0 or M % F32_WGRAD_TILE or N <= 0 or N % F32_WGRAD_TILE:
+        raise ValueError(f"the float32 weight product takes n in 64s and widths in 96s, got "
+                         f"({n}, {M}) x ({n}, {N})")
+    tiles = (M // F32_WGRAD_TILE) * (N // F32_WGRAD_TILE)
+    steps = n // 64
+    S = max(1, min(steps, F32_WGRAD_BLOCKS // tiles))
+    return WgradF32Plan(n, M, N, _cdiv(steps, S) * 64)

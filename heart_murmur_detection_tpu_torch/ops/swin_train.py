@@ -20,6 +20,15 @@ heart_murmur_detection_tpu/ops/pallas_swin_train.py::fused_swin_block_train
                            float32 partials summed in chunk order
              swin_reduce   sums the per-block column-sum rows in block order
 
+The float32 mode (float32 activations and weights, mm_dtype=float32: the
+TPU bodies at Precision.HIGHEST) has kernels of its own on the CUDA cores,
+counted apart: swin_mlp_bwd_f32 (csrc/swin_mlp_bwd_f32.cu), swin_attn_bwd_f32
+(csrc/swin_attn_bwd_f32.cu) and swin_wgrad_f32 (csrc/swin_wgrad_f32.cu; its
+chunks summed in order by swin_reduce's kernel); the forward halves are
+ops/swin.py's swin_attn_f32 / swin_mlp_f32 with the multipliers. They emit
+the same operand rows and partial rows in float32, and swin_reduce sums
+those partials.
+
 The TPU kernels accumulate weight gradients in a VMEM block that stays
 resident across their sequential grid. CUDA blocks run in no order, so here
 nothing is summed with atomics: the backward kernels emit the per-token
@@ -46,7 +55,8 @@ round at the same points, so in float32 they are the exact gradient of the
 plain forward.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA bfloat16 tensor
-launches the kernels; any other CUDA dtype raises. impl="plain" runs the
+launches the bf16 kernels, CUDA float32 activations with float32 weights
+the float32 kernels; any other CUDA pairing raises. impl="plain" runs the
 plain versions on any device; impl="autograd" differentiates the plain
 forward with torch autograd (the strict float32 path).
 """
@@ -73,7 +83,20 @@ from .swin import (
     _ptr,
     sm_count,
 )
-from .swin_plan import attn_bwd_plan, mlp_bwd_plan
+from .swin_plan import (
+    F32_BWD_THREADS,
+    F32_ROW_THREADS,
+    F32_THREADS,
+    F32_TILE_COLS,
+    F32_TILE_ROWS,
+    F32_WGRAD_THREADS,
+    F32_WGRAD_TILE,
+    attn_bwd_f32_plan,
+    attn_bwd_plan,
+    mlp_bwd_f32_plan,
+    mlp_bwd_plan,
+    wgrad_f32_plan,
+)
 
 _SQRT1_2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -309,11 +332,13 @@ def swin_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     in group order."""
     if a.device.type == "cpu":
         return wgrad_ref(a, b)
+    if (a.dtype, b.dtype) == (torch.float32, torch.float32):
+        return swin_wgrad_f32(a, b)
     a, b = a.contiguous(), b.contiguous()
     n, M = a.shape
     Nn = b.shape[1]
     if (a.dtype, b.dtype) != (torch.bfloat16, torch.bfloat16) or b.shape[0] != n:
-        raise TypeError("swin_wgrad takes two bfloat16 (n, *) operands")
+        raise TypeError("swin_wgrad takes two bfloat16 or two float32 (n, *) operands")
     if n % TOKEN_TILE or M % 32 or Nn % 32:
         raise ValueError(f"swin_wgrad takes n a multiple of 64 and widths multiples of 32, "
                          f"got {tuple(a.shape)} x {tuple(b.shape)}")
@@ -339,6 +364,33 @@ def swin_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def swin_wgrad_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b over the token axis in float32: a (n, M), b (n, N) float32 ->
+    (M, N) float32 on the CUDA cores (csrc/swin_wgrad_f32.cu), the token
+    chunks of ops/swin_plan.py::wgrad_f32_plan summed in chunk order; the
+    plain version on the CPU."""
+    if a.device.type == "cpu":
+        return wgrad_ref(a, b)
+    a, b = a.contiguous(), b.contiguous()
+    if (a.dtype, b.dtype) != (torch.float32, torch.float32) or b.dim() != 2 or a.dim() != 2 \
+            or b.shape[0] != a.shape[0]:
+        raise TypeError("swin_wgrad_f32 takes two float32 (n, *) operands")
+    if a.device != b.device:
+        raise ValueError("swin_wgrad_f32 takes two tensors on one card")
+    (n, M), Nn = a.shape, b.shape[1]
+    plan = wgrad_f32_plan(n, M, Nn)
+    _check_aligned(a, b)
+    out = torch.empty(M, Nn, dtype=torch.float32, device=a.device)
+    ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=a.device) if plan.S > 1 else None
+    rc = _lib().swin_wgrad_f32_launch(
+        _ptr(a), _ptr(b), _ptr(out), _ptr(ws), n, M, Nn, plan.chunk, F32_WGRAD_TILE,
+        F32_WGRAD_THREADS, _cuda_stream(a),
+    )
+    _check_launch("swin_wgrad_f32", rc)
+    swin_wgrad_f32.launches += 1
+    return out
+
+
 def swin_reduce(parts: torch.Tensor) -> torch.Tensor:
     """Sum float32 partials (S, L) over S in row order -> (L,). Most of a
     step's calls take a few microseconds on the card, less than their host
@@ -357,8 +409,8 @@ def swin_reduce(parts: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _check_bwd_args(x, g, k, p):
-    _check_cuda_args(x, p, WINDOW)
+def _check_bwd_args(x, g, k, p, dtype=torch.bfloat16):
+    _check_cuda_args(x, p, WINDOW, dtype)
     if x.shape[-1] > 384:
         raise ValueError("the backward kernels take C <= 384 (stage 3 trains as a plain block)")
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -406,25 +458,85 @@ def swin_mlp_bwd_launch(h1, dy, k2, p: SwinBlockParams):
     return dh1.view(h1.shape), rows, part
 
 
+def mlp_bwd_f32_launch(name: str, h1, dy, kmul, p, hw: int, eps: float):
+    """One call of csrc/swin_mlp_bwd_f32.cu (seven grid launches) on its
+    plan (ops/swin_plan.py::mlp_bwd_f32_plan): h1, dy (n, C) float32 views
+    of contiguous tensors, kmul (B,) or None (1), hw tokens a sample.
+    Returns (dh1 (n, C), (LN2(h1), GELU(a1), k2 dy, da1) operand rows,
+    partial rows [db1 | db2 | dLN2 w | dLN2 b])."""
+    n, C = h1.shape
+    hidden = p.w_fc1.shape[0]
+    plan = mlp_bwd_f32_plan(n, C, hidden)
+    _check_aligned(h1, dy, p.w_fc1, p.w_fc2)
+    e = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=h1.device)
+    m_g, dyk_g, g_g, da1_g = e(n, C), e(n, C), e(n, hidden), e(n, hidden)
+    part = e(plan.part_rows, plan.part_cols)
+    dm_ws, w1t_ws, w2t_ws = e(n, C), e(C, hidden), e(hidden, C)
+    dh1 = torch.empty_like(h1)
+    rc = _lib().swin_mlp_bwd_f32_launch(
+        _ptr(h1), _ptr(dy), _ptr(kmul), _ptr(dh1), _ptr(p.ln2_w), _ptr(p.ln2_b),
+        _ptr(p.w_fc1), _ptr(p.b_fc1), _ptr(p.w_fc2),
+        _ptr(m_g), _ptr(g_g), _ptr(dyk_g), _ptr(da1_g), _ptr(part), _ptr(dm_ws),
+        _ptr(w1t_ws), _ptr(w2t_ws), n, C, hidden, hw, plan.grid, F32_TILE_ROWS, F32_TILE_COLS,
+        F32_THREADS, plan.fc1.smem_bytes, F32_ROW_THREADS, eps, _cuda_stream(h1),
+    )
+    _check_launch(name, rc)
+    return dh1, (m_g, g_g, dyk_g, da1_g), part
+
+
+def swin_mlp_bwd_f32_launch(h1, dy, k2, p: SwinBlockParams):
+    """The swin_mlp_bwd_f32 call on CUDA float32 tensors: (dh1, (LN2(h1),
+    GELU(a1), k2 dy, da1) operand rows, partial rows [db1 | db2 | dLN2 w |
+    dLN2 b])."""
+    dy, k2 = _check_bwd_args(h1, dy, k2, p, torch.float32)
+    B, H, W, C = h1.shape
+    dh1, rows, part = mlp_bwd_f32_launch("swin_mlp_bwd_f32", h1.view(-1, C), dy.view(-1, C), k2,
+                                         p, H * W, 1e-5)
+    swin_mlp_bwd_f32.launches += 1
+    return dh1.view(h1.shape), rows, part
+
+
+def _mlp_grads(dh1, rows, part, p: SwinBlockParams, weights: bool, wgrad):
+    """(dh1, the MLP half's gradients) from a backward call's operand and
+    partial rows: swin_reduce and two weight products (none if not
+    weights)."""
+    if not weights:
+        return dh1, {}
+    m_g, g_g, dyk_g, da1_g = rows
+    C, hidden = dh1.shape[-1], p.w_fc1.shape[0]
+    db1, db2, dln2w, dln2b = swin_reduce(part).split([hidden, C, C, C])
+    return dh1, {
+        "ln2_w": dln2w, "ln2_b": dln2b,
+        "w_fc1": wgrad(da1_g, m_g), "b_fc1": db1,
+        "w_fc2": wgrad(dyk_g, g_g), "b_fc2": db2,
+    }
+
+
 def swin_mlp_bwd(
     h1: torch.Tensor, dy: torch.Tensor, k2: torch.Tensor, p: SwinBlockParams,
     weights: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Backward of the MLP half (see swin_mlp_bwd_ref for the math).
-    weights=False returns dh1 alone on a card (no swin_reduce or swin_wgrad
-    launch; dh1 is the same bits)."""
+    """Backward of the MLP half (see swin_mlp_bwd_ref for the math); a
+    float32 block on a card takes swin_mlp_bwd_f32. weights=False returns
+    dh1 alone on a card (no swin_reduce or swin_wgrad launch; dh1 is the
+    same bits)."""
     if h1.device.type == "cpu":
         return swin_mlp_bwd_ref(h1, dy, k2, p)
-    dh1, (m_g, g_g, dyk_g, da1_g), part = swin_mlp_bwd_launch(h1, dy, k2, p)
-    if not weights:
-        return dh1, {}
-    C, hidden = h1.shape[-1], p.w_fc1.shape[0]
-    db1, db2, dln2w, dln2b = swin_reduce(part).split([hidden, C, C, C])
-    return dh1, {
-        "ln2_w": dln2w, "ln2_b": dln2b,
-        "w_fc1": swin_wgrad(da1_g, m_g), "b_fc1": db1,
-        "w_fc2": swin_wgrad(dyk_g, g_g), "b_fc2": db2,
-    }
+    if swin._is_f32(h1, p):
+        return swin_mlp_bwd_f32(h1, dy, k2, p, weights)
+    return _mlp_grads(*swin_mlp_bwd_launch(h1, dy, k2, p), p, weights, swin_wgrad)
+
+
+def swin_mlp_bwd_f32(
+    h1: torch.Tensor, dy: torch.Tensor, k2: torch.Tensor, p: SwinBlockParams,
+    weights: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Backward of the MLP half in float32 (h1, dy and p float32; see
+    swin_mlp_bwd_ref for the math): csrc/swin_mlp_bwd_f32.cu and
+    swin_wgrad_f32 on a card, the plain version on the CPU."""
+    if h1.device.type == "cpu":
+        return swin_mlp_bwd_ref(h1, dy, k2, p)
+    return _mlp_grads(*swin_mlp_bwd_f32_launch(h1, dy, k2, p), p, weights, swin_wgrad_f32)
 
 
 def swin_attn_bwd_launch(x, dh1, k1, p: SwinBlockParams, mask=None, shift: int = 0):
@@ -459,6 +571,52 @@ def swin_attn_bwd_launch(x, dh1, k1, p: SwinBlockParams, mask=None, shift: int =
     return dx, (h_g, dw_g, opre_g, dqkv_g), part
 
 
+def swin_attn_bwd_f32_launch(x, dh1, k1, p: SwinBlockParams, mask=None, shift: int = 0):
+    """The swin_attn_bwd_f32 call on CUDA float32 tensors (eight grid
+    launches): (dx, (LN1(x), k1 dh1, o_pre, dqkv) operand rows in window
+    order, partial rows [dbias | db_qkv | db_proj | dLN1 w | dLN1 b])."""
+    dh1, k1 = _check_bwd_args(x, dh1, k1, p, torch.float32)
+    mask = swin._check_mask(mask, x)
+    B, H, W, C = x.shape
+    heads = p.heads
+    plan = attn_bwd_f32_plan(B, H, W, C, heads)
+    _check_aligned(x, dh1, p.w_qkv, p.w_proj)
+    n, Cp3 = plan.n_tokens, 3 * heads * HDP
+    e = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=x.device)
+    h_g, dw_g, opre_g, dqkv_g = e(n, C), e(n, C), e(n, C), e(n, Cp3)
+    part = e(plan.part_rows, plan.part_cols)
+    d_ws, wpt_ws, wqt_ws = e(n, C), e(C, C), e(C, Cp3)
+    dx = torch.empty_like(x)
+    rc = _lib().swin_attn_bwd_f32_launch(
+        _ptr(x), _ptr(dh1), _ptr(k1), _ptr(dx), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.w_proj),
+        _ptr(p.ln1_w), _ptr(p.ln1_b), _ptr(p.bias), _ptr(mask),
+        _ptr(h_g), _ptr(dw_g), _ptr(opre_g), _ptr(dqkv_g), _ptr(part), _ptr(d_ws), _ptr(wpt_ws),
+        _ptr(wqt_ws), B, H, W, C, heads, shift, plan.grid, F32_BWD_THREADS, plan.core_smem_bytes,
+        F32_TILE_ROWS, F32_TILE_COLS, F32_THREADS, plan.qkv.smem_bytes, F32_ROW_THREADS,
+        _cuda_stream(x),
+    )
+    _check_launch("swin_attn_bwd_f32", rc)
+    swin_attn_bwd_f32.launches += 1
+    return dx, (h_g, dw_g, opre_g, dqkv_g), part
+
+
+def _attn_grads(dx, rows, part, p: SwinBlockParams, weights: bool, wgrad):
+    """(dx, the attention half's gradients) from a backward call's operand
+    and partial rows, as _mlp_grads."""
+    if not weights:
+        return dx, {}
+    h_g, dw_g, opre_g, dqkv_g = rows
+    C, heads = dx.shape[-1], p.heads
+    nb, Cp3 = heads * 64 * 64, 3 * heads * HDP
+    dbias, dbqkv, dbproj, dln1w, dln1b = swin_reduce(part).split([nb, Cp3, C, C, C])
+    return dx, {
+        "ln1_w": dln1w, "ln1_b": dln1b,
+        "w_qkv": wgrad(dqkv_g, h_g), "b_qkv": dbqkv,
+        "w_proj": wgrad(dw_g, opre_g), "b_proj": dbproj,
+        "bias": dbias.reshape(heads, 64, 64),
+    }
+
+
 def swin_attn_bwd(
     x: torch.Tensor,
     dh1: torch.Tensor,
@@ -469,31 +627,48 @@ def swin_attn_bwd(
     window: int = WINDOW,
     weights: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Backward of the attention half (see swin_attn_bwd_ref for the math).
-    weights=False returns dx alone on a card, as swin_mlp_bwd does."""
+    """Backward of the attention half (see swin_attn_bwd_ref for the math);
+    a float32 block on a card takes swin_attn_bwd_f32. weights=False returns
+    dx alone on a card, as swin_mlp_bwd does."""
     if x.device.type == "cpu":
         return swin_attn_bwd_ref(x, dh1, k1, p, mask, shift, window)
     if window != WINDOW:
         raise ValueError(f"the kernels take window {WINDOW}, got {window}")
-    dx, (h_g, dw_g, opre_g, dqkv_g), part = swin_attn_bwd_launch(x, dh1, k1, p, mask, shift)
-    if not weights:
-        return dx, {}
-    C, heads = x.shape[-1], p.heads
-    nb, Cp3 = heads * 64 * 64, 3 * heads * HDP
-    dbias, dbqkv, dbproj, dln1w, dln1b = swin_reduce(part).split([nb, Cp3, C, C, C])
-    return dx, {
-        "ln1_w": dln1w, "ln1_b": dln1b,
-        "w_qkv": swin_wgrad(dqkv_g, h_g), "b_qkv": dbqkv,
-        "w_proj": swin_wgrad(dw_g, opre_g), "b_proj": dbproj,
-        "bias": dbias.reshape(heads, 64, 64),
-    }
+    if swin._is_f32(x, p):
+        return swin_attn_bwd_f32(x, dh1, k1, p, mask, shift, window, weights)
+    return _attn_grads(*swin_attn_bwd_launch(x, dh1, k1, p, mask, shift), p, weights, swin_wgrad)
+
+
+def swin_attn_bwd_f32(
+    x: torch.Tensor,
+    dh1: torch.Tensor,
+    k1: torch.Tensor,
+    p: SwinBlockParams,
+    mask: Optional[torch.Tensor] = None,
+    shift: int = 0,
+    window: int = WINDOW,
+    weights: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Backward of the attention half in float32 (x, dh1 and p float32; see
+    swin_attn_bwd_ref for the math): csrc/swin_attn_bwd_f32.cu and
+    swin_wgrad_f32 on a card, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return swin_attn_bwd_ref(x, dh1, k1, p, mask, shift, window)
+    if window != WINDOW:
+        raise ValueError(f"the kernels take window {WINDOW}, got {window}")
+    return _attn_grads(*swin_attn_bwd_f32_launch(x, dh1, k1, p, mask, shift), p, weights,
+                       swin_wgrad_f32)
 
 
 swin_mlp_bwd.launches = 0
 swin_attn_bwd.launches = 0
 swin_wgrad.launches = 0
 swin_reduce.launches = 0
-swin.COUNTED.extend((swin_attn_bwd, swin_mlp_bwd, swin_wgrad, swin_reduce))
+swin_mlp_bwd_f32.launches = 0
+swin_attn_bwd_f32.launches = 0
+swin_wgrad_f32.launches = 0
+swin.COUNTED.extend((swin_attn_bwd, swin_mlp_bwd, swin_wgrad, swin_reduce,
+                     swin_attn_bwd_f32, swin_mlp_bwd_f32, swin_wgrad_f32))
 
 
 # ---------------------------------------------------------------------------
@@ -520,9 +695,11 @@ class _SwinBlockTrain(torch.autograd.Function):
             y = swin.swin_mlp_ref(h1, p, k2)
         else:
             if x.is_cuda:
-                # the train kernels take bf16: a float32 block raises here,
-                # before the forward launches
-                _check_cuda_args(x, p, _window(p))
+                # the train kernels take bf16, or float32 activations with
+                # float32 weights: any other block raises here, before the
+                # forward launches
+                _check_cuda_args(x, p, _window(p),
+                                 torch.float32 if swin._is_f32(x, p) else torch.bfloat16)
             h1 = swin.swin_attn(x, p, mask, shift, window=_window(p), kmul=k1)
             y = swin.swin_mlp(h1, p, k2)
         ctx.save_for_backward(x, h1, k1, k2, mask, *weights)

@@ -86,11 +86,13 @@ def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool]
                device: torch.device, param_sharding: Optional[str] = None, mesh=None) -> str:
     """The swin blocks' route (ops.swin_train.fused_swin_block_train impl),
     one rule with train/finetune.py::train_impl: "kernel" with fused_train
-    (None: on a card in bf16) — the train kernels for CUDA tensors, their
-    plain versions with the explicit backward for CPU tensors (the JAX fused
-    path's interpret mode); at float32 on a card the train kernels raise
-    their dtype TypeError (they take bf16), never a silent switch to
-    autograd; else "plain" in bf16 and torch "autograd" in float32.
+    (None: on a card in bf16) — the train kernels for CUDA tensors (the
+    HTS-AT's K8 in bf16 or in its float32 mode; K9, the MAE towers' ViT
+    blocks, raises its dtype TypeError at float32 on a card until its
+    float32 mode is ported, never a silent switch to autograd), their plain
+    versions with the explicit backward for CPU tensors (the JAX fused
+    path's interpret mode); else "plain" in bf16 and torch "autograd" in
+    float32.
     param_sharding (ZeRO-3, megatron) and a 2-D mesh keep the plain path,
     as the JAX package keeps its XLA graphs there; fused_train=True with
     them is a ValueError (parallel/mesh.py::plain_only)."""

@@ -460,7 +460,8 @@ def test_train_impl_routes():
     """One rule for fine-tuning and continued pretraining (COLA, and MAE
     through the same function): fused_train=True is "kernel" at float32
     too (the explicit-backward plain versions on the CPU; on a card the
-    train kernels refuse float32), never a silent switch to autograd."""
+    HTS-AT's float32 train kernels, while the ViT's K9 still refuses
+    float32), never a silent switch to autograd."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     for impl in (ft.train_impl, cola_training.train_impl):
         assert impl(torch.bfloat16, None, cuda) == "kernel"

@@ -3,7 +3,8 @@ ctypes binding (CPU), and, on a card only, each kernel against its plain
 torch version: the swin eval kernels at the four HTS-AT stage geometries (bf16, and
 the float32 mode), the swin training kernels (forward with DropPath multipliers, both backward
 halves, the weight-gradient products and the ordered reduction) at stages
-0-2 (the reduction also at the ViT backward wrappers' shapes), the ViT kernels (vit_qkv, vit_attn and vit_proj, vit_mlp) at the
+0-2 (the reduction also at the ViT backward wrappers' shapes), in bf16 and
+in their float32 mode, the ViT kernels (vit_qkv, vit_attn and vit_proj, vit_mlp) at the
 operaGT and Audio-MAE shapes, vit_attn's K10 / K11 attention modes, and the
 fused log-mel kernel (with its float64 precision check) and the polyphase
 resampler at the extraction path's shapes.
@@ -61,10 +62,12 @@ def test_signatures_pass_pointers_as_void_p():
               "vit_qkv_launch": 7, "vit_attn_launch": 2, "vit_proj_launch": 5,
               "vit_attn_bwd_launch": 16, "vit_mm_launch": 3,
               "logmel_launch": 5, "vit_qkv_rows_launch": 7, "vit_mlp_rows_launch": 10,
-              "swin_attn_f32_launch": 12, "swin_mlp_f32_launch": 10}
+              "swin_attn_f32_launch": 12, "swin_mlp_f32_launch": 10,
+              "swin_mlp_bwd_f32_launch": 17, "swin_attn_bwd_f32_launch": 19,
+              "swin_wgrad_f32_launch": 4}
     with_eps = {"swin_mlp_launch", "vit_qkv_launch", "swin_mlp_bwd_launch",
                 "vit_attn_bwd_launch", "vit_qkv_rows_launch", "vit_mlp_rows_launch",
-                "swin_mlp_f32_launch"}
+                "swin_mlp_f32_launch", "swin_mlp_bwd_f32_launch"}
     assert set(_build._SIGNATURES) == set(n_ptrs)
     for name, argtypes in _build._SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p, name  # the stream
@@ -83,7 +86,8 @@ def test_build_targets_sm90a_and_hashes_sources():
             "swin_mlp_bwd.cu", "swin_bwd_common.cuh", "swin_wgrad.cu", "vit_qkv.cu", "vit_attn.cu",
             "vit_attn_common.cuh", "vit_attn_bwd.cu", "logmel.cu", "wgmma_gemm.cuh",
             "vit_proj.cu", "vit_rows.cu", "swin_attn_f32.cu", "swin_mlp_f32.cu",
-            "swin_f32_common.cuh"} <= srcs
+            "swin_f32_common.cuh", "swin_mlp_bwd_f32.cu", "swin_attn_bwd_f32.cu",
+            "swin_wgrad_f32.cu"} <= srcs
     # the log-mel kernel is float32-exact: log10f and the FFMAs stay accurate
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     h = _build.source_hash()
@@ -204,25 +208,187 @@ def test_f32_kernels_match_plain_on_card(cuda, C, heads, H, shift, fast_softmax,
     assert n1["swin_attn"] == n0["swin_attn"] and n1["swin_mlp"] == n0["swin_mlp"]
 
 
+def _f32_counts(n0, n1):
+    """The float32 train kernels' launches between two readings, and the
+    sum of every bf16 swin kernel's."""
+    names = ("swin_attn_f32", "swin_mlp_f32", "swin_attn_bwd_f32", "swin_mlp_bwd_f32",
+             "swin_wgrad_f32", "swin_reduce")
+    bf16 = ("swin_attn", "swin_mlp", "swin_attn_bwd", "swin_mlp_bwd", "swin_wgrad")
+    return {k: n1[k] - n0[k] for k in names}, sum(n1[k] - n0[k] for k in bf16)
+
+
+F32_BRANCH_COS = 0.999999  # float32 kernel vs its plain version: dx / dh1 branch, every leaf
+F32_LEAF_REL = 1e-4  # max |kernel - plain| of a gradient leaf over its largest entry
+
+
 @pytest.mark.gpu
-def test_f32_train_kernels_raise_on_card(cuda):
-    """fused_train at float32 on a card: the train kernels take bf16 and
-    refuse a float32 block before any launch, never a switch to autograd."""
-    p = _params(96, 4, 2, cuda, torch.float32)
-    x = torch.zeros(2, 8, 8, 96, device=cuda, requires_grad=True)
+@pytest.mark.parametrize("C,heads,H,shift", [(96, 4, 64, 4), (192, 8, 32, 4), (384, 16, 16, 4)])
+@pytest.mark.parametrize("s", [0, 1])
+@pytest.mark.parametrize("B", [1, 4, 72])
+def test_f32_train_kernels_match_plain_on_card(cuda, C, heads, H, shift, s, B):
+    """swin_mlp_bwd_f32 and swin_attn_bwd_f32 (with their swin_wgrad_f32
+    products) against their plain float32 versions (TF32 off), through the
+    dispatching wrappers: dh1 and dx within 3e-5, their branches (dh1 - dy,
+    dx - dh1) and every gradient leaf at a cosine of 0.999999, each leaf
+    within 1e-4 of its largest entry, two launches bitwise equal, the padded
+    qkv gradient rows exactly 0; one launch of each backward kernel a call,
+    four weight products and two reductions, no bf16 launch."""
+    shift = shift * s
+    p = _params(C, heads, C + 1, cuda, torch.float32)
+    mask = torch.from_numpy(_shift_attn_mask(H, H, 8, shift)).to(cuda) if shift else None
+    g = torch.Generator().manual_seed(C + 2)
+    x = (torch.randn(B, H, H, C, generator=g) * 0.5).to(cuda)
+    dy = (torch.randn(B, H, H, C, generator=g) * 0.1).to(cuda)
+    k = torch.tensor([0.0, 1 / 0.9, 1.0, 1 / 0.9] * (B // 4) if B >= 4 else [1 / 0.9] * B, device=cuda)
+    h1 = swin.swin_attn_ref(x, p, mask, shift, kmul=k)
+    n0 = swin.launch_counts()
+    runs = [swin_train.swin_mlp_bwd(h1, dy, k, p) for _ in range(2)]
+    dh1_ref, gm_ref = swin_train.swin_mlp_bwd_ref(h1, dy, k, p)
+    runs_a = [swin_train.swin_attn_bwd(x, dh1_ref, k, p, mask, shift) for _ in range(2)]
+    dx_ref, ga_ref = swin_train.swin_attn_bwd_ref(x, dh1_ref, k, p, mask, shift)
+    torch.cuda.synchronize()
+    counts, bf16 = _f32_counts(n0, swin.launch_counts())
+    assert counts == {"swin_attn_f32": 0, "swin_mlp_f32": 0, "swin_attn_bwd_f32": 2,
+                      "swin_mlp_bwd_f32": 2, "swin_wgrad_f32": 8, "swin_reduce": 4} and bf16 == 0
+    for (d1, g1), (d2, g2) in (runs, runs_a):
+        assert torch.equal(d1, d2)
+        assert all(torch.equal(g1[n], g2[n]) for n in g1)
+    (dh1, gm), (dx, ga) = runs[0], runs_a[0]
+    assert float((dh1 - dh1_ref).abs().max()) <= F32_ATOL
+    assert float((dx - dx_ref).abs().max()) <= F32_ATOL
+    assert _branch_cos(dh1, dh1_ref, dy) >= F32_BRANCH_COS
+    assert _branch_cos(dx, dx_ref, dh1_ref) >= F32_BRANCH_COS
+    for got, want in ((gm, gm_ref), (ga, ga_ref)):
+        for n in want:
+            assert got[n].dtype == torch.float32 and got[n].shape == want[n].shape, n
+            assert _cos(got[n], want[n]) >= F32_BRANCH_COS, n
+            assert float((got[n] - want[n]).abs().max() / want[n].abs().max()) <= F32_LEAF_REL, n
+    pad = ga["w_qkv"].reshape(3, heads, 32, C)[:, :, 24:]
+    assert torch.equal(pad, torch.zeros_like(pad))
+    pad_b = ga["b_qkv"].reshape(3, heads, 32)[:, :, 24:]
+    assert torch.equal(pad_b, torch.zeros_like(pad_b))
+
+
+# (n, M, N): every float32 weight product of a COLA step's blocks at B=64
+# (stages 0-2: dqkv^T LN1(x) and da1^T LN2(h1) at M = 4 C, dw^T o_pre at C x
+# C, (k dy)^T GELU(a1) at C x 4 C), one chunk, and a chunk count that does
+# not divide n
+WGRAD_F32_CASES = [(262144, 384, 96), (262144, 96, 96), (262144, 96, 384), (65536, 768, 192),
+                   (65536, 192, 192), (65536, 192, 768), (16384, 1536, 384), (16384, 384, 384),
+                   (16384, 384, 1536), (64, 96, 96), (262144 - 64 * 33, 96, 384)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,M,N", WGRAD_F32_CASES)
+def test_wgrad_f32_matches_plain_on_card(cuda, n, M, N):
+    """swin_wgrad_f32 against the float32 product (TF32 off): within 1e-5 of
+    the largest entry, bitwise equal again after the allocator's free memory
+    is filled with NaN; swin_wgrad dispatches float32 operands to it; one
+    count a call."""
+    from heart_murmur_detection_tpu_torch.ops.swin_plan import wgrad_f32_plan
+
+    g = torch.Generator().manual_seed(n + M)
+    a = torch.randn(n, M, generator=g).to(cuda)
+    b = torch.randn(n, N, generator=g).to(cuda)
+    plan = wgrad_f32_plan(n, M, N)
+    if (n, M, N) == WGRAD_F32_CASES[-1]:
+        assert plan.S > 1 and n % plan.chunk  # the last chunk is short
+    swin.reset_launch_counts()
+    got = swin_train.swin_wgrad(a, b)
+    want = swin_train.wgrad_ref(a, b)
+    torch.cuda.synchronize()
+    assert swin.launch_counts()["swin_wgrad_f32"] == 1 and swin.launch_counts()["swin_wgrad"] == 0
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    assert _cos(got, want) >= F32_BRANCH_COS
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert torch.equal(got, swin_train.swin_wgrad_f32(a, b))
+    _poison_free_memory()
+    assert torch.equal(got, swin_train.swin_wgrad_f32(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,H,shift", [(96, 4, 64, 4), (384, 16, 16, 0)])
+def test_f32_train_block_function_on_card(cuda, C, heads, H, shift):
+    """fused_swin_block_train at float32 on CUDA: the kernel path's output
+    within 3e-5 of the plain path's and its gradients (reaching the float32
+    parameters through the padded layout built inside autograd) at a cosine
+    of 0.999999, leaf by leaf; the launches of one block (forward: one of
+    each float32 half; backward: one of each backward kernel, four weight
+    products, two reductions; no bf16 launch); with frozen weights (the
+    saliency route) the same input gradient bit for bit, and no weight
+    product or reduction."""
+    r = np.random.default_rng(C)
+    f = lambda *s: torch.tensor((r.standard_normal(s) * 0.05).astype(np.float32), device=cuda)
+    sd = {"norm1.weight": 1 + f(C), "norm1.bias": f(C), "attn.qkv.weight": f(3 * C, C),
+          "attn.qkv.bias": f(3 * C), "attn.proj.weight": f(C, C), "attn.proj.bias": f(C),
+          "norm2.weight": 1 + f(C), "norm2.bias": f(C), "mlp.fc1.weight": f(4 * C, C),
+          "mlp.fc1.bias": f(4 * C), "mlp.fc2.weight": f(C, 4 * C), "mlp.fc2.bias": f(C)}
+    bias = f(heads, 64, 64) * 10
+    mask = torch.from_numpy(_shift_attn_mask(H, H, 8, shift)).to(cuda) if shift else None
+    x = f(4, H, H, C) * 10
+    k = torch.tensor([0.0, 1 / 0.9, 1.0, 1 / 0.9], device=cuda)
+    w_out = f(4, H, H, C)
+    grads, ys, counts = {}, {}, {}
+    for impl, frozen in (("kernel", False), ("plain", False), ("kernel", True)):
+        leaves = {n: v.clone().requires_grad_(not frozen) for n, v in sd.items()}
+        b = bias.clone().requires_grad_(not frozen)
+        xi = x.clone().requires_grad_()
+        p = swin.block_layout(lambda n: leaves[n], heads, b, torch.float32)
+        n0 = swin.launch_counts()
+        y = swin_train.fused_swin_block_train(xi, p, mask, shift, k, k, impl)
+        wanted = [xi] if frozen else [xi, b, *leaves.values()]
+        g = torch.autograd.grad((y * w_out).sum(), wanted)
+        torch.cuda.synchronize()
+        counts[impl, frozen] = _f32_counts(n0, swin.launch_counts())
+        grads[impl, frozen] = dict(zip(["x", "bias", *leaves], g))
+        ys[impl, frozen] = y.detach()
+    assert counts["kernel", False] == ({"swin_attn_f32": 1, "swin_mlp_f32": 1,
+                                        "swin_attn_bwd_f32": 1, "swin_mlp_bwd_f32": 1,
+                                        "swin_wgrad_f32": 4, "swin_reduce": 2}, 0)
+    assert counts["kernel", True] == ({"swin_attn_f32": 1, "swin_mlp_f32": 1,
+                                       "swin_attn_bwd_f32": 1, "swin_mlp_bwd_f32": 1,
+                                       "swin_wgrad_f32": 0, "swin_reduce": 0}, 0)
+    assert counts["plain", False] == ({k_: 0 for k_ in counts["kernel", False][0]}, 0)
+    assert float((ys["kernel", False] - ys["plain", False]).abs().max()) <= F32_ATOL
+    assert torch.equal(ys["kernel", True], ys["kernel", False])
+    assert torch.equal(grads["kernel", True]["x"], grads["kernel", False]["x"])
+    for n, want in grads["plain", False].items():
+        got = grads["kernel", False][n]
+        assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape, n
+        assert _cos(got, want) >= F32_BRANCH_COS, n
+
+
+@pytest.mark.gpu
+def test_train_kernels_refuse_other_dtypes_on_card(cuda):
+    """The train Function and the backward wrappers on a card take bf16, or
+    float32 activations with float32 weights; any other pairing raises
+    before any launch, never a switch to autograd."""
+    p32, p16 = _params(96, 4, 2, cuda, torch.float32), _params(96, 4, 2, cuda)
     k = torch.ones(2, device=cuda)
     n0 = swin.launch_counts()
+    for dtype, p in ((torch.float32, p16), (torch.bfloat16, p32), (torch.float16, p16),
+                     (torch.float16, p32)):
+        x = torch.zeros(2, 8, 8, 96, device=cuda, dtype=dtype, requires_grad=True)
+        with pytest.raises(TypeError):
+            swin_train.fused_swin_block_train(x, p, None, 0, k, k, "kernel")
+        with pytest.raises(TypeError):
+            swin_train.swin_mlp_bwd(x.detach(), x.detach(), k, p)
+        with pytest.raises(TypeError):
+            swin_train.swin_attn_bwd(x.detach(), x.detach(), k, p)
+    x16 = torch.zeros(2, 8, 8, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
-        swin_train.fused_swin_block_train(x, p, None, 0, k, k, "kernel")
+        swin_train.swin_mlp_bwd_f32(x16, x16, k, p16)
+    with pytest.raises(TypeError):
+        swin_train.swin_attn_bwd_f32(x16, x16, k, p16)
+    with pytest.raises(TypeError):
+        swin_train.swin_wgrad_f32(x16.reshape(-1, 96), x16.reshape(-1, 96))
     assert swin.launch_counts() == n0
 
 
+TRAIN_GEOMETRIES = [(96, 4, 64, 4), (192, 8, 32, 4), (384, 16, 16, 4)]
 def _cos(a, b):
     a, b = a.double().flatten().cpu(), b.double().flatten().cpu()
     return float(a @ b / (a.norm() * b.norm()))
-
-
-TRAIN_GEOMETRIES = [(96, 4, 64, 4), (192, 8, 32, 4), (384, 16, 16, 4)]
 
 
 @pytest.mark.gpu

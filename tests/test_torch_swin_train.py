@@ -251,7 +251,8 @@ def test_cpu_tensors_never_reach_the_library():
     yp, gxp, gbp, gwp = _port(*args, mm="bf16", impl="plain")
     assert swin.launch_counts() == before
     assert set(before) == {"swin_attn", "swin_mlp", "swin_attn_f32", "swin_mlp_f32",
-                           "swin_attn_bwd", "swin_mlp_bwd", "swin_wgrad", "swin_reduce"}
+                           "swin_attn_bwd", "swin_mlp_bwd", "swin_wgrad", "swin_reduce",
+                           "swin_attn_bwd_f32", "swin_mlp_bwd_f32", "swin_wgrad_f32"}
     np.testing.assert_array_equal(yk, yp)
     np.testing.assert_array_equal(gxk, gxp)
     np.testing.assert_array_equal(gbk, gbp)
