@@ -324,6 +324,32 @@ Phases (each prints one line; any failure exits non-zero):
      only float32 forward launches; (d) finetune_classifier of operaCT at
      float32 with fused_train=True (one seed, one epoch of two B=64
      batches): finite AUROCs, one view's float32 backward launches a step
+ 37. float32 ViT training and evaluation (the float32 mode of TPU K5-K7 and
+     K9): (a) vit_qkv_f32, vit_attn_f32, vit_proj_f32 (csrc/vit_f32.cu),
+     vit_mlp_f32 (csrc/swin_mlp_f32.cu), vit_mlp_bwd_f32
+     (csrc/swin_mlp_bwd_f32.cu), vit_attn_bwd_f32 (csrc/vit_attn_bwd_f32.cu),
+     the four swin_wgrad_f32 products and the two swin_reduce calls of a
+     block against their plain float32 versions (TF32 off) at C 384 / 6
+     heads (Np 320 at B=64, Np 1040 at B=16) and C 768 / 12 heads (Np 160 at
+     B=64, Np 528 at B=16): forward outputs, dh1 and dx within 3e-5 x max(1,
+     the plain output's largest entry), the
+     input-gradient branch and every gradient leaf at a cosine >= 0.999999
+     and within 1e-4 of its largest entry, two launches bitwise equal,
+     padded rows of dx / dh1 and the padded keys' dk / dv exactly 0; each
+     kernel's ms as a replayed CUDA graph beside
+     its FFMA bound, its plain version's ms and its PyTorch calls' (SDPA
+     for the core, torch.mm for the products); (b) one float32 MAE CP step
+     of operaGT and of Audio-MAE at B=64 with fused_train=True against the
+     strict-float32 autograd route from the same weights, batch and masking
+     noise: loss within 1e-5, every leaf >= 0.99999, norm within 1 +- 1e-4;
+     exactly 12 launches of each float32 forward and backward kernel, 48
+     swin_wgrad_f32 and 24 swin_reduce, no other kernel; both routes' step
+     ms; (c) cli.pretrain method=mae compute_dtype=float32 fused_train=True
+     (176 synthetic covidbreath clips, B=16, one epoch): finite losses,
+     backward launches exactly 12 + 12 + 48 + 24 a step, the eval batches
+     only float32 forward launches; (d) finetune_classifier of operaGT and
+     Audio-MAE at float32 with fused_train=True (two B=16 steps, then the
+     predict batches on the float32 eval kernels): finite AUROCs
 The line before the last is the kernels JSON (every kernel: launches on its
 main path, ms, the plain version's ms, the bound from the card's published
 peaks, and one library call's ms where one computes the same function); the
@@ -5298,6 +5324,429 @@ def phase_f32_train(smi: str, dev):
     return meas, counts
 
 
+# phase 37: the float32 mode of the ViT kernels (K5-K7 and K9 at
+# mm_dtype=float32): (tag, C, heads, Np, n_real, B) of the MAE CP steps
+# (masked, B_TRAIN) and of fine-tuning (every patch, B >= 16)
+F32_VIT_SHAPES = (("mae cp", 384, 6, 320, 308, B_TRAIN), ("audiomae cp", 768, 12, 160, 154, B_TRAIN),
+                  ("operaGT ft", 384, 6, 1040, 1025, 16), ("audiomae ft", 768, 12, 528, 513, 16))
+F32_VIT_STEP_BAR = 0.99999  # float32 MAE CP step, kernels vs autograd: every leaf's cosine
+
+
+def _f32_vit_err(got, want) -> float:
+    """A float32 ViT kernel's output (forward halves, dh1, dx) against its
+    plain float32 version: max |d| over max(1, the plain output's largest
+    entry), held to F32_KERNEL_ATOL. At C 768 the outputs reach 15-25, and
+    cuBLAS's own float32 error there passes 3e-5 absolute; the kernels sit
+    2-4x closer to a float64 evaluation than the plain versions
+    (bench/vit_f32_error.py)."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+F32_VIT_CLI_CLIPS = 176  # phase 37 (c): covidbreath clips, batch 16: 9 steps and one val batch
+F32_VIT_CLI_BATCH = 16
+F32_VIT_FT_ROWS = 16  # phase 37 (d): fine-tuning batch (2 steps) and 16 + 16 held-out clips
+F32_VIT_FWD = ("vit_qkv_f32", "vit_attn_f32", "vit_proj_f32", "vit_mlp_f32")
+F32_VIT_BWD = ("vit_attn_bwd_f32", "vit_mlp_bwd_f32")
+
+
+def _vit_f32_params(C, heads, dev, seed):
+    """One random ViT block at a tower's width in the float32 layout
+    (_vit_params' weights: the qkv rows at twice the scale)."""
+    from heart_murmur_detection_tpu_torch.bench.vit_f32_error import params
+
+    return params(C, heads, dev, seed, 2.0)
+
+
+def _vit_f32_work(B, Np, n_real, C, heads):
+    """(bytes, operations) of one launch of each float32 ViT kernel: the
+    forward over the B n_real real rows and the attention over n_real
+    queries and keys a head (_vit_work's rule, 4-byte operands); the
+    backward over all B Np rows and six attention products over the n_real
+    keys (_vit_bwd_work's rule)."""
+    n, hd = B * n_real, C // heads
+    out = {
+        "vit_qkv_f32": (4 * (n * C + 3 * C * C + 5 * C + 3 * n * C), 6 * n * C * C),
+        "vit_attn_f32": (4 * 4 * n * C, 4 * B * heads * n_real * n_real * hd),
+        "vit_proj_f32": (4 * (3 * n * C + C * C + C), 2 * n * C * C),
+        "vit_mlp_f32": (4 * (2 * n * C + 8 * C * C + 7 * C), 16 * n * C * C),
+    }
+    N, hid = B * Np, 4 * C
+    out["vit_mlp_bwd_f32"] = (4 * (3 * N * C + 2 * hid * C + 3 * C + hid), 6 * N * C * hid)
+    out["vit_attn_bwd_f32"] = (4 * (3 * N * C + 4 * C * C + 6 * C),
+                               14 * N * C * C + 12 * B * heads * Np * n_real * hd)
+    return out
+
+
+def _vit_f32_chains(x, dh1, h1, dy, p, n_real):
+    """Each float32 ViT kernel's function as PyTorch calls on the same
+    inputs (TF32 off by the caller), for the library column: qkv as
+    layer_norm + addmm, the attention core as scaled_dot_product_attention,
+    proj as addmm + add, the MLP as layer_norm, addmm, gelu, addmm, add; the
+    two backward halves as autograd backwards of those calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from heart_murmur_detection_tpu_torch.bench.swin_bwd_time import mlp_bwd_chain
+    from heart_murmur_detection_tpu_torch.ops import vit
+
+    B, Np, C = x.shape
+    H, eps = p.heads, vit.LN_EPS
+    x2, h2 = x.reshape(-1, C), h1.reshape(-1, C)
+    qkv = vit.vit_qkv_ref(x, p)
+    q, k, v = qkv[0], qkv[1][:, :, :n_real], qkv[2][:, :, :n_real]
+    o = vit.vit_attn_core_ref(qkv, p, n_real).reshape(-1, C)
+    fwd = {
+        "vit_qkv_f32": lambda: torch.addmm(p.b_qkv, F.layer_norm(x2, (C,), p.ln1_w, p.ln1_b, eps),
+                                           p.w_qkv.t()),
+        "vit_attn_f32": lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0),
+        "vit_proj_f32": lambda: torch.addmm(p.b_proj, o, p.w_proj.t()).add_(x2),
+        "vit_mlp_f32": lambda: torch.addmm(p.b_fc2, F.gelu(torch.addmm(
+            p.b_fc1, F.layer_norm(h2, (C,), p.ln2_w, p.ln2_b, eps), p.w_fc1.t())),
+            p.w_fc2.t()).add_(h2),
+    }
+    leaf = lambda t: t.detach().clone().requires_grad_()
+    xa = leaf(x)
+    lw, lb, wq, bq, wp, bp = (leaf(t) for t in (p.ln1_w, p.ln1_b, p.w_qkv, p.b_qkv, p.w_proj,
+                                                   p.b_proj))
+    t = F.linear(F.layer_norm(xa, (C,), lw, lb, eps), wq, bq).reshape(B, Np, 3, H, 64)
+    t = t.permute(2, 0, 3, 1, 4)
+    oa = F.scaled_dot_product_attention(t[0], t[1][:, :, :n_real], t[2][:, :, :n_real], scale=1.0)
+    ya = xa + F.linear(oa.permute(0, 2, 1, 3).reshape(B, Np, C), wp, bp)
+    bwd = {"vit_attn_bwd_f32": lambda: torch.autograd.grad(ya, (xa, lw, lb, wq, bq, wp, bp), dh1,
+                                                           retain_graph=True),
+           "vit_mlp_bwd_f32": mlp_bwd_chain(h1, dy, None, p, eps, torch.float32)}
+    return fwd, bwd
+
+
+def _f32_vit_kernels(dev, peak: float):
+    """Phase 37 (a): each float32 ViT kernel against its plain float32
+    version at F32_VIT_SHAPES: forward outputs and dx / dh1 within
+    F32_KERNEL_ATOL, every gradient leaf at cosine >= F32_BRANCH_BAR and
+    within F32_LEAF_REL of its largest entry, two launches bitwise equal,
+    padded rows and padded keys' dk / dv exactly 0; each kernel as a
+    replayed CUDA graph against its FFMA bound, its plain version and its
+    PyTorch calls. Returns {name: measurement} summed over one float32 MAE
+    CP step of the operaGT tower (12 blocks at the "mae cp" shape), the
+    tower cli.pretrain method=mae trains in (c)."""
+    import torch
+
+    from heart_murmur_detection_tpu_torch.bench.mlp_layouts import graph_ms
+    from heart_murmur_detection_tpu_torch.ops import swin_train as st
+    from heart_murmur_detection_tpu_torch.ops import vit
+    from heart_murmur_detection_tpu_torch.ops import vit_train as vt
+    from heart_murmur_detection_tpu_torch.ops.swin_plan import wgrad_f32_plan
+
+    names = F32_VIT_FWD + F32_VIT_BWD + ("swin_wgrad_f32@vit", "swin_reduce@vit")
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "work": Work(peak), "library_ms": 0.0}
+           for k in names}
+    for tag, C, heads, Np, n_real, B in F32_VIT_SHAPES:
+        shape = f"{tag} B={B} Np={Np} n_real={n_real} C={C}"
+        on_step = tag == "mae cp"
+        p = _vit_f32_params(C, heads, dev, SEED + 40 + Np)
+        g = torch.Generator(device="cpu").manual_seed(SEED + 41 + Np)
+        x = (torch.randn(B, Np, C, generator=g) * 0.5).to(dev)
+        dy = (torch.randn(B, Np, C, generator=g) * 0.1).to(dev)
+        dy[:, n_real:] = 0  # the caller's y[:, :n_real] slice
+        # the forward kernels, each on the plain version's inputs
+        qkv_k = vit.vit_qkv_f32(x, p)
+        o_k = vit.vit_attn_f32(qkv_k, p, n_real)
+        h1 = vit.vit_attn_ref(x, p, n_real)
+        fwd = {
+            "vit_qkv_f32": (lambda: vit.vit_qkv_f32(x, p), lambda: vit.vit_qkv_ref(x, p)),
+            "vit_attn_f32": (lambda: vit.vit_attn_f32(qkv_k, p, n_real),
+                             lambda: vit.vit_attn_core_ref(qkv_k, p, n_real)),
+            "vit_proj_f32": (lambda: vit.vit_proj_f32(o_k, x, p),
+                             lambda: vit.vit_proj_ref(o_k, x, p)),
+            "vit_mlp_f32": (lambda: vit.vit_mlp_f32(h1, p), lambda: vit.vit_mlp_ref(h1, p)),
+        }
+        errs = {}
+        for name, (kern, plain) in fwd.items():
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            errs[name] = float((got - want).abs().max())
+            _require(torch.equal(got, again) and _f32_vit_err(got, want) <= F32_KERNEL_ATOL,
+                     f"{name} {shape}: max|d| {errs[name]} (of max {float(want.abs().max())}) "
+                     f"or not repeatable")
+        # the backward halves: twice (bitwise), the launch for the rows
+        dh1, gm, mref = vt.vit_mlp_bwd_ref(h1, dy, p, rows=True)
+        dx, ga, aref = vt.vit_attn_bwd_ref(x, dh1, p, n_real, rows=True)
+        runs = {"vit_mlp_bwd_f32": [vt.vit_mlp_bwd_f32(h1, dy, p) for _ in range(2)],
+                "vit_attn_bwd_f32": [vt.vit_attn_bwd_f32(x, dh1, p, n_real) for _ in range(2)]}
+        _, mrow, part_m = vt.vit_mlp_bwd_f32_launch(h1, dy, p)
+        _, arow, part_a = vt.vit_attn_bwd_f32_launch(x, dh1, p, n_real)
+        torch.cuda.synchronize()
+        pad_kv = not bool(arow[2].reshape(B, Np, 3, C)[:, n_real:, 1:].any())
+        _require(pad_kv, f"vit_attn_bwd_f32 {shape}: dk / dv rows of the padded keys are not 0")
+        for what, want_d, base, want_g in (("vit_mlp_bwd_f32", dh1, dy, gm),
+                                           ("vit_attn_bwd_f32", dx, dh1, ga)):
+            (d1, g1), (d2, g2) = runs[what]
+            same = torch.equal(d1, d2) and all(torch.equal(g1[q], g2[q]) for q in g1)
+            errs[what] = float((d1 - want_d).abs().max())
+            pad0 = not bool(d1[:, n_real:].any())
+            cos = {"d_in branch": _branch(d1, want_d, base)}
+            cos.update({q: _cos(g1[q].cpu(), want_g[q].cpu()) for q in want_g})
+            rel = {q: float((g1[q] - want_g[q]).abs().max() / want_g[q].abs().max())
+                   for q in want_g}
+            lo, hi = min(cos, key=cos.get), max(rel, key=rel.get)
+            top = float(want_d.abs().max())
+            print(f"[f32 vit bwd] {what} {shape}: bitwise repeatable {same}; padded rows of the "
+                  f"input gradient exactly 0: {pad0}; max|d| {errs[what]:.3g} of max|plain| "
+                  f"{top:.4g} (bar {F32_KERNEL_ATOL} x max(1, that)); least cosine {cos[lo]:.9f} "
+                  f"({lo}); largest leaf max|d| / max|plain| {rel[hi]:.3g} ({hi})", flush=True)
+            _require(same and pad0, f"{what} {shape}: not repeatable ({same}) or padded rows "
+                                    f"not 0 ({pad0})")
+            _require(_f32_vit_err(d1, want_d) <= F32_KERNEL_ATOL,
+                     f"{what} {shape}: max|d| {errs[what]} of max {top}")
+            _require(cos[lo] >= F32_BRANCH_BAR, f"{what} {shape}: {lo} cosine {cos[lo]}")
+            _require(rel[hi] <= F32_LEAF_REL, f"{what} {shape}: {hi} max|d| {rel[hi]} of max")
+        # times: the kernels as replayed CUDA graphs, the plain versions and
+        # the PyTorch calls by events
+        fchain, bchain = _vit_f32_chains(x, dh1, h1, dy, p, n_real)
+        work = _vit_f32_work(B, Np, n_real, C, heads)
+        kern = {k: v[0] for k, v in fwd.items()}
+        kern["vit_mlp_bwd_f32"] = lambda: vt.vit_mlp_bwd_f32_launch(h1, dy, p)
+        kern["vit_attn_bwd_f32"] = lambda: vt.vit_attn_bwd_f32_launch(x, dh1, p, n_real)
+        plain = {k: v[1] for k, v in fwd.items()}
+        plain["vit_mlp_bwd_f32"] = lambda: vt.vit_mlp_bwd_ref(h1, dy, p)
+        plain["vit_attn_bwd_f32"] = lambda: vt.vit_attn_bwd_ref(x, dh1, p, n_real)
+        line = []
+        for name in F32_VIT_FWD + F32_VIT_BWD:
+            k_ms = graph_ms(kern[name])
+            p_ms = _time_ms(plain[name], iters=2, warm=1)
+            l_ms = _time_ms({**fchain, **bchain}[name], iters=5, warm=1)
+            one = Work(peak)
+            one.add(*work[name])
+            line.append(f"{name} {k_ms:.4f} ms (bound {one.bound_ms:.4f}, {one.bound_ms / k_ms:.1%};"
+                        f" library {l_ms:.4f}; plain {p_ms:.4f}; max|d| {errs[name]:.3g})")
+            if on_step:
+                t = tot[name]
+                t["ms"] += 12 * k_ms
+                t["plain_ms"] += 12 * p_ms
+                t["library_ms"] += 12 * l_ms
+                t["work"].add(*work[name], n=12)
+                t["err"] = max(t["err"], errs[name])
+        print(f"[f32 vit] {shape}, a launch: " + "; ".join(line), flush=True)
+        # the four weight products and the two reductions of the block
+        n = B * Np
+        m_g, g_g, da1_g = mrow
+        h_g, opre_g, dqkv_g = arow
+        for a_, b_ in ((da1_g, m_g), (dy.reshape(n, C), g_g), (dqkv_g, h_g),
+                       (dh1.reshape(n, C), opre_g)):
+            M, N = a_.shape[1], b_.shape[1]
+            got, again, want = st.swin_wgrad_f32(a_, b_), st.swin_wgrad_f32(a_, b_), st.wgrad_ref(a_, b_)
+            torch.cuda.synchronize()
+            c = _cos(got.cpu(), want.cpu())
+            rel = float((got - want).abs().max() / want.abs().max())
+            _require(c >= F32_BRANCH_BAR and rel <= F32_LEAF_REL and torch.equal(got, again),
+                     f"swin_wgrad_f32 {shape} ({n}, {M}) x ({n}, {N}): cos {c} rel {rel}")
+            w_ms, l_ms = graph_ms(lambda: st.swin_wgrad_f32(a_, b_)), graph_ms(lambda: torch.mm(a_.t(), b_))
+            wp = wgrad_f32_plan(n, M, N)
+            bw = Work(peak)
+            bw.add(4 * M * N, 2 * n * M * N)
+            print(f"[f32 vit wgrad] {shape}: ({n}, {M}) x ({n}, {N}) in {wp.S} chunks of "
+                  f"{wp.chunk}: cos {c:.9f}, max|d| / max {rel:.3g}, bitwise repeatable; {w_ms:.4f} "
+                  f"ms (graph replay), torch.mm {l_ms:.4f} ms ({w_ms / l_ms:.2f}x), FFMA bound "
+                  f"{bw.bound_ms:.4f} ({bw.bound_ms / w_ms:.1%} of it)", flush=True)
+            if on_step:
+                t = tot["swin_wgrad_f32@vit"]
+                t["ms"] += 12 * w_ms
+                t["plain_ms"] += 12 * _time_ms(lambda: st.wgrad_ref(a_, b_), iters=2, warm=1)
+                t["library_ms"] += 12 * l_ms
+                t["work"].add(4 * M * N, 2 * n * M * N, n=12)
+                t["err"] = max(t["err"], float((got - want).abs().max()))
+        for part in (part_m, part_a):
+            _require(torch.equal(st.swin_reduce(part), st.reduce_ref(part)),
+                     f"swin_reduce {shape} {tuple(part.shape)}")
+            if on_step:
+                _reduce_row(tot["swin_reduce@vit"], part, 12, f"float32 {shape}")
+        del runs, mrow, arow, m_g, g_g, da1_g, h_g, opre_g, dqkv_g, part_m, part_a, fchain, bchain
+        torch.cuda.empty_cache()
+    print(f"[f32 vit] an operaGT float32 MAE CP step (B={B_TRAIN}, 12 blocks): "
+          + ", ".join(f"{k} {v['ms']:.3f} ms (bound {v['work'].bound_ms:.3f}; library "
+                      f"{v['library_ms']:.3f})" for k, v in tot.items()), flush=True)
+    return tot
+
+
+def _f32_mae_step(dev, smi: str, kind: str):
+    """Phase 37 (b): one float32 MAE CP step (models/mae_train_fused.py's
+    loss, fused_train=True: the float32 kernels) at B_TRAIN against the
+    strict-float32 autograd route, from the same weights, batch and masking
+    noise; the kernel step's launches, exactly."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from heart_murmur_detection_tpu_torch.models import vit_mae
+    from heart_murmur_detection_tpu_torch.models.mae_train_fused import mae_train_loss_fused
+    from heart_murmur_detection_tpu_torch.pretrain import steps
+
+    if kind == "audiomae":
+        cfg, T, F_, L = vit_mae.audiomae_base_config(mask_ratio=0.7), 1024, 128, 512
+    else:
+        cfg, T, F_, L = vit_mae.mae_vit_small_config(mask_ratio=0.7), 256, 64, 1024
+    r = np.random.default_rng(SEED + 42 + T)
+    x = torch.from_numpy((r.standard_normal((B_TRAIN, T, F_)) * 10 - 40).astype(np.float32)).to(dev)
+    noise = torch.from_numpy(r.random((B_TRAIN, L)).astype(np.float32)).to(dev)
+    base = vit_mae.MaskedAutoencoderViT(cfg, decoder=True)
+    vit_mae.init_weights(base, torch.Generator().manual_seed(SEED))
+    base.to(dev).train()
+
+    def run(impl):
+        model = copy.deepcopy(base)
+        loss = mae_train_loss_fused(model, x, noise, None, torch.float32, impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {q: w.grad.detach().clone() for q, w in model.named_parameters()}
+
+    _reset_counts()
+    got = run("kernel")
+    counts = _all_counts()
+    want = run("autograd")
+    d = cfg.depth
+    per_step = {**dict.fromkeys(F32_VIT_FWD + F32_VIT_BWD, d), "swin_wgrad_f32": 4 * d,
+                "swin_reduce": 2 * d}
+    others = {q: v for q, v in counts.items() if q not in per_step and v}
+    print(f"[f32 mae] {kind} B={B_TRAIN} ({T} x {F_}), fused_train=True at float32: launches "
+          f"{ {q: counts[q] for q in per_step} }, other kernels {others or 'none'}", flush=True)
+    _require({q: counts[q] for q in per_step} == per_step and not others,
+             f"float32 {kind} MAE step launches {counts} (want {per_step})")
+    zero = max(float(g[q].abs().max()) for g in (got[1], want[1]) for q in g
+               if q.endswith(ZERO_GRAD))
+    print(f"[f32 mae] {kind}: the decoder's meta-MLP output biases' gradients (exact value 0, "
+          f"left out of the cosines as in phase 17) read at most {zero:.3g} in both routes",
+          flush=True)
+    _tp_compare(f"float32 {kind} MAE CP step, B={B_TRAIN}, fused_train=True (the float32 ViT "
+                f"kernels) against the strict-float32 autograd route", ([got[0]], got[1]),
+                ([want[0]], want[1]), TP_LOSS_RTOL, F32_VIT_STEP_BAR, TP_NORM_TOL, smi,
+                skip=ZERO_GRAD, drop_key_bias=True)
+    ms = {}
+    for impl in ("kernel", "autograd"):
+        model = copy.deepcopy(base)
+        opt = steps.adam_with_epoch_decay(list(model.parameters()), 5)
+        ms[impl] = _time_ms(lambda: steps.mae_train_step(model, opt, x, torch.float32, impl, noise),
+                            iters=2, warm=1)
+        del model, opt
+    print(f"[f32 mae] {smi}: a float32 {kind} MAE CP step at B={B_TRAIN}: float32 kernels "
+          f"{ms['kernel']:.2f} ms, strict-float32 autograd route (cuBLAS, TF32 off) "
+          f"{ms['autograd']:.2f} ms ({ms['kernel'] / ms['autograd']:.2f}x)", flush=True)
+    del got, want, base
+    torch.cuda.empty_cache()
+
+
+def _f32_vit_cli(smi: str):
+    """Phase 37 (c): cli.pretrain method=mae compute_dtype=float32
+    fused_train=True for one epoch on a covidbreath corpus of
+    F32_VIT_CLI_CLIPS clips; returns the launches of the run."""
+    import math
+
+    from heart_murmur_detection_tpu_torch.cli import pretrain
+
+    manifest = "datasets/covid19-sounds/SSL_entireaudio_filenames_breath.npy"
+    per_step = {**dict.fromkeys(F32_VIT_BWD, 12), "swin_wgrad_f32": 48, "swin_reduce": 24}
+    with tempfile.TemporaryDirectory() as root:
+        _write_specs(root, ((manifest, F32_VIT_CLI_CLIPS, 100, 400, 64),), SEED + 43)
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            argv = ["method=mae", "compute_dtype=float32", "fused_train=True",
+                    f"batch_size={F32_VIT_CLI_BATCH}", "epoches=1", "seed=0", "title=f32",
+                    "device=cuda", "covidbreath=True"]
+            _reset_counts()  # just before the float32 MAE path
+            t0 = time.time()
+            ((_, history, _),) = pretrain.main(argv)
+            secs = time.time() - t0
+            counts = _all_counts()
+        finally:
+            os.chdir(cwd)
+    h = history[0]
+    steps = h["steps"]
+    fwd = counts["vit_qkv_f32"] - 12 * steps
+    others = {q: v for q, v in counts.items() if v and q not in per_step and q not in F32_VIT_FWD}
+    print(f"[f32 vit cli] cli.pretrain method=mae compute_dtype=float32 fused_train=True, {smi}: "
+          f"{steps} steps of B={F32_VIT_CLI_BATCH} in {secs:.1f} s with the eval; train loss "
+          f"{h['train_loss']:.4f}, valid {h['valid_loss']:.4f}; launches {counts}: backward "
+          f"{ {q: counts[q] for q in per_step} } (want {steps} x {per_step}), float32 forward "
+          f"12 a step + {fwd} in the eval batches, other kernels {others or 'none'}", flush=True)
+    _require(steps > 0 and all(math.isfinite(h[q]) for q in ("train_loss", "valid_loss")),
+             f"float32 MAE cli.pretrain history {h}")
+    _require(all(counts[q] == v * steps for q, v in per_step.items()),
+             f"float32 MAE cli.pretrain backward launches {counts} for {steps} steps")
+    _require(fwd > 0 and fwd % 12 == 0 and len({counts[q] for q in F32_VIT_FWD}) == 1
+             and not others, f"float32 MAE cli.pretrain forward launches {counts}")
+    return counts
+
+
+def _f32_vit_finetune(smi: str, kind: str):
+    """Phase 37 (d): finetune_classifier of operaGT ("gt") or Audio-MAE at
+    float32 with fused_train=True, one epoch of two F32_VIT_FT_ROWS batches,
+    then the predict batches on the float32 eval kernels: finite AUROCs, the
+    float32 backward launches of the tower's 12 blocks a step."""
+    import math
+
+    import numpy as np
+
+    from heart_murmur_detection_tpu_torch.train import finetune as ft
+
+    T, F_ = (256, 64) if kind == "gt" else (1024, 128)
+    r = np.random.default_rng(SEED + 44 + T)
+    n = 2 * F32_VIT_FT_ROWS + 32
+    y = (np.arange(n) % 2).astype(np.int64)
+    # class 1 0.5 dB up under a per-clip level of 1 dB spread (phase 36's rule)
+    level = r.standard_normal(n) + 0.5 * y
+    x = (r.standard_normal((n, T, F_)) * 10 - 40 + level[:, None, None]).astype(np.float32)
+    tr, va = 2 * F32_VIT_FT_ROWS, 2 * F32_VIT_FT_ROWS + 16
+    _reset_counts()
+    t0 = time.time()
+    res = ft.finetune_classifier(x[:tr], y[:tr], x[tr:va], y[tr:va], x[va:], y[va:],
+                                 encoder_kind=kind, feat_dim=384 if kind == "gt" else 768,
+                                 epochs=1, batch_size=F32_VIT_FT_ROWS, seed=SEED,
+                                 fused_train=True, device="cuda")
+    secs = time.time() - t0
+    counts = _all_counts()
+    steps = counts["vit_attn_bwd_f32"] // 12
+    print(f"[f32 vit ft] finetune_classifier {kind} float32 fused_train=True, {smi}: one epoch of "
+          f"{tr} clips at B={F32_VIT_FT_ROWS} in {secs:.1f} s; valid AUROC {res.valid_auc:.4f}, "
+          f"test AUROC {res.test_auc:.4f}; launches {counts}", flush=True)
+    _require(math.isfinite(res.valid_auc) and math.isfinite(res.test_auc),
+             f"float32 {kind} fine-tuning AUROCs {res.valid_auc} {res.test_auc}")
+    fwd = counts["vit_qkv_f32"] - 12 * steps  # the predict batches' eval blocks
+    _require(steps == tr // F32_VIT_FT_ROWS and counts["vit_mlp_bwd_f32"] == 12 * steps
+             and counts["swin_wgrad_f32"] == 48 * steps and counts["swin_reduce"] == 24 * steps
+             and fwd > 0 and fwd % 12 == 0 and len({counts[q] for q in F32_VIT_FWD}) == 1
+             and not any(counts[q] for q in ("vit_qkv", "vit_attn", "vit_proj", "vit_mlp",
+                                             "vit_attn_bwd", "vit_mlp_bwd", "swin_wgrad")),
+             f"float32 {kind} fine-tuning launches {counts}")
+
+
+def phase_f32_vit(smi: str, dev):
+    """Phase 37: float32 ViT training and evaluation through K9's and
+    K5-K7's float32 mode. (a) the float32 ViT kernels against their plain
+    versions; (b) a float32 MAE CP step of each tower with fused_train=True
+    against the strict-float32 autograd route; (c) cli.pretrain method=mae
+    at float32 with fused_train=True, whose launches are the kernels JSON's;
+    (d) operaGT and Audio-MAE fine-tuning at float32 with fused_train=True
+    and their predict batches. Returns ((a)'s measurements, (c)'s launch
+    counts)."""
+    import torch
+
+    t_phase = time.time()
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip()
+    peak = _f32_peak(clock, torch.cuda.get_device_properties(0).multi_processor_count)
+    meas = _f32_vit_kernels(dev, peak)
+    torch.cuda.empty_cache()
+    for kind in ("mae", "audiomae"):
+        _f32_mae_step(dev, smi, kind)
+    counts = _f32_vit_cli(smi)
+    counts["swin_wgrad_f32@vit"] = counts["swin_wgrad_f32"]
+    counts["swin_reduce@vit"] = counts["swin_reduce"]
+    torch.cuda.empty_cache()
+    for kind in ("gt", "audiomae"):
+        _f32_vit_finetune(smi, kind)
+    print(f"[f32 vit] phase 37 took {time.time() - t_phase:.1f} s", flush=True)
+    return meas, counts
+
+
 def _entries(meas: dict, counts: dict, src: dict) -> list:
     """The kernels JSON entries, each built with its launch count."""
     return [
@@ -5378,6 +5827,23 @@ KERNEL_SOURCES = {
                        "heart_murmur_detection_tpu/ops/pallas_swin_train.py:606"),
     "swin_reduce@f32": ("heart_murmur_detection_tpu_torch/csrc/swin_wgrad.cu",
                         "heart_murmur_detection_tpu/ops/pallas_swin_train.py:606"),
+    # the float32 mode of K5-K7 and K9 (the TPU ViT bodies at mm_dtype=float32)
+    "vit_qkv_f32": ("heart_murmur_detection_tpu_torch/csrc/vit_f32.cu",
+                    "heart_murmur_detection_tpu/ops/pallas_vit.py:66"),
+    "vit_attn_f32": ("heart_murmur_detection_tpu_torch/csrc/vit_f32.cu",
+                     "heart_murmur_detection_tpu/ops/pallas_vit.py:66"),
+    "vit_proj_f32": ("heart_murmur_detection_tpu_torch/csrc/vit_f32.cu",
+                     "heart_murmur_detection_tpu/ops/pallas_vit.py:66"),
+    "vit_mlp_f32": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp_f32.cu",
+                    "heart_murmur_detection_tpu/ops/pallas_vit.py:149"),
+    "vit_attn_bwd_f32": ("heart_murmur_detection_tpu_torch/csrc/vit_attn_bwd_f32.cu",
+                         "heart_murmur_detection_tpu/ops/pallas_vit_train.py:246"),
+    "vit_mlp_bwd_f32": ("heart_murmur_detection_tpu_torch/csrc/swin_mlp_bwd_f32.cu",
+                        "heart_murmur_detection_tpu/ops/pallas_vit_train.py:163"),
+    "swin_wgrad_f32@vit": ("heart_murmur_detection_tpu_torch/csrc/swin_wgrad_f32.cu",
+                           "heart_murmur_detection_tpu/ops/pallas_vit_train.py:703"),
+    "swin_reduce@vit": ("heart_murmur_detection_tpu_torch/csrc/swin_wgrad.cu",
+                        "heart_murmur_detection_tpu/ops/pallas_vit_train.py:703"),
 }
 
 
@@ -5506,6 +5972,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_train_meas, f32_train_counts = phase_f32_train(smi, dev)
     _tick("phase 36")
+    torch.cuda.empty_cache()
+    f32_vit_meas, f32_vit_counts = phase_f32_vit(smi, dev)
+    _tick("phase 37")
     _require("jax" not in sys.modules, "jax was imported")
     # the weight products and reductions: a COLA step and an Audio-MAE step,
     # launched on both CP paths
@@ -5532,6 +6001,7 @@ def main() -> int:
                         KERNEL_SOURCES)
     kernels += _entries(f32_meas, f32_counts, KERNEL_SOURCES)
     kernels += _entries(f32_train_meas, f32_train_counts, KERNEL_SOURCES)
+    kernels += _entries(f32_vit_meas, f32_vit_counts, KERNEL_SOURCES)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

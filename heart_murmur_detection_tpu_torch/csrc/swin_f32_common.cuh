@@ -1,6 +1,9 @@
 // Shared pieces of the float32 swin kernels (swin_attn_f32.cu,
 // swin_mlp_f32.cu and their backward, swin_attn_bwd_f32.cu and
-// swin_mlp_bwd_f32.cu): the token addressing of a rolled window, LayerNorm
+// swin_mlp_bwd_f32.cu) and of the float32 ViT kernels (vit_f32.cu,
+// vit_attn_bwd_f32.cu; swin_mlp_f32.cu and swin_mlp_bwd_f32.cu serve as the
+// ViT MLP half with LayerNorm eps 1e-6): the token addressing of a rolled
+// window, LayerNorm
 // row statistics, a token-row product on the CUDA cores,
 //
 //   out[r, n] = epilogue(sum_k A'[r, k] W[n, k] + bias[n]),
@@ -99,7 +102,8 @@ __device__ __forceinline__ void row_stats(const float* __restrict__ xr, int K, f
   rstd = rsqrtf(warp_sum(v) / (float)K + eps);
 }
 
-// out = epilogue(A'(M x K) W(N x K)^T + bias), grid (M / 64, N / 96).
+// out = epilogue(A'(M x K) W(N x K)^T + bias), grid (ceil(M / 64), N / 96):
+// the last row tile's rows past M read row M - 1 and are not stored.
 // LN: A' = LN(A) with ln_w / ln_b over K. WIN: the output rows (and the
 // residual's) are window-ordered token rows of a (B, H, W, N) map; else
 // row-major (M, N), sample b = row / hw. kmul: null, or (B,) multipliers
@@ -109,8 +113,8 @@ __global__ void __launch_bounds__(GTHREADS)
     swin_f32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
                          const float* __restrict__ bias, const float* __restrict__ ln_w,
                          const float* __restrict__ ln_b, const float* __restrict__ xres,
-                         const float* __restrict__ kmul, float* __restrict__ out, int N, int K,
-                         int hw, WinGeom g, float eps, float* __restrict__ aux) {
+                         const float* __restrict__ kmul, float* __restrict__ out, int M, int N,
+                         int K, int hw, WinGeom g, float eps, float* __restrict__ aux) {
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);  // [GBK][GAS]
   float* Bs = As + GBK * GAS;                    // [GBK][GBS]
@@ -124,7 +128,7 @@ __global__ void __launch_bounds__(GTHREADS)
     for (int rr = 0; rr < GBM / 4; ++rr) {
       const int r = warp * (GBM / 4) + rr;
       float mu, rs;
-      row_stats(A + (size_t)(row0 + r) * K, K, eps, mu, rs);
+      row_stats(A + (size_t)min(row0 + r, M - 1) * K, K, eps, mu, rs);
       if (lane == 0) {
         s_mu[r] = mu;
         s_rs[r] = rs;
@@ -145,7 +149,7 @@ __global__ void __launch_bounds__(GTHREADS)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int idx = tid + GTHREADS * i, r = idx >> 2, q = idx & 3, k = k0 + 4 * q;
-      float4 v = *reinterpret_cast<const float4*>(A + (size_t)(row0 + r) * K + k);
+      float4 v = *reinterpret_cast<const float4*>(A + (size_t)min(row0 + r, M - 1) * K + k);
       if (LN) {
         const float mu = s_mu[r], rs = s_rs[r];
         v.x = ln_affine(v.x, mu, rs, ln_w[k], ln_b[k]);
@@ -200,6 +204,7 @@ __global__ void __launch_bounds__(GTHREADS)
 #pragma unroll
   for (int i = 0; i < GTM; ++i) {
     const int row = row0 + tr * GTM + i;
+    if (row >= M) break;
     if (EPI == EPI_GELU) {
 #pragma unroll
       for (int j = 0; j < GTN; ++j) {
@@ -245,16 +250,16 @@ __global__ void __launch_bounds__(GTHREADS)
   }
 }
 
-// One launch of the product on the grid (M / 64, N / 96), after the checks
+// One launch of the product on the grid (ceil(M / 64), N / 96), after the checks
 // the C entry points share. Returns the launch's CUDA error.
 template <bool LN, int EPI, bool WINO>
 inline cudaError_t launch_gemm(const float* A, const float* Wt, const float* bias,
                                const float* ln_w, const float* ln_b, const float* xres,
                                const float* kmul, float* out, int M, int N, int K, int hw,
                                WinGeom g, float eps, cudaStream_t s, float* aux = nullptr) {
-  const dim3 grid(M / GBM, N / GBN);
+  const dim3 grid((M + GBM - 1) / GBM, N / GBN);
   swin_f32_gemm_kernel<LN, EPI, WINO><<<grid, GTHREADS, gemm_smem_bytes(), s>>>(
-      A, Wt, bias, ln_w, ln_b, xres, kmul, out, N, K, hw, g, eps, aux);
+      A, Wt, bias, ln_w, ln_b, xres, kmul, out, M, N, K, hw, g, eps, aux);
   return cudaGetLastError();
 }
 
@@ -321,7 +326,7 @@ __device__ __forceinline__ void lane_stats(const float (&v)[NC], int C, float ep
 
 // The operand rows of a backward, a warp a token row r < n: ln_out[r] =
 // LN(x at r's place) and k_out[r] = k[b] * g (at r's place; k = 1 where
-// kmul is null). Grid n / RWARPS.
+// kmul is null; k_out null: not written). Grid n / RWARPS.
 template <int NC, bool WINO>
 __global__ void __launch_bounds__(RTHREADS)
     f32_ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
@@ -343,7 +348,7 @@ __global__ void __launch_bounds__(RTHREADS)
   for (int j = 0; j < NC; ++j) {
     const int c = lane + 32 * j;
     ln_out[(size_t)r * C + c] = ln_affine(v[j], mu, rs, ln_w[c], ln_b[c]);
-    k_out[(size_t)r * C + c] = __fmul_rn(k, g[off + c]);
+    if (k_out) k_out[(size_t)r * C + c] = __fmul_rn(k, g[off + c]);
   }
 }
 
@@ -445,15 +450,28 @@ inline cudaError_t launch_ln_bwd_nc(const float* x, const float* gr, const float
                                     float* out, float* part, int n, int nw, int part_cols,
                                     int off3, int grid, int hw, WinGeom geo, float eps,
                                     cudaStream_t s) {
-  // 36 KB at C = 384: under the 48 KB a launch takes without an attribute
+  // 36 KB at C = 384: under the 48 KB a launch takes without an attribute;
+  // 72 KB at C = 768 (the ViT-B rows): the opt-in attribute, set at the
+  // first launch (a warm-up call, outside any stream capture)
   const size_t smem = ln_bwd_smem_bytes(32 * NC);
+  if (smem > 48 * 1024) {
+    static bool attr = false;
+    if (!attr) {
+      const cudaError_t e = cudaFuncSetAttribute(f32_ln_bwd_rows_kernel<NC, WINO>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+      if (e != cudaSuccess) return e;
+      attr = true;
+    }
+  }
   f32_ln_bwd_rows_kernel<NC, WINO><<<grid, RTHREADS, smem, s>>>(
       x, gr, resid, ln_w, extra, wide, out, part, n, nw, part_cols, off3, hw, geo, eps);
   return cudaGetLastError();
 }
 
-// The two row kernels at the widths the backward takes (C = 96, 192, 384);
-// n a multiple of RWARPS.
+// The two row kernels at the widths the backward takes (C = 96, 192, 384
+// for the swin blocks, 384 and 768 for the ViT blocks); n a multiple of
+// RWARPS.
 template <bool WINO>
 inline cudaError_t launch_ln_rows(const float* x, const float* g, const float* kmul,
                                   const float* ln_w, const float* ln_b, float* ln_out,
@@ -463,6 +481,7 @@ inline cudaError_t launch_ln_rows(const float* x, const float* g, const float* k
     case 96: return launch_ln_rows_nc<3, WINO>(x, g, kmul, ln_w, ln_b, ln_out, k_out, n, hw, geo, eps, s);
     case 192: return launch_ln_rows_nc<6, WINO>(x, g, kmul, ln_w, ln_b, ln_out, k_out, n, hw, geo, eps, s);
     case 384: return launch_ln_rows_nc<12, WINO>(x, g, kmul, ln_w, ln_b, ln_out, k_out, n, hw, geo, eps, s);
+    case 768: return launch_ln_rows_nc<24, WINO>(x, g, kmul, ln_w, ln_b, ln_out, k_out, n, hw, geo, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -477,6 +496,7 @@ inline cudaError_t launch_ln_bwd(const float* x, const float* gr, const float* r
     case 96: return launch_ln_bwd_nc<3, WINO>(x, gr, resid, ln_w, extra, wide, out, part, n, nw, part_cols, off3, grid, hw, geo, eps, s);
     case 192: return launch_ln_bwd_nc<6, WINO>(x, gr, resid, ln_w, extra, wide, out, part, n, nw, part_cols, off3, grid, hw, geo, eps, s);
     case 384: return launch_ln_bwd_nc<12, WINO>(x, gr, resid, ln_w, extra, wide, out, part, n, nw, part_cols, off3, grid, hw, geo, eps, s);
+    case 768: return launch_ln_bwd_nc<24, WINO>(x, gr, resid, ln_w, extra, wide, out, part, n, nw, part_cols, off3, grid, hw, geo, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }

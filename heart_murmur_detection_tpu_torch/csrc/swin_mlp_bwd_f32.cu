@@ -33,6 +33,12 @@
 // The weight gradients are swin_wgrad_f32's (da1^T LN2(h1), (k dy)^T
 // GELU(a1)). No atomics; every sum has one order fixed by the shapes, so
 // two launches agree bitwise.
+//
+// The same launch is the float32 MLP backward of the ViT training block
+// (vit_mlp_bwd_f32 in ops/vit_train.py: `_bwd_mlp_common`,
+// heart_murmur_detection_tpu/ops/pallas_vit_train.py:163, at
+// mm_dtype=float32), with kmul null, eps 1e-6 and hw the padded tokens a
+// clip; at C 96-384 for the swin blocks, 384 and 768 for the ViT blocks.
 #include "swin_f32_common.cuh"
 
 // h1, dy, dh1 (n, C) float32; kmul (B,) or null; ln_w, ln_b, b_fc1 float32;
@@ -51,7 +57,7 @@ extern "C" int swin_mlp_bwd_f32_launch(const void* h1, const void* dy, const voi
                                        int hw, int grid, int tile_rows, int tile_cols, int threads,
                                        int smem, int row_threads, float eps, void* stream) {
   using namespace hmdt::f32;
-  if (n <= 0 || n % GBM || (C != 96 && C != 192 && C != 384) || hidden <= 0 ||
+  if (n <= 0 || n % GBM || (C != 96 && C != 192 && C != 384 && C != 768) || hidden <= 0 ||
       hidden % GBN || hw <= 0 || grid <= 0 || grid > n)
     return (int)cudaErrorInvalidValue;
   if (tile_rows != GBM || tile_cols != GBN || threads != GTHREADS ||

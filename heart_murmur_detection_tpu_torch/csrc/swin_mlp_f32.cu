@@ -24,11 +24,17 @@
 //     stages them, from the statistics it computes first), + b_fc1, GELU;
 //  2. fc2: over K = 4 C, + b_fc2, times k, + x.
 // No atomics; every sum has one order, so two launches agree bitwise.
+//
+// The same launch is the float32 MLP half of the ViT blocks (vit_mlp_f32 in
+// ops/vit.py: `_mlp_half`, heart_murmur_detection_tpu/ops/pallas_vit.py:149,
+// at mm_dtype=float32) with eps 1e-6 and kmul null; its token count is then
+// B Np, a multiple of 16 (the last row tile of each product is partial).
 #include "swin_f32_common.cuh"
 
 // x, out (n, C) float32; g_ws (n, hidden) float32 workspace; ln_w, ln_b,
 // b_fc1, b_fc2 float32; w_fc1 (hidden, C), w_fc2 (C, hidden) float32; kmul
-// (B,) or null; the plan (ops/swin_plan.py::mlp_f32_plan): the tile rows,
+// (B,) or null; n_tokens a multiple of 16; the plan (ops/swin_plan.py::
+// mlp_f32_plan, ops/vit_plan.py::mlp_f32_plan): the tile rows,
 // columns, threads and shared bytes, checked against the compiled ones.
 extern "C" int swin_mlp_f32_launch(const void* x, void* out, void* g_ws, const void* ln_w,
                                    const void* ln_b, const void* w_fc1, const void* b_fc1,
@@ -36,7 +42,7 @@ extern "C" int swin_mlp_f32_launch(const void* x, void* out, void* g_ws, const v
                                    int n_tokens, int C, int hidden, int hw, int tile_rows,
                                    int tile_cols, int threads, int smem, float eps, void* stream) {
   using namespace hmdt::f32;
-  if (n_tokens <= 0 || n_tokens % GBM || C % GBN || hidden % GBN || C % GBK || hidden % GBK ||
+  if (n_tokens <= 0 || n_tokens % 16 || C % GBN || hidden % GBN || C % GBK || hidden % GBK ||
       hw <= 0)
     return (int)cudaErrorInvalidValue;
   if (tile_rows != GBM || tile_cols != GBN || threads != GTHREADS ||

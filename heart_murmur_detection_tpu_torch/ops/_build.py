@@ -95,6 +95,23 @@ _SIGNATURES = {
     # a, b, out, M, N, K, stream (vit_attn_bwd's token-row product alone, for
     # the tests)
     "vit_mm_launch": [_vp] * 3 + [_i] * 3 + [_vp],
+    # x, qkv, w_qkv, b_qkv, ln_w, ln_b, n_tokens, C, and the plan
+    # (ops/vit_plan.py::qkv_f32_plan): tile rows, columns, threads, shared
+    # bytes; eps, stream
+    "vit_qkv_f32_launch": [_vp] * 6 + [_i] * 6 + [_f, _vp],
+    # qkv, o, B, Np, C, heads, n_real, and the plan (vit_plan.attn_f32_plan):
+    # the core's threads and shared bytes; stream
+    "vit_attn_f32_launch": [_vp] * 2 + [_i] * 7 + [_vp],
+    # o, x, out, w_proj, b_proj, n_tokens, C, and the plan (proj_f32_plan):
+    # tile rows, columns, threads, shared bytes; stream
+    "vit_proj_f32_launch": [_vp] * 5 + [_i] * 6 + [_vp],
+    # x, dh1, dx, w_qkv, b_qkv, w_proj, ln_w, ln_b, h_g, opre_g, dqkv_g, part,
+    # qkv_ws, do_ws, stats_ws, d_ws, wpt_ws, wqt_ws, B, Np, C, heads, n_real,
+    # and the plan (vit_plan.attn_bwd_f32_plan): the row pass's blocks, the
+    # attention passes' threads and shared bytes (query, key), the product's
+    # tile rows, columns, threads and shared bytes, the row kernels'
+    # threads; eps, stream
+    "vit_attn_bwd_f32_launch": [_vp] * 18 + [_i] * 14 + [_f, _vp],
     # wav, out, cos, sin, fb, B, N, stream
     "logmel_launch": [_vp] * 5 + [_i] * 2 + [_vp],
 }

@@ -325,7 +325,9 @@ class GemmF32Plan:
 
     @property
     def grid(self) -> Tuple[int, int]:
-        return self.M // F32_TILE_ROWS, self.N // F32_TILE_COLS
+        """(row tiles, column tiles); the last row tile is partial where M is
+        not a multiple of 64 (the ViT eval products, ops/vit_plan.py)."""
+        return _cdiv(self.M, F32_TILE_ROWS), self.N // F32_TILE_COLS
 
     @property
     def smem_bytes(self) -> int:
@@ -334,9 +336,10 @@ class GemmF32Plan:
                     + 2 * F32_TILE_ROWS)
 
     def tiles(self) -> List[Tuple[Tuple[int, int], Tuple[int, int]]]:
-        """(rows, columns) of each block, by the kernel's index arithmetic."""
+        """(rows, columns) of each block, by the kernel's index arithmetic
+        (rows past M are not stored)."""
         gx, gy = self.grid
-        return [((bx * F32_TILE_ROWS, (bx + 1) * F32_TILE_ROWS),
+        return [((bx * F32_TILE_ROWS, min(self.M, (bx + 1) * F32_TILE_ROWS)),
                  (by * F32_TILE_COLS, (by + 1) * F32_TILE_COLS))
                 for bx in range(gx) for by in range(gy)]
 
@@ -670,10 +673,11 @@ class MlpBwdF32Plan:
 
 
 def mlp_bwd_f32_plan(n_tokens: int, C: int, hidden: int) -> MlpBwdF32Plan:
-    """The swin_mlp_bwd_f32 launches for n_tokens rows of width C; a
+    """The swin_mlp_bwd_f32 launches for n_tokens rows of width C (96-384
+    for the swin blocks, 384 and 768 for the ViT blocks' vit_mlp_bwd_f32); a
     ValueError for a geometry the kernels do not take."""
-    if C not in WIDTHS[:3] or hidden <= 0 or hidden % F32_TILE_COLS:
-        raise ValueError(f"the float32 MLP backward takes C in {WIDTHS[:3]} and a hidden width "
+    if C not in WIDTHS or hidden <= 0 or hidden % F32_TILE_COLS:
+        raise ValueError(f"the float32 MLP backward takes C in {WIDTHS} and a hidden width "
                          f"in 96s, got C {C}, hidden {hidden}")
     return MlpBwdF32Plan(n_tokens, C, hidden, min(F32_MLP_BWD_ROWS, n_tokens // F32_TILE_ROWS),
                          _gemm_f32(n_tokens, hidden, C), _gemm_f32(n_tokens, hidden, C),

@@ -21,6 +21,17 @@ heart_murmur_detection_tpu/ops/pallas_vit.py built from them.
             an LN2 row pass, fc1 + GELU and fc2 + residual GEMMs; the TPU
             body `_mlp_half`)
 
+and their float32 mode (the TPU bodies at mm_dtype=float32, Precision.HIGHEST;
+C 384 and 768, on the CUDA cores, counted apart):
+
+  vit_qkv_f32   LN1 -> qkv into token-major float32 rows [q | k | v]
+                (csrc/vit_f32.cu on the float32 token-row product)
+  vit_attn_f32  per head softmax(q k^T, padded keys masked) v over tiles of
+                64 query rows and 64 keys, the stable mode (csrc/vit_f32.cu)
+  vit_proj_f32  o_pre -> proj -> + b_proj + x (csrc/vit_f32.cu)
+  vit_mlp_f32   LN2 -> fc1 -> exact GELU -> fc2 -> +x (csrc/swin_mlp_f32.cu
+                with LN eps 1e-6)
+
   fused_vit_block  vit_qkv, vit_attn, vit_proj, vit_mlp  (TPU K5, :296)
   fused_vit_attn   vit_qkv, vit_attn, vit_proj           (TPU K6, :341)
   fused_vit_mlp    vit_mlp                               (TPU K7, :373)
@@ -57,8 +68,14 @@ bf16_exp; K11's no_softmax no_softmax; K10's noattn and K11's no_attn and
 ident q_passthrough (bench/attn_ablate.py JAX_MODES). K10 and K11 feed q unscaled:
 vit_block_layout(..., qk_scale=1.0).
 
-Dispatch: a CPU tensor runs the plain version; a CUDA bfloat16 tensor
-launches the kernel; any other CUDA dtype raises. `impl="plain"` asks for
+Dispatch: a CPU tensor runs the plain version. On a card, bfloat16
+activations with bfloat16 weights launch the bf16 kernels, float32
+activations with float32 weights (vit_block_layout at mm_dtype=float32)
+launch the float32 kernels (the attention in its stable mode alone: the
+JAX package runs the other modes in bf16 only, and they raise there), and
+any other pairing raises, before any launch.
+A kernel that fails to launch raises; nothing falls back to the plain
+version on a card. `impl="plain"` asks for
 the plain version on any device (the tests and the on-card reference). The
 plain versions round where the TPU body rounds: LN1 / LN2 (eps 1e-6, f32
 statistics) to the activation dtype, qkv after its bias, P to the matmul
@@ -78,7 +95,7 @@ import torch.nn.functional as F
 from . import vit_plan
 from .swin import (_check_aligned, _check_launch, _cuda_stream, _ln, _mlp_launch, _mmf, _ptr,
                    sm_count)
-from .swin_plan import MLP_WIDTHS
+from .swin_plan import F32_THREADS, F32_TILE_COLS, F32_TILE_ROWS, MLP_WIDTHS
 
 LN_EPS = 1e-6
 HD = 64  # the kernels' head dim (ViT-S/16, ViT-B/16 and ViT-L/16 all use 64)
@@ -341,10 +358,19 @@ def vit_mlp_ref(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda_args(x: torch.Tensor, p: VitBlockParams, attn: bool):
-    if x.dtype != torch.bfloat16 or p.mm_dtype != torch.bfloat16:
+def _is_f32(x: torch.Tensor, p: VitBlockParams) -> bool:
+    """A CUDA call in the float32 mode: float32 activations and weights."""
+    return x.dtype == torch.float32 and p.mm_dtype == torch.float32
+
+
+def _check_cuda_args(x: torch.Tensor, p: VitBlockParams, attn: bool,
+                     dtype: torch.dtype = torch.bfloat16):
+    """The arguments of a kernel of the given mode: bf16 (the bf16 kernels
+    and their train kernels) or float32 (the float32 kernels, which take C
+    384 and 768 alone)."""
+    if x.dtype != dtype or p.mm_dtype != dtype:
         raise TypeError(
-            f"CUDA ViT kernels take bfloat16 activations and weights, got "
+            f"these CUDA ViT kernels take {dtype} activations and weights, got "
             f"{x.dtype} / {p.mm_dtype}"
         )
     if not x.is_contiguous() or x.dim() != 3:
@@ -358,6 +384,11 @@ def _check_cuda_args(x: torch.Tensor, p: VitBlockParams, attn: bool):
     if attn and x.shape[1] % 16:
         raise ValueError(f"the attention kernels take tokens padded to a multiple of 16 "
                          f"(pad_tokens), got {x.shape[1]}")
+    if dtype == torch.float32:
+        if C not in vit_plan.F32_WIDTHS or p.hidden % F32_TILE_COLS:
+            raise ValueError(f"the float32 ViT kernels take C in {vit_plan.F32_WIDTHS} and hidden "
+                             f"a multiple of {F32_TILE_COLS}, got C {C}, hidden {p.hidden}")
+        return
     widths = MLP_WIDTHS + vit_plan.ROWS_WIDTHS
     if not attn and (C not in widths or p.hidden % 128):
         raise ValueError(f"the MLP kernels take C in {widths} and hidden a multiple of 128, "
@@ -377,6 +408,10 @@ def vit_qkv(x: torch.Tensor, p: VitBlockParams, return_ln: bool = False):
     if x.device.type == "cpu":
         qkv = vit_qkv_ref(x, p)
         return (qkv, ln1_rows(x, p)) if return_ln else qkv
+    if _is_f32(x, p):
+        if return_ln:
+            raise ValueError("vit_qkv's float32 mode has no LN1 output (return_ln)")
+        return vit_qkv_f32(x, p)
     _check_cuda_args(x, p, attn=True)
     B, Np, C = x.shape
     from . import _build
@@ -413,6 +448,8 @@ def vit_attn(
     if qkv.device.type == "cpu":
         return vit_attn_core_ref(qkv, p, n_real, mode)
     mode = _check_mode(mode)
+    if qkv.dtype == torch.float32 and p.mm_dtype == torch.float32:
+        return vit_attn_f32(qkv, p, n_real, mode)
     if qkv.dtype != torch.bfloat16 or p.mm_dtype != torch.bfloat16:
         raise TypeError(f"CUDA ViT kernels take bfloat16 activations and weights, got "
                         f"{qkv.dtype} / {p.mm_dtype}")
@@ -448,6 +485,8 @@ def vit_proj(o: torch.Tensor, x: torch.Tensor, p: VitBlockParams) -> torch.Tenso
     vit_proj_ref)."""
     if x.device.type == "cpu":
         return vit_proj_ref(o, x, p)
+    if _is_f32(x, p):
+        return vit_proj_f32(o, x, p)
     _check_cuda_args(x, p, attn=True)
     if o.shape != x.shape or o.dtype != x.dtype or o.device != x.device or not o.is_contiguous():
         raise ValueError(f"o_pre must be a contiguous bf16 tensor shaped as x {tuple(x.shape)}")
@@ -470,6 +509,8 @@ def vit_mlp(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
     C 1024 on csrc/vit_rows.cu (see vit_mlp_ref)."""
     if x.device.type == "cpu":
         return vit_mlp_ref(x, p)
+    if _is_f32(x, p):
+        return vit_mlp_f32(x, p)
     _check_cuda_args(x, p, attn=False)
     B, Np, C = x.shape
     w = (p.ln2_w, p.ln2_b, p.w_fc1, p.b_fc1, p.w_fc2, p.b_fc2)
@@ -502,12 +543,145 @@ def _mlp_rows_launch(x: torch.Tensor, w, n_tokens: int) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the float32 mode
+# ---------------------------------------------------------------------------
+
+def _check_f32_mode(mode: str) -> str:
+    """The float32 core's one attention mode: the JAX package passes
+    fast_softmax to its ViT kernels on the bf16 extraction path alone."""
+    if _check_mode(mode) != "stable":
+        raise ValueError(f"the float32 attention kernel takes the stable mode, got {mode!r}")
+    return mode
+
+
+def vit_qkv_f32(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """LN1 and the qkv product in float32 (x and p float32; see vit_qkv_ref):
+    csrc/vit_f32.cu on a card, the plain version on the CPU. On a card the
+    result is the head-major (3, B, heads, Np, hd) view of the token-major
+    [q | k | v] rows the kernel writes (the layout vit_attn_f32 reads)."""
+    if x.device.type == "cpu":
+        return vit_qkv_ref(x, p)
+    _check_cuda_args(x, p, True, torch.float32)
+    B, Np, C = x.shape
+    plan = vit_plan.qkv_f32_plan(B * Np, C)
+    _check_aligned(x, p.w_qkv, p.b_qkv, p.ln1_w, p.ln1_b)
+    from . import _build
+
+    lib = _build.load_library()
+    rows = torch.empty((B, Np, 3, p.heads, HD), dtype=x.dtype, device=x.device)
+    rc = lib.vit_qkv_f32_launch(
+        _ptr(x), _ptr(rows), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.ln1_w), _ptr(p.ln1_b),
+        B * Np, C, F32_TILE_ROWS, F32_TILE_COLS, F32_THREADS, plan.smem_bytes, LN_EPS,
+        _cuda_stream(x),
+    )
+    _check_launch("vit_qkv_f32", rc)
+    vit_qkv_f32.launches += 1
+    return rows.permute(2, 0, 3, 1, 4)
+
+
+def vit_attn_f32(
+    qkv: torch.Tensor,
+    p: VitBlockParams,
+    n_real: Optional[int] = None,
+    mode: str = "stable",
+) -> torch.Tensor:
+    """Attention of the head-major qkv (3, B, heads, Np, hd) in float32,
+    stable softmax (see vit_attn_core_ref): csrc/vit_f32.cu's core on a
+    card, the plain version on the CPU. The kernel reads token-major rows:
+    vit_qkv_f32's view is that storage already; any other qkv is copied
+    into it first."""
+    if qkv.device.type == "cpu":
+        return vit_attn_core_ref(qkv, p, n_real, mode)
+    mode = _check_f32_mode(mode)
+    if qkv.dtype != torch.float32 or p.mm_dtype != torch.float32:
+        raise TypeError(f"vit_attn_f32 takes float32 q, k, v and weights, got {qkv.dtype} / "
+                        f"{p.mm_dtype}")
+    if qkv.dim() != 5 or qkv.shape[0] != 3:
+        raise ValueError("qkv must be a (3, B, heads, Np, hd) tensor")
+    _, B, heads, Np, hd = qkv.shape
+    C = heads * hd
+    if hd != HD or heads != p.heads or p.w_proj.device != qkv.device:
+        raise ValueError(f"the float32 attention kernel takes head dim {HD} and the block's heads "
+                         f"on its device, got {heads} heads of {hd}")
+    plan = vit_plan.attn_f32_plan(B, Np, C, heads)
+    n_real = Np if n_real is None else n_real
+    if not 0 < n_real <= Np:
+        raise ValueError(f"n_real {n_real} outside (0, {Np}]")
+    rows = qkv.permute(1, 3, 0, 2, 4).contiguous()  # (B, Np, 3, heads, hd): a no-op for vit_qkv_f32's
+    _check_aligned(rows)
+    from . import _build
+
+    lib = _build.load_library()
+    out = torch.empty((B, Np, C), dtype=qkv.dtype, device=qkv.device)
+    rc = lib.vit_attn_f32_launch(
+        _ptr(rows), _ptr(out), B, Np, C, heads, n_real, vit_plan.F32_ATTN_THREADS,
+        plan.smem_bytes, _cuda_stream(qkv),
+    )
+    _check_launch("vit_attn_f32", rc)
+    vit_attn_f32.launches += 1
+    return out
+
+
+def vit_proj_f32(o: torch.Tensor, x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """proj of the head outputs o_pre, its bias and the residual x in
+    float32 (see vit_proj_ref): csrc/vit_f32.cu on a card."""
+    if x.device.type == "cpu":
+        return vit_proj_ref(o, x, p)
+    _check_cuda_args(x, p, True, torch.float32)
+    if o.shape != x.shape or o.dtype != x.dtype or o.device != x.device or not o.is_contiguous():
+        raise ValueError(f"o_pre must be a contiguous float32 tensor shaped as x {tuple(x.shape)}")
+    B, Np, C = x.shape
+    plan = vit_plan.proj_f32_plan(B * Np, C)
+    _check_aligned(o, x, p.w_proj, p.b_proj)
+    from . import _build
+
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    rc = lib.vit_proj_f32_launch(
+        _ptr(o), _ptr(x), _ptr(out), _ptr(p.w_proj), _ptr(p.b_proj), B * Np, C,
+        F32_TILE_ROWS, F32_TILE_COLS, F32_THREADS, plan.smem_bytes, _cuda_stream(x),
+    )
+    _check_launch("vit_proj_f32", rc)
+    vit_proj_f32.launches += 1
+    return out
+
+
+def vit_mlp_f32(x: torch.Tensor, p: VitBlockParams) -> torch.Tensor:
+    """MLP half of a ViT block in float32 (see vit_mlp_ref): csrc/swin_mlp_f32.cu
+    with LN eps 1e-6 on a card, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return vit_mlp_ref(x, p)
+    _check_cuda_args(x, p, False, torch.float32)
+    B, Np, C = x.shape
+    plan = vit_plan.mlp_f32_plan(B * Np, C, p.hidden)
+    _check_aligned(x, p.w_fc1, p.w_fc2)
+    from . import _build
+
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    g_ws = x.new_empty(plan.workspace_shape)
+    rc = lib.swin_mlp_f32_launch(
+        _ptr(x), _ptr(out), _ptr(g_ws), _ptr(p.ln2_w), _ptr(p.ln2_b), _ptr(p.w_fc1),
+        _ptr(p.b_fc1), _ptr(p.w_fc2), _ptr(p.b_fc2), None, B * Np, C, p.hidden, Np,
+        F32_TILE_ROWS, F32_TILE_COLS, F32_THREADS, plan.fc1.smem_bytes, LN_EPS, _cuda_stream(x),
+    )
+    _check_launch("vit_mlp_f32", rc)
+    vit_mlp_f32.launches += 1
+    return out
+
+
 vit_qkv.launches = 0
 vit_attn.launches = 0
 vit_attn.mode_launches = dict.fromkeys(_MODE_ID, 0)  # vit_attn's launches by mode
 vit_proj.launches = 0
 vit_mlp.launches = 0
-COUNTED = [vit_qkv, vit_attn, vit_proj, vit_mlp]
+vit_qkv_f32.launches = 0
+vit_attn_f32.launches = 0
+vit_proj_f32.launches = 0
+vit_mlp_f32.launches = 0
+COUNTED = [vit_qkv, vit_attn, vit_proj, vit_mlp, vit_qkv_f32, vit_attn_f32, vit_proj_f32,
+           vit_mlp_f32]
 
 
 def launch_counts() -> dict:
@@ -550,6 +724,8 @@ def fused_vit_attn(
         return vit_attn_ref(x, p, n_real, mode)
     if mode == "aligned_hcat":  # undefined shapes raise before any launch
         aligned_offsets(x.shape[2], p.heads, p.hd)
+    if x.is_cuda and _is_f32(x, p):  # so do the float32 kernel's missing modes
+        _check_f32_mode(mode)
     return vit_proj(vit_attn(vit_qkv(x, p), p, n_real, mode), x, p)
 
 

@@ -1,8 +1,11 @@
 """Launch plans of csrc/vit_rows.cu, HeAR's ViT-L (C = 1024) qkv and MLP
-halves as a LayerNorm row pass and token-row GEMMs, computed on the host
-(the ops/swin_plan.py sibling for that width). ops/vit.py passes a plan's
-numbers to the launch; tests/test_torch_vit_plan.py enumerates the plans
-at HeAR's token counts. Nothing here touches a card.
+halves as a LayerNorm row pass and token-row GEMMs, and of the float32 ViT
+kernels (csrc/vit_f32.cu, csrc/vit_attn_bwd_f32.cu, and csrc/swin_mlp_f32.cu
+/ swin_mlp_bwd_f32.cu as the MLP half; below), computed on the host (the
+ops/swin_plan.py sibling for these). ops/vit.py and ops/vit_train.py pass a
+plan's numbers to the launch; tests/test_torch_vit_plan.py and
+tests/test_torch_vit_train_f32.py enumerate the plans at the towers' token
+counts. Nothing here touches a card.
 
     vit_qkv  row pass LN1 -> h;  GEMM h W_qkv^T (+ b_qkv, head-major)
     vit_mlp  row pass LN2 -> h;  GEMM h W1^T (+ b1, GELU) -> g;
@@ -31,7 +34,8 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from .swin_plan import SMEM_LIMIT
+from .swin_plan import (F32_MLP_BWD_ROWS, F32_TILE_COLS, F32_TILE_K, F32_TILE_ROWS, SMEM_LIMIT,
+                        GemmF32Plan, MlpF32Plan, ln_bwd_smem_bytes)
 
 ROWS_WIDTHS = (1024,)  # the widths csrc/vit_rows.cu serves (HeAR's ViT-L)
 GEMM_COLS = 128  # output columns of a tile (csrc/wgmma_gemm.cuh)
@@ -209,3 +213,175 @@ def tiled_qkv(x: torch.Tensor, p, plan: RowsQkvPlan, Np: int,
     n, C = x.shape
     heads = C // HD
     return flat.reshape(n // Np, Np, 3, heads, HD).permute(2, 0, 3, 1, 4).contiguous(), h
+
+
+# ---------------------------------------------------------------------------
+# the float32 kernels (the TPU bodies at mm_dtype=float32): fixed tiles, a
+# product block a (64 token rows, 96 columns) tile, an attention block a
+# (tile of 64 query rows or keys, head, clip); the row pass over a fixed
+# number of contiguous token runs, so every sum's order depends on the
+# shapes alone
+# ---------------------------------------------------------------------------
+
+F32_WIDTHS = (384, 768)  # ViT-S (operaGT) and ViT-B (Audio-MAE); HeAR's 1024 has no float32 route
+F32_ATTN_TILE = 64  # query rows or keys of an attention tile (csrc/vit_f32_attn.cuh AT)
+F32_ATTN_THREADS = 128  # an attention block (ATHREADS)
+F32_ROW_STRIDE = F32_ATTN_TILE + 4  # a row tile's stride in floats (RS)
+F32_COL_STRIDE = F32_ATTN_TILE + 1  # a column tile's (CS)
+F32_TOKEN_TILE = 64  # B Np of the backward: the weight products' 64-token steps
+
+
+def _check_f32(n_tokens: int, C: int):
+    if C not in F32_WIDTHS or n_tokens <= 0 or n_tokens % 16:
+        raise ValueError(f"the float32 ViT kernels take C in {F32_WIDTHS} and B Np a multiple of "
+                         f"16, got C {C}, {n_tokens} tokens")
+
+
+def _rows_f32(M: int, N: int, K: int) -> GemmF32Plan:
+    """The float32 token-row product over M rows (a multiple of 16: the last
+    row tile is partial)."""
+    if M <= 0 or M % 16 or N <= 0 or N % F32_TILE_COLS or K <= 0 or K % F32_TILE_K:
+        raise ValueError(f"the float32 product takes rows in 16s, columns in 96s and a depth in "
+                         f"16s, got ({M}, {N}, {K})")
+    return GemmF32Plan(M, N, K)
+
+
+def qkv_f32_plan(n_tokens: int, C: int) -> GemmF32Plan:
+    """vit_qkv_f32's launch: LN1(x) W_qkv^T + b_qkv over n_tokens rows."""
+    _check_f32(n_tokens, C)
+    return _rows_f32(n_tokens, 3 * C, C)
+
+
+def proj_f32_plan(n_tokens: int, C: int) -> GemmF32Plan:
+    """vit_proj_f32's launch: o_pre W_proj^T + b_proj + x."""
+    _check_f32(n_tokens, C)
+    return _rows_f32(n_tokens, C, C)
+
+
+def mlp_f32_plan(n_tokens: int, C: int, hidden: int) -> MlpF32Plan:
+    """vit_mlp_f32's two launches of csrc/swin_mlp_f32.cu (fc1 + GELU into
+    the workspace, fc2 + x)."""
+    _check_f32(n_tokens, C)
+    return MlpF32Plan(n_tokens, C, hidden, _rows_f32(n_tokens, hidden, C),
+                      _rows_f32(n_tokens, C, hidden))
+
+
+def _check_attn(B: int, Np: int, C: int, heads: int):
+    if C not in F32_WIDTHS or heads * HD != C:
+        raise ValueError(f"the float32 attention kernels take C in {F32_WIDTHS} with head dim "
+                         f"{HD}, got C {C} with {heads} heads")
+    if B <= 0 or B > 65535 or Np <= 0 or Np % 16:
+        raise ValueError(f"the float32 attention kernels take tokens padded to a multiple of 16 "
+                         f"and 1 <= B <= 65535, got B {B}, Np {Np}")
+
+
+def _tiles(Np: int) -> List[Tuple[int, int]]:
+    """[first, last) rows of each attention tile over Np tokens."""
+    return [(i, min(Np, i + F32_ATTN_TILE)) for i in range(0, Np, F32_ATTN_TILE)]
+
+
+def _attn_tile_bytes(row_tiles: int, col_tiles: int, extra: int = 0) -> int:
+    return 4 * (F32_ATTN_TILE * (row_tiles * F32_ROW_STRIDE + col_tiles * F32_COL_STRIDE) + extra)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnF32Plan:
+    B: int
+    Np: int
+    C: int
+    heads: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """(query tiles, heads, clips): a core block a (tile, head, clip)."""
+        return _cdiv(self.Np, F32_ATTN_TILE), self.heads, self.B
+
+    @property
+    def smem_bytes(self) -> int:
+        """The q tile and P^T (row tiles), the k and v tiles (column tiles)."""
+        return _attn_tile_bytes(2, 2)
+
+    def tiles(self) -> List[Tuple[int, int]]:
+        """[first, last) query rows of each tile of a (clip, head)."""
+        return _tiles(self.Np)
+
+
+@functools.lru_cache(maxsize=256)
+def attn_f32_plan(B: int, Np: int, C: int, heads: int) -> AttnF32Plan:
+    """vit_attn_f32's launch for qkv of B clips of Np tokens; a ValueError
+    for a geometry the kernel does not take."""
+    _check_attn(B, Np, C, heads)
+    return AttnF32Plan(B, Np, C, heads)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnBwdF32Plan:
+    B: int
+    Np: int
+    C: int
+    heads: int
+    grid: int  # the row pass's blocks, one partial row each
+    qkv: GemmF32Plan  # LN1(x) W_qkv^T + b_qkv -> the qkv workspace
+    do: GemmF32Plan  # dh1 W_proj -> the do workspace
+    dh: GemmF32Plan  # dqkv W_qkv -> the dh workspace
+
+    @property
+    def n_tokens(self) -> int:
+        return self.B * self.Np
+
+    @property
+    def attn_grid(self) -> Tuple[int, int, int]:
+        """(tiles, heads, clips) of the query pass (query tiles) and of the
+        key pass (key tiles)."""
+        return _cdiv(self.Np, F32_ATTN_TILE), self.heads, self.B
+
+    @property
+    def query_smem_bytes(self) -> int:
+        """q^T, do^T, P^T, dS^T (row tiles), k^T, v^T (column tiles)."""
+        return _attn_tile_bytes(4, 2)
+
+    @property
+    def key_smem_bytes(self) -> int:
+        """k^T, v^T, P, dS (row tiles), q^T, do^T (column tiles), and the
+        query tile's (m, 1 / l, D)."""
+        return _attn_tile_bytes(4, 2, 3 * F32_ATTN_TILE)
+
+    @property
+    def row_smem_bytes(self) -> int:
+        return ln_bwd_smem_bytes(self.C)
+
+    @property
+    def part_rows(self) -> int:
+        return self.grid
+
+    @property
+    def part_cols(self) -> int:
+        """[db_qkv (3C) | db_proj | dLN1 w | dLN1 b (C each)]."""
+        return 6 * self.C
+
+    @property
+    def stats_shape(self) -> Tuple[int, int]:
+        """(m, 1 / l, D) of every query row of every (clip, head)."""
+        return 3, self.B * self.heads * self.Np
+
+    def tiles(self) -> List[Tuple[int, int]]:
+        return _tiles(self.Np)
+
+    def rp_blocks(self) -> List[Tuple[int, Tuple[int, int]]]:
+        """(block, [first, last) token) of each row-pass block."""
+        n, G = self.n_tokens, self.grid
+        return [(q, (n * q // G, n * (q + 1) // G)) for q in range(G)]
+
+
+@functools.lru_cache(maxsize=256)
+def attn_bwd_f32_plan(B: int, Np: int, C: int, heads: int) -> AttnBwdF32Plan:
+    """vit_attn_bwd_f32's launches for B clips of Np tokens (B Np a multiple
+    of F32_TOKEN_TILE); a ValueError for a geometry the kernels do not take."""
+    _check_attn(B, Np, C, heads)
+    n = B * Np
+    if n % F32_TOKEN_TILE:
+        raise ValueError(f"the float32 ViT backward takes B Np a multiple of {F32_TOKEN_TILE}, "
+                         f"got B {B}, Np {Np}")
+    grid = min(F32_MLP_BWD_ROWS, n // F32_TILE_ROWS)
+    return AttnBwdF32Plan(B, Np, C, heads, grid, _rows_f32(n, 3 * C, C), _rows_f32(n, C, C),
+                          _rows_f32(n, C, 3 * C))

@@ -18,6 +18,20 @@ heart_murmur_detection_tpu/ops/pallas_vit_train.py::fused_vit_block_train
                            gradients and the column sums, each summed in a
                            fixed order
 
+The float32 mode (float32 activations and weights, mm_dtype=float32: the
+TPU bodies at Precision.HIGHEST) has kernels of its own on the CUDA cores,
+counted apart, at C 384 and 768: the forward is ops/vit.py's vit_qkv_f32,
+vit_attn_f32 (stable softmax), vit_proj_f32 and vit_mlp_f32; the backward
+
+  vit_mlp_bwd_f32   csrc/swin_mlp_bwd_f32.cu (seven grid launches) with LN
+                    eps 1e-6 and no multiplier
+  vit_attn_bwd_f32  csrc/vit_attn_bwd_f32.cu: eight grid launches, the
+                    attention core as a query pass (o_pre, dq, each row's
+                    statistics) and a key pass (dk, dv), FFMA throughout
+  swin_wgrad_f32 / swin_reduce for the weight gradients and column sums.
+
+They emit the same operand rows and partial rows in float32.
+
 The TPU package has two weight-gradient modes, "acc" (sums in a resident
 VMEM block over its sequential grid) and "emit" (per-token operands for
 outside products), chosen by a VMEM planner (`train_plan` :404); both are
@@ -44,8 +58,11 @@ round (`_bwd_mlp_common` :163, `_attn_bwd_core` :246), and the weight
 gradients of the bf16 matrices round to bf16 at the Function's boundary, as
 the JAX custom_vjp returns them in the weights' dtype (:670-674).
 
-Dispatch: a CPU tensor runs the plain versions; a CUDA bfloat16 tensor
-launches the kernels; any other CUDA dtype raises. impl="plain" runs the
+Dispatch: a CPU tensor runs the plain versions; a CUDA bfloat16 block
+launches the bf16 kernels, CUDA float32 activations with float32 weights the
+float32 kernels; any other CUDA pairing raises before the first launch (in
+vit_qkv's checks). A kernel that fails to launch raises;
+nothing falls back to the plain versions on a card. impl="plain" runs the
 plain versions with their explicit backward on any device; impl="autograd"
 differentiates the plain forward with torch autograd (the strict float32
 path).
@@ -57,18 +74,21 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import vit
-from .swin import _check_launch, _cuda_stream, _mmf, _ptr
+from . import vit, vit_plan
+from .swin import _check_aligned, _check_launch, _cuda_stream, _mmf, _ptr
+from .swin_plan import F32_ROW_THREADS, F32_THREADS, F32_TILE_COLS, F32_TILE_ROWS
 from .swin_train import (
     TOKEN_TILE,
     _blocks_for,
     _lib,
     _ln_bwd_input,
     _ln_stats,
+    mlp_bwd_f32_launch,
     mlp_bwd_launch,
     swin_mlp_bwd_ref,
     swin_reduce,
     swin_wgrad,
+    swin_wgrad_f32,
 )
 from .vit import HD, LN_EPS, MASK, VitBlockParams
 
@@ -160,8 +180,9 @@ def vit_attn_bwd_ref(
 # ---------------------------------------------------------------------------
 
 
-def _check_bwd_args(x: torch.Tensor, g: torch.Tensor, p: VitBlockParams):
-    vit._check_cuda_args(x, p, attn=True)  # bf16, head dim 64, tokens padded to 16
+def _check_bwd_args(x: torch.Tensor, g: torch.Tensor, p: VitBlockParams,
+                    dtype: torch.dtype = torch.bfloat16):
+    vit._check_cuda_args(x, p, True, dtype)  # the mode's dtype, head dim 64, tokens padded to 16
     if x.shape[2] not in TRAIN_WIDTHS:
         raise ValueError(f"the ViT backward kernels take C in {TRAIN_WIDTHS}, got {x.shape[2]}")
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -189,6 +210,8 @@ def vit_mlp_bwd(
     """Backward of the MLP half (see vit_mlp_bwd_ref for the math)."""
     if h1.device.type == "cpu":
         return vit_mlp_bwd_ref(h1, dy, p)
+    if vit._is_f32(h1, p):
+        return vit_mlp_bwd_f32(h1, dy, p)
     dh1, (m_g, g_g, da1_g), part = vit_mlp_bwd_launch(h1, dy, p)
     C, hidden = h1.shape[-1], p.hidden
     db1, db2, dln2w, dln2b = swin_reduce(part).split([hidden, C, C, C])
@@ -261,6 +284,8 @@ def vit_attn_bwd(
     """Backward of the attention half (see vit_attn_bwd_ref for the math)."""
     if x.device.type == "cpu":
         return vit_attn_bwd_ref(x, dh1, p, n_real)
+    if vit._is_f32(x, p):
+        return vit_attn_bwd_f32(x, dh1, p, n_real)
     dx, (h_g, opre_g, dqkv_g), part = vit_attn_bwd_launch(x, dh1, p, n_real)
     C = x.shape[-1]
     dbqkv, dbproj, dln1w, dln1b = swin_reduce(part).split([3 * C, C, C, C])
@@ -271,13 +296,102 @@ def vit_attn_bwd(
     }
 
 
+# ---------------------------------------------------------------------------
+# the float32 mode
+# ---------------------------------------------------------------------------
+
+
+def vit_mlp_bwd_f32_launch(h1: torch.Tensor, dy: torch.Tensor, p: VitBlockParams):
+    """The vit_mlp_bwd_f32 call on CUDA float32 tensors (csrc/swin_mlp_bwd_f32.cu,
+    seven grid launches, LN eps 1e-6, no multiplier): (dh1, (LN2(h1),
+    GELU(a1), da1) operand rows, partial rows [db1 | db2 | dLN2 w | dLN2 b])."""
+    dy = _check_bwd_args(h1, dy, p, torch.float32)
+    B, Np, C = h1.shape
+    dh1, (m_g, g_g, _, da1_g), part = mlp_bwd_f32_launch(
+        "vit_mlp_bwd_f32", h1.view(-1, C), dy.view(-1, C), None, p, Np, LN_EPS)
+    vit_mlp_bwd_f32.launches += 1
+    return dh1.view(h1.shape), (m_g, g_g, da1_g), part
+
+
+def vit_mlp_bwd_f32(
+    h1: torch.Tensor, dy: torch.Tensor, p: VitBlockParams
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Backward of the MLP half in float32 (h1, dy and p float32; see
+    vit_mlp_bwd_ref for the math): csrc/swin_mlp_bwd_f32.cu, swin_reduce and
+    swin_wgrad_f32 on a card, the plain version on the CPU."""
+    if h1.device.type == "cpu":
+        return vit_mlp_bwd_ref(h1, dy, p)
+    dh1, (m_g, g_g, da1_g), part = vit_mlp_bwd_f32_launch(h1, dy, p)
+    C, hidden = h1.shape[-1], p.hidden
+    db1, db2, dln2w, dln2b = swin_reduce(part).split([hidden, C, C, C])
+    return dh1, {
+        "ln2_w": dln2w, "ln2_b": dln2b,
+        "w_fc1": swin_wgrad_f32(da1_g, m_g), "b_fc1": db1,
+        "w_fc2": swin_wgrad_f32(dy.reshape(-1, C), g_g), "b_fc2": db2,
+    }
+
+
+def vit_attn_bwd_f32_launch(
+    x: torch.Tensor, dh1: torch.Tensor, p: VitBlockParams, n_real: Optional[int] = None
+):
+    """The vit_attn_bwd_f32 call on CUDA float32 tensors (csrc/vit_attn_bwd_f32.cu,
+    eight grid launches in one call): (dx, (LN1(x), o_pre, dqkv) operand
+    rows, partial rows [db_qkv | db_proj | dLN1 w | dLN1 b])."""
+    dh1 = _check_bwd_args(x, dh1, p, torch.float32)
+    B, Np, C = x.shape
+    n_real = Np if n_real is None else n_real
+    if not 0 < n_real <= Np:
+        raise ValueError(f"n_real {n_real} outside (0, {Np}]")
+    plan = vit_plan.attn_bwd_f32_plan(B, Np, C, p.heads)
+    _check_aligned(x, dh1, p.w_qkv, p.w_proj)
+    n = B * Np
+    e = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=x.device)
+    h_g, opre_g, dqkv_g = e(n, C), e(n, C), e(n, 3 * C)
+    part = e(plan.part_rows, plan.part_cols)
+    # scratch: [q | k | v] rows, do, the query rows' statistics, dh, W_proj^T, W_qkv^T
+    qkv_ws, do_ws, stats_ws, d_ws = e(n, 3 * C), e(n, C), e(*plan.stats_shape), e(n, C)
+    wpt_ws, wqt_ws = e(C, C), e(C, 3 * C)
+    dx = torch.empty_like(x)
+    rc = _lib().vit_attn_bwd_f32_launch(
+        _ptr(x), _ptr(dh1), _ptr(dx), _ptr(p.w_qkv), _ptr(p.b_qkv), _ptr(p.w_proj),
+        _ptr(p.ln1_w), _ptr(p.ln1_b), _ptr(h_g), _ptr(opre_g), _ptr(dqkv_g), _ptr(part),
+        _ptr(qkv_ws), _ptr(do_ws), _ptr(stats_ws), _ptr(d_ws), _ptr(wpt_ws), _ptr(wqt_ws),
+        B, Np, C, p.heads, n_real, plan.grid, vit_plan.F32_ATTN_THREADS, plan.query_smem_bytes,
+        plan.key_smem_bytes, F32_TILE_ROWS, F32_TILE_COLS, F32_THREADS, plan.qkv.smem_bytes,
+        F32_ROW_THREADS, LN_EPS, _cuda_stream(x),
+    )
+    _check_launch("vit_attn_bwd_f32", rc)
+    vit_attn_bwd_f32.launches += 1
+    return dx, (h_g, opre_g, dqkv_g), part
+
+
+def vit_attn_bwd_f32(
+    x: torch.Tensor, dh1: torch.Tensor, p: VitBlockParams, n_real: Optional[int] = None
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Backward of the attention half in float32 (x, dh1 and p float32; see
+    vit_attn_bwd_ref for the math): csrc/vit_attn_bwd_f32.cu, swin_reduce
+    and swin_wgrad_f32 on a card, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return vit_attn_bwd_ref(x, dh1, p, n_real)
+    dx, (h_g, opre_g, dqkv_g), part = vit_attn_bwd_f32_launch(x, dh1, p, n_real)
+    C = x.shape[-1]
+    dbqkv, dbproj, dln1w, dln1b = swin_reduce(part).split([3 * C, C, C, C])
+    return dx, {
+        "ln1_w": dln1w, "ln1_b": dln1b,
+        "w_qkv": swin_wgrad_f32(dqkv_g, h_g), "b_qkv": dbqkv,
+        "w_proj": swin_wgrad_f32(dh1.reshape(-1, C), opre_g), "b_proj": dbproj,
+    }
+
+
 vit_mlp_bwd.launches = 0
 vit_attn_bwd.launches = 0
-COUNTED = [vit_attn_bwd, vit_mlp_bwd]
+vit_mlp_bwd_f32.launches = 0
+vit_attn_bwd_f32.launches = 0
+COUNTED = [vit_attn_bwd, vit_mlp_bwd, vit_attn_bwd_f32, vit_mlp_bwd_f32]
 
 
 def launch_counts() -> dict:
-    """Launches of the two ViT backward kernels since the last reset (the
+    """Launches of the ViT backward kernels since the last reset (the
     weight products and reductions count in ops.swin.launch_counts)."""
     return {f.__name__: f.launches for f in COUNTED}
 

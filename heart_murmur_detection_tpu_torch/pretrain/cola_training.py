@@ -87,12 +87,11 @@ def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool]
     """The swin blocks' route (ops.swin_train.fused_swin_block_train impl),
     one rule with train/finetune.py::train_impl: "kernel" with fused_train
     (None: on a card in bf16) — the train kernels for CUDA tensors (the
-    HTS-AT's K8 in bf16 or in its float32 mode; K9, the MAE towers' ViT
-    blocks, raises its dtype TypeError at float32 on a card until its
-    float32 mode is ported, never a silent switch to autograd), their plain
-    versions with the explicit backward for CPU tensors (the JAX fused
-    path's interpret mode); else "plain" in bf16 and torch "autograd" in
-    float32.
+    HTS-AT's K8 and the MAE towers' K9, each in bf16 or in its float32
+    mode: at float32 the float32 kernels, never a silent switch to
+    autograd), their plain versions with the explicit backward for CPU
+    tensors (the JAX fused path's interpret mode); else "plain" in bf16 and
+    torch "autograd" in float32.
     param_sharding (ZeRO-3, megatron) and a 2-D mesh keep the plain path,
     as the JAX package keeps its XLA graphs there; fused_train=True with
     them is a ValueError (parallel/mesh.py::plain_only)."""

@@ -242,10 +242,11 @@ def train_impl(compute_dtype: Optional[torch.dtype], fused_train: Optional[bool]
                device: torch.device, param_sharding: Optional[str] = None, mesh=None) -> str:
     """The encoder blocks' route (ops.swin_train / ops.vit_train impl):
     "kernel" with fused_train (None: on a card in bf16) — the CUDA kernels
-    for CUDA tensors (the HTS-AT's K8 in bf16 or float32; the ViT blocks'
-    K9 in bf16, a TypeError at float32 until its float32 mode is ported),
-    their plain versions with the explicit backward for CPU tensors (the JAX
-    fused path's interpret mode); else "plain" in bf16
+    for CUDA tensors (the HTS-AT's K8 and the operaGT / Audio-MAE ViT
+    blocks' K9, each in bf16 or float32; the predict batches on the eval
+    kernels of the same dtype), their plain versions with the explicit
+    backward for CPU tensors (the JAX fused path's interpret mode); else
+    "plain" in bf16
     and torch "autograd" in float32 (the JAX flax path). param_sharding
     (ZeRO-3, megatron) and a 2-D mesh keep the plain path; fused_train=True
     there is a ValueError (parallel/mesh.py::plain_only)."""

@@ -26,6 +26,7 @@ from heart_murmur_detection_tpu_torch.models.htsat import (
 from heart_murmur_detection_tpu_torch.ops import _build, swin, swin_train, vit
 
 COS_BAR = 0.99999  # one kernel vs its plain version, on the branch out - x
+VIT_F32 = ("vit_qkv_f32", "vit_attn_f32", "vit_proj_f32", "vit_mlp_f32")  # counted apart
 
 
 def _params(C, heads, seed, device, dtype=torch.bfloat16):
@@ -64,10 +65,12 @@ def test_signatures_pass_pointers_as_void_p():
               "logmel_launch": 5, "vit_qkv_rows_launch": 7, "vit_mlp_rows_launch": 10,
               "swin_attn_f32_launch": 12, "swin_mlp_f32_launch": 10,
               "swin_mlp_bwd_f32_launch": 17, "swin_attn_bwd_f32_launch": 19,
-              "swin_wgrad_f32_launch": 4}
+              "swin_wgrad_f32_launch": 4, "vit_qkv_f32_launch": 6, "vit_attn_f32_launch": 2,
+              "vit_proj_f32_launch": 5, "vit_attn_bwd_f32_launch": 18}
     with_eps = {"swin_mlp_launch", "vit_qkv_launch", "swin_mlp_bwd_launch",
                 "vit_attn_bwd_launch", "vit_qkv_rows_launch", "vit_mlp_rows_launch",
-                "swin_mlp_f32_launch", "swin_mlp_bwd_f32_launch"}
+                "swin_mlp_f32_launch", "swin_mlp_bwd_f32_launch", "vit_qkv_f32_launch",
+                "vit_attn_bwd_f32_launch"}
     assert set(_build._SIGNATURES) == set(n_ptrs)
     for name, argtypes in _build._SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p, name  # the stream
@@ -87,7 +90,7 @@ def test_build_targets_sm90a_and_hashes_sources():
             "vit_attn_common.cuh", "vit_attn_bwd.cu", "logmel.cu", "wgmma_gemm.cuh",
             "vit_proj.cu", "vit_rows.cu", "swin_attn_f32.cu", "swin_mlp_f32.cu",
             "swin_f32_common.cuh", "swin_mlp_bwd_f32.cu", "swin_attn_bwd_f32.cu",
-            "swin_wgrad_f32.cu"} <= srcs
+            "swin_wgrad_f32.cu", "vit_f32.cu", "vit_f32_attn.cuh", "vit_attn_bwd_f32.cu"} <= srcs
     # the log-mel kernel is float32-exact: log10f and the FFMAs stay accurate
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     h = _build.source_hash()
@@ -623,7 +626,7 @@ def test_vit_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, fast_softma
     assert torch.equal(vit.vit_mlp(h1_ref, p), y)
     n1 = vit.launch_counts()
     assert {k: n1[k] - n0[k] for k in n1} == {"vit_qkv": 1, "vit_attn": 2, "vit_proj": 1,
-                                              "vit_mlp": 2}
+                                              "vit_mlp": 2, **dict.fromkeys(VIT_F32, 0)}
 
 
 # (C, B, tokens a clip): vit_mlp at token counts its panels (128 rows at
@@ -818,12 +821,20 @@ def test_swin_mlp_eps_unchanged_on_card(cuda):
 
 @pytest.mark.gpu
 def test_vit_float32_on_card_raises(cuda):
-    p = _vit_params(384, 6, 1, cuda, torch.float32)
+    """float32 activations take the float32 kernels with float32 weights
+    (test_vit_f32_forward_kernels_match_plain_on_card); against bf16
+    weights, and with the fast mode the float32 core does not have, they
+    raise before any launch."""
+    p = _vit_params(384, 6, 1, cuda)
     x = torch.zeros(1, 1040, 384, device=cuda)
+    n0 = vit.launch_counts()
     for fn in (lambda: vit.vit_qkv(x, p), lambda: vit.fused_vit_block(x, p, 1025),
                lambda: vit.vit_mlp(x, p)):
         with pytest.raises(TypeError):
             fn()
+    with pytest.raises(ValueError):
+        vit.fused_vit_block(x, _vit_params(384, 6, 1, cuda, torch.float32), 1025, "fast")
+    assert vit.launch_counts() == n0
 
 
 # ---------------------------------------------------------------------------
@@ -947,7 +958,8 @@ def test_vit_train_block_function_on_card(cuda, C, heads, Np, n_real):
         g = torch.autograd.grad((y[:, :n_real].float() * w_out).sum(), [xi, *leaves.values()])
         grads[impl] = dict(zip(["x", *leaves], g))
         want = 1 if impl == "kernel" else 0
-        assert vit_train.launch_counts() == {"vit_attn_bwd": want, "vit_mlp_bwd": want}
+        assert vit_train.launch_counts() == {"vit_attn_bwd": want, "vit_mlp_bwd": want,
+                                             "vit_attn_bwd_f32": 0, "vit_mlp_bwd_f32": 0}
     torch.cuda.synchronize()
     for n, want in grads["plain"].items():
         got = grads["kernel"][n]
@@ -959,11 +971,19 @@ def test_vit_train_block_function_on_card(cuda, C, heads, Np, n_real):
 def test_vit_train_float32_on_card_raises(cuda):
     from heart_murmur_detection_tpu_torch.ops import vit_train
 
-    p = _vit_params(384, 6, 1, cuda, torch.float32)
-    x = torch.zeros(1, 320, 384, device=cuda)
-    for fn in (lambda: vit_train.vit_mlp_bwd(x, x, p), lambda: vit_train.vit_attn_bwd(x, x, p)):
-        with pytest.raises(TypeError):
-            fn()
+    """The float32 backward kernels take float32 activations with float32
+    weights (test_vit_f32_backward_kernels_match_plain_on_card); against
+    bf16 weights, or at a B Np their weight products do not take (not a
+    multiple of 64), they raise before any launch."""
+    p16, p32 = _vit_params(384, 6, 1, cuda), _vit_params(384, 6, 1, cuda, torch.float32)
+    n0 = vit_train.launch_counts()
+    for p, x, err in ((p16, torch.zeros(1, 320, 384, device=cuda), TypeError),
+                      (p32, torch.zeros(1, 1040, 384, device=cuda), ValueError)):
+        for fn in (lambda: vit_train.vit_mlp_bwd(x, x, p),
+                   lambda: vit_train.vit_attn_bwd(x, x, p)):
+            with pytest.raises(err):
+                fn()
+    assert vit_train.launch_counts() == n0
 
 
 # ---------------------------------------------------------------------------
@@ -1067,7 +1087,8 @@ def test_hear_kernels_match_plain_on_card(cuda, B, fast_softmax):
     h1_ref = vit.vit_proj_ref(o_ref, x, p)
     y, y_ref = vit.vit_mlp(h1_ref, p), vit.vit_mlp_ref(h1_ref, p)
     torch.cuda.synchronize()
-    assert vit.launch_counts() == {"vit_qkv": 1, "vit_attn": 1, "vit_proj": 1, "vit_mlp": 1}
+    assert vit.launch_counts() == {"vit_qkv": 1, "vit_attn": 1, "vit_proj": 1, "vit_mlp": 1,
+                                   **dict.fromkeys(VIT_F32, 0)}
     assert qkv.shape == (3, B, heads, Np, 64) and o.shape == (B, Np, C)
     assert _cos(qkv, qkv_ref) >= COS_BAR
     assert _cos(h, vit.ln1_rows(x, p)) >= COS_BAR
@@ -1113,7 +1134,204 @@ def test_hear_forward_on_card(cuda):
     vit.reset_launch_counts()
     got = hear_forward_fused(model, wav, torch.bfloat16, fast_softmax=True)
     torch.cuda.synchronize()
-    assert vit.launch_counts() == dict.fromkeys(("vit_qkv", "vit_attn", "vit_proj", "vit_mlp"), 24)
+    assert vit.launch_counts() == {**dict.fromkeys(("vit_qkv", "vit_attn", "vit_proj", "vit_mlp"), 24),
+                                   **dict.fromkeys(VIT_F32, 0)}
     want = hear_forward_fused(model, wav, torch.bfloat16, fast_softmax=True, impl="plain")
     assert got.shape == (2, 512) and bool(got.isfinite().all())
     assert min(_cos(got[i], want[i]) for i in range(2)) >= 0.99988
+
+
+# ---------------------------------------------------------------------------
+# the float32 mode of the ViT kernels (K5-K7 and K9 at mm_dtype=float32)
+# ---------------------------------------------------------------------------
+
+# (C, heads, Np, n_real, B): the masked MAE CP and fine-tuning token counts
+# of both towers at small batches, and a B Np in 16s (not 64s: the forward
+# only, its products' last row tile partial)
+VIT_F32_CASES = [(384, 6, 320, 308, 4), (768, 12, 160, 154, 4), (384, 6, 1040, 1025, 4),
+                 (768, 12, 528, 513, 4), (768, 12, 48, 40, 3)]
+
+
+def _vit_f32_params(C, heads, device, seed):
+    from heart_murmur_detection_tpu_torch.bench.vit_f32_error import params
+
+    return params(C, heads, device, seed, 2.0)
+
+
+def _f32_err(got, want):
+    """max |d| over max(1, the plain output's largest entry): chip_smoke.py's
+    bar for a float32 ViT kernel (cuBLAS's own float32 error at C 768
+    outputs of 15-25 passes 3e-5 absolute)."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,n_real,B", VIT_F32_CASES)
+def test_vit_f32_forward_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, B):
+    """vit_qkv_f32, vit_attn_f32, vit_proj_f32 and vit_mlp_f32 against their
+    plain float32 versions (TF32 off), through the dispatching wrappers and
+    fused_vit_block: within 3e-5 x max(1, the output's largest entry), two
+    launches bitwise equal, a head-major qkv the same bits as vit_qkv_f32's
+    token-major rows; the padded rows of x change no real row; one count a
+    call of each, no bf16 launch."""
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    p = _vit_f32_params(C, heads, cuda, C + Np)
+    x = (torch.randn(B, Np, C, generator=torch.Generator().manual_seed(Np)) * 0.5).to(cuda)
+    vit.reset_launch_counts()
+    vit_train.reset_launch_counts()
+    qkv = vit.vit_qkv(x, p)
+    assert qkv.shape == (3, B, heads, Np, 64)
+    assert _f32_err(qkv, vit.vit_qkv_ref(x, p)) <= F32_ATOL
+    o = vit.vit_attn(qkv, p, n_real)
+    assert torch.equal(o, vit.vit_attn_f32(qkv, p, n_real))
+    assert _f32_err(o, vit.vit_attn_core_ref(qkv, p, n_real)) <= F32_ATOL
+    assert torch.equal(vit.vit_attn_f32(qkv.contiguous(), p, n_real), o)
+    h1 = vit.vit_proj(o, x, p)
+    assert _f32_err(h1, vit.vit_proj_ref(o, x, p)) <= F32_ATOL
+    y = vit.vit_mlp(h1, p)
+    assert _f32_err(y, vit.vit_mlp_ref(h1, p)) <= F32_ATOL
+    assert vit.launch_counts() == {"vit_qkv": 0, "vit_attn": 0, "vit_proj": 0, "vit_mlp": 0,
+                                   "vit_qkv_f32": 1, "vit_attn_f32": 3, "vit_proj_f32": 1,
+                                   "vit_mlp_f32": 1}
+    a = vit.fused_vit_block(x, p, n_real)
+    assert torch.equal(a, vit.fused_vit_block(x, p, n_real))
+    assert _f32_err(a, vit.fused_vit_block(x, p, n_real, impl="plain")) <= F32_ATOL
+    x2 = x.clone()
+    x2[:, n_real:] = 7.0
+    assert torch.equal(a[:, :n_real], vit.fused_vit_block(x2, p, n_real)[:, :n_real])
+    torch.cuda.synchronize()
+    assert set(vit_train.launch_counts().values()) == {0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,n_real,B", VIT_F32_CASES[:4])
+def test_vit_f32_backward_kernels_match_plain_on_card(cuda, C, heads, Np, n_real, B):
+    """vit_mlp_bwd_f32 and vit_attn_bwd_f32 (with their swin_wgrad_f32
+    products) against their plain float32 versions, through the dispatching
+    wrappers: dh1 and dx within 3e-5 x max(1, their largest entry), their
+    branches and every gradient leaf at a cosine of 0.999999 and within 1e-4
+    of the leaf's largest entry, two launches bitwise equal, the padded rows
+    of dh1 / dx and the padded keys' dk / dv rows exactly 0; one launch of
+    each a call, four weight products and two reductions."""
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    p = _vit_f32_params(C, heads, cuda, C + Np + 1)
+    g = torch.Generator().manual_seed(Np + 1)
+    x = (torch.randn(B, Np, C, generator=g) * 0.5).to(cuda)
+    dy = (torch.randn(B, Np, C, generator=g) * 0.1).to(cuda)
+    dy[:, n_real:] = 0
+    h1 = vit.vit_attn_ref(x, p, n_real)
+    vit_train.reset_launch_counts()
+    n0 = swin.launch_counts()
+    runs_m = [vit_train.vit_mlp_bwd(h1, dy, p) for _ in range(2)]
+    dh1_ref, gm_ref = vit_train.vit_mlp_bwd_ref(h1, dy, p)
+    runs_a = [vit_train.vit_attn_bwd(x, dh1_ref, p, n_real) for _ in range(2)]
+    dx_ref, ga_ref = vit_train.vit_attn_bwd_ref(x, dh1_ref, p, n_real)
+    _, rows, _ = vit_train.vit_attn_bwd_f32_launch(x, dh1_ref, p, n_real)
+    torch.cuda.synchronize()
+    n1 = swin.launch_counts()
+    assert vit_train.launch_counts() == {"vit_attn_bwd": 0, "vit_mlp_bwd": 0,
+                                         "vit_attn_bwd_f32": 3, "vit_mlp_bwd_f32": 2}
+    assert (n1["swin_wgrad_f32"] - n0["swin_wgrad_f32"], n1["swin_reduce"] - n0["swin_reduce"],
+            n1["swin_wgrad"] - n0["swin_wgrad"]) == (8, 4, 0)
+    assert not rows[2].reshape(B, Np, 3, C)[:, n_real:, 1:].any()
+    for runs, want_d, base, want_g in ((runs_m, dh1_ref, dy, gm_ref),
+                                       (runs_a, dx_ref, dh1_ref, ga_ref)):
+        (d1, g1), (d2, g2) = runs
+        assert torch.equal(d1, d2) and all(torch.equal(g1[n], g2[n]) for n in g1)
+        assert _f32_err(d1, want_d) <= F32_ATOL
+        assert _branch_cos(d1, want_d, base) >= F32_BRANCH_COS
+        assert not d1[:, n_real:].any()
+        for n in want_g:
+            assert g1[n].dtype == torch.float32 and g1[n].shape == want_g[n].shape, n
+            assert _cos(g1[n], want_g[n]) >= F32_BRANCH_COS, n
+            assert float((g1[n] - want_g[n]).abs().max() / want_g[n].abs().max()) <= F32_LEAF_REL, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,Np,n_real", [(384, 6, 320, 308), (768, 12, 528, 513)])
+def test_vit_f32_train_block_function_on_card(cuda, C, heads, Np, n_real):
+    """fused_vit_block_train at float32 on CUDA: the kernel path's output
+    within the float32 bar of the plain path's, its gradients (through the
+    q-scale fold built inside autograd to the float32 parameters) at a
+    cosine of 0.999999 leaf by leaf; one launch of each float32 forward and
+    backward kernel, four weight products, two reductions."""
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    r = np.random.default_rng(C + Np)
+    f = lambda *s: torch.tensor((r.standard_normal(s) * 0.05).astype(np.float32), device=cuda)
+    sd = {"norm1.weight": 1 + f(C), "norm1.bias": f(C), "attn.qkv.weight": f(3 * C, C) * 2,
+          "attn.qkv.bias": f(3 * C), "attn.proj.weight": f(C, C), "attn.proj.bias": f(C),
+          "norm2.weight": 1 + f(C), "norm2.bias": f(C), "mlp.fc1.weight": f(4 * C, C),
+          "mlp.fc1.bias": f(4 * C), "mlp.fc2.weight": f(C, 4 * C), "mlp.fc2.bias": f(C)}
+    x = f(4, Np, C) * 10
+    w_out = f(4, n_real, C)
+    out = {}
+    for impl in ("kernel", "plain"):
+        leaves = {n: v.clone().requires_grad_() for n, v in sd.items()}
+        xi = x.clone().requires_grad_()
+        p = vit.vit_block_layout(lambda n: leaves[n], heads, torch.float32)
+        vit.reset_launch_counts()
+        vit_train.reset_launch_counts()
+        n0 = swin.launch_counts()
+        y = vit_train.fused_vit_block_train(xi, p, n_real, impl)
+        g = torch.autograd.grad((y[:, :n_real] * w_out).sum(), [xi, *leaves.values()])
+        torch.cuda.synchronize()
+        n1 = swin.launch_counts()
+        k = int(impl == "kernel")
+        assert vit.launch_counts() == {"vit_qkv": 0, "vit_attn": 0, "vit_proj": 0, "vit_mlp": 0,
+                                       **dict.fromkeys(VIT_F32, k)}
+        assert vit_train.launch_counts() == {"vit_attn_bwd": 0, "vit_mlp_bwd": 0,
+                                             "vit_attn_bwd_f32": k, "vit_mlp_bwd_f32": k}
+        assert (n1["swin_wgrad_f32"] - n0["swin_wgrad_f32"],
+                n1["swin_reduce"] - n0["swin_reduce"]) == (4 * k, 2 * k)
+        out[impl] = (y.detach(), dict(zip(["x", *leaves], g)))
+    (yk, gk), (yp, gp) = out["kernel"], out["plain"]
+    assert _f32_err(yk, yp) <= F32_ATOL
+    for n, want in gp.items():
+        assert gk[n].dtype == want.dtype == torch.float32 and gk[n].shape == want.shape, n
+        assert _cos(gk[n], want) >= F32_BRANCH_COS, n
+
+
+@pytest.mark.gpu
+def test_vit_kernels_refuse_other_pairings_on_card(cuda):
+    """On a card the ViT kernels and the training block take bf16, or
+    float32 activations with float32 weights (C 384 or 768, head dim 64);
+    a mixed pairing, another dtype, HeAR's C 1024 at float32 and the
+    float32 core's other attention modes raise before any launch, never a
+    switch to autograd or to the plain versions."""
+    from heart_murmur_detection_tpu_torch.ops import vit_train
+
+    p32 = _vit_f32_params(384, 6, cuda, 3)
+    p16 = _with_mm_dtype(p32, torch.bfloat16)
+    vit.reset_launch_counts()
+    vit_train.reset_launch_counts()
+    for dtype, p in ((torch.float32, p16), (torch.bfloat16, p32), (torch.float16, p32)):
+        x = torch.zeros(2, 64, 384, device=cuda, dtype=dtype, requires_grad=True)
+        with pytest.raises(TypeError):
+            vit_train.fused_vit_block_train(x, p, 60, "kernel")
+        with pytest.raises(TypeError):
+            vit.fused_vit_block(x.detach(), p, 60)
+        with pytest.raises(TypeError):
+            vit_train.vit_mlp_bwd(x.detach(), x.detach(), p)
+        with pytest.raises(TypeError):
+            vit_train.vit_attn_bwd(x.detach(), x.detach(), p, 60)
+    x32 = torch.zeros(2, 64, 384, device=cuda)
+    for mode in ("fast", "norm_before", "bf16_exp", "no_softmax", "q_passthrough",
+                 "aligned_hcat"):
+        with pytest.raises(ValueError):
+            vit.fused_vit_block(x32, p32, 60, mode)
+    hear32 = _vit_f32_params(1024, 16, cuda, 4)
+    with pytest.raises(ValueError):
+        vit.fused_vit_block(torch.zeros(1, 112, 1024, device=cuda), hear32, 97)
+    assert set(vit.launch_counts().values()) == {0}
+    assert set(vit_train.launch_counts().values()) == {0}
+
+
+def _with_mm_dtype(p, dtype):
+    """The block p with its matmul weights in dtype (the mixed pairings)."""
+    import dataclasses
+
+    return dataclasses.replace(p, **{f: getattr(p, f).to(dtype).contiguous()
+                                     for f in ("w_qkv", "w_proj", "w_fc1", "w_fc2")})

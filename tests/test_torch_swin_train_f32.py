@@ -246,8 +246,12 @@ def test_f32_bwd_plans_refuse_what_the_kernels_do_not_take():
         swin_plan.mlp_bwd_f32_plan(100, 96, 384)  # rows not in 64s
     with pytest.raises(ValueError):
         swin_plan.mlp_bwd_f32_plan(128, 128, 512)  # no such width
-    with pytest.raises(ValueError):
-        swin_plan.mlp_bwd_f32_plan(128, 768, 3072)  # stage 3 trains as a plain block
+    with pytest.raises(ValueError):  # stage 3 trains as a plain block (the MLP backward's plan
+        # takes C 768 for the ViT-B blocks: the swin wrappers refuse it)
+        x = torch.zeros(1, 8, 8, 768)
+        blk = swin.SwinBlockParams(32, 24, *(torch.zeros(1),) * 2, torch.zeros(3 * 32 * 32, 768),
+                                   torch.zeros(1), torch.zeros(768, 768), *(torch.zeros(1),) * 8)
+        swin_train._check_bwd_args(x, x, torch.ones(1), blk, torch.float32)
     with pytest.raises(ValueError):
         swin_plan.mlp_bwd_f32_plan(128, 96, 100)  # hidden not in 96s
     with pytest.raises(ValueError):
